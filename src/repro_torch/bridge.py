@@ -1,0 +1,54 @@
+"""Turn the JAX package's parameter tree, given as numpy arrays, into the
+port's parameters.
+
+The JAX tree keeps each layer group's parameters stacked on a leading
+layer axis (``groups[g]["b{i}"]``, scanned over); the port keeps one dict
+per layer, in the order the config's ``layers`` lists them.  A bf16 leaf
+arrives as an ``ml_dtypes.bfloat16`` numpy array, which ``torch.from_numpy``
+rejects: its 16-bit pattern is reinterpreted instead (exact).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import check_supported
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.array(a)  # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
+    """np_tree: the JAX ``init_params`` tree with numpy leaves (nested dicts;
+    ``groups`` a list).  Returns the port's parameter dict on ``device``."""
+    check_supported(cfg)
+    groups = [(cfg.superblock, cfg.n_superblocks)]
+    if cfg.tail:
+        groups.append((cfg.tail, 1))
+    if len(np_tree["groups"]) != len(groups):
+        raise ValueError(f"{cfg.name}: tree has {len(np_tree['groups'])} groups, "
+                         f"config {len(groups)}")
+    layers = []
+    for (specs, n), group in zip(groups, np_tree["groups"]):
+        for r in range(n):
+            for i in range(len(specs)):
+                layers.append(_map(lambda a: _tensor(np.asarray(a)[r], device),
+                                   group[f"b{i}"]))
+    out = {"embed": _map(lambda a: _tensor(a, device), np_tree["embed"]),
+           "layers": layers,
+           "final_norm": _map(lambda a: _tensor(a, device), np_tree["final_norm"])}
+    if "lm_head" in np_tree:
+        out["lm_head"] = _map(lambda a: _tensor(a, device), np_tree["lm_head"])
+    return out

@@ -1,0 +1,91 @@
+"""Build the hand-written CUDA kernels at first use and load them.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
+with a plain C interface, loaded with ``ctypes``.  Libraries go to
+``build/kernels/`` at the repository root, named by a hash of every source
+under ``csrc/`` and the compiler flags, so an edited source rebuilds and an
+unchanged one loads at once.  A missing ``nvcc`` or a failed compile raises:
+nothing falls back to another tier.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+KERNELS = ("flash_attention", "decode_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: on PATH, else under $CUDA_HOME (or the toolkit
+    directory PyTorch found).  Raises when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    for home in (os.environ.get("CUDA_HOME"), CUDA_HOME):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME; the CUDA "
+                       "kernels cannot be built")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_source_hash()}.so"
+
+
+def build(names=KERNELS) -> dict[str, str]:
+    """Compile the named kernels that are not built yet, one ``nvcc`` per
+    source, all started together.  Returns each compiler's log (ptxas
+    prints registers and shared memory per kernel)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {n: library_path(n) for n in names if not library_path(n).exists()}
+    if not todo:
+        return {}
+    exe = nvcc()
+    procs = {}
+    for name, out in todo.items():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(name)
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build((name,))
+        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return lib

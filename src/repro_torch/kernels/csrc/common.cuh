@@ -1,0 +1,42 @@
+// Helpers shared by the attention kernels: element conversion and the
+// finite mask value of the plain versions (kernels/ref.py).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace repro {
+
+// -2^30, the finite NEG_INF of ref.py: a masked key whose row has some
+// valid key gets weight exp(-2^30 - m) == 0; a row with no valid key gets
+// the uniform average, as in ref.py.  Keys that do not exist (past the
+// sequence or the tile bound) get -inf instead, i.e. weight 0 always.
+constexpr float kMaskedLogit = -1073741824.0f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// One 16-byte global load (4 fp32 or 8 bf16 values), widened to fp32.
+// p must be 16-byte aligned.
+__device__ __forceinline__ void load16_f32(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+__device__ __forceinline__ void load16_f32(const __nv_bfloat16* p, float* out) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+}  // namespace repro

@@ -1,0 +1,84 @@
+"""Flash decode (one-token GQA attention over a linear or ring KV cache):
+the hand-written CUDA kernel ``csrc/decode_attention.cu`` and its plain
+version.
+
+Counterpart of the JAX package's Pallas kernel ``kernels/decode_attention.py``
+``flash_decode``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import decode_mha_ref
+
+HEAD_DIMS = (16, 32, 64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_GROUP = 16  # query heads per KV head the kernel holds (kMaxG)
+
+
+@functools.cache
+def _entry():
+    """The kernel's C entry point, typed once when its library loads."""
+    fn = build.library("decode_attention").repro_flash_decode
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_decode(q, k_cache, v_cache, *, cache_len, window: int | None = None):
+    """q: (B, Hq, D); caches: (B, C, Hkv, D); cache_len: (B,) int32.
+    Returns (B, Hq, D).
+
+    CPU tensors take the plain version ``decode_mha_ref``; CUDA tensors
+    launch the kernel or raise."""
+    if q.device.type == "cpu":
+        return decode_mha_ref(q, k_cache, v_cache, cache_len=cache_len,
+                              window=window)
+    dev = q.device
+    if not (q.is_cuda and k_cache.device == dev and v_cache.device == dev
+            and cache_len.device == dev):
+        raise ValueError("flash_decode: q, caches and cache_len must lie on one "
+                         "CUDA device")
+    if q.dtype not in DTYPES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise TypeError(f"flash_decode: dtypes {q.dtype}/{k_cache.dtype}/"
+                        f"{v_cache.dtype}; need one of float32, bfloat16 for all")
+    if cache_len.dtype != torch.int32:
+        raise TypeError(f"flash_decode: cache_len must be int32; got {cache_len.dtype}")
+    if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"flash_decode: shapes q {tuple(q.shape)}, "
+                         f"caches {tuple(k_cache.shape)}/{tuple(v_cache.shape)}")
+    b, hq, d = q.shape
+    _, cap, hkv, dk = k_cache.shape
+    if (k_cache.shape[0] != b or dk != d or d not in HEAD_DIMS or hq % hkv
+            or hq // hkv > MAX_GROUP or cap < 1 or tuple(cache_len.shape) != (b,)):
+        raise ValueError(f"flash_decode: unsupported shapes q {tuple(q.shape)}, "
+                         f"caches {tuple(k_cache.shape)}, cache_len "
+                         f"{tuple(cache_len.shape)}")
+    if not (q.is_contiguous() and k_cache.is_contiguous()
+            and v_cache.is_contiguous() and cache_len.is_contiguous()):
+        raise ValueError("flash_decode: inputs must be contiguous")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("flash_decode: caches must start 16-byte aligned "
+                         "(the kernel reads them in 16-byte loads)")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_decode: window must be >= 1; got {window}")
+    eff_cap = cap if window is None else min(cap, window)
+    out = torch.empty_like(q)
+    with torch.cuda.device(dev):
+        err = _entry()(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+            cache_len.data_ptr(), b, cap, hq, hkv, d, eff_cap,
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_decode: kernel launch failed with CUDA error {err}")
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0

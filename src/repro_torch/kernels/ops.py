@@ -1,0 +1,151 @@
+"""Dispatch over the hand-written kernels and their plain versions.
+
+``impl`` selects the execution path, as in the JAX package's ``kernels/ops.py``:
+  - "cuda":      the hand-written Hopper kernel (the counterpart of "pallas");
+                 the default of every entry point.  CPU tensors raise.
+  - "reference": the plain PyTorch version (CPU tests, and the yardstick the
+                 kernels are held against on the card).
+Nothing switches tier by itself: a failed build or launch raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import decode_attention, flash_attention, ref
+
+IMPLS = ("reference", "cuda")
+NEG_INF = ref.NEG_INF
+
+
+def _check(impl, *tensors):
+    if impl not in IMPLS:
+        raise ValueError(f"impl={impl!r} not in {IMPLS}")
+    if impl == "cuda":
+        for t in tensors:
+            if not t.is_cuda:
+                raise ValueError(f"impl='cuda' needs CUDA tensors; got one on "
+                                 f"{t.device} (use impl='reference' on the CPU)")
+
+
+def mha(q, k, v, *, causal=True, window=None, q_positions=None,
+        kv_positions=None, impl="cuda"):
+    """GQA attention; see ``ref.mha_ref``.  Positions None means arange."""
+    _check(impl, q, k, v)
+    if impl == "reference":
+        return ref.mha_ref(q, k, v, causal=causal, window=window,
+                           q_positions=q_positions, kv_positions=kv_positions)
+    return flash_attention.flash_mha(q, k, v, causal=causal, window=window,
+                                     q_positions=q_positions,
+                                     kv_positions=kv_positions)
+
+
+def decode_mha(q, k_cache, v_cache, *, cache_len, window=None, impl="cuda"):
+    """One-token attention over a KV cache; see ``ref.decode_mha_ref``."""
+    _check(impl, q, k_cache, v_cache, cache_len)
+    if impl == "reference":
+        return ref.decode_mha_ref(q, k_cache, v_cache, cache_len=cache_len,
+                                  window=window)
+    return decode_attention.flash_decode(q, k_cache, v_cache,
+                                         cache_len=cache_len, window=window)
+
+
+# ---------------------------------------------------------------- sampling
+# V-reductions with no kernel in the JAX package either: plain PyTorch on
+# every tier.
+
+def _cdf_chunk(v: int) -> int:
+    """Largest power-of-two chunk <= 1024 that divides V (0 = no chunking)."""
+    k = 1024
+    while k > 1:
+        if v % k == 0 and v >= 2 * k:
+            return k
+        k //= 2
+    return 0
+
+
+def _sample_cdf(scaled, u01):
+    """Two-level inverse-CDF sample from (tempered/truncated) logits, one
+    uniform per row: ``u01`` (B, 1) in [0, 1).  Pass 1 sums exp per chunk,
+    the chunk CDF picks a chunk, and only that chunk gets an exact
+    intra-chunk cumsum.  Returns (token (B,) int32, logsumexp(scaled))."""
+    b, v = scaled.shape
+    m = scaled.amax(dim=-1, keepdim=True)
+    k = _cdf_chunk(v)
+    if k == 0:  # odd vocab sizes: flat CDF
+        c = torch.cumsum(torch.exp(scaled - m), dim=-1)
+        z = c[:, -1:]
+        tok = (c < u01 * z).sum(dim=-1)
+        return (tok.clamp(max=v - 1).to(torch.int32),
+                m[:, 0] + torch.log(z[:, 0]))
+    lgc = scaled.reshape(b, v // k, k)
+    chunk = torch.exp(lgc - m[:, :, None]).sum(dim=-1)  # (B, V/k)
+    cchunk = torch.cumsum(chunk, dim=-1)
+    z = cchunk[:, -1:]
+    u = u01 * z
+    ci = (cchunk < u).sum(dim=-1).clamp(max=v // k - 1)
+    prev = cchunk.gather(-1, (ci - 1).clamp(min=0)[:, None])[:, 0]
+    base = torch.where(ci > 0, prev, torch.zeros_like(prev))
+    sel = lgc.gather(1, ci[:, None, None].expand(b, 1, k))[:, 0]  # (B, k)
+    cin = torch.cumsum(torch.exp(sel - m), dim=-1)
+    off = ((base[:, None] + cin) < u).sum(dim=-1).clamp(max=k - 1)
+    tok = (ci * k + off).to(torch.int32)
+    return tok, m[:, 0] + torch.log(z[:, 0])
+
+
+def _truncate_logits(scaled, top_k: int, top_p: float):
+    """Mask (tempered) logits outside the top-k / nucleus top-p set to
+    NEG_INF.  Top-p always keeps the most likely token; ties at the cutoff
+    are kept."""
+    v = scaled.shape[-1]
+    if top_k and top_k < v:
+        kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
+        scaled = torch.where(scaled < kth, NEG_INF, scaled)
+    if top_p < 1.0:
+        srt = torch.sort(scaled, dim=-1, descending=True).values
+        e = torch.exp(srt - srt[:, :1])
+        z = e.sum(dim=-1, keepdim=True)
+        cdf_excl = (torch.cumsum(e, dim=-1) - e) / z  # mass strictly above
+        cnt = (cdf_excl < top_p).sum(dim=-1, keepdim=True)  # >= 1
+        thr = srt.gather(-1, cnt - 1)
+        scaled = torch.where(scaled < thr, NEG_INF, scaled)
+    return scaled
+
+
+def sample_logits(logits, rng=None, *, temperature: float = 1.0,
+                  top_k: int = 0, top_p: float = 1.0, impl="cuda",
+                  uniforms=None):
+    """Fused sampling + logprob extraction from decode logits.
+
+    logits: (B, V) or (B, K, V).  ``rng``: a ``torch.Generator`` on the
+    logits' device, or None for greedy.  ``uniforms`` ((rows, 1) in [0, 1))
+    replaces the generator's draw, so a test can feed the JAX sampler's
+    uniforms.  Returns (token int32, logprob f32) of shape (B,)/(B, K); the
+    logprob is under the untempered, untruncated distribution (the PPO
+    convention).  ``top_k`` (0 = off) and ``top_p`` (1.0 = off) truncate
+    the sampling distribution only.  Sampling is the JAX package's default
+    two-level CDF sampler (``_sample_cdf``)."""
+    _check(impl)
+    if top_k < 0 or not 0.0 < top_p <= 1.0:
+        raise ValueError(f"bad truncation top_k={top_k} top_p={top_p}")
+    lg = logits.to(torch.float32)
+    lead = lg.shape[:-1]
+    lg = lg.reshape(-1, lg.shape[-1])
+    truncated = bool(top_k and top_k < lg.shape[-1]) or top_p < 1.0
+    lse = None
+    if rng is None and uniforms is None:
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)
+    else:
+        scaled = lg if temperature == 1.0 else lg / max(temperature, 1e-6)
+        if truncated:
+            scaled = _truncate_logits(scaled, top_k, top_p)
+        if uniforms is None:
+            uniforms = torch.rand((lg.shape[0], 1), generator=rng,
+                                  device=lg.device)
+        tok, lse_scaled = _sample_cdf(scaled, uniforms.to(lg.device))
+        if temperature == 1.0 and not truncated:
+            lse = lse_scaled  # reuse the sampler's partition function
+    if lse is None:
+        lse = torch.logsumexp(lg, dim=-1)
+    lp = lg.gather(-1, tok[:, None].long())[:, 0] - lse
+    return tok.reshape(lead), lp.reshape(lead)

@@ -1,0 +1,100 @@
+"""GQA self-attention (QKV bias, qk-norm, RoPE, sliding window) and its KV
+cache, dense paths only.
+
+The cache is a dict per layer:
+  full   : k/v of shape (B, S_max, Hkv, Dh), linear writes at position t
+  window : k/v of shape (B, W, Hkv, Dh), ring-buffer writes at t % W
+RoPE is applied before caching, so ring-slot order is irrelevant.  Unlike
+the JAX package, caches are updated in place (one buffer per layer for the
+whole generation instead of a new one per step).
+
+Full-sequence attention runs at positions arange(S), so the attention
+kernel takes its arange fast path (tile skipping).  ``rope`` is the
+``layers.rope_tables`` pair of the positions, built once per step by the
+layer stack.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+
+def attn_init(gen, cfg: ModelConfig, device):
+    dt = L.dtype_of(cfg)
+    p = {
+        "wq": L.dense_init(gen, cfg.d_model, cfg.q_dim, dt, device, cfg.qkv_bias),
+        "wk": L.dense_init(gen, cfg.d_model, cfg.kv_dim, dt, device, cfg.qkv_bias),
+        "wv": L.dense_init(gen, cfg.d_model, cfg.kv_dim, dt, device, cfg.qkv_bias),
+        "wo": L.dense_init(gen, cfg.q_dim, cfg.d_model, dt, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = L.rmsnorm_init(cfg.head_dim, dt, device)
+        p["k_norm"] = L.rmsnorm_init(cfg.head_dim, dt, device)
+    return p
+
+
+def _project_qkv(p, cfg: ModelConfig, x, rope):
+    """Roped q (B, S, Hq, Dh) and k, v (B, S, Hkv, Dh) of x (B, S, D)."""
+    b, s, _ = x.shape
+    q = L.dense_apply(p["wq"], x).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = L.dense_apply(p["wk"], x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = L.dense_apply(p["wv"], x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if "q_norm" in p:
+        q = L.rmsnorm_apply(p["q_norm"], q, cfg.norm_eps)
+        k = L.rmsnorm_apply(p["k_norm"], k, cfg.norm_eps)
+    return L.rope_apply(q, rope), L.rope_apply(k, rope), v
+
+
+def attn_apply_with_kv(p, cfg: ModelConfig, spec: LayerSpec, x, rope, *,
+                       impl="cuda"):
+    """Causal full-sequence attention (training forward / prefill).  Returns
+    the output and the roped k/v (for prefill caching)."""
+    q, k, v = _project_qkv(p, cfg, x, rope)
+    out = ops.mha(q, k, v, causal=True, window=spec.window, impl=impl)
+    y = L.dense_apply(p["wo"], out.reshape(*x.shape[:2], cfg.q_dim))
+    return y, {"k": k, "v": v}
+
+
+# ------------------------------------------------------------------ KV cache
+
+def cache_init(cfg: ModelConfig, spec: LayerSpec, batch, max_len, dtype, device):
+    cap = min(spec.window, max_len) if spec.window else max_len
+    shape = (batch, cap, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def prefill_into_cache(cache, spec: LayerSpec, k, v, seq_len: int):
+    """Write a prefill's roped k/v into the cache in place (ring for
+    window layers: only the last ``cap`` tokens, at slot t % cap)."""
+    cap = cache["k"].shape[1]
+    if seq_len <= cap:
+        cache["k"][:, :seq_len] = k
+        cache["v"][:, :seq_len] = v
+        return cache
+    slots = torch.arange(seq_len - cap, seq_len, device=k.device) % cap
+    cache["k"][:, slots] = k[:, -cap:].to(cache["k"].dtype)
+    cache["v"][:, slots] = v[:, -cap:].to(cache["v"].dtype)
+    return cache
+
+
+def attn_decode_apply(p, cfg: ModelConfig, spec: LayerSpec, x, cache, t: int,
+                      rope, cache_len, *, impl="cuda"):
+    """One-token decode.  x: (B, 1, D); t: the token's position; rope: the
+    tables of position t; cache_len: (B,) int32, all t + 1.  Writes the
+    token's k/v into the cache in place and returns the output."""
+    b = x.shape[0]
+    q, k, v = _project_qkv(p, cfg, x, rope)
+    cap = cache["k"].shape[1]
+    # ring slot for window layers; a linear write past the end clamps to
+    # the last slot, as the JAX package's dynamic_update_slice does
+    slot = t % cap if spec.window else min(t, cap - 1)
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    out = ops.decode_mha(q[:, 0], cache["k"], cache["v"], cache_len=cache_len,
+                         window=spec.window, impl=impl)
+    return L.dense_apply(p["wo"], out.reshape(b, 1, cfg.q_dim).to(x.dtype))

@@ -1,0 +1,111 @@
+"""Foundational layers: RMSNorm, RoPE, embeddings, gated MLP, init helpers.
+
+Parameters are nested dicts of tensors with the JAX package's names and
+layouts (dense weights are (d_in, d_out), ``y = x @ w``), so a JAX tree
+bridges over leaf by leaf.  Norms and RoPE run in fp32 and cast back.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ref import ACTS
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.dtype]
+
+
+def truncated_normal(gen: torch.Generator, shape, dtype, scale, device):
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (t * scale).to(dtype)
+
+
+def dense_init(gen, d_in, d_out, dtype, device, with_bias=False):
+    p = {"w": truncated_normal(gen, (d_in, d_out), dtype, d_in ** -0.5, device)}
+    if with_bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def dense_apply(p, x):
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def rmsnorm_init(dim, dtype, device):
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm_apply(p, x, eps=1e-6):
+    x32 = x.to(torch.float32)
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+# ----------------------------------------------------------------- RoPE
+
+def rope_tables(positions, head_dim: int, theta: float):
+    """cos and sin of half-split RoPE at ``positions`` ((B, S) or (S,)),
+    each (B or 1, S, 1, D/2) fp32.  Built once per forward or decode step
+    and shared by every layer."""
+    if head_dim % 2:
+        raise ValueError(f"RoPE needs an even head_dim; got {head_dim}")
+    freqs = theta ** (-torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                    device=positions.device) / head_dim)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    angles = positions[..., None].to(torch.float32) * freqs  # (B,S,D/2)
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def rope_apply(x, rope):
+    """Half-split RoPE.  x: (B, S, H, D); rope: ``rope_tables`` of x's
+    positions."""
+    cos, sin = rope
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- MLP
+
+def mlp_init(gen, cfg: ModelConfig, device):
+    dt = dtype_of(cfg)
+    return {
+        "w_gate": dense_init(gen, cfg.d_model, cfg.d_ff, dt, device),
+        "w_in": dense_init(gen, cfg.d_model, cfg.d_ff, dt, device),
+        "w_out": dense_init(gen, cfg.d_ff, cfg.d_model, dt, device),
+    }
+
+
+def mlp_apply(p, cfg: ModelConfig, x):
+    g = ACTS[cfg.act](dense_apply(p["w_gate"], x))
+    h = g * dense_apply(p["w_in"], x)
+    return dense_apply(p["w_out"], h)
+
+
+# ----------------------------------------------------------------- Embedding
+
+def embed_init(gen, cfg: ModelConfig, device):
+    return {"table": truncated_normal(gen, (cfg.vocab_size, cfg.d_model),
+                                      dtype_of(cfg), 1.0, device)}
+
+
+def embed_apply(p, tokens):
+    return p["table"][tokens]
+
+
+def unembed_apply(p_head, p_embed, x, tie: bool):
+    """Returns logits in fp32 (computed in the weights' dtype, then cast,
+    as the JAX package does)."""
+    if tie:
+        return torch.einsum("bsd,vd->bsv", x, p_embed["table"]).to(torch.float32)
+    return (x @ p_head["w"]).to(torch.float32)

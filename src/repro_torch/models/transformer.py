@@ -1,0 +1,110 @@
+"""The layer stack: one parameter dict per layer, run by a Python loop (the
+JAX package stacks each group's layers and ``lax.scan``s them).
+
+Three execution paths share the parameters:
+  * ``stack_apply``   - full-sequence forward
+  * ``stack_prefill`` - full-sequence forward that also fills decode caches
+  * ``stack_decode``  - single-token step through the caches
+
+Only attention mixers with a gated-MLP FFN are ported; RG-LRU, SSM, MoE and
+cross-attention raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ATTN, LayerSpec, ModelConfig
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+
+
+def check_supported(cfg: ModelConfig):
+    """Raise for the parts of ``cfg`` this port does not run yet."""
+    kinds = {s.kind for s in cfg.layers}
+    if kinds != {ATTN}:
+        raise NotImplementedError(f"{cfg.name}: mixers {sorted(kinds - {ATTN})} "
+                                  "are not ported (attention only)")
+    if cfg.ffn_kind not in ("gated", "none"):
+        raise NotImplementedError(f"{cfg.name}: ffn_kind={cfg.ffn_kind!r} is not ported")
+    if cfg.family == "encdec" or cfg.prefix_len:
+        raise NotImplementedError(f"{cfg.name}: encoder/prefix inputs are not ported")
+
+
+def block_init(gen, cfg: ModelConfig, spec: LayerSpec, device):
+    dt = L.dtype_of(cfg)
+    p = {"ln1": L.rmsnorm_init(cfg.d_model, dt, device),
+         "mixer": A.attn_init(gen, cfg, device)}
+    if spec.has_ffn and cfg.ffn_kind != "none":
+        p["ln2"] = L.rmsnorm_init(cfg.d_model, dt, device)
+        p["ffn"] = L.mlp_init(gen, cfg, device)
+    return p
+
+
+def _ffn(p, cfg, x):
+    if "ffn" not in p:
+        return x
+    h = L.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+    return x + L.mlp_apply(p["ffn"], cfg, h)
+
+
+def block_apply(p, cfg, spec, x, rope, *, impl="cuda"):
+    """Full-sequence block.  Returns (x, kv): the layer's roped k/v, for
+    prefill caching."""
+    h = L.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+    y, kv = A.attn_apply_with_kv(p["mixer"], cfg, spec, h, rope, impl=impl)
+    return _ffn(p, cfg, x + y), kv
+
+
+def block_decode(p, cfg, spec, x, cache, t, rope, cache_len, *, impl="cuda"):
+    """Single-token block step; updates ``cache`` in place."""
+    h = L.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+    y = A.attn_decode_apply(p["mixer"], cfg, spec, h, cache, t, rope, cache_len,
+                            impl=impl)
+    return _ffn(p, cfg, x + y)
+
+
+def stack_init(gen, cfg: ModelConfig, device):
+    check_supported(cfg)
+    return [block_init(gen, cfg, spec, device) for spec in cfg.layers]
+
+
+def _arange_rope(cfg: ModelConfig, x):
+    positions = torch.arange(x.shape[1], device=x.device)
+    return L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def stack_apply(layers_params, cfg: ModelConfig, x, *, impl="cuda"):
+    """Full-sequence forward at positions arange(S)."""
+    rope = _arange_rope(cfg, x)
+    for p, spec in zip(layers_params, cfg.layers):
+        x, _ = block_apply(p, cfg, spec, x, rope, impl=impl)
+    return x
+
+
+def cache_init(cfg: ModelConfig, batch, max_len, dtype, device):
+    return [A.cache_init(cfg, spec, batch, max_len, dtype, device)
+            for spec in cfg.layers]
+
+
+def stack_prefill(layers_params, cfg: ModelConfig, x, caches, *, impl="cuda"):
+    """Full forward that fills the decode caches (from ``cache_init``) in
+    place.  Returns x."""
+    rope = _arange_rope(cfg, x)
+    seq_len = x.shape[1]
+    for p, spec, cache in zip(layers_params, cfg.layers, caches):
+        x, kv = block_apply(p, cfg, spec, x, rope, impl=impl)
+        A.prefill_into_cache(cache, spec, kv["k"], kv["v"], seq_len)
+    return x
+
+
+def stack_decode(layers_params, cfg: ModelConfig, x, caches, t, *, impl="cuda"):
+    """x: (B, 1, D); t: the token's position.  Updates ``caches`` in place
+    and returns x.  The RoPE tables and cache lengths of the step are built
+    once here, not per layer."""
+    rope = L.rope_tables(torch.full((1, 1), t, device=x.device), cfg.head_dim,
+                         cfg.rope_theta)
+    cache_len = torch.full((x.shape[0],), t + 1, dtype=torch.int32, device=x.device)
+    for p, spec, cache in zip(layers_params, cfg.layers, caches):
+        x = block_decode(p, cfg, spec, x, cache, t, rope, cache_len, impl=impl)
+    return x

@@ -12,6 +12,11 @@ import jax  # noqa: E402
 
 jax.config.update("jax_enable_x64", False)
 
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; the test skips itself without one")
+
 # ``hypothesis`` is not installable offline; install a stub that turns the
 # property tests into clean skips so the rest of the suite still collects
 # and runs everywhere.
