@@ -1,11 +1,34 @@
-// Helpers shared by the attention kernels: element conversion and the
-// finite mask value of the plain versions (kernels/ref.py).
+// Helpers shared by the attention kernels: element conversion, the finite
+// mask value of the plain versions (kernels/ref.py) and the shared-memory
+// opt-in of a launch.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace repro {
+
+// Devices whose opt-in is remembered; a later one opts in on every launch.
+constexpr int kMaxDevices = 64;
+
+// Let `kernel` launch with up to `bytes` of dynamic shared memory on the
+// current device.  The attribute is per device, so `set_on` (one flag per
+// device, a static array of the caller's kernel instantiation) records
+// where it is set.  A caller passes one fixed `bytes` per kernel, so host
+// threads racing here set the same value and need no lock.
+template <typename Kernel>
+cudaError_t allow_dynamic_smem(Kernel kernel, int bytes, std::atomic<bool>* set_on) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool tracked = dev < kMaxDevices;
+  if (tracked && set_on[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && tracked) set_on[dev].store(true, std::memory_order_release);
+  return err;
+}
 
 // -2^30, the finite NEG_INF of ref.py: a masked key whose row has some
 // valid key gets weight exp(-2^30 - m) == 0; a row with no valid key gets

@@ -221,13 +221,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    const int* q_pos, const int* kv_pos, int B, int Sq, int Skv,
                    int Hq, int Hkv, int causal, int window, cudaStream_t stream) {
   constexpr int smem = smem_bytes<D>();
-  static bool smem_allowed = false;  // one flag per instantiation
-  if (!smem_allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_mha_kernel<T, D, kHasPos>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    smem_allowed = true;
-  }
+  static std::atomic<bool> smem_set[repro::kMaxDevices];
+  const cudaError_t err =
+      repro::allow_dynamic_smem(flash_mha_kernel<T, D, kHasPos>, smem, smem_set);
+  if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, Hq, B);
   flash_mha_kernel<T, D, kHasPos><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import decode_attention, flash_attention, ref
+from repro_torch.kernels import (decode_attention, flash_attention,
+                                 paged_decode_attention, ref)
 
 IMPLS = ("reference", "cuda")
 NEG_INF = ref.NEG_INF
@@ -48,6 +49,17 @@ def decode_mha(q, k_cache, v_cache, *, cache_len, window=None, impl="cuda"):
                                   window=window)
     return decode_attention.flash_decode(q, k_cache, v_cache,
                                          cache_len=cache_len, window=window)
+
+
+def paged_decode_mha(q, k_pool, v_pool, block_table, *, cache_len, impl="cuda"):
+    """One-token attention over a paged (block-pool) KV cache; see
+    ``ref.paged_decode_mha_ref`` for the layout."""
+    _check(impl, q, k_pool, v_pool, block_table, cache_len)
+    if impl == "reference":
+        return ref.paged_decode_mha_ref(q, k_pool, v_pool, block_table,
+                                        cache_len=cache_len)
+    return paged_decode_attention.paged_flash_decode(
+        q, k_pool, v_pool, block_table, cache_len=cache_len)
 
 
 # ---------------------------------------------------------------- sampling

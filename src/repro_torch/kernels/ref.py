@@ -100,6 +100,25 @@ def decode_mha_ref(q, k_cache, v_cache, *, cache_len, window: int | None = None)
     return out.reshape(b, hq, d)
 
 
+def paged_decode_mha_ref(q, k_pool, v_pool, block_table, *, cache_len):
+    """Single-token decode attention over a paged (block-pool) KV cache.
+
+    q: (B, Hq, D); k_pool/v_pool: (N, bs, Hkv, D), a pool of N blocks of bs
+    tokens; ``block_table``: (B, M) int physical block ids: logical
+    position p of row b lives at ``pool[block_table[b, p // bs], p % bs]``;
+    ``cache_len``: (B,) tokens written so far.  Table entries past the live
+    prefix may point anywhere (conventionally block 0): every position >=
+    cache_len is masked.  A row with cache_len 0 averages all M * bs slots.
+    Returns (B, Hq, D).
+    """
+    b, m = block_table.shape
+    _, bs, hkv, d = k_pool.shape
+    idx = block_table.long()
+    k_cache = k_pool[idx].reshape(b, m * bs, hkv, d)
+    v_cache = v_pool[idx].reshape(b, m * bs, hkv, d)
+    return decode_mha_ref(q, k_cache, v_cache, cache_len=cache_len)
+
+
 def _gelu_tanh(x):
     return F.gelu(x, approximate="tanh")
 

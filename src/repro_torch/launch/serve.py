@@ -1,4 +1,4 @@
-"""Bucketed batch server over :func:`models.model.generate`, and its CLI.
+"""Serve engines over the model API, and their CLI.
 
 ``BatchServer`` groups requests into prompt-length buckets, left-pads each
 bucket's prompts with ``pad_id`` and runs one generation per bucket.  As in
@@ -6,18 +6,29 @@ the JAX package: pad tokens are attended (no pad mask), every request holds
 a full KV buffer for its whole life, and every bucket draws its samples
 from the same seed.
 
+``ContinuousBatchServer`` decodes a fixed number of slots per step over a
+paged KV cache (``models/paged_cache.py``): a sequence holds only
+``ceil(len / block_size)`` blocks, and queued requests are admitted between
+steps into slots and blocks that finished requests freed.
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
-        --requests 8 --new 64
+        --requests 16 --new 64 --mode continuous
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import dataclasses
 import time
 
+import numpy as np
 import torch
 
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
 from repro_torch.models import model as MDL
+from repro_torch.models import paged_cache as PC
 
 
 def bucket_of(length: int, buckets=(16, 32, 64, 128, 256, 512, 1024)) -> int:
@@ -62,6 +73,323 @@ class BatchServer:
         return results
 
 
+# --------------------------------------------------------------- continuous
+
+@dataclasses.dataclass
+class _Request:
+    rid: int
+    prompt: np.ndarray  # int32
+    max_new: int
+    tokens: list = dataclasses.field(default_factory=list)
+    logps: list = dataclasses.field(default_factory=list)
+    blocks: list = dataclasses.field(default_factory=list)
+
+    def reset(self):  # recompute-style preemption: restart from the prompt
+        self.tokens, self.logps, self.blocks = [], [], []
+
+
+class ContinuousBatchServer:
+    """Continuous-batching decode engine over a paged KV cache, as the JAX
+    package's class without its speculative mode.
+
+    Each decode dispatch runs ``sync_every`` steps over every slot (per-row
+    positions, a block table into the shared KV pool, fused sampling) with
+    tokens, positions and the table kept on the device; the host reads the
+    chunk's tokens and logprobs once, at its end, then retires finished
+    rows (their blocks are reused at once) and admits queued requests into
+    free slots: one batched prefill, first-token sample and ``paged_insert``
+    per same-bucket group.  Rows finishing mid-chunk decode a few throwaway
+    tokens into their own about-to-be-freed blocks.  If the pool runs dry
+    the youngest active request is preempted (blocks freed, requeued,
+    recomputed from its prompt later), so the oldest always makes progress.
+    Inactive slots point at the scratch block 0 and ride along.
+
+    Sampling takes one ``torch.Generator`` for a whole ``serve`` call (the
+    JAX class splits a key per dispatch), so sampled tokens differ from the
+    JAX package's; greedy output and the schedule do not.
+    """
+
+    def __init__(self, cfg, params, *, n_slots: int = 8,
+                 kv_block_size: int = 16, max_kv_blocks: int = 0,
+                 max_prompt: int = 128, max_new: int = 128,
+                 eos_id=None, temperature: float = 1.0, top_k: int = 0,
+                 top_p: float = 1.0, impl: str = "cuda", sync_every: int = 4,
+                 draft_params=None, draft_cfg=None):
+        if draft_params is not None or draft_cfg is not None:
+            raise NotImplementedError("speculative decoding is not ported yet")
+        self.cfg, self.params = cfg, params
+        self.n_slots, self.bs = n_slots, kv_block_size
+        self.max_new = max_new
+        self.eos_id = eos_id
+        self.sample_kw = dict(temperature=temperature, top_k=top_k, top_p=top_p,
+                              impl=impl)
+        self.impl = impl
+        self.sync_every = max(1, sync_every)
+        self.max_len = bucket_of(max_prompt) + max_new
+        self.device = params["embed"]["table"].device
+        # a chunk can run a row sync_every - 1 positions past its logical
+        # end before the host trims it: budget table and pool for that
+        self.max_blocks = PC.needed_blocks(self.max_len + self.sync_every - 1, self.bs)
+        if max_kv_blocks <= 0:  # worst case: every slot at full length
+            max_kv_blocks = PC.RESERVED_BLOCKS + n_slots * self.max_blocks
+        self.alloc = PC.BlockAllocator(max_kv_blocks, self.bs)
+        self.caches = PC.paged_cache_init(cfg, n_slots, max_kv_blocks, self.bs,
+                                          self.max_len, L.dtype_of(cfg), self.device)
+        self.table = np.zeros((n_slots, self.max_blocks), np.int32)
+        self.seq_lens = np.zeros(n_slots, np.int32)
+        self.cur_tok = np.zeros(n_slots, np.int32)
+        self.slots: list = [None] * n_slots
+        self.queue: collections.deque = collections.deque()
+        self._rng = None
+        self.steps = 0
+        self.preemptions = 0
+        self.completion_order: list[int] = []
+        self._results: dict = {}
+        self._latencies: dict = {}  # rid -> seconds from serve() entry
+        self._t_serve0 = None
+
+    # ----------------------------------------------------------- scheduling
+    def _active(self):
+        return [i for i, r in enumerate(self.slots) if r is not None]
+
+    def _release(self, slot: int):
+        req = self.slots[slot]
+        req.blocks = self.alloc.truncate_to(req.blocks, 0)
+        self.table[slot, :] = 0
+        self.seq_lens[slot] = 0
+        self.cur_tok[slot] = 0
+        self.slots[slot] = None
+        return req
+
+    def _complete(self, slot: int):
+        req = self._release(slot)
+        self._results[req.rid] = (np.asarray(req.tokens, np.int32),
+                                  np.asarray(req.logps, np.float32))
+        self.completion_order.append(req.rid)
+        if self._t_serve0 is not None:
+            self._latencies[req.rid] = time.perf_counter() - self._t_serve0
+
+    def _preempt(self, slot: int):
+        """Recompute-style preemption: free the victim's blocks and requeue
+        it (it restarts from its prompt), in arrival order so admission
+        stays first-come first-served."""
+        req = self._release(slot)
+        req.reset()
+        idx = 0
+        while idx < len(self.queue) and self.queue[idx].rid < req.rid:
+            idx += 1
+        self.queue.insert(idx, req)
+        self.preemptions += 1
+
+    def _done(self, req) -> bool:
+        return (len(req.tokens) >= req.max_new
+                or (self.eos_id is not None and req.tokens[-1] == self.eos_id))
+
+    def _admit(self, toks, slots_arr, table_arr, plen: int):
+        """One admission dispatch: batched prefill of ``toks`` (W, plen),
+        first-token sample, ``paged_insert`` of the rows whose slot is real.
+        Returns (tok0, lp0) on the host."""
+        last_h, dense = MDL.prefill(self.params, self.cfg,
+                                    {"tokens": torch.from_numpy(toks).to(self.device)},
+                                    plen, impl=self.impl)
+        logits0 = MDL.logits_of(self.params, self.cfg, last_h[:, None])[:, 0]
+        tok0, lp0 = ops.sample_logits(logits0, self._rng, **self.sample_kw)
+        PC.paged_insert(self.cfg, self.caches, dense, slots_arr, table_arr, plen,
+                        n_slots=self.n_slots)
+        return tok0.cpu().numpy(), lp0.cpu().numpy()
+
+    def _try_admit(self):
+        """Admit queued requests into free slots, batching every queued
+        request that shares the head's prompt bucket into one ``_admit``
+        (first-come first-served within a bucket; the head's bucket goes
+        first, so nothing starves).  The batch width is rounded up to a
+        power of two, padding rows carrying slot ``n_slots``."""
+        while self.queue:
+            free = [i for i, r in enumerate(self.slots) if r is None]
+            if not free:
+                return
+            head = self.queue[0]
+            pb = bucket_of(len(head.prompt))
+            nb = PC.needed_blocks(pb, self.bs)
+            batch_reqs, budget = [], self.alloc.free_count
+            for req in self.queue:
+                if len(batch_reqs) >= len(free) or budget < nb:
+                    break
+                if bucket_of(len(req.prompt)) != pb:
+                    continue
+                batch_reqs.append(req)
+                budget -= nb
+            if not batch_reqs:
+                return  # the head does not fit yet: wait for completions
+            for req in batch_reqs:
+                self.queue.remove(req)
+            width = 1
+            while width < len(batch_reqs):
+                width *= 2
+            toks = np.zeros((width, pb), np.int64)  # pad id 0
+            slots_arr = np.full((width,), self.n_slots, np.int64)  # not written
+            table_arr = np.zeros((width, nb), np.int64)  # scratch block 0
+            for row, req in enumerate(batch_reqs):
+                req.blocks = self.alloc.alloc(nb)
+                toks[row, pb - len(req.prompt):] = req.prompt  # left-pad
+                slots_arr[row] = free[row]
+                table_arr[row] = req.blocks
+            tok0, lp0 = self._admit(toks, slots_arr, table_arr, pb)
+            for row, req in enumerate(batch_reqs):
+                slot = free[row]
+                req.tokens.append(int(tok0[row]))
+                req.logps.append(float(lp0[row]))
+                self.table[slot, :] = 0
+                self.table[slot, :nb] = req.blocks
+                self.seq_lens[slot] = pb
+                self.cur_tok[slot] = req.tokens[-1]
+                self.slots[slot] = req
+                if self._done(req):
+                    self._complete(slot)
+
+    def _ensure_blocks(self):
+        """Grow each active row's block list to cover the whole coming
+        chunk, preempting the youngest request when the pool runs dry.
+        Rows grow oldest-first and never evict an older row: when only
+        older rows remain as victims, the growing row preempts itself."""
+        span = self.sync_every - 1
+        for slot in sorted(self._active(), key=lambda s: self.slots[s].rid):
+            req = self.slots[slot]
+            if req is None:  # preempted by an earlier iteration
+                continue
+            need = (int(self.seq_lens[slot]) + span) // self.bs
+            while need >= len(req.blocks):
+                if self.alloc.free_count > 0:
+                    blk = self.alloc.alloc(1)[0]
+                    self.table[slot, len(req.blocks)] = blk
+                    req.blocks.append(blk)
+                    continue
+                victims = [s for s in self._active() if s != slot]
+                if not victims:
+                    raise MemoryError("KV pool too small for a single request; "
+                                      "raise max_kv_blocks")
+                victim = max(victims, key=lambda s: self.slots[s].rid)
+                if self.slots[victim].rid < req.rid:
+                    self._preempt(slot)  # everyone else is older: yield
+                    break
+                self._preempt(victim)
+
+    def _decode_step(self):
+        """One dispatch: ``sync_every`` decode steps for every slot, with
+        tokens, positions and the table on the device throughout; the host
+        reads the chunk's tokens and logprobs once, then retires rows.  A
+        row finishing mid-chunk has its throwaway tail tokens dropped."""
+        self._ensure_blocks()
+        dev = self.device
+        table = torch.from_numpy(self.table).to(dev)
+        pos = torch.from_numpy(self.seq_lens).to(dev)
+        tok = torch.from_numpy(self.cur_tok).to(dev)
+        toks, lps = [], []
+        for _ in range(self.sync_every):
+            tok, lp, _ = MDL.paged_decode_and_sample_step(
+                self.params, self.cfg, tok, self.caches, table, pos, self._rng,
+                **self.sample_kw)
+            pos = pos + 1
+            toks.append(tok)
+            lps.append(lp)
+        toks = torch.stack(toks).cpu().numpy()  # (sync_every, n_slots)
+        lps = torch.stack(lps).cpu().numpy()
+        self.steps += 1
+        for slot in self._active():
+            req = self.slots[slot]
+            for j in range(self.sync_every):
+                self.seq_lens[slot] += 1
+                t = int(toks[j, slot])
+                req.tokens.append(t)
+                req.logps.append(float(lps[j, slot]))
+                self.cur_tok[slot] = t
+                if self._done(req):
+                    self._complete(slot)
+                    break
+
+    # -------------------------------------------------------------- serving
+    def serve(self, prompts, seed=None, max_new=None):
+        """prompts: list of 1-D int sequences (ragged).  ``max_new``: int or
+        per-request list (default: the server's ``max_new``).  ``seed=None``
+        decodes greedily; otherwise the whole call samples from one
+        generator seeded with ``seed``.  Returns (tokens_list, logps_list)
+        in request order; requests complete out of order
+        (``completion_order``)."""
+        self._rng = None
+        if seed is not None:
+            self._rng = torch.Generator(device=self.device).manual_seed(seed)
+        n = len(prompts)
+        if max_new is None:
+            max_new = self.max_new
+        per_req = list(max_new) if hasattr(max_new, "__len__") else [max_new] * n
+        if len(per_req) != n:
+            raise ValueError(f"max_new has {len(per_req)} entries for {n} prompts")
+        base = len(self._results)
+        reqs = [_Request(rid=base + i, prompt=np.asarray(p, np.int32), max_new=int(m))
+                for i, (p, m) in enumerate(zip(prompts, per_req))]
+        # validate before any work: a bad request raising mid-flight would
+        # lose every in-flight request and leave the queue poisoned
+        for r in reqs:
+            if r.max_new < 1:
+                raise ValueError(f"request {r.rid}: max_new must be >= 1")
+            pb = bucket_of(len(r.prompt))
+            if pb + r.max_new > self.max_len:
+                raise ValueError(f"request {r.rid}: prompt bucket {pb} + max_new "
+                                 f"{r.max_new} exceeds max_len {self.max_len}")
+        self.queue.extend(reqs)
+        # the latency clock restarts per serve() call, so stats() shows the
+        # most recent cohort
+        self._latencies = {}
+        self._t_serve0 = time.perf_counter()
+        while self.queue or self._active():
+            self._try_admit()
+            if self._active():
+                self._decode_step()
+            elif self.queue:
+                raise MemoryError("queued request cannot be admitted into an empty "
+                                  "server; raise max_kv_blocks")
+        return ([self._results[r.rid][0] for r in reqs],
+                [self._results[r.rid][1] for r in reqs])
+
+    def stats(self) -> dict:
+        out = {"steps": self.steps, "preemptions": self.preemptions,
+               "peak_blocks": self.alloc.peak,
+               "completion_order": list(self.completion_order)}
+        if self._latencies:
+            lats = sorted(self._latencies.values())
+
+            def pct(q):
+                return lats[min(len(lats) - 1, int(q * len(lats)))]
+            out["latency_s"] = {"p50": pct(0.50), "p99": pct(0.99), "n": len(lats)}
+        return out
+
+    def kv_peak_bytes(self) -> int:
+        return PC.kv_pool_bytes(self.cfg, self.alloc.peak, self.bs)
+
+
+def build_server(cfg, params, exp, *, max_prompt: int = 128, max_new: int = 128,
+                 draft_params=None):
+    """The serve engine ``exp.serve_mode`` selects ("bucketed" or
+    "continuous"), with the sampling and KV settings of ``exp`` (any object
+    with the JAX package's ``ExperimentConfig`` attributes)."""
+    impl = exp.rollout_impl or exp.impl
+    if exp.serve_mode == "bucketed":
+        return BatchServer(cfg, params, max_new=max_new, eos_id=exp.eos_id,
+                           top_k=exp.top_k, top_p=exp.top_p, impl=impl)
+    if exp.serve_mode != "continuous":
+        raise ValueError(f"serve_mode={exp.serve_mode!r} not in "
+                         "('bucketed', 'continuous')")
+    if draft_params is not None and getattr(exp, "draft_model", None) is not None:
+        raise NotImplementedError("speculative decoding is not ported yet")
+    if getattr(exp, "sampler", "cdf") != "cdf":
+        raise NotImplementedError(f"sampler={exp.sampler!r} is not ported (cdf only)")
+    return ContinuousBatchServer(
+        cfg, params, kv_block_size=exp.kv_block_size,
+        max_kv_blocks=exp.max_kv_blocks, max_prompt=max_prompt,
+        max_new=max_new, eos_id=exp.eos_id, top_k=exp.top_k, top_p=exp.top_p,
+        impl=impl)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen2-0.5b")
@@ -69,12 +397,13 @@ def main(argv=None):
                     help="the reduced config (2 layers, narrow widths)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--new", type=int, default=64)
+    ap.add_argument("--mode", default="continuous", choices=["bucketed", "continuous"])
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--impl", default="cuda", choices=["cuda", "reference"])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-
-    import numpy as np
 
     from repro_torch.configs import get_config
 
@@ -85,17 +414,27 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(1, cfg.vocab_size, rng.integers(4, 40))
                for _ in range(args.requests)]
-    server = BatchServer(cfg, params, max_new=args.new, impl=args.impl)
     t0 = time.perf_counter()
-    out = server.serve(prompts, seed=args.seed + 1)
+    if args.mode == "bucketed":
+        out = BatchServer(cfg, params, max_new=args.new, impl=args.impl).serve(
+            prompts, seed=args.seed + 1)
+        extra = ""
+    else:
+        server = ContinuousBatchServer(cfg, params, n_slots=args.slots,
+                                       kv_block_size=args.block_size, max_prompt=64,
+                                       max_new=args.new, impl=args.impl)
+        out, _ = server.serve(prompts, seed=args.seed + 1)
+        st = server.stats()
+        extra = (f", steps={st['steps']} preemptions={st['preemptions']} "
+                 f"peak_blocks={st['peak_blocks']} kv_peak={server.kv_peak_bytes()}B")
     if torch.device(args.device).type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     toks = sum(len(o) for o in out)
     print(f"served {len(prompts)} ragged requests in {dt:.2f}s ({toks} new "
           f"tokens, {toks / dt:.1f} tokens/s, {cfg.name}, {cfg.num_layers} "
-          f"layers, device={args.device}, impl={args.impl})")
-    print("first output:", out[0][:8].tolist())
+          f"layers, mode={args.mode}, device={args.device}, impl={args.impl}{extra})")
+    print("first output:", [int(t) for t in out[0][:8]])
 
 
 if __name__ == "__main__":

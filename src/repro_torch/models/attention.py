@@ -1,9 +1,12 @@
 """GQA self-attention (QKV bias, qk-norm, RoPE, sliding window) and its KV
-cache, dense paths only.
+caches.
 
-The cache is a dict per layer:
+The dense cache is a dict per layer:
   full   : k/v of shape (B, S_max, Hkv, Dh), linear writes at position t
   window : k/v of shape (B, W, Hkv, Dh), ring-buffer writes at t % W
+The paged cache (``models/paged_cache.py``) replaces the full-layer buffers
+by a shared block pool (N, bs, Hkv, Dh) read through a block table, and
+rows decode at their own positions (continuous batching).
 RoPE is applied before caching, so ring-slot order is irrelevant.  Unlike
 the JAX package, caches are updated in place (one buffer per layer for the
 whole generation instead of a new one per step).
@@ -95,6 +98,40 @@ def attn_decode_apply(p, cfg: ModelConfig, spec: LayerSpec, x, cache, t: int,
     slot = t % cap if spec.window else min(t, cap - 1)
     cache["k"][:, slot] = k[:, 0]
     cache["v"][:, slot] = v[:, 0]
+    out = ops.decode_mha(q[:, 0], cache["k"], cache["v"], cache_len=cache_len,
+                         window=spec.window, impl=impl)
+    return L.dense_apply(p["wo"], out.reshape(b, 1, cfg.q_dim).to(x.dtype))
+
+
+def paged_attn_decode_apply(p, cfg: ModelConfig, x, cache, block_table, dest,
+                            rope, cache_len, *, impl="cuda"):
+    """One-token decode through a paged block-pool KV cache, rows at their
+    own positions.  x: (B, 1, D); cache: {"k"/"v": (N, bs, Hkv, Dh)};
+    block_table: (B, M) int32; dest: the (block, offset) index pair of each
+    row's write, (block_table[b, pos // bs], pos % bs); rope: the tables of
+    the rows' positions; cache_len: positions + 1.  Writes each row's k/v
+    at ``dest`` in place and returns the output."""
+    b = x.shape[0]
+    q, k, v = _project_qkv(p, cfg, x, rope)
+    cache["k"][dest] = k[:, 0]
+    cache["v"][dest] = v[:, 0]
+    out = ops.paged_decode_mha(q[:, 0], cache["k"], cache["v"], block_table,
+                               cache_len=cache_len, impl=impl)
+    return L.dense_apply(p["wo"], out.reshape(b, 1, cfg.q_dim).to(x.dtype))
+
+
+def ragged_attn_decode_apply(p, cfg: ModelConfig, spec: LayerSpec, x, cache, dest,
+                             rope, cache_len, *, impl="cuda"):
+    """``attn_decode_apply`` for a sliding-window ring with per-row
+    positions.  dest: the (row, slot) index pair of each row's write,
+    (b, positions[b] % W).  Full-attention layers go through
+    ``paged_attn_decode_apply`` instead."""
+    if spec.window is None:
+        raise ValueError("ragged decode is ring-cache only; use paged_attn_decode_apply")
+    b = x.shape[0]
+    q, k, v = _project_qkv(p, cfg, x, rope)
+    cache["k"][dest] = k[:, 0]
+    cache["v"][dest] = v[:, 0]
     out = ops.decode_mha(q[:, 0], cache["k"], cache["v"], cache_len=cache_len,
                          window=spec.window, impl=impl)
     return L.dense_apply(p["wo"], out.reshape(b, 1, cfg.q_dim).to(x.dtype))

@@ -1,5 +1,5 @@
-"""Model facade: init / forward / prefill / decode / generate, and the
-length-bucketed generator.
+"""Model facade: init / forward / prefill / decode / paged decode /
+generate, and the length-bucketed generator.
 
 Parameters: {"embed": {"table"}, "layers": [one dict per layer],
 "final_norm": {"scale"}} (+ "lm_head" when embeddings are not tied).  A
@@ -78,6 +78,33 @@ def decode_and_sample_step(params, cfg: ModelConfig, token, caches, t: int,
     logprob (``ops.sample_logits``).  ``rng=None`` means greedy.
     Returns (next_token (B,), logprob (B,), caches)."""
     logits, caches = decode_step(params, cfg, token, caches, t, impl=impl)
+    tok, lp = ops.sample_logits(logits, rng, temperature=temperature,
+                                top_k=top_k, top_p=top_p, impl=impl)
+    return tok, lp, caches
+
+
+def paged_decode_step(params, cfg: ModelConfig, token, caches, block_table,
+                      positions, *, impl="cuda"):
+    """One decode step over paged caches with per-row positions (the
+    continuous-batching step).  token: (B,) the token each row consumes;
+    positions: (B,) int32 its position; block_table: (B, M) int32.
+    Returns (logits (B, V) fp32, caches)."""
+    x = _embed(params, cfg, token[:, None])
+    h = T.stack_paged_decode(params["layers"], cfg, x, caches, block_table,
+                             positions, impl=impl)
+    h = L.rmsnorm_apply(params["final_norm"], h, cfg.norm_eps)
+    return logits_of(params, cfg, h)[:, 0], caches
+
+
+def paged_decode_and_sample_step(params, cfg: ModelConfig, token, caches,
+                                 block_table, positions, rng=None, *,
+                                 temperature: float = 1.0, top_k: int = 0,
+                                 top_p: float = 1.0, impl="cuda"):
+    """``paged_decode_step``, then sample the next token and its logprob
+    (``ops.sample_logits``; ``rng=None`` is greedy).  Returns (next_token
+    (B,), logprob (B,), caches)."""
+    logits, caches = paged_decode_step(params, cfg, token, caches, block_table,
+                                       positions, impl=impl)
     tok, lp = ops.sample_logits(logits, rng, temperature=temperature,
                                 top_k=top_k, top_p=top_p, impl=impl)
     return tok, lp, caches

@@ -1,10 +1,12 @@
 """The layer stack: one parameter dict per layer, run by a Python loop (the
 JAX package stacks each group's layers and ``lax.scan``s them).
 
-Three execution paths share the parameters:
-  * ``stack_apply``   - full-sequence forward
-  * ``stack_prefill`` - full-sequence forward that also fills decode caches
-  * ``stack_decode``  - single-token step through the caches
+Four execution paths share the parameters:
+  * ``stack_apply``        - full-sequence forward
+  * ``stack_prefill``      - full-sequence forward that also fills decode caches
+  * ``stack_decode``       - single-token step through the caches
+  * ``stack_paged_decode`` - single-token step with per-row positions through
+                             paged caches (continuous batching)
 
 Only attention mixers with a gated-MLP FFN are ported; RG-LRU, SSM, MoE and
 cross-attention raise ``NotImplementedError``.
@@ -64,6 +66,22 @@ def block_decode(p, cfg, spec, x, cache, t, rope, cache_len, *, impl="cuda"):
     return _ffn(p, cfg, x + y)
 
 
+def block_paged_decode(p, cfg, spec, x, cache, block_table, dest, rope, cache_len,
+                       *, impl="cuda"):
+    """Single-token block step with per-row positions: full-attention
+    layers go through the block pool, window layers through their per-slot
+    rings; ``dest`` indexes each row's write into ``cache``.  Updates
+    ``cache`` in place."""
+    h = L.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+    if spec.window is None:
+        y = A.paged_attn_decode_apply(p["mixer"], cfg, h, cache, block_table, dest,
+                                      rope, cache_len, impl=impl)
+    else:
+        y = A.ragged_attn_decode_apply(p["mixer"], cfg, spec, h, cache, dest, rope,
+                                       cache_len, impl=impl)
+    return _ffn(p, cfg, x + y)
+
+
 def stack_init(gen, cfg: ModelConfig, device):
     check_supported(cfg)
     return [block_init(gen, cfg, spec, device) for spec in cfg.layers]
@@ -107,4 +125,28 @@ def stack_decode(layers_params, cfg: ModelConfig, x, caches, t, *, impl="cuda"):
     cache_len = torch.full((x.shape[0],), t + 1, dtype=torch.int32, device=x.device)
     for p, spec, cache in zip(layers_params, cfg.layers, caches):
         x = block_decode(p, cfg, spec, x, cache, t, rope, cache_len, impl=impl)
+    return x
+
+
+def stack_paged_decode(layers_params, cfg: ModelConfig, x, caches, block_table,
+                       positions, *, impl="cuda"):
+    """x: (B, 1, D); block_table: (B, M) int32; positions: (B,) int32, each
+    row's token position.  Updates ``caches`` in place and returns x.  The
+    RoPE tables, cache lengths and write indices of the step are built once
+    here, not per layer: a pool's (block, offset) pair is shared by every
+    full-attention layer, a ring's (row, slot) pair by every window layer
+    of its length."""
+    rope = L.rope_tables(positions[:, None], cfg.head_dim, cfg.rope_theta)
+    cache_len = positions + 1
+    rows = torch.arange(x.shape[0], device=x.device)
+    dests = {}
+    for p, spec, cache in zip(layers_params, cfg.layers, caches):
+        # a pool's block size, or a ring's length
+        key = (spec.window is None, cache["k"].shape[1])
+        if key not in dests:
+            paged, n = key
+            dests[key] = ((block_table[rows, positions // n], positions % n) if paged
+                          else (rows, positions % n))
+        x = block_paged_decode(p, cfg, spec, x, cache, block_table, dests[key], rope,
+                               cache_len, impl=impl)
     return x

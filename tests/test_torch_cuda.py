@@ -15,7 +15,8 @@ probabilities to bf16 before its second product and the kernels do not
 import pytest
 import torch
 
-from repro_torch.kernels import decode_attention, flash_attention, ref
+from repro_torch.kernels import (decode_attention, flash_attention, paged_decode_attention,
+                                 ref)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -42,6 +43,11 @@ DECODE_GRID = [
     (2, 96, 14, 2, 16, 96, [250, 7]),                # G = 7, ring
     (2, 40, 4, 2, 16, None, [0, 3]),                 # a row with no valid key
 ]
+
+
+# paged decode: block sizes 8, 16, 32 divide the kernel's 64-key tile; 24
+# does not, so a tile spans blocks
+PAGED_GRID = [(bs, d) for bs in (8, 16, 32) for d in (64, 128)] + [(24, 64)]
 
 
 def _card():
@@ -132,3 +138,77 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         decode_attention.flash_decode(q[:, 0], shifted, shifted,
                                       cache_len=torch.ones(1, dtype=torch.int32,
                                                            device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bs,d", PAGED_GRID)
+def test_paged_flash_decode_kernel_matches_plain(bs, d, dtype):
+    """Shuffled pool, ragged lengths with a row of 0 (the uniform average
+    over all M * bs slots) and a full row; then the table past each live
+    prefix pointed at block 0 poisoned with +-1e4."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b, hq, hkv, m = 5, 14, 2, 9
+    n = 1 + b * m
+    q = _randn(gen, (b, hq, d), dtype, dev)
+    kp, vp = (_randn(gen, (n, bs, hkv, d), dtype, dev) for _ in range(2))
+    table = (torch.randperm(n - 1, generator=gen, device=dev) + 1).reshape(b, m).int()
+    lens = torch.tensor([0, 1, bs + 3, 70, m * bs], dtype=torch.int32, device=dev)
+    got = paged_decode_attention.paged_flash_decode(q, kp, vp, table, cache_len=lens)
+    _close(got, ref.paged_decode_mha_ref(q, kp, vp, table, cache_len=lens), dtype)
+    live = torch.arange(m, device=dev)[None] < (lens[:, None] + bs - 1) // bs
+    t0 = torch.where(live, table, 0).int()
+    kp[0], vp[0] = 1e4, -1e4
+    poisoned = paged_decode_attention.paged_flash_decode(q, kp, vp, t0, cache_len=lens)
+    _close(poisoned, ref.paged_decode_mha_ref(q, kp, vp, t0, cache_len=lens), dtype)
+    _close(poisoned[1:], got[1:], dtype)  # rows with a valid key: no leak
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_mha", "flash_decode", "paged_flash_decode"])
+def test_kernels_launch_on_a_second_card_after_the_first(kernel):
+    """The shared-memory opt-in is per card: a kernel launched on card 0
+    first must still launch on card 1.  D = 128 needs more than the 48 KB
+    a card allows without the opt-in."""
+    _card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    for dev in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        gen = torch.Generator(device=dev).manual_seed(5)
+        if kernel == "flash_mha":
+            q, k, v = (_randn(gen, (1, 128, 4, 128), "float32", dev) for _ in range(3))
+            got = flash_attention.flash_mha(q, k, v, causal=True)
+            want = ref.mha_ref(q, k, v, causal=True)
+        elif kernel == "flash_decode":
+            q = _randn(gen, (2, 4, 128), "float32", dev)
+            kc, vc = (_randn(gen, (2, 96, 2, 128), "float32", dev) for _ in range(2))
+            cl = torch.tensor([7, 96], dtype=torch.int32, device=dev)
+            got = decode_attention.flash_decode(q, kc, vc, cache_len=cl)
+            want = ref.decode_mha_ref(q, kc, vc, cache_len=cl)
+        else:
+            q = _randn(gen, (2, 4, 128), "float32", dev)
+            kp, vp = (_randn(gen, (7, 16, 2, 128), "float32", dev) for _ in range(2))
+            table = torch.tensor([[1, 2, 3], [6, 5, 4]], dtype=torch.int32, device=dev)
+            cl = torch.tensor([20, 48], dtype=torch.int32, device=dev)
+            got = paged_decode_attention.paged_flash_decode(q, kp, vp, table, cache_len=cl)
+            want = ref.paged_decode_mha_ref(q, kp, vp, table, cache_len=cl)
+        with torch.cuda.device(dev):
+            _close(got, want, "float32")
+
+
+@pytest.mark.cuda
+def test_paged_wrapper_rejects_what_the_kernel_does_not_take():
+    dev = _card()
+    q = torch.zeros(2, 4, 64, device=dev)
+    pool = torch.zeros(5, 16, 2, 64, device=dev)
+    table = torch.ones(2, 2, dtype=torch.int32, device=dev)
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
+    paged = paged_decode_attention.paged_flash_decode
+    with pytest.raises(TypeError, match="int32"):
+        paged(q, pool, pool, table.long(), cache_len=lens)
+    shifted = torch.zeros(pool.numel() + 1, device=dev)[1:].view(pool.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        paged(q, shifted, shifted, table, cache_len=lens)
+    with pytest.raises(ValueError, match="unsupported"):  # G = 17 > 16
+        paged(torch.zeros(2, 34, 64, device=dev), pool, pool, table, cache_len=lens)

@@ -146,27 +146,66 @@ def test_chip_smoke_phases_on_cpu(chip_smoke, monkeypatch):
     assert sl["prefill_err"] == 0.0 and sl["decode_err"] == 0.0
     assert sl["argmax_agreement"] == 1.0
 
-    calls = {"flash_mha": 0, "flash_decode": 0}
-    mha, decode_mha = ops.mha, ops.decode_mha
+    calls = _count_ops(monkeypatch)
+    prompts = chip_smoke.serve_prompts(cfg, requests=4, min_prompt=3, max_prompt=40)
+    runs = chip_smoke.phase_serve(cfg, params, prompts, impl="reference", new=5)
+    want = chip_smoke.predicted_launches(cfg, prompts, 5)
+    n_buckets = len({tserve.bucket_of(len(p)) for p in prompts})
+    assert n_buckets >= 2
+    assert want == {"flash_mha": 2 * n_buckets, "flash_decode": 2 * 4 * n_buckets,
+                    "paged_flash_decode": 0}
+    assert calls == {k: 2 * v for k, v in want.items()}  # greedy + sampled
+    assert all(not any(r["launches"].values())
+               for r in runs.values())  # no kernel ran on the reference tier
+    assert not all(bool((a == b).all()) for a, b in
+                   zip(runs["greedy"]["outputs"], runs["sampled"]["outputs"]))
+
+
+def _count_ops(monkeypatch):
+    """Count the ops calls that stand in for kernel launches on the
+    reference tier."""
+    calls = {"flash_mha": 0, "flash_decode": 0, "paged_flash_decode": 0}
 
     def count(name, fn):
         def wrapped(*a, **k):
             calls[name] += 1
             return fn(*a, **k)
         return wrapped
-    monkeypatch.setattr(ops, "mha", count("flash_mha", mha))
-    monkeypatch.setattr(ops, "decode_mha", count("flash_decode", decode_mha))
-    prompts = chip_smoke.serve_prompts(cfg, requests=4, min_prompt=3, max_prompt=40)
-    runs = chip_smoke.phase_serve(cfg, params, prompts, impl="reference", new=5)
-    want = chip_smoke.predicted_launches(cfg, prompts, 5)
-    n_buckets = len({tserve.bucket_of(len(p)) for p in prompts})
-    assert n_buckets >= 2
-    assert want == {"flash_mha": 2 * n_buckets, "flash_decode": 2 * 4 * n_buckets}
-    assert calls == {k: 2 * v for k, v in want.items()}  # greedy + sampled
-    assert all(r["launches"] == {"flash_mha": 0, "flash_decode": 0}
-               for r in runs.values())  # no kernel ran on the reference tier
-    assert not all(bool((a == b).all()) for a, b in
-                   zip(runs["greedy"]["outputs"], runs["sampled"]["outputs"]))
+    for op, name in (("mha", "flash_mha"), ("decode_mha", "flash_decode"),
+                     ("paged_decode_mha", "paged_flash_decode")):
+        monkeypatch.setattr(ops, op, count(name, getattr(ops, op)))
+    return calls
+
+
+def test_chip_smoke_paged_phases_on_cpu(chip_smoke, monkeypatch):
+    """The paged part of phase 3 and phase 5 at the reduced size, on phase
+    5's traffic, on the reference tier: paged logits equal the dense
+    decode's, every request returns its own max_new tokens, the small pool
+    preempts, and the ops calls equal the predicted launches."""
+    cfg = chip_smoke.get_config("qwen2-0.5b").reduced()
+    params = chip_smoke.make_params(cfg, seed=0, device="cpu")
+    pg = chip_smoke.phase_paged_slice(cfg, params, impl="reference", batch=2,
+                                      prompt_len=20, steps=3, block_size=8)
+    assert pg["paged_err"] < 1e-5 and pg["argmax_agreement"] == 1.0
+
+    calls = _count_ops(monkeypatch)
+    prompts, new = chip_smoke.continuous_traffic(cfg)
+    assert len(prompts) == 16 and min(new) >= 8 and max(new) <= 64
+    runs = chip_smoke.phase_continuous(cfg, params, prompts, new, impl="reference")
+    assert runs["preempt"]["preemptions"] >= 1
+    assert runs["greedy"]["preemptions"] == runs["sampled"]["preemptions"] == 0
+    predicted = {k: sum(r["predicted"][k] for r in runs.values()) for k in calls}
+    assert calls == predicted and predicted["paged_flash_decode"] > 0
+    assert predicted["flash_decode"] == 0
+    for r in runs.values():
+        assert [len(t) for t in r["outputs"]] == new
+        assert not any(r["launches"].values())
+        assert r["kv_peak_bytes"] < r["full_buffer_bytes"]
+    for a, b in zip(runs["greedy"]["outputs"], runs["preempt"]["outputs"]):
+        np.testing.assert_array_equal(a, b)  # recompute after preemption is exact
+    bk = chip_smoke.bucketed_on(cfg, params, prompts, new, impl="reference")
+    for a, b in zip(runs["greedy"]["outputs"], bk["outputs"]):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
