@@ -7,22 +7,27 @@ Phases, in order; any failure exits non-zero before the last line:
   1. print the card's name and power limit; build the CUDA kernels from
      src/repro_torch/kernels/csrc (one nvcc per source, started together);
   2. hold each kernel against its plain PyTorch version on the card at this
-     slice's shapes (bf16) and time kernel (inputs warm in L2 as ``ms``,
-     L2 flushed before each call as ``cold_ms``), plain version, bound and
-     ``scaled_dot_product_attention``;
-  3. full-width qwen2-0.5b (24 layers, bf16, seeded random weights):
-     prefill last-position logits and 8 teacher-forced decode steps under
-     impl="cuda" against impl="reference"; then the same prompts admitted
-     through ``paged_insert`` into a shuffled block table and 8
-     teacher-forced paged decode steps against the dense decode;
-  4. ``BatchServer.serve``: 8 ragged requests (prompts 16-400 tokens), 64
-     new tokens, greedy then sampled, with the kernels' launch counts held
-     to what the shapes predict;
+     slice's shapes (bf16; grouped_ffn also in fp32 and on edge cases) and
+     time kernel (inputs warm in L2 as ``ms``, L2 flushed before each call
+     as ``cold_ms``), plain version, bound and one PyTorch library call;
+     grouped_ffn's rows are also held bit-exact between an 8192-row and a
+     64-row cohort, and timed with each row tile over N;
+  3. full-width qwen2-0.5b and granite-moe-1b-a400m (24 layers each, bf16,
+     seeded random weights): prefill last-position logits and 8
+     teacher-forced decode steps under impl="cuda" against
+     impl="reference" (for granite also the share of (token, layer) pairs
+     whose top-k expert set agrees); then the same prompts admitted through
+     ``paged_insert`` into a shuffled block table and 8 teacher-forced paged
+     decode steps against the dense decode;
+  4. ``BatchServer.serve`` on qwen2-0.5b: 8 ragged requests (prompts 16-400
+     tokens), 64 new tokens, greedy then sampled, with the kernels' launch
+     counts held to what the shapes predict;
   5. ``ContinuousBatchServer.serve``: 16 ragged requests (prompts 16-400
      tokens, 8-64 new tokens each), 8 slots, blocks of 16, greedy, sampled,
-     then greedy on a pool too small for all rows (preemption), with the
-     launch counts held to the prediction; then the bucketed server on the
-     same traffic for comparison.
+     then (qwen2-0.5b only) greedy on a pool too small for all rows
+     (preemption), with the launch counts held to the prediction; then the
+     bucketed server on the same traffic, its launches held too; qwen2-0.5b
+     first, then granite-moe-1b-a400m.
 Then one JSON line of kernel numbers, and last {"ok": true, "device": ...}.
 
 Phases 3 to 5 are functions of (config, params, impl) so the CPU tests
@@ -44,14 +49,16 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import build, grouped_expert, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import flash_decode  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_mha  # noqa: E402
+from repro_torch.kernels.grouped_expert import grouped_ffn  # noqa: E402
 from repro_torch.kernels.paged_decode_attention import paged_flash_decode  # noqa: E402
 from repro_torch.launch.serve import (BatchServer, ContinuousBatchServer,  # noqa: E402
                                       bucket_of)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as MDL  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import paged_cache as PC  # noqa: E402
 
 # Published H100 SXM peaks: dense bf16 tensor-core rate and HBM3 bandwidth.
@@ -62,9 +69,16 @@ PEAK_BYTES = 3.35e12
 # second product (as the JAX reference does), the kernels keep them in fp32;
 # 2e-2 is the JAX package's own bf16 tolerance for its kernels.
 KERNEL_TOL = 2e-2
+# grouped_ffn vs its plain version: both take fp32 products of the same
+# values and differ only in summation order, so bf16 inputs are held to
+# GROUPED_TOL (between the H100's reading, <= 2.1e-6 scaled, and the ~1e-3
+# that an intermediate rounded to bf16 would cost) and fp32 ones to FP32_TOL.
+GROUPED_TOL = 1e-4
+FP32_TOL = 1e-5
 # Full model, impl="cuda" vs impl="reference": max |logit difference| over
 # max |reference logit|.  Both run bf16 through 24 layers and differ only in
-# where attention rounds to bf16.
+# where attention rounds to bf16 (and, for MoE, in the order of the expert
+# FFN's fp32 sums).
 LOGIT_TOL = 5e-2
 # The raw init (embedding std 1.0, tied unembedding) makes every next-token
 # distribution almost one-hot; scaled by 0.05 the logits' spread is ~1.5.
@@ -84,7 +98,7 @@ def sync(device):
         torch.cuda.synchronize()
 
 
-KERNELS = (flash_mha, flash_decode, paged_flash_decode)
+KERNELS = (flash_mha, flash_decode, paged_flash_decode, grouped_ffn)
 
 
 def reset_launches():
@@ -185,7 +199,7 @@ def phase_kernels(device):
     pairs = b * hq * s * (s + 1) // 2
     bms, by = bound_ms(4 * d * pairs, 2 * (2 * q.numel() + 2 * k.numel()))
     out["flash_mha"] = dict(
-        max_abs_err=max(errs),
+        max_abs_err=max(errs), library="scaled_dot_product_attention",
         ms=time_ms(lambda: flash_mha(q, k, v, causal=True)),
         cold_ms=time_cold_ms(lambda: flash_mha(q, k, v, causal=True)),
         plain_ms=time_ms(lambda: ref.mha_ref(q, k, v, causal=True)),
@@ -218,18 +232,20 @@ def phase_kernels(device):
     ks, vs = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
     mask = (torch.arange(c, device=device)[None] < lens[:, None])[:, None, None]
     out["flash_decode"] = dict(
-        max_abs_err=max(errs),
+        max_abs_err=max(errs), library="scaled_dot_product_attention",
         ms=time_ms(lambda: flash_decode(q, kc, vc, cache_len=lens)),
         cold_ms=time_cold_ms(lambda: flash_decode(q, kc, vc, cache_len=lens)),
         plain_ms=time_ms(lambda: ref.decode_mha_ref(q, kc, vc, cache_len=lens)),
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)))
     out["paged_flash_decode"] = paged_kernel_case(randn, device, hq, hkv, d)
+    out["grouped_ffn"] = grouped_kernel_case(device)
     for name, r in out.items():
-        print(f"[kernels] {name}: ms={r['ms']:.4f} (warm L2) cold_ms={r['cold_ms']:.4f} "
-              f"(L2 flushed) plain_ms={r['plain_ms']:.4f} "
-              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"library_ms={r['library_ms']:.4f}")
+        for shape, t in [("", r)] + [(f" {k}", v) for k, v in r.items() if isinstance(v, dict)]:
+            print(f"[kernels] {name}{shape}: ms={t['ms']:.4f} (warm L2) cold_ms="
+                  f"{t['cold_ms']:.4f} (L2 flushed) plain_ms={t['plain_ms']:.4f} "
+                  f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) "
+                  f"library_ms={t['library_ms']:.4f} ({t['library']})")
     return out
 
 
@@ -289,13 +305,162 @@ def paged_kernel_case(randn, device, hq, hkv, d):
         return sdpa(q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True)
 
     return dict(
-        max_abs_err=max(errs),
+        max_abs_err=max(errs), library="table gather + scaled_dot_product_attention",
         ms=time_ms(lambda: paged_flash_decode(q, k_pool, v_pool, table, cache_len=lens)),
         cold_ms=time_cold_ms(lambda: paged_flash_decode(q, k_pool, v_pool, table,
                                                         cache_len=lens)),
         plain_ms=time_ms(lambda: ref.paged_decode_mha_ref(q, k_pool, v_pool, table,
                                                           cache_len=lens)),
         bound_ms=bms, bound_by=by, library_ms=time_ms(library))
+
+
+def routed_rows(x, router_w, k):
+    """Tokens ``x`` (T, D) under a top-``k`` router ``router_w`` (D, E),
+    fp32: (expert-sorted rows (T*k, D), group_sizes (E,) int32, the token
+    of each sorted row), as the dropless dispatch builds them."""
+    top_i = torch.topk(x.float() @ router_w, k, dim=-1).indices
+    _, st = MOE._sort_by_expert(top_i, k)
+    return x[st].contiguous(), MOE._group_sizes(top_i, router_w.shape[1]), st
+
+
+def grouped_library(xs, gs, wg, wi, wo):
+    """The closest PyTorch yardstick of grouped_ffn (no single call computes
+    the fused function): ``torch._grouped_mm`` for the three products with
+    silu between, in bf16, where this torch has it and takes these inputs;
+    else a loop of per-expert bf16 matmuls.  Timed only.  Returns (fn,
+    name)."""
+    silu = torch.nn.functional.silu
+    if hasattr(torch, "_grouped_mm"):
+        offs = torch.cumsum(gs, 0, dtype=torch.int32)
+
+        def fn():
+            h = (silu(torch._grouped_mm(xs, wg, offs=offs))
+                 * torch._grouped_mm(xs, wi, offs=offs))
+            return torch._grouped_mm(h, wo, offs=offs)
+        try:
+            fn()
+            torch.cuda.synchronize()
+            return fn, "torch._grouped_mm x3 + silu, bf16"
+        except RuntimeError as exc:
+            print(f"[kernels] torch._grouped_mm refuses the inputs: "
+                  f"{str(exc).splitlines()[0][:120]}")
+    sizes = gs.tolist()
+
+    def loop():
+        outs, lo = [], 0
+        for e, n in enumerate(sizes):
+            if n:
+                x = xs[lo:lo + n]
+                outs.append((silu(x @ wg[e]) * (x @ wi[e])) @ wo[e])
+            lo += n
+        return torch.cat(outs)
+    return loop, "per-expert torch.matmul loop + silu, bf16"
+
+
+def grouped_kernel_case(device):
+    """grouped_ffn at granite-moe-1b-a400m's widths (32 experts, D 1024,
+    F 512, silu) with rows routed by a random fp32 router, top-8: a decode
+    step of 8 slots (N 64) and an admission prefill of 4 x 256 tokens
+    (N 8192) in bf16, the decode step in fp32, and edge cases (all rows to
+    one expert, groups straddling 16- and 64-row tiles with empty experts,
+    N not a multiple of the tile, rows past the total).  Then rows of the
+    prefill cohort alone in a 64-row cohort: their outputs must be the same
+    bits.  Times the decode shape (the JSON row) and the prefill shape."""
+    g = torch.Generator(device=device).manual_seed(2)
+    bf16 = torch.bfloat16
+    e, d, f, k = 32, 1024, 512, 8
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=device) * scale
+
+    w32 = (randn(e, d, f, scale=d ** -0.5), randn(e, d, f, scale=d ** -0.5),
+           randn(e, f, d, scale=f ** -0.5))
+    wb = tuple(w.to(bf16) for w in w32)
+    router = randn(d, e, scale=d ** -0.5)
+    x_dec, x_pre = randn(8, d), randn(4 * 256, d)
+    xs_dec, gs_dec, _ = routed_rows(x_dec.to(bf16), router, k)
+    xs_pre, gs_pre, st_pre = routed_rows(x_pre.to(bf16), router, k)
+    xs_dec32, gs_dec32, _ = routed_rows(x_dec, router, k)
+
+    def sizes(n, parts):
+        gs = torch.zeros(e, dtype=torch.int32, device=device)
+        for i, m in parts.items():
+            gs[i] = m
+        return randn(n, d).to(bf16), gs
+
+    spread = {i: 0 if i % 5 == 2 else 11 + 13 * (i % 7) for i in range(e)}
+    straddle = sizes(sum(spread.values()), spread)  # 64-row tiles, empty experts
+    tail = sizes(100, {0: 15, 3: 50, 31: 30})       # 100 rows, 95 in groups
+    cases = [("decode-N64", xs_dec, gs_dec, wb, GROUPED_TOL),
+             ("prefill-N8192", xs_pre, gs_pre, wb, GROUPED_TOL),
+             ("decode-N64-fp32", xs_dec32, gs_dec32, w32, FP32_TOL),
+             ("all-to-one-N40", *sizes(40, {17: 40}), wb, GROUPED_TOL),
+             (f"straddle-N{int(straddle[1].sum())}", *straddle, wb, GROUPED_TOL),
+             ("tail-N100", *tail, wb, GROUPED_TOL)]
+    errs, outs = [], {}
+    for name, xs, gs, ws, tol in cases:
+        got = grouped_ffn(xs, gs, *ws)
+        want = ref.grouped_ffn_ref(xs, gs, *ws)
+        torch.cuda.synchronize()
+        abs_err, rel_err = _max_err(got, want)
+        print(f"[kernels] grouped_ffn {name} (empty experts {int((gs == 0).sum())}): "
+              f"max_abs_err={abs_err:.3e} scaled_err={rel_err:.3e} (tol {tol})")
+        check(rel_err <= tol, f"grouped_ffn {name}: err {rel_err} > {tol}")
+        errs.append(abs_err)
+        outs[name] = got
+    total = int(tail[1].sum())
+    check(bool((outs["tail-N100"][total:] == 0).all()), "grouped_ffn: rows past the total "
+          "are not zero")
+
+    # the rows of the prefill cohort's first 8 tokens, alone
+    rows = torch.nonzero(st_pre < 8)[:, 0]
+    eid = ref.expert_ids_of(gs_pre, xs_pre.shape[0])[rows].long()
+    gs_sub = torch.zeros(e, dtype=torch.int32, device=device).scatter_add_(
+        0, eid, torch.ones_like(eid, dtype=torch.int32))
+    alone = grouped_ffn(xs_pre[rows].contiguous(), gs_sub, *wb)
+    cohort_diff = (alone - outs["prefill-N8192"][rows]).abs().max().item()
+    print(f"[kernels] grouped_ffn cohort independence: {rows.numel()} rows in the "
+          f"{xs_pre.shape[0]}-row cohort vs alone, max_abs_diff={cohort_diff:.3e}")
+    check(cohort_diff == 0.0, "grouped_ffn: a row's output depends on its cohort")
+
+    def timed(xs, gs):
+        hit = int((gs > 0).sum())
+        n = xs.shape[0]
+        nbytes = hit * 3 * d * f * 2 + n * d * 2 + n * d * 4 + e * 4
+        bms, by = bound_ms(6 * n * d * f, nbytes)
+        lib, lib_name = grouped_library(xs, gs, *wb)
+        return dict(ms=time_ms(lambda: grouped_ffn(xs, gs, *wb)),
+                    cold_ms=time_cold_ms(lambda: grouped_ffn(xs, gs, *wb)),
+                    plain_ms=time_ms(lambda: ref.grouped_ffn_ref(xs, gs, *wb)),
+                    bound_ms=bms, bound_by=by, library_ms=time_ms(lib), library=lib_name,
+                    n_rows=n, experts_hit=hit)
+
+    out = timed(xs_dec, gs_dec)
+    out["prefill"] = timed(xs_pre, gs_pre)
+    out.update(max_abs_err=max(errs), cohort_max_abs_diff=cohort_diff)
+    tile_sweep(x_pre, router, k, wb)
+    return out
+
+
+def tile_sweep(x, router, k, wb):
+    """Print grouped_ffn's time with each row tile over the first t
+    tokens' routed rows (N = k * t): ``grouped_expert._block_rows`` takes
+    16 rows below 32 rows per expert, else 64 (the same bits either way)."""
+    pick = grouped_expert._block_rows
+    e = wb[0].shape[0]
+    try:
+        for t in (8, 32, 128, 256, 512, 1024):
+            xs, gs, _ = routed_rows(x[:t].to(torch.bfloat16), router, k)
+            n = xs.shape[0]
+            row = {"picked": pick(n, e)}
+            for bm in (16, 64):
+                grouped_expert._block_rows = lambda n, e, bm=bm: bm
+                row[bm] = time_ms(lambda: grouped_ffn(xs, gs, *wb))
+            grouped_expert._block_rows = pick
+            print(f"[kernels] grouped_ffn row tile at N {n}: 16 rows {row[16]:.4f} ms, "
+                  f"64 rows {row[64]:.4f} ms (picked {row['picked']})")
+    finally:
+        grouped_expert._block_rows = pick
 
 
 # ------------------------------------------------------------------ phase 3
@@ -364,6 +529,36 @@ def phase_paged_slice(cfg, params, *, impl, batch=4, prompt_len=256, steps=8,
             "argmax_agreement": (got.argmax(-1) == want.argmax(-1)).float().mean().item()}
 
 
+def route_agreement(cfg, params, *, impl, **kw):
+    """``phase_slice`` with every router call's top-k expert set recorded:
+    adds the share of (token, layer) pairs whose set agrees between
+    ``impl`` and "reference" (a near-tie in the router may fall the other
+    way under bf16 attention rounding)."""
+    routes = []
+    router = MOE._router
+
+    def recording(*a, **k):
+        out = router(*a, **k)
+        routes.append(torch.sort(out[1], dim=-1).values)
+        return out
+    MOE._router = recording
+    try:
+        sl = phase_slice(cfg, params, impl=impl, **kw)
+    finally:
+        MOE._router = router
+    if not routes:  # no MoE layer
+        sl["route_agreement"] = None
+        return sl
+    if impl == "reference":  # one run: nothing to compare
+        sl["route_agreement"] = 1.0
+        return sl
+    half = len(routes) // 2
+    check(half > 0 and len(routes) == 2 * half, "router calls differ between the tiers")
+    same = torch.cat([(a == b).all(dim=-1) for a, b in zip(routes[:half], routes[half:])])
+    sl["route_agreement"] = same.float().mean().item()
+    return sl
+
+
 # ------------------------------------------------------------------ phase 4
 
 def serve_prompts(cfg, *, requests=8, min_prompt=16, max_prompt=400, seed=0):
@@ -372,13 +567,20 @@ def serve_prompts(cfg, *, requests=8, min_prompt=16, max_prompt=400, seed=0):
             for n in rng.integers(min_prompt, max_prompt + 1, requests)]
 
 
+def moe_layers(cfg):
+    """Layers whose FFN is a dropless MoE: one grouped_ffn per forward."""
+    return sum(s.has_ffn for s in cfg.layers) if cfg.ffn_kind == "moe" else 0
+
+
 def predicted_launches(cfg, prompts, new):
     """One flash_mha per layer per bucket (the prefill), one flash_decode
-    per layer per decode step (new - 1 steps per bucket), no paged decode."""
+    per layer per decode step (new - 1 steps per bucket), no paged decode;
+    one grouped_ffn per MoE layer per prefill and per decode step."""
     n_buckets = len({bucket_of(len(p)) for p in prompts})
     return {"flash_mha": cfg.num_layers * n_buckets,
             "flash_decode": cfg.num_layers * (new - 1) * n_buckets,
-            "paged_flash_decode": 0}
+            "paged_flash_decode": 0,
+            "grouped_ffn": moe_layers(cfg) * new * n_buckets}
 
 
 def phase_serve(cfg, params, prompts, *, impl, new=64, seed=0):
@@ -415,17 +617,20 @@ def continuous_traffic(cfg, *, requests=16, min_prompt=16, max_prompt=400, min_n
 
 
 def phase_continuous(cfg, params, prompts, new, *, impl, n_slots=8, block_size=16,
-                     sync_every=4, seed=0):
-    """Serve with ``ContinuousBatchServer`` greedy, sampled, then greedy on a
-    pool of room for two full-length rows (preemption).  Each run counts
-    its admission dispatches by wrapping the server's ``_admit``, and the
-    kernels' launches from just before ``serve`` to just after.  Returns per
-    run the server's numbers, the launches and their prediction."""
+                     sync_every=4, seed=0, modes=("greedy", "sampled", "preempt")):
+    """Serve with ``ContinuousBatchServer`` in each of ``modes``: greedy,
+    sampled, greedy on a pool of room for two full-length rows (preemption;
+    after a greedy run).  Each run counts its admission dispatches by
+    wrapping the server's ``_admit``, and the kernels' launches from just
+    before ``serve`` to just after.  Returns per run the server's numbers,
+    the launches and their prediction."""
     device = params["embed"]["table"].device
     kw = dict(n_slots=n_slots, kv_block_size=block_size, max_prompt=max(map(len, prompts)),
               max_new=max(new), impl=impl, sync_every=sync_every)
     runs, full_row = {}, None
-    for mode, s in (("greedy", None), ("sampled", seed + 1), ("preempt", None)):
+    seeds = {"greedy": None, "sampled": seed + 1, "preempt": None}
+    for mode in modes:
+        s = seeds[mode]
         pool = PC.RESERVED_BLOCKS + 2 * full_row if mode == "preempt" else 0
         server = ContinuousBatchServer(cfg, params, max_kv_blocks=pool, **kw)
         full_row = server.max_blocks
@@ -456,31 +661,102 @@ def phase_continuous(cfg, params, prompts, new, *, impl, n_slots=8, block_size=1
             full_buffer_bytes=PC.full_buffer_bytes(cfg, len(prompts), server.max_len),
             launches=counts,
             predicted={"flash_mha": cfg.num_layers * admits[0], "flash_decode": 0,
-                       "paged_flash_decode": cfg.num_layers * sync_every * st["steps"]},
+                       "paged_flash_decode": cfg.num_layers * sync_every * st["steps"],
+                       "grouped_ffn": moe_layers(cfg) * (admits[0] + sync_every * st["steps"])},
             outputs=toks)
     return runs
 
 
 def bucketed_on(cfg, params, prompts, new, *, impl):
     """The bucketed server on the same traffic: it generates max(new) tokens
-    for every request; useful tokens/s counts only each request's own."""
+    for every request; useful tokens/s counts only each request's own.
+    Returns also its launches and their prediction."""
     device = params["embed"]["table"].device
     server = BatchServer(cfg, params, max_new=max(new), impl=impl)
     sync(device)
+    reset_launches()
     t0 = time.perf_counter()
     outs = server.serve(prompts)
     sync(device)
     dt = time.perf_counter() - t0
-    return {"seconds": dt, "useful_tokens_per_s": sum(new) / dt,
+    return {"seconds": dt, "useful_tokens_per_s": sum(new) / dt, "launches": launches(),
+            "predicted": predicted_launches(cfg, prompts, max(new)),
             "outputs": [o[:n].cpu().numpy() for o, n in zip(outs, new)]}
 
 
 # ------------------------------------------------------------------ main
 
+def report_slice(cfg, params):
+    """Phase 3 on the card for one model: cuda vs reference logits (and the
+    router's agreement for MoE), then paged vs dense decode."""
+    sl = route_agreement(cfg, params, impl="cuda")
+    routes = (f" route_agreement={sl['route_agreement']:.4f}" if moe_layers(cfg) else "")
+    print(f"[slice] {cfg.name} {cfg.num_layers} layers bf16: prefill_err="
+          f"{sl['prefill_err']:.3e} decode_err={sl['decode_err']:.3e} "
+          f"(of max |logit| {sl['logit_scale']:.3f}; tol {LOGIT_TOL}) "
+          f"argmax_agreement={sl['argmax_agreement']:.3f}{routes}")
+    check(sl["prefill_err"] <= LOGIT_TOL and sl["decode_err"] <= LOGIT_TOL,
+          f"{cfg.name}: cuda logits disagree with the reference")
+    pg = phase_paged_slice(cfg, params, impl="cuda")
+    print(f"[slice] {cfg.name} paged decode vs dense decode, both cuda: paged_err="
+          f"{pg['paged_err']:.3e} (of max |logit| {pg['logit_scale']:.3f}; tol {LOGIT_TOL}) "
+          f"argmax_agreement={pg['argmax_agreement']:.3f}")
+    check(pg["paged_err"] <= LOGIT_TOL, f"{cfg.name}: paged logits disagree with the dense "
+          "decode")
+
+
+def report_continuous(cfg, params, total, modes):
+    """Phase 5 on the card for one model; adds each run's launches to
+    ``total``."""
+    prompts, new = continuous_traffic(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    cruns = phase_continuous(cfg, params, prompts, new, impl="cuda", modes=modes)
+    path = ["flash_mha", "paged_flash_decode"] + (["grouped_ffn"] if moe_layers(cfg) else [])
+    for mode, r in cruns.items():
+        print(f"[continuous] {cfg.name} {mode}: {len(prompts)} requests (prompt lengths "
+              f"{sorted(len(p) for p in prompts)}, new {sum(new)} tokens), "
+              f"{r['tokens_per_s']:.1f} tokens/s in {r['seconds']:.3f}s, latency "
+              f"p50={r['p50_s']:.3f}s p99={r['p99_s']:.3f}s; steps={r['steps']} "
+              f"admissions={r['admissions']} preemptions={r['preemptions']} "
+              f"peak_blocks={r['peak_blocks']}/{r['pool_blocks'] - PC.RESERVED_BLOCKS} "
+              f"kv_peak_bytes={r['kv_peak_bytes']} "
+              f"full_buffer_bytes={r['full_buffer_bytes']}; launches {r['launches']} "
+              f"(predicted {r['predicted']})")
+        check(r["launches"] == r["predicted"],
+              f"continuous {mode}: launches {r['launches']} != {r['predicted']}")
+        check(all(r["launches"][k] > 0 for k in path),
+              f"continuous {mode}: a kernel of the path never launched")
+        for k in total:
+            total[k] += r["launches"][k]
+    bk = bucketed_on(cfg, params, prompts, new, impl="cuda")
+    check(bk["launches"] == bk["predicted"],
+          f"bucketed: launches {bk['launches']} != {bk['predicted']}")
+    for k in total:
+        total[k] += bk["launches"][k]
+    same_bk = sum(bool((a == b).all()) for a, b in zip(cruns["greedy"]["outputs"],
+                                                       bk["outputs"]))
+    agree = ""
+    if "preempt" in cruns:
+        check(cruns["preempt"]["preemptions"] >= 1, "the small pool preempted nothing")
+        n_agree = sum(bool((a == b).all()) for a, b in zip(cruns["greedy"]["outputs"],
+                                                           cruns["preempt"]["outputs"]))
+        agree = f"the preempted greedy run on {n_agree}/{len(prompts)} requests and "
+        # the runs batch rows differently, so in bf16 a near-tie may fall
+        # the other way in one request; more than one disagreeing is a fault
+        check(n_agree >= len(prompts) - 1, "greedy and preempted continuous runs disagree")
+    print(f"[continuous] {cfg.name} greedy equals {agree}the bucketed server on "
+          f"{same_bk}/{len(prompts)}; bucketed on the same traffic: "
+          f"{bk['useful_tokens_per_s']:.1f} useful tokens/s in {bk['seconds']:.3f}s, "
+          f"launches {bk['launches']} (predicted {bk['predicted']}); "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()} bytes")
+    check(same_bk >= len(prompts) - 1, "continuous and bucketed greedy outputs disagree")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -500,18 +776,7 @@ def main():
 
     cfg = get_config("qwen2-0.5b")
     params = make_params(cfg, seed=0, device=device)
-    sl = phase_slice(cfg, params, impl="cuda")
-    print(f"[slice] {cfg.name} {cfg.num_layers} layers bf16: prefill_err="
-          f"{sl['prefill_err']:.3e} decode_err={sl['decode_err']:.3e} "
-          f"(of max |logit| {sl['logit_scale']:.3f}; tol {LOGIT_TOL}) "
-          f"argmax_agreement={sl['argmax_agreement']:.3f}")
-    check(sl["prefill_err"] <= LOGIT_TOL and sl["decode_err"] <= LOGIT_TOL,
-          "cuda logits disagree with the reference")
-    pg = phase_paged_slice(cfg, params, impl="cuda")
-    print(f"[slice] paged decode vs dense decode, both cuda: paged_err={pg['paged_err']:.3e} "
-          f"(of max |logit| {pg['logit_scale']:.3f}; tol {LOGIT_TOL}) "
-          f"argmax_agreement={pg['argmax_agreement']:.3f}")
-    check(pg["paged_err"] <= LOGIT_TOL, "paged logits disagree with the dense decode")
+    report_slice(cfg, params)
 
     prompts = serve_prompts(cfg)
     want = predicted_launches(cfg, prompts, 64)
@@ -529,43 +794,16 @@ def main():
                                                      runs["sampled"]["outputs"]))
     print(f"[serve] sampled equals greedy on {same}/{len(prompts)} requests; "
           f"max_memory_allocated={torch.cuda.max_memory_allocated()} bytes")
+    report_continuous(cfg, params, total, ("greedy", "sampled", "preempt"))
+    del params
+    torch.cuda.empty_cache()
 
-    prompts, new = continuous_traffic(cfg)
-    torch.cuda.reset_peak_memory_stats()
-    cruns = phase_continuous(cfg, params, prompts, new, impl="cuda")
-    for mode, r in cruns.items():
-        print(f"[continuous] {mode}: {len(prompts)} requests (prompt lengths "
-              f"{sorted(len(p) for p in prompts)}, new {sum(new)} tokens), "
-              f"{r['tokens_per_s']:.1f} tokens/s in {r['seconds']:.3f}s, latency "
-              f"p50={r['p50_s']:.3f}s p99={r['p99_s']:.3f}s; steps={r['steps']} "
-              f"admissions={r['admissions']} preemptions={r['preemptions']} "
-              f"peak_blocks={r['peak_blocks']}/{r['pool_blocks'] - PC.RESERVED_BLOCKS} "
-              f"kv_peak_bytes={r['kv_peak_bytes']} "
-              f"full_buffer_bytes={r['full_buffer_bytes']}; launches {r['launches']} "
-              f"(predicted {r['predicted']})")
-        check(r["launches"] == r["predicted"],
-              f"continuous {mode}: launches {r['launches']} != {r['predicted']}")
-        check(r["launches"]["flash_mha"] > 0 and r["launches"]["paged_flash_decode"] > 0,
-              f"continuous {mode}: a kernel of the path never launched")
-        for k in total:
-            total[k] += r["launches"][k]
-    check(cruns["preempt"]["preemptions"] >= 1, "the small pool preempted nothing")
-    agree = sum(bool((a == b).all()) for a, b in zip(cruns["greedy"]["outputs"],
-                                                     cruns["preempt"]["outputs"]))
-    bk = bucketed_on(cfg, params, prompts, new, impl="cuda")
-    same_bk = sum(bool((a == b).all()) for a, b in zip(cruns["greedy"]["outputs"],
-                                                       bk["outputs"]))
-    print(f"[continuous] greedy equals the preempted greedy run on {agree}/{len(prompts)} "
-          f"requests and the bucketed server on {same_bk}/{len(prompts)}; bucketed on "
-          f"the same traffic: {bk['useful_tokens_per_s']:.1f} useful tokens/s in "
-          f"{bk['seconds']:.3f}s; max_memory_allocated="
-          f"{torch.cuda.max_memory_allocated()} bytes")
-    # the three runs batch rows differently, so in bf16 a near-tie may fall
-    # the other way in one request; more than one disagreeing is a fault
-    check(agree >= len(prompts) - 1, "greedy and preempted continuous runs disagree")
-    check(same_bk >= len(prompts) - 1, "continuous and bucketed greedy outputs disagree")
+    cfg = get_config("granite-moe-1b-a400m")
+    params = make_params(cfg, seed=0, device=device)
+    report_slice(cfg, params)
+    report_continuous(cfg, params, total, ("greedy", "sampled"))
 
-    source ="src/repro_torch/kernels/csrc/"
+    source = "src/repro_torch/kernels/csrc/"
     rows = [dict(name="flash_mha", route="cuda", source=source + "flash_attention.cu",
                  replaces="src/repro/kernels/flash_attention.py:91",
                  launches=total["flash_mha"], **kern["flash_mha"]),
@@ -575,11 +813,15 @@ def main():
             dict(name="paged_flash_decode", route="cuda",
                  source=source + "paged_decode_attention.cu",
                  replaces="src/repro/kernels/paged_decode_attention.py:43",
-                 launches=total["paged_flash_decode"], **kern["paged_flash_decode"])]
+                 launches=total["paged_flash_decode"], **kern["paged_flash_decode"]),
+            dict(name="grouped_ffn", route="cuda", source=source + "grouped_expert.cu",
+                 replaces="src/repro/kernels/grouped_expert.py:73",
+                 launches=total["grouped_ffn"], **kern["grouped_ffn"])]
     for r in rows:
         check(all(math.isfinite(r[k]) for k in ("ms", "cold_ms", "plain_ms", "bound_ms",
                                                 "library_ms")),
               f"{r['name']}: non-finite time")
+    print(f"[time] chip_smoke wall time {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Where the time of one serve goes, on a CUDA card.
 
-    PYTHONPATH=src python scripts/profile_torch_serve.py [--engine bucketed|continuous]
+    PYTHONPATH=src python scripts/profile_torch_serve.py [--engine bucketed|continuous] \
+        [--arch qwen2-0.5b|granite-moe-1b-a400m]
 
 ``--engine bucketed`` (the default) serves the requests of ``chip_smoke.py``
 phase 4 with ``BatchServer`` (``--requests``, ``--new`` tokens each);
 ``--engine continuous`` serves phase 5's traffic (16 ragged requests, 8-64
 new tokens each) with ``ContinuousBatchServer`` (8 slots, blocks of 16).
-Full-width qwen2-0.5b, seeded random weights, greedy: once to warm up, then
-once under ``torch.profiler``.  Prints the wall time, the device's busy time (the
-union of the intervals of its kernels, copies and fills) and idle share,
+Full-width ``--arch`` (default qwen2-0.5b), seeded random weights, greedy:
+once to warm up, then once under ``torch.profiler``.  Prints the wall time,
+the device's busy time (the union of the intervals of its kernels, copies
+and fills) and idle share,
 and the device events that took the most time, with their counts.  Fails
 without a card, or when the trace holds no device activity.
 """
@@ -54,11 +56,12 @@ def main(argv=None):
     ap.add_argument("--new", type=int, default=64)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--engine", default="bucketed", choices=["bucketed", "continuous"])
+    ap.add_argument("--arch", default="qwen2-0.5b")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 1
-    cfg = get_config("qwen2-0.5b")
+    cfg = get_config(args.arch)
     params = chip_smoke.make_params(cfg, seed=0, device="cuda")
     if args.engine == "bucketed":
         prompts = chip_smoke.serve_prompts(cfg, requests=args.requests)
@@ -95,8 +98,8 @@ def main(argv=None):
     for e in kernels:
         by_name[e.name][0] += e.time_range.elapsed_us()
         by_name[e.name][1] += 1
-    print(f"[profile] {torch.cuda.get_device_name(0)}; {args.engine}, {len(prompts)} "
-          f"requests, {what}, greedy")
+    print(f"[profile] {torch.cuda.get_device_name(0)}; {cfg.name}, {args.engine}, "
+          f"{len(prompts)} requests, {what}, greedy")
     print(f"[profile] wall_us={wall_us:.0f} device_busy_us={busy:.0f} "
           f"idle_share={1 - busy / wall_us:.4f} device_events={len(kernels)}")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:args.top]:

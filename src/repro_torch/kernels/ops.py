@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (decode_attention, flash_attention,
+from repro_torch.kernels import (decode_attention, flash_attention, grouped_expert,
                                  paged_decode_attention, ref)
 
 IMPLS = ("reference", "cuda")
@@ -60,6 +60,17 @@ def paged_decode_mha(q, k_pool, v_pool, block_table, *, cache_len, impl="cuda"):
                                         cache_len=cache_len)
     return paged_decode_attention.paged_flash_decode(
         q, k_pool, v_pool, block_table, cache_len=cache_len)
+
+
+def grouped_ffn(xs, group_sizes, w_gate, w_in, w_out, *, act="silu", impl="cuda"):
+    """Grouped gated expert FFN over expert-sorted rows (dropless MoE); see
+    ``ref.grouped_ffn_ref``.  Returns (N, D) float32 on every tier: the
+    combine caller casts once.  Row i's result depends only on row i and
+    its expert's weights, so a token gets the same value in any cohort."""
+    _check(impl, xs, group_sizes, w_gate, w_in, w_out)
+    if impl == "reference":
+        return ref.grouped_ffn_ref(xs, group_sizes, w_gate, w_in, w_out, act=act)
+    return grouped_expert.grouped_ffn(xs, group_sizes, w_gate, w_in, w_out, act=act)
 
 
 # ---------------------------------------------------------------- sampling

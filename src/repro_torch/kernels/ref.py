@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the kernels: attention and the grouped expert
+FFN.
 
 They compute what the JAX package's ``kernels/ref.py`` computes, on the same
 layouts: the CPU tests hold them against it, and ``chip_smoke.py`` holds the
@@ -125,3 +126,42 @@ def _gelu_tanh(x):
 
 # "gelu" is the tanh approximation, as jax.nn.gelu's default
 ACTS = {"silu": F.silu, "gelu": _gelu_tanh}
+
+
+# ---------------------------------------------------------------------------
+# Grouped (dropless MoE) expert FFN
+# ---------------------------------------------------------------------------
+
+def expert_ids_of(group_sizes, n: int):
+    """Per-row expert id of the expert-sorted layout: row i belongs to the
+    first expert whose inclusive cumsum offset exceeds i.  Rows past the
+    total are clamped to the last expert (``grouped_ffn_ref`` zeroes
+    them).  Returns (n,) int32."""
+    ends = torch.cumsum(group_sizes.to(torch.int32), 0, dtype=torch.int32)
+    rows = torch.arange(n, dtype=torch.int32, device=group_sizes.device)
+    eid = torch.searchsorted(ends, rows, right=True, out_int32=True)
+    return eid.clamp(max=group_sizes.shape[0] - 1)
+
+
+def grouped_ffn_ref(xs, group_sizes, w_gate, w_in, w_out, *, act="silu"):
+    """Grouped gated expert FFN over expert-sorted rows (dropless MoE).
+
+    xs: (N, D) rows sorted by expert; group_sizes: (E,) int32 rows per
+    expert (should sum to N; rows past the total come out as zeros);
+    w_gate/w_in: (E, D, F); w_out: (E, F, D).  Row i runs through expert
+    ``expert_ids_of(group_sizes, N)[i]`` only.  A loop over experts, each
+    taking ``act(x @ Wg[e]) * (x @ Wi[e]) @ Wo[e]`` on its contiguous rows
+    in fp32 (the JAX package's per-row gather would hold N x D x F values).
+    Reads the group offsets back to the host.  Returns (N, D) float32."""
+    n, d = xs.shape
+    f32 = torch.float32
+    out = torch.zeros((n, d), dtype=f32, device=xs.device)
+    lo = 0
+    for e, end in enumerate(torch.cumsum(group_sizes, 0).tolist()):
+        hi = min(int(end), n)
+        if hi > lo:
+            x = xs[lo:hi].to(f32)
+            h = ACTS[act](x @ w_gate[e].to(f32)) * (x @ w_in[e].to(f32))
+            out[lo:hi] = h @ w_out[e].to(f32)
+        lo = max(lo, hi)
+    return out

@@ -1,0 +1,85 @@
+"""Top-k MoE FFN with the dropless grouped dispatch (the JAX package's
+``models/moe.py``, ``moe_dispatch="dropless"``).
+
+Each token's (token, expert) assignments are stably sorted by expert, the
+expert-sorted rows go through one grouped expert FFN (``ops.grouped_ffn``)
+over the real row count, and the results are combined with the router
+weights renormalised over the token's own top-k.  No capacity buffer and no
+drops, so a token's output does not depend on the cohort it is computed in
+(training forward, prefill or a decode step).
+
+Nothing here reads back to the host: ``group_sizes`` is an int32
+``scatter_add_``, the kernel derives its work units from it on the device,
+and the combine un-permutes the expert outputs and sums over k in a fixed
+order in fp32 (no float atomics), then casts once.
+
+Serving only: the Switch load-balance loss of the training forward, the
+legacy ``"capacity"`` dispatch and Arctic's dense-residual FFN are not
+ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+
+def moe_init(gen, cfg: ModelConfig, device):
+    dt = L.dtype_of(cfg)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.expert_d_ff
+    return {
+        "router": L.dense_init(gen, d, e, torch.float32, device),
+        "w_gate": L.truncated_normal(gen, (e, d, f), dt, d ** -0.5, device),
+        "w_in": L.truncated_normal(gen, (e, d, f), dt, d ** -0.5, device),
+        "w_out": L.truncated_normal(gen, (e, f, d), dt, f ** -0.5, device),
+    }
+
+
+def _router(p, cfg: ModelConfig, xf):
+    """(T, D) -> (top_w (T, K) f32, top_i (T, K) int64)."""
+    logits = L.dense_apply(p["router"], xf.to(torch.float32))
+    return torch.topk(torch.softmax(logits, dim=-1), cfg.top_k, dim=-1)
+
+
+def _group_sizes(top_i, e: int):
+    """Rows per expert, (E,) int32, as an integer scatter-add on the device."""
+    flat = top_i.reshape(-1)
+    return torch.zeros((e,), dtype=torch.int32, device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.int32))
+
+
+def _sort_by_expert(top_i, k: int):
+    """Stably sort the flattened (T, K) assignments by expert.  Returns
+    (order, st): the sorted flat indices and their token ids."""
+    order = torch.argsort(top_i.reshape(-1), stable=True)
+    return order, torch.div(order, k, rounding_mode="floor")
+
+
+def _dispatch_dropless(p, cfg: ModelConfig, xf, top_w, top_i, impl):
+    t, d = xf.shape
+    k = cfg.top_k
+    top_w = top_w / top_w.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+    order, st = _sort_by_expert(top_i, k)
+    ys = ops.grouped_ffn(xf[st], _group_sizes(top_i, cfg.n_experts), p["w_gate"],
+                         p["w_in"], p["w_out"], act=cfg.act, impl=impl)  # (T*K, D) f32
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.numel(), device=order.device))
+    y = ys[inv].view(t, k, d) * top_w.to(torch.float32)[:, :, None]
+    # sum over k as a fixed pairwise tree: the same order for every token
+    # in every cohort
+    while y.shape[1] > 1:
+        half = y.shape[1] // 2
+        head = y[:, :half] + y[:, half:2 * half]
+        y = torch.cat([head, y[:, 2 * half:]], dim=1) if y.shape[1] % 2 else head
+    return y[:, 0].to(xf.dtype)
+
+
+def moe_apply(p, cfg: ModelConfig, x, *, impl="cuda"):
+    """x: (B, S, D) -> (B, S, D) in x's dtype."""
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    top_w, top_i = _router(p, cfg, xf)
+    return _dispatch_dropless(p, cfg, xf, top_w, top_i, impl).reshape(b, s, d)

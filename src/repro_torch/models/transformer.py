@@ -8,8 +8,9 @@ Four execution paths share the parameters:
   * ``stack_paged_decode`` - single-token step with per-row positions through
                              paged caches (continuous batching)
 
-Only attention mixers with a gated-MLP FFN are ported; RG-LRU, SSM, MoE and
-cross-attention raise ``NotImplementedError``.
+Attention mixers are ported, with a gated-MLP FFN or a dropless MoE FFN
+(``models/moe.py``).  RG-LRU, SSM and cross-attention raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from repro_torch.configs.base import ATTN, LayerSpec, ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 
 def check_supported(cfg: ModelConfig):
@@ -27,7 +29,7 @@ def check_supported(cfg: ModelConfig):
     if kinds != {ATTN}:
         raise NotImplementedError(f"{cfg.name}: mixers {sorted(kinds - {ATTN})} "
                                   "are not ported (attention only)")
-    if cfg.ffn_kind not in ("gated", "none"):
+    if cfg.ffn_kind not in ("gated", "moe", "none"):
         raise NotImplementedError(f"{cfg.name}: ffn_kind={cfg.ffn_kind!r} is not ported")
     if cfg.family == "encdec" or cfg.prefix_len:
         raise NotImplementedError(f"{cfg.name}: encoder/prefix inputs are not ported")
@@ -39,14 +41,17 @@ def block_init(gen, cfg: ModelConfig, spec: LayerSpec, device):
          "mixer": A.attn_init(gen, cfg, device)}
     if spec.has_ffn and cfg.ffn_kind != "none":
         p["ln2"] = L.rmsnorm_init(cfg.d_model, dt, device)
-        p["ffn"] = L.mlp_init(gen, cfg, device)
+        p["ffn"] = (M.moe_init(gen, cfg, device) if cfg.ffn_kind == "moe"
+                    else L.mlp_init(gen, cfg, device))
     return p
 
 
-def _ffn(p, cfg, x):
+def _ffn(p, cfg, x, impl):
     if "ffn" not in p:
         return x
     h = L.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+    if cfg.ffn_kind == "moe":
+        return x + M.moe_apply(p["ffn"], cfg, h, impl=impl)
     return x + L.mlp_apply(p["ffn"], cfg, h)
 
 
@@ -55,7 +60,7 @@ def block_apply(p, cfg, spec, x, rope, *, impl="cuda"):
     prefill caching."""
     h = L.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     y, kv = A.attn_apply_with_kv(p["mixer"], cfg, spec, h, rope, impl=impl)
-    return _ffn(p, cfg, x + y), kv
+    return _ffn(p, cfg, x + y, impl), kv
 
 
 def block_decode(p, cfg, spec, x, cache, t, rope, cache_len, *, impl="cuda"):
@@ -63,7 +68,7 @@ def block_decode(p, cfg, spec, x, cache, t, rope, cache_len, *, impl="cuda"):
     h = L.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     y = A.attn_decode_apply(p["mixer"], cfg, spec, h, cache, t, rope, cache_len,
                             impl=impl)
-    return _ffn(p, cfg, x + y)
+    return _ffn(p, cfg, x + y, impl)
 
 
 def block_paged_decode(p, cfg, spec, x, cache, block_table, dest, rope, cache_len,
@@ -79,7 +84,7 @@ def block_paged_decode(p, cfg, spec, x, cache, block_table, dest, rope, cache_le
     else:
         y = A.ragged_attn_decode_apply(p["mixer"], cfg, spec, h, cache, dest, rope,
                                        cache_len, impl=impl)
-    return _ffn(p, cfg, x + y)
+    return _ffn(p, cfg, x + y, impl)
 
 
 def stack_init(gen, cfg: ModelConfig, device):

@@ -9,16 +9,21 @@ package, so it runs where only PyTorch is installed:
 Tolerance: |kernel - plain| <= TOL * (1 + |plain|).  In fp32 both sides
 differ only in summation order; in bf16 the plain version rounds scores and
 probabilities to bf16 before its second product and the kernels do not
-(2e-2 is the JAX package's bf16 tolerance for its own kernels).
+(2e-2 is the JAX package's bf16 tolerance for its own kernels).  The
+grouped expert FFN takes fp32 products of the same values on both sides in
+either dtype, so it is held to GROUPED_TOL: 1e-4 in bf16 lies between the
+card's reading (<= 2.1e-6) and what an intermediate rounded to bf16 would
+cost (~1e-3).  Its cohort independence is held bit for bit.
 """
 
 import pytest
 import torch
 
-from repro_torch.kernels import (decode_attention, flash_attention, paged_decode_attention,
-                                 ref)
+from repro_torch.kernels import (decode_attention, flash_attention, grouped_expert, ops,
+                                 paged_decode_attention, ref)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+GROUPED_TOL = {"float32": 1e-5, "bfloat16": 1e-4}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # flash grid of tests/test_kernels.py, plus G = 7 (qwen2-0.5b) and G = 3
@@ -60,12 +65,12 @@ def _randn(gen, shape, dtype, device):
     return torch.randn(shape, generator=gen, device=device).to(DTYPES[dtype])
 
 
-def _close(got, want, dtype):
+def _close(got, want, dtype, tol=TOL):
     torch.cuda.synchronize()
     got, want = got.float(), want.float()
     assert torch.isfinite(got).all()
     err = ((got - want).abs() / (1 + want.abs())).max().item()
-    assert err <= TOL[dtype], err
+    assert err <= tol[dtype], err
 
 
 @pytest.mark.cuda
@@ -212,3 +217,104 @@ def test_paged_wrapper_rejects_what_the_kernel_does_not_take():
         paged(q, shifted, shifted, table, cache_len=lens)
     with pytest.raises(ValueError, match="unsupported"):  # G = 17 > 16
         paged(torch.zeros(2, 34, 64, device=dev), pool, pool, table, cache_len=lens)
+
+
+# grouped expert FFN: (D, F, E) of the kernel grid; each at a decode-sized
+# cohort (16-row tiles) and one past 32 * E rows (64-row tiles)
+GROUPED_GRID = [(d, f, e) for d in (16, 64, 1024) for f in (32, 512) for e in (4, 32)]
+
+
+def _grouped_inputs(gen, n, d, f, e, dtype, dev, sizes=None):
+    """Rows and weights at the init's scales; group sizes from a random
+    routing (``sizes`` None) or as given."""
+    xs = _randn(gen, (n, d), dtype, dev)
+    ws = (_randn(gen, (e, d, f), dtype, dev) * d ** -0.5,
+          _randn(gen, (e, d, f), dtype, dev) * d ** -0.5,
+          _randn(gen, (e, f, d), dtype, dev) * f ** -0.5)
+    if sizes is None:
+        eid = torch.sort(torch.randint(0, e, (n,), generator=gen, device=dev)).values
+        gs = torch.zeros(e, dtype=torch.int32, device=dev).scatter_add_(
+            0, eid, torch.ones_like(eid, dtype=torch.int32))
+    else:
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    return xs, gs, ws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,f,e", GROUPED_GRID)
+def test_grouped_ffn_kernel_matches_plain(d, f, e, dtype):
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for n in (40, 32 * e + 5):
+        xs, gs, ws = _grouped_inputs(gen, n, d, f, e, dtype, dev)
+        _close(grouped_expert.grouped_ffn(xs, gs, *ws), ref.grouped_ffn_ref(xs, gs, *ws),
+               dtype, GROUPED_TOL)
+
+
+# (N, group sizes): an empty expert, all rows to one expert, groups that
+# straddle 16- and 64-row tiles, N not a multiple of the tile, and rows
+# past the total (which come out as zeros)
+GROUPED_EDGES = [
+    (40, [10, 0, 25, 5]),
+    (33, [0, 0, 33, 0]),
+    (7, [7, 0, 0, 0]),
+    (129, [64, 65, 0, 0]),
+    (300, [1, 130, 0, 169]),
+    (16, [4, 4, 4, 4]),
+    (100, [15, 0, 50, 30]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,sizes", GROUPED_EDGES)
+def test_grouped_ffn_kernel_edge_cases(n, sizes, dtype):
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    xs, gs, ws = _grouped_inputs(gen, n, 64, 32, 4, dtype, dev, sizes)
+    got = grouped_expert.grouped_ffn(xs, gs, *ws)
+    _close(got, ref.grouped_ffn_ref(xs, gs, *ws), dtype, GROUPED_TOL)
+    assert not got[sum(sizes):].any()  # rows past the total
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_ffn_kernel_is_cohort_independent(dtype):
+    """Rows of a 1,029-row cohort (64-row tiles) alone in a 40-row cohort
+    (16-row tiles): each row's output has the same bits."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(8)
+    e = 32
+    xs, gs, ws = _grouped_inputs(gen, 32 * e + 5, 1024, 512, e, dtype, dev)
+    full = grouped_expert.grouped_ffn(xs, gs, *ws)
+    rows = torch.sort(torch.randperm(xs.shape[0], generator=gen, device=dev)[:40]).values
+    eid = ref.expert_ids_of(gs, xs.shape[0])[rows].long()
+    sub = torch.zeros(e, dtype=torch.int32, device=dev).scatter_add_(
+        0, eid, torch.ones_like(eid, dtype=torch.int32))
+    alone = grouped_expert.grouped_ffn(xs[rows].contiguous(), sub, *ws)
+    torch.cuda.synchronize()
+    assert torch.equal(alone, full[rows])
+
+
+@pytest.mark.cuda
+def test_grouped_ffn_wrapper_rejects_what_the_kernel_does_not_take():
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    xs, gs, ws = _grouped_inputs(gen, 16, 64, 32, 4, "float32", dev, [4, 4, 4, 4])
+    grouped = grouped_expert.grouped_ffn
+    with pytest.raises(ValueError, match="impl='cuda' needs CUDA tensors"):
+        ops.grouped_ffn(xs.cpu(), gs.cpu(), *(w.cpu() for w in ws))
+    with pytest.raises(TypeError, match="dtypes"):
+        grouped(xs.to(torch.bfloat16), gs, *ws)
+    with pytest.raises(TypeError, match="int32"):
+        grouped(xs, gs.long(), *ws)
+    with pytest.raises(ValueError, match="unsupported"):
+        grouped(xs, gs, ws[0], ws[1], ws[0])  # w_out (E, D, F)
+    with pytest.raises(ValueError, match="unsupported"):  # D not a multiple of 8
+        grouped(xs[:, :60].contiguous(), gs, *(w[:, :60].contiguous() for w in ws[:2]),
+                ws[2][:, :, :60].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        grouped(xs, gs, ws[0].transpose(1, 2).contiguous().transpose(1, 2), *ws[1:])
+    with pytest.raises(ValueError, match="act"):
+        grouped(xs, gs, *ws, act="gelu")

@@ -153,7 +153,7 @@ def test_chip_smoke_phases_on_cpu(chip_smoke, monkeypatch):
     n_buckets = len({tserve.bucket_of(len(p)) for p in prompts})
     assert n_buckets >= 2
     assert want == {"flash_mha": 2 * n_buckets, "flash_decode": 2 * 4 * n_buckets,
-                    "paged_flash_decode": 0}
+                    "paged_flash_decode": 0, "grouped_ffn": 0}
     assert calls == {k: 2 * v for k, v in want.items()}  # greedy + sampled
     assert all(not any(r["launches"].values())
                for r in runs.values())  # no kernel ran on the reference tier
@@ -164,7 +164,7 @@ def test_chip_smoke_phases_on_cpu(chip_smoke, monkeypatch):
 def _count_ops(monkeypatch):
     """Count the ops calls that stand in for kernel launches on the
     reference tier."""
-    calls = {"flash_mha": 0, "flash_decode": 0, "paged_flash_decode": 0}
+    calls = {"flash_mha": 0, "flash_decode": 0, "paged_flash_decode": 0, "grouped_ffn": 0}
 
     def count(name, fn):
         def wrapped(*a, **k):
@@ -172,7 +172,8 @@ def _count_ops(monkeypatch):
             return fn(*a, **k)
         return wrapped
     for op, name in (("mha", "flash_mha"), ("decode_mha", "flash_decode"),
-                     ("paged_decode_mha", "paged_flash_decode")):
+                     ("paged_decode_mha", "paged_flash_decode"),
+                     ("grouped_ffn", "grouped_ffn")):
         monkeypatch.setattr(ops, op, count(name, getattr(ops, op)))
     return calls
 
