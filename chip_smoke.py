@@ -7,13 +7,19 @@ Phases, in order; any failure exits non-zero before the last line:
   1. print the card's name and power limit; build the CUDA kernels from
      src/repro_torch/kernels/csrc (one nvcc per source, started together);
   2. hold each kernel against its plain PyTorch version on the card at this
-     slice's shapes (bf16; grouped_ffn also in fp32 and on edge cases) and
-     time kernel (inputs warm in L2 as ``ms``, L2 flushed before each call
-     as ``cold_ms``), plain version, bound and one PyTorch library call;
-     grouped_ffn's rows are also held bit-exact between an 8192-row and a
-     64-row cohort, and timed with each row tile over N;
-  3. full-width qwen2-0.5b and granite-moe-1b-a400m (24 layers each, bf16,
-     seeded random weights): prefill last-position logits and 8
+     slice's shapes (bf16; grouped_ffn also in fp32 and on edge cases;
+     flash_mha and flash_decode also at recurrentgemma-9b's D = 256,
+     ssd_scan at mamba2-1.3b's widths, rglru_scan at recurrentgemma-9b's in
+     fp32) and time kernel (inputs warm in L2 as ``ms``, L2 flushed before
+     each call as ``cold_ms``), plain version, bound and one PyTorch library
+     call where one computes the same function; grouped_ffn's rows are also
+     held bit-exact between an 8192-row and a 64-row cohort, and timed with
+     each row tile over N;
+  3. full-width qwen2-0.5b and granite-moe-1b-a400m (24 layers each), then
+     mamba2-1.3b (48 SSD layers) and recurrentgemma-9b (26 RG-LRU and 12
+     local-attention layers), all at full depth, bf16, seeded random
+     weights (the recurrent mixers' constant init leaves drawn at random):
+     prefill last-position logits and 8
      teacher-forced decode steps under impl="cuda" against
      impl="reference" (for granite also the share of (token, layer) pairs
      whose top-k expert set agrees); then the same prompts admitted through
@@ -27,7 +33,10 @@ Phases, in order; any failure exits non-zero before the last line:
      then (qwen2-0.5b only) greedy on a pool too small for all rows
      (preemption), with the launch counts held to the prediction; then the
      bucketed server on the same traffic, its launches held too; qwen2-0.5b
-     first, then granite-moe-1b-a400m.
+     first, then granite-moe-1b-a400m, mamba2-1.3b and recurrentgemma-9b
+     (one ssd_scan per SSM layer and one rglru_scan per RG-LRU layer per
+     prefill, one flash_decode per local-attention layer per decode step).
+Each model's parameters are freed before the next is built.
 Then one JSON line of kernel numbers, and last {"ok": true, "device": ...}.
 
 Phases 3 to 5 are functions of (config, params, impl) so the CPU tests
@@ -36,6 +45,7 @@ rehearse them at the reduced size with impl="reference".
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -49,11 +59,14 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import ATTN, LRU, SSM  # noqa: E402
 from repro_torch.kernels import build, grouped_expert, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import flash_decode  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_mha  # noqa: E402
 from repro_torch.kernels.grouped_expert import grouped_ffn  # noqa: E402
 from repro_torch.kernels.paged_decode_attention import paged_flash_decode  # noqa: E402
+from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.launch.serve import (BatchServer, ContinuousBatchServer,  # noqa: E402
                                       bucket_of)
 from repro_torch.models import layers as L  # noqa: E402
@@ -75,11 +88,37 @@ KERNEL_TOL = 2e-2
 # that an intermediate rounded to bf16 would cost) and fp32 ones to FP32_TOL.
 GROUPED_TOL = 1e-4
 FP32_TOL = 1e-5
+# ssd_scan vs its plain version run in fp32 on the same values: the fp32
+# products are the same, summed in another order over other spans (the
+# kernel's 64-row pieces against the plain version's 128-row chunks).
+# FP32_SCAN_TOL lies between the H100's reading (5.7e-6 scaled) and that of
+# the plain version with a bf16 state or a bf16 x * dt (1.1e-2, 2.0e-2;
+# scripts/limit_controls.py, PERF.md).
+FP32_SCAN_TOL = 1e-4
+# In bf16 the kernel also rounds y once: bf16's unit roundoff 2^-8 of |y|
+# more (H100: 3.4e-3; a bf16 state 1.2e-2).
+SSD_BF16_TOL = 2.0 ** -8 + FP32_SCAN_TOL
+# rglru_scan vs its plain version in fp32 (the model's gates are fp32):
+# both carry fp32 and differ only in the scan's association order
+# (FP32_TOL).
+# Where greedy continuous and bucketed outputs of a model with recurrent
+# mixers part, the larger of both tokens' distances below the top logit,
+# over the top |logit|: between the H100's largest sound reading (1.5e-2)
+# and the largest with the last recurrent layer of each admitted slot fed
+# the next slot's state (4.9e-2 mamba2, 6.8e-2 recurrentgemma; > 1 with
+# every layer so fed; scripts/limit_controls.py, PERF.md).
+RECURRENT_TIE_TOL = 3e-2
 # Full model, impl="cuda" vs impl="reference": max |logit difference| over
-# max |reference logit|.  Both run bf16 through 24 layers and differ only in
-# where attention rounds to bf16 (and, for MoE, in the order of the expert
-# FFN's fp32 sums).
+# max |reference logit|.  Both run bf16 through every layer and differ only
+# in where attention rounds to bf16, in the order of the expert FFN's fp32
+# sums (MoE) and of the scans' fp32 sums (SSD, RG-LRU).
 LOGIT_TOL = 5e-2
+# The same comparison in fp32 at full width and a few layers, for the models
+# with recurrent mixers: both tiers then round nowhere to bf16, so what is
+# left is summation order (the kernels' fp32 FMAs against cuBLAS and the
+# plain versions), ~1e-6 of the largest logit; 1e-4 leaves room for the
+# SSD's chunked decays (see FP32_SCAN_TOL).
+FP32_LOGIT_TOL = 1e-4
 # The raw init (embedding std 1.0, tied unembedding) makes every next-token
 # distribution almost one-hot; scaled by 0.05 the logits' spread is ~1.5.
 EMBED_SCALE = 0.05
@@ -98,7 +137,7 @@ def sync(device):
         torch.cuda.synchronize()
 
 
-KERNELS = (flash_mha, flash_decode, paged_flash_decode, grouped_ffn)
+KERNELS = (flash_mha, flash_decode, paged_flash_decode, grouped_ffn, ssd_scan, rglru_scan)
 
 
 def reset_launches():
@@ -110,10 +149,52 @@ def launches():
     return {k.__name__: k.launches for k in KERNELS}
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def make_params(cfg, *, seed, device):
+    """``init_params`` with the embedding scaled by EMBED_SCALE and the
+    recurrent mixers' constant leaves drawn at random (``randomize_mixers``)."""
     params = MDL.init_params(cfg, seed=seed, device=device)
     params["embed"]["table"].mul_(EMBED_SCALE)
+    randomize_mixers(params, seed=seed)
     return params
+
+
+def randomize_mixers(params, *, seed):
+    """The JAX init gives every SSD head A = -1, D = 1, dt_bias = 0 and every
+    RG-LRU channel lam = -1 with zero gates, so all heads and channels decay
+    alike.  Draw them instead, in place: A = -exp(a_log) in [-16, -1],
+    dt = softplus(dt_bias) in [1e-3, 1e-1] (log-uniform), D in [0.5, 1.5],
+    conv biases at std 0.1, lam in [-2, 2], gate weights and biases at std
+    0.5."""
+    dev = params["embed"]["table"].device
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def uniform(t, lo, hi):
+        return torch.rand(t.shape, generator=g, device=dev) * (hi - lo) + lo
+
+    def normal(t, std):
+        return torch.randn(t.shape, generator=g, device=dev) * std
+    for p in params["layers"]:
+        m = p["mixer"]
+        if "a_log" not in m and "lam" not in m:
+            continue
+        m["conv_b"].copy_(normal(m["conv_b"], 0.1))
+        if "a_log" in m:
+            m["a_log"].copy_(uniform(m["a_log"], 0.0, math.log(16.0)))
+            dt = torch.exp(uniform(m["dt_bias"], math.log(1e-3), math.log(1e-1)))
+            m["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))  # softplus^-1(dt)
+            m["d"].copy_(uniform(m["d"], 0.5, 1.5))
+        else:
+            m["lam"].copy_(uniform(m["lam"], -2.0, 2.0))
+            for name in ("gate_a_w", "gate_a_b", "gate_x_w", "gate_x_b"):
+                m[name].copy_(normal(m[name], 0.5))
 
 
 # ------------------------------------------------------------------ phase 2
@@ -205,6 +286,7 @@ def phase_kernels(device):
         plain_ms=time_ms(lambda: ref.mha_ref(q, k, v, causal=True)),
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)))
+    out["flash_mha"]["d256"] = mha_d256_case(randn, device)
 
     # flash_decode: 8 rows over a 1088-slot linear cache with ragged
     # lengths, then a ring cache (window 256) with a row of length 0
@@ -238,15 +320,173 @@ def phase_kernels(device):
         plain_ms=time_ms(lambda: ref.decode_mha_ref(q, kc, vc, cache_len=lens)),
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)))
+    out["flash_decode"]["d256"] = decode_d256_case(randn, device)
     out["paged_flash_decode"] = paged_kernel_case(randn, device, hq, hkv, d)
     out["grouped_ffn"] = grouped_kernel_case(device)
+    out["ssd_scan"] = ssd_kernel_case(device)
+    out["rglru_scan"] = rglru_kernel_case(device)
     for name, r in out.items():
         for shape, t in [("", r)] + [(f" {k}", v) for k, v in r.items() if isinstance(v, dict)]:
+            lib = ("none" if t["library_ms"] is None
+                   else f"{t['library_ms']:.4f} ({t['library']})")
             print(f"[kernels] {name}{shape}: ms={t['ms']:.4f} (warm L2) cold_ms="
                   f"{t['cold_ms']:.4f} (L2 flushed) plain_ms={t['plain_ms']:.4f} "
-                  f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) "
-                  f"library_ms={t['library_ms']:.4f} ({t['library']})")
+                  f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) library_ms={lib}")
     return out
+
+
+def held(name, got, want, tol=KERNEL_TOL):
+    """Synchronise, print and check one kernel-vs-plain comparison; returns
+    the max absolute error."""
+    torch.cuda.synchronize()
+    abs_err, rel_err = _max_err(got, want)
+    print(f"[kernels] {name}: max_abs_err={abs_err:.3e} scaled_err={rel_err:.3e} (tol {tol})")
+    check(rel_err <= tol, f"{name}: err {rel_err} > {tol}")
+    return abs_err
+
+
+def mha_d256_case(randn, device):
+    """flash_mha at recurrentgemma-9b's prefill shape: B 4, S 512, 16 query
+    heads on 1 KV head, D 256, the model's window 2048 (wider than S) and a
+    window of 128; timed with the model's window."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, s, hq, hkv, d = 4, 512, 16, 1, 256
+    q, k, v = randn(b, s, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
+    errs = [held(f"flash_mha d256 window{w}", flash_mha(q, k, v, causal=True, window=w),
+                 ref.mha_ref(q, k, v, causal=True, window=w)) for w in (2048, 128)]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    pairs = b * hq * s * (s + 1) // 2
+    bms, by = bound_ms(4 * d * pairs, 2 * (2 * q.numel() + 2 * k.numel()))
+    return dict(max_abs_err=max(errs), library="scaled_dot_product_attention",
+                ms=time_ms(lambda: flash_mha(q, k, v, causal=True, window=2048)),
+                cold_ms=time_cold_ms(lambda: flash_mha(q, k, v, causal=True, window=2048)),
+                plain_ms=time_ms(lambda: ref.mha_ref(q, k, v, causal=True, window=2048)),
+                bound_ms=bms, bound_by=by,
+                library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                                enable_gqa=True)))
+
+
+def decode_d256_case(randn, device):
+    """flash_decode at recurrentgemma-9b's decode shape: 8 rows of 16 query
+    heads on 1 KV head (G = 16), D 256, over the 576-slot ring of a
+    576-token budget (window 2048), ragged lengths with a row of 0 and rows
+    past the ring's length."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, c, hq, d = 8, 576, 16, 256
+    q, kc, vc = randn(b, hq, d), randn(b, c, 1, d), randn(b, c, 1, d)
+    lens = torch.tensor([0, 1, 64, 200, 333, 575, 576, 900], dtype=torch.int32,
+                        device=device)
+    err = held("flash_decode d256 ring576", flash_decode(q, kc, vc, cache_len=lens, window=2048),
+               ref.decode_mha_ref(q, kc, vc, cache_len=lens, window=2048))
+    n_keys = int(torch.where(lens > 0, lens.clamp(max=c), c).sum())
+    bms, by = bound_ms(4 * d * hq * n_keys, 2 * (2 * q.numel() + 2 * n_keys * d))
+    ks, vs = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    valid = torch.arange(c, device=device)[None] < lens.clamp(max=c)[:, None]
+    mask = (valid | (lens[:, None] == 0))[:, None, None]
+    return dict(max_abs_err=err, library="scaled_dot_product_attention",
+                ms=time_ms(lambda: flash_decode(q, kc, vc, cache_len=lens, window=2048)),
+                cold_ms=time_cold_ms(lambda: flash_decode(q, kc, vc, cache_len=lens,
+                                                          window=2048)),
+                plain_ms=time_ms(lambda: ref.decode_mha_ref(q, kc, vc, cache_len=lens,
+                                                            window=2048)),
+                bound_ms=bms, bound_by=by,
+                library_ms=time_ms(lambda: sdpa(q[:, :, None], ks, vs, attn_mask=mask,
+                                                enable_gqa=True)))
+
+
+SSD_H, SSD_P, SSD_N, SSD_CHUNK = 64, 64, 128, 128  # mamba2-1.3b
+# (name, B, S, dtype): an admission of 4 rows of 512 tokens; 1 row of 200
+# tokens padded to 256 (a ragged last piece); fp32
+SSD_CASES = (("bf16-B4-S512", 4, 512, torch.bfloat16), ("bf16-B1-S256", 1, 256, torch.bfloat16),
+             ("fp32-B2-S384", 2, 384, torch.float32))
+
+
+def ssd_inputs(g, b, s, dtype, device):
+    """ssd_scan's inputs at mamba2-1.3b's widths with the layer's
+    distributions: dt log-uniform in [1e-3, 1e-1], A in [-16, -1]."""
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+    dt = torch.exp(torch.rand((b, s, SSD_H), generator=g, device=device)
+                   * math.log(100.0) + math.log(1e-3))
+    a_log = torch.rand((SSD_H,), generator=g, device=device) * math.log(16.0)
+    return (randn(b, s, SSD_H, SSD_P).to(dtype), dt, a_log, randn(b, s, SSD_N).to(dtype),
+            randn(b, s, SSD_N).to(dtype),
+            torch.rand((SSD_H,), generator=g, device=device) + 0.5)
+
+
+def ssd_cases(device):
+    """SSD_CASES' inputs, drawn in order from one seed; rows past 200 of the
+    ragged case are the pad's exact no-ops (dt = 0)."""
+    g = torch.Generator(device=device).manual_seed(3)
+    out = {}
+    for name, b, s, dtype in SSD_CASES:
+        args = ssd_inputs(g, b, s, dtype, device)
+        if name == "bf16-B1-S256":
+            args = (args[0], torch.where(torch.arange(s, device=device)[None, :, None] < 200,
+                                         args[1], 0.0)) + args[2:]
+        out[name] = args
+    return out, g
+
+
+def ssd_kernel_case(device):
+    """ssd_scan at mamba2-1.3b's widths on SSD_CASES, each held against the
+    plain version in fp32 on the same values: y within SSD_BF16_TOL in bf16
+    (it rounds once) and FP32_SCAN_TOL in fp32, the state within
+    FP32_SCAN_TOL.  Bound: the bytes of x, dt, B, C, y and the final
+    state, against the flops of the chunked algorithm at the model's chunk
+    (C.B^T, its product with x, C.state and the state update per chunk)."""
+    cases, g = ssd_cases(device)
+    errs = []
+    for name, args in cases.items():
+        y, st = ssd_scan(*args, chunk=SSD_CHUNK, return_state=True)
+        want_y, want_st = ref.ssd_ref(*(t.float() for t in args), chunk=SSD_CHUNK,
+                                      return_state=True)
+        tol = SSD_BF16_TOL if args[0].dtype == torch.bfloat16 else FP32_SCAN_TOL
+        errs.append(held(f"ssd_scan {name} y", y, want_y, tol))
+        held(f"ssd_scan {name} state", st, want_st, FP32_SCAN_TOL)
+    b, s, h, p, n, chunk = 4, 512, SSD_H, SSD_P, SSD_N, SSD_CHUNK
+    args = ssd_inputs(g, b, s, torch.bfloat16, device)
+    nc = s // chunk
+    flops = 2 * b * nc * h * (chunk * chunk * n + chunk * chunk * p + 2 * chunk * n * p)
+    nbytes = (2 * 2 * b * s * h * p + 4 * b * s * h + 2 * 2 * b * s * n + 4 * 2 * h
+              + 4 * b * h * p * n)
+    bms, by = bound_ms(flops, nbytes)
+
+    def kernel():
+        return ssd_scan(*args, chunk=chunk, return_state=True)
+    return dict(max_abs_err=max(errs), library=None, library_ms=None,
+                ms=time_ms(kernel), cold_ms=time_cold_ms(kernel),
+                plain_ms=time_ms(lambda: ref.ssd_ref(*args, chunk=chunk, return_state=True)),
+                bound_ms=bms, bound_by=by)
+
+
+def rglru_kernel_case(device):
+    """rglru_scan at recurrentgemma-9b's width (W 4096) on an admission of 4
+    rows of 512 tokens, fp32 (the model's gates are fp32), with decays drawn
+    as the layer draws them; then a ragged 3 x 77 x 1000.  Bound: a, bx
+    read and h written once, plus the final state."""
+    g = torch.Generator(device=device).manual_seed(4)
+
+    def inputs(b, s, w):
+        a = torch.exp(-8.0 * torch.rand((b, s, w), generator=g, device=device)
+                      * math.log1p(math.e ** 2))  # log a = -8 r softplus(lam), lam <= 2
+        return a, torch.randn((b, s, w), generator=g, device=device)
+
+    errs = []
+    for name, shape in (("fp32-B4-S512", (4, 512, 4096)), ("fp32-B3-S77-W1000", (3, 77, 1000))):
+        a, bx = inputs(*shape)
+        h, final = rglru_scan(a, bx)
+        want_h, want_final = ref.rglru_scan_ref(a, bx)
+        errs.append(held(f"rglru_scan {name} h", h, want_h, FP32_TOL))
+        held(f"rglru_scan {name} final", final, want_final, FP32_TOL)
+    b, s, w = 4, 512, 4096
+    a, bx = inputs(b, s, w)
+    bms, by = bound_ms(2 * b * s * w, 4 * 3 * b * s * w + 4 * b * w)
+    return dict(max_abs_err=max(errs), library=None, library_ms=None,
+                ms=time_ms(lambda: rglru_scan(a, bx)),
+                cold_ms=time_cold_ms(lambda: rglru_scan(a, bx)),
+                plain_ms=time_ms(lambda: ref.rglru_scan_ref(a, bx)),
+                bound_ms=bms, bound_by=by)
 
 
 def paged_kernel_case(randn, device, hq, hkv, d):
@@ -572,15 +812,41 @@ def moe_layers(cfg):
     return sum(s.has_ffn for s in cfg.layers) if cfg.ffn_kind == "moe" else 0
 
 
+def attn_layers(cfg, *, local=None):
+    """Attention layers; ``local`` True/False counts only window/full ones."""
+    return sum(s.kind == ATTN and (local is None or (s.window is not None) == local)
+               for s in cfg.layers)
+
+
+def scan_launches(cfg, prefills):
+    """One ssd_scan per SSM layer and one rglru_scan per RG-LRU layer per
+    prefill (decode steps the recurrent states in plain PyTorch).  A scan
+    kernel's key is present only for a model with that mixer."""
+    out = {}
+    for name, kind in (("ssd_scan", SSM), ("rglru_scan", LRU)):
+        n = sum(s.kind == kind for s in cfg.layers)
+        if n:
+            out[name] = n * prefills
+    return out
+
+
+def same_launches(got, want):
+    """Counts equal kernel by kernel, a kernel missing from either side
+    counting 0."""
+    return all(got.get(k, 0) == want.get(k, 0) for k in set(got) | set(want))
+
+
 def predicted_launches(cfg, prompts, new):
-    """One flash_mha per layer per bucket (the prefill), one flash_decode
-    per layer per decode step (new - 1 steps per bucket), no paged decode;
-    one grouped_ffn per MoE layer per prefill and per decode step."""
+    """One flash_mha per attention layer per bucket (the prefill), one
+    flash_decode per attention layer per decode step (new - 1 steps per
+    bucket), no paged decode; one grouped_ffn per MoE layer per prefill and
+    per decode step; the scans of ``scan_launches`` per bucket."""
     n_buckets = len({bucket_of(len(p)) for p in prompts})
-    return {"flash_mha": cfg.num_layers * n_buckets,
-            "flash_decode": cfg.num_layers * (new - 1) * n_buckets,
+    return {"flash_mha": attn_layers(cfg) * n_buckets,
+            "flash_decode": attn_layers(cfg) * (new - 1) * n_buckets,
             "paged_flash_decode": 0,
-            "grouped_ffn": moe_layers(cfg) * new * n_buckets}
+            "grouped_ffn": moe_layers(cfg) * new * n_buckets,
+            **scan_launches(cfg, n_buckets)}
 
 
 def phase_serve(cfg, params, prompts, *, impl, new=64, seed=0):
@@ -660,11 +926,39 @@ def phase_continuous(cfg, params, prompts, new, *, impl, n_slots=8, block_size=1
             kv_peak_bytes=server.kv_peak_bytes(),
             full_buffer_bytes=PC.full_buffer_bytes(cfg, len(prompts), server.max_len),
             launches=counts,
-            predicted={"flash_mha": cfg.num_layers * admits[0], "flash_decode": 0,
-                       "paged_flash_decode": cfg.num_layers * sync_every * st["steps"],
-                       "grouped_ffn": moe_layers(cfg) * (admits[0] + sync_every * st["steps"])},
+            predicted={"flash_mha": attn_layers(cfg) * admits[0],
+                       "flash_decode": attn_layers(cfg, local=True) * sync_every * st["steps"],
+                       "paged_flash_decode": (attn_layers(cfg, local=False) * sync_every
+                                              * st["steps"]),
+                       "grouped_ffn": moe_layers(cfg) * (admits[0] + sync_every * st["steps"]),
+                       **scan_launches(cfg, admits[0])},
             outputs=toks)
     return runs
+
+
+def tie_gaps(cfg, params, prompts, outs_a, outs_b, impl="cuda"):
+    """For each request whose greedy outputs ``outs_a`` and ``outs_b``
+    part, the logits at the first step where they part, recomputed from the
+    prompt (left-padded to its bucket, as both engines run it) and the
+    common prefix: returns {request: (the larger distance of the two
+    chosen tokens below the top logit, max |logit|)}."""
+    device = params["embed"]["table"].device
+    out = {}
+    for i, (a, b) in enumerate(zip(outs_a, outs_b)):
+        a, b = np.asarray(a), np.asarray(b)
+        if np.array_equal(a, b):
+            continue
+        j = int(np.argmax(a != b))
+        pr = np.asarray(prompts[i])
+        seq = np.zeros(bucket_of(len(pr)) + j, np.int64)
+        seq[bucket_of(len(pr)) - len(pr):bucket_of(len(pr))] = pr
+        seq[bucket_of(len(pr)):] = a[:j]
+        toks = torch.from_numpy(seq)[None].to(device)
+        last, _ = MDL.prefill(params, cfg, {"tokens": toks}, len(seq), impl=impl)
+        lg = MDL.logits_of(params, cfg, last[:, None])[0, 0]
+        top = lg.max()
+        out[i] = (max(float(top - lg[a[j]]), float(top - lg[b[j]])), float(lg.abs().max()))
+    return out
 
 
 def bucketed_on(cfg, params, prompts, new, *, impl):
@@ -686,9 +980,18 @@ def bucketed_on(cfg, params, prompts, new, *, impl):
 
 # ------------------------------------------------------------------ main
 
+def shallow_fp32(cfg, layers=4):
+    """``cfg`` at full width in fp32 with about ``layers`` layers: whole
+    superblocks (at least one) and the tail."""
+    n_sb = max(1, layers // len(cfg.superblock))
+    return dataclasses.replace(cfg, dtype="float32", n_superblocks=n_sb,
+                               num_layers=n_sb * len(cfg.superblock) + len(cfg.tail))
+
+
 def report_slice(cfg, params):
     """Phase 3 on the card for one model: cuda vs reference logits (and the
-    router's agreement for MoE), then paged vs dense decode."""
+    router's agreement for MoE; for a model with recurrent mixers also in
+    fp32 on a few layers), then paged vs dense decode."""
     sl = route_agreement(cfg, params, impl="cuda")
     routes = (f" route_agreement={sl['route_agreement']:.4f}" if moe_layers(cfg) else "")
     print(f"[slice] {cfg.name} {cfg.num_layers} layers bf16: prefill_err="
@@ -697,6 +1000,18 @@ def report_slice(cfg, params):
           f"argmax_agreement={sl['argmax_agreement']:.3f}{routes}")
     check(sl["prefill_err"] <= LOGIT_TOL and sl["decode_err"] <= LOGIT_TOL,
           f"{cfg.name}: cuda logits disagree with the reference")
+    if any(s.kind != ATTN for s in cfg.layers):
+        small = shallow_fp32(cfg)
+        p32 = make_params(small, seed=1, device=params["embed"]["table"].device)
+        sl = phase_slice(small, p32, impl="cuda")
+        del p32
+        torch.cuda.empty_cache()
+        print(f"[slice] {cfg.name} fp32, {small.num_layers} layers: prefill_err="
+              f"{sl['prefill_err']:.3e} decode_err={sl['decode_err']:.3e} (of max |logit| "
+              f"{sl['logit_scale']:.3f}; tol {FP32_LOGIT_TOL}) "
+              f"argmax_agreement={sl['argmax_agreement']:.3f}")
+        check(sl["prefill_err"] <= FP32_LOGIT_TOL and sl["decode_err"] <= FP32_LOGIT_TOL,
+              f"{cfg.name}: fp32 cuda logits disagree with the reference")
     pg = phase_paged_slice(cfg, params, impl="cuda")
     print(f"[slice] {cfg.name} paged decode vs dense decode, both cuda: paged_err="
           f"{pg['paged_err']:.3e} (of max |logit| {pg['logit_scale']:.3f}; tol {LOGIT_TOL}) "
@@ -707,11 +1022,10 @@ def report_slice(cfg, params):
 
 def report_continuous(cfg, params, total, modes):
     """Phase 5 on the card for one model; adds each run's launches to
-    ``total``."""
+    ``total``.  The kernels of the path are those the prediction launches."""
     prompts, new = continuous_traffic(cfg)
     torch.cuda.reset_peak_memory_stats()
     cruns = phase_continuous(cfg, params, prompts, new, impl="cuda", modes=modes)
-    path = ["flash_mha", "paged_flash_decode"] + (["grouped_ffn"] if moe_layers(cfg) else [])
     for mode, r in cruns.items():
         print(f"[continuous] {cfg.name} {mode}: {len(prompts)} requests (prompt lengths "
               f"{sorted(len(p) for p in prompts)}, new {sum(new)} tokens), "
@@ -722,14 +1036,14 @@ def report_continuous(cfg, params, total, modes):
               f"kv_peak_bytes={r['kv_peak_bytes']} "
               f"full_buffer_bytes={r['full_buffer_bytes']}; launches {r['launches']} "
               f"(predicted {r['predicted']})")
-        check(r["launches"] == r["predicted"],
+        check(same_launches(r["launches"], r["predicted"]),
               f"continuous {mode}: launches {r['launches']} != {r['predicted']}")
-        check(all(r["launches"][k] > 0 for k in path),
+        check(all(r["launches"][k] > 0 for k, n in r["predicted"].items() if n),
               f"continuous {mode}: a kernel of the path never launched")
         for k in total:
             total[k] += r["launches"][k]
     bk = bucketed_on(cfg, params, prompts, new, impl="cuda")
-    check(bk["launches"] == bk["predicted"],
+    check(same_launches(bk["launches"], bk["predicted"]),
           f"bucketed: launches {bk['launches']} != {bk['predicted']}")
     for k in total:
         total[k] += bk["launches"][k]
@@ -749,7 +1063,21 @@ def report_continuous(cfg, params, total, modes):
           f"{bk['useful_tokens_per_s']:.1f} useful tokens/s in {bk['seconds']:.3f}s, "
           f"launches {bk['launches']} (predicted {bk['predicted']}); "
           f"max_memory_allocated={torch.cuda.max_memory_allocated()} bytes")
-    check(same_bk >= len(prompts) - 1, "continuous and bucketed greedy outputs disagree")
+    if all(s.kind == ATTN for s in cfg.layers):
+        check(same_bk >= len(prompts) - 1, "continuous and bucketed greedy outputs disagree")
+        return
+    # a recurrent state carries each bf16 rounding difference between the
+    # engines' batches on to every later token, so greedy runs part at more
+    # near-ties than attention's; each request where they part must be one
+    gaps = tie_gaps(cfg, params, prompts, cruns["greedy"]["outputs"], bk["outputs"])
+    worst = max((g / sc for g, sc in gaps.values()), default=0.0)
+    print(f"[continuous] {cfg.name} where greedy continuous and bucketed part, the two "
+          "tokens' larger distance below the top logit, over the top |logit|: "
+          + (", ".join(f"request {i} {g / sc:.3e}" for i, (g, sc) in gaps.items()) or "none")
+          + f" (tol {RECURRENT_TIE_TOL})")
+    check(worst <= RECURRENT_TIE_TOL,
+          f"{cfg.name}: continuous and bucketed greedy outputs part at {worst:.3e} below the "
+          f"top logit, past a near-tie ({RECURRENT_TIE_TOL})")
 
 
 def main():
@@ -787,7 +1115,7 @@ def main():
         print(f"[serve] {mode}: {len(prompts)} requests (prompt lengths "
               f"{sorted(len(p) for p in prompts)}), {r['tokens_per_s']:.1f} tokens/s "
               f"in {r['seconds']:.3f}s; launches {r['launches']} (predicted {want})")
-        check(r["launches"] == want, f"{mode}: launches {r['launches']} != {want}")
+        check(same_launches(r["launches"], want), f"{mode}: launches {r['launches']} != {want}")
         for k in total:
             total[k] += r["launches"][k]
     same = sum(bool((a == b).all()) for a, b in zip(runs["greedy"]["outputs"],
@@ -798,10 +1126,19 @@ def main():
     del params
     torch.cuda.empty_cache()
 
-    cfg = get_config("granite-moe-1b-a400m")
-    params = make_params(cfg, seed=0, device=device)
-    report_slice(cfg, params)
-    report_continuous(cfg, params, total, ("greedy", "sampled"))
+    for name in ("granite-moe-1b-a400m", "mamba2-1.3b", "recurrentgemma-9b"):
+        cfg = get_config(name)
+        t0 = time.perf_counter()
+        params = make_params(cfg, seed=0, device=device)
+        n_params = sum(t.numel() for p in params["layers"] for t in _leaves(p))
+        print(f"[model] {name}: {cfg.num_layers} layers, {n_params} layer parameters "
+              f"(+ {params['embed']['table'].numel()} embedding), built in "
+              f"{time.perf_counter() - t0:.1f}s; memory_allocated="
+              f"{torch.cuda.memory_allocated()} bytes")
+        report_slice(cfg, params)
+        report_continuous(cfg, params, total, ("greedy", "sampled"))
+        del params
+        torch.cuda.empty_cache()
 
     source = "src/repro_torch/kernels/csrc/"
     rows = [dict(name="flash_mha", route="cuda", source=source + "flash_attention.cu",
@@ -816,11 +1153,19 @@ def main():
                  launches=total["paged_flash_decode"], **kern["paged_flash_decode"]),
             dict(name="grouped_ffn", route="cuda", source=source + "grouped_expert.cu",
                  replaces="src/repro/kernels/grouped_expert.py:73",
-                 launches=total["grouped_ffn"], **kern["grouped_ffn"])]
+                 launches=total["grouped_ffn"], **kern["grouped_ffn"]),
+            dict(name="ssd_scan", route="cuda", source=source + "ssd_scan.cu",
+                 replaces="src/repro/kernels/ssd_scan.py:76",
+                 launches=total["ssd_scan"], **kern["ssd_scan"]),
+            dict(name="rglru_scan", route="cuda", source=source + "rglru_scan.cu",
+                 replaces="src/repro/kernels/rglru_scan.py:48",
+                 launches=total["rglru_scan"], **kern["rglru_scan"])]
     for r in rows:
-        check(all(math.isfinite(r[k]) for k in ("ms", "cold_ms", "plain_ms", "bound_ms",
-                                                "library_ms")),
+        check(all(math.isfinite(r[k]) for k in ("ms", "cold_ms", "plain_ms", "bound_ms")),
               f"{r['name']}: non-finite time")
+        check(r["library_ms"] is None or math.isfinite(r["library_ms"]),
+              f"{r['name']}: non-finite library time")
+        check(r["launches"] > 0, f"{r['name']}: never launched on the main path")
     print(f"[time] chip_smoke wall time {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

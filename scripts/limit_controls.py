@@ -1,0 +1,187 @@
+#!/usr/bin/env python3
+"""The readings behind ``chip_smoke.py``'s scan and engine-agreement
+limits, each beside that of a planted fault the limit has to fail, on a
+CUDA card.
+
+    PYTHONPATH=src python scripts/limit_controls.py
+
+1. ``ssd_scan`` on ``chip_smoke.SSD_CASES`` against the plain version run in
+   fp32 on the same values (the sound reading, as ``chip_smoke`` holds it),
+   and the plain version with a planted loss of precision against the same:
+   its state rounded to bf16 between 64-row pieces; x * dt rounded to bf16;
+   for fp32 inputs also B and C rounded to bf16.
+2. For mamba2-1.3b and recurrentgemma-9b on ``chip_smoke``'s continuous
+   traffic: where greedy ``ContinuousBatchServer`` and ``BatchServer``
+   outputs part, each request's gap (``chip_smoke.tie_gaps``), sound and
+   with a planted fault: after every admission, each admitted slot's
+   recurrent state is replaced by the next slot's, in every recurrent layer
+   and then in the last one only.
+3. mamba2-1.3b's full-depth bf16 logits (``chip_smoke.phase_slice``'s
+   tokens): the plain version at chunk 64 against chunk 128, the spread of
+   the plain version alone (the kernel walks 64-row pieces whatever the
+   chunk).
+
+Prints the card's name and power limit first.  Fails without a card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import chip_smoke as cs  # noqa: E402
+from repro_torch.configs.base import ATTN  # noqa: E402
+from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.models import model as MDL  # noqa: E402
+from repro_torch.models import paged_cache as PC  # noqa: E402
+
+PIECE = 64  # the kernel's rows per piece
+
+
+def scaled_err(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / (1 + want.abs())).max().item()
+
+
+def bf16(t):
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def ssd_bf16_state(x, dt, a_log, bm, cm, d):
+    """The plain version piece by piece with its state rounded to bf16
+    between pieces; y in x's dtype."""
+    ys, st = [], None
+    for i in range(0, x.shape[1], PIECE):
+        s = slice(i, i + PIECE)
+        y, st = ref.ssd_ref(x[:, s], dt[:, s], a_log, bm[:, s], cm[:, s], d, chunk=PIECE,
+                            init_state=st, return_state=True)
+        st = bf16(st)
+        ys.append(y)
+    return torch.cat(ys, dim=1)
+
+
+def ssd_bf16_xdt(x, dt, a_log, bm, cm, d):
+    """The plain version with x * dt rounded to bf16 (the fp32 product
+    carried in bf16); y in x's dtype."""
+    xf, dtp = x.float(), dt[..., None]
+    xdt = bf16(xf * dtp)
+    y = ref.ssd_ref(torch.where(dtp > 0, xdt / dtp, xf), dt, a_log, bm.float(), cm.float(), d,
+                    chunk=cs.SSD_CHUNK)
+    return y.to(x.dtype)
+
+
+def ssd_readings():
+    device = torch.device("cuda")
+    cases, _ = cs.ssd_cases(device)
+    for name, args in cases.items():
+        f32 = tuple(t.float() for t in args)
+        want = ref.ssd_ref(*f32, chunk=cs.SSD_CHUNK)
+        tol = cs.SSD_BF16_TOL if args[0].dtype == torch.bfloat16 else cs.FP32_SCAN_TOL
+        rows = {"kernel (sound)": cs.ssd_scan(*args, chunk=cs.SSD_CHUNK),
+                "plain, bf16 state": ssd_bf16_state(*args),
+                "plain, bf16 x*dt": ssd_bf16_xdt(*args)}
+        if args[0].dtype == torch.float32:
+            x, dt, a_log, bm, cm, d = args
+            rows["plain, bf16 B and C"] = ref.ssd_ref(x, dt, a_log, bf16(bm), bf16(cm), d,
+                                                      chunk=cs.SSD_CHUNK)
+        torch.cuda.synchronize()
+        for what, y in rows.items():
+            print(f"[ssd] {name} y, {what}: scaled_err={scaled_err(y, want):.3e} (tol {tol})")
+
+
+def neighbour_state(layers):
+    """``paged_insert`` that then gives each admitted slot the state of the
+    next slot in ``layers``."""
+    real = PC.paged_insert
+
+    def insert(cfg, caches, dense, slots, table_rows, prompt_len, *, n_slots):
+        out = real(cfg, caches, dense, slots, table_rows, prompt_len, n_slots=n_slots)
+        slots = torch.as_tensor(slots).to("cpu", torch.int64)
+        dst = slots[slots < n_slots]
+        for i in layers:
+            for t in caches[i].values():
+                d = dst.to(t.device)
+                t[d] = t[(d + 1) % n_slots].clone()
+        return out
+    return insert
+
+
+def gap_readings(name):
+    device = torch.device("cuda")
+    cfg = cs.get_config(name)
+    params = cs.make_params(cfg, seed=0, device=device)
+    prompts, new = cs.continuous_traffic(cfg)
+    bk = cs.bucketed_on(cfg, params, prompts, new, impl="cuda")
+    rec = [i for i, s in enumerate(cfg.layers) if s.kind != ATTN]
+    real = PC.paged_insert
+    for what, layers in (("sound", []), ("every recurrent layer fed the next slot's state", rec),
+                         ("last recurrent layer fed the next slot's state", rec[-1:])):
+        PC.paged_insert = neighbour_state(layers) if layers else real
+        try:
+            run = cs.phase_continuous(cfg, params, prompts, new, impl="cuda",
+                                      modes=("greedy",))["greedy"]
+        finally:
+            PC.paged_insert = real
+        gaps = cs.tie_gaps(cfg, params, prompts, run["outputs"], bk["outputs"])
+        scaled = {i: g / sc for i, (g, sc) in gaps.items()}
+        worst = max(scaled.values(), default=0.0)
+        print(f"[gaps] {name} {what}: {len(gaps)}/{len(prompts)} requests part; largest "
+              f"{worst:.3e} (tol {cs.RECURRENT_TIE_TOL}); "
+              + ", ".join(f"request {i} {g:.3e}" for i, g in sorted(scaled.items())))
+    if name == "mamba2-1.3b":
+        chunk_spread(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+
+
+def chunk_spread(cfg, params, batch=4, prompt_len=256, steps=8, seed=0):
+    """Reference logits at chunk 64 against chunk 128 on ``phase_slice``'s
+    tokens."""
+    device = params["embed"]["table"].device
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (batch, prompt_len))).to(device)
+    feed = torch.from_numpy(rng.integers(1, cfg.vocab_size, (batch, steps))).to(device)
+    logits = []
+    for c in (dataclasses.replace(cfg, ssm_chunk=64), cfg):
+        last, caches = MDL.prefill(params, c, {"tokens": toks}, prompt_len + steps,
+                                   impl="reference")
+        out = [MDL.logits_of(params, c, last[:, None])[:, 0]]
+        for i in range(steps):
+            lg, caches = MDL.decode_step(params, c, feed[:, i], caches, prompt_len + i,
+                                         impl="reference")
+            out.append(lg)
+        logits.append(torch.stack(out, dim=1))
+        del caches
+    got, want = logits
+    scale = want.abs().amax().item()
+    err = (got - want).abs()
+    print(f"[chunk] {cfg.name} reference at chunk 64 vs chunk {cfg.ssm_chunk}: prefill_err="
+          f"{err[:, 0].max().item() / scale:.3e} decode_err="
+          f"{err[:, 1:].max().item() / scale:.3e} (of max |logit| {scale:.3f}; chip_smoke "
+          f"holds cuda vs reference to {cs.LOGIT_TOL})")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("limit_controls: no CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    build.build()
+    ssd_readings()
+    for name in ("mamba2-1.3b", "recurrentgemma-9b"):
+        gap_readings(name)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,14 +2,15 @@
 """Where the time of one serve goes, on a CUDA card.
 
     PYTHONPATH=src python scripts/profile_torch_serve.py [--engine bucketed|continuous] \
-        [--arch qwen2-0.5b|granite-moe-1b-a400m]
+        [--arch qwen2-0.5b|granite-moe-1b-a400m|mamba2-1.3b|recurrentgemma-9b]
 
 ``--engine bucketed`` (the default) serves the requests of ``chip_smoke.py``
 phase 4 with ``BatchServer`` (``--requests``, ``--new`` tokens each);
 ``--engine continuous`` serves phase 5's traffic (16 ragged requests, 8-64
 new tokens each) with ``ContinuousBatchServer`` (8 slots, blocks of 16).
-Full-width ``--arch`` (default qwen2-0.5b), seeded random weights, greedy:
-once to warm up, then once under ``torch.profiler``.  Prints the wall time,
+Full-width ``--arch`` (default qwen2-0.5b), seeded random weights
+(``chip_smoke.make_params``: the recurrent mixers' constant leaves drawn at
+random), greedy: once to warm up, then once under ``torch.profiler``.  Prints the wall time,
 the device's busy time (the union of the intervals of its kernels, copies
 and fills) and idle share,
 and the device events that took the most time, with their counts.  Fails

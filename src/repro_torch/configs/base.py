@@ -54,10 +54,14 @@ class ModelConfig:
     rope_theta: float = 1e4
     act: str = "silu"  # silu | gelu
 
-    # Mamba2 / SSD and RG-LRU widths (mixers not ported yet)
+    # Mamba2 / SSD (models/ssm.py)
     ssm_state: int = 0
+    ssm_expand: int = 2
     ssm_head_dim: int = 64
+    ssm_conv: int = 4
     ssm_chunk: int = 128
+
+    # RG-LRU (models/rglru.py)
     lru_width: int = 0
 
     enc_layers: int = 0
@@ -84,6 +88,14 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
+
+    @property
+    def ssm_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.ssm_inner // self.ssm_head_dim if self.ssm_state else 0
 
     def reduced(self, **overrides) -> "ModelConfig":
         """A tiny config of the same family for CPU tests (the same

@@ -15,8 +15,8 @@
 // the block's walk is decode_body.cuh's `decode_group`, shared with the
 // paged kernel.  The block walks 64-key cache tiles only up to the row's
 // valid length, keeping the online-softmax state (max, sum per head in
-// shared memory; the G x D accumulator in registers, one column per thread)
-// in fp32.  A row with no valid key (cache_len 0) walks all C slots with
+// shared memory; the G x D accumulator in registers, one column per thread,
+// two at D = 256) in fp32.  A row with no valid key (cache_len 0) walks all C slots with
 // every key masked, which gives the plain version's uniform average.
 //
 // What bounds it on this card: each cached key and value is read once and
@@ -86,6 +86,7 @@ cudaError_t launch_dim(const void* q, const void* kc, const void* vc, void* o,
     case 32: return launch<T, 32>(q, kc, vc, o, cache_len, B, C, Hq, Hkv, cap, stream);
     case 64: return launch<T, 64>(q, kc, vc, o, cache_len, B, C, Hq, Hkv, cap, stream);
     case 128: return launch<T, 128>(q, kc, vc, o, cache_len, B, C, Hq, Hkv, cap, stream);
+    case 256: return launch<T, 256>(q, kc, vc, o, cache_len, B, C, Hq, Hkv, cap, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -11,8 +11,12 @@
 // covers [0, end), where end == limit unless limit == 0, in which case the
 // caller passes the row's full capacity and every key is masked with the
 // finite kMaskedLogit, giving the plain version's uniform average.  Each
-// tile arrives in 16-byte loads all issued before any is used, and each
-// thread reads every shared K/V element once for all the heads it serves.
+// tile arrives in 16-byte loads, issued in groups of at most 128 values per
+// thread (all of them up to D = 128) before any of the group is used, and
+// each thread reads every shared K/V element once for all the heads it
+// serves.  Up to D = kDecodeThreads a thread owns one accumulator column of
+// kDecodeThreads / D heads side by side; past it (D = 256) a thread owns
+// D / kDecodeThreads columns of every head.
 #pragma once
 
 #include <math.h>
@@ -41,14 +45,18 @@ __device__ __forceinline__ void decode_group(const T* __restrict__ q, const T* _
   constexpr int kBlockK = kDecodeBlockK;
   constexpr int kMaxG = kDecodeMaxG;
   constexpr int LD = D + 1;
-  constexpr int kHeadStep = kThreads / D;  // heads handled side by side in P V
+  constexpr int kColStep = D < kThreads ? D : kThreads;  // columns side by side in P V
+  constexpr int kCols = D / kColStep;                    // columns per thread
+  constexpr int kHeadStep = kThreads / kColStep;         // heads side by side in P V
   constexpr int kAccPerThread = (kMaxG + kHeadStep - 1) / kHeadStep;
   constexpr int kScoreHeadStep = kThreads / kBlockK;  // heads side by side in Q K^T
   constexpr int kScoreHeads = kMaxG / kScoreHeadStep;
   constexpr int kVec = 16 / sizeof(T);                 // values per 16-byte load
   constexpr int kChunks = D / kVec;                    // 16-byte loads per cached row
   constexpr int kLoads = kBlockK * kChunks / kThreads;  // per thread, per tile, K and V each
+  constexpr int kLoadGroup = kLoads < 64 / kVec ? kLoads : 64 / kVec;  // 2 * 64 values in flight
   static_assert(kBlockK * kChunks % kThreads == 0, "tile loads must split evenly");
+  static_assert(kLoads % kLoadGroup == 0, "load groups must split evenly");
   float* sQ = smem;                      // kMaxG x LD
   float* sK = sQ + kMaxG * LD;           // kBlockK x LD
   float* sV = sK + kBlockK * LD;         // kBlockK x LD
@@ -69,34 +77,39 @@ __device__ __forceinline__ void decode_group(const T* __restrict__ q, const T* _
     sL[tid] = 0.f;
   }
 
-  const int d_own = tid % D;
-  const int g_own = tid / D;
-  float acc[kAccPerThread];
+  const int d_own = tid % kColStep;
+  const int g_own = tid / kColStep;
+  float acc[kAccPerThread][kCols];
 #pragma unroll
-  for (int a = 0; a < kAccPerThread; ++a) acc[a] = 0.f;
+  for (int a = 0; a < kAccPerThread; ++a)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[a][c] = 0.f;
 
   for (int k0 = 0; k0 < end; k0 += kBlockK) {
     // Q, the running state and whatever the caller put in shared memory
     // before this call are set; the last tile is consumed
     __syncthreads();
-    // 16-byte loads, all issued before any is used
+    // 16-byte loads, each group issued before any of it is used
+#pragma unroll 1
+    for (int l0 = 0; l0 < kLoads; l0 += kLoadGroup) {
 #pragma unroll
-    for (int l = 0; l < kLoads; ++l) {
-      const int i = tid + l * kThreads;
-      const int r = i / kChunks, c = (i % kChunks) * kVec, kj = k0 + r;
-      float xk[kVec], xv[kVec];
-      if (kj < end) {
-        const size_t off = (rows(kj) * Hkv + hk) * D + c;
-        load16_f32(kc + off, xk);
-        load16_f32(vc + off, xv);
-      } else {
+      for (int l = l0; l < l0 + kLoadGroup; ++l) {
+        const int i = tid + l * kThreads;
+        const int r = i / kChunks, c = (i % kChunks) * kVec, kj = k0 + r;
+        float xk[kVec], xv[kVec];
+        if (kj < end) {
+          const size_t off = (rows(kj) * Hkv + hk) * D + c;
+          load16_f32(kc + off, xk);
+          load16_f32(vc + off, xv);
+        } else {
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) xk[e] = xv[e] = 0.f;
-      }
+          for (int e = 0; e < kVec; ++e) xk[e] = xv[e] = 0.f;
+        }
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) {
-        sK[r * LD + c + e] = xk[e];
-        sV[r * LD + c + e] = xv[e];
+        for (int e = 0; e < kVec; ++e) {
+          sK[r * LD + c + e] = xk[e];
+          sV[r * LD + c + e] = xv[e];
+        }
       }
     }
     __syncthreads();
@@ -154,20 +167,30 @@ __device__ __forceinline__ void decode_group(const T* __restrict__ q, const T* _
     }
     __syncthreads();
 
-    // acc = acc * alpha + P V for column d_own of heads g_own + a * kHeadStep;
-    // each V element is read from shared memory once per thread
+    // acc = acc * alpha + P V for columns d_own + c * kColStep of heads
+    // g_own + a * kHeadStep; each V element is read from shared memory once
+    // per thread
 #pragma unroll
     for (int a = 0; a < kAccPerThread; ++a) {
       const int g = g_own + a * kHeadStep;
-      if (g < G) acc[a] *= sAlpha[g];
+      if (g < G) {
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) acc[a][c] *= sAlpha[g];
+      }
     }
 #pragma unroll 8
     for (int j = 0; j < kBlockK; ++j) {
-      const float vd = sV[j * LD + d_own];
+      float vd[kCols];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) vd[c] = sV[j * LD + d_own + c * kColStep];
 #pragma unroll
       for (int a = 0; a < kAccPerThread; ++a) {
         const int g = g_own + a * kHeadStep;
-        if (g < G) acc[a] = fmaf(sP[g * kBlockK + j], vd, acc[a]);
+        if (g < G) {
+          const float pj = sP[g * kBlockK + j];
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) acc[a][c] = fmaf(pj, vd[c], acc[a][c]);
+        }
       }
     }
   }
@@ -176,7 +199,12 @@ __device__ __forceinline__ void decode_group(const T* __restrict__ q, const T* _
 #pragma unroll
   for (int a = 0; a < kAccPerThread; ++a) {
     const int g = g_own + a * kHeadStep;
-    if (g < G) store_f32(o + q_base + static_cast<size_t>(g) * D + d_own, acc[a] / sL[g]);
+    if (g < G) {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        store_f32(o + q_base + static_cast<size_t>(g) * D + d_own + c * kColStep,
+                  acc[a][c] / sL[g]);
+    }
   }
 }
 

@@ -26,7 +26,9 @@
 // tile and 4 rows x D/16 columns of the accumulator), well below the
 // tensor-core rate: it is bound by shared-memory loads feeding the FMAs.
 // Tiles are staged as fp32 with one padding column, so every column read is
-// bank-conflict free.  mma/wgmma tiles and TMA loads are later work.
+// bank-conflict free.  At D = 256 (recurrentgemma-9b) the three staged tiles
+// take 214,528 bytes of shared memory, one block per SM, and a thread holds
+// 64 accumulators.  mma/wgmma tiles and TMA loads are later work.
 
 #include <math.h>
 
@@ -254,6 +256,7 @@ cudaError_t launch_dim(const void* q, const void* k, const void* v, void* o,
     case 32: return launch_pos<T, 32>(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv, causal, window, stream);
     case 64: return launch_pos<T, 64>(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv, causal, window, stream);
     case 128: return launch_pos<T, 128>(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv, causal, window, stream);
+    case 256: return launch_pos<T, 256>(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv, causal, window, stream);
     default: return cudaErrorInvalidValue;
   }
 }

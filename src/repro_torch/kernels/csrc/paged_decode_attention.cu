@@ -107,6 +107,7 @@ cudaError_t launch_dim(const void* q, const void* kp, const void* vp, void* o,
     case 32: return launch<T, 32>(q, kp, vp, o, block_table, cache_len, B, M, bs, Hq, Hkv, stream);
     case 64: return launch<T, 64>(q, kp, vp, o, block_table, cache_len, B, M, bs, Hq, Hkv, stream);
     case 128: return launch<T, 128>(q, kp, vp, o, block_table, cache_len, B, M, bs, Hq, Hkv, stream);
+    case 256: return launch<T, 256>(q, kp, vp, o, block_table, cache_len, B, M, bs, Hq, Hkv, stream);
     default: return cudaErrorInvalidValue;
   }
 }

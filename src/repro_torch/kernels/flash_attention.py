@@ -17,7 +17,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import mha_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -14,6 +14,8 @@ import torch
 
 from repro_torch.kernels import (decode_attention, flash_attention, grouped_expert,
                                  paged_decode_attention, ref)
+from repro_torch.kernels import rglru_scan as rglru_kernel
+from repro_torch.kernels import ssd_scan as ssd_kernel
 
 IMPLS = ("reference", "cuda")
 NEG_INF = ref.NEG_INF
@@ -71,6 +73,33 @@ def grouped_ffn(xs, group_sizes, w_gate, w_in, w_out, *, act="silu", impl="cuda"
     if impl == "reference":
         return ref.grouped_ffn_ref(xs, group_sizes, w_gate, w_in, w_out, act=act)
     return grouped_expert.grouped_ffn(xs, group_sizes, w_gate, w_in, w_out, act=act)
+
+
+def ssd(x, dt, a_log, b_mat, c_mat, d_vec, *, chunk, init_state=None,
+        return_state=False, impl="cuda"):
+    """Mamba-2 SSD chunked scan; see ``ref.ssd_ref``.  The kernel tier, like
+    the JAX package's Pallas tier, takes no ``init_state`` (it raises)."""
+    _check(impl, x, dt, a_log, b_mat, c_mat, d_vec)
+    if impl == "reference":
+        return ref.ssd_ref(x, dt, a_log, b_mat, c_mat, d_vec, chunk=chunk,
+                           init_state=init_state, return_state=return_state)
+    return ssd_kernel.ssd_scan(x, dt, a_log, b_mat, c_mat, d_vec, chunk=chunk,
+                               init_state=init_state, return_state=return_state)
+
+
+def ssd_decode(x, dt, a_log, b_vec, c_vec, d_vec, state):
+    """One SSD decode step (no kernel in the JAX package either: an
+    O(H*P*N) elementwise update, plain PyTorch on every tier)."""
+    return ref.ssd_decode_ref(x, dt, a_log, b_vec, c_vec, d_vec, state)
+
+
+def rglru_scan(a, bx, init_state=None, *, impl="cuda"):
+    """RG-LRU recurrence; see ``ref.rglru_scan_ref``.  Returns (h, final
+    state).  The kernel tier takes no ``init_state`` (it raises)."""
+    _check(impl, a, bx)
+    if impl == "reference":
+        return ref.rglru_scan_ref(a, bx, init_state)
+    return rglru_kernel.rglru_scan(a, bx, init_state)
 
 
 # ---------------------------------------------------------------- sampling

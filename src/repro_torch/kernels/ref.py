@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the kernels: attention and the grouped expert
-FFN.
+"""Plain PyTorch versions of the kernels: attention, the grouped expert
+FFN, the Mamba-2 SSD scan and the RG-LRU recurrence.
 
 They compute what the JAX package's ``kernels/ref.py`` computes, on the same
 layouts: the CPU tests hold them against it, and ``chip_smoke.py`` holds the
@@ -165,3 +165,112 @@ def grouped_ffn_ref(xs, group_sizes, w_gate, w_in, w_out, *, act="silu"):
             out[lo:hi] = h @ w_out[e].to(f32)
         lo = max(lo, hi)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality), chunked
+# ---------------------------------------------------------------------------
+
+def _segsum(x):
+    """x: (..., L) -> (..., L, L) lower-triangular inclusive segment sums:
+    out[i, j] = sum_{k=j+1..i} x[k] for i >= j, -inf above the diagonal
+    (masked before ``exp``, so exp gives exactly 0 there)."""
+    n = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    out = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((n, n), dtype=torch.bool, device=x.device))
+    return out.masked_fill(~mask, -torch.inf)
+
+
+def ssd_ref(x, dt, a_log, b_mat, c_mat, d_vec, *, chunk: int, init_state=None,
+            return_state: bool = False):
+    """Chunked SSD forward (Mamba-2, ngroups=1).
+
+    x: (B, S, H, P); dt: (B, S, H) (already softplus-ed, > 0);
+    a_log: (H,) (A = -exp(a_log)); b_mat, c_mat: (B, S, N); d_vec: (H,).
+    h_t = exp(dt_t * A) h_{t-1} + dt_t * x_t B_t^T ;  y_t = h_t C_t + D x_t
+    S must be a multiple of ``chunk``.  Every product runs in fp32; y
+    rounds once to x's dtype.  The inter-chunk recurrence is a Python loop
+    over chunks.  Returns y (B, S, H, P) and, with ``return_state``, the
+    final state (B, H, P, N) fp32.
+    """
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    if s % chunk:
+        raise ValueError(f"ssd_ref: S={s} is not a multiple of chunk={chunk}")
+    nc, cl = s // chunk, chunk
+    f32 = torch.float32
+
+    d_a = dt.to(f32) * (-torch.exp(a_log.to(f32)))[None, None, :]  # (B,S,H) log-decay
+    xr = (x.to(f32) * dt.to(f32)[..., None]).reshape(bsz, nc, cl, h, p)
+    d_a = d_a.reshape(bsz, nc, cl, h)
+    br = b_mat.to(f32).reshape(bsz, nc, cl, n)
+    cr = c_mat.to(f32).reshape(bsz, nc, cl, n)
+
+    cums = torch.cumsum(d_a, dim=2)  # inclusive (B,NC,CL,H)
+    # intra-chunk (diagonal blocks)
+    decay = torch.exp(_segsum(d_a.permute(0, 1, 3, 2)))  # (B,NC,H,CL,CL)
+    scores = torch.einsum("bcln,bcmn->bclm", cr, br)  # (B,NC,CL,CL)
+    y_diag = torch.einsum("bchlm,bcmhp->bclhp", scores[:, :, None] * decay, xr)
+
+    # per-chunk outgoing states
+    decay_to_end = torch.exp(cums[:, :, -1:, :] - cums)  # (B,NC,CL,H)
+    s_local = torch.einsum("bcln,bclhp->bchpn", br, xr * decay_to_end[..., None])
+
+    # inter-chunk recurrence over chunk states
+    chunk_decay = torch.exp(cums[:, :, -1, :])  # (B,NC,H)
+    state = (torch.zeros((bsz, h, p, n), dtype=f32, device=x.device)
+             if init_state is None else init_state.to(f32))
+    prev = []
+    for c in range(nc):
+        prev.append(state)  # the state before chunk c
+        state = state * chunk_decay[:, c, :, None, None] + s_local[:, c]
+    s_prev = torch.stack(prev, dim=1)  # (B,NC,H,P,N)
+
+    y_off = torch.einsum("bcln,bchpn->bclhp", cr, s_prev) * torch.exp(cums)[..., None]
+    y = (y_diag + y_off).reshape(bsz, s, h, p)
+    y = y + d_vec.to(f32)[None, None, :, None] * x.to(f32)
+    y = y.to(x.dtype)
+    if return_state:
+        return y, state
+    return y
+
+
+def ssd_decode_ref(x, dt, a_log, b_vec, c_vec, d_vec, state):
+    """One decode step.  x: (B, H, P); dt: (B, H); b_vec, c_vec: (B, N);
+    state: (B, H, P, N) fp32.  Returns (y (B, H, P) in x's dtype, the new
+    state)."""
+    f32 = torch.float32
+    d_a = torch.exp(dt.to(f32) * (-torch.exp(a_log.to(f32)))[None, :])  # (B,H)
+    upd = torch.einsum("bhp,bn->bhpn", x.to(f32) * dt.to(f32)[..., None], b_vec.to(f32))
+    new_state = state * d_a[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", new_state, c_vec.to(f32))
+    y = y + d_vec.to(f32)[None, :, None] * x.to(f32)
+    return y.to(x.dtype), new_state
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (RecurrentGemma) linear recurrence
+# ---------------------------------------------------------------------------
+
+def rglru_scan_ref(a, bx, init_state=None):
+    """h_t = a_t * h_{t-1} + bx_t along S, as a log-depth doubling scan
+    (the counterpart of JAX's ``associative_scan``): after the round with
+    stride k, element t holds the composition of elements t-2k+1..t, and
+    composing (a1, b1) then (a2, b2) gives (a1 * a2, a2 * b1 + b2).
+
+    a, bx: (B, S, W).  Runs in fp32.  Returns (h (B, S, W) in bx's dtype,
+    the final state (B, W) fp32)."""
+    f32 = torch.float32
+    acc_a, acc_b = a.to(f32), bx.to(f32)
+    if init_state is not None:
+        acc_b = acc_b.clone()
+        acc_b[:, 0] += acc_a[:, 0] * init_state.to(f32)
+    s, k = acc_a.shape[1], 1
+    while k < s:
+        new_a, new_b = acc_a.clone(), acc_b.clone()
+        new_b[:, k:] = acc_a[:, k:] * acc_b[:, :-k] + acc_b[:, k:]
+        new_a[:, k:] = acc_a[:, k:] * acc_a[:, :-k]
+        acc_a, acc_b = new_a, new_b
+        k *= 2
+    return acc_b.to(bx.dtype), acc_b[:, -1]

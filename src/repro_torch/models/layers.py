@@ -8,6 +8,7 @@ bridges over leaf by leaf.  Norms and RoPE run in fp32 and cast back.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import ACTS
@@ -73,6 +74,35 @@ def rope_apply(x, rope):
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- causal conv
+# The recurrent mixers' depthwise temporal conv (RG-LRU, SSD): weights
+# p["conv_w"] (K, CH) and p["conv_b"] (CH,).  Op by op in the input's dtype,
+# in the JAX package's order (the taps summed, then the bias); not
+# F.conv1d, which on the card runs fp32 through cuDNN in TF32 and sums in
+# another order.
+
+def causal_conv(p, u):
+    """Causal depthwise conv over u (B, S, CH)."""
+    k, s = p["conv_w"].shape[0], u.shape[1]
+    pad = F.pad(u, (0, 0, k - 1, 0))
+    return sum(pad[:, i:i + s] * p["conv_w"][i] for i in range(k)) + p["conv_b"]
+
+
+def causal_conv_step(p, window):
+    """The conv at the last position of ``window`` (B, K, CH): the same
+    operations as ``causal_conv``'s last row."""
+    return sum(window[:, i] * p["conv_w"][i] for i in range(window.shape[1])) + p["conv_b"]
+
+
+def conv_state(u, k):
+    """The decode conv state after u (B, S, CH): its last K-1 rows,
+    left-padded with zeros if S < K-1."""
+    s = u.shape[1]
+    if s >= k - 1:
+        return u[:, s - (k - 1):]
+    return F.pad(u, (0, 0, k - 1 - s, 0))
 
 
 # ----------------------------------------------------------------- MLP

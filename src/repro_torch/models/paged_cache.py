@@ -12,10 +12,11 @@ unallocated table entries point at it, so the fixed-shape decode step runs
 over every slot unconditionally; their writes land in scratch and their
 reads are masked by ``cache_len``.
 
-Sliding-window layers keep O(window) per-slot ring buffers.  The allocator
-and the byte accounting are copies of the JAX package's
-``models/paged_cache.py``; the cache is a list with one ``{"k", "v"}`` dict
-per layer (the port's layout), updated in place.
+Sliding-window layers keep O(window) per-slot ring buffers and recurrent
+mixers (RG-LRU, SSD) per-slot states.  The allocator and the byte
+accounting are copies of the JAX package's ``models/paged_cache.py``; the
+cache is a list with one dict per layer (the port's layout: ``{"k", "v"}``
+for attention, the mixer's state leaves otherwise), updated in place.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 
 RESERVED_BLOCKS = 1  # physical block 0 = scratch for inactive slots
 
@@ -97,19 +99,16 @@ def paged_cache_init(cfg: ModelConfig, n_slots: int, n_blocks: int,
     """Per-layer decode caches for paged serving: ``{"k", "v"}`` pools of
     shape ``(n_blocks, block_size, Hkv, Dh)`` for full-attention layers,
     per-slot rings ``(n_slots, min(window, max_len), Hkv, Dh)`` for window
-    layers.  Recurrent mixers are not ported and raise."""
+    layers, per-slot states (``transformer.layer_cache_init`` of
+    ``n_slots`` rows) for recurrent mixers."""
     caches = []
     for spec in cfg.layers:
-        if spec.kind != ATTN:
-            raise NotImplementedError(f"{cfg.name}: paged serving of {spec.kind!r} "
-                                      "mixers is not ported (attention only)")
-        if spec.window is None:
+        if spec.kind == ATTN and spec.window is None:
             shape = (n_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
+            caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                           "v": torch.zeros(shape, dtype=dtype, device=device)})
         else:
-            shape = (n_slots, min(spec.window, max_len), cfg.n_kv_heads,
-                     cfg.head_dim)
-        caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
-                       "v": torch.zeros(shape, dtype=dtype, device=device)})
+            caches.append(T.layer_cache_init(cfg, spec, n_slots, max_len, dtype, device))
     return caches
 
 
@@ -120,7 +119,8 @@ def paged_insert(cfg: ModelConfig, caches, dense_caches, slots, table_rows,
 
     ``dense_caches``: from ``model.prefill`` on a (W, prompt_len) batch
     (per layer (W, >= prompt_len, Hkv, Dh) for full layers, rings for
-    window layers).  ``slots``: (W,) host ints, the server slot of each row;
+    window layers, per-row states for recurrent layers, whose rows are
+    copied).  ``slots``: (W,) host ints, the server slot of each row;
     rows with a slot >= ``n_slots`` are padding of a partly filled admission
     batch and are not written at all (the JAX scatter drops them as out of
     range; torch indexing would raise, and their table rows all point at
@@ -130,10 +130,14 @@ def paged_insert(cfg: ModelConfig, caches, dense_caches, slots, table_rows,
     slots = torch.as_tensor(slots).to("cpu", torch.int64)
     table_rows = torch.as_tensor(table_rows).to("cpu", torch.int64)
     keep = torch.nonzero(slots < n_slots)[:, 0]
-    dev = caches[0]["k"].device
+    dev = next(iter(caches[0].values())).device
     rows, dst = keep.to(dev), slots[keep].to(dev)
     blocks = None
     for spec, c, d in zip(cfg.layers, caches, dense_caches):
+        if spec.kind != ATTN:  # recurrent state: copy the rows
+            for name in c:
+                c[name][dst] = d[name][rows].to(c[name].dtype)
+            continue
         if spec.window is not None:
             cap_d = d["k"].shape[1]  # min(window, prompt_len)
             for name in ("k", "v"):

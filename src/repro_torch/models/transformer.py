@@ -8,8 +8,10 @@ Four execution paths share the parameters:
   * ``stack_paged_decode`` - single-token step with per-row positions through
                              paged caches (continuous batching)
 
-Attention mixers are ported, with a gated-MLP FFN or a dropless MoE FFN
-(``models/moe.py``).  RG-LRU, SSM and cross-attention raise
+Every mixer is ported: attention, RG-LRU (``models/rglru.py``) and Mamba-2
+SSD (``models/ssm.py``), with a gated-MLP FFN, a dropless MoE FFN
+(``models/moe.py``) or none.  A recurrent layer's cache is its per-row
+state.  Cross-attention and encoder/prefix inputs raise
 ``NotImplementedError``.
 """
 
@@ -17,18 +19,20 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ATTN, LayerSpec, ModelConfig
+from repro_torch.configs.base import ATTN, LRU, SSM, LayerSpec, ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import rglru as R
+from repro_torch.models import ssm as S
 
 
 def check_supported(cfg: ModelConfig):
     """Raise for the parts of ``cfg`` this port does not run yet."""
     kinds = {s.kind for s in cfg.layers}
-    if kinds != {ATTN}:
-        raise NotImplementedError(f"{cfg.name}: mixers {sorted(kinds - {ATTN})} "
-                                  "are not ported (attention only)")
+    if not kinds <= {ATTN, LRU, SSM}:
+        raise NotImplementedError(f"{cfg.name}: mixers {sorted(kinds - {ATTN, LRU, SSM})} "
+                                  "are not ported")
     if cfg.ffn_kind not in ("gated", "moe", "none"):
         raise NotImplementedError(f"{cfg.name}: ffn_kind={cfg.ffn_kind!r} is not ported")
     if cfg.family == "encdec" or cfg.prefix_len:
@@ -37,8 +41,8 @@ def check_supported(cfg: ModelConfig):
 
 def block_init(gen, cfg: ModelConfig, spec: LayerSpec, device):
     dt = L.dtype_of(cfg)
-    p = {"ln1": L.rmsnorm_init(cfg.d_model, dt, device),
-         "mixer": A.attn_init(gen, cfg, device)}
+    init = {ATTN: A.attn_init, LRU: R.lru_init, SSM: S.ssm_init}[spec.kind]
+    p = {"ln1": L.rmsnorm_init(cfg.d_model, dt, device), "mixer": init(gen, cfg, device)}
     if spec.has_ffn and cfg.ffn_kind != "none":
         p["ln2"] = L.rmsnorm_init(cfg.d_model, dt, device)
         p["ffn"] = (M.moe_init(gen, cfg, device) if cfg.ffn_kind == "moe"
@@ -55,19 +59,35 @@ def _ffn(p, cfg, x, impl):
     return x + L.mlp_apply(p["ffn"], cfg, h)
 
 
+def _recurrent_decode(p, cfg, spec, h, cache):
+    """A recurrent mixer's decode step: position-free, state in place."""
+    if spec.kind == LRU:
+        return R.lru_decode_apply(p["mixer"], cfg, h, cache)
+    return S.ssm_decode_apply(p["mixer"], cfg, h, cache)
+
+
 def block_apply(p, cfg, spec, x, rope, *, impl="cuda"):
-    """Full-sequence block.  Returns (x, kv): the layer's roped k/v, for
+    """Full-sequence block.  Returns (x, state): an attention layer's roped
+    k/v, or a recurrent layer's decode state after the last token, for
     prefill caching."""
     h = L.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
-    y, kv = A.attn_apply_with_kv(p["mixer"], cfg, spec, h, rope, impl=impl)
-    return _ffn(p, cfg, x + y, impl), kv
+    if spec.kind == ATTN:
+        y, state = A.attn_apply_with_kv(p["mixer"], cfg, spec, h, rope, impl=impl)
+    elif spec.kind == LRU:
+        y, state = R.lru_apply(p["mixer"], cfg, h, impl=impl, return_state=True)
+    else:
+        y, state = S.ssm_apply(p["mixer"], cfg, h, impl=impl, return_state=True)
+    return _ffn(p, cfg, x + y, impl), state
 
 
 def block_decode(p, cfg, spec, x, cache, t, rope, cache_len, *, impl="cuda"):
     """Single-token block step; updates ``cache`` in place."""
     h = L.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
-    y = A.attn_decode_apply(p["mixer"], cfg, spec, h, cache, t, rope, cache_len,
-                            impl=impl)
+    if spec.kind == ATTN:
+        y = A.attn_decode_apply(p["mixer"], cfg, spec, h, cache, t, rope, cache_len,
+                                impl=impl)
+    else:
+        y = _recurrent_decode(p, cfg, spec, h, cache)
     return _ffn(p, cfg, x + y, impl)
 
 
@@ -75,10 +95,12 @@ def block_paged_decode(p, cfg, spec, x, cache, block_table, dest, rope, cache_le
                        *, impl="cuda"):
     """Single-token block step with per-row positions: full-attention
     layers go through the block pool, window layers through their per-slot
-    rings; ``dest`` indexes each row's write into ``cache``.  Updates
-    ``cache`` in place."""
+    rings; ``dest`` indexes each row's write into ``cache``; recurrent
+    layers step their per-slot states.  Updates ``cache`` in place."""
     h = L.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
-    if spec.window is None:
+    if spec.kind != ATTN:
+        y = _recurrent_decode(p, cfg, spec, h, cache)
+    elif spec.window is None:
         y = A.paged_attn_decode_apply(p["mixer"], cfg, h, cache, block_table, dest,
                                       rope, cache_len, impl=impl)
     else:
@@ -92,9 +114,16 @@ def stack_init(gen, cfg: ModelConfig, device):
     return [block_init(gen, cfg, spec, device) for spec in cfg.layers]
 
 
-def _arange_rope(cfg: ModelConfig, x):
-    positions = torch.arange(x.shape[1], device=x.device)
+def _rope(cfg: ModelConfig, positions):
+    """The RoPE tables of ``positions``, or None for a model without
+    attention layers (mamba2 has head_dim 0)."""
+    if not any(s.kind == ATTN for s in cfg.layers):
+        return None
     return L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def _arange_rope(cfg: ModelConfig, x):
+    return _rope(cfg, torch.arange(x.shape[1], device=x.device))
 
 
 def stack_apply(layers_params, cfg: ModelConfig, x, *, impl="cuda"):
@@ -105,8 +134,18 @@ def stack_apply(layers_params, cfg: ModelConfig, x, *, impl="cuda"):
     return x
 
 
+def layer_cache_init(cfg: ModelConfig, spec: LayerSpec, batch, max_len, dtype, device):
+    """One layer's decode cache: k/v buffers for attention, the per-row
+    state for a recurrent mixer."""
+    if spec.kind == ATTN:
+        return A.cache_init(cfg, spec, batch, max_len, dtype, device)
+    if spec.kind == LRU:
+        return R.lru_state_init(cfg, batch, dtype, device)
+    return S.ssm_state_init(cfg, batch, dtype, device)
+
+
 def cache_init(cfg: ModelConfig, batch, max_len, dtype, device):
-    return [A.cache_init(cfg, spec, batch, max_len, dtype, device)
+    return [layer_cache_init(cfg, spec, batch, max_len, dtype, device)
             for spec in cfg.layers]
 
 
@@ -116,8 +155,12 @@ def stack_prefill(layers_params, cfg: ModelConfig, x, caches, *, impl="cuda"):
     rope = _arange_rope(cfg, x)
     seq_len = x.shape[1]
     for p, spec, cache in zip(layers_params, cfg.layers, caches):
-        x, kv = block_apply(p, cfg, spec, x, rope, impl=impl)
-        A.prefill_into_cache(cache, spec, kv["k"], kv["v"], seq_len)
+        x, state = block_apply(p, cfg, spec, x, rope, impl=impl)
+        if spec.kind == ATTN:
+            A.prefill_into_cache(cache, spec, state["k"], state["v"], seq_len)
+        else:
+            for name, value in state.items():
+                cache[name].copy_(value)
     return x
 
 
@@ -125,8 +168,7 @@ def stack_decode(layers_params, cfg: ModelConfig, x, caches, t, *, impl="cuda"):
     """x: (B, 1, D); t: the token's position.  Updates ``caches`` in place
     and returns x.  The RoPE tables and cache lengths of the step are built
     once here, not per layer."""
-    rope = L.rope_tables(torch.full((1, 1), t, device=x.device), cfg.head_dim,
-                         cfg.rope_theta)
+    rope = _rope(cfg, torch.full((1, 1), t, device=x.device))
     cache_len = torch.full((x.shape[0],), t + 1, dtype=torch.int32, device=x.device)
     for p, spec, cache in zip(layers_params, cfg.layers, caches):
         x = block_decode(p, cfg, spec, x, cache, t, rope, cache_len, impl=impl)
@@ -140,14 +182,14 @@ def stack_paged_decode(layers_params, cfg: ModelConfig, x, caches, block_table,
     RoPE tables, cache lengths and write indices of the step are built once
     here, not per layer: a pool's (block, offset) pair is shared by every
     full-attention layer, a ring's (row, slot) pair by every window layer
-    of its length."""
-    rope = L.rope_tables(positions[:, None], cfg.head_dim, cfg.rope_theta)
+    of its length.  Recurrent layers need none of them."""
+    rope = _rope(cfg, positions[:, None])
     cache_len = positions + 1
     rows = torch.arange(x.shape[0], device=x.device)
-    dests = {}
+    dests = {None: None}
     for p, spec, cache in zip(layers_params, cfg.layers, caches):
         # a pool's block size, or a ring's length
-        key = (spec.window is None, cache["k"].shape[1])
+        key = (spec.window is None, cache["k"].shape[1]) if spec.kind == ATTN else None
         if key not in dests:
             paged, n = key
             dests[key] = ((block_table[rows, positions // n], positions % n) if paged

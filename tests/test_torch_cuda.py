@@ -13,17 +13,32 @@ probabilities to bf16 before its second product and the kernels do not
 grouped expert FFN takes fp32 products of the same values on both sides in
 either dtype, so it is held to GROUPED_TOL: 1e-4 in bf16 lies between the
 card's reading (<= 2.1e-6) and what an intermediate rounded to bf16 would
-cost (~1e-3).  Its cohort independence is held bit for bit.
+cost (~1e-3).  Its cohort independence is held bit for bit.  The SSD scan
+is held, in either dtype, against a float64 sequential recurrence on the
+same values, to twice the
+larger of 1e-4 (the JAX package's own SSD tolerance) and the plain
+version's own error against it: the chunked form's decays are differences
+of cumulative sums, each ~|cumsum| * 2^-24 off in fp32, so the plain
+version at chunk 128 is itself ~1.2-1.6e-4 off, and the kernel sums its
+products one after another in fp32 FMAs where cuBLAS sums the plain
+version's in blocks (on the H100 the kernel read 1.2x the plain version's
+error at H 64, S 256).  In bf16 the kernel takes the same fp32 products and
+rounds y once, so y may move by bf16's unit roundoff more (BF16_ROUND).  The
+RG-LRU recurrence keeps an fp32 carry on both sides, held like the SSD scan
+to the plain version in fp32 on the same values (TOL, plus BF16_ROUND in
+bf16).
 """
 
 import pytest
 import torch
 
 from repro_torch.kernels import (decode_attention, flash_attention, grouped_expert, ops,
-                                 paged_decode_attention, ref)
+                                 paged_decode_attention, ref, rglru_scan, ssd_scan)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 GROUPED_TOL = {"float32": 1e-5, "bfloat16": 1e-4}
+SSD_F64_TOL = 1e-4
+BF16_ROUND = 2.0 ** -8  # bf16's unit roundoff: one rounding moves y by <= 2^-8 |y|
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # flash grid of tests/test_kernels.py, plus G = 7 (qwen2-0.5b) and G = 3
@@ -318,3 +333,188 @@ def test_grouped_ffn_wrapper_rejects_what_the_kernel_does_not_take():
         grouped(xs, gs, ws[0].transpose(1, 2).contiguous().transpose(1, 2), *ws[1:])
     with pytest.raises(ValueError, match="act"):
         grouped(xs, gs, *ws, act="gelu")
+
+
+# ---------------------------------------------------------------- SSD scan
+
+# (B, S, H, chunk) at mamba2-1.3b's P = 64, N = 128 (the widths the kernel
+# is built for): ragged B and H, S not a multiple of 32 (the kernel's 64-row
+# pieces end mid-chunk; S = 8 fills an eighth of one), 1 to 4 chunks, and
+# the model's H = 64
+SSD_P, SSD_N = 64, 128
+SSD_GRID = [
+    (1, 8, 1, 8),
+    (1, 24, 3, 24),
+    (3, 72, 5, 24),
+    (2, 200, 7, 50),
+    (1, 136, 2, 34),
+    (2, 256, 64, 128),
+]
+
+
+def _ssd_inputs(gen, b, s, h, dtype, dev, p=SSD_P, n=SSD_N):
+    x = _randn(gen, (b, s, h, p), dtype, dev)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=dev))
+    a_log = torch.randn((h,), generator=gen, device=dev) * 0.5
+    bm, cm = (_randn(gen, (b, s, n), dtype, dev) for _ in range(2))
+    d = torch.randn((h,), generator=gen, device=dev)
+    return x, dt, a_log, bm, cm, d
+
+
+def _ssd_f64(x, dt, a_log, bm, cm, d):
+    """The SSD recurrence one step at a time in float64: (y, final state)."""
+    x, dt, a_log, bm, cm, d = (t.double() for t in (x, dt, a_log, bm, cm, d))
+    b, s, h, p = x.shape
+    state = torch.zeros((b, h, p, bm.shape[-1]), dtype=torch.float64, device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dt[:, t] * -torch.exp(a_log))[..., None, None]
+        state = state * decay + torch.einsum("bhp,bn->bhpn", x[:, t] * dt[:, t, :, None],
+                                             bm[:, t])
+        ys.append(torch.einsum("bhpn,bn->bhp", state, cm[:, t]) + d[:, None] * x[:, t])
+    return torch.stack(ys, dim=1), state
+
+
+def _scaled_err(got, want):
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    got, want = got.double(), want.double()
+    return ((got - want).abs() / (1 + want.abs())).max().item()
+
+
+def _check_ssd(args, chunk, dtype):
+    """The kernel and the plain version (in fp32, on the same values) against
+    the float64 recurrence: the kernel within twice the larger of
+    SSD_F64_TOL and the plain version's own error, plus in bf16 the one
+    rounding of y (BF16_ROUND of |y|)."""
+    y, st = ssd_scan.ssd_scan(*args, chunk=chunk, return_state=True)
+    assert y.dtype == DTYPES[dtype] and st.dtype == torch.float32
+    want_y, want_st = ref.ssd_ref(*(t.float() for t in args), chunk=chunk, return_state=True)
+    true_y, true_st = _ssd_f64(*args)
+    for got, plain, truth, rounding in ((y, want_y, true_y, dtype == "bfloat16"),
+                                        (st, want_st, true_st, False)):
+        bound = 2 * max(SSD_F64_TOL, _scaled_err(plain, truth))
+        assert _scaled_err(got, truth) <= bound + (BF16_ROUND if rounding else 0.0)
+    assert torch.equal(ssd_scan.ssd_scan(*args, chunk=chunk), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,chunk", SSD_GRID)
+def test_ssd_scan_kernel_matches_plain(b, s, h, chunk, dtype):
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    _check_ssd(_ssd_inputs(gen, b, s, h, dtype, dev), chunk, dtype)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_decays_hard_without_nan():
+    """A in [-16, -1] and dt up to ~9: segment sums reach -5000, where
+    exp above the diagonal would overflow; the kernel evaluates exp only on
+    and below it."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x, dt, _, bm, cm, d = _ssd_inputs(gen, 2, 128, 4, "float32", dev)
+    a_log = torch.log(torch.tensor([1.0, 4.0, 9.0, 16.0], device=dev))
+    _check_ssd((x, dt * 3, a_log, bm, cm, d), 128, "float32")
+
+
+# ------------------------------------------------------------- RG-LRU scan
+
+# S = 5 is shorter than the kernel's 8-step load group; W = 7 leaves most of
+# a block's threads without a channel
+RGLRU_GRID = [(2, 5, 7), (1, 17, 32), (3, 33, 96), (2, 100, 200), (4, 512, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,w", RGLRU_GRID)
+def test_rglru_scan_kernel_matches_plain(b, s, w, dtype):
+    """Against the plain version in fp32 on the same values: in bf16 h
+    rounds once, BF16_ROUND of |h| more."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(8)
+    a = torch.rand((b, s, w), generator=gen, device=dev).to(DTYPES[dtype])
+    bx = _randn(gen, (b, s, w), dtype, dev)
+    h, final = rglru_scan.rglru_scan(a, bx)
+    want_h, want_final = ref.rglru_scan_ref(a.float(), bx.float())
+    assert h.dtype == DTYPES[dtype] and final.dtype == torch.float32
+    rounding = BF16_ROUND if dtype == "bfloat16" else 0.0
+    assert _scaled_err(h, want_h) <= TOL["float32"] + rounding
+    _close(final, want_final, "float32")
+
+
+# ------------------------------------------ attention at recurrentgemma's D
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,window", [(2, 300, 128), (1, 130, None)])
+def test_flash_mha_kernel_at_head_dim_256(b, s, window, dtype):
+    """recurrentgemma-9b's attention: 16 query heads on one KV head, D 256."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = _randn(gen, (b, s, 16, 256), dtype, dev)
+    k, v = (_randn(gen, (b, s, 1, 256), dtype, dev) for _ in range(2))
+    _close(flash_attention.flash_mha(q, k, v, causal=True, window=window),
+           ref.mha_ref(q, k, v, causal=True, window=window), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cap,window,lens", [(96, 96, [0, 50, 300]),
+                                             (200, None, [200, 17, 1])])
+def test_flash_decode_kernel_at_head_dim_256(cap, window, lens, dtype):
+    """G = 16 query heads per KV head at D = 256 over a ring (with a row
+    of length 0) and a linear cache: two accumulator columns per thread."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(10)
+    b = len(lens)
+    q = _randn(gen, (b, 16, 256), dtype, dev)
+    kc, vc = (_randn(gen, (b, cap, 1, 256), dtype, dev) for _ in range(2))
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    _close(decode_attention.flash_decode(q, kc, vc, cache_len=cl, window=window),
+           ref.decode_mha_ref(q, kc, vc, cache_len=cl, window=window), dtype)
+    table = torch.arange(1, 1 + b * 4, dtype=torch.int32, device=dev).reshape(b, 4)
+    kp, vp = (_randn(gen, (1 + b * 4, 32, 1, 256), dtype, dev) for _ in range(2))
+    lens_p = cl.clamp(max=4 * 32)
+    _close(paged_decode_attention.paged_flash_decode(q, kp, vp, table, cache_len=lens_p),
+           ref.paged_decode_mha_ref(q, kp, vp, table, cache_len=lens_p), dtype)
+
+
+@pytest.mark.cuda
+def test_scan_wrappers_count_launches_and_reject_what_the_kernels_do_not_take():
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    args = _ssd_inputs(gen, 1, 64, 2, "float32", dev)
+    before = ssd_scan.ssd_scan.launches
+    ssd_scan.ssd_scan(*args, chunk=32)
+    ops.ssd(*args, chunk=32, impl="cuda")
+    assert ssd_scan.ssd_scan.launches == before + 2
+    ops.ssd(*args, chunk=32, impl="reference")
+    assert ssd_scan.ssd_scan.launches == before + 2
+    x, dt, a_log, bm, cm, d = args
+    with pytest.raises(ValueError, match="init_state"):
+        ssd_scan.ssd_scan(*args, chunk=32, init_state=torch.zeros(1, 2, 64, 128, device=dev))
+    with pytest.raises(ValueError, match="unsupported"):  # S not a multiple of chunk
+        ssd_scan.ssd_scan(*args, chunk=48)
+    with pytest.raises(ValueError, match="unsupported"):  # P = 48
+        ssd_scan.ssd_scan(torch.zeros(1, 64, 2, 48, device=dev), dt, a_log, bm, cm, d,
+                          chunk=32)
+    with pytest.raises(ValueError, match="unsupported"):  # N = 64
+        ssd_scan.ssd_scan(x, dt, a_log, bm[..., :64].contiguous(), cm[..., :64].contiguous(),
+                          d, chunk=32)
+    with pytest.raises(TypeError):  # dt in bf16
+        ssd_scan.ssd_scan(x, dt.bfloat16(), a_log, bm, cm, d, chunk=32)
+    a = torch.rand(2, 9, 32, device=dev)
+    before = rglru_scan.rglru_scan.launches
+    rglru_scan.rglru_scan(a, a)
+    ops.rglru_scan(a, a, impl="cuda")
+    assert rglru_scan.rglru_scan.launches == before + 2
+    with pytest.raises(ValueError, match="init_state"):
+        rglru_scan.rglru_scan(a, a, torch.zeros(2, 32, device=dev))
+    with pytest.raises(ValueError, match="unsupported"):
+        rglru_scan.rglru_scan(a, a[:, :8].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan.rglru_scan(a.transpose(0, 1), a.transpose(0, 1))
+    with pytest.raises(TypeError):
+        rglru_scan.rglru_scan(a, a.bfloat16())
