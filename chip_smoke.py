@@ -7,7 +7,10 @@ Phases, in order; any failure exits non-zero before the last line:
   1. print the card's name and power limit; build the CUDA kernels from
      src/repro_torch/kernels/csrc (one nvcc per source, started together);
   2. hold each kernel against its plain PyTorch version on the card at this
-     slice's shapes (bf16; grouped_ffn also in fp32 and on edge cases;
+     slice's shapes (bf16; grouped_ffn and flash_mha_varlen also in fp32,
+     flash_mha_varlen also windowed, on equal segments against flash_mha,
+     under a perturbation of another sequence, and its gradient; a kernel
+     without a backward refusing an input that requires grad;
      flash_mha and flash_decode also at recurrentgemma-9b's D = 256,
      ssd_scan at mamba2-1.3b's widths, rglru_scan at recurrentgemma-9b's in
      fp32) and time kernel (inputs warm in L2 as ``ms``, L2 flushed before
@@ -35,12 +38,22 @@ Phases, in order; any failure exits non-zero before the last line:
      bucketed server on the same traffic, its launches held too; qwen2-0.5b
      first, then granite-moe-1b-a400m, mamba2-1.3b and recurrentgemma-9b
      (one ssd_scan per SSM layer and one rglru_scan per RG-LRU layer per
-     prefill, one flash_decode per local-attention layer per decode step).
+     prefill, one flash_decode per local-attention layer per decode step);
+  6. packed PPO training of full-width qwen2-0.5b: actor and reference, critic
+     and reward models, two iterations of the executors (16 prompts of 128
+     tokens, 256 new, each row's gen_mask cut at a seeded length, reference,
+     critic and reward inference, then the packed actor and critic train
+     steps with AdamW over 2 minibatches); on the first, the first
+     minibatch's losses, grad norms, clip_frac and per-leaf gradients under
+     impl="cuda" against impl="reference" (also in fp32 on 2 layers); the
+     parameters finite and changed after each step, flash_mha_varlen's
+     launches held to the prediction, no other kernel launched by the train
+     steps.
 Each model's parameters are freed before the next is built.
 Then one JSON line of kernel numbers, and last {"ok": true, "device": ...}.
 
-Phases 3 to 5 are functions of (config, params, impl) so the CPU tests
-rehearse them at the reduced size with impl="reference".
+Phases 3 to 6 are functions of (config, params or experiment, impl) so the
+CPU tests rehearse them at the reduced size with impl="reference".
 """
 
 from __future__ import annotations
@@ -67,12 +80,17 @@ from repro_torch.kernels.grouped_expert import grouped_ffn  # noqa: E402
 from repro_torch.kernels.paged_decode_attention import paged_flash_decode  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
+from repro_torch.kernels.varlen_attention import flash_mha_varlen  # noqa: E402
 from repro_torch.launch.serve import (BatchServer, ContinuousBatchServer,  # noqa: E402
                                       bucket_of)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as MDL  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import paged_cache as PC  # noqa: E402
+from repro_torch.data import packing  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.rlhf import experiment as EXP  # noqa: E402
+from repro_torch.rlhf import ppo as PPO  # noqa: E402
 
 # Published H100 SXM peaks: dense bf16 tensor-core rate and HBM3 bandwidth.
 PEAK_FLOPS = 989e12
@@ -119,6 +137,32 @@ LOGIT_TOL = 5e-2
 # plain versions), ~1e-6 of the largest logit; 1e-4 leaves room for the
 # SSD's chunked decays (see FP32_SCAN_TOL).
 FP32_LOGIT_TOL = 1e-4
+# Packed PPO train step, first minibatch, impl="cuda" vs impl="reference" at
+# full depth in bf16: the loss (over the mean |advantage| for the actor,
+# whose loss is a sum of ratio * advantage terms near zero; over the loss
+# for the critic), grad_norm and the whole gradient (Frobenius norm of the
+# difference over that of the reference) within TRAIN_TOL, each parameter's
+# gradient within TRAIN_LEAF_TOL.  Both tiers run the same bf16 ops and the
+# same plain backward and part only where the forward attention rounds to
+# bf16 (as LOGIT_TOL), which each gradient carries through 24 layers.  The
+# H100 reads (scripts/train_controls.py, PERF.md): whole gradient 2.8e-2 /
+# 2.1e-2 (actor / critic), worst leaf 4.3e-2 / 6.3e-2 (the k/v biases),
+# loss and grad_norm <= 1e-3; the reference tier's own spread (query chunks
+# of 64 against 128) 6.4e-3 and 1.7e-2; planted faults: every sequence
+# boundary one token late in every layer 1.2 / 4.6 (whole gradient), a
+# window of 64 keys 1.9 / 4.3.  A fault in one layer of 24 reads like the
+# sound run here (2.8e-2, worst leaf 1.1e-1): FP32_GRAD_TOL's check is the
+# tight one.  clip_frac may differ by CLIP_FRAC_TOL (a token whose ratio
+# lies at a clip edge within that rounding falls either way; sound 0, the
+# boundary fault 0.32).
+TRAIN_TOL = 5e-2
+TRAIN_LEAF_TOL = 2e-1
+CLIP_FRAC_TOL = 1e-2
+# The same comparison in fp32 at full width and 2 layers, for every number
+# and every leaf: both tiers round nowhere to bf16, so only summation order
+# is left (H100: 3.3e-6 worst; the boundaries one token late in the last
+# layer only: 1.5e-2 whole gradient, 4.6e-2 worst leaf).
+FP32_GRAD_TOL = 1e-4
 # The raw init (embedding std 1.0, tied unembedding) makes every next-token
 # distribution almost one-hot; scaled by 0.05 the logits' spread is ~1.5.
 EMBED_SCALE = 0.05
@@ -137,7 +181,8 @@ def sync(device):
         torch.cuda.synchronize()
 
 
-KERNELS = (flash_mha, flash_decode, paged_flash_decode, grouped_ffn, ssd_scan, rglru_scan)
+KERNELS = (flash_mha, flash_decode, paged_flash_decode, grouped_ffn, ssd_scan, rglru_scan,
+           flash_mha_varlen)
 
 
 def reset_launches():
@@ -325,6 +370,8 @@ def phase_kernels(device):
     out["grouped_ffn"] = grouped_kernel_case(device)
     out["ssd_scan"] = ssd_kernel_case(device)
     out["rglru_scan"] = rglru_kernel_case(device)
+    out["flash_mha_varlen"] = varlen_kernel_case(device)
+    guard_case(device)
     for name, r in out.items():
         for shape, t in [("", r)] + [(f" {k}", v) for k, v in r.items() if isinstance(v, dict)]:
             lib = ("none" if t["library_ms"] is None
@@ -487,6 +534,122 @@ def rglru_kernel_case(device):
                 cold_ms=time_cold_ms(lambda: rglru_scan(a, bx)),
                 plain_ms=time_ms(lambda: ref.rglru_scan_ref(a, bx)),
                 bound_ms=bms, bound_by=by)
+
+
+def varlen_lengths(rng, n=8, longest=512, bucket=64):
+    """``n`` seeded sequence lengths in [1, longest], one of them 1 and all
+    but that one off the 64-row grid, and the bucketed token total with a
+    phantom tail, as ``pack_minibatches`` makes it."""
+    lens = rng.integers(2, longest + 1, n)
+    lens[rng.integers(n)] = 1
+    lens = np.where((lens % 64 == 0) & (lens > 1), lens - 1, lens)
+    t = packing.bucket_total(int(lens.sum()), bucket)
+    return lens, t if t > lens.sum() else t + bucket
+
+
+def varlen_kernel_case(device):
+    """flash_mha_varlen at qwen2-0.5b's attention shapes (Hq 14, Hkv 2, D
+    64) on a packed minibatch of 8 seeded sequences of 1-512 tokens with a
+    phantom tail: causal and window 128 in bf16 (KERNEL_TOL) and fp32
+    (FP32_TOL) against the plain version; equal segments against flash_mha
+    on the (B, S) layout (the same bits); one sequence perturbed, every
+    other row the same bits; the Function's dq, dk, dv against autograd of
+    the plain version (FP32_TOL in fp32, KERNEL_TOL in bf16).  Timed on the
+    bf16 causal case.  Bound: 4 D Hq flops per causal pair of every segment
+    (the phantom segment too), q, k, v read and o written once.  Library:
+    SDPA with the dense (T, T) block-diagonal causal boolean mask."""
+    g = torch.Generator(device=device).manual_seed(5)
+    hq, hkv, d = 14, 2, 64
+    lens, t = varlen_lengths(np.random.default_rng(5))
+    longest = int(max(lens.max(), t - lens.sum()))
+    cu = torch.from_numpy(packing.cu_seqlens_of(lens)).to(device)
+    print(f"[kernels] flash_mha_varlen lengths {lens.tolist()} in T {t} "
+          f"({t - int(lens.sum())} phantom tokens)")
+
+    def inputs(dtype, tokens=t):
+        return tuple(torch.randn((tokens, h, d), generator=g, device=device).to(dtype)
+                     for h in (hq, hkv, hkv))
+
+    qkv = {dt: inputs(dt) for dt in (torch.bfloat16, torch.float32)}
+    errs = []
+    for dt, tol in ((torch.bfloat16, KERNEL_TOL), (torch.float32, FP32_TOL)):
+        for window in (None, 128):
+            got = flash_mha_varlen(*qkv[dt], cu, window=window)
+            want = ref.mha_varlen_ref(*qkv[dt], cu, window=window, max_seqlen=longest)
+            errs.append(held(f"flash_mha_varlen {str(dt)[6:]} window{window}", got, want, tol))
+
+    b, s = 4, 512  # equal segments: the tiles flash_mha walks on (B, S)
+    q, k, v = inputs(torch.bfloat16, b * s)
+    cu_eq = torch.arange(0, b * s + 1, s, dtype=torch.int32, device=device)
+    diff = (flash_mha_varlen(q, k, v, cu_eq).view(b, s, hq, d).float()
+            - flash_mha(q.view(b, s, hq, d), k.view(b, s, hkv, d), v.view(b, s, hkv, d),
+                        causal=True).float()).abs().max().item()
+    print(f"[kernels] flash_mha_varlen 4 equal segments of 512 vs flash_mha on (4, 512): "
+          f"max_abs_diff={diff:.3e}")
+    check(diff == 0.0, "flash_mha_varlen: equal segments differ from flash_mha")
+
+    q, k, v = qkv[torch.bfloat16]
+    j = 2
+    sl = slice(int(cu[j]), int(cu[j + 1]))
+    q2, k2, v2 = q.clone(), k.clone(), v.clone()
+    q2[sl] += 3.0
+    k2[sl] -= 2.0
+    v2[sl] *= 5.0
+    base, pert = flash_mha_varlen(q, k, v, cu), flash_mha_varlen(q2, k2, v2, cu)
+    keep = torch.ones(t, dtype=torch.bool, device=device)
+    keep[sl] = False
+    torch.cuda.synchronize()
+    same = bool(torch.equal(base[keep], pert[keep]))
+    print(f"[kernels] flash_mha_varlen leakage: sequence {j} ({sl.stop - sl.start} tokens) "
+          f"perturbed, the other {int(keep.sum())} rows bit-identical: {same}")
+    check(same and not torch.equal(base[sl], pert[sl]), "flash_mha_varlen leaks across "
+          "sequences")
+
+    w = torch.randn((t, hq, d), generator=g, device=device)
+    for dt, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, KERNEL_TOL)):
+        grads = []
+        for fn in (flash_mha_varlen, ref.mha_varlen_ref):
+            leaves = [x.clone().requires_grad_(True) for x in qkv[dt]]
+            (fn(*leaves, cu, max_seqlen=longest).float() * w).sum().backward()
+            grads.append([x.grad for x in leaves])
+        for name, got, want in zip("qkv", *grads):
+            held(f"flash_mha_varlen {str(dt)[6:]} d{name} (the Function vs autograd of the "
+                 "plain version)", got, want, tol)
+
+    q, k, v = qkv[torch.bfloat16]
+    seg = packing.segment_ids_of(cu, t)
+    pos = torch.arange(t, device=device)
+    pairs = sum(n * (n + 1) // 2 for n in lens.tolist() + [t - int(lens.sum())])
+    bms, by = bound_ms(4 * d * hq * pairs, 2 * (2 * q.numel() + 2 * k.numel()))
+    mask = (seg[:, None] == seg[None, :]) & (pos[None, :] <= pos[:, None])
+    qt, kt, vt = (x.transpose(0, 1)[None].contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return dict(max_abs_err=max(errs), equal_segment_max_abs_diff=diff,
+                library="scaled_dot_product_attention, dense (T, T) block-diagonal causal mask",
+                ms=time_ms(lambda: flash_mha_varlen(q, k, v, cu)),
+                cold_ms=time_cold_ms(lambda: flash_mha_varlen(q, k, v, cu)),
+                plain_ms=time_ms(lambda: ref.mha_varlen_ref(q, k, v, cu, max_seqlen=longest)),
+                bound_ms=bms, bound_by=by,
+                library_ms=time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+                tokens=t, causal_pairs=pairs)
+
+
+def guard_case(device):
+    """A kernel without a backward refuses an input that requires grad
+    under grad mode (NotImplementedError), and runs under no_grad."""
+    x = torch.randn((1, 64, 14, 64), device=device, requires_grad=True)
+    kv = torch.randn((1, 64, 2, 64), device=device)
+    before = flash_mha.launches
+    try:
+        flash_mha(x, kv, kv)
+        raised = False
+    except NotImplementedError as exc:
+        raised = True
+        print(f"[kernels] guard: flash_mha under grad raises NotImplementedError: {exc}")
+    with torch.no_grad():
+        flash_mha(x, kv, kv)
+    check(raised and flash_mha.launches == before + 1,
+          "flash_mha launched on an input that requires grad")
 
 
 def paged_kernel_case(randn, device, hq, hkv, d):
@@ -978,6 +1141,240 @@ def bucketed_on(cfg, params, prompts, new, *, impl):
             "outputs": [o[:n].cpu().numpy() for o, n in zip(outs, new)]}
 
 
+# ------------------------------------------------------------------ phase 6
+
+def train_experiment(*, batch=16, prompt_len=128, new=256, n_minibatches=2, impl="cuda",
+                     seed=0):
+    """The packed PPO experiment of phase 6."""
+    return EXP.ExperimentConfig(batch=batch, prompt_len=prompt_len, gen_len=new, seed=seed,
+                                ppo=PPO.PPOHyperparameters(n_minibatches=n_minibatches),
+                                impl=impl, packed_training=True)
+
+
+def train_models(cfg, exp, device):
+    """``build_models`` with every embedding scaled by EMBED_SCALE, the
+    trained models' AdamW state taken after the scaling."""
+    models = EXP.build_models(cfg, cfg, exp, device=device)
+    for ms in models.values():
+        with torch.no_grad():
+            ms.params["embed"]["table"].mul_(EMBED_SCALE)
+        if ms.opt_state is not None:
+            ms.opt_state = adamw.init(exp.opt, ms.params)
+    return models
+
+
+def train_rollout(cfg, exp, ex, models, rng, *, min_valid=16):
+    """One rollout: seeded prompts through ``actor_gen``, each row's
+    gen_mask cut at a seeded valid length in [min_valid, gen_len] (as an
+    EOS there would cut it), then reference, critic and reward inference.
+    Returns the rollout and the valid lengths."""
+    device = models["actor"].params["embed"]["table"].device
+    prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                            (exp.batch, exp.prompt_len))).to(device)
+    roll = ex["actor_gen"](models["actor"], {"prompts": {"tokens": prompts}})
+    valid = rng.integers(min_valid, exp.gen_len + 1, exp.batch)
+    roll["gen_mask"] = (torch.arange(exp.gen_len, device=device)[None]
+                        < torch.from_numpy(valid).to(device)[:, None]).float()
+    for name in ("ref", "critic", "reward"):
+        roll |= ex[f"{name}_inf"](models[name], roll)
+    return roll, valid
+
+
+def leaf_names(tree, prefix=""):
+    """Names of ``adamw.leaves(tree)``, in its order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def first_minibatch(cfg, exp, models, roll, *, impl):
+    """The actor's and the critic's loss, stats, grad_norm and gradients on
+    the first packed minibatch of ``roll`` under ``impl``, from the models'
+    current state (no update)."""
+    out = {}
+    for name, fn, make in (("actor", PPO.packed_actor_grads, EXP.actor_train_batch),
+                           ("critic", PPO.packed_critic_grads, EXP.critic_train_batch)):
+        mb = {k: v[0] for k, v in make(exp, roll).items()}
+        loss, st, grads = fn(models[name].params, cfg, exp.ppo, mb, impl=impl,
+                             max_seqlen=exp.prompt_len + exp.gen_len)
+        n = max(mb["mask"].sum().item(), 1.0)
+        out[name] = dict(loss=loss.item(), grad_norm=adamw.global_norm(grads).item(),
+                         grads=grads, names=leaf_names(models[name].params),
+                         clip_frac=st["clip_frac"].item() if "clip_frac" in st else 0.0,
+                         adv_scale=(mb["adv"].abs() * mb["mask"]).sum().item() / n
+                         if name == "actor" else None)
+    return out
+
+
+def grad_agreement(got, want):
+    """``first_minibatch`` results against a reference run's.  A leaf's
+    error is |g - g_ref| / |g_ref| (Frobenius); "global" the same over all
+    leaves; the actor loss's error is over the minibatch's mean |advantage|
+    (its loss is a sum of ratio * advantage terms near zero after
+    whitening), the critic's over its reference loss."""
+    out = {}
+    for name, g in got.items():
+        w = want[name]
+        errs = [((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30)).item()
+                for a, b in zip(g["grads"], w["grads"])]
+        diff2 = sum(((a.float() - b.float()) ** 2).sum().item()
+                    for a, b in zip(g["grads"], w["grads"]))
+        worst = sorted(zip(errs, g["names"]), reverse=True)[:3]
+        scale = w["adv_scale"] if name == "actor" else abs(w["loss"])
+        out[name] = dict(loss=g["loss"], ref_loss=w["loss"],
+                         loss_err=abs(g["loss"] - w["loss"]) / max(scale, 1e-12),
+                         grad_norm=g["grad_norm"], ref_grad_norm=w["grad_norm"],
+                         grad_norm_err=abs(g["grad_norm"] - w["grad_norm"])
+                         / max(w["grad_norm"], 1e-12),
+                         global_err=math.sqrt(diff2) / max(w["grad_norm"], 1e-30),
+                         clip_frac=g["clip_frac"], ref_clip_frac=w["clip_frac"],
+                         worst_leaf_err=worst[0][0], worst_leaves=worst, n_leaves=len(errs))
+    return out
+
+
+def compare_tiers(cfg, exp, models, roll, *, impl):
+    """``grad_agreement`` of ``impl`` against "reference" on the first
+    minibatch, from one state and one rollout, before any update."""
+    got = first_minibatch(cfg, exp, models, roll, impl=impl)
+    if impl == "reference":
+        return grad_agreement(got, got)
+    return grad_agreement(got, first_minibatch(cfg, exp, models, roll, impl="reference"))
+
+
+def fp32_train_models(cfg, device, layers=2):
+    """An fp32 actor and critic of ``cfg`` at full width and ``layers``
+    layers, embeddings scaled by EMBED_SCALE."""
+    small = shallow_fp32(cfg, layers)
+    models = {}
+    for name, head, seed in (("actor", "lm", 1), ("critic", "value", 2)):
+        params = MDL.init_params(small, seed=seed, device=device, head=head)
+        with torch.no_grad():
+            params["embed"]["table"].mul_(EMBED_SCALE)
+        models[name] = EXP.ModelState(params)
+    return small, models
+
+
+def train_predicted(cfg, exp):
+    """Launches of one PPO iteration: flash_mha_varlen in every attention
+    layer of each minibatch's train forward, once more in its recompute
+    (remat), for the actor and the critic; flash_mha in the prefill of
+    generation and the three padded inference forwards; flash_decode in
+    each of the gen_len - 1 decode steps."""
+    n = attn_layers(cfg)
+    return {"flash_mha_varlen": n * exp.ppo.n_minibatches * 2 * 2, "flash_mha": 4 * n,
+            "flash_decode": n * (exp.gen_len - 1)}
+
+
+def phase_train(cfg, exp, device, *, iters=2, min_valid=16, seed=0, fp32_layers=2):
+    """``iters`` packed PPO iterations of ``build_executors``: rollout
+    (``train_rollout``), then the packed actor and critic train steps.  On
+    the first, before training, ``compare_tiers`` on this state and rollout
+    (and on fp32 models of ``fp32_layers`` layers; its launches are not
+    counted).  Returns per iteration the times, real train tokens, stats,
+    the kernels launched during the train calls, and whether every trained
+    parameter is finite and some changed; the comparisons; and the run's
+    launches beside their prediction."""
+    models = train_models(cfg, exp, device)
+    ex = EXP.build_executors(cfg, cfg, exp)
+    rng = np.random.default_rng(seed + 300)
+    trained = ("actor", "critic")
+    out = {"iters": [], "compare": None, "compare_fp32": None}
+    sync(device)
+    reset_launches()
+    for it in range(iters):
+        t0 = time.perf_counter()
+        roll, valid = train_rollout(cfg, exp, ex, models, rng, min_valid=min_valid)
+        sync(device)
+        rollout_s = time.perf_counter() - t0
+        if it == 0:
+            held_counts = launches()
+            out["compare"] = compare_tiers(cfg, exp, models, roll, impl=exp.impl)
+            if fp32_layers:
+                small, m32 = fp32_train_models(cfg, device, fp32_layers)
+                out["compare_fp32"] = compare_tiers(small, exp, m32, roll, impl=exp.impl)
+                del m32
+            for kern in KERNELS:  # the comparisons' launches do not count
+                kern.launches = held_counts[kern.__name__]
+        before = {n: [p.detach().clone() for p in adamw.leaves(models[n].params)]
+                  for n in trained}
+        counts0 = launches()
+        t0 = time.perf_counter()
+        stats = ex["actor_train"](models["actor"], roll)
+        sync(device)
+        actor_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stats |= ex["critic_train"](models["critic"], roll)
+        sync(device)
+        critic_s = time.perf_counter() - t0
+        counts1 = launches()
+        state = {}
+        for n in trained:
+            now = adamw.leaves(models[n].params)
+            state[n] = dict(finite=all(bool(torch.isfinite(p).all()) for p in now),
+                            changed=sum(bool((p != q).any()) for p, q in zip(now, before[n])),
+                            leaves=len(now))
+        del before
+        lens = exp.prompt_len + np.minimum(valid + 1, exp.gen_len)
+        out["iters"].append(dict(
+            rollout_s=rollout_s, actor_s=actor_s, critic_s=critic_s, tokens=int(lens.sum()),
+            padded_tokens=exp.batch * (exp.prompt_len + exp.gen_len), state=state, **stats,
+            train_launches={k: counts1[k] - counts0[k] for k in counts1
+                            if counts1[k] != counts0[k]}))
+    out["launches"] = launches()
+    out["predicted"] = {k: v * iters for k, v in train_predicted(cfg, exp).items()}
+    out["per_iter"] = train_predicted(cfg, exp)
+    return out
+
+
+def report_train(cfg, device, total):
+    """Phase 6 on the card: two packed PPO iterations of full-width qwen2-0.5b
+    (B 16 prompts of 128 tokens, 256 new, 2 minibatches), every check of
+    ``phase_train``'s results; adds the run's launches to ``total``."""
+    exp = train_experiment()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = phase_train(cfg, exp, device)
+    wall = time.perf_counter() - t0
+    for label, cmp, tol, leaf_tol in (
+            ("bf16, 24 layers", tr["compare"], TRAIN_TOL, TRAIN_LEAF_TOL),
+            ("fp32, 2 layers", tr["compare_fp32"], FP32_GRAD_TOL, FP32_GRAD_TOL)):
+        for name, c in cmp.items():
+            print(f"[train] {name} {label}, first minibatch cuda vs reference: loss "
+                  f"{c['loss']:.6e} vs {c['ref_loss']:.6e} (err {c['loss_err']:.3e}), grad_norm "
+                  f"{c['grad_norm']:.6e} vs {c['ref_grad_norm']:.6e} (err "
+                  f"{c['grad_norm_err']:.3e}), clip_frac {c['clip_frac']:.4f} vs "
+                  f"{c['ref_clip_frac']:.4f}, gradient err {c['global_err']:.3e}, worst leaves "
+                  + ", ".join(f"{n} {e:.3e}" for e, n in c["worst_leaves"])
+                  + f" of {c['n_leaves']} (tol {tol}, per leaf {leaf_tol})")
+            check(max(c["loss_err"], c["grad_norm_err"], c["global_err"]) <= tol
+                  and c["worst_leaf_err"] <= leaf_tol,
+                  f"train {name} {label}: cuda and reference disagree")
+            check(abs(c["clip_frac"] - c["ref_clip_frac"]) <= CLIP_FRAC_TOL,
+                  f"train {name} {label}: clip_frac disagrees")
+    for i, r in enumerate(tr["iters"]):
+        a, c = r["actor_stats"], r["critic_stats"]
+        print(f"[train] iteration {i}: rollout {r['rollout_s']:.3f}s; actor step "
+              f"{r['actor_s']:.3f}s, critic step {r['critic_s']:.3f}s on {r['tokens']} real "
+              f"tokens ({r['padded_tokens']} padded): {r['tokens'] / r['actor_s']:.1f} / "
+              f"{r['tokens'] / r['critic_s']:.1f} train tokens/s; actor {a}; critic {c}; "
+              f"launches during the train steps {r['train_launches']}; parameters {r['state']}")
+        check(all(math.isfinite(v) for v in (*a.values(), *c.values())), "non-finite train stats")
+        for n, st in r["state"].items():
+            check(st["finite"] and st["changed"] > 0, f"iteration {i}: {n} parameters "
+                  f"{'not finite' if not st['finite'] else 'unchanged'}")
+        # the guard: a kernel without a backward never ran under grad
+        check(r["train_launches"] == {"flash_mha_varlen": tr["per_iter"]["flash_mha_varlen"]},
+              f"iteration {i}: train launches {r['train_launches']}")
+    print(f"[train] launches {tr['launches']} (predicted {tr['predicted']}); phase wall "
+          f"{wall:.1f}s; max_memory_allocated={torch.cuda.max_memory_allocated()} bytes")
+    check(same_launches(tr["launches"], tr["predicted"]),
+          f"train: launches {tr['launches']} != {tr['predicted']}")
+    for k in total:
+        total[k] += tr["launches"][k]
+
+
 # ------------------------------------------------------------------ main
 
 def shallow_fp32(cfg, layers=4):
@@ -1140,6 +1537,8 @@ def main():
         del params
         torch.cuda.empty_cache()
 
+    report_train(get_config("qwen2-0.5b"), device, total)
+
     source = "src/repro_torch/kernels/csrc/"
     rows = [dict(name="flash_mha", route="cuda", source=source + "flash_attention.cu",
                  replaces="src/repro/kernels/flash_attention.py:91",
@@ -1159,7 +1558,10 @@ def main():
                  launches=total["ssd_scan"], **kern["ssd_scan"]),
             dict(name="rglru_scan", route="cuda", source=source + "rglru_scan.cu",
                  replaces="src/repro/kernels/rglru_scan.py:48",
-                 launches=total["rglru_scan"], **kern["rglru_scan"])]
+                 launches=total["rglru_scan"], **kern["rglru_scan"]),
+            dict(name="flash_mha_varlen", route="cuda", source=source + "varlen_attention.cu",
+                 replaces="src/repro/kernels/varlen_attention.py:117",
+                 launches=total["flash_mha_varlen"], **kern["flash_mha_varlen"])]
     for r in rows:
         check(all(math.isfinite(r[k]) for k in ("ms", "cold_ms", "plain_ms", "bound_ms")),
               f"{r['name']}: non-finite time")

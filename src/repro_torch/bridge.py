@@ -49,6 +49,7 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
     out = {"embed": _map(lambda a: _tensor(a, device), np_tree["embed"]),
            "layers": layers,
            "final_norm": _map(lambda a: _tensor(a, device), np_tree["final_norm"])}
-    if "lm_head" in np_tree:
-        out["lm_head"] = _map(lambda a: _tensor(a, device), np_tree["lm_head"])
+    for head in ("lm_head", "value_head"):
+        if head in np_tree:
+            out[head] = _map(lambda a: _tensor(a, device), np_tree[head])
     return out

@@ -20,7 +20,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention",
-           "grouped_expert", "ssd_scan", "rglru_scan")
+           "grouped_expert", "ssd_scan", "rglru_scan", "varlen_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -14,6 +14,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.guard import refuse_grad
 from repro_torch.kernels.ref import decode_mha_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -39,6 +40,7 @@ def flash_decode(q, k_cache, v_cache, *, cache_len, window: int | None = None):
     if q.device.type == "cpu":
         return decode_mha_ref(q, k_cache, v_cache, cache_len=cache_len,
                               window=window)
+    refuse_grad("flash_decode", q, k_cache, v_cache)
     dev = q.device
     if not (q.is_cuda and k_cache.device == dev and v_cache.device == dev
             and cache_len.device == dev):

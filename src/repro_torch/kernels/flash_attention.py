@@ -15,6 +15,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.guard import refuse_grad
 from repro_torch.kernels.ref import mha_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -47,6 +48,7 @@ def flash_mha(q, k, v, *, causal: bool = True, window: int | None = None,
     if q.device.type == "cpu":
         return mha_ref(q, k, v, causal=causal, window=window,
                        q_positions=q_positions, kv_positions=kv_positions)
+    refuse_grad("flash_mha", q, k, v)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_mha: q, k, v must lie on one CUDA device")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:

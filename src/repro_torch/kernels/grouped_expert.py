@@ -14,6 +14,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.guard import refuse_grad
 from repro_torch.kernels.ref import grouped_ffn_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -47,6 +48,7 @@ def grouped_ffn(xs, group_sizes, w_gate, w_in, w_out, *, act="silu"):
     and D, F multiples of 8."""
     if xs.device.type == "cpu":
         return grouped_ffn_ref(xs, group_sizes, w_gate, w_in, w_out, act=act)
+    refuse_grad("grouped_ffn", xs, w_gate, w_in, w_out)
     dev = xs.device
     tensors = (xs, group_sizes, w_gate, w_in, w_out)
     if not (xs.is_cuda and all(t.device == dev for t in tensors)):

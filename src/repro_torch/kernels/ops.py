@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import (decode_attention, flash_attention, grouped_expert,
-                                 paged_decode_attention, ref)
+                                 paged_decode_attention, ref, varlen_attention)
 from repro_torch.kernels import rglru_scan as rglru_kernel
 from repro_torch.kernels import ssd_scan as ssd_kernel
 
@@ -41,6 +41,21 @@ def mha(q, k, v, *, causal=True, window=None, q_positions=None,
     return flash_attention.flash_mha(q, k, v, causal=causal, window=window,
                                      q_positions=q_positions,
                                      kv_positions=kv_positions)
+
+
+def varlen_mha(q, k, v, cu_seqlens, *, causal=True, window=None, max_seqlen=None,
+               impl="cuda"):
+    """Packed (``cu_seqlens``) attention over one token axis; see
+    ``ref.mha_varlen_ref``.  q: (T, Hq, D); k/v: (T, Hkv, D); cu_seqlens:
+    (B+1,) int32.  ``max_seqlen`` bands the plain version (the reference
+    tier's forward and the kernel tier's backward); the kernel ignores it.
+    Differentiable on both tiers."""
+    _check(impl, q, k, v, cu_seqlens)
+    if impl == "reference":
+        return ref.mha_varlen_ref(q, k, v, cu_seqlens, causal=causal, window=window,
+                                  max_seqlen=max_seqlen)
+    return varlen_attention.flash_mha_varlen(q, k, v, cu_seqlens, causal=causal,
+                                             window=window, max_seqlen=max_seqlen)
 
 
 def decode_mha(q, k_cache, v_cache, *, cache_len, window=None, impl="cuda"):

@@ -14,6 +14,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.guard import refuse_grad
 from repro_torch.kernels.decode_attention import DTYPES, HEAD_DIMS, MAX_GROUP
 from repro_torch.kernels.ref import paged_decode_mha_ref
 
@@ -37,6 +38,7 @@ def paged_flash_decode(q, k_pool, v_pool, block_table, *, cache_len):
     table's entries: one outside [0, N) reads outside the pool."""
     if q.device.type == "cpu":
         return paged_decode_mha_ref(q, k_pool, v_pool, block_table, cache_len=cache_len)
+    refuse_grad("paged_flash_decode", q, k_pool, v_pool)
     dev = q.device
     if not (q.is_cuda and all(t.device == dev for t in (k_pool, v_pool, block_table,
                                                          cache_len))):

@@ -76,6 +76,74 @@ def mha_ref(q, k, v, *, causal: bool = True, window: int | None = None,
     return out.reshape(b, sq, hq, d)
 
 
+def _varlen_block(q, k, v, seg_q, seg_k, pos_q, pos_k, *, causal, window, g: int):
+    """One (Tq, Tk) tile of packed varlen attention.  q: (Tq, Hq, D); k/v:
+    (Tk, Hkv, D); seg_*/pos_*: segment ids and global positions.  Tokens
+    attend only within their own segment (block-diagonal mask).  Scores and
+    softmax run in fp32 (in float64 for float64 inputs, so that
+    ``gradcheck`` can hold the gradient)."""
+    tq, hq, d = q.shape
+    hkv = k.shape[1]
+    qr = q.reshape(tq, hkv, g, d)
+    logits = torch.einsum("qhgd,khd->hgqk", qr, k).to(
+        torch.promote_types(q.dtype, torch.float32))
+    logits = logits / math.sqrt(d)
+    mask = seg_q[:, None] == seg_k[None, :]
+    if causal:
+        mask = mask & (pos_k[None, :] <= pos_q[:, None])
+    if window is not None:
+        mask = mask & ((pos_q[:, None] - pos_k[None, :]) < window)
+    logits = torch.where(mask[None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("hgqk,khd->qhgd", probs.to(v.dtype), v)
+    return out.reshape(tq, hq, d)
+
+
+def mha_varlen_ref(q, k, v, cu_seqlens, *, causal: bool = True,
+                   window: int | None = None, max_seqlen: int | None = None,
+                   q_chunk: int = 128):
+    """Packed variable-length attention, the plain version of
+    ``varlen_attention.flash_mha_varlen``.
+
+    q: (T, Hq, D); k/v: (T, Hkv, D): the B sequences concatenated on the
+    token axis with offsets ``cu_seqlens`` ((B+1,) int).  A token attends
+    only keys of its own sequence (causal within when ``causal``); tokens
+    at or beyond ``cu_seqlens[-1]`` (phantoms) form one segment of their
+    own, segment B.
+
+    ``max_seqlen`` bounds the longest sequence: with it and ``causal`` the
+    computation runs banded, query chunks of ``q_chunk`` against the
+    trailing ``max_seqlen``-wide key band, so cost is O(T * max_seqlen)
+    instead of O(T^2).  Cross-segment scores are set to the finite NEG_INF
+    before the softmax and weigh exactly 0, so changing another sequence
+    leaves a sequence's output bit-identical.
+    """
+    t, hq, d = q.shape
+    hkv = k.shape[1]
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    g = hq // hkv
+    cu = cu_seqlens.to(device=q.device, dtype=torch.int64)
+    pos = torch.arange(t, device=q.device)
+    seg = torch.searchsorted(cu[1:], pos, right=True)
+
+    band = max_seqlen if (causal and max_seqlen is not None) else None
+    if band is None or t <= q_chunk:
+        return _varlen_block(q, k, v, seg, seg, pos, pos, causal=causal,
+                             window=window, g=g)
+    outs = []
+    for i in range(-(-t // q_chunk)):
+        lo, hi = i * q_chunk, min((i + 1) * q_chunk, t)
+        # the same-segment causal keys of queries [lo, hi) all lie in
+        # [lo - band + 1, hi): a key more than band - 1 behind its query is
+        # in an earlier sequence (sequences are contiguous, len <= band)
+        klo = max(0, lo - band + 1)
+        outs.append(_varlen_block(
+            q[lo:hi], k[klo:hi], v[klo:hi], seg[lo:hi], seg[klo:hi],
+            pos[lo:hi], pos[klo:hi], causal=causal, window=window, g=g))
+    return torch.cat(outs, dim=0)
+
+
 def decode_mha_ref(q, k_cache, v_cache, *, cache_len, window: int | None = None):
     """Single-token decode attention over a (ring or linear) KV cache.
 

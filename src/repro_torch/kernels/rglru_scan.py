@@ -14,6 +14,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.guard import refuse_grad
 from repro_torch.kernels.ref import rglru_scan_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -36,6 +37,7 @@ def rglru_scan(a, bx, init_state=None):
     launch the kernel or raise."""
     if a.device.type == "cpu":
         return rglru_scan_ref(a, bx, init_state)
+    refuse_grad("rglru_scan", a, bx)
     if init_state is not None:
         raise ValueError("rglru_scan: the kernel starts from a zero carry; pass "
                          "init_state to the reference tier")

@@ -14,6 +14,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.guard import refuse_grad
 from repro_torch.kernels.ref import ssd_ref
 
 # Built for mamba2-1.3b's widths only; other widths come with the
@@ -46,6 +47,7 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, d_vec, *, chunk: int, init_state=None,
     if x.device.type == "cpu":
         return ssd_ref(x, dt, a_log, b_mat, c_mat, d_vec, chunk=chunk,
                        init_state=init_state, return_state=return_state)
+    refuse_grad("ssd_scan", x, dt, a_log, b_mat, c_mat, d_vec)
     if init_state is not None:
         raise ValueError("ssd_scan: the kernel starts from a zero state; pass "
                          "init_state to the reference tier")

@@ -47,6 +47,7 @@ class BatchServer:
                            top_k=top_k, top_p=top_p)
         self.device = params["embed"]["table"].device
 
+    @torch.no_grad()
     def serve(self, prompts, seed=None):
         """prompts: list of 1-D int sequences (ragged).  ``seed=None``
         decodes greedily; otherwise every bucket samples from a generator
@@ -308,6 +309,7 @@ class ContinuousBatchServer:
                     break
 
     # -------------------------------------------------------------- serving
+    @torch.no_grad()
     def serve(self, prompts, seed=None, max_new=None):
         """prompts: list of 1-D int sequences (ragged).  ``max_new``: int or
         per-request list (default: the server's ``max_new``).  ``seed=None``

@@ -12,9 +12,10 @@ the JAX package, caches are updated in place (one buffer per layer for the
 whole generation instead of a new one per step).
 
 Full-sequence attention runs at positions arange(S), so the attention
-kernel takes its arange fast path (tile skipping).  ``rope`` is the
-``layers.rope_tables`` pair of the positions, built once per step by the
-layer stack.
+kernel takes its arange fast path (tile skipping); packed attention
+(``attn_apply``) runs at each sequence's own positions through the varlen
+kernel.  ``rope`` is the ``layers.rope_tables`` pair of the positions,
+built once per step by the layer stack.
 """
 
 from __future__ import annotations
@@ -60,6 +61,21 @@ def attn_apply_with_kv(p, cfg: ModelConfig, spec: LayerSpec, x, rope, *,
     out = ops.mha(q, k, v, causal=True, window=spec.window, impl=impl)
     y = L.dense_apply(p["wo"], out.reshape(*x.shape[:2], cfg.q_dim))
     return y, {"k": k, "v": v}
+
+
+def attn_apply(p, cfg: ModelConfig, spec: LayerSpec, x, rope, cu_seqlens, *,
+               max_seqlen=None, impl="cuda"):
+    """Causal attention over a packed cohort (the training forward of
+    packed PPO).  x is the (1, T, D) cohort, ``rope`` the tables of its
+    within-sequence positions (RoPE restarts per sequence), and attention
+    is block-diagonal over the ``cu_seqlens`` segments through
+    ``ops.varlen_mha``, which is differentiable on both tiers."""
+    if x.shape[0] != 1:
+        raise ValueError(f"a packed cohort must be (1, T, D); got {tuple(x.shape)}")
+    q, k, v = _project_qkv(p, cfg, x, rope)
+    out = ops.varlen_mha(q[0], k[0], v[0], cu_seqlens, causal=True, window=spec.window,
+                         max_seqlen=max_seqlen, impl=impl)[None]
+    return L.dense_apply(p["wo"], out.reshape(*x.shape[:2], cfg.q_dim))
 
 
 # ------------------------------------------------------------------ KV cache

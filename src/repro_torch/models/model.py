@@ -2,9 +2,10 @@
 generate, and the length-bucketed generator.
 
 Parameters: {"embed": {"table"}, "layers": [one dict per layer],
-"final_norm": {"scale"}} (+ "lm_head" when embeddings are not tied).  A
-batch is {"tokens": (B, S) int tensor}.  Every entry point runs where the
-parameters lie and defaults to ``impl="cuda"``.
+"final_norm": {"scale"}} (+ "lm_head" when embeddings are not tied, or
+"value_head" for a value model).  A batch is {"tokens": (B, S) int
+tensor}, or a packed cohort {"tokens", "cu_seqlens", "positions"}.  Every
+entry point runs where the parameters lie and defaults to ``impl="cuda"``.
 """
 
 from __future__ import annotations
@@ -17,18 +18,23 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", head: str = "lm"):
     """Random weights, drawn from one ``torch.Generator`` seeded with
     ``seed``, with the JAX package's initialisers (truncated normal,
     d_in^-0.5 for dense weights, 1.0 for the embedding, zero biases, unit
-    norms)."""
+    norms).  ``head="value"`` (the RLHF critic and reward models) swaps
+    the LM head for the fp32 scalar ``value_head``."""
+    if head not in ("lm", "value"):
+        raise ValueError(f"head={head!r}; need 'lm' or 'value'")
     gen = torch.Generator(device=device).manual_seed(seed)
     p = {
         "embed": L.embed_init(gen, cfg, device),
         "layers": T.stack_init(gen, cfg, device),
         "final_norm": L.rmsnorm_init(cfg.d_model, L.dtype_of(cfg), device),
     }
-    if not cfg.tie_embeddings:
+    if head == "value":
+        p["value_head"] = L.dense_init(gen, cfg.d_model, 1, torch.float32, device)
+    elif not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
                                     L.dtype_of(cfg), device)
     return p
@@ -38,11 +44,25 @@ def _embed(params, cfg: ModelConfig, tokens):
     return L.embed_apply(params["embed"], tokens).to(L.dtype_of(cfg))
 
 
-def forward(params, cfg: ModelConfig, batch, *, impl="cuda"):
+def forward(params, cfg: ModelConfig, batch, *, impl="cuda", remat=False,
+            max_seqlen=None):
     """Full-sequence causal forward.  Returns the final-normed hidden
-    states (B, S, D)."""
-    x = _embed(params, cfg, batch["tokens"])
-    h = T.stack_apply(params["layers"], cfg, x, impl=impl)
+    states (B, S, D).
+
+    Packed mode: when ``batch`` has "cu_seqlens", its "tokens" are a (T,)
+    packed cohort and "positions" the (T,) within-sequence positions; the
+    cohort runs as one (1, T, D) row, attention block-diagonal through
+    ``ops.varlen_mha``, and the hidden states are (1, T, D).
+    ``max_seqlen`` (the longest sequence) bands the varlen attention's plain
+    version.  ``remat`` recomputes each layer in the backward."""
+    if "cu_seqlens" in batch:
+        x = _embed(params, cfg, batch["tokens"][None])
+        h = T.stack_apply(params["layers"], cfg, x, batch["positions"][None], impl=impl,
+                          cu_seqlens=batch["cu_seqlens"], max_seqlen=max_seqlen,
+                          remat=remat)
+    else:
+        x = _embed(params, cfg, batch["tokens"])
+        h = T.stack_apply(params["layers"], cfg, x, impl=impl, remat=remat)
     return L.rmsnorm_apply(params["final_norm"], h, cfg.norm_eps)
 
 
@@ -51,8 +71,16 @@ def logits_of(params, cfg: ModelConfig, hidden):
                            tie=cfg.tie_embeddings)
 
 
-# ----------------------------------------------------------------- serving
+def values_of(params, hidden):
+    """The value head's scalar per position, fp32: (..., D) -> (...)."""
+    return L.dense_apply(params["value_head"], hidden.to(torch.float32))[..., 0]
 
+
+# ----------------------------------------------------------------- serving
+# Every serving entry point runs under torch.no_grad(): the trained actor's
+# parameters require grad, and the kernels of these paths have no backward.
+
+@torch.no_grad()
 def prefill(params, cfg: ModelConfig, batch, max_len, *, impl="cuda"):
     """Run the prompt, fill caches, return (last_hidden (B, D), caches)."""
     x = _embed(params, cfg, batch["tokens"])
@@ -62,6 +90,7 @@ def prefill(params, cfg: ModelConfig, batch, max_len, *, impl="cuda"):
     return h[:, -1], caches
 
 
+@torch.no_grad()
 def decode_step(params, cfg: ModelConfig, token, caches, t: int, *, impl="cuda"):
     """token: (B,) int; t: the position of this token.
     Returns (logits (B, V) fp32, caches)."""
@@ -71,6 +100,7 @@ def decode_step(params, cfg: ModelConfig, token, caches, t: int, *, impl="cuda")
     return logits_of(params, cfg, h)[:, 0], caches
 
 
+@torch.no_grad()
 def decode_and_sample_step(params, cfg: ModelConfig, token, caches, t: int,
                            rng=None, *, temperature: float = 1.0,
                            top_k: int = 0, top_p: float = 1.0, impl="cuda"):
@@ -83,6 +113,7 @@ def decode_and_sample_step(params, cfg: ModelConfig, token, caches, t: int,
     return tok, lp, caches
 
 
+@torch.no_grad()
 def paged_decode_step(params, cfg: ModelConfig, token, caches, block_table,
                       positions, *, impl="cuda"):
     """One decode step over paged caches with per-row positions (the
@@ -96,6 +127,7 @@ def paged_decode_step(params, cfg: ModelConfig, token, caches, block_table,
     return logits_of(params, cfg, h)[:, 0], caches
 
 
+@torch.no_grad()
 def paged_decode_and_sample_step(params, cfg: ModelConfig, token, caches,
                                  block_table, positions, rng=None, *,
                                  temperature: float = 1.0, top_k: int = 0,
@@ -110,6 +142,7 @@ def paged_decode_and_sample_step(params, cfg: ModelConfig, token, caches,
     return tok, lp, caches
 
 
+@torch.no_grad()
 def generate(params, cfg: ModelConfig, batch, *, num_new_tokens: int,
              rng=None, temperature: float = 1.0, impl="cuda",
              eos_id: int | None = None, top_k: int = 0, top_p: float = 1.0):
@@ -199,6 +232,7 @@ class BucketedGenerator:
         self.top_k, self.top_p = top_k, top_p
         self.buckets = buckets
 
+    @torch.no_grad()
     def __call__(self, params, batch, *, num_new_tokens: int, rng=None):
         toks = batch["tokens"]
         plen = toks.shape[1]

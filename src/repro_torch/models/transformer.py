@@ -2,7 +2,8 @@
 JAX package stacks each group's layers and ``lax.scan``s them).
 
 Four execution paths share the parameters:
-  * ``stack_apply``        - full-sequence forward
+  * ``stack_apply``        - full-sequence forward (padded, or a packed
+                             cohort with ``cu_seqlens``: the train forward)
   * ``stack_prefill``      - full-sequence forward that also fills decode caches
   * ``stack_decode``       - single-token step through the caches
   * ``stack_paged_decode`` - single-token step with per-row positions through
@@ -18,6 +19,7 @@ state.  Cross-attention and encoder/prefix inputs raise
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ATTN, LRU, SSM, LayerSpec, ModelConfig
 from repro_torch.models import attention as A
@@ -66,11 +68,31 @@ def _recurrent_decode(p, cfg, spec, h, cache):
     return S.ssm_decode_apply(p["mixer"], cfg, h, cache)
 
 
-def block_apply(p, cfg, spec, x, rope, *, impl="cuda"):
+def check_packed(cfg: ModelConfig):
+    """Raise for a config the packed (``cu_seqlens``) forward does not run:
+    a recurrent mixer would scan across sequence boundaries (the JAX
+    package raises too), and packed MoE training needs ``grouped_ffn``'s
+    backward, which is not ported yet."""
+    kinds = {s.kind for s in cfg.layers}
+    if kinds != {ATTN}:
+        raise NotImplementedError(f"{cfg.name}: packed training is attention-only; got "
+                                  f"mixer kinds {sorted(kinds)}")
+    if cfg.ffn_kind == "moe":
+        raise NotImplementedError(f"{cfg.name}: packed MoE training needs grouped_ffn's "
+                                  "backward, which is not ported yet")
+
+
+def block_apply(p, cfg, spec, x, rope, *, impl="cuda", cu_seqlens=None, max_seqlen=None):
     """Full-sequence block.  Returns (x, state): an attention layer's roped
     k/v, or a recurrent layer's decode state after the last token, for
-    prefill caching."""
+    prefill caching.  Packed mode (``cu_seqlens`` given; attention only,
+    see ``check_packed``): x is a (1, T, D) packed cohort, attention goes
+    block-diagonal over its segments, and the state is None."""
     h = L.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+    if cu_seqlens is not None:
+        y = A.attn_apply(p["mixer"], cfg, spec, h, rope, cu_seqlens, max_seqlen=max_seqlen,
+                         impl=impl)
+        return _ffn(p, cfg, x + y, impl), None
     if spec.kind == ATTN:
         y, state = A.attn_apply_with_kv(p["mixer"], cfg, spec, h, rope, impl=impl)
     elif spec.kind == LRU:
@@ -126,11 +148,25 @@ def _arange_rope(cfg: ModelConfig, x):
     return _rope(cfg, torch.arange(x.shape[1], device=x.device))
 
 
-def stack_apply(layers_params, cfg: ModelConfig, x, *, impl="cuda"):
-    """Full-sequence forward at positions arange(S)."""
-    rope = _arange_rope(cfg, x)
+def stack_apply(layers_params, cfg: ModelConfig, x, positions=None, *, impl="cuda",
+                cu_seqlens=None, max_seqlen=None, remat=False):
+    """Full-sequence forward at ``positions`` ((1, S); None means arange).
+
+    Packed mode (``cu_seqlens`` given): x is a (1, T, D) packed cohort and
+    ``positions`` its within-sequence positions.  ``remat`` recomputes each
+    layer's activations in the backward (``torch.utils.checkpoint``, the
+    counterpart of the JAX package's ``jax.checkpoint`` per layer group);
+    the recompute runs each layer's forward, kernels included, a second
+    time."""
+    if cu_seqlens is not None:
+        check_packed(cfg)
+    rope = _arange_rope(cfg, x) if positions is None else _rope(cfg, positions)
     for p, spec in zip(layers_params, cfg.layers):
-        x, _ = block_apply(p, cfg, spec, x, rope, impl=impl)
+        def layer(x, p=p, spec=spec):
+            return block_apply(p, cfg, spec, x, rope, impl=impl, cu_seqlens=cu_seqlens,
+                               max_seqlen=max_seqlen)[0]
+        x = (torch.utils.checkpoint.checkpoint(layer, x, use_reentrant=False) if remat
+             else layer(x))
     return x
 
 

@@ -1,0 +1,93 @@
+"""AdamW with a mixed-precision state policy and global-norm clipping, as
+the JAX package's ``optim/adamw.py``.
+
+State: an fp32 master copy of the parameters and m/v in ``state_dtype``
+(fp32 by default; bf16 halves the optimizer's memory).  Unlike the JAX
+package's pure function, ``update`` writes the new parameters and state in
+place, under ``torch.no_grad()``, so a step holds no second copy of either;
+the values are the JAX package's.  Parameter trees are nested dicts and
+lists of tensors, walked in a fixed order by :func:`leaves`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 1e-5
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0
+    state_dtype: str = "float32"  # m/v dtype; "bfloat16" halves opt memory
+    master_dtype: str = "float32"
+
+
+def leaves(tree) -> list:
+    """The tensors of a nested dict/list tree, in a fixed order (dict keys
+    sorted, as ``jax.tree.leaves`` orders them)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def init(cfg: AdamWConfig, params):
+    """Optimizer state of ``params``: step 0, m and v zeros in
+    ``state_dtype``, the master copy in ``master_dtype`` (a copy even where
+    the parameter already has that dtype)."""
+    sd, md = DTYPES[cfg.state_dtype], DTYPES[cfg.master_dtype]
+    with torch.no_grad():
+        return {"step": 0,
+                "m": _map(lambda p: torch.zeros(p.shape, dtype=sd, device=p.device), params),
+                "v": _map(lambda p: torch.zeros(p.shape, dtype=sd, device=p.device), params),
+                "master": _map(lambda p: p.detach().to(md, copy=True), params)}
+
+
+def global_norm(grads) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in fp32."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                          for g in leaves(grads)))
+
+
+@torch.no_grad()
+def update(cfg: AdamWConfig, params, state, grads, lr_scale=None):
+    """One AdamW step; ``grads`` is a tree like ``params`` or the list of
+    its leaves.  Writes the parameters and ``state`` in place and returns
+    (params, state, stats) with stats {"grad_norm", "lr"}."""
+    gl = leaves(grads)
+    gnorm = global_norm(gl)
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+    state["step"] += 1
+    t = float(state["step"])
+    bc1, bc2 = 1.0 - cfg.b1 ** t, 1.0 - cfg.b2 ** t
+    lr = cfg.lr * (lr_scale if lr_scale is not None else 1.0)
+    for p, m, v, g, master in zip(leaves(params), leaves(state["m"]), leaves(state["v"]),
+                                  gl, leaves(state["master"]), strict=True):
+        g = g.to(torch.float32) * scale
+        m32 = m.to(torch.float32) * cfg.b1 + g * (1 - cfg.b1)
+        v32 = v.to(torch.float32) * cfg.b2 + torch.square(g) * (1 - cfg.b2)
+        master32 = master.to(torch.float32)
+        delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps) + cfg.weight_decay * master32
+        new_master = master32 - lr * delta
+        p.copy_(new_master)
+        m.copy_(m32)
+        v.copy_(v32)
+        master.copy_(new_master)
+    return params, state, {"grad_norm": gnorm, "lr": torch.tensor(lr)}

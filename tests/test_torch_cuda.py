@@ -33,7 +33,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import (decode_attention, flash_attention, grouped_expert, ops,
-                                 paged_decode_attention, ref, rglru_scan, ssd_scan)
+                                 paged_decode_attention, ref, rglru_scan, ssd_scan,
+                                 varlen_attention)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 GROUPED_TOL = {"float32": 1e-5, "bfloat16": 1e-4}
@@ -186,7 +187,8 @@ def test_paged_flash_decode_kernel_matches_plain(bs, d, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["flash_mha", "flash_decode", "paged_flash_decode"])
+@pytest.mark.parametrize("kernel", ["flash_mha", "flash_decode", "paged_flash_decode",
+                                    "flash_mha_varlen"])
 def test_kernels_launch_on_a_second_card_after_the_first(kernel):
     """The shared-memory opt-in is per card: a kernel launched on card 0
     first must still launch on card 1.  D = 128 needs more than the 48 KB
@@ -206,6 +208,11 @@ def test_kernels_launch_on_a_second_card_after_the_first(kernel):
             cl = torch.tensor([7, 96], dtype=torch.int32, device=dev)
             got = decode_attention.flash_decode(q, kc, vc, cache_len=cl)
             want = ref.decode_mha_ref(q, kc, vc, cache_len=cl)
+        elif kernel == "flash_mha_varlen":
+            q, k, v = (_randn(gen, (150, 4, 128), "float32", dev) for _ in range(3))
+            cu = torch.tensor([0, 37, 101, 140], dtype=torch.int32, device=dev)
+            got = varlen_attention.flash_mha_varlen(q, k, v, cu)
+            want = ref.mha_varlen_ref(q, k, v, cu)
         else:
             q = _randn(gen, (2, 4, 128), "float32", dev)
             kp, vp = (_randn(gen, (7, 16, 2, 128), "float32", dev) for _ in range(2))
@@ -518,3 +525,166 @@ def test_scan_wrappers_count_launches_and_reject_what_the_kernels_do_not_take():
         rglru_scan.rglru_scan(a.transpose(0, 1), a.transpose(0, 1))
     with pytest.raises(TypeError):
         rglru_scan.rglru_scan(a, a.bfloat16())
+
+
+# packed varlen attention: (sequence lengths, T with a phantom tail past
+# their sum, Hq, Hkv, D, causal, window): a length-1 sequence, boundaries
+# off the 64-row tile, a phantom tail sharing a tile with the last
+# sequence, qwen2-0.5b's heads (G = 7), a window, non-causal, D 16 to 256
+VARLEN_GRID = [
+    ([1, 70, 3, 200, 64, 1, 100], 448, 14, 2, 64, True, None),
+    ([1, 70, 3, 200, 64, 1, 100], 448, 14, 2, 64, True, 50),
+    ([130, 1, 61], 200, 4, 2, 16, False, None),
+    ([17, 300], 320, 4, 4, 32, True, 128),
+    ([5, 64, 64, 1], 134, 8, 1, 128, True, None),
+    ([300, 212], 512, 16, 1, 256, True, 2048),
+    ([64, 64], 128, 4, 2, 64, True, None),
+]
+
+
+def _varlen_inputs(gen, lens, t, hq, hkv, d, dtype, dev):
+    cu = torch.tensor([0] + list(torch.tensor(lens).cumsum(0)), dtype=torch.int32,
+                      device=dev)
+    q = _randn(gen, (t, hq, d), dtype, dev)
+    k, v = (_randn(gen, (t, hkv, d), dtype, dev) for _ in range(2))
+    return q, k, v, cu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lens,t,hq,hkv,d,causal,window", VARLEN_GRID)
+def test_flash_mha_varlen_kernel_matches_plain(lens, t, hq, hkv, d, causal, window, dtype):
+    """Every row, phantoms included, against the plain version (unbanded,
+    and banded by the longest segment where that is exact)."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q, k, v, cu = _varlen_inputs(gen, lens, t, hq, hkv, d, dtype, dev)
+    got = varlen_attention.flash_mha_varlen(q, k, v, cu, causal=causal, window=window)
+    _close(got, ref.mha_varlen_ref(q, k, v, cu, causal=causal, window=window), dtype)
+    band = max(max(lens), t - sum(lens))
+    _close(got, ref.mha_varlen_ref(q, k, v, cu, causal=causal, window=window,
+                                   max_seqlen=band), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_mha_varlen_equal_segments_equal_flash_mha(dtype):
+    """B equal segments of S (a multiple of the 64-row tile) walk the same
+    tiles in the same order as flash_mha on the (B, S) layout: the same
+    bits."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    b, s, hq, hkv, d = 3, 192, 14, 2, 64
+    q, k, v, cu = _varlen_inputs(gen, [s] * b, b * s, hq, hkv, d, dtype, dev)
+    for window in (None, 100):
+        got = varlen_attention.flash_mha_varlen(q, k, v, cu, window=window)
+        want = flash_attention.flash_mha(q.view(b, s, hq, d), k.view(b, s, hkv, d),
+                                         v.view(b, s, hkv, d), causal=True, window=window)
+        torch.cuda.synchronize()
+        diff = (got.view(b, s, hq, d).float() - want.float()).abs().max().item()
+        assert diff == 0.0, (window, diff)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_mha_varlen_has_no_cross_sequence_leakage(dtype):
+    """Perturb one sequence's q, k and v: every other row, phantoms
+    included, keeps its bits."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(14)
+    lens = [5, 90, 1, 40]
+    q, k, v, cu = _varlen_inputs(gen, lens, 192, 14, 2, 64, dtype, dev)
+    base = varlen_attention.flash_mha_varlen(q, k, v, cu)
+    sl = slice(5, 95)
+    q2, k2, v2 = q.clone(), k.clone(), v.clone()
+    q2[sl] += 3.0
+    k2[sl] -= 2.0
+    v2[sl] *= 5.0
+    pert = varlen_attention.flash_mha_varlen(q2, k2, v2, cu)
+    torch.cuda.synchronize()
+    keep = torch.ones(192, dtype=torch.bool, device=dev)
+    keep[sl] = False
+    assert torch.equal(base[keep], pert[keep])
+    assert not torch.equal(base[sl], pert[sl])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_mha_varlen_gradients(dtype):
+    """The Function's dq, dk, dv against autograd of the plain version on
+    the same inputs (its backward is that autograd), and the forward's
+    launch count."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(15)
+    lens = [1, 70, 3, 100]
+    q, k, v, cu = _varlen_inputs(gen, lens, 192, 14, 2, 64, dtype, dev)
+    w = _randn(gen, (192, 14, 64), dtype, dev)
+    grads = []
+    for fn in (varlen_attention.flash_mha_varlen, ref.mha_varlen_ref):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        before = varlen_attention.flash_mha_varlen.launches
+        out = fn(*leaves, cu, max_seqlen=100)
+        assert out.requires_grad
+        (out.float() * w.float()).sum().backward()
+        if fn is varlen_attention.flash_mha_varlen:
+            assert varlen_attention.flash_mha_varlen.launches == before + 1
+        grads.append([x.grad for x in leaves])
+    for got, want in zip(*grads):
+        _close(got, want, "float32")
+
+
+@pytest.mark.cuda
+def test_kernels_without_backward_raise_under_grad():
+    """Each wrapper with no backward raises NotImplementedError when an input
+    requires grad under grad mode, and runs under torch.no_grad()."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(16)
+    x = _randn(gen, (1, 64, 4, 64), "float32", dev)
+    cl = torch.tensor([64], dtype=torch.int32, device=dev)
+    table = torch.tensor([[1, 2, 3, 4]], dtype=torch.int32, device=dev)
+    pool = _randn(gen, (5, 16, 4, 64), "float32", dev)
+    xs, gs, ws = _grouped_inputs(gen, 40, 64, 32, 4, "float32", dev)
+    ssd_args = _ssd_inputs(gen, 1, 64, 2, "float32", dev)
+    a = torch.rand(2, 9, 32, device=dev)
+    calls = {
+        "flash_mha": (flash_attention.flash_mha, lambda g: (g(x), x, x), {}),
+        "flash_decode": (decode_attention.flash_decode, lambda g: (g(x[:, 0]), x, x),
+                         dict(cache_len=cl)),
+        "paged_flash_decode": (paged_decode_attention.paged_flash_decode,
+                               lambda g: (g(x[:, 0]), pool, pool, table), dict(cache_len=cl)),
+        "grouped_ffn": (grouped_expert.grouped_ffn, lambda g: (g(xs), gs, *ws), {}),
+        "ssd_scan": (ssd_scan.ssd_scan, lambda g: (g(ssd_args[0]), *ssd_args[1:]),
+                     dict(chunk=32)),
+        "rglru_scan": (rglru_scan.rglru_scan, lambda g: (g(a), a), {}),
+    }
+    for name, (fn, args, kw) in calls.items():
+        before = fn.launches
+        with pytest.raises(NotImplementedError, match=f"{name}: the CUDA kernel has no backward"):
+            fn(*args(lambda t: t.clone().requires_grad_(True)), **kw)
+        assert fn.launches == before
+        with torch.no_grad():
+            fn(*args(lambda t: t.clone().requires_grad_(True)), **kw)
+        fn(*args(lambda t: t), **kw)  # nothing requires grad
+        assert fn.launches == before + 2, name
+
+
+@pytest.mark.cuda
+def test_varlen_wrapper_rejects_what_the_kernel_does_not_take():
+    dev = _card()
+    q = torch.zeros(70, 4, 64, device=dev)
+    cu = torch.tensor([0, 30, 70], dtype=torch.int32, device=dev)
+    fn = varlen_attention.flash_mha_varlen
+    with pytest.raises(TypeError, match="int32"):
+        fn(q, q, q, cu.long())
+    with pytest.raises(TypeError):
+        fn(q.half(), q.half(), q.half(), cu)
+    with pytest.raises(ValueError, match="unsupported"):
+        fn(q[..., :48].contiguous(), q[..., :48].contiguous(), q[..., :48].contiguous(), cu)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(q, q.transpose(0, 1).contiguous().transpose(0, 1), q, cu)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fn(q, q, q, cu.cpu())
+    before = fn.launches
+    ops.varlen_mha(q, q, q, cu, impl="cuda")
+    ops.varlen_mha(q, q, q, cu, impl="reference")
+    assert fn.launches == before + 1
