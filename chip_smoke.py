@@ -15,7 +15,12 @@ Phases, in order; any failure exits non-zero before the last line:
      ssd_scan at mamba2-1.3b's widths, rglru_scan at recurrentgemma-9b's in
      fp32) and time kernel (inputs warm in L2 as ``ms``, L2 flushed before
      each call as ``cold_ms``), plain version, bound and one PyTorch library
-     call where one computes the same function; grouped_ffn's rows are also
+     call where one computes the same function (flash_mha and
+     flash_mha_varlen, kernel and library call, from CUDA-graph replays:
+     their wrappers' host work outlasts the kernel, so a loop of eager
+     calls, kept as ``eager_ms``, reads the host); print the registers, spill
+     bytes, shared memory and blocks per SM of the attention kernels' bf16
+     tile body (csrc/attn_tile.cuh); grouped_ffn's rows are also
      held bit-exact between an 8192-row and a 64-row cohort, and timed with
      each row tile over N;
   3. full-width qwen2-0.5b and granite-moe-1b-a400m (24 layers each), then
@@ -73,7 +78,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ATTN, LRU, SSM  # noqa: E402
-from repro_torch.kernels import build, grouped_expert, ref  # noqa: E402
+from repro_torch.kernels import (build, flash_attention, grouped_expert, ref,  # noqa: E402
+                                 varlen_attention)
 from repro_torch.kernels.decode_attention import flash_decode  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_mha  # noqa: E402
 from repro_torch.kernels.grouped_expert import grouped_ffn  # noqa: E402
@@ -97,8 +103,10 @@ PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # Kernel vs plain version, bf16 inputs, |err| <= KERNEL_TOL * (1 + |plain|):
 # the plain version rounds the scores and probabilities to bf16 before its
-# second product (as the JAX reference does), the kernels keep them in fp32;
-# 2e-2 is the JAX package's own bf16 tolerance for its kernels.
+# second product (as the JAX reference does), the decode kernels keep both
+# in fp32, the prefill kernels keep scores in fp32 and round their
+# unnormalised probabilities; 2e-2 is the JAX package's own bf16 tolerance
+# for its kernels.
 KERNEL_TOL = 2e-2
 # grouped_ffn vs its plain version: both take fp32 products of the same
 # values and differ only in summation order, so bf16 inputs are held to
@@ -274,6 +282,42 @@ def time_cold_ms(fn, iters=ITERS):
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
+def _replay_ms(calls, iters):
+    """Milliseconds of one replay of a CUDA graph of ``iters`` calls."""
+    for _ in range(3):
+        calls()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            calls()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def graph_ms(fn, iters=ITERS):
+    """Mean device time of one call, the calls replayed from a CUDA graph:
+    no host time lies between them, where ``time_ms`` of a call shorter
+    than its wrapper's host work reads the host."""
+    return _replay_ms(fn, iters) / iters
+
+
+def graph_cold_ms(fn, iters=ITERS):
+    """``graph_ms`` with L2 flushed before each call: the graph of (flush,
+    call) pairs less the graph of the flushes alone."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def flushed():
+        flush.zero_()
+        fn()
+    return (_replay_ms(flushed, iters) - _replay_ms(flush.zero_, iters)) / iters
+
+
 def bound_ms(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -326,11 +370,12 @@ def phase_kernels(device):
     bms, by = bound_ms(4 * d * pairs, 2 * (2 * q.numel() + 2 * k.numel()))
     out["flash_mha"] = dict(
         max_abs_err=max(errs), library="scaled_dot_product_attention",
-        ms=time_ms(lambda: flash_mha(q, k, v, causal=True)),
-        cold_ms=time_cold_ms(lambda: flash_mha(q, k, v, causal=True)),
+        ms=graph_ms(lambda: flash_mha(q, k, v, causal=True)),
+        cold_ms=graph_cold_ms(lambda: flash_mha(q, k, v, causal=True)),
+        eager_ms=time_ms(lambda: flash_mha(q, k, v, causal=True)),
         plain_ms=time_ms(lambda: ref.mha_ref(q, k, v, causal=True)),
         bound_ms=bms, bound_by=by,
-        library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)))
+        library_ms=graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)))
     out["flash_mha"]["d256"] = mha_d256_case(randn, device)
 
     # flash_decode: 8 rows over a 1088-slot linear cache with ragged
@@ -371,13 +416,21 @@ def phase_kernels(device):
     out["ssd_scan"] = ssd_kernel_case(device)
     out["rglru_scan"] = rglru_kernel_case(device)
     out["flash_mha_varlen"] = varlen_kernel_case(device)
+    for name, info in (("flash_mha D64", flash_attention.kernel_info(64)),
+                       ("flash_mha D256", flash_attention.kernel_info(256)),
+                       ("flash_mha_varlen D64", varlen_attention.kernel_info(64))):
+        print(f"[kernels] {name} bf16 tile body: {info['registers']} registers, "
+              f"{info['spill_bytes']} spill bytes, {info['smem_bytes']} bytes of shared "
+              f"memory, {info['blocks_per_sm']} blocks per SM")
     guard_case(device)
     for name, r in out.items():
         for shape, t in [("", r)] + [(f" {k}", v) for k, v in r.items() if isinstance(v, dict)]:
             lib = ("none" if t["library_ms"] is None
                    else f"{t['library_ms']:.4f} ({t['library']})")
+            eager = (f" eager_ms={t['eager_ms']:.4f} (host-paced loop)" if "eager_ms" in t
+                     else "")
             print(f"[kernels] {name}{shape}: ms={t['ms']:.4f} (warm L2) cold_ms="
-                  f"{t['cold_ms']:.4f} (L2 flushed) plain_ms={t['plain_ms']:.4f} "
+                  f"{t['cold_ms']:.4f} (L2 flushed){eager} plain_ms={t['plain_ms']:.4f} "
                   f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) library_ms={lib}")
     return out
 
@@ -405,12 +458,13 @@ def mha_d256_case(randn, device):
     pairs = b * hq * s * (s + 1) // 2
     bms, by = bound_ms(4 * d * pairs, 2 * (2 * q.numel() + 2 * k.numel()))
     return dict(max_abs_err=max(errs), library="scaled_dot_product_attention",
-                ms=time_ms(lambda: flash_mha(q, k, v, causal=True, window=2048)),
-                cold_ms=time_cold_ms(lambda: flash_mha(q, k, v, causal=True, window=2048)),
+                ms=graph_ms(lambda: flash_mha(q, k, v, causal=True, window=2048)),
+                cold_ms=graph_cold_ms(lambda: flash_mha(q, k, v, causal=True, window=2048)),
+                eager_ms=time_ms(lambda: flash_mha(q, k, v, causal=True, window=2048)),
                 plain_ms=time_ms(lambda: ref.mha_ref(q, k, v, causal=True, window=2048)),
                 bound_ms=bms, bound_by=by,
-                library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                                enable_gqa=True)))
+                library_ms=graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)))
 
 
 def decode_d256_case(randn, device):
@@ -626,11 +680,12 @@ def varlen_kernel_case(device):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return dict(max_abs_err=max(errs), equal_segment_max_abs_diff=diff,
                 library="scaled_dot_product_attention, dense (T, T) block-diagonal causal mask",
-                ms=time_ms(lambda: flash_mha_varlen(q, k, v, cu)),
-                cold_ms=time_cold_ms(lambda: flash_mha_varlen(q, k, v, cu)),
+                ms=graph_ms(lambda: flash_mha_varlen(q, k, v, cu)),
+                cold_ms=graph_cold_ms(lambda: flash_mha_varlen(q, k, v, cu)),
+                eager_ms=time_ms(lambda: flash_mha_varlen(q, k, v, cu)),
                 plain_ms=time_ms(lambda: ref.mha_varlen_ref(q, k, v, cu, max_seqlen=longest)),
                 bound_ms=bms, bound_by=by,
-                library_ms=time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+                library_ms=graph_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)),
                 tokens=t, causal_pairs=pairs)
 
 
@@ -1198,7 +1253,7 @@ def first_minibatch(cfg, exp, models, roll, *, impl):
                            ("critic", PPO.packed_critic_grads, EXP.critic_train_batch)):
         mb = {k: v[0] for k, v in make(exp, roll).items()}
         loss, st, grads = fn(models[name].params, cfg, exp.ppo, mb, impl=impl,
-                             max_seqlen=exp.prompt_len + exp.gen_len)
+                             max_seqlen=EXP.max_seqlen(exp))
         n = max(mb["mask"].sum().item(), 1.0)
         out[name] = dict(loss=loss.item(), grad_norm=adamw.global_norm(grads).item(),
                          grads=grads, names=leaf_names(models[name].params),

@@ -128,19 +128,29 @@ def bucket_total(t: int, bucket: int = 64) -> int:
     return -(-t // bucket) * bucket
 
 
-def pack_minibatches(tokens, per_token, lens, n_minibatches: int, bucket: int = 64):
+def pack_minibatches(tokens, per_token, lens, n_minibatches: int, bucket: int = 64,
+                     max_seqlen: int | None = None):
     """Split B sequences into ``n_minibatches`` contiguous groups (the
     padded path's grouping), pack each group, and stack them at a common
     bucketed token total.
 
     tokens: (B, S); per_token: dict of token-aligned (B, S) float tensors
     (loss masks must be 0 outside each sequence's valid region); lens: (B,)
-    host ints.  Returns a dict of (nmb, ...) stacked tensors: "tokens",
-    "cu_seqlens", "positions" and one entry per ``per_token`` key."""
+    host ints.  ``max_seqlen``, the band the train step's varlen attention
+    is given, must bound every length: the banded plain version (the
+    reference forward, the kernel tier's backward) silently computes
+    another function past it, so a longer sequence raises.  Returns a dict
+    of (nmb, ...) stacked tensors: "tokens", "cu_seqlens", "positions" and
+    one entry per ``per_token`` key."""
     lens = np.asarray(lens, np.int64)
     b = tokens.shape[0]
     if b % n_minibatches:
         raise ValueError(f"{b} sequences do not split into {n_minibatches} minibatches")
+    # the phantom tail past each group's sequences may be longer: its rows
+    # carry loss mask 0, so what the band does to them reaches no loss
+    if max_seqlen is not None and lens.max(initial=0) > max_seqlen:
+        raise ValueError(f"a sequence of {int(lens.max())} tokens exceeds max_seqlen "
+                         f"{max_seqlen}")
     gb = b // n_minibatches
     groups = [slice(j * gb, (j + 1) * gb) for j in range(n_minibatches)]
     tmb = bucket_total(int(max(lens[g].sum() for g in groups)), bucket)

@@ -90,3 +90,17 @@ def library(name: str) -> ctypes.CDLL:
         build((name,))
         lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def tile_info(name: str, symbol: str, d: int) -> dict:
+    """Registers, spill bytes, dynamic shared memory and resident blocks per
+    SM of a bf16 attention kernel at head_dim ``d`` on the current CUDA
+    device, from the library's ``symbol(int d, int* out)`` entry point."""
+    fn = getattr(library(name), symbol)
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(d, out)
+    if err:
+        raise RuntimeError(f"{symbol}({d}) failed with CUDA error {err}")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm"), out))

@@ -19,19 +19,25 @@
 // rows past Sq are not stored.
 //
 // What bounds it on this card: at the prefill shapes (S of a few hundred,
-// D = 64) the work is ~4*D flops per unmasked (query, key) pair against
-// 2*D*(Hq+2*Hkv+Hq)/Hq bytes per query, so the tensor-core roofline says
-// operations.  This first version does the two products with fp32 FMAs from
-// shared memory (256 threads; each owns 4 query rows x 4 keys of the score
-// tile and 4 rows x D/16 columns of the accumulator), well below the
-// tensor-core rate: it is bound by shared-memory loads feeding the FMAs.
-// Tiles are staged as fp32 with one padding column, so every column read is
-// bank-conflict free.  At D = 256 (recurrentgemma-9b) the three staged tiles
-// take 214,528 bytes of shared memory, one block per SM, and a thread holds
-// 64 accumulators.  mma/wgmma tiles and TMA loads are later work.
+// D = 64 or 256) the work is ~4*D flops per unmasked (query, key) pair
+// against 2*D*(Hq+2*Hkv+Hq)/Hq bytes per query, so the tensor-core
+// roofline says operations.
+//
+// bf16 inputs run the tensor-core tile body of attn_tile.cuh (bf16 tiles
+// in 128-byte-swizzled shared memory, cp.async, wgmma for both products, P
+// kept in registers; 97 KiB of shared memory at D = 256, two blocks per
+// SM), which flash_mha_varlen's bf16 kernel shares.  fp32 inputs keep the
+// first design below: both products as fp32 FMAs from shared memory
+// (256 threads; each owns 4 query rows x 4 keys of the score tile and 4
+// rows x D/16 columns of the accumulator), bound by shared-memory loads
+// feeding the FMAs, so that fp32 stays exact to ~1e-6 (neither bf16 nor
+// TF32 products would).  Its tiles are staged as fp32 with one padding
+// column, so every column read is bank-conflict free; at D = 256 the three
+// staged tiles take 214,528 bytes, one block per SM.
 
 #include <math.h>
 
+#include "attn_tile.cuh"
 #include "common.cuh"
 
 namespace {
@@ -218,6 +224,53 @@ flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The bf16 kernel: one 64-row query tile of one (head, batch row) through
+// the shared tile body.
+template <int D, bool kHasPos>
+__global__ void __launch_bounds__(repro::attn::kThreads)
+flash_mha_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                      const int* __restrict__ q_pos, const int* __restrict__ kv_pos, int Sq,
+                      int Skv, int Hq, int Hkv, int causal, int window, float scale_log2) {
+  extern __shared__ __align__(128) char tile_smem[];
+  const int q0 = blockIdx.x * repro::attn::kTile;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const repro::attn::DenseMask<kHasPos> mask(
+      kHasPos ? q_pos + static_cast<size_t>(b) * Sq : nullptr,
+      kHasPos ? kv_pos + static_cast<size_t>(b) * Skv : nullptr, q0, Sq, Skv, causal, window);
+  const size_t q_off = ((static_cast<size_t>(b) * Sq + q0) * Hq + h) * D;
+  const size_t kv_off = (static_cast<size_t>(b) * Skv * Hkv + hk) * D;
+  repro::attn::tile<D>(q + q_off, k + kv_off, v + kv_off, o + q_off,
+                       static_cast<size_t>(Hq) * D, static_cast<size_t>(Hkv) * D,
+                       min(repro::attn::kTile, Sq - q0), mask, scale_log2, tile_smem);
+}
+
+// The bf16 instantiation's shared-memory opt-in, once per device.
+template <int D, bool kHasPos>
+cudaError_t prepare_bf16() {
+  static std::atomic<bool> smem_set[repro::kMaxDevices];
+  return repro::allow_dynamic_smem(flash_mha_bf16_kernel<D, kHasPos>,
+                                   repro::attn::smem_bytes<D>(), smem_set);
+}
+
+template <int D, bool kHasPos>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        const int* q_pos, const int* kv_pos, int B, int Sq, int Skv, int Hq,
+                        int Hkv, int causal, int window, cudaStream_t stream) {
+  const cudaError_t err = prepare_bf16<D, kHasPos>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + repro::attn::kTile - 1) / repro::attn::kTile, Hq, B);
+  flash_mha_bf16_kernel<D, kHasPos>
+      <<<grid, repro::attn::kThreads, repro::attn::smem_bytes<D>(), stream>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), q_pos, kv_pos,
+          Sq, Skv, Hq, Hkv, causal, window,
+          repro::attn::kLog2e / sqrtf(static_cast<float>(D)));
+  return cudaGetLastError();
+}
+
 template <typename T, int D, bool kHasPos>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    const int* q_pos, const int* kv_pos, int B, int Sq, int Skv,
@@ -235,28 +288,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+// bf16 runs the shared tile body, fp32 the FMA kernel above.
+template <int D>
 cudaError_t launch_pos(const void* q, const void* k, const void* v, void* o,
                        const int* q_pos, const int* kv_pos, int B, int Sq, int Skv,
-                       int Hq, int Hkv, int causal, int window, cudaStream_t stream) {
+                       int Hq, int Hkv, int causal, int window, int is_bf16,
+                       cudaStream_t stream) {
+  if (is_bf16) {
+    if (q_pos != nullptr)
+      return launch_bf16<D, true>(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv, causal,
+                                  window, stream);
+    return launch_bf16<D, false>(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv, causal,
+                                 window, stream);
+  }
   if (q_pos != nullptr)
-    return launch<T, D, true>(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv, causal,
-                              window, stream);
-  return launch<T, D, false>(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv, causal,
-                             window, stream);
+    return launch<float, D, true>(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv, causal,
+                                  window, stream);
+  return launch<float, D, false>(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv, causal,
+                                 window, stream);
 }
 
-template <typename T>
 cudaError_t launch_dim(const void* q, const void* k, const void* v, void* o,
                        const int* q_pos, const int* kv_pos, int B, int Sq, int Skv,
-                       int Hq, int Hkv, int D, int causal, int window,
+                       int Hq, int Hkv, int D, int causal, int window, int is_bf16,
                        cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_pos<T, 16>(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv, causal, window, stream);
-    case 32: return launch_pos<T, 32>(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv, causal, window, stream);
-    case 64: return launch_pos<T, 64>(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv, causal, window, stream);
-    case 128: return launch_pos<T, 128>(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv, causal, window, stream);
-    case 256: return launch_pos<T, 256>(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv, causal, window, stream);
+    case 16: return launch_pos<16>(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv, causal, window, is_bf16, stream);
+    case 32: return launch_pos<32>(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv, causal, window, is_bf16, stream);
+    case 64: return launch_pos<64>(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv, causal, window, is_bf16, stream);
+    case 128: return launch_pos<128>(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv, causal, window, is_bf16, stream);
+    case 256: return launch_pos<256>(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv, causal, window, is_bf16, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -273,10 +334,24 @@ extern "C" int repro_flash_mha(const void* q, const void* k, const void* v, void
   if ((q_pos == nullptr) != (kv_pos == nullptr) || Hkv <= 0 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_dim<__nv_bfloat16>(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv,
-                                          D, causal, window, s)
-              : launch_dim<float>(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv, D,
-                                  causal, window, s);
+  return static_cast<int>(launch_dim(q, k, v, o, q_pos, kv_pos, B, Sq, Skv, Hq, Hkv, D,
+                                     causal, window, is_bf16, s));
+}
+
+// Registers, spill bytes, dynamic shared memory and resident blocks per SM
+// of the bf16 kernel without positions at head_dim D (out: 4 ints).
+extern "C" int repro_flash_mha_bf16_info(int D, int* out) {
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (D) {
+#define REPRO_INFO(d)                                                                 \
+  case d:                                                                             \
+    err = prepare_bf16<d, false>();                                                   \
+    if (err == cudaSuccess)                                                           \
+      err = repro::attn::kernel_info(flash_mha_bf16_kernel<d, false>,                 \
+                                     repro::attn::smem_bytes<d>(), out);              \
+    break;
+    REPRO_INFO(16) REPRO_INFO(32) REPRO_INFO(64) REPRO_INFO(128) REPRO_INFO(256)
+#undef REPRO_INFO
+  }
   return static_cast<int>(err);
 }

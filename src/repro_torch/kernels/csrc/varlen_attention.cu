@@ -35,13 +35,17 @@
 //
 // What bounds it on this card: at the packed train shapes (segments of a
 // few hundred tokens, D = 64) the work is ~4*D flops per unmasked (query,
-// key) pair, so the tensor-core roofline says operations.  This first
-// version does both products with fp32 FMAs from shared memory, as
-// flash_attention.cu does: bound by shared-memory loads feeding the FMAs.
-// mma/wgmma tiles, TMA loads and a backward kernel are later work.
+// key) pair, so the tensor-core roofline says operations.  bf16 inputs run
+// the tensor-core tile body of attn_tile.cuh, the one flash_attention.cu's
+// bf16 kernel runs, with the segment mask `VarlenMask` below; so on equal
+// segments the two kernels give the same bits.  fp32 inputs keep the first
+// design, both products as fp32 FMAs from shared memory as
+// flash_attention.cu's fp32 kernel does, bound by shared-memory loads
+// feeding the FMAs.  A backward kernel is later work.
 
 #include <math.h>
 
+#include "attn_tile.cuh"
 #include "common.cuh"
 
 namespace {
@@ -235,6 +239,94 @@ flash_mha_varlen_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The segment mask of the bf16 kernel: row i's keys are its segment
+// [lo, hi) (found by segment_of), below it when causal and within the
+// window; every other key gets -inf, so no other segment's values reach a
+// row's sums.  The walked range is the fp32 kernel's: from the first row's
+// segment start (the window's start if later, on the segment's 64-key
+// grid) to the last row (causal) or its segment's end.
+struct VarlenMask {
+  struct Row {
+    int pos, lo, hi;
+  };
+  const int* cu;
+  int B, Tn, q0, n_rows, causal, window;
+  int k_begin, k_end, k_limit;
+  int lo, hi;  // the rows' one segment, if they share one (else lo > hi)
+
+  __device__ VarlenMask(const int* cu_, int B_, int Tn_, int q0_, int causal_, int window_)
+      : cu(cu_), B(B_), Tn(Tn_), q0(q0_), n_rows(min(repro::attn::kTile, Tn_ - q0_)),
+        causal(causal_), window(window_) {
+    const Row first = row(0), last = row(n_rows - 1);
+    k_begin = first.lo;
+    if (window > 0)
+      k_begin += max(0, q0 - window + 1 - k_begin) / repro::attn::kTile * repro::attn::kTile;
+    k_end = causal ? q0 + n_rows : last.hi;
+    k_limit = k_end;
+    lo = first.lo == last.lo ? first.lo : 1;
+    hi = first.lo == last.lo ? first.hi : 0;
+  }
+  __device__ Row row(int r) const {
+    if (r >= n_rows) return {0, 0, 0};  // rows past T: an empty segment, never stored
+    const int t = q0 + r, s = segment_of(cu, B, t);
+    return {t, __ldg(cu + s), s < B ? __ldg(cu + s + 1) : Tn};
+  }
+  __device__ int key(int kj) const { return kj; }
+  __device__ float logit(const Row& r, int kj, int, float x) const {
+    const bool ok = kj >= r.lo && kj < r.hi && (!causal || kj <= r.pos) &&
+                    (window <= 0 || r.pos - kj < window);
+    return ok ? x : -INFINITY;
+  }
+  // every key of the step at k0 lies in the rows' one segment and is valid
+  // for each of them
+  __device__ bool full(int k0) const {
+    constexpr int kT = repro::attn::kTile;
+    return lo <= k0 && k0 + kT <= hi && (!causal || k0 + kT - 1 <= q0) &&
+           (window <= 0 || q0 + n_rows - 1 - k0 < window);
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(repro::attn::kThreads)
+flash_mha_varlen_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                             const int* __restrict__ cu, int Tn, int B, int Hq, int Hkv,
+                             int causal, int window, float scale_log2) {
+  extern __shared__ __align__(128) char tile_smem[];
+  const int q0 = blockIdx.x * repro::attn::kTile;
+  const int h = blockIdx.y;
+  const int hk = h / (Hq / Hkv);
+  const VarlenMask mask(cu, B, Tn, q0, causal, window);
+  const size_t q_off = (static_cast<size_t>(q0) * Hq + h) * D;
+  repro::attn::tile<D>(q + q_off, k + hk * D, v + hk * D, o + q_off,
+                       static_cast<size_t>(Hq) * D, static_cast<size_t>(Hkv) * D, mask.n_rows,
+                       mask, scale_log2, tile_smem);
+}
+
+// The bf16 instantiation's shared-memory opt-in, once per device.
+template <int D>
+cudaError_t prepare_bf16() {
+  static std::atomic<bool> smem_set[repro::kMaxDevices];
+  return repro::allow_dynamic_smem(flash_mha_varlen_bf16_kernel<D>,
+                                   repro::attn::smem_bytes<D>(), smem_set);
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, const int* cu,
+                        int Tn, int B, int Hq, int Hkv, int causal, int window,
+                        cudaStream_t stream) {
+  const cudaError_t err = prepare_bf16<D>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tn + repro::attn::kTile - 1) / repro::attn::kTile, Hq);
+  flash_mha_varlen_bf16_kernel<D>
+      <<<grid, repro::attn::kThreads, repro::attn::smem_bytes<D>(), stream>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), cu, Tn, B, Hq,
+          Hkv, causal, window, repro::attn::kLog2e / sqrtf(static_cast<float>(D)));
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const int* cu,
                    int Tn, int B, int Hq, int Hkv, int causal, int window,
@@ -252,16 +344,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const i
   return cudaGetLastError();
 }
 
-template <typename T>
+// bf16 runs the shared tile body, fp32 the FMA kernel above.
+template <int D>
+cudaError_t launch_typed(const void* q, const void* k, const void* v, void* o, const int* cu,
+                         int Tn, int B, int Hq, int Hkv, int causal, int window, int is_bf16,
+                         cudaStream_t stream) {
+  if (is_bf16) return launch_bf16<D>(q, k, v, o, cu, Tn, B, Hq, Hkv, causal, window, stream);
+  return launch<float, D>(q, k, v, o, cu, Tn, B, Hq, Hkv, causal, window, stream);
+}
+
 cudaError_t launch_dim(const void* q, const void* k, const void* v, void* o, const int* cu,
                        int Tn, int B, int Hq, int Hkv, int D, int causal, int window,
-                       cudaStream_t stream) {
+                       int is_bf16, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, cu, Tn, B, Hq, Hkv, causal, window, stream);
-    case 32: return launch<T, 32>(q, k, v, o, cu, Tn, B, Hq, Hkv, causal, window, stream);
-    case 64: return launch<T, 64>(q, k, v, o, cu, Tn, B, Hq, Hkv, causal, window, stream);
-    case 128: return launch<T, 128>(q, k, v, o, cu, Tn, B, Hq, Hkv, causal, window, stream);
-    case 256: return launch<T, 256>(q, k, v, o, cu, Tn, B, Hq, Hkv, causal, window, stream);
+    case 16: return launch_typed<16>(q, k, v, o, cu, Tn, B, Hq, Hkv, causal, window, is_bf16, stream);
+    case 32: return launch_typed<32>(q, k, v, o, cu, Tn, B, Hq, Hkv, causal, window, is_bf16, stream);
+    case 64: return launch_typed<64>(q, k, v, o, cu, Tn, B, Hq, Hkv, causal, window, is_bf16, stream);
+    case 128: return launch_typed<128>(q, k, v, o, cu, Tn, B, Hq, Hkv, causal, window, is_bf16, stream);
+    case 256: return launch_typed<256>(q, k, v, o, cu, Tn, B, Hq, Hkv, causal, window, is_bf16, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -278,10 +378,24 @@ extern "C" int repro_flash_mha_varlen(const void* q, const void* k, const void* 
   if (Tn <= 0 || B <= 0 || Hkv <= 0 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_dim<__nv_bfloat16>(q, k, v, o, cu_seqlens, Tn, B, Hq, Hkv, D,
-                                          causal, window, s)
-              : launch_dim<float>(q, k, v, o, cu_seqlens, Tn, B, Hq, Hkv, D, causal,
-                                  window, s);
+  return static_cast<int>(
+      launch_dim(q, k, v, o, cu_seqlens, Tn, B, Hq, Hkv, D, causal, window, is_bf16, s));
+}
+
+// Registers, spill bytes, dynamic shared memory and resident blocks per SM
+// of the bf16 kernel at head_dim D (out: 4 ints).
+extern "C" int repro_flash_mha_varlen_bf16_info(int D, int* out) {
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (D) {
+#define REPRO_INFO(d)                                                                 \
+  case d:                                                                             \
+    err = prepare_bf16<d>();                                                          \
+    if (err == cudaSuccess)                                                           \
+      err = repro::attn::kernel_info(flash_mha_varlen_bf16_kernel<d>,                 \
+                                     repro::attn::smem_bytes<d>(), out);              \
+    break;
+    REPRO_INFO(16) REPRO_INFO(32) REPRO_INFO(64) REPRO_INFO(128) REPRO_INFO(256)
+#undef REPRO_INFO
+  }
   return static_cast<int>(err);
 }

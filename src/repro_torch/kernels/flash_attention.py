@@ -5,6 +5,8 @@ Counterpart of the JAX package's Pallas kernel ``kernels/flash_attention.py``
 ``flash_mha``.  Unlike that kernel, explicit ``q_positions``/``kv_positions``
 are honoured: with them the kernel masks by position and skips no KV tile;
 without them it takes the arange fast path with causal/window tile skipping.
+bf16 inputs run the tensor-core tile body ``csrc/attn_tile.cuh`` (shared
+with ``varlen_attention``), fp32 inputs an fp32-FMA body.
 """
 
 from __future__ import annotations
@@ -65,6 +67,8 @@ def flash_mha(q, k, v, *, causal: bool = True, window: int | None = None,
                          "Hq a multiple of Hkv)")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_mha: q, k, v must be contiguous")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_mha: q, k, v must be 16-byte aligned")
     if window is not None and window < 1:
         raise ValueError(f"flash_mha: window must be >= 1; got {window}")
     qp = kp = None
@@ -87,3 +91,9 @@ def flash_mha(q, k, v, *, causal: bool = True, window: int | None = None,
 
 
 flash_mha.launches = 0
+
+
+def kernel_info(d: int) -> dict:
+    """Registers, spill bytes, shared memory and blocks per SM of the bf16
+    kernel (without positions) at head_dim ``d``."""
+    return build.tile_info("flash_attention", "repro_flash_mha_bf16_info", d)

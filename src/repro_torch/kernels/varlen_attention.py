@@ -11,7 +11,9 @@ on CPU tensors) and its backward is the gradient of the plain version
 gradient the JAX package takes on its reference tier (its Pallas kernel
 has no backward), and the pattern of its ``grouped_expert.py``
 ``_diff_bwd``: a hand-written forward, a plain backward.  The backward
-holds O(T * max_seqlen * Hq) fp32 scores per layer while it runs.
+holds O(T * max_seqlen * Hq) fp32 scores per layer while it runs.  bf16
+inputs run the tensor-core tile body ``csrc/attn_tile.cuh`` (shared with
+``flash_attention``), fp32 inputs an fp32-FMA body.
 """
 
 from __future__ import annotations
@@ -63,6 +65,8 @@ def _launch(q, k, v, cu_seqlens, causal: bool, window: int | None):
                          f"(head_dim in {HEAD_DIMS}, Hq a multiple of Hkv, B >= 1)")
     if not all(x.is_contiguous() for x in (q, k, v, cu_seqlens)):
         raise ValueError("flash_mha_varlen: inputs must be contiguous")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_mha_varlen: q, k, v must be 16-byte aligned")
     if window is not None and window < 1:
         raise ValueError(f"flash_mha_varlen: window must be >= 1; got {window}")
     out = torch.empty_like(q)
@@ -118,3 +122,9 @@ def flash_mha_varlen(q, k, v, cu_seqlens, *, causal: bool = True,
 
 
 flash_mha_varlen.launches = 0
+
+
+def kernel_info(d: int) -> dict:
+    """Registers, spill bytes, shared memory and blocks per SM of the bf16
+    kernel at head_dim ``d``."""
+    return build.tile_info("varlen_attention", "repro_flash_mha_varlen_bf16_info", d)

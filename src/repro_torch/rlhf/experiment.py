@@ -88,6 +88,11 @@ def build_models(actor_cfg: ModelConfig, critic_cfg: ModelConfig, exp: Experimen
     return models
 
 
+def max_seqlen(exp: ExperimentConfig) -> int:
+    """The longest packed sequence: the prompt and every generated token."""
+    return exp.prompt_len + exp.gen_len
+
+
 def _packed_prep(exp: ExperimentConfig, inputs):
     """Repack a padded rollout: per-sequence lengths (keeping one post-EOS
     bootstrap token: GAE parity needs the carry entering the last valid
@@ -120,7 +125,7 @@ def actor_train_batch(exp: ExperimentConfig, inputs) -> dict:
     return packing.pack_minibatches(
         inputs["seq"], {"logp": logp_full, "adv": packing.unpack(adv, lens, s),
                         "mask": mask_full},
-        lens, exp.ppo.n_minibatches)
+        lens, exp.ppo.n_minibatches, max_seqlen=max_seqlen(exp))
 
 
 @torch.no_grad()
@@ -133,7 +138,7 @@ def critic_train_batch(exp: ExperimentConfig, inputs) -> dict:
     return packing.pack_minibatches(
         inputs["seq"], {"values": old_full, "ret": packing.unpack(ret, lens, s),
                         "mask": mask_full},
-        lens, exp.ppo.n_minibatches)
+        lens, exp.ppo.n_minibatches, max_seqlen=max_seqlen(exp))
 
 
 def build_executors(actor_cfg: ModelConfig, critic_cfg: ModelConfig,
@@ -157,11 +162,10 @@ def build_executors(actor_cfg: ModelConfig, critic_cfg: ModelConfig,
             raise ValueError(f"impl={tier!r} not in {OPS.IMPLS}")
     hp, P = exp.ppo, exp.prompt_len
     state = {"gen": None}
-    max_seqlen = exp.prompt_len + exp.gen_len
     actor_step = PPO.make_packed_actor_train_step(actor_cfg, hp, exp.opt, impl=impl,
-                                                  max_seqlen=max_seqlen)
+                                                  max_seqlen=max_seqlen(exp))
     critic_step = PPO.make_packed_critic_train_step(critic_cfg, hp, exp.opt, impl=impl,
-                                                    max_seqlen=max_seqlen)
+                                                    max_seqlen=max_seqlen(exp))
 
     def actor_gen(ms, inputs):
         prompts = inputs["prompts"]["tokens"]

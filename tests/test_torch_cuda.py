@@ -8,8 +8,10 @@ package, so it runs where only PyTorch is installed:
 
 Tolerance: |kernel - plain| <= TOL * (1 + |plain|).  In fp32 both sides
 differ only in summation order; in bf16 the plain version rounds scores and
-probabilities to bf16 before its second product and the kernels do not
-(2e-2 is the JAX package's bf16 tolerance for its own kernels).  The
+probabilities to bf16 before its second product, where the decode kernels
+keep both in fp32 and the prefill kernels keep scores in fp32 and round
+their unnormalised probabilities (2e-2 is the JAX package's bf16 tolerance
+for its own kernels).  The
 grouped expert FFN takes fp32 products of the same values on both sides in
 either dtype, so it is held to GROUPED_TOL: 1e-4 in bf16 lies between the
 card's reading (<= 2.1e-6) and what an intermediate rounded to bf16 would
@@ -106,15 +108,16 @@ def test_flash_mha_kernel_matches_plain(b, s, hq, hkv, d, causal, window, dtype)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("window", [None, 7])
-def test_flash_mha_kernel_explicit_positions(window):
+def test_flash_mha_kernel_explicit_positions(window, dtype):
     """Shuffled key positions, keys tagged 2^30, and a query row with no
     valid key (the uniform average of ref.py)."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(1)
     b, sq, skv, hq, hkv, d = 2, 5, 150, 14, 2, 64
-    q = _randn(gen, (b, sq, hq, d), "float32", dev)
-    k, v = (_randn(gen, (b, skv, hkv, d), "float32", dev) for _ in range(2))
+    q = _randn(gen, (b, sq, hq, d), dtype, dev)
+    k, v = (_randn(gen, (b, skv, hkv, d), dtype, dev) for _ in range(2))
     kv_pos = torch.stack([torch.randperm(skv, generator=gen, device=dev) + 3
                           for _ in range(b)])
     kv_pos[:, :4] = 2 ** 30
@@ -122,8 +125,7 @@ def test_flash_mha_kernel_explicit_positions(window):
                          torch.arange(sq, device=dev) + 2])
     q_pos[1, 0] = 1
     kw = dict(causal=True, window=window, q_positions=q_pos, kv_positions=kv_pos)
-    _close(flash_attention.flash_mha(q, k, v, **kw), ref.mha_ref(q, k, v, **kw),
-           "float32")
+    _close(flash_attention.flash_mha(q, k, v, **kw), ref.mha_ref(q, k, v, **kw), dtype)
 
 
 @pytest.mark.cuda
@@ -159,6 +161,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         decode_attention.flash_decode(q[:, 0], shifted, shifted,
                                       cache_len=torch.ones(1, dtype=torch.int32,
                                                            device=dev))
+    shifted = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=dev)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention.flash_mha(shifted, q.bfloat16(), q.bfloat16())
 
 
 @pytest.mark.cuda
@@ -467,6 +472,44 @@ def test_flash_mha_kernel_at_head_dim_256(b, s, window, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,window", [(100, 230, None), (200, 150, 100), (77, 77, 2048)])
+def test_flash_mha_bf16_at_head_dim_256_ragged(sq, skv, window):
+    """The bf16 tile body at D 256, G 16, with Sq != Skv and lengths off the
+    64-row tile (every row keeps a valid key, so the tile skip and the
+    plain version agree), on the skipping and the position paths."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(17)
+    b = 2
+    q = _randn(gen, (b, sq, 16, 256), "bfloat16", dev)
+    k, v = (_randn(gen, (b, skv, 1, 256), "bfloat16", dev) for _ in range(2))
+    want = ref.mha_ref(q, k, v, causal=True, window=window)
+    _close(flash_attention.flash_mha(q, k, v, causal=True, window=window), want, "bfloat16")
+    qp, kp = torch.arange(sq, device=dev)[None], torch.arange(skv, device=dev)[None]
+    _close(flash_attention.flash_mha(q, k, v, causal=True, window=window, q_positions=qp,
+                                     kv_positions=kp), want, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,hq,hkv", [(64, 14, 2), (256, 16, 1)])
+def test_fp32_attention_keeps_the_fma_body(d, hq, hkv):
+    """fp32 inputs still run the fp32-FMA bodies: flash_mha and
+    flash_mha_varlen at the main path's widths held to the fp32 tolerance,
+    which no bf16 or TF32 product would meet."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(18)
+    b, s = 2, 192
+    q = _randn(gen, (b, s, hq, d), "float32", dev)
+    k, v = (_randn(gen, (b, s, hkv, d), "float32", dev) for _ in range(2))
+    for window in (None, 100):
+        want = ref.mha_ref(q, k, v, causal=True, window=window)
+        _close(flash_attention.flash_mha(q, k, v, causal=True, window=window), want, "float32")
+        cu = torch.tensor([0, 70, 192, 384], dtype=torch.int32, device=dev)
+        qv, kv, vv = (x.reshape(b * s, *x.shape[2:]) for x in (q, k, v))
+        _close(varlen_attention.flash_mha_varlen(qv, kv, vv, cu, window=window),
+               ref.mha_varlen_ref(qv, kv, vv, cu, window=window), "float32")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("cap,window,lens", [(96, 96, [0, 50, 300]),
                                              (200, None, [200, 17, 1])])
@@ -684,6 +727,9 @@ def test_varlen_wrapper_rejects_what_the_kernel_does_not_take():
         fn(q, q.transpose(0, 1).contiguous().transpose(0, 1), q, cu)
     with pytest.raises(ValueError, match="one CUDA device"):
         fn(q, q, q, cu.cpu())
+    shifted = torch.zeros(q.numel() + 1, device=dev)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        fn(q, shifted, q, cu)
     before = fn.launches
     ops.varlen_mha(q, q, q, cu, impl="cuda")
     ops.varlen_mha(q, q, q, cu, impl="reference")

@@ -117,6 +117,32 @@ def test_pack_minibatches_matches_jax(lens, nmb, bucket):
     assert tout["tokens"].shape[1] % bucket == 0
 
 
+@pytest.mark.parametrize("max_seqlen", [4, 11])
+def test_pack_minibatches_rejects_an_understated_max_seqlen(max_seqlen):
+    """A sequence longer than the band the train step's attention is given
+    raises; the banded plain version would silently differentiate another
+    function."""
+    toks = torch.arange(4 * 16, dtype=torch.int32).reshape(4, 16)
+    with pytest.raises(ValueError, match="exceeds max_seqlen"):
+        tpacking.pack_minibatches(toks, {}, [3, 12, 1, 5], 2, bucket=16,
+                                  max_seqlen=max_seqlen)
+
+
+@pytest.mark.parametrize("lens,nmb", [([3, 12, 1, 2], 2), ([16, 16, 16, 16], 4)])
+def test_pack_minibatches_packs_as_before_under_the_true_bound(lens, nmb):
+    """With the longest length as ``max_seqlen`` the output is the unchecked
+    one, key for key; the first case's second minibatch has a 13-token
+    phantom tail, longer than that bound, and is exempt."""
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(1, 500, (len(lens), 16)).astype(np.int32))
+    cols = {"adv": torch.from_numpy(rng.standard_normal((len(lens), 16)).astype(np.float32))}
+    want = tpacking.pack_minibatches(toks, cols, lens, nmb, bucket=16)
+    got = tpacking.pack_minibatches(toks, cols, lens, nmb, bucket=16, max_seqlen=max(lens))
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
 @settings(max_examples=25, deadline=None)
 @given(st.data())
 def test_pack_roundtrip_property(data):
