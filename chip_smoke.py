@@ -15,14 +15,17 @@ Phases, in order; any failure exits non-zero before the last line:
      ssd_scan at mamba2-1.3b's widths, rglru_scan at recurrentgemma-9b's in
      fp32) and time kernel (inputs warm in L2 as ``ms``, L2 flushed before
      each call as ``cold_ms``), plain version, bound and one PyTorch library
-     call where one computes the same function (flash_mha and
-     flash_mha_varlen, kernel and library call, from CUDA-graph replays:
-     their wrappers' host work outlasts the kernel, so a loop of eager
-     calls, kept as ``eager_ms``, reads the host); print the registers, spill
-     bytes, shared memory and blocks per SM of the attention kernels' bf16
-     tile body (csrc/attn_tile.cuh); grouped_ffn's rows are also
-     held bit-exact between an 8192-row and a 64-row cohort, and timed with
-     each row tile over N;
+     call where one computes the same function (flash_mha,
+     flash_mha_varlen, flash_decode and grouped_ffn, kernel and library
+     call, from CUDA-graph replays: their wrappers' host work outlasts the
+     kernel, so a loop of eager calls, kept as ``eager_ms``, reads the
+     host); print the registers, spill bytes, shared memory and blocks per
+     SM of the tensor-core bodies (the prefill attention tile body
+     csrc/attn_tile.cuh, flash_decode's split-KV body csrc/decode_split.cuh,
+     grouped_ffn's two wgmma launches) and flash_decode's splits at the
+     main path's decode shapes; grouped_ffn's rows are also held bit-exact
+     between an 8192-row and a 64-row cohort, and timed over N beside
+     torch._grouped_mm;
   3. full-width qwen2-0.5b and granite-moe-1b-a400m (24 layers each), then
      mamba2-1.3b (48 SSD layers) and recurrentgemma-9b (26 RG-LRU and 12
      local-attention layers), all at full depth, bf16, seeded random
@@ -78,8 +81,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ATTN, LRU, SSM  # noqa: E402
-from repro_torch.kernels import (build, flash_attention, grouped_expert, ref,  # noqa: E402
-                                 varlen_attention)
+from repro_torch.kernels import (build, decode_attention, flash_attention,  # noqa: E402
+                                 grouped_expert, ref, varlen_attention)
 from repro_torch.kernels.decode_attention import flash_decode  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_mha  # noqa: E402
 from repro_torch.kernels.grouped_expert import grouped_ffn  # noqa: E402
@@ -103,15 +106,18 @@ PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # Kernel vs plain version, bf16 inputs, |err| <= KERNEL_TOL * (1 + |plain|):
 # the plain version rounds the scores and probabilities to bf16 before its
-# second product (as the JAX reference does), the decode kernels keep both
-# in fp32, the prefill kernels keep scores in fp32 and round their
-# unnormalised probabilities; 2e-2 is the JAX package's own bf16 tolerance
-# for its kernels.
+# second product (as the JAX reference does), the decode kernels keep
+# scores in fp32 and probabilities to ~2^-17 (fp32, or two bf16 terms), the
+# prefill kernels keep scores in fp32 and round their unnormalised
+# probabilities; 2e-2 is the JAX package's own bf16 tolerance for its
+# kernels.
 KERNEL_TOL = 2e-2
 # grouped_ffn vs its plain version: both take fp32 products of the same
-# values and differ only in summation order, so bf16 inputs are held to
-# GROUPED_TOL (between the H100's reading, <= 2.1e-6 scaled, and the ~1e-3
-# that an intermediate rounded to bf16 would cost) and fp32 ones to FP32_TOL.
+# values and differ in summation order (and, in bf16, in the kernel's
+# intermediate H carried as two bf16 terms, ~2^-17 of |H|), so bf16 inputs
+# are held to GROUPED_TOL (between the H100's reading, <= 1.1e-5 scaled, and
+# the ~1e-3 that an intermediate rounded to bf16 once would cost) and fp32
+# ones to FP32_TOL.
 GROUPED_TOL = 1e-4
 FP32_TOL = 1e-5
 # ssd_scan vs its plain version run in fp32 on the same values: the fp32
@@ -318,6 +324,13 @@ def graph_cold_ms(fn, iters=ITERS):
     return (_replay_ms(flushed, iters) - _replay_ms(flush.zero_, iters)) / iters
 
 
+def decode_splits(b, hkv, cap):
+    """flash_decode's bf16 blocks per (row, KV head) at these shapes on
+    this card."""
+    return decode_attention.decode_splits(
+        b, hkv, cap, torch.cuda.get_device_properties(0).multi_processor_count)
+
+
 def bound_ms(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -405,23 +418,33 @@ def phase_kernels(device):
     mask = (torch.arange(c, device=device)[None] < lens[:, None])[:, None, None]
     out["flash_decode"] = dict(
         max_abs_err=max(errs), library="scaled_dot_product_attention",
-        ms=time_ms(lambda: flash_decode(q, kc, vc, cache_len=lens)),
-        cold_ms=time_cold_ms(lambda: flash_decode(q, kc, vc, cache_len=lens)),
+        ms=graph_ms(lambda: flash_decode(q, kc, vc, cache_len=lens)),
+        cold_ms=graph_cold_ms(lambda: flash_decode(q, kc, vc, cache_len=lens)),
+        eager_ms=time_ms(lambda: flash_decode(q, kc, vc, cache_len=lens)),
         plain_ms=time_ms(lambda: ref.decode_mha_ref(q, kc, vc, cache_len=lens)),
-        bound_ms=bms, bound_by=by,
-        library_ms=time_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)))
+        bound_ms=bms, bound_by=by, splits=decode_splits(b, hkv, c),
+        library_ms=graph_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)))
     out["flash_decode"]["d256"] = decode_d256_case(randn, device)
     out["paged_flash_decode"] = paged_kernel_case(randn, device, hq, hkv, d)
     out["grouped_ffn"] = grouped_kernel_case(device)
     out["ssd_scan"] = ssd_kernel_case(device)
     out["rglru_scan"] = rglru_kernel_case(device)
     out["flash_mha_varlen"] = varlen_kernel_case(device)
-    for name, info in (("flash_mha D64", flash_attention.kernel_info(64)),
-                       ("flash_mha D256", flash_attention.kernel_info(256)),
-                       ("flash_mha_varlen D64", varlen_attention.kernel_info(64))):
-        print(f"[kernels] {name} bf16 tile body: {info['registers']} registers, "
+    for name, info in (("flash_mha D64 bf16 tile body", flash_attention.kernel_info(64)),
+                       ("flash_mha D256 bf16 tile body", flash_attention.kernel_info(256)),
+                       ("flash_mha_varlen D64 bf16 tile body", varlen_attention.kernel_info(64)),
+                       ("flash_decode D64 bf16 split body", decode_attention.kernel_info(64)),
+                       ("flash_decode D256 bf16 split body", decode_attention.kernel_info(256)),
+                       ("grouped_ffn bf16 launch A (H)", grouped_expert.kernel_info(0)),
+                       ("grouped_ffn bf16 launch B (out)", grouped_expert.kernel_info(1))):
+        print(f"[kernels] {name}: {info['registers']} registers, "
               f"{info['spill_bytes']} spill bytes, {info['smem_bytes']} bytes of shared "
               f"memory, {info['blocks_per_sm']} blocks per SM")
+    for name, shape in (("qwen2-0.5b BatchServer (B 8, Hkv 2, C 1088)", (8, 2, 1088)),
+                        ("qwen2-0.5b PPO rollout (B 16, Hkv 2, C 384)", (16, 2, 384)),
+                        ("recurrentgemma-9b (B 8, Hkv 1, ring 576)", (8, 1, 576))):
+        print(f"[kernels] flash_decode splits at {name}: {decode_splits(*shape)} blocks per "
+              "(row, KV head)")
     guard_case(device)
     for name, r in out.items():
         for shape, t in [("", r)] + [(f" {k}", v) for k, v in r.items() if isinstance(v, dict)]:
@@ -429,6 +452,7 @@ def phase_kernels(device):
                    else f"{t['library_ms']:.4f} ({t['library']})")
             eager = (f" eager_ms={t['eager_ms']:.4f} (host-paced loop)" if "eager_ms" in t
                      else "")
+            eager += f" splits={t['splits']}" if "splits" in t else ""
             print(f"[kernels] {name}{shape}: ms={t['ms']:.4f} (warm L2) cold_ms="
                   f"{t['cold_ms']:.4f} (L2 flushed){eager} plain_ms={t['plain_ms']:.4f} "
                   f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) library_ms={lib}")
@@ -484,15 +508,16 @@ def decode_d256_case(randn, device):
     ks, vs = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
     valid = torch.arange(c, device=device)[None] < lens.clamp(max=c)[:, None]
     mask = (valid | (lens[:, None] == 0))[:, None, None]
+
+    def kernel():
+        return flash_decode(q, kc, vc, cache_len=lens, window=2048)
     return dict(max_abs_err=err, library="scaled_dot_product_attention",
-                ms=time_ms(lambda: flash_decode(q, kc, vc, cache_len=lens, window=2048)),
-                cold_ms=time_cold_ms(lambda: flash_decode(q, kc, vc, cache_len=lens,
-                                                          window=2048)),
+                ms=graph_ms(kernel), cold_ms=graph_cold_ms(kernel), eager_ms=time_ms(kernel),
                 plain_ms=time_ms(lambda: ref.decode_mha_ref(q, kc, vc, cache_len=lens,
                                                             window=2048)),
-                bound_ms=bms, bound_by=by,
-                library_ms=time_ms(lambda: sdpa(q[:, :, None], ks, vs, attn_mask=mask,
-                                                enable_gqa=True)))
+                bound_ms=bms, bound_by=by, splits=decode_splits(b, 1, c),
+                library_ms=graph_ms(lambda: sdpa(q[:, :, None], ks, vs, attn_mask=mask,
+                                                 enable_gqa=True)))
 
 
 SSD_H, SSD_P, SSD_N, SSD_CHUNK = 64, 64, 128, 128  # mamba2-1.3b
@@ -746,7 +771,8 @@ def paged_kernel_case(randn, device, hq, hkv, d):
         vs_dense = (got.float() - same.float()).abs().max().item()
         print(f"[kernels] paged_flash_decode {name}: max_abs_err={abs_err:.3e} "
               f"scaled_err={rel_err:.3e}; vs flash_decode on the gathered cache "
-              f"max_abs_diff={vs_dense:.3e}")
+              f"max_abs_diff={vs_dense:.3e} (printed only: in bf16 the two run different "
+              "bodies, fp32 P here, P as two bf16 terms there)")
         check(rel_err <= KERNEL_TOL, f"paged_flash_decode {name}: err {rel_err} > {KERNEL_TOL}")
         errs.append(abs_err)
     # keys walked: a row of length 0 averages all M * bs slots
@@ -820,10 +846,11 @@ def grouped_kernel_case(device):
     F 512, silu) with rows routed by a random fp32 router, top-8: a decode
     step of 8 slots (N 64) and an admission prefill of 4 x 256 tokens
     (N 8192) in bf16, the decode step in fp32, and edge cases (all rows to
-    one expert, groups straddling 16- and 64-row tiles with empty experts,
-    N not a multiple of the tile, rows past the total).  Then rows of the
-    prefill cohort alone in a 64-row cohort: their outputs must be the same
-    bits.  Times the decode shape (the JSON row) and the prefill shape."""
+    one expert, groups straddling 64-row tiles with empty experts, N not a
+    multiple of the tile, rows past the total).  Then rows of the prefill
+    cohort alone in a 64-row cohort: their outputs must be the same bits.
+    Times the decode shape (the JSON row) and the prefill shape, then the
+    sweep over N."""
     g = torch.Generator(device=device).manual_seed(2)
     bf16 = torch.bfloat16
     e, d, f, k = 32, 1024, 512, 8
@@ -887,38 +914,35 @@ def grouped_kernel_case(device):
         nbytes = hit * 3 * d * f * 2 + n * d * 2 + n * d * 4 + e * 4
         bms, by = bound_ms(6 * n * d * f, nbytes)
         lib, lib_name = grouped_library(xs, gs, *wb)
-        return dict(ms=time_ms(lambda: grouped_ffn(xs, gs, *wb)),
-                    cold_ms=time_cold_ms(lambda: grouped_ffn(xs, gs, *wb)),
+
+        def kernel():
+            return grouped_ffn(xs, gs, *wb)
+        return dict(ms=graph_ms(kernel), cold_ms=graph_cold_ms(kernel), eager_ms=time_ms(kernel),
                     plain_ms=time_ms(lambda: ref.grouped_ffn_ref(xs, gs, *wb)),
-                    bound_ms=bms, bound_by=by, library_ms=time_ms(lib), library=lib_name,
+                    bound_ms=bms, bound_by=by, library_ms=graph_ms(lib), library=lib_name,
                     n_rows=n, experts_hit=hit)
 
     out = timed(xs_dec, gs_dec)
     out["prefill"] = timed(xs_pre, gs_pre)
     out.update(max_abs_err=max(errs), cohort_max_abs_diff=cohort_diff)
-    tile_sweep(x_pre, router, k, wb)
+    n_sweep(x_pre, router, k, wb)
     return out
 
 
-def tile_sweep(x, router, k, wb):
-    """Print grouped_ffn's time with each row tile over the first t
-    tokens' routed rows (N = k * t): ``grouped_expert._block_rows`` takes
-    16 rows below 32 rows per expert, else 64 (the same bits either way)."""
-    pick = grouped_expert._block_rows
-    e = wb[0].shape[0]
-    try:
-        for t in (8, 32, 128, 256, 512, 1024):
-            xs, gs, _ = routed_rows(x[:t].to(torch.bfloat16), router, k)
-            n = xs.shape[0]
-            row = {"picked": pick(n, e)}
-            for bm in (16, 64):
-                grouped_expert._block_rows = lambda n, e, bm=bm: bm
-                row[bm] = time_ms(lambda: grouped_ffn(xs, gs, *wb))
-            grouped_expert._block_rows = pick
-            print(f"[kernels] grouped_ffn row tile at N {n}: 16 rows {row[16]:.4f} ms, "
-                  f"64 rows {row[64]:.4f} ms (picked {row['picked']})")
-    finally:
-        grouped_expert._block_rows = pick
+def n_sweep(x, router, k, wb):
+    """Print grouped_ffn's time over the first t tokens' routed rows (N = k
+    * t, 8 to 1,024 tokens) beside the library call's, both from CUDA-graph
+    replays, with the rate at which the kernel reads the hit experts'
+    weights (each read once: the bound's bytes)."""
+    e, d, f = wb[0].shape
+    for t in (8, 32, 128, 256, 512, 1024):
+        xs, gs, _ = routed_rows(x[:t].to(torch.bfloat16), router, k)
+        hit = int((gs > 0).sum())
+        lib, lib_name = grouped_library(xs, gs, *wb)
+        ms = graph_ms(lambda: grouped_ffn(xs, gs, *wb))
+        print(f"[kernels] grouped_ffn at N {xs.shape[0]} ({t} tokens, {hit} experts hit): "
+              f"{ms:.4f} ms, {hit * 3 * d * f * 2 / ms / 1e9:.3f} TB/s of weights; "
+              f"{lib_name} {graph_ms(lib):.4f} ms")
 
 
 # ------------------------------------------------------------------ phase 3

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Which instructions the attention kernels compiled to: for every kernel
-function of the built ``flash_attention`` and ``varlen_attention``
-libraries, the count of tensor-core (HMMA, HGMMA), fp32 FMA (FFMA),
-ldmatrix (LDSM) and async-copy (LDGSTS) instructions in its SASS, from
-``cuobjdump -sass``.  Builds the two libraries first (nvcc), so it runs
-where the CUDA toolkit is, with or without a card.
+"""Which instructions the tensor-core kernels compiled to: for every kernel
+function of the built ``flash_attention``, ``varlen_attention``,
+``decode_attention`` and ``grouped_expert`` libraries, the count of
+tensor-core (HMMA, HGMMA), fp32 FMA (FFMA), ldmatrix (LDSM) and async-copy
+(LDGSTS) instructions in its SASS, from ``cuobjdump -sass``.  Builds the
+libraries first (nvcc), so it runs where the CUDA toolkit is, with or
+without a card.
 
     PYTHONPATH=src python scripts/sass_census.py
 """
@@ -24,7 +25,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.kernels import build  # noqa: E402
 
 OPCODES = ("HGMMA", "HMMA", "FFMA", "LDSM", "LDGSTS")
-LIBRARIES = ("flash_attention", "varlen_attention")
+LIBRARIES = ("flash_attention", "varlen_attention", "decode_attention", "grouped_expert")
 
 
 def cuobjdump() -> str:

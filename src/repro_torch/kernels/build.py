@@ -92,15 +92,16 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def tile_info(name: str, symbol: str, d: int) -> dict:
+def tile_info(name: str, symbol: str, which: int) -> dict:
     """Registers, spill bytes, dynamic shared memory and resident blocks per
-    SM of a bf16 attention kernel at head_dim ``d`` on the current CUDA
-    device, from the library's ``symbol(int d, int* out)`` entry point."""
+    SM of one instantiation of a tensor-core body (``which``: a head_dim, or
+    a launch of the grouped FFN) on the current CUDA device, from the
+    library's ``symbol(int which, int* out)`` entry point."""
     fn = getattr(library(name), symbol)
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 4)()
-    err = fn(d, out)
+    err = fn(which, out)
     if err:
-        raise RuntimeError(f"{symbol}({d}) failed with CUDA error {err}")
+        raise RuntimeError(f"{symbol}({which}) failed with CUDA error {err}")
     return dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm"), out))

@@ -41,6 +41,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro {
 namespace attn {
@@ -57,89 +58,13 @@ __host__ __device__ constexpr int padded() {
   return D < 64 ? 64 : D;
 }
 
-constexpr int kSlabBytes = kTile * 128;  // one 64-column slab of a tile
+static_assert(kTile == kSlabRows, "a tile is one slab deep");
 
 // Q, K and V tiles, plus the slack that aligns them to 1024 bytes (the
 // swizzle repeats every 8 rows of 128 bytes).
 template <int D>
 constexpr int smem_bytes() {
   return 3 * kTile * padded<D>() * static_cast<int>(sizeof(bf16)) + 1024;
-}
-
-// Byte offset of 16-byte chunk c of row r in a swizzled tile.
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return static_cast<uint32_t>((c >> 3) * kSlabBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4));
-}
-
-// The wgmma descriptor of a 128-byte-swizzled operand at `addr` (inside a
-// 1024-byte-aligned tile): start address, 1024 bytes between 8-row groups,
-// swizzle mode 1.  One instruction reads 16 K columns of one 128-byte row
-// (K-major) or 64 N columns, one row of the atom (MN-major), so the
-// leading byte offset is never crossed; it is set to the same 1024.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait for this thread's copies (all, or all but the last group committed)
-// and make them visible to wgmma's async proxy; a __syncthreads() after it
-// publishes every thread's.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\nfence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\nfence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit_and_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" :::
-                   "memory");
-}
-// Keep the compiler from moving reads or writes of an accumulator across
-// the asynchronous products that own it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
-}
-
-// d += A B over one k16 step: m64n64k16 bf16 -> fp32 with A (64 x 16) and
-// B (64 x 16) both K-major in shared memory, through their descriptors.
-__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, "
-      "%4, %5, %6, %7, "
-      "%8, %9, %10, %11, "
-      "%12, %13, %14, %15, "
-      "%16, %17, %18, %19, "
-      "%20, %21, %22, %23, "
-      "%24, %25, %26, %27, "
-      "%28, %29, %30, %31}"
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(a), "l"(b), "r"(1));
 }
 
 // d += A B over one k16 step: m64n64k16 bf16 -> fp32 with A from registers
@@ -167,11 +92,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // Copy rows [0, n_valid) of a 64-row tile (row r at g + r * stride, D
@@ -271,7 +191,7 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ q, const bf16* __r
       for (int e = 0; e < 4; ++e) acc[sl][j][e] = 0.f;
 
   for (int k0 = mask.k_begin; k0 < mask.k_end; k0 += kTile) {
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();  // K of this step landed; every warp is done with the last V
     load_tile<D>(sV, v + k0 * kv_stride, kv_stride, mask.k_limit - k0, tid);
     cp_async_commit();
@@ -288,7 +208,7 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ q, const bf16* __r
 #pragma unroll
     for (int ks = 0; ks < padded<D>() / 16; ++ks) {
       const uint32_t off = (ks >> 2) * kSlabBytes + (ks & 3) * 32;
-      wgmma_ss(s, sw128_desc(sQ + off), sw128_desc(sK + off));
+      wgmma_ss<0>(s, sw128_desc(sQ + off), sw128_desc(sK + off));
     }
     wgmma_commit_and_wait();
     fence_regs(s);
@@ -359,7 +279,7 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ q, const bf16* __r
       p[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
     }
 
-    cp_async_wait_prior();
+    cp_async_wait<1>();
     __syncthreads();  // V of this step landed (the next K may still be in flight)
 
     // acc += P V
@@ -375,7 +295,7 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ q, const bf16* __r
 #pragma unroll
     for (int sl = 0; sl < kSlabs; ++sl) fence_regs(acc[sl]);
   }
-  cp_async_wait_all();
+  cp_async_wait<0>();
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -387,23 +307,6 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ q, const bf16* __r
       *reinterpret_cast<uint32_t*>(out + 8 * c) =
           pack_bf16(acc[c / 8][c % 8][2 * i] * inv, acc[c / 8][c % 8][2 * i + 1] * inv);
   }
-}
-
-// Registers, local (spill) bytes, dynamic shared memory and resident blocks
-// per SM of one instantiation, after its shared-memory opt-in.
-template <typename Kernel>
-cudaError_t kernel_info(Kernel kernel, int smem, int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.localSizeBytes);
-  out[2] = smem;
-  out[3] = blocks;
-  return cudaSuccess;
 }
 
 }  // namespace attn

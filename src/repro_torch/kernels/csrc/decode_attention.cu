@@ -10,33 +10,41 @@
 // slots >= min(cache_len[b], min(C, window)) are masked (ring caches keep
 // only in-window tokens, decode_attention.py:98-100).
 //
-// Design.  One block per (KV head, batch row), covering the whole group of
-// G = Hq / Hkv query heads (decode_attention.py:97 reshapes q the same way);
-// the block's walk is decode_body.cuh's `decode_group`, shared with the
-// paged kernel.  The block walks 64-key cache tiles only up to the row's
-// valid length, keeping the online-softmax state (max, sum per head in
-// shared memory; the G x D accumulator in registers, one column per thread,
-// two at D = 256) in fp32.  A row with no valid key (cache_len 0) walks all C slots with
-// every key masked, which gives the plain version's uniform average.
+// Design.  bf16 runs a split-KV grid (Hkv, B, splits): each block walks
+// whole 64-key tiles of its share of [0, end) with decode_split.cuh's
+// `decode_split` (G <= 16 query heads as the 16 rows of mma.sync m16n8k16;
+// K and V bf16 in shared memory by cp.async; P V through P's two bf16
+// terms) and writes an unnormalised fp32 partial (m in log2 units, l, the
+// G x D accumulator) per query head to a scratch that the wrapper
+// allocates; a split that starts past its row's end writes an empty one (m
+// = -inf, l = 0).  The row's tiles go to the splits in order, ceil(tiles /
+// splits) each.  A second launch, grid (Hq, B), merges each head's splits
+// in split order (log-sum-exp: weights 2^(m_s - M), then divide by the
+// merged l, then store in bf16), so the result is deterministic.
+// `splits` comes from the host, from shapes alone (B, Hkv, min(C, window)
+// and the card's SM count: kernels/decode_attention.py `decode_splits`),
+// never from cache_len.  fp32 inputs keep the first design, one block per
+// (KV head, batch row) walking decode_body.cuh's `decode_group` (fp32
+// FMAs; neither bf16 nor TF32 products hold fp32's tolerance).
 //
 // What bounds it on this card: each cached key and value is read once and
-// used by G heads, ~2*G flops per byte, so device-memory bandwidth.  With
-// one block per (row, KV head) a batch of 8 rows with 2 KV heads fills only
-// 16 of the 132 SMs, and a block works through its tiles one after another
-// (load, then scores, then softmax, then P V), so this kernel is bound by
-// per-block latency at small batch, not by the card.  What the design does
-// about it: each tile arrives in 16-byte loads all issued before any is
-// used, and each thread reads every shared K/V element once for all the
-// heads it serves.  A split-KV grid with a second combining pass (and
-// overlapping the next tile's loads with this tile's math) is the fix for
-// the idle SMs, left for a later version.
+// used by G heads, ~2*G flops per byte, so device-memory bandwidth.  One
+// block per (row, KV head) filled 8 of 132 SMs at recurrentgemma-9b's
+// decode (B 8, Hkv 1) and each block walked its up to 17 tiles one after
+// another; the split grid puts ~2 blocks per SM in flight, each with its
+// first tile's K and V loads issued together.  The partials (G x D fp32
+// per split) stay in L2 for the merge.
 
 #include "decode_body.cuh"
+#include "decode_split.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int kThreads = repro::kDecodeThreads;
 constexpr int kMaxG = repro::kDecodeMaxG;
+constexpr int kTile = repro::kSplitTile;
 
 // Cached key kj of batch row b is row b * C + kj of the (B * C, Hkv, D) cache.
 struct LinearRows {
@@ -44,65 +52,173 @@ struct LinearRows {
   __device__ __forceinline__ size_t operator()(int kj) const { return base + kj; }
 };
 
+// fp32: one block per (KV head, batch row).
 template <int D>
-constexpr int smem_bytes() {
-  return repro::decode_smem_floats<D>() * 4;
-}
-
-template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                    const T* __restrict__ vc, T* __restrict__ o,
+flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
+                    const float* __restrict__ vc, float* __restrict__ o,
                     const int* __restrict__ cache_len, int C, int Hq, int Hkv,
                     int cap, float scale) {
   extern __shared__ float smem[];
   const int b = blockIdx.y;
   const int limit = min(cache_len[b], cap);
   const int end = limit > 0 ? limit : C;  // no valid key: average all C slots
-  repro::decode_group<T, D>(q, kc, vc, o, b, blockIdx.x, Hq, Hkv, limit, end, scale,
-                            LinearRows{static_cast<size_t>(b) * C}, smem);
+  repro::decode_group<float, D>(q, kc, vc, o, b, blockIdx.x, Hq, Hkv, limit, end, scale,
+                                LinearRows{static_cast<size_t>(b) * C}, smem);
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* kc, const void* vc, void* o,
-                   const int* cache_len, int B, int C, int Hq, int Hkv, int cap,
-                   cudaStream_t stream) {
-  constexpr int smem = smem_bytes<D>();
+// The (B * Hq * splits) partials of part: accumulators (D each), then m,
+// then l, head h of row b at entry (b * Hq + h) * splits + s.
+struct Partials {
+  float *acc, *m, *l;
+  __device__ Partials(float* part, int B, int Hq, int splits, int D) {
+    const size_t n = static_cast<size_t>(B) * Hq * splits;
+    acc = part;
+    m = part + n * D;
+    l = m + n;
+  }
+};
+
+// bf16: split blockIdx.z of (KV head, batch row).
+template <int D>
+__global__ void __launch_bounds__(repro::kSplitThreads)
+flash_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
+                          const bf16* __restrict__ vc, const int* __restrict__ cache_len,
+                          float* __restrict__ part, int B, int C, int Hq, int Hkv, int cap,
+                          int splits, float scale_log2) {
+  extern __shared__ __align__(16) char split_smem[];
+  const int hk = blockIdx.x, b = blockIdx.y, s = blockIdx.z;
+  const int G = Hq / Hkv;
+  const int limit = min(cache_len[b], cap);
+  const int end = limit > 0 ? limit : C;  // no valid key: average all C slots
+  const int tiles = (end + kTile - 1) / kTile;
+  const int per = (tiles + splits - 1) / splits;
+  const int t_begin = s * per, t_end = min(tiles, t_begin + per);
+  const size_t head0 = static_cast<size_t>(b) * Hq + static_cast<size_t>(hk) * G;
+  const Partials p(part, B, Hq, splits, D);
+  const size_t at = head0 * splits + s;  // the group's first head, this split
+  if (t_begin >= t_end) {  // past the row's end: an empty partial
+    if (static_cast<int>(threadIdx.x) < G) {
+      p.m[at + threadIdx.x * splits] = -INFINITY;
+      p.l[at + threadIdx.x * splits] = 0.f;
+    }
+    return;
+  }
+  repro::decode_split<D>(q + head0 * D, kc, vc, Hkv, hk, G, limit, end, t_begin * kTile,
+                         t_end * kTile, scale_log2, LinearRows{static_cast<size_t>(b) * C},
+                         split_smem, p.acc + at * D, p.m + at, p.l + at, splits);
+}
+
+// Merge the splits of head blockIdx.x of row blockIdx.y in split order.
+template <int D>
+__global__ void combine_kernel(float* __restrict__ part, bf16* __restrict__ o, int B, int Hq,
+                               int splits) {
+  const Partials p(part, B, Hq, splits, D);
+  const size_t at = (static_cast<size_t>(blockIdx.y) * Hq + blockIdx.x) * splits;
+  float big = -INFINITY;
+  for (int s = 0; s < splits; ++s) big = fmaxf(big, p.m[at + s]);
+  float l = 0.f;
+  for (int s = 0; s < splits; ++s)
+    if (p.m[at + s] != -INFINITY)
+      l = __fadd_rn(l, __fmul_rn(exp2f(p.m[at + s] - big), p.l[at + s]));
+  for (int c = threadIdx.x; c < D; c += blockDim.x) {
+    float acc = 0.f;
+    for (int s = 0; s < splits; ++s)
+      if (p.m[at + s] != -INFINITY)
+        acc = __fadd_rn(acc, __fmul_rn(exp2f(p.m[at + s] - big), p.acc[(at + s) * D + c]));
+    o[(at / splits) * D + c] = __float2bfloat16(acc / l);
+  }
+}
+
+template <int D>
+cudaError_t launch_fp32(const void* q, const void* kc, const void* vc, void* o,
+                        const int* cache_len, int B, int C, int Hq, int Hkv, int cap,
+                        cudaStream_t stream) {
+  constexpr int smem = repro::decode_smem_floats<D>() * 4;
   static std::atomic<bool> smem_set[repro::kMaxDevices];
-  const cudaError_t err = repro::allow_dynamic_smem(flash_decode_kernel<T, D>, smem, smem_set);
+  const cudaError_t err = repro::allow_dynamic_smem(flash_decode_kernel<D>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  flash_decode_kernel<T, D><<<dim3(Hkv, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
-      static_cast<T*>(o), cache_len, C, Hq, Hkv, cap, 1.0f / sqrtf(static_cast<float>(D)));
+  flash_decode_kernel<D><<<dim3(Hkv, B), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kc),
+      static_cast<const float*>(vc), static_cast<float*>(o), cache_len, C, Hq, Hkv, cap,
+      1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dim(const void* q, const void* kc, const void* vc, void* o,
-                       const int* cache_len, int B, int C, int Hq, int Hkv, int D,
-                       int cap, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, kc, vc, o, cache_len, B, C, Hq, Hkv, cap, stream);
-    case 32: return launch<T, 32>(q, kc, vc, o, cache_len, B, C, Hq, Hkv, cap, stream);
-    case 64: return launch<T, 64>(q, kc, vc, o, cache_len, B, C, Hq, Hkv, cap, stream);
-    case 128: return launch<T, 128>(q, kc, vc, o, cache_len, B, C, Hq, Hkv, cap, stream);
-    case 256: return launch<T, 256>(q, kc, vc, o, cache_len, B, C, Hq, Hkv, cap, stream);
-    default: return cudaErrorInvalidValue;
-  }
+template <int D>
+cudaError_t prepare_bf16() {
+  static std::atomic<bool> smem_set[repro::kMaxDevices];
+  return repro::allow_dynamic_smem(flash_decode_split_kernel<D>, repro::SplitSmem<D>::kBytes,
+                                   smem_set);
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* kc, const void* vc, void* o,
+                        const int* cache_len, float* part, int B, int C, int Hq, int Hkv,
+                        int cap, int splits, cudaStream_t stream) {
+  cudaError_t err = prepare_bf16<D>();
+  if (err != cudaSuccess) return err;
+  flash_decode_split_kernel<D>
+      <<<dim3(Hkv, B, splits), repro::kSplitThreads, repro::SplitSmem<D>::kBytes, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(kc),
+          static_cast<const bf16*>(vc), cache_len, part, B, C, Hq, Hkv, cap, splits,
+          1.4426950408889634f / sqrtf(static_cast<float>(D)));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  combine_kernel<D><<<dim3(Hq, B), D < 128 ? D : 128, 0, stream>>>(part, static_cast<bf16*>(o),
+                                                                   B, Hq, splits);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* kc, const void* vc, void* o,
+                   const int* cache_len, float* part, int B, int C, int Hq, int Hkv, int cap,
+                   int splits, int is_bf16, cudaStream_t stream) {
+  if (is_bf16)
+    return launch_bf16<D>(q, kc, vc, o, cache_len, part, B, C, Hq, Hkv, cap, splits, stream);
+  return launch_fp32<D>(q, kc, vc, o, cache_len, B, C, Hq, Hkv, cap, stream);
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes.  cap = min(C, window), or C
-// without a window.  Returns the cudaError_t of the launch.
+// without a window.  bf16 takes `splits` >= 1 blocks per (row, KV head) and
+// part, a (B * Hq * splits * (D + 2),) fp32 scratch; fp32 ignores both.
+// Returns the cudaError_t of the launches.
 extern "C" int repro_flash_decode(const void* q, const void* kc, const void* vc, void* o,
-                                  const int* cache_len, int B, int C, int Hq, int Hkv,
-                                  int D, int cap, int is_bf16, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxG || C <= 0 || cap <= 0 || cap > C)
+                                  const int* cache_len, float* part, int B, int C, int Hq,
+                                  int Hkv, int D, int cap, int splits, int is_bf16,
+                                  void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxG || C <= 0 || cap <= 0 || cap > C ||
+      splits < 1 || (is_bf16 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_dim<__nv_bfloat16>(q, kc, vc, o, cache_len, B, C, Hq, Hkv, D, cap, s)
-              : launch_dim<float>(q, kc, vc, o, cache_len, B, C, Hq, Hkv, D, cap, s);
+  switch (D) {
+#define REPRO_CASE(d)                                                                      \
+  case d:                                                                                  \
+    return static_cast<int>(                                                               \
+        launch<d>(q, kc, vc, o, cache_len, part, B, C, Hq, Hkv, cap, splits, is_bf16, s));
+    REPRO_CASE(16) REPRO_CASE(32) REPRO_CASE(64) REPRO_CASE(128) REPRO_CASE(256)
+#undef REPRO_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Registers, spill bytes, dynamic shared memory and resident blocks per SM
+// of the bf16 split kernel at head_dim D (out: 4 ints).
+extern "C" int repro_flash_decode_bf16_info(int D, int* out) {
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (D) {
+#define REPRO_INFO(d)                                                                      \
+  case d:                                                                                  \
+    err = prepare_bf16<d>();                                                               \
+    if (err == cudaSuccess)                                                                \
+      err = repro::kernel_info(flash_decode_split_kernel<d>, repro::kSplitThreads,         \
+                               repro::SplitSmem<d>::kBytes, out);                          \
+    break;
+    REPRO_INFO(16) REPRO_INFO(32) REPRO_INFO(64) REPRO_INFO(128) REPRO_INFO(256)
+#undef REPRO_INFO
+  }
   return static_cast<int>(err);
 }

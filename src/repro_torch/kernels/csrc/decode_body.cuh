@@ -1,5 +1,6 @@
-// The body shared by the two decode kernels (decode_attention.cu over a
-// linear or ring cache, paged_decode_attention.cu over a block pool): one
+// The fp32-FMA decode body: the whole of paged_decode_attention.cu (over a
+// block pool) and the fp32 path of decode_attention.cu (over a linear or
+// ring cache; its bf16 path is decode_split.cuh's split-KV body).  One
 // block's walk over the cached keys of one (batch row, KV head) for the
 // whole group of G = Hq / Hkv query heads, in 64-key tiles, with an fp32
 // online softmax.  The two kernels differ only in where cached key kj of the

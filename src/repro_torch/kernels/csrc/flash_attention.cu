@@ -347,8 +347,9 @@ extern "C" int repro_flash_mha_bf16_info(int D, int* out) {
   case d:                                                                             \
     err = prepare_bf16<d, false>();                                                   \
     if (err == cudaSuccess)                                                           \
-      err = repro::attn::kernel_info(flash_mha_bf16_kernel<d, false>,                 \
-                                     repro::attn::smem_bytes<d>(), out);              \
+      err = repro::kernel_info(flash_mha_bf16_kernel<d, false>,                       \
+                               repro::attn::kThreads,                                 \
+                               repro::attn::smem_bytes<d>(), out);                    \
     break;
     REPRO_INFO(16) REPRO_INFO(32) REPRO_INFO(64) REPRO_INFO(128) REPRO_INFO(256)
 #undef REPRO_INFO

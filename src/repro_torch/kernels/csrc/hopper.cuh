@@ -1,0 +1,155 @@
+// Hopper helpers shared by the tensor-core kernels: the 128-byte swizzle of
+// a shared-memory tile and its wgmma descriptor, cp.async with zero fill,
+// the wgmma fences and products, mma.sync and ldmatrix, and the kernel
+// info every tensor-core body reports.  attn_tile.cuh (the prefill
+// attention tile body), grouped_expert.cu and decode_split.cuh include it.
+#pragma once
+
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace repro {
+
+// One 128-byte-swizzled slab: 64 rows of 128 bytes (64 bf16 columns).
+constexpr int kSlabRows = 64;
+constexpr int kSlabBytes = kSlabRows * 128;
+
+// Byte offset of 16-byte chunk c of row r in a tile of 64-column slabs.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return static_cast<uint32_t>((c >> 3) * kSlabBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4));
+}
+
+// The wgmma descriptor of a 128-byte-swizzled operand at `addr` (inside a
+// 1024-byte-aligned tile): start address, 1024 bytes between 8-row groups,
+// swizzle mode 1.  One instruction reads 16 K columns of one 128-byte row
+// (K-major) or 64 N columns, one row of the atom (MN-major), so the
+// leading byte offset is never crossed; it is set to the same 1024.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed copy groups are pending
+// and make the landed ones visible to wgmma's async proxy; a
+// __syncthreads() after it publishes every thread's.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\nfence.proxy.async.shared::cta;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" :::
+                   "memory");
+}
+// Keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous products that own it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+
+// d += A B over one k16 step: m64n64k16 bf16 -> fp32 with A (64 x 16)
+// K-major and B (16 x 64) K-major (kTransB 0) or MN-major (kTransB 1), both
+// in shared memory through their descriptors.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, "
+      "%4, %5, %6, %7, "
+      "%8, %9, %10, %11, "
+      "%12, %13, %14, %15, "
+      "%16, %17, %18, %19, "
+      "%20, %21, %22, %23, "
+      "%24, %25, %26, %27, "
+      "%28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(a), "l"(b), "r"(1), "n"(kTransB));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (lo, hi) rounded to bf16 as `big`, and what that rounding dropped,
+// rounded to bf16 as `small`: big + small holds x to ~2^-17 of |x|.
+__device__ __forceinline__ void split_bf16(float lo, float hi, uint32_t* big, uint32_t* small) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+  const float2 f = __bfloat1622float2(b);
+  *big = *reinterpret_cast<const uint32_t*>(&b);
+  *small = pack_bf16(__fsub_rn(lo, f.x), __fsub_rn(hi, f.y));
+}
+
+// d += A B with mma.sync m16n8k16, bf16 -> fp32: A's fragment a (16 x 16,
+// row-major), B's b (16 x 8, column-major).
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, lanes 8i..8i+7 giving the
+// rows of matrix i; each thread gets row lane / 4, columns 2 (lane % 4) + {0,
+// 1} of each.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+// Two 8 x 8 bf16 matrices, transposed: each thread gets rows 2 (lane % 4) +
+// {0, 1}, column lane / 4 of each (lanes 0-15 give the rows).
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr)
+               : "memory");
+}
+
+// Registers, local (spill) bytes, dynamic shared memory and resident blocks
+// per SM of one instantiation launched with `threads` threads, after its
+// shared-memory opt-in.
+template <typename Kernel>
+cudaError_t kernel_info(Kernel kernel, int threads, int smem, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = smem;
+  out[3] = blocks;
+  return cudaSuccess;
+}
+
+}  // namespace repro

@@ -13,25 +13,29 @@
 // scratch block 0) never reach the result; a row with cache_len 0 averages
 // all M * bs slots, as the plain version does.
 //
-// Design.  The flash_decode kernel's walk (decode_body.cuh `decode_group`:
-// one block per (KV head, batch row) over the whole G = Hq / Hkv group, fp32
-// online softmax, 64-key tiles in 16-byte loads all issued before use), with
-// only the address of each cached row changed: the block first copies the
-// live prefix of its table row into shared memory, and each 16-byte load
-// reads row tbl[kj / bs] * bs + kj % bs of the pool.  That works for any bs,
+// Design.  The fp32-FMA decode walk (decode_body.cuh `decode_group`, which
+// flash_decode keeps for fp32 inputs: one block per (KV head, batch row)
+// over the whole G = Hq / Hkv group, fp32 online softmax, 64-key tiles in
+// 16-byte loads all issued before use), in either dtype, with only the
+// address of each cached row changed: the block first copies the live
+// prefix of its table row into shared memory, and each 16-byte load reads
+// row tbl[kj / bs] * bs + kj % bs of the pool.  That works for any bs,
 // including one that does not divide the 64-key tile (a tile then spans
 // several blocks).  The TPU kernel's shape, one grid step per table slot
 // with the table prefetched as a scalar (paged_decode_attention.py:57-66),
-// is not kept: on Hopper a block loads its own indices.  Keeping
-// flash_decode's tile order means that on any table the kernel gives the
-// same bits as flash_decode on the gathered cache.  Offsets are size_t:
-// N * bs * Hkv * D exceeds 2^31 at realistic pool sizes.
+// is not kept: on Hopper a block loads its own indices.  In fp32 the kernel
+// gives the same bits as flash_decode on the gathered cache (the same body
+// in the same tile order); in bf16 flash_decode runs its split-KV
+// tensor-core body (decode_split.cuh), and the two differ by rounding.
+// Offsets are size_t: N * bs * Hkv * D exceeds 2^31 at realistic pool
+// sizes.
 //
 // What bounds it on this card: as flash_decode, the bytes of K and V (each
 // live key read once, ~2*G flops per byte), plus per-block latency at small
 // batch: 8 rows with 2 KV heads are 16 blocks on 132 SMs, each walking its
-// tiles one after another.  A split-KV grid is the fix, left for a later
-// version.
+// tiles one after another.  The fix is flash_decode's split-KV body
+// (decode_split.cuh, which takes its key rows through the same kind of
+// functor as PagedRows below), left for a later version.
 
 #include "decode_body.cuh"
 

@@ -3,7 +3,10 @@ the hand-written CUDA kernel ``csrc/decode_attention.cu`` and its plain
 version.
 
 Counterpart of the JAX package's Pallas kernel ``kernels/decode_attention.py``
-``flash_decode``.
+``flash_decode``.  bf16 inputs run a split-KV grid on tensor cores
+(``csrc/decode_split.cuh``: ``decode_splits`` blocks per (row, KV head),
+then a merge of their partials); fp32 inputs an fp32-FMA body, one block per
+(row, KV head).
 """
 
 from __future__ import annotations
@@ -20,15 +23,32 @@ from repro_torch.kernels.ref import decode_mha_ref
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_GROUP = 16  # query heads per KV head the kernel holds (kMaxG)
+SPLIT_TILE = 64  # keys of a tile; a split walks whole tiles
+SPLIT_BLOCKS_PER_SM = 2  # blocks in flight per SM the split grid aims at
 
 
 @functools.cache
 def _entry():
     """The kernel's C entry point, typed once when its library loads."""
     fn = build.library("decode_attention").repro_flash_decode
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def decode_splits(b: int, hkv: int, cap: int, sms: int) -> int:
+    """Blocks per (batch row, KV head) of the bf16 kernel: enough for about
+    SPLIT_BLOCKS_PER_SM blocks on each of ``sms`` SMs, at most one per
+    64-key tile of ``cap`` = min(C, window), at least one.  From shapes
+    alone: the row lengths stay on the card."""
+    tiles = -(-cap // SPLIT_TILE)
+    want = -(-SPLIT_BLOCKS_PER_SM * sms // (b * hkv))
+    return max(1, min(tiles, want))
 
 
 def flash_decode(q, k_cache, v_cache, *, cache_len, window: int | None = None):
@@ -71,12 +91,16 @@ def flash_decode(q, k_cache, v_cache, *, cache_len, window: int | None = None):
         raise ValueError(f"flash_decode: window must be >= 1; got {window}")
     eff_cap = cap if window is None else min(cap, window)
     out = torch.empty_like(q)
+    bf16 = q.dtype == torch.bfloat16
+    splits = decode_splits(b, hkv, eff_cap, _sm_count(dev.index)) if bf16 else 1
+    # per split and query head: the fp32 accumulator, m and l
+    part = (torch.empty(b * hq * splits * (d + 2), dtype=torch.float32, device=dev)
+            if bf16 else None)
     with torch.cuda.device(dev):
         err = _entry()(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-            cache_len.data_ptr(), b, cap, hq, hkv, d, eff_cap,
-            int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
+            cache_len.data_ptr(), None if part is None else part.data_ptr(), b, cap, hq,
+            hkv, d, eff_cap, splits, int(bf16), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"flash_decode: kernel launch failed with CUDA error {err}")
     flash_decode.launches += 1
@@ -84,3 +108,9 @@ def flash_decode(q, k_cache, v_cache, *, cache_len, window: int | None = None):
 
 
 flash_decode.launches = 0
+
+
+def kernel_info(d: int) -> dict:
+    """Registers, spill bytes, shared memory and blocks per SM of the bf16
+    split kernel at head_dim ``d``."""
+    return build.tile_info("decode_attention", "repro_flash_decode_bf16_info", d)

@@ -2,8 +2,9 @@
 ``csrc/grouped_expert.cu`` and its plain version.
 
 Counterpart of the JAX package's Pallas kernel ``kernels/grouped_expert.py``
-``grouped_ffn`` (forward ``_forward``).  Forward only: the backward comes
-with the train path.
+``grouped_ffn`` (forward ``_forward``).  bf16 inputs run both products on
+``wgmma`` with the intermediate H kept as two bf16 terms; fp32 inputs an
+fp32-FMA body.  Forward only: the backward comes with the train path.
 """
 
 from __future__ import annotations
@@ -24,16 +25,9 @@ DTYPES = (torch.float32, torch.bfloat16)
 def _entry():
     """The kernel's C entry point, typed once when its library loads."""
     fn = build.library("grouped_expert").repro_grouped_ffn
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
-
-
-def _block_rows(n: int, e: int) -> int:
-    """The kernel's row tile: 16 rows while experts average fewer than 32
-    rows (decode), else 64.  Either gives the same bits; ``chip_smoke.py``
-    times both over N."""
-    return 64 if n >= 32 * e else 16
 
 
 def grouped_ffn(xs, group_sizes, w_gate, w_in, w_out, *, act="silu"):
@@ -81,12 +75,13 @@ def grouped_ffn(xs, group_sizes, w_gate, w_in, w_out, *, act="silu"):
     out = torch.empty((n, d), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    h = torch.empty((n, f), dtype=torch.float32, device=dev)  # silu(x.Wg) * (x.Wi)
+    bf16 = xs.dtype == torch.bfloat16
+    # H = silu(x.Wg) * (x.Wi): in fp32, or as its bf16 terms H_hi and H_lo
+    h = torch.empty((2, n, f) if bf16 else (n, f), dtype=xs.dtype, device=dev)
     with torch.cuda.device(dev):
         err = _entry()(
             xs.data_ptr(), group_sizes.data_ptr(), w_gate.data_ptr(), w_in.data_ptr(),
-            w_out.data_ptr(), h.data_ptr(), out.data_ptr(), n, d, f, e, _block_rows(n, e),
-            int(xs.dtype == torch.bfloat16),
+            w_out.data_ptr(), h.data_ptr(), out.data_ptr(), n, d, f, e, int(bf16),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"grouped_ffn: kernel launch failed with CUDA error {err}")
@@ -95,3 +90,9 @@ def grouped_ffn(xs, group_sizes, w_gate, w_in, w_out, *, act="silu"):
 
 
 grouped_ffn.launches = 0
+
+
+def kernel_info(launch: int) -> dict:
+    """Registers, spill bytes, shared memory and blocks per SM of the bf16
+    body's launch A (0: H) or B (1: the output)."""
+    return build.tile_info("grouped_expert", "repro_grouped_ffn_bf16_info", launch)

@@ -1,8 +1,9 @@
 """The CUDA build's cache key: ``build.library_path`` names a library by a
 hash of every file under ``csrc/``, so an edit to a shared header (the
-attention tile body ``attn_tile.cuh`` that two kernels include, the decode
-body, the common helpers) rebuilds every library and no stale one is
-loaded.  Runs on a temporary copy of ``csrc/``; nothing is compiled."""
+attention tile body ``attn_tile.cuh`` that two kernels include, the Hopper
+helpers ``hopper.cuh`` that three include, the decode bodies, the common
+helpers) rebuilds every library and no stale one is loaded.  Runs on a
+temporary copy of ``csrc/``; nothing is compiled."""
 
 import shutil
 
@@ -11,7 +12,8 @@ import pytest
 from repro_torch.kernels import build
 
 
-@pytest.mark.parametrize("header", ["attn_tile.cuh", "decode_body.cuh", "common.cuh"])
+@pytest.mark.parametrize("header", ["attn_tile.cuh", "hopper.cuh", "decode_body.cuh",
+                                    "decode_split.cuh", "common.cuh"])
 def test_editing_a_header_changes_the_source_hash(header, tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)

@@ -9,13 +9,15 @@ package, so it runs where only PyTorch is installed:
 Tolerance: |kernel - plain| <= TOL * (1 + |plain|).  In fp32 both sides
 differ only in summation order; in bf16 the plain version rounds scores and
 probabilities to bf16 before its second product, where the decode kernels
-keep both in fp32 and the prefill kernels keep scores in fp32 and round
-their unnormalised probabilities (2e-2 is the JAX package's bf16 tolerance
-for its own kernels).  The
+keep scores in fp32 and carry probabilities to ~2^-17 (flash_decode's bf16
+split-KV body as two bf16 terms, the paged kernel in fp32) and the prefill
+kernels keep scores in fp32 and round their unnormalised probabilities
+(2e-2 is the JAX package's bf16 tolerance for its own kernels).  The
 grouped expert FFN takes fp32 products of the same values on both sides in
-either dtype, so it is held to GROUPED_TOL: 1e-4 in bf16 lies between the
-card's reading (<= 2.1e-6) and what an intermediate rounded to bf16 would
-cost (~1e-3).  Its cohort independence is held bit for bit.  The SSD scan
+either dtype (in bf16 the kernel carries its intermediate H as two bf16
+terms, ~2^-17 of |H|), so it is held to GROUPED_TOL: 1e-4 in bf16 lies
+between the card's reading and what an intermediate rounded to bf16 once
+would cost (~1e-3).  Its cohort independence is held bit for bit.  The SSD scan
 is held, in either dtype, against a float64 sequential recurrence on the
 same values, to twice the
 larger of 1e-4 (the JAX package's own SSD tolerance) and the plain
@@ -142,6 +144,61 @@ def test_flash_decode_kernel_matches_plain(b, cap, hq, hkv, d, window, lens, dty
            want, dtype)
 
 
+def _decode_case(gen, lens, cap, window, hq, hkv, d, dtype, dev):
+    """flash_decode against its plain version on random rows of the given
+    lengths; in bf16 also against fp32 attention on the same values, within
+    the output's own bf16 rounding."""
+    b = len(lens)
+    q = _randn(gen, (b, hq, d), dtype, dev)
+    kc, vc = (_randn(gen, (b, cap, hkv, d), dtype, dev) for _ in range(2))
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = decode_attention.flash_decode(q, kc, vc, cache_len=cl, window=window)
+    _close(got, ref.decode_mha_ref(q, kc, vc, cache_len=cl, window=window), dtype)
+    if dtype == "bfloat16":  # the two bf16 P terms hold fp32 P's result closely
+        q32, k32, v32 = (x.float() for x in (q, kc, vc))
+        want = ref.decode_mha_ref(q32, k32, v32, cache_len=cl, window=window)
+        _close(got, want, "bfloat16", {"bfloat16": 2 ** -8})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,d", [(1, 14, 2, 64), (64, 14, 2, 64), (1, 16, 1, 256),
+                                        (64, 16, 1, 256)])
+def test_flash_decode_at_split_boundaries(b, hq, hkv, d, dtype):
+    """Lengths on and one past a 64-key tile edge, a row of 0 and a full
+    row, over a linear cache of 1,088 slots and a 576-slot ring with rows
+    past its capacity.  B 1 takes the most splits per (row, KV head) (17 on
+    the linear cache, 9 on the ring, on 132 SMs), B 64 the fewest (3 with
+    two KV heads, 5 with one): a split may start past its row's end, and a
+    row's last split may hold fewer tiles."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(19)
+    lengths = [0, 1, 63, 64, 65, 128, 129, 575, 576, 577, 1087, 1088]
+    for cap, window in ((1088, None), (576, 576)):
+        # ring rows past the capacity: every fifth length plus the ring's
+        lens = [x + (cap if window and i % 5 == 4 else 0) for i, x in enumerate(lengths)]
+        batches = [[x] for x in lens] if b == 1 else [[lens[i % len(lens)] for i in range(b)]]
+        for rows in batches:
+            _decode_case(gen, rows, cap, window, hq, hkv, d, dtype, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,hq,hkv", [(64, 14, 2), (256, 16, 1)])
+def test_fp32_decode_keeps_the_fma_body(d, hq, hkv):
+    """fp32 inputs still run the fp32-FMA decode body: flash_decode at the
+    main path's widths held to the fp32 tolerance, which no bf16 or TF32
+    product would meet."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(20)
+    lens = [0, 1, 64, 65, 300, 511]
+    q = _randn(gen, (len(lens), hq, d), "float32", dev)
+    kc, vc = (_randn(gen, (len(lens), 512, hkv, d), "float32", dev) for _ in range(2))
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for window in (None, 256):
+        _close(decode_attention.flash_decode(q, kc, vc, cache_len=cl, window=window),
+               ref.decode_mha_ref(q, kc, vc, cache_len=cl, window=window), "float32")
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take():
     dev = _card()
@@ -247,7 +304,7 @@ def test_paged_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 # grouped expert FFN: (D, F, E) of the kernel grid; each at a decode-sized
-# cohort (16-row tiles) and one past 32 * E rows (64-row tiles)
+# cohort and one past 32 * E rows
 GROUPED_GRID = [(d, f, e) for d in (16, 64, 1024) for f in (32, 512) for e in (4, 32)]
 
 
@@ -280,8 +337,8 @@ def test_grouped_ffn_kernel_matches_plain(d, f, e, dtype):
 
 
 # (N, group sizes): an empty expert, all rows to one expert, groups that
-# straddle 16- and 64-row tiles, N not a multiple of the tile, and rows
-# past the total (which come out as zeros)
+# straddle 64-row tiles, N not a multiple of the tile, and rows past the
+# total (which come out as zeros)
 GROUPED_EDGES = [
     (40, [10, 0, 25, 5]),
     (33, [0, 0, 33, 0]),
@@ -308,8 +365,8 @@ def test_grouped_ffn_kernel_edge_cases(n, sizes, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_grouped_ffn_kernel_is_cohort_independent(dtype):
-    """Rows of a 1,029-row cohort (64-row tiles) alone in a 40-row cohort
-    (16-row tiles): each row's output has the same bits."""
+    """Rows of a 1,029-row cohort alone in a 40-row cohort: each row's
+    output has the same bits."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(8)
     e = 32
@@ -322,6 +379,43 @@ def test_grouped_ffn_kernel_is_cohort_independent(dtype):
     alone = grouped_expert.grouped_ffn(xs[rows].contiguous(), sub, *ws)
     torch.cuda.synchronize()
     assert torch.equal(alone, full[rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_ffn_cohort_bits_across_n(dtype):
+    """granite-moe-1b-a400m's widths: 8 rows of an 8,192-row cohort, each
+    in every cohort of N 8, 64 and 512 drawn around it, give the same bits
+    in all four."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    e, n = 32, 8192
+    xs, gs, ws = _grouped_inputs(gen, n, 1024, 512, e, dtype, dev)
+    eid = ref.expert_ids_of(gs, n).long()
+    full = grouped_expert.grouped_ffn(xs, gs, *ws)
+    keep = torch.randperm(n, generator=gen, device=dev)[:8]
+    for size in (8, 64, 512):
+        others = torch.randperm(n, generator=gen, device=dev)[:size]
+        others = others[~torch.isin(others, keep)][:size - 8]
+        rows = torch.sort(torch.cat([keep, others])).values  # still expert-sorted
+        sub = torch.zeros(e, dtype=torch.int32, device=dev).scatter_add_(
+            0, eid[rows], torch.ones_like(rows, dtype=torch.int32))
+        alone = grouped_expert.grouped_ffn(xs[rows].contiguous(), sub, *ws)
+        torch.cuda.synchronize()
+        assert rows.numel() == size
+        assert torch.equal(alone, full[rows]), size
+
+
+@pytest.mark.cuda
+def test_fp32_grouped_ffn_keeps_the_fma_body():
+    """fp32 inputs still run the fp32-FMA body: granite's widths at a decode
+    and a prefill cohort held to the fp32 tolerance."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(22)
+    for n in (64, 1029):
+        xs, gs, ws = _grouped_inputs(gen, n, 1024, 512, 32, "float32", dev)
+        _close(grouped_expert.grouped_ffn(xs, gs, *ws), ref.grouped_ffn_ref(xs, gs, *ws),
+               "float32", GROUPED_TOL)
 
 
 @pytest.mark.cuda
