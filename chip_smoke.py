@@ -13,18 +13,21 @@ Phases, in order; any failure exits non-zero before the last line:
      without a backward refusing an input that requires grad;
      flash_mha and flash_decode also at recurrentgemma-9b's D = 256,
      ssd_scan at mamba2-1.3b's widths, rglru_scan at recurrentgemma-9b's in
-     fp32) and time kernel (inputs warm in L2 as ``ms``, L2 flushed before
-     each call as ``cold_ms``), plain version, bound and one PyTorch library
-     call where one computes the same function (flash_mha,
-     flash_mha_varlen, flash_decode and grouped_ffn, kernel and library
-     call, from CUDA-graph replays: their wrappers' host work outlasts the
-     kernel, so a loop of eager calls, kept as ``eager_ms``, reads the
-     host); print the registers, spill bytes, shared memory and blocks per
-     SM of the tensor-core bodies (the prefill attention tile body
-     csrc/attn_tile.cuh, flash_decode's split-KV body csrc/decode_split.cuh,
-     grouped_ffn's two wgmma launches) and flash_decode's splits at the
-     main path's decode shapes; grouped_ffn's rows are also held bit-exact
-     between an 8192-row and a 64-row cohort, and timed over N beside
+     fp32; paged_flash_decode also bit for bit against flash_decode on the
+     gathered cache in bf16 and fp32) and time kernel (inputs warm in L2 as
+     ``ms``, L2 flushed before each call as ``cold_ms``), plain version,
+     bound and one PyTorch library call where one computes the same
+     function (every kernel but rglru_scan, kernel and library call, from
+     CUDA-graph replays: the wrappers' host work outlasts most kernels, so
+     a loop of eager calls, kept as ``eager_ms``, reads the host; ssd_scan
+     also at a 1-row admission); print the registers, spill bytes, shared
+     memory and blocks per SM of the tensor-core bodies (the prefill
+     attention tile body csrc/attn_tile.cuh, the split-KV body
+     csrc/decode_split.cuh of flash_decode and paged_flash_decode,
+     grouped_ffn's two wgmma launches, ssd_scan's bf16 body at each P
+     split), the decode kernels' splits and ssd_scan's P splits at the main
+     path's shapes; grouped_ffn's rows are also held bit-exact between an
+     8192-row and a 64-row cohort, and timed over N beside
      torch._grouped_mm;
   3. full-width qwen2-0.5b and granite-moe-1b-a400m (24 layers each), then
      mamba2-1.3b (48 SSD layers) and recurrentgemma-9b (26 RG-LRU and 12
@@ -82,7 +85,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ATTN, LRU, SSM  # noqa: E402
 from repro_torch.kernels import (build, decode_attention, flash_attention,  # noqa: E402
-                                 grouped_expert, ref, varlen_attention)
+                                 grouped_expert, paged_decode_attention, ref, varlen_attention)
+from repro_torch.kernels import ssd_scan as ssd_scan_mod  # noqa: E402
 from repro_torch.kernels.decode_attention import flash_decode  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_mha  # noqa: E402
 from repro_torch.kernels.grouped_expert import grouped_ffn  # noqa: E402
@@ -122,7 +126,9 @@ GROUPED_TOL = 1e-4
 FP32_TOL = 1e-5
 # ssd_scan vs its plain version run in fp32 on the same values: the fp32
 # products are the same, summed in another order over other spans (the
-# kernel's 64-row pieces against the plain version's 128-row chunks).
+# fp32 kernel's 64-row pieces against the plain version's 128-row chunks;
+# the bf16 body's 128-row pieces take M, the state and X w as two bf16
+# terms, ~2^-17 of each).
 # FP32_SCAN_TOL lies between the H100's reading (5.7e-6 scaled) and that of
 # the plain version with a bf16 state or a bf16 x * dt (1.1e-2, 2.0e-2;
 # scripts/limit_controls.py, PERF.md).
@@ -331,6 +337,11 @@ def decode_splits(b, hkv, cap):
         b, hkv, cap, torch.cuda.get_device_properties(0).multi_processor_count)
 
 
+def ssd_p_splits(b, h=64):
+    """ssd_scan's bf16 blocks per (row, head) at these shapes on this card."""
+    return ssd_scan_mod.ssd_splits(b, h, build.sm_count(0))
+
+
 def bound_ms(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -436,7 +447,11 @@ def phase_kernels(device):
                        ("flash_decode D64 bf16 split body", decode_attention.kernel_info(64)),
                        ("flash_decode D256 bf16 split body", decode_attention.kernel_info(256)),
                        ("grouped_ffn bf16 launch A (H)", grouped_expert.kernel_info(0)),
-                       ("grouped_ffn bf16 launch B (out)", grouped_expert.kernel_info(1))):
+                       ("grouped_ffn bf16 launch B (out)", grouped_expert.kernel_info(1)),
+                       ("paged_flash_decode D64 bf16 split body",
+                        paged_decode_attention.kernel_info(64)),
+                       *((f"ssd_scan bf16 tensor-core body, p_splits {ps}",
+                          ssd_scan_mod.kernel_info(ps)) for ps in ssd_scan_mod.P_SPLITS)):
         print(f"[kernels] {name}: {info['registers']} registers, "
               f"{info['spill_bytes']} spill bytes, {info['smem_bytes']} bytes of shared "
               f"memory, {info['blocks_per_sm']} blocks per SM")
@@ -445,6 +460,13 @@ def phase_kernels(device):
                         ("recurrentgemma-9b (B 8, Hkv 1, ring 576)", (8, 1, 576))):
         print(f"[kernels] flash_decode splits at {name}: {decode_splits(*shape)} blocks per "
               "(row, KV head)")
+    for name, shape in (("qwen2-0.5b continuous (B 8, Hkv 2, M 36 x bs 16)", (8, 2, 576)),
+                        ("granite-moe-1b-a400m continuous (B 8, Hkv 8, M 36 x bs 16)",
+                         (8, 8, 576))):
+        print(f"[kernels] paged_flash_decode splits at {name}: {decode_splits(*shape)} blocks "
+              "per (row, KV head)")
+    print("[kernels] ssd_scan p_splits at mamba2-1.3b's admissions (H 64): "
+          + ", ".join(f"B {b}: {ssd_p_splits(b)}" for b in (1, 2, 4, 8)))
     guard_case(device)
     for name, r in out.items():
         for shape, t in [("", r)] + [(f" {k}", v) for k, v in r.items() if isinstance(v, dict)]:
@@ -453,6 +475,7 @@ def phase_kernels(device):
             eager = (f" eager_ms={t['eager_ms']:.4f} (host-paced loop)" if "eager_ms" in t
                      else "")
             eager += f" splits={t['splits']}" if "splits" in t else ""
+            eager += f" p_splits={t['p_splits']}" if "p_splits" in t else ""
             print(f"[kernels] {name}{shape}: ms={t['ms']:.4f} (warm L2) cold_ms="
                   f"{t['cold_ms']:.4f} (L2 flushed){eager} plain_ms={t['plain_ms']:.4f} "
                   f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) library_ms={lib}")
@@ -558,9 +581,12 @@ def ssd_kernel_case(device):
     """ssd_scan at mamba2-1.3b's widths on SSD_CASES, each held against the
     plain version in fp32 on the same values: y within SSD_BF16_TOL in bf16
     (it rounds once) and FP32_SCAN_TOL in fp32, the state within
-    FP32_SCAN_TOL.  Bound: the bytes of x, dt, B, C, y and the final
-    state, against the flops of the chunked algorithm at the model's chunk
-    (C.B^T, its product with x, C.state and the state update per chunk)."""
+    FP32_SCAN_TOL.  Timed at an admission of 4 rows of 512 tokens and, as
+    ``b1_s256``, of 1 row of 256, kernel from CUDA-graph replays (the
+    eager loop kept as ``eager_ms``).  Bound: the bytes of x, dt, B, C, y
+    and the final state, against the flops of the chunked algorithm at the
+    model's chunk (C.B^T, its product with x, C.state and the state update
+    per chunk)."""
     cases, g = ssd_cases(device)
     errs = []
     for name, args in cases.items():
@@ -570,20 +596,26 @@ def ssd_kernel_case(device):
         tol = SSD_BF16_TOL if args[0].dtype == torch.bfloat16 else FP32_SCAN_TOL
         errs.append(held(f"ssd_scan {name} y", y, want_y, tol))
         held(f"ssd_scan {name} state", st, want_st, FP32_SCAN_TOL)
-    b, s, h, p, n, chunk = 4, 512, SSD_H, SSD_P, SSD_N, SSD_CHUNK
-    args = ssd_inputs(g, b, s, torch.bfloat16, device)
-    nc = s // chunk
-    flops = 2 * b * nc * h * (chunk * chunk * n + chunk * chunk * p + 2 * chunk * n * p)
-    nbytes = (2 * 2 * b * s * h * p + 4 * b * s * h + 2 * 2 * b * s * n + 4 * 2 * h
-              + 4 * b * h * p * n)
-    bms, by = bound_ms(flops, nbytes)
 
-    def kernel():
-        return ssd_scan(*args, chunk=chunk, return_state=True)
-    return dict(max_abs_err=max(errs), library=None, library_ms=None,
-                ms=time_ms(kernel), cold_ms=time_cold_ms(kernel),
-                plain_ms=time_ms(lambda: ref.ssd_ref(*args, chunk=chunk, return_state=True)),
-                bound_ms=bms, bound_by=by)
+    def timed(b, s):
+        h, p, n, chunk = SSD_H, SSD_P, SSD_N, SSD_CHUNK
+        args = ssd_inputs(g, b, s, torch.bfloat16, device)
+        nc = s // chunk
+        flops = 2 * b * nc * h * (chunk * chunk * n + chunk * chunk * p + 2 * chunk * n * p)
+        nbytes = (2 * 2 * b * s * h * p + 4 * b * s * h + 2 * 2 * b * s * n + 4 * 2 * h
+                  + 4 * b * h * p * n)
+        bms, by = bound_ms(flops, nbytes)
+
+        def kernel():
+            return ssd_scan(*args, chunk=chunk, return_state=True)
+        return dict(library=None, library_ms=None, ms=graph_ms(kernel),
+                    cold_ms=graph_cold_ms(kernel), eager_ms=time_ms(kernel),
+                    plain_ms=time_ms(lambda: ref.ssd_ref(*args, chunk=chunk,
+                                                         return_state=True)),
+                    bound_ms=bms, bound_by=by, p_splits=ssd_p_splits(b))
+    out = dict(max_abs_err=max(errs), **timed(4, 512))
+    out["b1_s256"] = timed(1, 256)
+    return out
 
 
 def rglru_kernel_case(device):
@@ -737,7 +769,12 @@ def paged_kernel_case(randn, device, hq, hkv, d):
     blocks of 16, a 36-block table into a shuffled pool of 1 + 8 * 36
     blocks, ragged cache lengths with a row of 0 and one of M * bs; then
     the table past each live prefix pointed at a poisoned block 0, and
-    blocks of 8."""
+    blocks of 8.  Each held against the plain version (KERNEL_TOL) and, in
+    bf16 and on the same values in fp32, bit for bit against flash_decode
+    on the gathered cache: with M * bs == C both run the same body (bf16:
+    the split-KV grid with the same splits; fp32: the FMA walk) on the same
+    key values.  Kernel and library call timed from CUDA-graph replays (the
+    eager loop kept as ``eager_ms``)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     g = torch.Generator(device=device).manual_seed(1)
     b, bs, m = 8, 16, 36
@@ -763,18 +800,25 @@ def paged_kernel_case(randn, device, hq, hkv, d):
     for name, args in cases:
         got = paged_flash_decode(*args, cache_len=lens)
         want = ref.paged_decode_mha_ref(*args, cache_len=lens)
-        qq, kp, vp, tbl = args
-        gathered = [p[tbl.long()].reshape(b, -1, hkv, d) for p in (kp, vp)]
-        same = flash_decode(qq, *gathered, cache_len=lens)
         torch.cuda.synchronize()
         abs_err, rel_err = _max_err(got, want)
-        vs_dense = (got.float() - same.float()).abs().max().item()
         print(f"[kernels] paged_flash_decode {name}: max_abs_err={abs_err:.3e} "
-              f"scaled_err={rel_err:.3e}; vs flash_decode on the gathered cache "
-              f"max_abs_diff={vs_dense:.3e} (printed only: in bf16 the two run different "
-              "bodies, fp32 P here, P as two bf16 terms there)")
+              f"scaled_err={rel_err:.3e} (tol {KERNEL_TOL})")
         check(rel_err <= KERNEL_TOL, f"paged_flash_decode {name}: err {rel_err} > {KERNEL_TOL}")
         errs.append(abs_err)
+        qq, kp, vp, tbl = args
+        for dtype in (torch.bfloat16, torch.float32):
+            qd, kd, vd = (t.to(dtype) for t in (qq, kp, vp))
+            paged = got if dtype == torch.bfloat16 else paged_flash_decode(qd, kd, vd, tbl,
+                                                                           cache_len=lens)
+            gathered = [p[tbl.long()].reshape(b, -1, hkv, d) for p in (kd, vd)]
+            dense = flash_decode(qd, *gathered, cache_len=lens)
+            torch.cuda.synchronize()
+            diff = (paged.float() - dense.float()).abs().max().item()
+            print(f"[kernels] paged_flash_decode {name} {str(dtype)[6:]} vs flash_decode on "
+                  f"the gathered cache: max_abs_diff={diff:.3e} (must be 0: the same bits)")
+            check(torch.equal(paged, dense), f"paged_flash_decode {name} {dtype}: not "
+                  "flash_decode's bits on the gathered cache")
     # keys walked: a row of length 0 averages all M * bs slots
     n_keys = int(torch.where(lens > 0, lens, m * bs).sum())
     nbytes = (2 * (2 * q.numel() + 2 * n_keys * hkv * d)
@@ -788,14 +832,15 @@ def paged_kernel_case(randn, device, hq, hkv, d):
         vg = v_pool[tl].reshape(b, m * bs, hkv, d).transpose(1, 2)
         return sdpa(q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True)
 
+    def kernel():
+        return paged_flash_decode(q, k_pool, v_pool, table, cache_len=lens)
     return dict(
         max_abs_err=max(errs), library="table gather + scaled_dot_product_attention",
-        ms=time_ms(lambda: paged_flash_decode(q, k_pool, v_pool, table, cache_len=lens)),
-        cold_ms=time_cold_ms(lambda: paged_flash_decode(q, k_pool, v_pool, table,
-                                                        cache_len=lens)),
+        ms=graph_ms(kernel), cold_ms=graph_cold_ms(kernel), eager_ms=time_ms(kernel),
         plain_ms=time_ms(lambda: ref.paged_decode_mha_ref(q, k_pool, v_pool, table,
                                                           cache_len=lens)),
-        bound_ms=bms, bound_by=by, library_ms=time_ms(library))
+        bound_ms=bms, bound_by=by, splits=decode_splits(b, hkv, m * bs),
+        library_ms=graph_ms(library))
 
 
 def routed_rows(x, router_w, k):

@@ -18,8 +18,8 @@ CUDA card.
    and then in the last one only.
 3. mamba2-1.3b's full-depth bf16 logits (``chip_smoke.phase_slice``'s
    tokens): the plain version at chunk 64 against chunk 128, the spread of
-   the plain version alone (the kernel walks 64-row pieces whatever the
-   chunk).
+   the plain version alone (the kernel walks pieces of its own whatever
+   the chunk: 128 rows in bf16, 64 in fp32).
 
 Prints the card's name and power limit first.  Fails without a card.
 """

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Which instructions the tensor-core kernels compiled to: for every kernel
 function of the built ``flash_attention``, ``varlen_attention``,
-``decode_attention`` and ``grouped_expert`` libraries, the count of
-tensor-core (HMMA, HGMMA), fp32 FMA (FFMA), ldmatrix (LDSM) and async-copy
-(LDGSTS) instructions in its SASS, from ``cuobjdump -sass``.  Builds the
+``decode_attention``, ``paged_decode_attention``, ``grouped_expert`` and
+``ssd_scan`` libraries, the count of tensor-core (HMMA, HGMMA), fp32 FMA
+(FFMA), ldmatrix (LDSM) and async-copy (LDGSTS) instructions in its SASS,
+from ``cuobjdump -sass``.  Builds the
 libraries first (nvcc), so it runs where the CUDA toolkit is, with or
 without a card.
 
@@ -25,7 +26,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.kernels import build  # noqa: E402
 
 OPCODES = ("HGMMA", "HMMA", "FFMA", "LDSM", "LDGSTS")
-LIBRARIES = ("flash_attention", "varlen_attention", "decode_attention", "grouped_expert")
+LIBRARIES = ("flash_attention", "varlen_attention", "decode_attention", "paged_decode_attention",
+             "grouped_expert", "ssd_scan")
 
 
 def cuobjdump() -> str:

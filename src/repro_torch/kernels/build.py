@@ -11,6 +11,7 @@ nothing falls back to another tier.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -90,6 +91,13 @@ def library(name: str) -> ctypes.CDLL:
         build((name,))
         lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def tile_info(name: str, symbol: str, which: int) -> dict:

@@ -50,7 +50,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kTile = 64;      // query rows of a block, keys of a step
 constexpr int kThreads = 128;  // 4 warps x 16 query rows
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Head dims below 64 are zero-padded to one 64-column slab.
 template <int D>
@@ -65,33 +64,6 @@ static_assert(kTile == kSlabRows, "a tile is one slab deep");
 template <int D>
 constexpr int smem_bytes() {
   return 3 * kTile * padded<D>() * static_cast<int>(sizeof(bf16)) + 1024;
-}
-
-// d += A B over one k16 step: m64n64k16 bf16 -> fp32 with A from registers
-// (this warp's 16 rows in the mma.sync A fragment layout) and B (16 x 64)
-// MN-major in shared memory.
-__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, "
-      "%4, %5, %6, %7, "
-      "%8, %9, %10, %11, "
-      "%12, %13, %14, %15, "
-      "%16, %17, %18, %19, "
-      "%20, %21, %22, %23, "
-      "%24, %25, %26, %27, "
-      "%28, %29, %30, %31}"
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // Copy rows [0, n_valid) of a 64-row tile (row r at g + r * stride, D
@@ -208,7 +180,7 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ q, const bf16* __r
 #pragma unroll
     for (int ks = 0; ks < padded<D>() / 16; ++ks) {
       const uint32_t off = (ks >> 2) * kSlabBytes + (ks & 3) * 32;
-      wgmma_ss<0>(s, sw128_desc(sQ + off), sw128_desc(sK + off));
+      wgmma_ss<64, 0, 0>(s, sw128_desc(sQ + off), sw128_desc(sK + off));
     }
     wgmma_commit_and_wait();
     fence_regs(s);
@@ -290,7 +262,7 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ q, const bf16* __r
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int sl = 0; sl < kSlabs; ++sl)
-        wgmma_rs(acc[sl], p[kk], sw128_desc(sV + sl * kSlabBytes + kk * 16 * 128));
+        wgmma_rs<64, 1>(acc[sl], p[kk], sw128_desc(sV + sl * kSlabBytes + kk * 16 * 128));
     wgmma_commit_and_wait();
 #pragma unroll
     for (int sl = 0; sl < kSlabs; ++sl) fence_regs(acc[sl]);

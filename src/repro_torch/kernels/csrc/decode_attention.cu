@@ -20,12 +20,14 @@
 // = -inf, l = 0).  The row's tiles go to the splits in order, ceil(tiles /
 // splits) each.  A second launch, grid (Hq, B), merges each head's splits
 // in split order (log-sum-exp: weights 2^(m_s - M), then divide by the
-// merged l, then store in bf16), so the result is deterministic.
-// `splits` comes from the host, from shapes alone (B, Hkv, min(C, window)
-// and the card's SM count: kernels/decode_attention.py `decode_splits`),
-// never from cache_len.  fp32 inputs keep the first design, one block per
-// (KV head, batch row) walking decode_body.cuh's `decode_group` (fp32
-// FMAs; neither bf16 nor TF32 products hold fp32's tolerance).
+// merged l, then store in bf16), so the result is deterministic.  Both
+// launches live in decode_split.cuh, which paged_decode_attention.cu runs
+// with its block-table rows.  `splits` comes from the host, from shapes
+// alone (B, Hkv, min(C, window) and the card's SM count:
+// kernels/decode_attention.py `decode_splits`), never from cache_len.
+// fp32 inputs keep the first design, one block per (KV head, batch row)
+// walking decode_body.cuh's `decode_group` (fp32 FMAs; neither bf16 nor
+// TF32 products hold fp32's tolerance).
 //
 // What bounds it on this card: each cached key and value is read once and
 // used by G heads, ~2*G flops per byte, so device-memory bandwidth.  One
@@ -40,11 +42,8 @@
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kThreads = repro::kDecodeThreads;
 constexpr int kMaxG = repro::kDecodeMaxG;
-constexpr int kTile = repro::kSplitTile;
 
 // Cached key kj of batch row b is row b * C + kj of the (B * C, Hkv, D) cache.
 struct LinearRows {
@@ -67,68 +66,11 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
                                 LinearRows{static_cast<size_t>(b) * C}, smem);
 }
 
-// The (B * Hq * splits) partials of part: accumulators (D each), then m,
-// then l, head h of row b at entry (b * Hq + h) * splits + s.
-struct Partials {
-  float *acc, *m, *l;
-  __device__ Partials(float* part, int B, int Hq, int splits, int D) {
-    const size_t n = static_cast<size_t>(B) * Hq * splits;
-    acc = part;
-    m = part + n * D;
-    l = m + n;
-  }
+// The rows of batch row b: b * C + kj.
+struct LinearRowsOf {
+  int C;
+  __device__ LinearRows operator()(int b) const { return LinearRows{static_cast<size_t>(b) * C}; }
 };
-
-// bf16: split blockIdx.z of (KV head, batch row).
-template <int D>
-__global__ void __launch_bounds__(repro::kSplitThreads)
-flash_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
-                          const bf16* __restrict__ vc, const int* __restrict__ cache_len,
-                          float* __restrict__ part, int B, int C, int Hq, int Hkv, int cap,
-                          int splits, float scale_log2) {
-  extern __shared__ __align__(16) char split_smem[];
-  const int hk = blockIdx.x, b = blockIdx.y, s = blockIdx.z;
-  const int G = Hq / Hkv;
-  const int limit = min(cache_len[b], cap);
-  const int end = limit > 0 ? limit : C;  // no valid key: average all C slots
-  const int tiles = (end + kTile - 1) / kTile;
-  const int per = (tiles + splits - 1) / splits;
-  const int t_begin = s * per, t_end = min(tiles, t_begin + per);
-  const size_t head0 = static_cast<size_t>(b) * Hq + static_cast<size_t>(hk) * G;
-  const Partials p(part, B, Hq, splits, D);
-  const size_t at = head0 * splits + s;  // the group's first head, this split
-  if (t_begin >= t_end) {  // past the row's end: an empty partial
-    if (static_cast<int>(threadIdx.x) < G) {
-      p.m[at + threadIdx.x * splits] = -INFINITY;
-      p.l[at + threadIdx.x * splits] = 0.f;
-    }
-    return;
-  }
-  repro::decode_split<D>(q + head0 * D, kc, vc, Hkv, hk, G, limit, end, t_begin * kTile,
-                         t_end * kTile, scale_log2, LinearRows{static_cast<size_t>(b) * C},
-                         split_smem, p.acc + at * D, p.m + at, p.l + at, splits);
-}
-
-// Merge the splits of head blockIdx.x of row blockIdx.y in split order.
-template <int D>
-__global__ void combine_kernel(float* __restrict__ part, bf16* __restrict__ o, int B, int Hq,
-                               int splits) {
-  const Partials p(part, B, Hq, splits, D);
-  const size_t at = (static_cast<size_t>(blockIdx.y) * Hq + blockIdx.x) * splits;
-  float big = -INFINITY;
-  for (int s = 0; s < splits; ++s) big = fmaxf(big, p.m[at + s]);
-  float l = 0.f;
-  for (int s = 0; s < splits; ++s)
-    if (p.m[at + s] != -INFINITY)
-      l = __fadd_rn(l, __fmul_rn(exp2f(p.m[at + s] - big), p.l[at + s]));
-  for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    float acc = 0.f;
-    for (int s = 0; s < splits; ++s)
-      if (p.m[at + s] != -INFINITY)
-        acc = __fadd_rn(acc, __fmul_rn(exp2f(p.m[at + s] - big), p.acc[(at + s) * D + c]));
-    o[(at / splits) * D + c] = __float2bfloat16(acc / l);
-  }
-}
 
 template <int D>
 cudaError_t launch_fp32(const void* q, const void* kc, const void* vc, void* o,
@@ -146,36 +88,12 @@ cudaError_t launch_fp32(const void* q, const void* kc, const void* vc, void* o,
 }
 
 template <int D>
-cudaError_t prepare_bf16() {
-  static std::atomic<bool> smem_set[repro::kMaxDevices];
-  return repro::allow_dynamic_smem(flash_decode_split_kernel<D>, repro::SplitSmem<D>::kBytes,
-                                   smem_set);
-}
-
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* kc, const void* vc, void* o,
-                        const int* cache_len, float* part, int B, int C, int Hq, int Hkv,
-                        int cap, int splits, cudaStream_t stream) {
-  cudaError_t err = prepare_bf16<D>();
-  if (err != cudaSuccess) return err;
-  flash_decode_split_kernel<D>
-      <<<dim3(Hkv, B, splits), repro::kSplitThreads, repro::SplitSmem<D>::kBytes, stream>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(kc),
-          static_cast<const bf16*>(vc), cache_len, part, B, C, Hq, Hkv, cap, splits,
-          1.4426950408889634f / sqrtf(static_cast<float>(D)));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  combine_kernel<D><<<dim3(Hq, B), D < 128 ? D : 128, 0, stream>>>(part, static_cast<bf16*>(o),
-                                                                   B, Hq, splits);
-  return cudaGetLastError();
-}
-
-template <int D>
 cudaError_t launch(const void* q, const void* kc, const void* vc, void* o,
                    const int* cache_len, float* part, int B, int C, int Hq, int Hkv, int cap,
                    int splits, int is_bf16, cudaStream_t stream) {
   if (is_bf16)
-    return launch_bf16<D>(q, kc, vc, o, cache_len, part, B, C, Hq, Hkv, cap, splits, stream);
+    return repro::launch_decode_split<D>(q, kc, vc, o, cache_len, part, B, C, Hq, Hkv, cap,
+                                         splits, LinearRowsOf{C}, stream);
   return launch_fp32<D>(q, kc, vc, o, cache_len, B, C, Hq, Hkv, cap, stream);
 }
 
@@ -212,10 +130,7 @@ extern "C" int repro_flash_decode_bf16_info(int D, int* out) {
   switch (D) {
 #define REPRO_INFO(d)                                                                      \
   case d:                                                                                  \
-    err = prepare_bf16<d>();                                                               \
-    if (err == cudaSuccess)                                                                \
-      err = repro::kernel_info(flash_decode_split_kernel<d>, repro::kSplitThreads,         \
-                               repro::SplitSmem<d>::kBytes, out);                          \
+    err = repro::decode_split_info<d, LinearRowsOf>(out);                                  \
     break;
     REPRO_INFO(16) REPRO_INFO(32) REPRO_INFO(64) REPRO_INFO(128) REPRO_INFO(256)
 #undef REPRO_INFO

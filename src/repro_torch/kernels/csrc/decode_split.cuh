@@ -246,4 +246,117 @@ __device__ __forceinline__ void decode_split(
   }
 }
 
+// The split grid around `decode_split`, shared by flash_decode
+// (decode_attention.cu) and paged_flash_decode (paged_decode_attention.cu):
+// launch 1, grid (Hkv, B, splits), writes each split's partial; launch 2,
+// grid (Hq, B), merges each head's splits in split order.  A kernel passes
+// `rows_of`, whose rows_of(b) is the Rows functor of batch row b, so both
+// kernels run the same instructions on the same key values and give the
+// same bits.
+
+// The (B * Hq * splits) partials of part: accumulators (D each), then m,
+// then l, head h of row b at entry (b * Hq + h) * splits + s.
+struct Partials {
+  float *acc, *m, *l;
+  __device__ Partials(float* part, int B, int Hq, int splits, int D) {
+    const size_t n = static_cast<size_t>(B) * Hq * splits;
+    acc = part;
+    m = part + n * D;
+    l = m + n;
+  }
+};
+
+namespace {
+
+// Split blockIdx.z of (KV head blockIdx.x, batch row blockIdx.y): whole
+// tiles of [0, end), ceil(tiles / splits) to a split; a split that starts
+// past its row's end writes an empty partial (m = -inf, l = 0).
+template <int D, class RowsOf>
+__global__ void __launch_bounds__(kSplitThreads)
+decode_split_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
+                    const __nv_bfloat16* __restrict__ vc, const int* __restrict__ cache_len,
+                    float* __restrict__ part, int B, int C, int Hq, int Hkv, int cap,
+                    int splits, float scale_log2, RowsOf rows_of) {
+  extern __shared__ __align__(16) char split_smem[];
+  const int hk = blockIdx.x, b = blockIdx.y, s = blockIdx.z;
+  const int G = Hq / Hkv;
+  const int limit = min(cache_len[b], cap);
+  const int end = limit > 0 ? limit : C;  // no valid key: average all C slots
+  const int tiles = (end + kSplitTile - 1) / kSplitTile;
+  const int per = (tiles + splits - 1) / splits;
+  const int t_begin = s * per, t_end = min(tiles, t_begin + per);
+  const size_t head0 = static_cast<size_t>(b) * Hq + static_cast<size_t>(hk) * G;
+  const Partials p(part, B, Hq, splits, D);
+  const size_t at = head0 * splits + s;  // the group's first head, this split
+  if (t_begin >= t_end) {  // past the row's end: an empty partial
+    if (static_cast<int>(threadIdx.x) < G) {
+      p.m[at + threadIdx.x * splits] = -INFINITY;
+      p.l[at + threadIdx.x * splits] = 0.f;
+    }
+    return;
+  }
+  decode_split<D>(q + head0 * D, kc, vc, Hkv, hk, G, limit, end, t_begin * kSplitTile,
+                  t_end * kSplitTile, scale_log2, rows_of(b), split_smem, p.acc + at * D,
+                  p.m + at, p.l + at, splits);
+}
+
+// Merge the splits of head blockIdx.x of row blockIdx.y in split order.
+template <int D>
+__global__ void decode_combine_kernel(float* __restrict__ part, __nv_bfloat16* __restrict__ o,
+                                      int B, int Hq, int splits) {
+  const Partials p(part, B, Hq, splits, D);
+  const size_t at = (static_cast<size_t>(blockIdx.y) * Hq + blockIdx.x) * splits;
+  float big = -INFINITY;
+  for (int s = 0; s < splits; ++s) big = fmaxf(big, p.m[at + s]);
+  float l = 0.f;
+  for (int s = 0; s < splits; ++s)
+    if (p.m[at + s] != -INFINITY)
+      l = __fadd_rn(l, __fmul_rn(exp2f(p.m[at + s] - big), p.l[at + s]));
+  for (int c = threadIdx.x; c < D; c += blockDim.x) {
+    float acc = 0.f;
+    for (int s = 0; s < splits; ++s)
+      if (p.m[at + s] != -INFINITY)
+        acc = __fadd_rn(acc, __fmul_rn(exp2f(p.m[at + s] - big), p.acc[(at + s) * D + c]));
+    o[(at / splits) * D + c] = __float2bfloat16(acc / l);
+  }
+}
+
+template <int D, class RowsOf>
+cudaError_t decode_split_prepare() {
+  static std::atomic<bool> smem_set[kMaxDevices];
+  return allow_dynamic_smem(decode_split_kernel<D, RowsOf>, SplitSmem<D>::kBytes, smem_set);
+}
+
+// Both launches on `stream`.  cap = min(C, window) (C without a window);
+// part holds B * Hq * splits * (D + 2) floats.
+template <int D, class RowsOf>
+cudaError_t launch_decode_split(const void* q, const void* kc, const void* vc, void* o,
+                                const int* cache_len, float* part, int B, int C, int Hq,
+                                int Hkv, int cap, int splits, RowsOf rows_of,
+                                cudaStream_t stream) {
+  cudaError_t err = decode_split_prepare<D, RowsOf>();
+  if (err != cudaSuccess) return err;
+  decode_split_kernel<D, RowsOf>
+      <<<dim3(Hkv, B, splits), kSplitThreads, SplitSmem<D>::kBytes, stream>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kc),
+          static_cast<const __nv_bfloat16*>(vc), cache_len, part, B, C, Hq, Hkv, cap, splits,
+          kLog2e / sqrtf(static_cast<float>(D)), rows_of);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  decode_combine_kernel<D><<<dim3(Hq, B), D < 128 ? D : 128, 0, stream>>>(
+      part, static_cast<__nv_bfloat16*>(o), B, Hq, splits);
+  return cudaGetLastError();
+}
+
+// Registers, spill bytes, dynamic shared memory and resident blocks per SM
+// of the split kernel (out: 4 ints).
+template <int D, class RowsOf>
+cudaError_t decode_split_info(int* out) {
+  const cudaError_t err = decode_split_prepare<D, RowsOf>();
+  if (err != cudaSuccess) return err;
+  return kernel_info(decode_split_kernel<D, RowsOf>, kSplitThreads, SplitSmem<D>::kBytes, out);
+}
+
+}  // namespace
+
 }  // namespace repro

@@ -267,7 +267,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
           static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), q_pos, kv_pos,
           Sq, Skv, Hq, Hkv, causal, window,
-          repro::attn::kLog2e / sqrtf(static_cast<float>(D)));
+          repro::kLog2e / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
 

@@ -245,9 +245,10 @@ wgmma_gemm_kernel(const bf16* __restrict__ a0, const bf16* __restrict__ a1,
         for (int w = 0; w < NW; ++w)
 #pragma unroll
           for (int sl = 0; sl < NS; ++sl)
-            repro::wgmma_ss<1>(acc[w][sl], a,
-                               repro::sw128_desc(st + R::kA + (w * NS + sl) * repro::kSlabBytes +
-                                                 ks * 16 * 128));
+            repro::wgmma_ss<64, 0, 1>(
+                acc[w][sl], a,
+                repro::sw128_desc(st + R::kA + (w * NS + sl) * repro::kSlabBytes +
+                                  ks * 16 * 128));
       }
     repro::wgmma_commit_and_wait();
 #pragma unroll

@@ -323,7 +323,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, co
       <<<grid, repro::attn::kThreads, repro::attn::smem_bytes<D>(), stream>>>(
           static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), cu, Tn, B, Hq,
-          Hkv, causal, window, repro::attn::kLog2e / sqrtf(static_cast<float>(D)));
+          Hkv, causal, window, repro::kLog2e / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
 

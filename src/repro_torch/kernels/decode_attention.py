@@ -36,11 +36,6 @@ def _entry():
     return fn
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def decode_splits(b: int, hkv: int, cap: int, sms: int) -> int:
     """Blocks per (batch row, KV head) of the bf16 kernel: enough for about
     SPLIT_BLOCKS_PER_SM blocks on each of ``sms`` SMs, at most one per
@@ -92,7 +87,7 @@ def flash_decode(q, k_cache, v_cache, *, cache_len, window: int | None = None):
     eff_cap = cap if window is None else min(cap, window)
     out = torch.empty_like(q)
     bf16 = q.dtype == torch.bfloat16
-    splits = decode_splits(b, hkv, eff_cap, _sm_count(dev.index)) if bf16 else 1
+    splits = decode_splits(b, hkv, eff_cap, build.sm_count(dev.index)) if bf16 else 1
     # per split and query head: the fp32 accumulator, m and l
     part = (torch.empty(b * hq * splits * (d + 2), dtype=torch.float32, device=dev)
             if bf16 else None)

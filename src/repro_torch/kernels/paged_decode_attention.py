@@ -3,7 +3,10 @@ read through a block table): the hand-written CUDA kernel
 ``csrc/paged_decode_attention.cu`` and its plain version.
 
 Counterpart of the JAX package's Pallas kernel
-``kernels/paged_decode_attention.py`` ``paged_flash_decode``.
+``kernels/paged_decode_attention.py`` ``paged_flash_decode``.  bf16 inputs
+run ``flash_decode``'s split-KV grid (``csrc/decode_split.cuh``) with key
+rows read through the table, so on the gathered cache the two give the
+same bits; fp32 inputs an fp32-FMA body, one block per (row, KV head).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.guard import refuse_grad
-from repro_torch.kernels.decode_attention import DTYPES, HEAD_DIMS, MAX_GROUP
+from repro_torch.kernels.decode_attention import DTYPES, HEAD_DIMS, MAX_GROUP, decode_splits
 from repro_torch.kernels.ref import paged_decode_mha_ref
 
 
@@ -23,7 +26,7 @@ from repro_torch.kernels.ref import paged_decode_mha_ref
 def _entry():
     """The kernel's C entry point, typed once when its library loads."""
     fn = build.library("paged_decode_attention").repro_paged_flash_decode
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -33,9 +36,11 @@ def paged_flash_decode(q, k_pool, v_pool, block_table, *, cache_len):
     physical block ids in [0, N); cache_len: (B,) int32.  Returns (B, Hq, D).
 
     CPU tensors take the plain version ``paged_decode_mha_ref``; CUDA
-    tensors launch the kernel or raise (also for a table row too long for
-    shared memory, over ~37,000 blocks).  The kernel does not check the
-    table's entries: one outside [0, N) reads outside the pool."""
+    tensors launch the kernel or raise (in fp32 also for a table row too
+    long for shared memory, over ~37,000 blocks).  The kernel does not
+    check the table's entries: one outside [0, N) reads outside the pool.
+    bf16 takes ``decode_splits(B, Hkv, M * bs, SMs)`` blocks per (row, KV
+    head), from shapes alone."""
     if q.device.type == "cpu":
         return paged_decode_mha_ref(q, k_pool, v_pool, block_table, cache_len=cache_len)
     refuse_grad("paged_flash_decode", q, k_pool, v_pool)
@@ -70,11 +75,17 @@ def paged_flash_decode(q, k_pool, v_pool, block_table, *, cache_len):
         raise ValueError("paged_flash_decode: pools must start 16-byte aligned "
                          "(the kernel reads them in 16-byte loads)")
     out = torch.empty_like(q)
+    bf16 = q.dtype == torch.bfloat16
+    splits = decode_splits(b, hkv, m * bs, build.sm_count(dev.index)) if bf16 else 1
+    # per split and query head: the fp32 accumulator, m and l
+    part = (torch.empty(b * hq * splits * (d + 2), dtype=torch.float32, device=dev)
+            if bf16 else None)
     with torch.cuda.device(dev):
         err = _entry()(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
-            block_table.data_ptr(), cache_len.data_ptr(), b, m, bs, hq, hkv, d,
-            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
+            block_table.data_ptr(), cache_len.data_ptr(),
+            None if part is None else part.data_ptr(), b, m, bs, hq, hkv, d, splits,
+            int(bf16), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"paged_flash_decode: kernel launch failed with CUDA error {err}")
     paged_flash_decode.launches += 1
@@ -82,3 +93,9 @@ def paged_flash_decode(q, k_pool, v_pool, block_table, *, cache_len):
 
 
 paged_flash_decode.launches = 0
+
+
+def kernel_info(d: int) -> dict:
+    """Registers, spill bytes, shared memory and blocks per SM of the bf16
+    split kernel at head_dim ``d``."""
+    return build.tile_info("paged_decode_attention", "repro_paged_flash_decode_bf16_info", d)

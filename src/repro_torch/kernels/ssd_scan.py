@@ -3,7 +3,9 @@
 
 Counterpart of the JAX package's Pallas kernel ``kernels/ssd_scan.py``
 ``ssd_pallas``.  Like that kernel it starts from a zero state: an
-``init_state`` raises (the reference tier takes one).
+``init_state`` raises (the reference tier takes one).  bf16 inputs run a
+tensor-core body over 128-row pieces on a (p_splits, H, B) grid
+(``ssd_splits``); fp32 inputs an fp32-FMA body, one block per (head, row).
 """
 
 from __future__ import annotations
@@ -22,28 +24,43 @@ from repro_torch.kernels.ref import ssd_ref
 HEAD_DIMS = (64,)      # P
 STATE_DIMS = (128,)    # N
 DTYPES = (torch.float32, torch.bfloat16)
+P_SPLITS = (1, 2, 4)  # blocks per (row, head) the bf16 body may take, each P / p_splits wide
 
 
 @functools.cache
 def _entry():
     """The kernel's C entry point, typed once when its library loads."""
     fn = build.library("ssd_scan").repro_ssd_scan
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+def ssd_splits(b: int, h: int, sms: int) -> int:
+    """Blocks per (row, head) of the bf16 body, from shapes alone: the p in
+    P_SPLITS that minimises waves x work per block on ``sms`` SMs (one
+    block per SM), where a block's work is C.B^T, which every split
+    recomputes, plus three products split p ways, each about as large as
+    C.B^T.  A 1-row admission of mamba2-1.3b's 64 heads takes 2 (128
+    blocks), 2 rows or more 1."""
+    def cost(p):
+        return -(-b * h * p // sms) * (1 + 3 / p)
+    return min(P_SPLITS, key=cost)
+
+
 def ssd_scan(x, dt, a_log, b_mat, c_mat, d_vec, *, chunk: int, init_state=None,
-             return_state: bool = False):
+             return_state: bool = False, p_splits: int | None = None):
     """Shapes as in ``ref.ssd_ref``: x (B, S, H, P); dt (B, S, H) fp32;
     a_log, d_vec (H,) fp32; b_mat, c_mat (B, S, N) in x's dtype; S a
     multiple of ``chunk``.  Returns y (B, S, H, P) in x's dtype and, with
     ``return_state``, the final state (B, H, P, N) fp32.
 
     CPU tensors take the plain version ``ssd_ref``; CUDA tensors launch the
-    kernel or raise.  The kernel walks the sequence in 64-row pieces of its
-    own whatever ``chunk`` is (the chunked form is exact for any chunk
-    length); ``chunk`` is checked as the TPU kernel checks it."""
+    kernel or raise.  The kernel walks the sequence in pieces of its own
+    (128 rows in bf16, 64 in fp32) whatever ``chunk`` is (the chunked form
+    is exact for any chunk length); ``chunk`` is checked as the TPU kernel
+    checks it.  ``p_splits`` (bf16 only; default ``ssd_splits``) changes
+    no bit of the result."""
     if x.device.type == "cpu":
         return ssd_ref(x, dt, a_log, b_mat, c_mat, d_vec, chunk=chunk,
                        init_state=init_state, return_state=return_state)
@@ -75,6 +92,11 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, d_vec, *, chunk: int, init_state=None,
                          f"{STATE_DIMS}, S a multiple of chunk)")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssd_scan: inputs must be contiguous")
+    bf16 = x.dtype == torch.bfloat16
+    if p_splits is None:
+        p_splits = ssd_splits(b, h, build.sm_count(dev.index)) if bf16 else 1
+    if p_splits not in (P_SPLITS if bf16 else (1,)):
+        raise ValueError(f"ssd_scan: p_splits {p_splits} (bf16 takes {P_SPLITS}, fp32 1)")
     y = torch.empty_like(x)
     state = (torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
              if return_state else None)
@@ -82,8 +104,8 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, d_vec, *, chunk: int, init_state=None,
         err = _entry()(
             x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b_mat.data_ptr(),
             c_mat.data_ptr(), d_vec.data_ptr(), y.data_ptr(),
-            state.data_ptr() if state is not None else None, b, s, h, p, n,
-            int(x.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
+            state.data_ptr() if state is not None else None, b, s, h, p, n, int(bf16),
+            p_splits, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan: kernel launch failed with CUDA error {err}")
     ssd_scan.launches += 1
@@ -91,3 +113,9 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, d_vec, *, chunk: int, init_state=None,
 
 
 ssd_scan.launches = 0
+
+
+def kernel_info(p_splits: int) -> dict:
+    """Registers, spill bytes, shared memory and blocks per SM of the bf16
+    body at ``p_splits``."""
+    return build.tile_info("ssd_scan", "repro_ssd_scan_bf16_info", p_splits)

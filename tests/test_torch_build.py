@@ -1,7 +1,7 @@
 """The CUDA build's cache key: ``build.library_path`` names a library by a
 hash of every file under ``csrc/``, so an edit to a shared header (the
 attention tile body ``attn_tile.cuh`` that two kernels include, the Hopper
-helpers ``hopper.cuh`` that three include, the decode bodies, the common
+helpers ``hopper.cuh`` that four include, the decode bodies, the common
 helpers) rebuilds every library and no stale one is loaded.  Runs on a
 temporary copy of ``csrc/``; nothing is compiled."""
 

@@ -9,8 +9,9 @@ package, so it runs where only PyTorch is installed:
 Tolerance: |kernel - plain| <= TOL * (1 + |plain|).  In fp32 both sides
 differ only in summation order; in bf16 the plain version rounds scores and
 probabilities to bf16 before its second product, where the decode kernels
-keep scores in fp32 and carry probabilities to ~2^-17 (flash_decode's bf16
-split-KV body as two bf16 terms, the paged kernel in fp32) and the prefill
+keep scores in fp32 and carry probabilities to ~2^-17 (the bf16 split-KV
+body of flash_decode and the paged kernel as two bf16 terms, the fp32 bodies
+in fp32) and the prefill
 kernels keep scores in fp32 and round their unnormalised probabilities
 (2e-2 is the JAX package's bf16 tolerance for its own kernels).  The
 grouped expert FFN takes fp32 products of the same values on both sides in
@@ -23,15 +24,20 @@ same values, to twice the
 larger of 1e-4 (the JAX package's own SSD tolerance) and the plain
 version's own error against it: the chunked form's decays are differences
 of cumulative sums, each ~|cumsum| * 2^-24 off in fp32, so the plain
-version at chunk 128 is itself ~1.2-1.6e-4 off, and the kernel sums its
-products one after another in fp32 FMAs where cuBLAS sums the plain
+version at chunk 128 is itself ~1.2-1.6e-4 off, and the fp32 kernel sums
+its products one after another in fp32 FMAs where cuBLAS sums the plain
 version's in blocks (on the H100 the kernel read 1.2x the plain version's
-error at H 64, S 256).  In bf16 the kernel takes the same fp32 products and
-rounds y once, so y may move by bf16's unit roundoff more (BF16_ROUND).  The
+error at H 64, S 256).  In bf16 the tensor-core body takes exact products
+of the bf16 values in fp32, carries M, the state and X w as two bf16 terms
+(~2^-17 of each) and rounds y once, so y may move by bf16's unit roundoff
+more (BF16_ROUND); its state is also held to FP32_SCAN_TOL of the plain
+version at the model's distributions, and its bits across P splits.  The
 RG-LRU recurrence keeps an fp32 carry on both sides, held like the SSD scan
 to the plain version in fp32 on the same values (TOL, plus BF16_ROUND in
 bf16).
 """
+
+import math
 
 import pytest
 import torch
@@ -514,15 +520,132 @@ def test_ssd_scan_kernel_matches_plain(b, s, h, chunk, dtype):
 
 
 @pytest.mark.cuda
-def test_ssd_scan_kernel_decays_hard_without_nan():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_kernel_decays_hard_without_nan(dtype):
     """A in [-16, -1] and dt up to ~9: segment sums reach -5000, where
-    exp above the diagonal would overflow; the kernel evaluates exp only on
-    and below it."""
+    exp above the diagonal would overflow; both bodies evaluate exp only on
+    and below it (the bf16 body over two 128-row pieces)."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(7)
-    x, dt, _, bm, cm, d = _ssd_inputs(gen, 2, 128, 4, "float32", dev)
+    s = 128 if dtype == "float32" else 256
+    x, dt, _, bm, cm, d = _ssd_inputs(gen, 2, s, 4, dtype, dev)
     a_log = torch.log(torch.tensor([1.0, 4.0, 9.0, 16.0], device=dev))
-    _check_ssd((x, dt * 3, a_log, bm, cm, d), 128, "float32")
+    _check_ssd((x, dt * 3, a_log, bm, cm, d), 128, dtype)
+
+
+FP32_SCAN_TOL = 1e-4  # chip_smoke.py's limit on the SSD state (and fp32 y) vs the plain version
+
+
+def _ssd_model_inputs(gen, b, s, h, dtype, dev):
+    """ssd_scan's inputs with mamba2-1.3b's layer distributions, as
+    chip_smoke.py draws them: dt log-uniform in [1e-3, 1e-1], A in [-16,
+    -1], D in [0.5, 1.5]."""
+    x = _randn(gen, (b, s, h, SSD_P), dtype, dev)
+    dt = torch.exp(torch.rand((b, s, h), generator=gen, device=dev) * math.log(100.0)
+                   + math.log(1e-3))
+    a_log = torch.rand((h,), generator=gen, device=dev) * math.log(16.0)
+    bm, cm = (_randn(gen, (b, s, SSD_N), dtype, dev) for _ in range(2))
+    d = torch.rand((h,), generator=gen, device=dev) + 0.5
+    return x, dt, a_log, bm, cm, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_bits_across_p_splits_and_batch(dtype):
+    """y and the state bit for bit across p_splits 1, 2 and 4 (bf16), and
+    for one row alone against the same row in a batch of 8 (on 132 SMs the
+    two take different p_splits), at mamba2-1.3b's 64 heads and a ragged
+    last piece."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(23)
+    args = _ssd_model_inputs(gen, 8, 200, 64, dtype, dev)
+    y, st = ssd_scan.ssd_scan(*args, chunk=8, return_state=True)
+    if dtype == "bfloat16":
+        for p_splits in ssd_scan.P_SPLITS:
+            ys, sts = ssd_scan.ssd_scan(*args, chunk=8, return_state=True, p_splits=p_splits)
+            torch.cuda.synchronize()
+            assert torch.equal(ys, y) and torch.equal(sts, st), p_splits
+    for row in (0, 5):
+        alone = tuple(a[row:row + 1].contiguous() if a.dim() > 1 else a for a in args)
+        ya, sta = ssd_scan.ssd_scan(*alone, chunk=8, return_state=True)
+        torch.cuda.synchronize()
+        assert torch.equal(ya, y[row:row + 1]) and torch.equal(sta, st[row:row + 1]), row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,chunk", SSD_GRID)
+def test_bf16_ssd_scan_holds_the_fp32_state_tolerance(b, s, h, chunk):
+    """bf16 inputs at the model's distributions: y within the float64 bound
+    of _check_ssd, and the state within FP32_SCAN_TOL of the plain version
+    in fp32 on the same values (the state never rounds to bf16: M, the
+    state and X w enter the tensor-core products as two bf16 terms)."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(24)
+    args = _ssd_model_inputs(gen, b, s, h, "bfloat16", dev)
+    _check_ssd(args, chunk, "bfloat16")
+    _, st = ssd_scan.ssd_scan(*args, chunk=chunk, return_state=True)
+    _, want = ref.ssd_ref(*(t.float() for t in args), chunk=chunk, return_state=True)
+    assert _scaled_err(st, want) <= FP32_SCAN_TOL
+
+
+@pytest.mark.cuda
+def test_fp32_ssd_scan_keeps_the_fma_body():
+    """fp32 inputs still run the fp32-FMA body: fp32 x, B and C (which bf16
+    cannot hold) at the model's widths, y and the state within
+    FP32_SCAN_TOL of the plain version; a bf16 product of them would be
+    ~1e-2 off."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(25)
+    args = _ssd_model_inputs(gen, 2, 384, 64, "float32", dev)
+    y, st = ssd_scan.ssd_scan(*args, chunk=128, return_state=True)
+    want_y, want_st = ref.ssd_ref(*args, chunk=128, return_state=True)
+    assert _scaled_err(y, want_y) <= FP32_SCAN_TOL
+    assert _scaled_err(st, want_st) <= FP32_SCAN_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bs", [8, 16, 24, 128])
+def test_paged_flash_decode_bits_equal_flash_decode_on_the_gathered_cache(bs, dtype):
+    """qwen2-0.5b's heads over a shuffled pool of 1,152-slot tables, the
+    table past each live prefix pointed at block 0 poisoned with +-1e4, a
+    row of length 0 (which averages every slot, block 0's too) and a full
+    row: the paged kernel gives flash_decode's bits on the gathered cache
+    (bf16: the same split grid, the same splits; fp32: the same FMA walk).
+    bs 24 does not divide the 64-key tile, bs 128 spans two."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(26)
+    hq, hkv, d, m = 14, 2, 64, 1152 // bs
+    lens = torch.tensor([0, 1, bs + 3, 65, 700, m * bs], dtype=torch.int32, device=dev)
+    b, n = lens.numel(), 1 + lens.numel() * m
+    q = _randn(gen, (b, hq, d), dtype, dev)
+    kp, vp = (_randn(gen, (n, bs, hkv, d), dtype, dev) for _ in range(2))
+    kp[0], vp[0] = 1e4, -1e4
+    table = (torch.randperm(n - 1, generator=gen, device=dev) + 1).reshape(b, m)
+    live = torch.arange(m, device=dev)[None] < (lens[:, None] + bs - 1) // bs
+    table = torch.where(live, table, 0).int()
+    got = paged_decode_attention.paged_flash_decode(q, kp, vp, table, cache_len=lens)
+    gathered = [p[table.long()].reshape(b, m * bs, hkv, d) for p in (kp, vp)]
+    want = decode_attention.flash_decode(q, *gathered, cache_len=lens)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_fp32_paged_decode_keeps_the_fma_body():
+    """fp32 inputs still run the fp32-FMA paged body: qwen2-0.5b's decode
+    shape (8 rows, blocks of 16, 36-block tables) held to the fp32
+    tolerance, which no bf16 or TF32 product would meet."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(27)
+    b, hq, hkv, d, bs, m = 8, 14, 2, 64, 16, 36
+    n = 1 + b * m
+    q = _randn(gen, (b, hq, d), "float32", dev)
+    kp, vp = (_randn(gen, (n, bs, hkv, d), "float32", dev) for _ in range(2))
+    table = (torch.randperm(n - 1, generator=gen, device=dev) + 1).reshape(b, m).int()
+    lens = torch.tensor([0, 1, 17, 64, 100, 333, 500, m * bs], dtype=torch.int32, device=dev)
+    _close(paged_decode_attention.paged_flash_decode(q, kp, vp, table, cache_len=lens),
+           ref.paged_decode_mha_ref(q, kp, vp, table, cache_len=lens), "float32")
 
 
 # ------------------------------------------------------------- RG-LRU scan

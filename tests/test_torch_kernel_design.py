@@ -1,4 +1,4 @@
-"""The arithmetic of the two tensor-core designs, emulated in PyTorch on the
+"""The arithmetic of the tensor-core designs, emulated in PyTorch on the
 CPU and held against the JAX package's references (``repro.kernels.ref``),
 so that what the CUDA kernels compute is checked before any card runs them.
 
@@ -15,8 +15,17 @@ so that what the CUDA kernels compute is checked before any card runs them.
   products of bf16 x and weights in fp32, H split into H_hi + H_lo before
   the last product.  It holds chip_smoke.py's GROUPED_TOL (1e-4, scaled)
   against the JAX reference; one bf16 H does not (~1e-3).
-- ``decode_attention.decode_splits``, the host's choice of split count,
-  on the main path's shapes.
+- ``paged_flash_decode``'s bf16 grid: the same split walk with each key
+  read through a shuffled block table (``PagedRows``), against JAX's
+  ``paged_decode_mha_ref`` and bit for bit against the walk on the
+  gathered cache.
+- ``ssd_scan``'s bf16 body (``csrc/ssd_scan.cu``): 128-row pieces, exact
+  fp32 products of the bf16 x, B and C, and M, the state and X w each
+  entering a product as two bf16 terms, for each P split.  It holds 1e-4
+  (scaled) against JAX's ``ssd_ref`` in fp32 on y before its bf16 rounding
+  and on the state; one bf16 state or one bf16 M (the controls) does not.
+- ``decode_attention.decode_splits`` and ``ssd_scan.ssd_splits``, the
+  host's choices of split count, on the main path's shapes.
 
 Inputs come from numpy with a seed and go to both packages.
 """
@@ -29,7 +38,7 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
-from repro_torch.kernels import decode_attention
+from repro_torch.kernels import decode_attention, ssd_scan
 
 LOG2E = 1.4426950408889634
 NEG_INF = -2.0 ** 30  # kMaskedLogit: a row with no valid key averages every key
@@ -60,8 +69,30 @@ def split_kv_decode(q, k, v, cache_len, *, window, splits, p_terms="fp32"):
     to a split; each split keeps (m, l, acc) with exp2 of log2-scaled
     logits; the merge weights split s by 2^(m_s - max m) in split order and
     divides by the merged l."""
-    b, c, hkv, d = k.shape
-    hq = q.shape[1]
+    def fetch(row, keys, hk):
+        return k[row, keys, hk], v[row, keys, hk]
+    return _split_walk(q, cache_len, fetch, c=k.shape[1], hkv=k.shape[2], window=window,
+                       splits=splits, p_terms=p_terms)
+
+
+def paged_split_decode(q, k_pool, v_pool, table, cache_len, *, splits):
+    """The paged kernel's bf16 grid: the same walk, key kj of row b read
+    from pool row table[b, kj // bs] * bs + kj % bs (``PagedRows``) over
+    C = M * bs slots."""
+    n, bs, hkv, d = k_pool.shape
+    kf, vf = k_pool.reshape(n * bs, hkv, d), v_pool.reshape(n * bs, hkv, d)
+
+    def fetch(row, keys, hk):
+        rows = table[row, keys // bs].long() * bs + keys % bs
+        return kf[rows, hk], vf[rows, hk]
+    return _split_walk(q, cache_len, fetch, c=table.shape[1] * bs, hkv=hkv, window=None,
+                       splits=splits)
+
+
+def _split_walk(q, cache_len, fetch, *, c, hkv, window, splits, p_terms="fp32"):
+    """Rows of the split walk; ``fetch(row, keys, hk)`` gives the K and V
+    rows of cached keys ``keys`` of batch row ``row`` (each < c)."""
+    b, hq, d = q.shape
     g = hq // hkv
     cap = c if window is None else min(c, window)
     scale = LOG2E / math.sqrt(d)
@@ -83,8 +114,9 @@ def split_kv_decode(q, k, v, cache_len, *, window, splits, p_terms="fp32"):
                 for k0 in range(t0 * TILE, t1 * TILE, TILE):
                     keys = torch.arange(k0, k0 + TILE)
                     live = keys < end
-                    kt = torch.where(live[:, None], k[row, keys.clamp(max=c - 1), hk], 0.0)
-                    vt = torch.where(live[:, None], v[row, keys.clamp(max=c - 1), hk], 0.0)
+                    kt, vt = fetch(row, keys.clamp(max=c - 1), hk)
+                    kt = torch.where(live[:, None], kt, 0.0)
+                    vt = torch.where(live[:, None], vt, 0.0)
                     sc = (qh @ kt.T) * scale
                     sc = torch.where(keys < limit, sc, NEG_INF)
                     sc = torch.where(live, sc, -math.inf)
@@ -210,3 +242,165 @@ def test_decode_splits_on_the_main_path_shapes(shape, want):
     got = decode_attention.decode_splits(b, hkv, cap, sms)
     assert got == want
     assert 1 <= got <= -(-cap // TILE)
+
+
+@pytest.mark.parametrize("splits", [1, 3, "decode_splits"])
+@pytest.mark.parametrize("bs", [8, 16, 24])
+def test_paged_split_walk_matches_jax(bs, splits):
+    """Five rows (lengths 0, 1, 64, 65, M * bs) of qwen2-0.5b's heads over a
+    shuffled pool, the table past each live prefix pointed at block 0
+    poisoned with +-1e4: the walk through the table equals JAX's
+    ``paged_decode_mha_ref`` to 1e-6 (relative 1e-5: the length-0 row
+    averages every slot, the poisoned 1e4s too, where fp32's spacing is
+    1e-3) and, bit for bit, the same walk over the gathered cache.  bs 24
+    does not divide the 64-key tile."""
+    hq, hkv, d, m = 14, 2, 64, 144 // bs
+    lens = [0, 1, 64, 65, m * bs]
+    b, n = len(lens), 1 + len(lens) * m
+    rng = np.random.default_rng(bs)
+    q = rng.standard_normal((b, hq, d), dtype=np.float32)
+    kp, vp = (rng.standard_normal((n, bs, hkv, d), dtype=np.float32) for _ in range(2))
+    kp[0], vp[0] = 1e4, -1e4
+    table = (rng.permutation(n - 1) + 1).reshape(b, m).astype(np.int32)
+    live = np.arange(m)[None] < (np.array(lens)[:, None] + bs - 1) // bs
+    table = np.where(live, table, 0).astype(np.int32)
+    if splits == "decode_splits":
+        splits = decode_attention.decode_splits(b, hkv, m * bs, 132)
+    want = jref.paged_decode_mha_ref(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                                     jnp.asarray(table), cache_len=jnp.asarray(lens, jnp.int32))
+    q, kp, vp, tbl = (torch.from_numpy(x) for x in (q, kp, vp, table))
+    cl = torch.tensor(lens, dtype=torch.int32)
+    got = paged_split_decode(q, kp, vp, tbl, cl, splits=splits)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=1e-5)
+    gathered = [p[tbl.long()].reshape(b, m * bs, hkv, d) for p in (kp, vp)]
+    assert torch.equal(got, split_kv_decode(q, *gathered, cl, window=None, splits=splits))
+
+
+SSD_PIECE = 128  # rows of a piece of the bf16 body
+SSD_TOL = 1e-4   # chip_smoke.py's FP32_SCAN_TOL
+
+
+def _terms(x, terms):
+    """x as it enters a product: fp32, two bf16 terms ("hilo") or one."""
+    if terms == "fp32":
+        return [x]
+    hi, lo = _bf16_terms(x)
+    return [hi.float(), lo.float()] if terms == "hilo" else [hi.float()]
+
+
+def ssd_tc(x, dt, a_log, bm, cm, d, *, p_splits=1, m_terms="hilo", state_terms="hilo",
+           xw_terms="hilo"):
+    """The bf16 body's arithmetic in fp32 on bf16 values: x (B, S, H, P), B
+    and C (B, S, N), dt (B, S, H).  Per (row, head, P split), 128-row
+    pieces (rows past S zero, dt 0): cum = cumsum(dt A), S = C B^T, M = S
+    exp(cum_t - cum_i) dt_i (t >= i; one exp2 of (cum_t - cum_i) log2(e) +
+    log2(dt_i)), y = exp(cum_t) C state^T + M X + D x,
+    state = exp(cum_last) state + (X w)^T B with w_i = dt_i exp(cum_last -
+    cum_i); M, the state and X w enter their products as two bf16 terms.
+    Returns y before its bf16 rounding and the final state (B, H, P, N)."""
+    bsz, s, h, p = x.shape
+    n = bm.shape[-1]
+    pb = p // p_splits
+    y, final = torch.zeros(bsz, s, h, p), torch.zeros(bsz, h, p, n)
+    tri = torch.tril(torch.ones(SSD_PIECE, SSD_PIECE, dtype=torch.bool))
+    for row in range(bsz):
+        for hd in range(h):
+            a = -torch.exp(a_log[hd])
+            for ps in range(p_splits):
+                cols = slice(ps * pb, (ps + 1) * pb)
+                st = torch.zeros(pb, n)
+                for t0 in range(0, s, SSD_PIECE):
+                    rows = min(SSD_PIECE, s - t0)
+
+                    def piece(t, width):
+                        out = torch.zeros(SSD_PIECE, width)
+                        out[:rows] = t
+                        return out
+                    c_, b_ = piece(cm[row, t0:t0 + rows], n), piece(bm[row, t0:t0 + rows], n)
+                    x_ = piece(x[row, t0:t0 + rows, hd, cols], pb)
+                    dt_ = piece(dt[row, t0:t0 + rows, hd, None], 1)[:, 0]
+                    cum = torch.cumsum(dt_ * a, 0)
+                    # exp(cum_t - cum_i) dt_i as the kernel forms it: one exp2
+                    seg = (cum[:, None] - cum[None, :]) * LOG2E + torch.log2(dt_)[None, :]
+                    m = (c_ @ b_.T) * torch.where(tri, torch.exp2(seg), 0.0)
+                    acc = sum(c_ @ t.T for t in _terms(st, state_terms))
+                    acc = acc * torch.exp(cum)[:, None] + sum(t @ x_ for t in _terms(m, m_terms))
+                    y[row, t0:t0 + rows, hd, cols] = (acc + d[hd] * x_)[:rows]
+                    xw = x_ * (dt_ * torch.exp(cum[-1] - cum))[:, None]
+                    st = torch.exp(cum[-1]) * st + sum(t.T @ b_ for t in _terms(xw, xw_terms))
+                final[row, hd, cols] = st
+    return y, final
+
+
+def _ssd_design_inputs(seed, b, s, h, p=64, n=128):
+    """chip_smoke.py's SSD distributions on bf16 values: dt log-uniform in
+    [1e-3, 1e-1], A in [-16, -1], D in [0.5, 1.5]."""
+    rng = np.random.default_rng(seed)
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).bfloat16().float()
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (b, s, h))).astype(np.float32)
+    a_log = rng.uniform(0.0, np.log(16.0), h).astype(np.float32)
+    d = rng.uniform(0.5, 1.5, h).astype(np.float32)
+    return (bf16(b, s, h, p), torch.from_numpy(dt), torch.from_numpy(a_log), bf16(b, s, n),
+            bf16(b, s, n), torch.from_numpy(d))
+
+
+def _scaled(got, want):
+    return float((np.abs(got - want) / (1 + np.abs(want))).max())
+
+
+# (S, JAX's chunk): two whole pieces; 1.5 pieces against 64-row chunks
+SSD_DESIGN = [(256, 128), (192, 64)]
+
+
+@pytest.mark.parametrize("p_splits", [1, 2, 4])
+@pytest.mark.parametrize("s,chunk", SSD_DESIGN)
+def test_ssd_tensor_core_arithmetic_matches_jax(s, chunk, p_splits):
+    """y before its bf16 rounding and the final state within SSD_TOL of JAX's
+    fp32 ``ssd_ref`` on the same values, for each P split."""
+    args = _ssd_design_inputs(0, 2, s, 2)
+    want_y, want_st = jref.ssd_ref(*(jnp.asarray(t.numpy()) for t in args), chunk=chunk,
+                                   return_state=True)
+    y, st = ssd_tc(*args, p_splits=p_splits)
+    assert _scaled(y.numpy(), np.asarray(want_y)) <= SSD_TOL
+    assert _scaled(st.numpy(), np.asarray(want_st)) <= SSD_TOL
+
+
+@pytest.mark.parametrize("control", ["state", "m", "xw"])
+def test_ssd_single_bf16_term_fails_the_limit(control):
+    """The controls: the state (as an operand of C state^T) or M entering
+    its product as one bf16 term moves y past SSD_TOL (3.4e-3, 7.5e-3 here,
+    against 1.2e-5 with two terms); X w as one term moves the state."""
+    args = _ssd_design_inputs(1, 1, 256, 2)
+    want_y, want_st = jref.ssd_ref(*(jnp.asarray(t.numpy()) for t in args), chunk=128,
+                                   return_state=True)
+    y, st = ssd_tc(*args, **{f"{control}_terms": "bf16"})
+    if control == "xw":
+        assert _scaled(st.numpy(), np.asarray(want_st)) > SSD_TOL
+    else:
+        assert _scaled(y.numpy(), np.asarray(want_y)) > SSD_TOL
+
+
+# (B, Hkv, M * bs, SMs) -> splits: the continuous engine's decode, 8 slots
+# over 36 blocks of 16, for qwen2-0.5b (2 KV heads) and granite (8), on the
+# H100's 132 SMs and on a card with half of them
+PAGED_SPLITS = [((8, 2, 576, 132), 9), ((8, 8, 576, 132), 5), ((8, 8, 576, 66), 3),
+                ((1, 2, 576, 132), 9)]
+
+
+@pytest.mark.parametrize("shape,want", PAGED_SPLITS)
+def test_paged_decode_splits_on_the_main_path_shapes(shape, want):
+    assert decode_attention.decode_splits(*shape) == want
+
+
+# (B, H, SMs) -> p_splits: mamba2-1.3b's admissions of 1, 2, 4 and 8 rows on
+# 132 SMs, one row on half a card, and a narrow test shape
+SSD_SPLITS = [((1, 64, 132), 2), ((2, 64, 132), 1), ((4, 64, 132), 1), ((8, 64, 132), 1),
+              ((1, 64, 66), 1), ((1, 3, 132), 4)]
+
+
+@pytest.mark.parametrize("shape,want", SSD_SPLITS)
+def test_ssd_splits_on_the_main_path_shapes(shape, want):
+    got = ssd_scan.ssd_splits(*shape)
+    assert got == want and got in ssd_scan.P_SPLITS
