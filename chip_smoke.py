@@ -9,8 +9,8 @@ Phases, in order; any failure exits non-zero before the last line:
   2. hold each kernel against its plain PyTorch version on the card at this
      slice's shapes (bf16; grouped_ffn and flash_mha_varlen also in fp32,
      flash_mha_varlen also windowed, on equal segments against flash_mha,
-     under a perturbation of another sequence, and its gradient; a kernel
-     without a backward refusing an input that requires grad;
+     under a perturbation of another sequence, and its gradient; a decode
+     kernel (no backward) refusing an input that requires grad;
      flash_mha and flash_decode also at recurrentgemma-9b's D = 256,
      ssd_scan at mamba2-1.3b's widths, rglru_scan at recurrentgemma-9b's in
      fp32; paged_flash_decode also bit for bit against flash_decode on the
@@ -59,16 +59,28 @@ Phases, in order; any failure exits non-zero before the last line:
      impl="cuda" against impl="reference" (also in fp32 on 2 layers); the
      parameters finite and changed after each step, flash_mha_varlen's
      launches held to the prediction, no other kernel launched by the train
-     steps.
+     steps;
+  7. padded PPO training, and the training of every served model: two
+     padded iterations of full qwen2-0.5b on phase 6's traffic (flash_mha
+     under grad; the same checks, and in fp32 on 2 layers the packed step
+     against the padded one on one rollout); then, on 8 prompts of 128
+     tokens and 128 new, granite-moe-1b-a400m (24 layers) one packed and
+     one padded iteration (grouped_ffn under grad), mamba2-1.3b (48 layers,
+     ssd_scan under grad) and recurrentgemma-9b (5 of 38 layers, rglru_scan
+     and flash_mha under grad) one padded iteration each; their bf16
+     comparisons of the tiers printed, their fp32 2-layer ones held (where
+     an MoE route parts between the runs, its near-tie held instead); each
+     iteration's train launches held to the prediction; peak memory.
 Each model's parameters are freed before the next is built.
 Then one JSON line of kernel numbers, and last {"ok": true, "device": ...}.
 
-Phases 3 to 6 are functions of (config, params or experiment, impl) so the
+Phases 3 to 7 are functions of (config, params or experiment, impl) so the
 CPU tests rehearse them at the reduced size with impl="reference".
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -183,6 +195,15 @@ CLIP_FRAC_TOL = 1e-2
 # is left (H100: 3.3e-6 worst; the boundaries one token late in the last
 # layer only: 1.5e-2 whole gradient, 4.6e-2 worst leaf).
 FP32_GRAD_TOL = 1e-4
+# Where a route of an MoE model parts between two fp32 runs (tiers or
+# layouts), the larger of both runs' gaps between the token's k-th and
+# (k+1)-th router probabilities.  The runs' hidden states differ in
+# summation order only (a few 1e-6 relative, FP32_GRAD_TOL's readings), so
+# the probabilities move by less than that and a route may part only at
+# such a near-tie; one expert swapped for a token moves the gradients past
+# FP32_GRAD_TOL, so phase 7 holds the gap in place of the gradients where
+# a route parts.
+ROUTE_TIE_TOL = 1e-5
 # The raw init (embedding std 1.0, tied unembedding) makes every next-token
 # distribution almost one-hot; scaled by 0.05 the logits' spread is ~1.5.
 EMBED_SCALE = 0.05
@@ -747,21 +768,23 @@ def varlen_kernel_case(device):
 
 
 def guard_case(device):
-    """A kernel without a backward refuses an input that requires grad
-    under grad mode (NotImplementedError), and runs under no_grad."""
-    x = torch.randn((1, 64, 14, 64), device=device, requires_grad=True)
+    """A kernel without a backward (flash_decode) refuses an input that
+    requires grad under grad mode (NotImplementedError), and runs under
+    no_grad."""
+    x = torch.randn((1, 14, 64), device=device, requires_grad=True)
     kv = torch.randn((1, 64, 2, 64), device=device)
-    before = flash_mha.launches
+    cl = torch.tensor([64], dtype=torch.int32, device=device)
+    before = flash_decode.launches
     try:
-        flash_mha(x, kv, kv)
+        flash_decode(x, kv, kv, cache_len=cl)
         raised = False
     except NotImplementedError as exc:
         raised = True
-        print(f"[kernels] guard: flash_mha under grad raises NotImplementedError: {exc}")
+        print(f"[kernels] guard: flash_decode under grad raises NotImplementedError: {exc}")
     with torch.no_grad():
-        flash_mha(x, kv, kv)
-    check(raised and flash_mha.launches == before + 1,
-          "flash_mha launched on an input that requires grad")
+        flash_decode(x, kv, kv, cache_len=cl)
+    check(raised and flash_decode.launches == before + 1,
+          "flash_decode launched on an input that requires grad")
 
 
 def paged_kernel_case(randn, device, hq, hkv, d):
@@ -1056,23 +1079,56 @@ def phase_paged_slice(cfg, params, *, impl, batch=4, prompt_len=256, steps=8,
             "argmax_agreement": (got.argmax(-1) == want.argmax(-1)).float().mean().item()}
 
 
+@contextlib.contextmanager
+def recorded_routes():
+    """Record every router call while the block runs: its top-k expert set
+    (sorted) and the gap between its k-th and (k+1)-th router
+    probabilities, per row, into the yielded list."""
+    calls = []
+    router = MOE._router
+
+    def recording(p, cfg, xf):
+        out = router(p, cfg, xf)
+        with torch.no_grad():
+            probs = torch.softmax(L.dense_apply(p["router"], xf.float()), dim=-1)
+            top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+        calls.append((torch.sort(out[1], dim=-1).values,
+                      top[:, cfg.top_k - 1] - top[:, cfg.top_k]))
+        return out
+    MOE._router = recording
+    try:
+        yield calls
+    finally:
+        MOE._router = router
+
+
+def route_diff(got, want, got_rows=None, want_rows=None):
+    """Two runs' ``recorded_routes`` call by call, over ``got_rows`` and
+    ``want_rows`` of each call (the same tokens in the same order; None:
+    all rows): the share of (token, call) pairs whose expert set agrees,
+    and the larger of both runs' probability gaps at each pair that does
+    not."""
+    check(len(got) == len(want) and got, "router calls differ between the runs")
+    same, gaps = [], []
+    for (ga, gg), (wa, wg) in zip(got, want):
+        if got_rows is not None:
+            ga, gg = (t[got_rows.to(t.device)] for t in (ga, gg))
+            wa, wg = (t[want_rows.to(t.device)] for t in (wa, wg))
+        agree = (ga == wa).all(dim=-1)
+        same.append(agree)
+        gaps.append(torch.maximum(gg, wg)[~agree])
+    gaps = torch.cat(gaps)
+    return {"agreement": torch.cat(same).float().mean().item(), "flips": gaps.numel(),
+            "worst_gap": gaps.max().item() if gaps.numel() else 0.0}
+
+
 def route_agreement(cfg, params, *, impl, **kw):
     """``phase_slice`` with every router call's top-k expert set recorded:
     adds the share of (token, layer) pairs whose set agrees between
     ``impl`` and "reference" (a near-tie in the router may fall the other
     way under bf16 attention rounding)."""
-    routes = []
-    router = MOE._router
-
-    def recording(*a, **k):
-        out = router(*a, **k)
-        routes.append(torch.sort(out[1], dim=-1).values)
-        return out
-    MOE._router = recording
-    try:
+    with recorded_routes() as routes:
         sl = phase_slice(cfg, params, impl=impl, **kw)
-    finally:
-        MOE._router = router
     if not routes:  # no MoE layer
         sl["route_agreement"] = None
         return sl
@@ -1080,9 +1136,8 @@ def route_agreement(cfg, params, *, impl, **kw):
         sl["route_agreement"] = 1.0
         return sl
     half = len(routes) // 2
-    check(half > 0 and len(routes) == 2 * half, "router calls differ between the tiers")
-    same = torch.cat([(a == b).all(dim=-1) for a, b in zip(routes[:half], routes[half:])])
-    sl["route_agreement"] = same.float().mean().item()
+    check(len(routes) == 2 * half, "router calls differ between the tiers")
+    sl["route_agreement"] = route_diff(routes[:half], routes[half:])["agreement"]
     return sl
 
 
@@ -1268,20 +1323,25 @@ def bucketed_on(cfg, params, prompts, new, *, impl):
 # ------------------------------------------------------------------ phase 6
 
 def train_experiment(*, batch=16, prompt_len=128, new=256, n_minibatches=2, impl="cuda",
-                     seed=0):
-    """The packed PPO experiment of phase 6."""
+                     seed=0, packed=True, opt=None):
+    """The PPO experiment of phase 6 (packed) and phase 7 (padded, or
+    packed); ``opt`` the AdamW config (None: the default)."""
     return EXP.ExperimentConfig(batch=batch, prompt_len=prompt_len, gen_len=new, seed=seed,
                                 ppo=PPO.PPOHyperparameters(n_minibatches=n_minibatches),
-                                impl=impl, packed_training=True)
+                                opt=opt or adamw.AdamWConfig(), impl=impl,
+                                packed_training=packed)
 
 
 def train_models(cfg, exp, device):
-    """``build_models`` with every embedding scaled by EMBED_SCALE, the
-    trained models' AdamW state taken after the scaling."""
+    """``build_models`` with every embedding scaled by EMBED_SCALE (and the
+    recurrent mixers' constant leaves drawn, ``randomize_mixers``), the
+    trained models' AdamW state taken after."""
     models = EXP.build_models(cfg, cfg, exp, device=device)
-    for ms in models.values():
+    seeds = {"actor": 0, "ref": 0, "critic": 2, "reward": 3}  # the reference is the actor
+    for name, ms in models.items():
         with torch.no_grad():
             ms.params["embed"]["table"].mul_(EMBED_SCALE)
+            randomize_mixers(ms.params, seed=exp.seed + seeds[name])
         if ms.opt_state is not None:
             ms.opt_state = adamw.init(exp.opt, ms.params)
     return models
@@ -1313,98 +1373,189 @@ def leaf_names(tree, prefix=""):
     return [prefix[:-1]]
 
 
+def first_rows(exp, roll):
+    """The first minibatch's real tokens (each sequence's prompt, valid
+    generated tokens and one bootstrap token, as ``_packed_prep`` keeps
+    them), in sequence order, as rows of its train forward: the packed
+    cohort's first sum(lens) rows, or the first lens[i] of padded row i's S.
+    No other row reaches a loss."""
+    b = exp.batch // exp.ppo.n_minibatches
+    g_valid = roll["gen_mask"][:b].sum(-1).long().cpu()
+    lens = (exp.prompt_len + torch.clamp(g_valid + 1, max=exp.gen_len)).tolist()
+    if exp.packed_training:
+        return torch.arange(sum(lens))
+    s = exp.prompt_len + exp.gen_len
+    return torch.cat([i * s + torch.arange(n) for i, n in enumerate(lens)])
+
+
+def model_minibatch(cfg, exp, ms, roll, name, *, impl):
+    """Model ``name``'s ("actor" or "critic") loss, stats, grad_norm and
+    gradients on the first minibatch of ``roll`` in ``exp``'s layout
+    (padded or packed) under ``impl``, from its current state (no update);
+    for an MoE model also every router call's ``recorded_routes`` and the
+    rows of the minibatch's real tokens (``first_rows``)."""
+    make = EXP.actor_train_batch if name == "actor" else EXP.critic_train_batch
+    batch = make(exp, roll)
+    if exp.packed_training:
+        fn = PPO.packed_actor_grads if name == "actor" else PPO.packed_critic_grads
+        kw = dict(max_seqlen=EXP.max_seqlen(exp))
+    else:
+        batch = PPO.split_minibatches(batch, exp.ppo.n_minibatches)
+        fn = PPO.actor_grads if name == "actor" else PPO.critic_grads
+        kw = dict(gen_start=exp.prompt_len)
+    mb = {k: v[0] for k, v in batch.items()}
+    with recorded_routes() as routes:
+        loss, st, grads = fn(ms.params, cfg, exp.ppo, mb, impl=impl, **kw)
+    n = max(mb["mask"].sum().item(), 1.0)
+    return dict(loss=loss.item(), grad_norm=adamw.global_norm(grads).item(), grads=grads,
+                names=leaf_names(ms.params),
+                clip_frac=st["clip_frac"].item() if "clip_frac" in st else 0.0,
+                adv_scale=(mb["adv"].abs() * mb["mask"]).sum().item() / n
+                if name == "actor" else None,
+                routes=routes, rows=first_rows(exp, roll))
+
+
 def first_minibatch(cfg, exp, models, roll, *, impl):
-    """The actor's and the critic's loss, stats, grad_norm and gradients on
-    the first packed minibatch of ``roll`` under ``impl``, from the models'
-    current state (no update)."""
-    out = {}
-    for name, fn, make in (("actor", PPO.packed_actor_grads, EXP.actor_train_batch),
-                           ("critic", PPO.packed_critic_grads, EXP.critic_train_batch)):
-        mb = {k: v[0] for k, v in make(exp, roll).items()}
-        loss, st, grads = fn(models[name].params, cfg, exp.ppo, mb, impl=impl,
-                             max_seqlen=EXP.max_seqlen(exp))
-        n = max(mb["mask"].sum().item(), 1.0)
-        out[name] = dict(loss=loss.item(), grad_norm=adamw.global_norm(grads).item(),
-                         grads=grads, names=leaf_names(models[name].params),
-                         clip_frac=st["clip_frac"].item() if "clip_frac" in st else 0.0,
-                         adv_scale=(mb["adv"].abs() * mb["mask"]).sum().item() / n
-                         if name == "actor" else None)
-    return out
+    """``model_minibatch`` of the actor and the critic."""
+    return {name: model_minibatch(cfg, exp, models[name], roll, name, impl=impl)
+            for name in ("actor", "critic")}
+
+
+def square_norms(a, b):
+    """(|a - b|^2, |b|^2) in fp32, slice by slice along the first axis: a
+    whole fp32 copy of recurrentgemma's embedding gradient is 4.2 GB."""
+    d2 = r2 = 0.0
+    rows = max(1, (1 << 24) * b.shape[0] // b.numel()) if b.dim() else 1
+    for x, y in zip(a.split(rows) if a.dim() else [a], b.split(rows) if b.dim() else [b]):
+        y = y.float()
+        d2 += (x.float() - y).square().sum().item()
+        r2 += y.square().sum().item()
+    return d2, r2
+
+
+def agreement(name, g, w):
+    """Model ``name``'s ``model_minibatch`` result ``g`` against a reference
+    run's ``w``.  A leaf's error is |g - g_ref| / |g_ref| (Frobenius);
+    "global" the same over all leaves; the actor loss's error is over the
+    minibatch's mean |advantage| (its loss is a sum of ratio * advantage
+    terms near zero after whitening), the critic's over its reference loss.
+    For an MoE model, "routes" is ``route_diff`` over the real tokens (else
+    None)."""
+    sq = [square_norms(a, b) for a, b in zip(g["grads"], w["grads"])]
+    errs = [math.sqrt(d2 / max(r2, 1e-60)) for d2, r2 in sq]
+    diff2 = sum(d2 for d2, _ in sq)
+    worst = sorted(zip(errs, g["names"]), reverse=True)[:3]
+    scale = w["adv_scale"] if name == "actor" else abs(w["loss"])
+    routes = (route_diff(g["routes"], w["routes"], g["rows"], w["rows"])
+              if g.get("routes") else None)
+    return dict(loss=g["loss"], ref_loss=w["loss"],
+                loss_err=abs(g["loss"] - w["loss"]) / max(scale, 1e-12),
+                grad_norm=g["grad_norm"], ref_grad_norm=w["grad_norm"],
+                grad_norm_err=abs(g["grad_norm"] - w["grad_norm"]) / max(w["grad_norm"], 1e-12),
+                global_err=math.sqrt(diff2) / max(w["grad_norm"], 1e-30),
+                clip_frac=g["clip_frac"], ref_clip_frac=w["clip_frac"],
+                worst_leaf_err=worst[0][0], worst_leaves=worst, n_leaves=len(errs),
+                routes=routes)
 
 
 def grad_agreement(got, want):
-    """``first_minibatch`` results against a reference run's.  A leaf's
-    error is |g - g_ref| / |g_ref| (Frobenius); "global" the same over all
-    leaves; the actor loss's error is over the minibatch's mean |advantage|
-    (its loss is a sum of ratio * advantage terms near zero after
-    whitening), the critic's over its reference loss."""
+    """``agreement`` of each model in two ``first_minibatch`` results."""
+    return {name: agreement(name, g, want[name]) for name, g in got.items()}
+
+
+def compare_runs(cfg, models, roll, run, ref_run):
+    """``agreement`` of each trained model's first minibatch under ``run``
+    against ``ref_run``, each an (experiment, impl) pair, from one state and
+    one rollout; one model at a time, so two sets of gradients are alive at
+    once.  Equal runs compute once."""
     out = {}
-    for name, g in got.items():
-        w = want[name]
-        errs = [((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30)).item()
-                for a, b in zip(g["grads"], w["grads"])]
-        diff2 = sum(((a.float() - b.float()) ** 2).sum().item()
-                    for a, b in zip(g["grads"], w["grads"]))
-        worst = sorted(zip(errs, g["names"]), reverse=True)[:3]
-        scale = w["adv_scale"] if name == "actor" else abs(w["loss"])
-        out[name] = dict(loss=g["loss"], ref_loss=w["loss"],
-                         loss_err=abs(g["loss"] - w["loss"]) / max(scale, 1e-12),
-                         grad_norm=g["grad_norm"], ref_grad_norm=w["grad_norm"],
-                         grad_norm_err=abs(g["grad_norm"] - w["grad_norm"])
-                         / max(w["grad_norm"], 1e-12),
-                         global_err=math.sqrt(diff2) / max(w["grad_norm"], 1e-30),
-                         clip_frac=g["clip_frac"], ref_clip_frac=w["clip_frac"],
-                         worst_leaf_err=worst[0][0], worst_leaves=worst, n_leaves=len(errs))
+    for name in ("actor", "critic"):
+        got = model_minibatch(cfg, run[0], models[name], roll, name, impl=run[1])
+        want = got if run == ref_run else model_minibatch(cfg, ref_run[0], models[name], roll,
+                                                          name, impl=ref_run[1])
+        out[name] = agreement(name, got, want)
+        del got, want
     return out
 
 
 def compare_tiers(cfg, exp, models, roll, *, impl):
-    """``grad_agreement`` of ``impl`` against "reference" on the first
-    minibatch, from one state and one rollout, before any update."""
-    got = first_minibatch(cfg, exp, models, roll, impl=impl)
-    if impl == "reference":
-        return grad_agreement(got, got)
-    return grad_agreement(got, first_minibatch(cfg, exp, models, roll, impl="reference"))
+    """``compare_runs`` of ``impl`` against "reference" in ``exp``'s layout,
+    before any update."""
+    return compare_runs(cfg, models, roll, (exp, impl), (exp, "reference"))
+
+
+def compare_layouts(cfg, exp, models, roll):
+    """``compare_runs`` of the packed train step against the padded one on
+    the same rollout, both under ``exp.impl``: the first minibatch's losses
+    and gradients are one function of the same tokens (the JAX package's
+    ``test_packed_ppo_loss_and_grads_match_padded``)."""
+    packed, padded = (dataclasses.replace(exp, packed_training=p) for p in (True, False))
+    return compare_runs(cfg, models, roll, (packed, exp.impl), (padded, exp.impl))
 
 
 def fp32_train_models(cfg, device, layers=2):
     """An fp32 actor and critic of ``cfg`` at full width and ``layers``
-    layers, embeddings scaled by EMBED_SCALE."""
-    small = shallow_fp32(cfg, layers)
+    layers (``shallow``), embeddings scaled by EMBED_SCALE and the recurrent
+    mixers' constant leaves drawn."""
+    small = shallow(cfg, layers, dtype="float32")
     models = {}
     for name, head, seed in (("actor", "lm", 1), ("critic", "value", 2)):
         params = MDL.init_params(small, seed=seed, device=device, head=head)
         with torch.no_grad():
             params["embed"]["table"].mul_(EMBED_SCALE)
+            randomize_mixers(params, seed=seed)
         models[name] = EXP.ModelState(params)
     return small, models
 
 
+def train_step_predicted(cfg, exp):
+    """Launches of one PPO iteration's two train calls: per minibatch, the
+    actor's and the critic's train forward and its recompute (remat) run
+    flash_mha_varlen (packed) or flash_mha (padded) in every attention
+    layer, grouped_ffn in every MoE layer and one scan in every recurrent
+    layer (padded only); the plain backwards launch nothing."""
+    per_layer = exp.ppo.n_minibatches * 2 * 2
+    attn = "flash_mha_varlen" if exp.packed_training else "flash_mha"
+    out = {attn: attn_layers(cfg) * per_layer, "grouped_ffn": moe_layers(cfg) * per_layer,
+           **scan_launches(cfg, per_layer)}
+    return {k: v for k, v in out.items() if v}
+
+
 def train_predicted(cfg, exp):
-    """Launches of one PPO iteration: flash_mha_varlen in every attention
-    layer of each minibatch's train forward, once more in its recompute
-    (remat), for the actor and the critic; flash_mha in the prefill of
-    generation and the three padded inference forwards; flash_decode in
-    each of the gen_len - 1 decode steps."""
+    """Launches of one PPO iteration: the rollout's (flash_mha in the prefill
+    of generation and the three padded inference forwards, flash_decode in
+    each of the gen_len - 1 decode steps, grouped_ffn in the prefill, each
+    decode step and the three forwards, one scan per recurrent layer in the
+    prefill and the three forwards) and ``train_step_predicted``."""
     n = attn_layers(cfg)
-    return {"flash_mha_varlen": n * exp.ppo.n_minibatches * 2 * 2, "flash_mha": 4 * n,
-            "flash_decode": n * (exp.gen_len - 1)}
+    out = {"flash_mha": 4 * n, "flash_decode": n * (exp.gen_len - 1)}
+    if moe_layers(cfg):
+        out["grouped_ffn"] = moe_layers(cfg) * (exp.gen_len + 3)
+    out.update(scan_launches(cfg, 4))
+    for k, v in train_step_predicted(cfg, exp).items():
+        out[k] = out.get(k, 0) + v
+    return out
 
 
-def phase_train(cfg, exp, device, *, iters=2, min_valid=16, seed=0, fp32_layers=2):
-    """``iters`` packed PPO iterations of ``build_executors``: rollout
-    (``train_rollout``), then the packed actor and critic train steps.  On
-    the first, before training, ``compare_tiers`` on this state and rollout
-    (and on fp32 models of ``fp32_layers`` layers; its launches are not
-    counted).  Returns per iteration the times, real train tokens, stats,
-    the kernels launched during the train calls, and whether every trained
-    parameter is finite and some changed; the comparisons; and the run's
-    launches beside their prediction."""
-    models = train_models(cfg, exp, device)
+def phase_train(cfg, exp, device, *, iters=2, min_valid=16, seed=0, fp32_layers=2,
+                layouts=False, models=None):
+    """``iters`` PPO iterations of ``build_executors`` (padded or packed as
+    ``exp`` says): rollout (``train_rollout``), then the actor and critic
+    train steps.  On the first, before training, ``compare_tiers`` on this
+    state and rollout; after the last, with the models freed (unless the
+    caller gave ``models``), on fp32 models of ``fp32_layers`` layers on
+    the first rollout, and with ``layouts`` ``compare_layouts`` on them.
+    The comparisons' launches are not counted.  Returns per iteration the
+    times, real train tokens, stats, the kernels launched during the train
+    calls, and whether every trained parameter is finite and some changed;
+    the comparisons; and the run's launches beside their prediction."""
+    own = models is None
+    if own:
+        models = train_models(cfg, exp, device)
     ex = EXP.build_executors(cfg, cfg, exp)
     rng = np.random.default_rng(seed + 300)
     trained = ("actor", "critic")
-    out = {"iters": [], "compare": None, "compare_fp32": None}
+    out = {"iters": [], "compare": None, "compare_fp32": None, "compare_layouts": None}
     sync(device)
     reset_launches()
     for it in range(iters):
@@ -1413,15 +1564,13 @@ def phase_train(cfg, exp, device, *, iters=2, min_valid=16, seed=0, fp32_layers=
         sync(device)
         rollout_s = time.perf_counter() - t0
         if it == 0:
+            first_roll = roll
             held_counts = launches()
             out["compare"] = compare_tiers(cfg, exp, models, roll, impl=exp.impl)
-            if fp32_layers:
-                small, m32 = fp32_train_models(cfg, device, fp32_layers)
-                out["compare_fp32"] = compare_tiers(small, exp, m32, roll, impl=exp.impl)
-                del m32
             for kern in KERNELS:  # the comparisons' launches do not count
                 kern.launches = held_counts[kern.__name__]
-        before = {n: [p.detach().clone() for p in adamw.leaves(models[n].params)]
+        # on the host: on the card these copies would add two models' bytes
+        before = {n: [p.detach().to("cpu", copy=True) for p in adamw.leaves(models[n].params)]
                   for n in trained}
         counts0 = launches()
         t0 = time.perf_counter()
@@ -1437,7 +1586,8 @@ def phase_train(cfg, exp, device, *, iters=2, min_valid=16, seed=0, fp32_layers=
         for n in trained:
             now = adamw.leaves(models[n].params)
             state[n] = dict(finite=all(bool(torch.isfinite(p).all()) for p in now),
-                            changed=sum(bool((p != q).any()) for p, q in zip(now, before[n])),
+                            changed=sum(bool((p.cpu() != q).any())
+                                        for p, q in zip(now, before[n])),
                             leaves=len(now))
         del before
         lens = exp.prompt_len + np.minimum(valid + 1, exp.gen_len)
@@ -1447,65 +1597,154 @@ def phase_train(cfg, exp, device, *, iters=2, min_valid=16, seed=0, fp32_layers=
             train_launches={k: counts1[k] - counts0[k] for k in counts1
                             if counts1[k] != counts0[k]}))
     out["launches"] = launches()
+    if own:
+        del models, ex
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    if fp32_layers:
+        small, m32 = fp32_train_models(cfg, device, fp32_layers)
+        out["fp32_layers"] = small.num_layers
+        out["compare_fp32"] = compare_tiers(small, exp, m32, first_roll, impl=exp.impl)
+        if layouts:
+            out["compare_layouts"] = compare_layouts(small, exp, m32, first_roll)
+        del m32
+        for kern in KERNELS:
+            kern.launches = out["launches"][kern.__name__]
     out["predicted"] = {k: v * iters for k, v in train_predicted(cfg, exp).items()}
     out["per_iter"] = train_predicted(cfg, exp)
+    out["train_per_iter"] = train_step_predicted(cfg, exp)
     return out
 
 
-def report_train(cfg, device, total):
-    """Phase 6 on the card: two packed PPO iterations of full-width qwen2-0.5b
-    (B 16 prompts of 128 tokens, 256 new, 2 minibatches), every check of
-    ``phase_train``'s results; adds the run's launches to ``total``."""
-    exp = train_experiment()
+def report_compare(tag, label, cmp, tol, leaf_tol, *, gate=True):
+    """Print ``grad_agreement``'s result and, with ``gate``, fail past the
+    limits: loss, grad_norm and whole gradient within ``tol``, each leaf
+    within ``leaf_tol``, clip_frac within CLIP_FRAC_TOL.  Where an MoE
+    model's routes part between the runs, the gap of each parting pair is
+    held to ROUTE_TIE_TOL in place of the gradients (one token's expert
+    swapped moves them past any summation-order limit)."""
+    for name, c in cmp.items():
+        r = c["routes"]
+        routes = ("" if r is None else f"; routes agree on {r['agreement']:.6f} of (token, "
+                  f"router call) pairs, {r['flips']} part (largest probability gap "
+                  f"{r['worst_gap']:.3e}, tol {ROUTE_TIE_TOL})")
+        print(f"{tag} {name} {label}: loss {c['loss']:.6e} vs {c['ref_loss']:.6e} (err "
+              f"{c['loss_err']:.3e}), grad_norm {c['grad_norm']:.6e} vs "
+              f"{c['ref_grad_norm']:.6e} (err {c['grad_norm_err']:.3e}), clip_frac "
+              f"{c['clip_frac']:.4f} vs {c['ref_clip_frac']:.4f}, gradient err "
+              f"{c['global_err']:.3e}, worst leaves "
+              + ", ".join(f"{n} {e:.3e}" for e, n in c["worst_leaves"])
+              + f" of {c['n_leaves']}"
+              + (f" (tol {tol}, per leaf {leaf_tol})" if gate else " (not gated)") + routes)
+        if not gate:
+            continue
+        if r is not None and r["flips"]:
+            check(r["worst_gap"] <= ROUTE_TIE_TOL,
+                  f"{tag} {name} {label}: a route parts {r['worst_gap']:.3e} from a tie")
+            continue
+        check(max(c["loss_err"], c["grad_norm_err"], c["global_err"]) <= tol
+              and c["worst_leaf_err"] <= leaf_tol, f"{tag} {name} {label}: runs disagree")
+        check(abs(c["clip_frac"] - c["ref_clip_frac"]) <= CLIP_FRAC_TOL,
+              f"{tag} {name} {label}: clip_frac disagrees")
+
+
+def report_train(cfg, exp, device, total, *, tag="[train]", gate_bf16=True, **kw):
+    """One ``phase_train`` run on the card and every check of its results:
+    the bf16 comparison of the tiers (gated with ``gate_bf16``, else
+    printed), the fp32 ones (and the layouts'), finite and changed
+    parameters, each iteration's train launches and the run's launches
+    against the prediction; adds the run's launches to ``total``."""
+    layers = f"{cfg.num_layers} layers" + ("" if cfg.num_layers == get_config(
+        cfg.name).num_layers else f" (cut from {get_config(cfg.name).num_layers})")
+    layout = "packed" if exp.packed_training else "padded"
+    print(f"{tag} {cfg.name} {layers}, {layout}: {exp.batch} prompts of {exp.prompt_len} "
+          f"tokens, {exp.gen_len} new, {exp.ppo.n_minibatches} minibatches, AdamW m/v "
+          f"{exp.opt.state_dtype}")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    tr = phase_train(cfg, exp, device)
+    tr = phase_train(cfg, exp, device, **kw)
     wall = time.perf_counter() - t0
-    for label, cmp, tol, leaf_tol in (
-            ("bf16, 24 layers", tr["compare"], TRAIN_TOL, TRAIN_LEAF_TOL),
-            ("fp32, 2 layers", tr["compare_fp32"], FP32_GRAD_TOL, FP32_GRAD_TOL)):
-        for name, c in cmp.items():
-            print(f"[train] {name} {label}, first minibatch cuda vs reference: loss "
-                  f"{c['loss']:.6e} vs {c['ref_loss']:.6e} (err {c['loss_err']:.3e}), grad_norm "
-                  f"{c['grad_norm']:.6e} vs {c['ref_grad_norm']:.6e} (err "
-                  f"{c['grad_norm_err']:.3e}), clip_frac {c['clip_frac']:.4f} vs "
-                  f"{c['ref_clip_frac']:.4f}, gradient err {c['global_err']:.3e}, worst leaves "
-                  + ", ".join(f"{n} {e:.3e}" for e, n in c["worst_leaves"])
-                  + f" of {c['n_leaves']} (tol {tol}, per leaf {leaf_tol})")
-            check(max(c["loss_err"], c["grad_norm_err"], c["global_err"]) <= tol
-                  and c["worst_leaf_err"] <= leaf_tol,
-                  f"train {name} {label}: cuda and reference disagree")
-            check(abs(c["clip_frac"] - c["ref_clip_frac"]) <= CLIP_FRAC_TOL,
-                  f"train {name} {label}: clip_frac disagrees")
+    report_compare(tag, f"bf16, {cfg.num_layers} layers, first minibatch cuda vs reference",
+                   tr["compare"], TRAIN_TOL, TRAIN_LEAF_TOL, gate=gate_bf16)
+    if tr["compare_fp32"] is not None:
+        report_compare(tag, f"fp32, {tr['fp32_layers']} layers, first minibatch cuda vs "
+                       "reference", tr["compare_fp32"], FP32_GRAD_TOL, FP32_GRAD_TOL)
+    if tr["compare_layouts"] is not None:
+        report_compare(tag, f"fp32, {tr['fp32_layers']} layers, first minibatch packed vs "
+                       "padded, both cuda", tr["compare_layouts"], FP32_GRAD_TOL,
+                       FP32_GRAD_TOL)
     for i, r in enumerate(tr["iters"]):
         a, c = r["actor_stats"], r["critic_stats"]
-        print(f"[train] iteration {i}: rollout {r['rollout_s']:.3f}s; actor step "
-              f"{r['actor_s']:.3f}s, critic step {r['critic_s']:.3f}s on {r['tokens']} real "
-              f"tokens ({r['padded_tokens']} padded): {r['tokens'] / r['actor_s']:.1f} / "
-              f"{r['tokens'] / r['critic_s']:.1f} train tokens/s; actor {a}; critic {c}; "
-              f"launches during the train steps {r['train_launches']}; parameters {r['state']}")
+        print(f"{tag} {cfg.name} {layout} iteration {i}: rollout {r['rollout_s']:.3f}s; "
+              f"actor step {r['actor_s']:.3f}s, critic step {r['critic_s']:.3f}s on "
+              f"{r['tokens']} real tokens ({r['padded_tokens']} padded): "
+              f"{r['tokens'] / r['actor_s']:.1f} / {r['tokens'] / r['critic_s']:.1f} train "
+              f"tokens/s; actor {a}; critic {c}; launches during the train steps "
+              f"{r['train_launches']} (predicted {tr['train_per_iter']}); parameters "
+              f"{r['state']}")
         check(all(math.isfinite(v) for v in (*a.values(), *c.values())), "non-finite train stats")
         for n, st in r["state"].items():
             check(st["finite"] and st["changed"] > 0, f"iteration {i}: {n} parameters "
                   f"{'not finite' if not st['finite'] else 'unchanged'}")
-        # the guard: a kernel without a backward never ran under grad
-        check(r["train_launches"] == {"flash_mha_varlen": tr["per_iter"]["flash_mha_varlen"]},
+        # the differentiable kernels ran in every train forward and its
+        # recompute, and the decode kernels (no backward) never
+        check(same_launches(r["train_launches"], tr["train_per_iter"])
+              and all(v > 0 for v in tr["train_per_iter"].values()),
               f"iteration {i}: train launches {r['train_launches']}")
-    print(f"[train] launches {tr['launches']} (predicted {tr['predicted']}); phase wall "
-          f"{wall:.1f}s; max_memory_allocated={torch.cuda.max_memory_allocated()} bytes")
+    print(f"{tag} {cfg.name} {layout}: launches {tr['launches']} (predicted "
+          f"{tr['predicted']}); phase wall {wall:.1f}s; max_memory_allocated="
+          f"{torch.cuda.max_memory_allocated()} bytes")
     check(same_launches(tr["launches"], tr["predicted"]),
           f"train: launches {tr['launches']} != {tr['predicted']}")
     for k in total:
         total[k] += tr["launches"][k]
 
 
+# Phase 7's models beside qwen2-0.5b: (config name, layers kept, AdamW m/v
+# dtype).  8 prompts of 128 tokens, 128 new (S 256, two of mamba2's
+# 128-token chunks), 2 minibatches.  recurrentgemma-9b keeps one
+# superblock and the tail (5 of 38 layers) and bf16 m/v: four 9B models
+# do not fit on one card, and at 5 layers its 256,000-row tied embedding
+# is half of each model.
+PHASE7_MODELS = (("granite-moe-1b-a400m", None, "float32"), ("mamba2-1.3b", None, "float32"),
+                 ("recurrentgemma-9b", 5, "bfloat16"))
+
+
+def report_phase7(device, total):
+    """Phase 7: two padded PPO iterations of full qwen2-0.5b (phase 6's
+    traffic; bf16 comparison gated as phase 6's, fp32 on 2 layers, packed
+    against padded in fp32); granite-moe-1b-a400m one packed and one padded
+    iteration on one set of models; mamba2-1.3b and recurrentgemma-9b one
+    padded iteration each.  The extra models' bf16 comparisons are printed,
+    their fp32 ones gated."""
+    report_train(get_config("qwen2-0.5b"), train_experiment(packed=False), device, total,
+                 tag="[train7]", layouts=True)
+    for name, layers, state_dtype in PHASE7_MODELS:
+        cfg = get_config(name)
+        if layers is not None:
+            cfg = shallow(cfg, layers)
+        t0 = time.perf_counter()
+        kw = dict(batch=8, new=128, opt=adamw.AdamWConfig(state_dtype=state_dtype))
+        runs = [train_experiment(packed=False, **kw)]
+        if all(s.kind == ATTN for s in cfg.layers):
+            runs.insert(0, train_experiment(packed=True, **kw))
+        models = train_models(cfg, runs[0], device) if len(runs) > 1 else None
+        for exp in runs:
+            report_train(cfg, exp, device, total, tag="[train7]", gate_bf16=False, iters=1,
+                         layouts=not exp.packed_training and len(runs) > 1, models=models)
+        del models
+        torch.cuda.empty_cache()
+        print(f"[train7] {name}: {time.perf_counter() - t0:.1f}s")
+
+
 # ------------------------------------------------------------------ main
 
-def shallow_fp32(cfg, layers=4):
-    """``cfg`` at full width in fp32 with about ``layers`` layers: whole
-    superblocks (at least one) and the tail."""
+def shallow(cfg, layers=4, *, dtype=None):
+    """``cfg`` at full width with about ``layers`` layers (whole
+    superblocks, at least one, and the tail), in ``dtype`` (None: its
+    own)."""
     n_sb = max(1, layers // len(cfg.superblock))
-    return dataclasses.replace(cfg, dtype="float32", n_superblocks=n_sb,
+    return dataclasses.replace(cfg, dtype=dtype or cfg.dtype, n_superblocks=n_sb,
                                num_layers=n_sb * len(cfg.superblock) + len(cfg.tail))
 
 
@@ -1522,7 +1761,7 @@ def report_slice(cfg, params):
     check(sl["prefill_err"] <= LOGIT_TOL and sl["decode_err"] <= LOGIT_TOL,
           f"{cfg.name}: cuda logits disagree with the reference")
     if any(s.kind != ATTN for s in cfg.layers):
-        small = shallow_fp32(cfg)
+        small = shallow(cfg, dtype="float32")
         p32 = make_params(small, seed=1, device=params["embed"]["table"].device)
         sl = phase_slice(small, p32, impl="cuda")
         del p32
@@ -1661,7 +1900,8 @@ def main():
         del params
         torch.cuda.empty_cache()
 
-    report_train(get_config("qwen2-0.5b"), device, total)
+    report_train(get_config("qwen2-0.5b"), train_experiment(), device, total)
+    report_phase7(device, total)
 
     source = "src/repro_torch/kernels/csrc/"
     rows = [dict(name="flash_mha", route="cuda", source=source + "flash_attention.cu",

@@ -1,5 +1,6 @@
 """Flash attention (GQA, causal / sliding-window, optional positions): the
-hand-written CUDA kernel ``csrc/flash_attention.cu`` and its plain version.
+hand-written CUDA kernel ``csrc/flash_attention.cu``, its plain version and
+its gradient.
 
 Counterpart of the JAX package's Pallas kernel ``kernels/flash_attention.py``
 ``flash_mha``.  Unlike that kernel, explicit ``q_positions``/``kv_positions``
@@ -7,6 +8,14 @@ are honoured: with them the kernel masks by position and skips no KV tile;
 without them it takes the arange fast path with causal/window tile skipping.
 bf16 inputs run the tensor-core tile body ``csrc/attn_tile.cuh`` (shared
 with ``varlen_attention``), fp32 inputs an fp32-FMA body.
+
+The padded train forward differentiates through it, so the public function
+is a ``torch.autograd.Function`` as ``varlen_attention``'s: its forward is
+the kernel (the plain version on CPU tensors), its backward the gradient of
+the plain version ``mha_ref`` recomputed with the forward's own ``causal``,
+``window`` and positions (the JAX package differentiates its reference
+tier; its Pallas kernel has no backward).  The backward holds B x Hq x Sq x
+Skv fp32 scores per layer while it runs.
 """
 
 from __future__ import annotations
@@ -17,7 +26,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.guard import refuse_grad
+from repro_torch.kernels.guard import plain_grads
 from repro_torch.kernels.ref import mha_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -41,16 +50,9 @@ def _positions(pos, b: int, s: int, device) -> torch.Tensor:
     return pos.to(device=device, dtype=torch.int32).expand(b, s).contiguous()
 
 
-def flash_mha(q, k, v, *, causal: bool = True, window: int | None = None,
-              q_positions=None, kv_positions=None):
-    """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D).  Returns (B, Sq, Hq, D).
-
-    CPU tensors take the plain version ``mha_ref``; CUDA tensors launch the
-    kernel or raise."""
-    if q.device.type == "cpu":
-        return mha_ref(q, k, v, causal=causal, window=window,
-                       q_positions=q_positions, kv_positions=kv_positions)
-    refuse_grad("flash_mha", q, k, v)
+def _launch(q, k, v, causal: bool, window: int | None, q_positions, kv_positions):
+    """Check the inputs and launch the kernel; raises on what it does not
+    take or on a failed launch."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_mha: q, k, v must lie on one CUDA device")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -88,6 +90,40 @@ def flash_mha(q, k, v, *, causal: bool = True, window: int | None = None,
         raise RuntimeError(f"flash_mha: kernel launch failed with CUDA error {err}")
     flash_mha.launches += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the kernel on CUDA tensors, the plain version on CPU
+    tensors.  Backward: autograd of the plain version on the saved inputs,
+    with the forward's mask arguments (no gradient for the positions)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_positions, kv_positions):
+        ctx.save_for_backward(q, k, v, q_positions, kv_positions)
+        ctx.kw = dict(causal=causal, window=window)
+        if q.device.type == "cpu":
+            return mha_ref(q, k, v, q_positions=q_positions, kv_positions=kv_positions,
+                           **ctx.kw)
+        return _launch(q, k, v, causal, window, q_positions, kv_positions)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, q_positions, kv_positions = ctx.saved_tensors
+
+        def plain(q, k, v):
+            return mha_ref(q, k, v, q_positions=q_positions, kv_positions=kv_positions,
+                           **ctx.kw)
+        return (*plain_grads(plain, (q, k, v), ctx.needs_input_grad, (grad_out,)),
+                None, None, None, None)
+
+
+def flash_mha(q, k, v, *, causal: bool = True, window: int | None = None,
+              q_positions=None, kv_positions=None):
+    """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D).  Returns (B, Sq, Hq, D).
+
+    CPU tensors take the plain version ``mha_ref``; CUDA tensors launch the
+    kernel or raise.  Differentiable in q, k and v."""
+    return _FlashAttention.apply(q, k, v, causal, window, q_positions, kv_positions)
 
 
 flash_mha.launches = 0

@@ -1,10 +1,16 @@
 """Grouped gated expert FFN (dropless MoE): the hand-written CUDA kernel
-``csrc/grouped_expert.cu`` and its plain version.
+``csrc/grouped_expert.cu``, its plain version and its gradient.
 
 Counterpart of the JAX package's Pallas kernel ``kernels/grouped_expert.py``
 ``grouped_ffn`` (forward ``_forward``).  bf16 inputs run both products on
 ``wgmma`` with the intermediate H kept as two bf16 terms; fp32 inputs an
-fp32-FMA body.  Forward only: the backward comes with the train path.
+fp32-FMA body.
+
+MoE training differentiates through it, so the public function is a
+``torch.autograd.Function``: its forward is the kernel (the plain version
+on CPU tensors), its backward ``ref.grouped_ffn_bwd_ref``, the JAX
+package's ``custom_vjp`` backward ``_diff_bwd`` computed per expert segment
+in fp32.
 """
 
 from __future__ import annotations
@@ -15,8 +21,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.guard import refuse_grad
-from repro_torch.kernels.ref import grouped_ffn_ref
+from repro_torch.kernels.ref import grouped_ffn_bwd_ref, grouped_ffn_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -30,19 +35,9 @@ def _entry():
     return fn
 
 
-def grouped_ffn(xs, group_sizes, w_gate, w_in, w_out, *, act="silu"):
-    """xs: (N, D) expert-sorted rows; group_sizes: (E,) int32 rows per
-    expert, summing to N; w_gate/w_in: (E, D, F); w_out: (E, F, D).
-    Returns (N, D) float32: row i through its own expert only, rows past
-    sum(group_sizes) zero.
-
-    CPU tensors take the plain version ``grouped_ffn_ref``; CUDA tensors
-    launch the kernel or raise.  The kernel takes act="silu" (every MoE
-    config of the repo), fp32 or bf16 (the same for xs and the weights)
-    and D, F multiples of 8."""
-    if xs.device.type == "cpu":
-        return grouped_ffn_ref(xs, group_sizes, w_gate, w_in, w_out, act=act)
-    refuse_grad("grouped_ffn", xs, w_gate, w_in, w_out)
+def _launch(xs, group_sizes, w_gate, w_in, w_out, act):
+    """Check the inputs and launch the kernel; raises on what it does not
+    take or on a failed launch."""
     dev = xs.device
     tensors = (xs, group_sizes, w_gate, w_in, w_out)
     if not (xs.is_cuda and all(t.device == dev for t in tensors)):
@@ -87,6 +82,40 @@ def grouped_ffn(xs, group_sizes, w_gate, w_in, w_out, *, act="silu"):
         raise RuntimeError(f"grouped_ffn: kernel launch failed with CUDA error {err}")
     grouped_ffn.launches += 1
     return out
+
+
+class _GroupedFFN(torch.autograd.Function):
+    """Forward: the kernel on CUDA tensors, the plain version on CPU
+    tensors.  Backward: ``grouped_ffn_bwd_ref`` on the saved inputs (no
+    gradient for ``group_sizes``)."""
+
+    @staticmethod
+    def forward(ctx, xs, group_sizes, w_gate, w_in, w_out, act):
+        ctx.save_for_backward(xs, group_sizes, w_gate, w_in, w_out)
+        ctx.act = act
+        if xs.device.type == "cpu":
+            return grouped_ffn_ref(xs, group_sizes, w_gate, w_in, w_out, act=act)
+        return _launch(xs, group_sizes, w_gate, w_in, w_out, act)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        xs, group_sizes, w_gate, w_in, w_out = ctx.saved_tensors
+        dx, dwg, dwi, dwo = grouped_ffn_bwd_ref(xs, group_sizes, w_gate, w_in, w_out,
+                                                grad_out, act=ctx.act)
+        return dx, None, dwg, dwi, dwo, None
+
+
+def grouped_ffn(xs, group_sizes, w_gate, w_in, w_out, *, act="silu"):
+    """xs: (N, D) expert-sorted rows; group_sizes: (E,) int32 rows per
+    expert, summing to N; w_gate/w_in: (E, D, F); w_out: (E, F, D).
+    Returns (N, D) float32: row i through its own expert only, rows past
+    sum(group_sizes) zero.
+
+    CPU tensors take the plain version ``grouped_ffn_ref``; CUDA tensors
+    launch the kernel or raise.  The kernel takes act="silu" (every MoE
+    config of the repo), fp32 or bf16 (the same for xs and the weights)
+    and D, F multiples of 8.  Differentiable in xs and the weights."""
+    return _GroupedFFN.apply(xs, group_sizes, w_gate, w_in, w_out, act)
 
 
 grouped_ffn.launches = 0

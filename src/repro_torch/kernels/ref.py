@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the kernels: attention, the grouped expert
-FFN, the Mamba-2 SSD scan and the RG-LRU recurrence.
+FFN (and its backward), the Mamba-2 SSD scan and the RG-LRU recurrence
+(and its backward).
 
 They compute what the JAX package's ``kernels/ref.py`` computes, on the same
 layouts: the CPU tests hold them against it, and ``chip_smoke.py`` holds the
@@ -235,6 +236,37 @@ def grouped_ffn_ref(xs, group_sizes, w_gate, w_in, w_out, *, act="silu"):
     return out
 
 
+def grouped_ffn_bwd_ref(xs, group_sizes, w_gate, w_in, w_out, grad_out, *, act="silu"):
+    """The gradient of ``grouped_ffn_ref`` given ``grad_out`` (N, D): the
+    JAX package's ``custom_vjp`` backward (``grouped_expert.py``
+    ``_diff_bwd``) in fp32, with its per-row gather of the weights ((N, D,
+    F) values) replaced by a loop over the experts' contiguous row slices.
+    Rows at or past sum(group_sizes) get a zero gradient and an empty
+    expert zero weight gradients.  Returns (dx, dw_gate, dw_in, dw_out) in
+    the inputs' dtypes."""
+    n, d = xs.shape
+    f32 = torch.float32
+    dx = torch.zeros((n, d), dtype=f32, device=xs.device)
+    dws = [torch.zeros(w.shape, dtype=f32, device=w.device) for w in (w_gate, w_in, w_out)]
+    lo = 0
+    for e, end in enumerate(torch.cumsum(group_sizes, 0).tolist()):
+        hi = min(int(end), n)
+        if hi > lo:
+            x, g = xs[lo:hi].to(f32), grad_out[lo:hi].to(f32)
+            wg, wi, wo = (w[e].to(f32) for w in (w_gate, w_in, w_out))
+            pre_i = x @ wi
+            a, act_vjp = torch.func.vjp(ACTS[act], x @ wg)
+            dh = g @ wo.T
+            dpre_i = dh * a
+            (dpre_g,) = act_vjp(dh * pre_i)
+            dx[lo:hi] = dpre_g @ wg.T + dpre_i @ wi.T
+            dws[0][e] = x.T @ dpre_g
+            dws[1][e] = x.T @ dpre_i
+            dws[2][e] = (a * pre_i).T @ g
+        lo = max(lo, hi)
+    return (dx.to(xs.dtype), *(dw.to(w.dtype) for dw, w in zip(dws, (w_gate, w_in, w_out))))
+
+
 # ---------------------------------------------------------------------------
 # Mamba-2 SSD (state-space duality), chunked
 # ---------------------------------------------------------------------------
@@ -342,3 +374,25 @@ def rglru_scan_ref(a, bx, init_state=None):
         acc_a, acc_b = new_a, new_b
         k *= 2
     return acc_b.to(bx.dtype), acc_b[:, -1]
+
+
+def rglru_scan_bwd_ref(a, bx, init_state, grad_h, grad_final):
+    """The gradient of ``rglru_scan_ref`` given the cotangents of h (B, S,
+    W) and of the final state (B, W): the recurrence run in reverse,
+    dh_t = g_t + a_{t+1} dh_{t+1} (the final state's cotangent added at the
+    last step), then d bx_t = dh_t, d a_t = dh_t h_{t-1} and d init =
+    a_0 dh_0.  The forward's h is recomputed in fp32 and both scans run
+    through ``rglru_scan_ref``.  Returns (da, dbx, dinit) in the inputs'
+    dtypes (dinit None without an ``init_state``)."""
+    f32 = torch.float32
+    a32 = a.to(f32)
+    h, _ = rglru_scan_ref(a32, bx.to(f32), init_state)
+    g = grad_h.to(f32).clone()
+    g[:, -1] += grad_final.to(f32)
+    a_next = torch.nn.functional.pad(a32[:, 1:], (0, 0, 0, 1))
+    dh = rglru_scan_ref(a_next.flip(1), g.flip(1))[0].flip(1)
+    h0 = (torch.zeros_like(h[:, :1]) if init_state is None
+          else init_state.to(f32)[:, None])
+    da = dh * torch.cat([h0, h[:, :-1]], dim=1)
+    dinit = None if init_state is None else (a32[:, 0] * dh[:, 0]).to(init_state.dtype)
+    return da.to(a.dtype), dh.to(bx.dtype), dinit

@@ -1,9 +1,14 @@
 """RG-LRU linear recurrence: the hand-written CUDA kernel
-``csrc/rglru_scan.cu`` and its plain version.
+``csrc/rglru_scan.cu``, its plain version and its gradient.
 
 Counterpart of the JAX package's Pallas kernel ``kernels/rglru_scan.py``
 ``rglru_pallas``.  Like that kernel it starts from a zero carry: an
-``init_state`` raises (the reference tier takes one).
+``init_state`` raises on the card (the reference tier takes one).
+
+recurrentgemma's padded train forward differentiates through it, so the
+public function is a ``torch.autograd.Function``: its forward is the kernel
+(the plain version on CPU tensors), its backward the recurrence run in
+reverse (``ref.rglru_scan_bwd_ref``).
 """
 
 from __future__ import annotations
@@ -14,8 +19,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.guard import refuse_grad
-from repro_torch.kernels.ref import rglru_scan_ref
+from repro_torch.kernels.ref import rglru_scan_bwd_ref, rglru_scan_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -29,15 +33,9 @@ def _entry():
     return fn
 
 
-def rglru_scan(a, bx, init_state=None):
-    """a, bx: (B, S, W), one dtype.  Returns (h (B, S, W) in bx's dtype,
-    the final state (B, W) fp32).
-
-    CPU tensors take the plain version ``rglru_scan_ref``; CUDA tensors
-    launch the kernel or raise."""
-    if a.device.type == "cpu":
-        return rglru_scan_ref(a, bx, init_state)
-    refuse_grad("rglru_scan", a, bx)
+def _launch(a, bx, init_state):
+    """Check the inputs and launch the kernel; raises on what it does not
+    take or on a failed launch."""
     if init_state is not None:
         raise ValueError("rglru_scan: the kernel starts from a zero carry; pass "
                          "init_state to the reference tier")
@@ -62,6 +60,32 @@ def rglru_scan(a, bx, init_state=None):
         raise RuntimeError(f"rglru_scan: kernel launch failed with CUDA error {err}")
     rglru_scan.launches += 1
     return h, final
+
+
+class _RGLRUScan(torch.autograd.Function):
+    """Forward: the kernel on CUDA tensors, the plain version on CPU
+    tensors.  Backward: ``rglru_scan_bwd_ref`` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, a, bx, init_state):
+        ctx.save_for_backward(a, bx, init_state)
+        if a.device.type == "cpu":
+            return rglru_scan_ref(a, bx, init_state)
+        return _launch(a, bx, init_state)
+
+    @staticmethod
+    def backward(ctx, grad_h, grad_final):
+        return rglru_scan_bwd_ref(*ctx.saved_tensors, grad_h, grad_final)
+
+
+def rglru_scan(a, bx, init_state=None):
+    """a, bx: (B, S, W), one dtype.  Returns (h (B, S, W) in bx's dtype,
+    the final state (B, W) fp32).
+
+    CPU tensors take the plain version ``rglru_scan_ref``; CUDA tensors
+    launch the kernel or raise.  Differentiable in a, bx and (on the CPU)
+    ``init_state``."""
+    return _RGLRUScan.apply(a, bx, init_state)
 
 
 rglru_scan.launches = 0

@@ -1,11 +1,19 @@
 """Mamba-2 SSD chunked scan: the hand-written CUDA kernel
-``csrc/ssd_scan.cu`` and its plain version.
+``csrc/ssd_scan.cu``, its plain version and its gradient.
 
 Counterpart of the JAX package's Pallas kernel ``kernels/ssd_scan.py``
 ``ssd_pallas``.  Like that kernel it starts from a zero state: an
-``init_state`` raises (the reference tier takes one).  bf16 inputs run a
-tensor-core body over 128-row pieces on a (p_splits, H, B) grid
-(``ssd_splits``); fp32 inputs an fp32-FMA body, one block per (head, row).
+``init_state`` raises on the card (the reference tier takes one).  bf16
+inputs run a tensor-core body over 128-row pieces on a (p_splits, H, B)
+grid (``ssd_splits``); fp32 inputs an fp32-FMA body, one block per (head,
+row).
+
+mamba2's padded train forward differentiates through it, so the public
+function is a ``torch.autograd.Function`` with outputs y and the final
+state: its forward is the kernel (the plain version on CPU tensors), its
+backward autograd of the plain version ``ssd_ref`` at the caller's
+``chunk``, recomputed over both outputs (the JAX package differentiates
+its reference tier; its Pallas kernel has no backward).
 """
 
 from __future__ import annotations
@@ -16,7 +24,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.guard import refuse_grad
+from repro_torch.kernels.guard import plain_grads
 from repro_torch.kernels.ref import ssd_ref
 
 # Built for mamba2-1.3b's widths only; other widths come with the
@@ -48,23 +56,10 @@ def ssd_splits(b: int, h: int, sms: int) -> int:
     return min(P_SPLITS, key=cost)
 
 
-def ssd_scan(x, dt, a_log, b_mat, c_mat, d_vec, *, chunk: int, init_state=None,
-             return_state: bool = False, p_splits: int | None = None):
-    """Shapes as in ``ref.ssd_ref``: x (B, S, H, P); dt (B, S, H) fp32;
-    a_log, d_vec (H,) fp32; b_mat, c_mat (B, S, N) in x's dtype; S a
-    multiple of ``chunk``.  Returns y (B, S, H, P) in x's dtype and, with
-    ``return_state``, the final state (B, H, P, N) fp32.
-
-    CPU tensors take the plain version ``ssd_ref``; CUDA tensors launch the
-    kernel or raise.  The kernel walks the sequence in pieces of its own
-    (128 rows in bf16, 64 in fp32) whatever ``chunk`` is (the chunked form
-    is exact for any chunk length); ``chunk`` is checked as the TPU kernel
-    checks it.  ``p_splits`` (bf16 only; default ``ssd_splits``) changes
-    no bit of the result."""
-    if x.device.type == "cpu":
-        return ssd_ref(x, dt, a_log, b_mat, c_mat, d_vec, chunk=chunk,
-                       init_state=init_state, return_state=return_state)
-    refuse_grad("ssd_scan", x, dt, a_log, b_mat, c_mat, d_vec)
+def _launch(x, dt, a_log, b_mat, c_mat, d_vec, chunk, init_state, return_state,
+            p_splits):
+    """Check the inputs and launch the kernel; raises on what it does not
+    take or on a failed launch."""
     if init_state is not None:
         raise ValueError("ssd_scan: the kernel starts from a zero state; pass "
                          "init_state to the reference tier")
@@ -110,6 +105,49 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, d_vec, *, chunk: int, init_state=None,
         raise RuntimeError(f"ssd_scan: kernel launch failed with CUDA error {err}")
     ssd_scan.launches += 1
     return (y, state) if return_state else y
+
+
+class _SSDScan(torch.autograd.Function):
+    """Forward: the kernel on CUDA tensors, the plain version on CPU
+    tensors.  Backward: autograd of the plain version on the saved inputs
+    at the forward's ``chunk``, over y and (with ``return_state``) the
+    final state."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b_mat, c_mat, d_vec, init_state, chunk, return_state,
+                p_splits):
+        ctx.save_for_backward(x, dt, a_log, b_mat, c_mat, d_vec, init_state)
+        ctx.chunk, ctx.return_state = chunk, return_state
+        if x.device.type == "cpu":
+            return ssd_ref(x, dt, a_log, b_mat, c_mat, d_vec, chunk=chunk,
+                           init_state=init_state, return_state=return_state)
+        return _launch(x, dt, a_log, b_mat, c_mat, d_vec, chunk, init_state, return_state,
+                       p_splits)
+
+    @staticmethod
+    def backward(ctx, *grad_outs):
+        def plain(*t):
+            return ssd_ref(*t[:6], chunk=ctx.chunk, init_state=t[6],
+                           return_state=ctx.return_state)
+        return (*plain_grads(plain, ctx.saved_tensors, ctx.needs_input_grad, grad_outs),
+                None, None, None)
+
+
+def ssd_scan(x, dt, a_log, b_mat, c_mat, d_vec, *, chunk: int, init_state=None,
+             return_state: bool = False, p_splits: int | None = None):
+    """Shapes as in ``ref.ssd_ref``: x (B, S, H, P); dt (B, S, H) fp32;
+    a_log, d_vec (H,) fp32; b_mat, c_mat (B, S, N) in x's dtype; S a
+    multiple of ``chunk``.  Returns y (B, S, H, P) in x's dtype and, with
+    ``return_state``, the final state (B, H, P, N) fp32.
+
+    CPU tensors take the plain version ``ssd_ref``; CUDA tensors launch the
+    kernel or raise.  The kernel walks the sequence in pieces of its own
+    (128 rows in bf16, 64 in fp32) whatever ``chunk`` is (the chunked form
+    is exact for any chunk length); ``chunk`` is checked as the TPU kernel
+    checks it.  ``p_splits`` (bf16 only; default ``ssd_splits``) changes
+    no bit of the result.  Differentiable in every tensor input."""
+    return _SSDScan.apply(x, dt, a_log, b_mat, c_mat, d_vec, init_state, chunk,
+                          return_state, p_splits)
 
 
 ssd_scan.launches = 0

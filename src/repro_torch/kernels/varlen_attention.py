@@ -24,6 +24,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.guard import plain_grads
 from repro_torch.kernels.ref import mha_varlen_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -98,13 +99,10 @@ class _VarlenAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         q, k, v, cu_seqlens = ctx.saved_tensors
-        with torch.enable_grad():
-            qkv = [x.detach().requires_grad_(need)
-                   for x, need in zip((q, k, v), ctx.needs_input_grad[:3])]
-            out = mha_varlen_ref(*qkv, cu_seqlens, **ctx.kw)
-            wrt = [x for x in qkv if x.requires_grad]
-            grads = iter(torch.autograd.grad(out, wrt, grad_out))
-        return (*(next(grads) if x.requires_grad else None for x in qkv),
+
+        def plain(q, k, v):
+            return mha_varlen_ref(q, k, v, cu_seqlens, **ctx.kw)
+        return (*plain_grads(plain, (q, k, v), ctx.needs_input_grad, (grad_out,)),
                 None, None, None, None)
 
 

@@ -45,9 +45,11 @@ def _embed(params, cfg: ModelConfig, tokens):
 
 
 def forward(params, cfg: ModelConfig, batch, *, impl="cuda", remat=False,
-            max_seqlen=None):
+            max_seqlen=None, return_aux=False):
     """Full-sequence causal forward.  Returns the final-normed hidden
-    states (B, S, D).
+    states (B, S, D), or with ``return_aux`` (hidden, aux): the MoE
+    load-balance loss summed over layers (0 without MoE), the JAX
+    package's ``forward``'s second output.
 
     Packed mode: when ``batch`` has "cu_seqlens", its "tokens" are a (T,)
     packed cohort and "positions" the (T,) within-sequence positions; the
@@ -57,13 +59,16 @@ def forward(params, cfg: ModelConfig, batch, *, impl="cuda", remat=False,
     version.  ``remat`` recomputes each layer in the backward."""
     if "cu_seqlens" in batch:
         x = _embed(params, cfg, batch["tokens"][None])
-        h = T.stack_apply(params["layers"], cfg, x, batch["positions"][None], impl=impl,
-                          cu_seqlens=batch["cu_seqlens"], max_seqlen=max_seqlen,
-                          remat=remat)
+        out = T.stack_apply(params["layers"], cfg, x, batch["positions"][None], impl=impl,
+                            cu_seqlens=batch["cu_seqlens"], max_seqlen=max_seqlen,
+                            remat=remat, return_aux=return_aux)
     else:
         x = _embed(params, cfg, batch["tokens"])
-        h = T.stack_apply(params["layers"], cfg, x, impl=impl, remat=remat)
-    return L.rmsnorm_apply(params["final_norm"], h, cfg.norm_eps)
+        out = T.stack_apply(params["layers"], cfg, x, impl=impl, remat=remat,
+                            return_aux=return_aux)
+    h, aux = out if return_aux else (out, None)
+    h = L.rmsnorm_apply(params["final_norm"], h, cfg.norm_eps)
+    return (h, aux) if return_aux else h
 
 
 def logits_of(params, cfg: ModelConfig, hidden):
@@ -78,7 +83,7 @@ def values_of(params, hidden):
 
 # ----------------------------------------------------------------- serving
 # Every serving entry point runs under torch.no_grad(): the trained actor's
-# parameters require grad, and the kernels of these paths have no backward.
+# parameters require grad, and the decode kernels have no backward.
 
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, batch, max_len, *, impl="cuda"):

@@ -13,9 +13,11 @@ Nothing here reads back to the host: ``group_sizes`` is an int32
 and the combine un-permutes the expert outputs and sums over k in a fixed
 order in fp32 (no float atomics), then casts once.
 
-Serving only: the Switch load-balance loss of the training forward, the
-legacy ``"capacity"`` dispatch and Arctic's dense-residual FFN are not
-ported.
+The training forward (``want_aux=True``) also returns the Switch
+load-balance loss; serving skips it.  The expert FFN is differentiable on
+both tiers (``grouped_ffn``'s plain backward).  The legacy ``"capacity"``
+dispatch and Arctic's dense-residual FFN are not ported: no ported config
+uses them.
 """
 
 from __future__ import annotations
@@ -42,6 +44,18 @@ def _router(p, cfg: ModelConfig, xf):
     """(T, D) -> (top_w (T, K) f32, top_i (T, K) int64)."""
     logits = L.dense_apply(p["router"], xf.to(torch.float32))
     return torch.topk(torch.softmax(logits, dim=-1), cfg.top_k, dim=-1)
+
+
+def _aux_loss(p, xf, top_i, e: int):
+    """Switch-style load-balance loss, E * sum_e f_e * p_e: f_e the share of
+    the (token, k) assignments routed to expert e, p_e its mean router
+    probability.  Recomputes the router's softmax (one (T, D) x (D, E)
+    product) rather than widening ``_router``'s result."""
+    probs = torch.softmax(L.dense_apply(p["router"], xf.to(torch.float32)), dim=-1)
+    counts = torch.zeros((e,), dtype=torch.float32, device=xf.device).scatter_add_(
+        0, top_i.reshape(-1), torch.ones((top_i.numel(),), dtype=torch.float32,
+                                         device=xf.device))
+    return e * torch.sum(probs.mean(dim=0) * counts / top_i.numel())
 
 
 def _group_sizes(top_i, e: int):
@@ -77,9 +91,13 @@ def _dispatch_dropless(p, cfg: ModelConfig, xf, top_w, top_i, impl):
     return y[:, 0].to(xf.dtype)
 
 
-def moe_apply(p, cfg: ModelConfig, x, *, impl="cuda"):
-    """x: (B, S, D) -> (B, S, D) in x's dtype."""
+def moe_apply(p, cfg: ModelConfig, x, *, impl="cuda", want_aux=False):
+    """x: (B, S, D) -> (B, S, D) in x's dtype; with ``want_aux`` (the
+    training forward) also the load-balance loss, a 0-d fp32 tensor."""
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     top_w, top_i = _router(p, cfg, xf)
-    return _dispatch_dropless(p, cfg, xf, top_w, top_i, impl).reshape(b, s, d)
+    y = _dispatch_dropless(p, cfg, xf, top_w, top_i, impl).reshape(b, s, d)
+    if want_aux:
+        return y, _aux_loss(p, xf, top_i, cfg.n_experts)
+    return y

@@ -44,7 +44,8 @@ def _split(cfg, proj):
 
 def ssm_apply(p, cfg: ModelConfig, x, *, impl="cuda", return_state=False):
     """x: (B, S, D) -> (B, S, D); with ``return_state`` also the decode
-    state after the last token."""
+    state after the last token (the prefill paths that cache it; the train
+    forward asks for none, so the scan's backward sees y alone)."""
     b, s, _ = x.shape
     di, n, h, _ = _dims(cfg)
     proj = L.dense_apply(p["in_proj"], x)
@@ -58,8 +59,9 @@ def ssm_apply(p, cfg: ModelConfig, x, *, impl="cuda", return_state=False):
     pad = (-s) % cfg.ssm_chunk
     xh, dt, bmat, cmat = (F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad)).contiguous()
                           for a in (xh, dt, bmat, cmat))
-    y, final = ops.ssd(xh, dt, p["a_log"], bmat, cmat, p["d"], chunk=cfg.ssm_chunk,
-                       return_state=True, impl=impl)
+    out = ops.ssd(xh, dt, p["a_log"], bmat, cmat, p["d"], chunk=cfg.ssm_chunk,
+                  return_state=return_state, impl=impl)
+    y, final = out if return_state else (out, None)
     y = y[:, :s].reshape(b, s, di)
     y = L.rmsnorm_apply(p["norm"], y * F.silu(z), cfg.norm_eps)
     y = L.dense_apply(p["out_proj"], y)

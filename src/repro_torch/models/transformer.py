@@ -12,8 +12,10 @@ Four execution paths share the parameters:
 Every mixer is ported: attention, RG-LRU (``models/rglru.py``) and Mamba-2
 SSD (``models/ssm.py``), with a gated-MLP FFN, a dropless MoE FFN
 (``models/moe.py``) or none.  A recurrent layer's cache is its per-row
-state.  Cross-attention and encoder/prefix inputs raise
-``NotImplementedError``.
+state.  ``stack_apply`` is also the train forward, padded for every mixer
+and packed for attention-only stacks, dense or MoE; it carries the MoE
+load-balance loss when asked.  Cross-attention and encoder/prefix inputs
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,13 +54,18 @@ def block_init(gen, cfg: ModelConfig, spec: LayerSpec, device):
     return p
 
 
-def _ffn(p, cfg, x, impl):
+def _ffn(p, cfg, x, impl, want_aux=False):
+    """The FFN sublayer.  Returns (x, aux): with ``want_aux`` an MoE
+    layer's load-balance loss, else None."""
     if "ffn" not in p:
-        return x
+        return x, None
     h = L.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
-    if cfg.ffn_kind == "moe":
-        return x + M.moe_apply(p["ffn"], cfg, h, impl=impl)
-    return x + L.mlp_apply(p["ffn"], cfg, h)
+    if cfg.ffn_kind != "moe":
+        return x + L.mlp_apply(p["ffn"], cfg, h), None
+    if want_aux:
+        y, aux = M.moe_apply(p["ffn"], cfg, h, impl=impl, want_aux=True)
+        return x + y, aux
+    return x + M.moe_apply(p["ffn"], cfg, h, impl=impl), None
 
 
 def _recurrent_decode(p, cfg, spec, h, cache):
@@ -71,35 +78,37 @@ def _recurrent_decode(p, cfg, spec, h, cache):
 def check_packed(cfg: ModelConfig):
     """Raise for a config the packed (``cu_seqlens``) forward does not run:
     a recurrent mixer would scan across sequence boundaries (the JAX
-    package raises too), and packed MoE training needs ``grouped_ffn``'s
-    backward, which is not ported yet."""
+    package raises too, ``analysis/verify.py``).  Dense and MoE FFNs are
+    per-token and run packed."""
     kinds = {s.kind for s in cfg.layers}
     if kinds != {ATTN}:
         raise NotImplementedError(f"{cfg.name}: packed training is attention-only; got "
                                   f"mixer kinds {sorted(kinds)}")
-    if cfg.ffn_kind == "moe":
-        raise NotImplementedError(f"{cfg.name}: packed MoE training needs grouped_ffn's "
-                                  "backward, which is not ported yet")
 
 
-def block_apply(p, cfg, spec, x, rope, *, impl="cuda", cu_seqlens=None, max_seqlen=None):
-    """Full-sequence block.  Returns (x, state): an attention layer's roped
-    k/v, or a recurrent layer's decode state after the last token, for
-    prefill caching.  Packed mode (``cu_seqlens`` given; attention only,
-    see ``check_packed``): x is a (1, T, D) packed cohort, attention goes
-    block-diagonal over its segments, and the state is None."""
+def block_apply(p, cfg, spec, x, rope, *, impl="cuda", cu_seqlens=None, max_seqlen=None,
+                want_state=False, want_aux=False):
+    """Full-sequence block.  Returns (x, aux, state): the MoE load-balance
+    loss with ``want_aux`` (else None), and with ``want_state`` an
+    attention layer's roped k/v or a recurrent layer's decode state after
+    the last token, for prefill caching (else None).  Packed mode
+    (``cu_seqlens`` given; attention only, see ``check_packed``): x is a
+    (1, T, D) packed cohort and attention goes block-diagonal over its
+    segments."""
     h = L.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+    state = None
     if cu_seqlens is not None:
         y = A.attn_apply(p["mixer"], cfg, spec, h, rope, cu_seqlens, max_seqlen=max_seqlen,
                          impl=impl)
-        return _ffn(p, cfg, x + y, impl), None
-    if spec.kind == ATTN:
-        y, state = A.attn_apply_with_kv(p["mixer"], cfg, spec, h, rope, impl=impl)
-    elif spec.kind == LRU:
-        y, state = R.lru_apply(p["mixer"], cfg, h, impl=impl, return_state=True)
+    elif spec.kind == ATTN:
+        y, kv = A.attn_apply_with_kv(p["mixer"], cfg, spec, h, rope, impl=impl)
+        state = kv if want_state else None
     else:
-        y, state = S.ssm_apply(p["mixer"], cfg, h, impl=impl, return_state=True)
-    return _ffn(p, cfg, x + y, impl), state
+        mixer = R.lru_apply if spec.kind == LRU else S.ssm_apply
+        y = mixer(p["mixer"], cfg, h, impl=impl, return_state=want_state)
+        y, state = y if want_state else (y, None)
+    x, aux = _ffn(p, cfg, x + y, impl, want_aux)
+    return x, aux, state
 
 
 def block_decode(p, cfg, spec, x, cache, t, rope, cache_len, *, impl="cuda"):
@@ -110,7 +119,7 @@ def block_decode(p, cfg, spec, x, cache, t, rope, cache_len, *, impl="cuda"):
                                 impl=impl)
     else:
         y = _recurrent_decode(p, cfg, spec, h, cache)
-    return _ffn(p, cfg, x + y, impl)
+    return _ffn(p, cfg, x + y, impl)[0]
 
 
 def block_paged_decode(p, cfg, spec, x, cache, block_table, dest, rope, cache_len,
@@ -128,7 +137,7 @@ def block_paged_decode(p, cfg, spec, x, cache, block_table, dest, rope, cache_le
     else:
         y = A.ragged_attn_decode_apply(p["mixer"], cfg, spec, h, cache, dest, rope,
                                        cache_len, impl=impl)
-    return _ffn(p, cfg, x + y, impl)
+    return _ffn(p, cfg, x + y, impl)[0]
 
 
 def stack_init(gen, cfg: ModelConfig, device):
@@ -149,8 +158,11 @@ def _arange_rope(cfg: ModelConfig, x):
 
 
 def stack_apply(layers_params, cfg: ModelConfig, x, positions=None, *, impl="cuda",
-                cu_seqlens=None, max_seqlen=None, remat=False):
+                cu_seqlens=None, max_seqlen=None, remat=False, return_aux=False):
     """Full-sequence forward at ``positions`` ((1, S); None means arange).
+    Returns x, or with ``return_aux`` (x, aux): the MoE layers' load-balance
+    losses summed, a 0-d fp32 tensor (0 without MoE layers), as the JAX
+    package's ``stack_apply`` carries it.
 
     Packed mode (``cu_seqlens`` given): x is a (1, T, D) packed cohort and
     ``positions`` its within-sequence positions.  ``remat`` recomputes each
@@ -161,13 +173,16 @@ def stack_apply(layers_params, cfg: ModelConfig, x, positions=None, *, impl="cud
     if cu_seqlens is not None:
         check_packed(cfg)
     rope = _arange_rope(cfg, x) if positions is None else _rope(cfg, positions)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, spec in zip(layers_params, cfg.layers):
         def layer(x, p=p, spec=spec):
             return block_apply(p, cfg, spec, x, rope, impl=impl, cu_seqlens=cu_seqlens,
-                               max_seqlen=max_seqlen)[0]
-        x = (torch.utils.checkpoint.checkpoint(layer, x, use_reentrant=False) if remat
-             else layer(x))
-    return x
+                               max_seqlen=max_seqlen, want_aux=return_aux)[:2]
+        x, aux = (torch.utils.checkpoint.checkpoint(layer, x, use_reentrant=False) if remat
+                  else layer(x))
+        if aux is not None:
+            aux_total = aux_total + aux
+    return (x, aux_total) if return_aux else x
 
 
 def layer_cache_init(cfg: ModelConfig, spec: LayerSpec, batch, max_len, dtype, device):
@@ -191,7 +206,7 @@ def stack_prefill(layers_params, cfg: ModelConfig, x, caches, *, impl="cuda"):
     rope = _arange_rope(cfg, x)
     seq_len = x.shape[1]
     for p, spec, cache in zip(layers_params, cfg.layers, caches):
-        x, state = block_apply(p, cfg, spec, x, rope, impl=impl)
+        x, _, state = block_apply(p, cfg, spec, x, rope, impl=impl, want_state=True)
         if spec.kind == ATTN:
             A.prefill_into_cache(cache, spec, state["k"], state["v"], seq_len)
         else:

@@ -1,7 +1,7 @@
 """The PPO experiment's models and executors, the part of the JAX package's
 ``rlhf/experiment.py`` that runs one model function call each: the
-actor's generation, reference, critic and reward inference, and the packed
-actor and critic train steps.
+actor's generation, reference, critic and reward inference, and the actor
+and critic train steps, padded (the default) or packed.
 
 The JAX package's ``RLHFExperiment`` also searches an execution plan and
 drives the calls through its ``RuntimeEngine`` with parameter
@@ -17,8 +17,10 @@ dataflow order itself:
     ex["actor_train"](models["actor"], roll)
     ex["critic_train"](models["critic"], roll)
 
-Only packed training (``packed_training=True``) is ported: the padded
-train steps differentiate through ``flash_mha``, which has no backward yet.
+Padded training (``packed_training=False``) trains every model the port
+serves; packed training takes attention-only models, dense or MoE (a
+recurrent mixer would scan across the packed sequences, as in the JAX
+package).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data import packing
 from repro_torch.kernels import ops as OPS
 from repro_torch.models import model as MDL
+from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.rlhf import ppo as PPO
 from repro_torch.rlhf import reward as RWD
@@ -118,9 +121,25 @@ def _packed_prep(exp: ExperimentConfig, inputs):
     return lens, s, full["logp"], full["mask"], adv, ret
 
 
+def _padded_prep(exp: ExperimentConfig, inputs):
+    """The padded advantages and returns of a rollout, as the JAX package's
+    padded ``actor_train`` / ``critic_train``: shaped rewards, then GAE
+    over the (B, G) generated region."""
+    hp, mask = exp.ppo, inputs["gen_mask"]
+    shaped = PPO.shaped_rewards(hp, inputs["rewards"], inputs["logp"], inputs["ref_logp"],
+                                mask)
+    return PPO.gae(hp, shaped, inputs["values"], mask)
+
+
 @torch.no_grad()
 def actor_train_batch(exp: ExperimentConfig, inputs) -> dict:
-    """The packed actor minibatches of one rollout (``pack_minibatches``)."""
+    """The actor's train batch of one rollout: padded, (B, ...) tensors
+    that the step splits into minibatches; or packed, the
+    ``pack_minibatches`` minibatches."""
+    if not exp.packed_training:
+        adv, _ = _padded_prep(exp, inputs)
+        return {"tokens": inputs["seq"], "logp": inputs["logp"], "adv": adv,
+                "mask": inputs["gen_mask"]}
     lens, s, logp_full, mask_full, adv, _ = _packed_prep(exp, inputs)
     return packing.pack_minibatches(
         inputs["seq"], {"logp": logp_full, "adv": packing.unpack(adv, lens, s),
@@ -130,8 +149,12 @@ def actor_train_batch(exp: ExperimentConfig, inputs) -> dict:
 
 @torch.no_grad()
 def critic_train_batch(exp: ExperimentConfig, inputs) -> dict:
-    """The packed critic minibatches of one rollout: old target-aligned
-    values and returns."""
+    """The critic's train batch of one rollout, as :func:`actor_train_batch`
+    with the old values (packed: target-aligned) and returns."""
+    if not exp.packed_training:
+        _, ret = _padded_prep(exp, inputs)
+        return {"tokens": inputs["seq"], "values": inputs["values"][:, :-1], "ret": ret,
+                "mask": inputs["gen_mask"]}
     lens, s, _, mask_full, _, ret = _packed_prep(exp, inputs)
     old_full = torch.zeros_like(mask_full)
     old_full[:, exp.prompt_len:] = inputs["values"][:, :-1]
@@ -145,12 +168,12 @@ def build_executors(actor_cfg: ModelConfig, critic_cfg: ModelConfig,
                     exp: ExperimentConfig) -> dict:
     """The executors of the six PPO function calls, each
     f(model_state, inputs) -> outputs, as the JAX package's
-    ``_build_executors`` makes them with ``packed_training=True``.
-    Inference runs under ``torch.no_grad()``; a train call updates the
-    model state in place and returns its stats as floats."""
-    if not exp.packed_training:
-        raise NotImplementedError("only packed training is ported: the padded train "
-                                  "steps need flash_mha's backward")
+    ``_build_executors`` makes them.  Inference runs under
+    ``torch.no_grad()`` without remat; a train call updates the model state
+    in place and returns its stats as floats."""
+    if exp.packed_training:
+        for cfg in (actor_cfg, critic_cfg):
+            T.check_packed(cfg)
     if exp.draft_model is not None:
         raise NotImplementedError("speculative rollout (draft_model) is not ported")
     if not exp.fused_sampling:
@@ -162,10 +185,14 @@ def build_executors(actor_cfg: ModelConfig, critic_cfg: ModelConfig,
             raise ValueError(f"impl={tier!r} not in {OPS.IMPLS}")
     hp, P = exp.ppo, exp.prompt_len
     state = {"gen": None}
-    actor_step = PPO.make_packed_actor_train_step(actor_cfg, hp, exp.opt, impl=impl,
-                                                  max_seqlen=max_seqlen(exp))
-    critic_step = PPO.make_packed_critic_train_step(critic_cfg, hp, exp.opt, impl=impl,
-                                                    max_seqlen=max_seqlen(exp))
+    if exp.packed_training:
+        actor_step = PPO.make_packed_actor_train_step(actor_cfg, hp, exp.opt, impl=impl,
+                                                      max_seqlen=max_seqlen(exp))
+        critic_step = PPO.make_packed_critic_train_step(critic_cfg, hp, exp.opt, impl=impl,
+                                                        max_seqlen=max_seqlen(exp))
+    else:
+        actor_step = PPO.make_actor_train_step(actor_cfg, hp, exp.opt, P, impl=impl)
+        critic_step = PPO.make_critic_train_step(critic_cfg, hp, exp.opt, P, impl=impl)
 
     def actor_gen(ms, inputs):
         prompts = inputs["prompts"]["tokens"]
@@ -189,12 +216,12 @@ def build_executors(actor_cfg: ModelConfig, critic_cfg: ModelConfig,
     @torch.no_grad()
     def ref_inf(ms, inputs):
         return {"ref_logp": PPO.sequence_logprobs(ms.params, actor_cfg, inputs["seq"], P,
-                                                  impl=impl)}
+                                                  impl=impl, remat=False)}
 
     @torch.no_grad()
     def critic_inf(ms, inputs):
         return {"values": PPO.sequence_values(ms.params, critic_cfg, inputs["seq"], P,
-                                              impl=impl)}
+                                              impl=impl, remat=False)}
 
     def actor_train(ms, inputs):
         batch = actor_train_batch(exp, inputs)

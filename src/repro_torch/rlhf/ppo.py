@@ -5,9 +5,13 @@ gradient accumulation).
 
 Padded shapes: B sequences, G generated tokens each; every padded tensor
 is aligned to the generated region.  The packed (``cu_seqlens``) half
-works on one (T,) token axis (see "packed path" below).  Of the train
-steps only the packed ones are ported: the padded ones differentiate
-through ``flash_mha``, which has no backward yet.
+works on one (T,) token axis (see "packed path" below).  Both have train
+steps: the padded ones (the JAX package's default) differentiate through
+``flash_mha`` and, for the recurrent and MoE models, ``ssd_scan``,
+``rglru_scan`` and ``grouped_ffn``; the packed ones through
+``flash_mha_varlen`` and ``grouped_ffn``.  The MoE load-balance loss is
+not part of a PPO loss (the JAX package's ``sequence_logprobs`` drops it
+too), so the train forwards do not compute it.
 """
 
 from __future__ import annotations
@@ -100,19 +104,117 @@ def _target_logprobs(logits, targets):
     return picked - torch.logsumexp(logits, dim=-1)
 
 
-def sequence_logprobs(params, cfg, tokens, gen_start: int, *, impl="cuda"):
+def sequence_logprobs(params, cfg, tokens, gen_start: int, *, impl="cuda", remat=True):
     """Log-probs of tokens[t] under the model for the generated region.
-    tokens: (B, S).  Returns (B, S - gen_start)."""
-    h = MDL.forward(params, cfg, {"tokens": tokens}, impl=impl)
+    tokens: (B, S).  Returns (B, S - gen_start).  ``remat`` recomputes each
+    layer in the backward: True for training, False for inference (as the
+    JAX package's executors pass it)."""
+    h = MDL.forward(params, cfg, {"tokens": tokens}, impl=impl, remat=remat)
     logits = MDL.logits_of(params, cfg, h[:, gen_start - 1:-1])
     return _target_logprobs(logits, tokens[:, gen_start:])
 
 
-def sequence_values(params, cfg, tokens, gen_start: int, *, impl="cuda"):
+def sequence_values(params, cfg, tokens, gen_start: int, *, impl="cuda", remat=True):
     """Critic values for positions gen_start-1 .. S-1: (B, G+1) with the
-    bootstrap column."""
-    h = MDL.forward(params, cfg, {"tokens": tokens}, impl=impl)
+    bootstrap column.  ``remat`` as :func:`sequence_logprobs`."""
+    h = MDL.forward(params, cfg, {"tokens": tokens}, impl=impl, remat=remat)
     return MDL.values_of(params, h)[:, gen_start - 1:]
+
+
+# ---------------------------------------------------------- train steps
+#
+# A train step runs the minibatches of one rollout in order, one AdamW
+# update each (the JAX package's ``lax.scan``); its stats are means over
+# the minibatches.  A grads function gives the loss, stats and gradients
+# (one per ``adamw.leaves(params)``, in that order) of one minibatch.
+
+def _loss_grads(params, loss_fn):
+    """(loss, stats, grads) of ``loss_fn(params) -> (loss, stats)`` with
+    respect to ``adamw.leaves(params)``, detached."""
+    wrt = adamw.leaves(params)
+    with torch.enable_grad():
+        for p in wrt:
+            p.requires_grad_(True)
+        loss, stats = loss_fn(params)
+        grads = torch.autograd.grad(loss, wrt)
+    return loss.detach(), {k: v.detach() for k, v in stats.items()}, list(grads)
+
+
+def _minibatch_loop(grads_fn, opt):
+    """f(params, opt_state, minibatches) -> (params, opt_state, stats) over
+    (nmb, ...)-stacked minibatches; ``grads_fn(params, mb)`` as
+    :func:`_loss_grads` returns.  Parameters and optimizer state are updated
+    in place."""
+    def step(params, opt_state, batch):
+        stats = []
+        for j in range(batch["tokens"].shape[0]):
+            mb = {k: v[j] for k, v in batch.items()}
+            loss, st, grads = grads_fn(params, mb)
+            del mb
+            params, opt_state, ostats = adamw.update(opt, params, opt_state, grads)
+            del grads
+            stats.append({"loss": loss, **st, **ostats})
+        return params, opt_state, {k: torch.stack([s[k].float() for s in stats]).mean()
+                                   for k in stats[0]}
+    return step
+
+
+def split_minibatches(batch, n_minibatches: int):
+    """A padded train batch ((B, ...) tensors) as (n_minibatches, B /
+    n_minibatches, ...), the JAX package's reshape: minibatch j holds rows
+    j * B / n_minibatches onward."""
+    b = batch["tokens"].shape[0]
+    if b % n_minibatches:
+        raise ValueError(f"batch of {b} rows does not split into {n_minibatches} "
+                         "minibatches")
+    return {k: v.reshape(n_minibatches, b // n_minibatches, *v.shape[1:])
+            for k, v in batch.items()}
+
+
+def actor_grads(params, cfg, hp: PPOHyperparameters, mb, gen_start: int, *, impl="cuda"):
+    """Loss, stats and gradients of the padded actor loss on one minibatch
+    ``mb``: "tokens" (b, S), "logp", "adv", "mask" (b, S - gen_start).  The
+    forward recomputes each layer in the backward (remat)."""
+    def loss_fn(p):
+        new_logp = sequence_logprobs(p, cfg, mb["tokens"], gen_start, impl=impl)
+        return actor_loss_fn(hp, new_logp, mb["logp"], mb["adv"], mb["mask"])
+    return _loss_grads(params, loss_fn)
+
+
+def critic_grads(params, cfg, hp: PPOHyperparameters, mb, gen_start: int, *, impl="cuda"):
+    """As :func:`actor_grads` for the padded critic loss; ``mb`` holds
+    "values" (the old predictions, (b, G)) and "ret" in place of "logp"
+    and "adv".  Stats are empty."""
+    def loss_fn(p):
+        v = sequence_values(p, cfg, mb["tokens"], gen_start, impl=impl)
+        return critic_loss_fn(hp, v[:, :-1], mb["values"], mb["ret"], mb["mask"]), {}
+    return _loss_grads(params, loss_fn)
+
+
+def _make_padded_step(grads_fn, cfg, hp, opt, gen_start, impl):
+    loop = _minibatch_loop(lambda p, mb: grads_fn(p, cfg, hp, mb, gen_start, impl=impl), opt)
+
+    def step(params, opt_state, batch):
+        return loop(params, opt_state, split_minibatches(batch, hp.n_minibatches))
+    return step
+
+
+def make_actor_train_step(cfg, hp: PPOHyperparameters, opt: adamw.AdamWConfig,
+                          gen_start: int, *, impl="cuda"):
+    """Returns f(params, opt_state, batch) -> (params, opt_state, stats), the
+    JAX package's ``make_actor_train_step``.  ``batch``: "tokens" (B, S),
+    "logp", "adv", "mask" (B, S - gen_start), split by
+    :func:`split_minibatches` into ``hp.n_minibatches`` minibatches; stats
+    (loss, clip_frac, ratio_mean, grad_norm, lr) are means over them."""
+    return _make_padded_step(actor_grads, cfg, hp, opt, gen_start, impl)
+
+
+def make_critic_train_step(cfg, hp: PPOHyperparameters, opt: adamw.AdamWConfig,
+                           gen_start: int, *, impl="cuda"):
+    """The padded critic step; ``batch`` as the actor's with "values" (B,
+    S - gen_start) and "ret" in place of "logp" and "adv".  Stats: loss,
+    grad_norm, lr."""
+    return _make_padded_step(critic_grads, cfg, hp, opt, gen_start, impl)
 
 
 # -------------------------------------------------- packed (cu_seqlens) path
@@ -207,15 +309,11 @@ def packed_actor_grads(params, cfg, hp: PPOHyperparameters, mb, *, impl="cuda",
     order) of the packed actor loss on one minibatch ``mb`` (one row of
     ``pack_minibatches``' output: "tokens", "positions", "cu_seqlens",
     "logp", "adv", "mask")."""
-    wrt = adamw.leaves(params)
-    with torch.enable_grad():
-        for p in wrt:
-            p.requires_grad_(True)
-        new_logp = packed_sequence_logprobs(params, cfg, _cohort(mb), impl=impl,
-                                            remat=remat, max_seqlen=max_seqlen)
-        loss, stats = actor_loss_fn(hp, new_logp, mb["logp"], mb["adv"], mb["mask"])
-        grads = torch.autograd.grad(loss, wrt)
-    return loss.detach(), {k: v.detach() for k, v in stats.items()}, list(grads)
+    def loss_fn(p):
+        new_logp = packed_sequence_logprobs(p, cfg, _cohort(mb), impl=impl, remat=remat,
+                                            max_seqlen=max_seqlen)
+        return actor_loss_fn(hp, new_logp, mb["logp"], mb["adv"], mb["mask"])
+    return _loss_grads(params, loss_fn)
 
 
 def packed_critic_grads(params, cfg, hp: PPOHyperparameters, mb, *, impl="cuda",
@@ -223,32 +321,17 @@ def packed_critic_grads(params, cfg, hp: PPOHyperparameters, mb, *, impl="cuda",
     """As :func:`packed_actor_grads` for the packed critic loss; ``mb``
     holds "values" (old target-aligned predictions) and "ret" in place of
     "logp" and "adv".  Stats are empty."""
-    wrt = adamw.leaves(params)
-    with torch.enable_grad():
-        for p in wrt:
-            p.requires_grad_(True)
-        v = packed_sequence_values(params, cfg, _cohort(mb), impl=impl, remat=remat,
+    def loss_fn(p):
+        v = packed_sequence_values(p, cfg, _cohort(mb), impl=impl, remat=remat,
                                    max_seqlen=max_seqlen)
-        loss = critic_loss_fn(hp, packed_shift_right(v), mb["values"], mb["ret"],
-                              mb["mask"])
-        grads = torch.autograd.grad(loss, wrt)
-    return loss.detach(), {}, list(grads)
+        return critic_loss_fn(hp, packed_shift_right(v), mb["values"], mb["ret"],
+                              mb["mask"]), {}
+    return _loss_grads(params, loss_fn)
 
 
 def _make_packed_step(grads_fn, cfg, hp, opt, impl, max_seqlen, remat):
-    def step(params, opt_state, batch):
-        stats = []
-        for j in range(batch["tokens"].shape[0]):
-            mb = {k: v[j] for k, v in batch.items()}
-            loss, st, grads = grads_fn(params, cfg, hp, mb, impl=impl,
-                                       max_seqlen=max_seqlen, remat=remat)
-            del mb
-            params, opt_state, ostats = adamw.update(opt, params, opt_state, grads)
-            del grads
-            stats.append({"loss": loss, **st, **ostats})
-        return params, opt_state, {k: torch.stack([s[k].float() for s in stats]).mean()
-                                   for k in stats[0]}
-    return step
+    return _minibatch_loop(lambda p, mb: grads_fn(p, cfg, hp, mb, impl=impl,
+                                                  max_seqlen=max_seqlen, remat=remat), opt)
 
 
 def make_packed_actor_train_step(cfg, hp: PPOHyperparameters, opt: adamw.AdamWConfig, *,

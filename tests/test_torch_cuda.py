@@ -895,7 +895,8 @@ def test_flash_mha_varlen_gradients(dtype):
 
 @pytest.mark.cuda
 def test_kernels_without_backward_raise_under_grad():
-    """Each wrapper with no backward raises NotImplementedError when an input
+    """Each wrapper with no backward (the two decode kernels, which run only
+    in generation and serving) raises NotImplementedError when an input
     requires grad under grad mode, and runs under torch.no_grad()."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(16)
@@ -903,19 +904,11 @@ def test_kernels_without_backward_raise_under_grad():
     cl = torch.tensor([64], dtype=torch.int32, device=dev)
     table = torch.tensor([[1, 2, 3, 4]], dtype=torch.int32, device=dev)
     pool = _randn(gen, (5, 16, 4, 64), "float32", dev)
-    xs, gs, ws = _grouped_inputs(gen, 40, 64, 32, 4, "float32", dev)
-    ssd_args = _ssd_inputs(gen, 1, 64, 2, "float32", dev)
-    a = torch.rand(2, 9, 32, device=dev)
     calls = {
-        "flash_mha": (flash_attention.flash_mha, lambda g: (g(x), x, x), {}),
         "flash_decode": (decode_attention.flash_decode, lambda g: (g(x[:, 0]), x, x),
                          dict(cache_len=cl)),
         "paged_flash_decode": (paged_decode_attention.paged_flash_decode,
                                lambda g: (g(x[:, 0]), pool, pool, table), dict(cache_len=cl)),
-        "grouped_ffn": (grouped_expert.grouped_ffn, lambda g: (g(xs), gs, *ws), {}),
-        "ssd_scan": (ssd_scan.ssd_scan, lambda g: (g(ssd_args[0]), *ssd_args[1:]),
-                     dict(chunk=32)),
-        "rglru_scan": (rglru_scan.rglru_scan, lambda g: (g(a), a), {}),
     }
     for name, (fn, args, kw) in calls.items():
         before = fn.launches
@@ -951,3 +944,117 @@ def test_varlen_wrapper_rejects_what_the_kernel_does_not_take():
     ops.varlen_mha(q, q, q, cu, impl="cuda")
     ops.varlen_mha(q, q, q, cu, impl="reference")
     assert fn.launches == before + 1
+
+
+# ---------------------------------------------------------------- gradients
+
+def _function_case(name, gen, dev):
+    """(wrapper, its plain version, differentiable inputs, other args,
+    keywords) of a kernel that is an autograd.Function, in fp32 at shapes
+    its kernel takes."""
+    if name == "flash_mha":
+        q = _randn(gen, (2, 96, 14, 64), "float32", dev)
+        k, v = (_randn(gen, (2, 96, 2, 64), "float32", dev) for _ in range(2))
+        return flash_attention.flash_mha, ref.mha_ref, [q, k, v], [], dict(window=40)
+    if name == "grouped_ffn":
+        xs, gs, ws = _grouped_inputs(gen, 40, 64, 32, 4, "float32", dev, sizes=[10, 0, 25, 3])
+        return (grouped_expert.grouped_ffn, ref.grouped_ffn_ref, [xs, *ws], [gs], {})
+    if name == "ssd_scan":
+        x, dt, a_log, bm, cm, d = _ssd_inputs(gen, 2, 128, 2, "float32", dev)
+        return (ssd_scan.ssd_scan, ref.ssd_ref, [x, dt, a_log, bm, cm, d], [],
+                dict(chunk=64, return_state=True))
+    a = torch.rand((2, 77, 64), generator=gen, device=dev) * 0.5 + 0.5
+    bx = _randn(gen, (2, 77, 64), "float32", dev)
+    return rglru_scan.rglru_scan, ref.rglru_scan_ref, [a, bx], [], {}
+
+
+def _call(fn, diff, other, kw):
+    """fn on (diff, other) in the order the wrapper takes them."""
+    if fn in (grouped_expert.grouped_ffn, ref.grouped_ffn_ref):
+        return fn(diff[0], other[0], *diff[1:], **kw)
+    return fn(*diff, *other, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_mha", "grouped_ffn", "ssd_scan", "rglru_scan"])
+def test_functions_launch_once_and_give_the_plain_gradient(name):
+    """Under grad, each differentiable wrapper launches its kernel once (the
+    backward launches nothing) and gives the gradient of its plain version
+    on the same inputs and the same cotangents; rows past sum(group_sizes)
+    and an empty expert get zero gradients."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    fn, plain, diff, other, kw = _function_case(name, gen, dev)
+    grads, cots = [], None
+    for f in (fn, plain):
+        leaves = [t.clone().requires_grad_(True) for t in diff]
+        before = fn.launches
+        out = _call(f, leaves, other, kw)
+        out = out if isinstance(out, tuple) else (out,)
+        if cots is None:
+            cots = [_randn(gen, o.shape, "float32", dev) for o in out]
+        torch.autograd.backward(out, cots)
+        assert fn.launches == before + (f is fn), name
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        _close(got, want, "float32")
+    if name == "grouped_ffn":
+        dx, dwg, dwi, dwo = grads[0]
+        assert bool((dx[38:] == 0).all())
+        assert all(bool((w[1] == 0).all()) for w in (dwg, dwi, dwo))
+
+
+def _train_case(arch, packed, dev):
+    """A reduced ``arch`` (fp32; mamba2 at the SSD kernel's P 64, N 128) with
+    seeded weights on the card, and one minibatch of the actor's train
+    batch: 4 sequences of 8 prompt and 8 generated tokens, ragged valid
+    lengths."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import packing
+    from repro_torch.models import model as MDL
+    over = dict(ssm_head_dim=64, ssm_state=128) if arch == "mamba2-1.3b" else {}
+    cfg = get_config(arch).reduced(**over)
+    params = MDL.init_params(cfg, seed=3, device=dev)
+    with torch.no_grad():
+        params["embed"]["table"].mul_(0.05)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    b, p, g = 4, 8, 8
+    toks = torch.randint(1, cfg.vocab_size, (b, p + g), generator=gen, device=dev)
+    valid = torch.tensor([3, 8, 1, 5], device=dev)
+    mask = (torch.arange(g, device=dev)[None] < valid[:, None]).float()
+    logp = -torch.rand((b, g), generator=gen, device=dev) * mask
+    adv = torch.randn((b, g), generator=gen, device=dev) * mask
+    if not packed:
+        return cfg, params, {"tokens": toks, "logp": logp, "adv": adv, "mask": mask}
+    lens = (p + torch.clamp(valid + 1, max=g)).tolist()
+    full = {k: torch.nn.functional.pad(v, (p, 0)) for k, v in
+            (("logp", logp), ("adv", adv), ("mask", mask))}
+    mb = packing.pack_minibatches(toks, full, lens, 1, max_seqlen=p + g)
+    return cfg, params, {k: v[0] for k, v in mb.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,packed", [("granite-moe-1b-a400m", True),
+                                         ("mamba2-1.3b", False)])
+def test_small_train_step_on_the_card_equals_the_reference(arch, packed):
+    """The actor's loss and gradients on one minibatch in fp32: packed MoE
+    (flash_mha_varlen and grouped_ffn under grad) and padded mamba2
+    (ssd_scan under grad), the kernels against the reference tier."""
+    from repro_torch.optim import adamw
+    from repro_torch.rlhf import ppo as PPO
+    dev = _card()
+    cfg, params, mb = _train_case(arch, packed, dev)
+    hp = PPO.PPOHyperparameters()
+    out = {}
+    for impl in ("cuda", "reference"):
+        if packed:
+            out[impl] = PPO.packed_actor_grads(params, cfg, hp, mb, impl=impl, max_seqlen=16)
+        else:
+            out[impl] = PPO.actor_grads(params, cfg, hp, mb, 8, impl=impl)
+    (lc, sc, gc), (lr, sr, gr) = out["cuda"], out["reference"]
+    assert abs(lc.item() - lr.item()) <= 1e-5 * (1 + abs(lr.item()))
+    for k in sr:
+        assert abs(sc[k].item() - sr[k].item()) <= 1e-5 * (1 + abs(sr[k].item())), k
+    norm = adamw.global_norm(gr).item()
+    assert norm > 0
+    assert adamw.global_norm([a - b for a, b in zip(gc, gr)]).item() <= 1e-4 * norm

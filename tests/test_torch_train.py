@@ -2,8 +2,9 @@
 weights and inputs: PPO rewards and GAE (padded and packed), AdamW, the
 value head, the packed actor and critic train steps, the packed gradients
 against the JAX padded ones, one teacher-forced iteration of the
-executors, the configs packed mode refuses, serving with parameters that
-require grad, and a CPU rehearsal of ``chip_smoke.py``'s phase 6.
+executors, the configs packed mode refuses (and the packed MoE forward it
+takes), serving with parameters that require grad, and a CPU rehearsal of
+``chip_smoke.py``'s phase 6.
 
 Weights come from the JAX package's ``init_params`` on the reduced
 qwen2-0.5b config (fp32, 2 layers) with the embedding scaled by 0.05 and
@@ -388,22 +389,41 @@ def test_executors_teacher_forced_iteration_matches_jax():
 
 
 def test_executors_refuse_what_is_not_ported():
+    """The JAX package's default experiment (padded training) builds; the
+    speculative rollout, the unfused sampler and packed training of a
+    recurrent model still raise."""
     tcfg = get_config("qwen2-0.5b").reduced()
-    with pytest.raises(NotImplementedError, match="packed"):
-        TEXP.build_executors(tcfg, tcfg, TEXP.ExperimentConfig())
+    ex = TEXP.build_executors(tcfg, tcfg, TEXP.ExperimentConfig())
+    assert set(ex) == {"actor_gen", "reward_inf", "ref_inf", "critic_inf", "actor_train",
+                       "critic_train"}
     with pytest.raises(NotImplementedError, match="draft"):
-        TEXP.build_executors(tcfg, tcfg, TEXP.ExperimentConfig(packed_training=True,
-                                                               draft_model=tcfg))
+        TEXP.build_executors(tcfg, tcfg, TEXP.ExperimentConfig(draft_model=tcfg))
+    with pytest.raises(NotImplementedError, match="fused"):
+        TEXP.build_executors(tcfg, tcfg, TEXP.ExperimentConfig(fused_sampling=False))
+    rcfg = get_config("mamba2-1.3b").reduced()
+    with pytest.raises(NotImplementedError, match="attention-only"):
+        TEXP.build_executors(rcfg, rcfg, TEXP.ExperimentConfig(packed_training=True))
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b", "granite-moe-1b-a400m"])
 def test_packed_forward_raises_on_recurrent_and_moe(arch):
+    """A recurrent mixer would scan across the packed sequences: the packed
+    forward raises.  The packed MoE forward runs, and each sequence's hidden
+    states equal the padded forward's on its valid tokens (routing is per
+    token)."""
     cfg = get_config(arch).reduced()
     params = TM.init_params(cfg, seed=0, device="cpu")
-    pb = tpacking.pack_batch(torch.ones((2, 8), dtype=torch.int64), [4, 6])
-    with pytest.raises(NotImplementedError):
-        TM.forward(params, cfg, {"tokens": pb.tokens, "cu_seqlens": pb.cu_seqlens,
-                                 "positions": pb.positions}, impl="reference")
+    toks = torch.from_numpy(np.random.default_rng(16).integers(1, 512, (2, 8)))
+    lens = [4, 6]
+    pb = tpacking.pack_batch(toks, lens)
+    packed = {"tokens": pb.tokens, "cu_seqlens": pb.cu_seqlens, "positions": pb.positions}
+    if cfg.ffn_kind != "moe":
+        with pytest.raises(NotImplementedError):
+            TM.forward(params, cfg, packed, impl="reference")
+        return
+    got = TM.forward(params, cfg, packed, impl="reference")[0]
+    want = TM.forward(params, cfg, {"tokens": toks}, impl="reference")
+    torch.testing.assert_close(got, tpacking.pack(want, lens), rtol=1e-5, atol=1e-6)
 
 
 def test_packed_forward_remat_matches_and_recomputes():
