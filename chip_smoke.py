@@ -71,10 +71,23 @@ Phases, in order; any failure exits non-zero before the last line:
      comparisons of the tiers printed, their fp32 2-layer ones held (where
      an MoE route parts between the runs, its near-tie held instead); each
      iteration's train launches held to the prediction; peak memory.
+  8. the paper's runtime on the card: ``profile_model`` of qwen2-0.5b
+     into a ``ProfileStore``; an ``RLHFExperiment`` of full qwen2-0.5b as
+     actor and critic on ``Cluster(1, 1, chip=hw.H100)`` and phase 7's
+     padded traffic, calibrated from that store, its plan searched (MCMC,
+     300 iterations); one ``run_iteration`` through ``RuntimeEngine``
+     against two hand-driven iterations of phase 7's loop on the same
+     prompts and weights (rollout and inference outputs bit for bit, train
+     stats within a limit set from the two hand runs' spread); each call's
+     measured seconds beside the cost model's estimate, analytic, profiled
+     and recalibrated from the records (read against a second
+     iteration); ``run(steps=2)`` at pipeline depth 2 against depth 1
+     (iteration 1 bit for bit, iteration 2's difference printed); launches
+     per iteration held to the prediction; ``engine.stats()``; peak memory.
 Each model's parameters are freed before the next is built.
 Then one JSON line of kernel numbers, and last {"ok": true, "device": ...}.
 
-Phases 3 to 7 are functions of (config, params or experiment, impl) so the
+Phases 3 to 8 are functions of (config, params or experiment, impl) so the
 CPU tests rehearse them at the reduced size with impl="reference".
 """
 
@@ -87,6 +100,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -94,8 +108,13 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
+from repro_torch import hw  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ATTN, LRU, SSM  # noqa: E402
+from repro_torch.core import profiler as PROF  # noqa: E402
+from repro_torch.core import simulator as SIM  # noqa: E402
+from repro_torch.core.estimator import CostModel  # noqa: E402
+from repro_torch.core.plan import Cluster  # noqa: E402
 from repro_torch.kernels import (build, decode_attention, flash_attention,  # noqa: E402
                                  grouped_expert, paged_decode_attention, ref, varlen_attention)
 from repro_torch.kernels import ssd_scan as ssd_scan_mod  # noqa: E402
@@ -1334,9 +1353,14 @@ def train_experiment(*, batch=16, prompt_len=128, new=256, n_minibatches=2, impl
 
 def train_models(cfg, exp, device):
     """``build_models`` with every embedding scaled by EMBED_SCALE (and the
-    recurrent mixers' constant leaves drawn, ``randomize_mixers``), the
-    trained models' AdamW state taken after."""
-    models = EXP.build_models(cfg, cfg, exp, device=device)
+    recurrent mixers' constant leaves drawn), ``scale_models``."""
+    return scale_models(EXP.build_models(cfg, cfg, exp, device=device), exp)
+
+
+def scale_models(models, exp):
+    """Scale every model's embedding by EMBED_SCALE and draw the recurrent
+    mixers' constant leaves (``randomize_mixers``), in place; the trained
+    models' AdamW state is taken after.  Returns ``models``."""
     seeds = {"actor": 0, "ref": 0, "critic": 2, "reward": 3}  # the reference is the actor
     for name, ms in models.items():
         with torch.no_grad():
@@ -1737,6 +1761,224 @@ def report_phase7(device, total):
         print(f"[train7] {name}: {time.perf_counter() - t0:.1f}s")
 
 
+# ------------------------------------------------------------------ phase 8
+
+# The engine's train stats against the hand-driven loop's: each stat's
+# |a - b| / max(|a|, |b|), its largest over the actor's and the critic's
+# stats, within ENGINE_SPREAD_FACTOR times the same reading between two
+# identical hand-driven runs in this script, plus ENGINE_STATS_FLOOR (so a
+# deterministic pair of hand runs, spread 0, still leaves room for one
+# reordered fp32 sum in the engine's run).
+ENGINE_SPREAD_FACTOR = 4.0
+ENGINE_STATS_FLOOR = 1e-6
+# The rollout and inference outputs of a PPO iteration, held bit for bit.
+POOL_KEYS = ("seq", "logp", "gen_mask", "ref_logp", "values", "rewards")
+STAT_KEYS = ("actor_stats", "critic_stats")
+
+
+def host_pool(pool):
+    """A data pool's tensors on the host (the prompts left out)."""
+    return {k: v.detach().cpu() if isinstance(v, torch.Tensor) else v
+            for k, v in pool.items() if k != "prompts"}
+
+
+def free(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def hand_iteration(cfg, exp, device, prompts):
+    """Phase 7's loop without its gen_mask cut, on fresh models
+    (``train_models``) and executors: one PPO iteration in dataflow order on
+    ``prompts``.  Returns (pool on the host, seconds, launches)."""
+    models = train_models(cfg, exp, device)
+    ex = EXP.build_executors(cfg, cfg, exp)
+    sync(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    roll = ex["actor_gen"](models["actor"], {"prompts": {"tokens": prompts}})
+    for name in ("ref", "critic", "reward"):
+        roll |= ex[f"{name}_inf"](models[name], roll)
+    for name in ("actor", "critic"):
+        roll |= ex[f"{name}_train"](models[name], roll)
+    sync(device)
+    secs, counts = time.perf_counter() - t0, launches()
+    out = host_pool(roll)
+    del models, ex, roll
+    free(device)
+    return out, secs, counts
+
+
+def engine_experiment(cfg, exp, device, **kw):
+    """``RLHFExperiment`` of ``cfg`` as actor and critic on one H100
+    (``Cluster(1, 1, chip=hw.H100)``), ``exp`` with the fields ``kw``
+    replaced, its models scaled as ``train_models`` scales them before any
+    call."""
+    e = EXP.RLHFExperiment(cfg, cfg, Cluster(1, 1, chip=hw.H100),
+                           dataclasses.replace(exp, **kw), device=device)
+    scale_models(e.models, e.exp)
+    return e
+
+
+def pools_equal(a, b):
+    """The keys of POOL_KEYS on which two host pools differ."""
+    return [k for k in POOL_KEYS if not torch.equal(a[k], b[k])]
+
+
+def stats_spread(a, b):
+    """The largest |x - y| / max(|x|, |y|) over both trained models' stats
+    of two pools."""
+    worst = 0.0
+    for key in STAT_KEYS:
+        for name, x in a[key].items():
+            y = b[key][name]
+            worst = max(worst, abs(x - y) / max(abs(x), abs(y), 1e-30))
+    return worst
+
+
+def phase_engine(cfg, exp, device, *, profile_batches=(4, 16), profile_seqs=(128, 384),
+                 search_iters=300, seed=0):
+    """Phase 8: ``profile_model`` into a ``ProfileStore``; an
+    ``RLHFExperiment`` calibrated from it, its plan searched, one
+    ``run_iteration`` held against two hand-driven iterations on the same
+    prompts and weights, the cost model recalibrated from that iteration's
+    records and a second iteration read against it; then ``run(steps=2)``
+    at pipeline depth 2 and at depth 1 from the same seeds.  Each
+    experiment is freed before the next is built.  Returns the readings."""
+    out = {}
+    cluster = Cluster(1, 1, chip=hw.H100)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "profile.json")
+        entry = PROF.profile_and_store(cfg, PROF.ProfileStore(path), cluster,
+                                       batches=profile_batches, seqs=profile_seqs,
+                                       device=device)
+        free(device)
+        out["profile"] = dict(fingerprint=entry.fingerprint, entries=dict(entry.table.entries),
+                              scales=dict(entry.type_scales), profile=entry.profile,
+                              seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        e = engine_experiment(cfg, exp, device, search_iters=search_iters, profile_path=path)
+    out["search_s"] = time.perf_counter() - t0  # the plan search and the models' build
+    out["plan"] = str(e.plan)
+    out["estimated_s"] = SIM.simulate(e.graph, e.plan, e.cost).total_time
+    prompts = e.make_prompts(seed)["tokens"]
+
+    hands = [hand_iteration(cfg, exp, device, prompts) for _ in range(2)]
+    out["hand_s"] = [h[1] for h in hands]
+    out["hand_launches"] = [h[2] for h in hands]
+    out["hand_parts"] = pools_equal(hands[0][0], hands[1][0])
+    out["spread"] = stats_spread(hands[0][0], hands[1][0])
+    out["limit"] = ENGINE_SPREAD_FACTOR * out["spread"] + ENGINE_STATS_FLOOR
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    analytic = CostModel(cluster)
+    profiled = {c.name: e.cost.call_time(c, e.plan.assignments[c.name]) for c in e.graph.calls}
+    sync(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    pool = host_pool(e.run_iteration(seed))
+    out["engine_s"] = [time.perf_counter() - t0]
+    out["engine_launches"] = launches()
+    out["engine_parts"] = pools_equal(pool, hands[0][0])
+    out["engine_spread"] = stats_spread(pool, hands[0][0])
+    first = {r.name: r.end - r.start for r in e.engine.records}
+    e.engine.recalibrate()
+    recal = {c.name: e.cost.call_time(c, e.plan.assignments[c.name]) for c in e.graph.calls}
+    n = len(e.engine.records)
+    reset_launches()
+    t0 = time.perf_counter()
+    e.run_iteration(seed + 1)
+    out["engine_s"].append(time.perf_counter() - t0)
+    out["engine_launches_2"] = launches()
+    second = {r.name: r.end - r.start for r in e.engine.records[n:]}
+    out["calls"] = {c.name: dict(measured=first[c.name], analytic=analytic.call_time(
+        c, e.plan.assignments[c.name]), profiled=profiled[c.name], held_out=second[c.name],
+        recalibrated=recal[c.name]) for c in e.graph.calls}
+    out["stats"] = e.engine.stats()
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                         if torch.device(device).type == "cuda" else 0)
+    del e, pool
+    free(device)
+
+    runs = {}
+    for depth in (2, 1):
+        e = engine_experiment(cfg, exp, device, search_iters=search_iters,
+                              pipeline_depth=depth)
+        reset_launches()
+        t0 = time.perf_counter()
+        runs[depth] = [host_pool(p) for p in e.run(seed + 2, steps=2)]
+        out[f"depth{depth}_s"] = time.perf_counter() - t0
+        out[f"depth{depth}_launches"] = launches()
+        out[f"depth{depth}_stats"] = e.engine.stats()
+        del e
+        free(device)
+    out["pipelined_parts"] = pools_equal(runs[2][0], runs[1][0])
+    out["pipelined_spread"] = stats_spread(runs[2][0], runs[1][0])
+    out["pipelined_2"] = {k: (runs[2][1][k].float() - runs[1][1][k].float()).abs().max().item()
+                          for k in POOL_KEYS}
+    out["pipelined_2_spread"] = stats_spread(runs[2][1], runs[1][1])
+    return out
+
+
+def report_engine(device, total):
+    """Phase 8 on the card: print and check ``phase_engine``'s readings of
+    full-depth qwen2-0.5b on phase 7's padded traffic; adds its launches to
+    ``total``."""
+    cfg = get_config("qwen2-0.5b")
+    exp = train_experiment(packed=False)
+    t_phase = time.perf_counter()
+    r = phase_engine(cfg, exp, device)
+    pr = r["profile"]
+    print(f"[engine] profile of {cfg.name} on {pr['fingerprint']} in {pr['seconds']:.1f}s: "
+          + ", ".join(f"{k} b{b} s{s} {t:.4f}s" for (k, b, s), t in sorted(pr["entries"].items()))
+          + f"; fitted {pr['profile']}, type scales {pr['scales']}")
+    print(f"[engine] {r['plan']}; search and build {r['search_s']:.2f}s, estimated iteration "
+          f"{r['estimated_s']:.4f}s")
+    print(f"[engine] two hand-driven iterations: {r['hand_s'][0]:.3f}s, {r['hand_s'][1]:.3f}s; "
+          f"pools part on {r['hand_parts'] or 'nothing'}; stats spread {r['spread']:.3e}")
+    check(not r["hand_parts"], f"two identical hand-driven iterations part on {r['hand_parts']}")
+    print(f"[engine] run_iteration {r['engine_s'][0]:.3f}s (then {r['engine_s'][1]:.3f}s) vs "
+          f"the hand-driven loop {r['hand_s'][0]:.3f}s; rollout and inference outputs part "
+          f"from the hand-driven loop's on {r['engine_parts'] or 'nothing'}; stats "
+          f"{r['engine_spread']:.3e} (limit {r['limit']:.3e} = {ENGINE_SPREAD_FACTOR} x "
+          f"spread {r['spread']:.3e} + {ENGINE_STATS_FLOOR})")
+    check(not r["engine_parts"], f"engine iteration parts from the hand-driven loop on "
+          f"{r['engine_parts']}")
+    check(r["engine_spread"] <= r["limit"], "engine train stats disagree with the hand loop")
+    for name, c in r["calls"].items():
+        print(f"[engine] {name}: measured {c['measured']:.4f}s; estimated analytic "
+              f"{c['analytic']:.4f}s ({c['measured'] / c['analytic']:.3f}x), profiled "
+              f"{c['profiled']:.4f}s ({c['measured'] / c['profiled']:.3f}x); after "
+              f"recalibration {c['recalibrated']:.4f}s against the next iteration's "
+              f"{c['held_out']:.4f}s ({c['held_out'] / c['recalibrated']:.3f}x)")
+        check(all(math.isfinite(v) and v > 0 for v in c.values()), f"{name}: bad times")
+    print(f"[engine] stats {r['stats']}")
+    print(f"[engine] run(steps=2) at depth 2 {r['depth2_s']:.3f}s, depth 1 {r['depth1_s']:.3f}s; "
+          f"iteration 1 parts on {r['pipelined_parts'] or 'nothing'} (stats "
+          f"{r['pipelined_spread']:.3e}); iteration 2 largest differences "
+          f"{r['pipelined_2']} (stats {r['pipelined_2_spread']:.3e}); depth 2 stats "
+          f"{r['depth2_stats']}")
+    check(not r["pipelined_parts"], f"depth 2's iteration 1 parts from depth 1's on "
+          f"{r['pipelined_parts']}")
+    check(r["pipelined_spread"] <= r["limit"], "depth 2's iteration 1 stats disagree")
+    want = train_predicted(cfg, exp)
+    for key, got in (("hand", r["hand_launches"][0]), ("hand", r["hand_launches"][1]),
+                     ("engine", r["engine_launches"]), ("engine", r["engine_launches_2"])):
+        check(same_launches(got, want), f"{key} iteration: launches {got} != {want}")
+    for depth in (2, 1):
+        got, want2 = r[f"depth{depth}_launches"], {k: 2 * v for k, v in want.items()}
+        check(same_launches(got, want2), f"depth {depth}: launches {got} != {want2}")
+    print(f"[engine] launches per engine iteration {r['engine_launches']} (predicted {want}); "
+          f"max_memory_allocated={r['peak_bytes']} bytes; phase 8 "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    for counts in (*r["hand_launches"], r["engine_launches"], r["engine_launches_2"],
+                   r["depth2_launches"], r["depth1_launches"]):
+        for k in total:
+            total[k] += counts[k]
+
+
 # ------------------------------------------------------------------ main
 
 def shallow(cfg, layers=4, *, dtype=None):
@@ -1902,6 +2144,7 @@ def main():
 
     report_train(get_config("qwen2-0.5b"), train_experiment(), device, total)
     report_phase7(device, total)
+    report_engine(device, total)
 
     source = "src/repro_torch/kernels/csrc/"
     rows = [dict(name="flash_mha", route="cuda", source=source + "flash_attention.cu",
@@ -1933,6 +2176,7 @@ def main():
               f"{r['name']}: non-finite library time")
         check(r["launches"] > 0, f"{r['name']}: never launched on the main path")
     print(f"[time] chip_smoke wall time {time.perf_counter() - t_start:.1f}s")
+    print(smi)  # again, so that the card stays beside the numbers in a tail of the output
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

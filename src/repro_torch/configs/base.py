@@ -97,6 +97,80 @@ class ModelConfig:
     def ssm_heads(self) -> int:
         return self.ssm_inner // self.ssm_head_dim if self.ssm_state else 0
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """True if the arch can serve 500k-token contexts without a full
+        quadratic KV cache on every layer (SSM / hybrid / mostly-local attn)."""
+        specs = self.layers
+        n_full = sum(1 for s in specs if s.kind == ATTN and s.window is None)
+        return n_full <= len(specs) // 4
+
+    # --------------------------------------------------------- param counts
+    # The JAX package's counts, read by the cost model (core/estimator.py).
+    # The port's configs have no dense residual FFN beside the experts
+    # (Arctic's), so ``ffn_params`` has no term for one.
+    def attn_params(self, spec: LayerSpec) -> int:
+        d, q, kv = self.d_model, self.q_dim, self.kv_dim
+        p = d * q + 2 * d * kv + q * d  # wq, wk, wv, wo
+        if self.qkv_bias:
+            p += q + 2 * kv
+        if self.qk_norm:
+            p += 2 * self.head_dim
+        return p
+
+    def ffn_params(self, active_only: bool = False) -> int:
+        d = self.d_model
+        if self.ffn_kind == "none":
+            return 0
+        if self.ffn_kind == "moe":
+            per_expert = 3 * d * self.expert_d_ff
+            n = self.top_k if active_only else self.n_experts
+            return n * per_expert + d * self.n_experts  # experts + router
+        return 3 * d * self.d_ff  # gated: w_in, w_gate, w_out
+
+    def lru_params(self) -> int:
+        d, w = self.d_model, self.lru_width
+        conv = 4 * w  # temporal conv1d width 4
+        return 2 * d * w + w * d + conv + 2 * w  # in/gate proj, out proj, a/gate params
+
+    def ssm_params(self) -> int:
+        d, di, ds = self.d_model, self.ssm_inner, self.ssm_state
+        in_proj = d * (2 * di + 2 * ds + self.ssm_heads)  # x, z, B, C, dt
+        conv = self.ssm_conv * (di + 2 * ds)
+        out = di * d
+        extra = 2 * self.ssm_heads + di  # A_log, D, norm
+        return in_proj + conv + out + extra
+
+    def layer_params(self, spec: LayerSpec, active_only: bool = False) -> int:
+        norms = 2 * self.d_model
+        if spec.kind == ATTN:
+            p = self.attn_params(spec)
+        elif spec.kind == LRU:
+            p = self.lru_params()
+        else:
+            p = self.ssm_params()
+        if spec.has_ffn and self.ffn_kind != "none":
+            p += self.ffn_params(active_only) + self.d_model
+        return p + norms
+
+    def param_count(self, active_only: bool = False) -> int:
+        p = sum(self.layer_params(s, active_only) for s in self.layers)
+        p += self.vocab_size * self.d_model  # input embedding
+        if not self.tie_embeddings:
+            p += self.vocab_size * self.d_model  # lm head
+        p += self.d_model  # final norm
+        if self.family == "encdec":
+            enc_spec = LayerSpec(ATTN, None, True)
+            xattn = self.d_model * self.q_dim + 2 * self.d_model * self.kv_dim + \
+                self.q_dim * self.d_model + self.d_model
+            p += self.enc_layers * self.layer_params(enc_spec, active_only)
+            p += self.num_layers * xattn  # decoder cross-attn
+            p += self.d_model
+        return p
+
+    def active_param_count(self) -> int:
+        return self.param_count(active_only=True)
+
     def reduced(self, **overrides) -> "ModelConfig":
         """A tiny config of the same family for CPU tests (the same
         reduction as the JAX package's ``ModelConfig.reduced``)."""

@@ -5,7 +5,9 @@ with a plain C interface, loaded with ``ctypes``.  Libraries go to
 ``build/kernels/`` at the repository root, named by a hash of every source
 under ``csrc/`` and the compiler flags, so an edited source rebuilds and an
 unchanged one loads at once.  A missing ``nvcc`` or a failed compile raises:
-nothing falls back to another tier.
+nothing falls back to another tier.  One lock serializes the builds and
+loads of a process: the runtime engine may reach a kernel's first use
+from two executor threads at once.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -26,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_lock = threading.RLock()
 
 
 def nvcc() -> str:
@@ -58,6 +62,11 @@ def build(names=KERNELS) -> dict[str, str]:
     """Compile the named kernels that are not built yet, one ``nvcc`` per
     source, all started together.  Returns each compiler's log (ptxas
     prints registers and shared memory per kernel)."""
+    with _lock:
+        return _build(names)
+
+
+def _build(names) -> dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = {n: library_path(n) for n in names if not library_path(n).exists()}
     if not todo:
@@ -88,8 +97,11 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build((name,))
-        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        with _lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                build((name,))
+                lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return lib
 
 

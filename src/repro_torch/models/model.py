@@ -81,6 +81,39 @@ def values_of(params, hidden):
     return L.dense_apply(params["value_head"], hidden.to(torch.float32))[..., 0]
 
 
+def lm_loss(params, cfg: ModelConfig, batch, *, impl="cuda", remat=True, aux_weight=0.01):
+    """Next-token cross-entropy of a {"tokens", "labels", "mask"} batch
+    (mean over the mask) plus ``aux_weight`` times the MoE load-balance
+    loss, as the JAX package's ``lm_loss``.  Returns (loss, {"lm_loss",
+    "aux_loss"}).  The (B, S, V) logits are made whole: the JAX package
+    chunks its LM head from 4,096 tokens on, and the port's one caller, the
+    profiler, stays below that."""
+    hidden, aux = forward(params, cfg, batch, impl=impl, remat=remat, return_aux=True)
+    logits = logits_of(params, cfg, hidden)
+    mask = batch["mask"]
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, batch["labels"][..., None].long())[..., 0]
+    loss = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+    return loss + aux_weight * aux, {"lm_loss": loss, "aux_loss": aux}
+
+
+def synth_batch(rng, cfg: ModelConfig, seq_len: int, batch: int, kind="train", *,
+                device="cuda"):
+    """A synthetic batch of random tokens (and, for ``kind="train"``, random
+    labels and a unit mask), drawn from ``rng`` (a seed or a
+    ``torch.Generator``), as the JAX package's ``synth_batch`` for the
+    token-only models the port runs."""
+    if cfg.prefix_len or cfg.family == "encdec":
+        raise NotImplementedError(f"{cfg.name}: prefix embeddings are not ported")
+    gen = rng if isinstance(rng, torch.Generator) else torch.Generator().manual_seed(int(rng))
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq_len), generator=gen)}
+    if kind == "train":
+        out["labels"] = torch.randint(0, cfg.vocab_size, (batch, seq_len), generator=gen)
+        out["mask"] = torch.ones((batch, seq_len), dtype=torch.float32)
+    return {k: v.to(device) for k, v in out.items()}
+
+
 # ----------------------------------------------------------------- serving
 # Every serving entry point runs under torch.no_grad(): the trained actor's
 # parameters require grad, and the decode kernels have no backward.
