@@ -14,7 +14,8 @@ Phases, in order; any failure exits non-zero before the last line:
      flash_mha and flash_decode also at recurrentgemma-9b's D = 256,
      ssd_scan at mamba2-1.3b's widths, rglru_scan at recurrentgemma-9b's in
      fp32; paged_flash_decode also bit for bit against flash_decode on the
-     gathered cache in bf16 and fp32) and time kernel (inputs warm in L2 as
+     gathered cache in bf16 and fp32; flash_mha also at the speculative
+     verify's shape, alone and behind the table gather) and time kernel (inputs warm in L2 as
      ``ms``, L2 flushed before each call as ``cold_ms``), plain version,
      bound and one PyTorch library call where one computes the same
      function (every kernel but rglru_scan, kernel and library call, from
@@ -84,10 +85,29 @@ Phases, in order; any failure exits non-zero before the last line:
      iteration); ``run(steps=2)`` at pipeline depth 2 against depth 1
      (iteration 1 bit for bit, iteration 2's difference printed); launches
      per iteration held to the prediction; ``engine.stats()``; peak memory.
+  9. speculative decoding: full qwen2-0.5b (24 layers, bf16) with a
+     2-layer draft made of its own embedding and first two layers, on 16
+     prompts of 128 tokens and 256 new: ``spec_generate`` with the adaptive
+     controller, greedy then sampled (temperature 0.8, top-k 16), beside
+     plain ``generate`` (accept rate, tokens per verify, the k trace,
+     seconds; flash_mha's verify and paged_flash_decode's draft launches
+     held to the cycles' prediction); the greedy rows that part from
+     ``generate`` held to a near-tie (``SPEC_TIE_TOL``), greedy and
+     sampled logprobs to a teacher-forced forward and greedy ones to
+     ``generate``'s where the rows agree (``SPEC_LOGPROB_TOL``); the paged
+     and ragged verify layers cuda vs reference; the speculative
+     ``ContinuousBatchServer`` against the plain one on phase 5's traffic
+     (near-ties and logprobs held the same way);
+     the same rollout in fp32 on 2 layers, greedy tokens bit for bit
+     (``FP32_LOGIT_TOL`` on logprobs); granite-moe-1b-a400m with a 2-layer
+     draft, greedy (grouped_ffn in the verify); two ``run_iteration``s of an
+     ``RLHFExperiment`` with the 2-layer draft through ``RuntimeEngine``
+     (spec_stats, the cost model's accept rate, the draft's parameters bit
+     for bit after, finite losses, launches, peak memory).
 Each model's parameters are freed before the next is built.
 Then one JSON line of kernel numbers, and last {"ok": true, "device": ...}.
 
-Phases 3 to 8 are functions of (config, params or experiment, impl) so the
+Phases 3 to 9 are functions of (config, params or experiment, impl) so the
 CPU tests rehearse them at the reduced size with impl="reference".
 """
 
@@ -95,6 +115,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -117,6 +138,7 @@ from repro_torch.core.estimator import CostModel  # noqa: E402
 from repro_torch.core.plan import Cluster  # noqa: E402
 from repro_torch.kernels import (build, decode_attention, flash_attention,  # noqa: E402
                                  grouped_expert, paged_decode_attention, ref, varlen_attention)
+from repro_torch.kernels import ops as OPS  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_scan_mod  # noqa: E402
 from repro_torch.kernels.decode_attention import flash_decode  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_mha  # noqa: E402
@@ -127,10 +149,12 @@ from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.kernels.varlen_attention import flash_mha_varlen  # noqa: E402
 from repro_torch.launch.serve import (BatchServer, ContinuousBatchServer,  # noqa: E402
                                       bucket_of)
+from repro_torch.models import attention as ATT  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as MDL  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import paged_cache as PC  # noqa: E402
+from repro_torch.models import spec as SPEC  # noqa: E402
 from repro_torch.data import packing  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.rlhf import experiment as EXP  # noqa: E402
@@ -441,6 +465,7 @@ def phase_kernels(device):
         bound_ms=bms, bound_by=by,
         library_ms=graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)))
     out["flash_mha"]["d256"] = mha_d256_case(randn, device)
+    out["flash_mha"]["verify"] = verify_kernel_case(randn, device, hq, hkv, d)
 
     # flash_decode: 8 rows over a 1088-slot linear cache with ragged
     # lengths, then a ring cache (window 256) with a row of length 0
@@ -530,6 +555,52 @@ def held(name, got, want, tol=KERNEL_TOL):
     print(f"[kernels] {name}: max_abs_err={abs_err:.3e} scaled_err={rel_err:.3e} (tol {tol})")
     check(rel_err <= tol, f"{name}: err {rel_err} > {tol}")
     return abs_err
+
+
+def verify_kernel_case(randn, device, hq, hkv, d, *, b=16, bs=16, m=26):
+    """flash_mha at the speculative verify's shape (phase 9's rollout: k + 1
+    = 5 queries per row at ragged positions over the B x (M * bs) cache
+    gathered from a shuffled block table, M 26 blocks of 16 for 128 + 256
+    tokens), against the plain version; timed alone and with the table
+    gather in front (``ops.paged_verify_mha``); SDPA over the same gathered
+    cache with the position mask as the library call."""
+    kk = SPEC_K + 1
+    n = 1 + b * m
+    g = torch.Generator(device=device).manual_seed(5)
+    q = randn(b, kk, hq, d)
+    k_pool, v_pool = randn(n, bs, hkv, d), randn(n, bs, hkv, d)
+    tbl = (torch.randperm(n - 1, generator=g, device=device) + 1).reshape(b, m).to(torch.int32)
+    starts = torch.randint(128, m * bs - kk, (b,), generator=g, device=device)
+    qpos = (starts[:, None] + torch.arange(kk, device=device)[None]).to(torch.int32)
+    kg, vg = ref.gather_pool(k_pool, tbl), ref.gather_pool(v_pool, tbl)
+    kvpos = torch.arange(m * bs, device=device)[None]
+
+    def kern():
+        return flash_mha(q, kg, vg, causal=True, q_positions=qpos, kv_positions=kvpos)
+
+    def gathered():
+        return OPS.paged_verify_mha(q, k_pool, v_pool, tbl, q_positions=qpos, impl="cuda")
+
+    def plain():
+        return ref.paged_verify_mha_ref(q, k_pool, v_pool, tbl, q_positions=qpos)
+    err = held(f"flash_mha verify shape (B{b} Sq{kk} over {m * bs} gathered keys)",
+               kern(), plain())
+    held("ops.paged_verify_mha (gather + flash_mha)", gathered(), plain())
+    keys = int((qpos.long() + 1).sum())  # query j attends positions 0 .. qpos[j]
+    n_keys = int((qpos.long().max(dim=1).values + 1).sum())  # the keys a row's queries need
+    bms, by = bound_ms(4 * d * hq * keys, 2 * (2 * q.numel() + 2 * n_keys * hkv * d))
+    mask = kvpos[:, None, None, :] <= qpos[:, None, :, None]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kg, vg))
+    case = dict(max_abs_err=err, library="scaled_dot_product_attention",
+                ms=graph_ms(kern), cold_ms=graph_cold_ms(kern), eager_ms=time_ms(kern),
+                with_gather_ms=graph_ms(gathered), with_gather_eager_ms=time_ms(gathered),
+                plain_ms=time_ms(plain), bound_ms=bms, bound_by=by,
+                library_ms=graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)))
+    print(f"[kernels] flash_mha verify shape with the table gather in front: "
+          f"{case['with_gather_ms']:.4f} ms (graph), {case['with_gather_eager_ms']:.4f} "
+          f"(eager) against the kernel's {case['ms']:.4f} (graph)")
+    return case
 
 
 def mha_d256_case(randn, device):
@@ -1361,7 +1432,8 @@ def scale_models(models, exp):
     """Scale every model's embedding by EMBED_SCALE and draw the recurrent
     mixers' constant leaves (``randomize_mixers``), in place; the trained
     models' AdamW state is taken after.  Returns ``models``."""
-    seeds = {"actor": 0, "ref": 0, "critic": 2, "reward": 3}  # the reference is the actor
+    # the reference is the actor; the draft's seed is build_models'
+    seeds = {"actor": 0, "ref": 0, "critic": 2, "reward": 3, "draft": 17}
     for name, ms in models.items():
         with torch.no_grad():
             ms.params["embed"]["table"].mul_(EMBED_SCALE)
@@ -1783,6 +1855,10 @@ def host_pool(pool):
 
 
 def free(device):
+    """Collect what a dropped ``RLHFExperiment`` still holds (its engine
+    keeps bound methods of it, a reference cycle that only ``gc`` breaks),
+    then return the cached blocks."""
+    gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
 
@@ -1979,6 +2055,463 @@ def report_engine(device, total):
             total[k] += counts[k]
 
 
+# ------------------------------------------------------------------ phase 9
+
+SPEC_K = 4  # the draft length the adaptive controller starts from
+# Where greedy speculative and plain bf16 outputs of qwen2-0.5b part, the
+# larger of both tokens' distances below the top logit, over the top
+# |logit| (as RECURRENT_TIE_TOL): the two paths differ in where attention
+# rounds to bf16 (the verify runs flash_mha's tile body, generate the
+# split-KV decode body) and in the projections' M (B (k + 1) rows against
+# B), so a row may part only at such a near-tie: on the H100 (16 x 256
+# greedy tokens, 2-layer draft) 14 of 16 rows part, the largest at 1.587e-2
+# (about 3 bf16 units of the top logit); a verify one position late reads
+# 4.737e-2, one without positions 8.856e-1 (scripts/spec_controls.py,
+# PERF.md).  In fp32 the late verify parts 13 of 16 rows, which the fp32
+# check's bit-for-bit agreement catches.
+SPEC_TIE_TOL = 3e-2
+# Speculative logprobs against a teacher-forced forward of the target over
+# the committed tokens, and against the plain run's where the tokens agree:
+# max |difference| over max |logit|, for the bf16 rollout (greedy and
+# sampled) and the spec server.  On the H100 the sound readings are
+# 7.682e-3 to 8.489e-3; a verify one position late reads 2.296e-2 (server)
+# and 3.378e-2 (rollout), which LOGIT_TOL (5e-2) lets pass, one without
+# positions 9.671e-1 (scripts/spec_controls.py, PERF.md); 1.4e-2 sits 1.6x
+# from each.
+SPEC_LOGPROB_TOL = 1.4e-2
+
+
+def spec_draft(cfg, layers=2):
+    """``cfg`` at full width cut to ``layers`` layers: the draft.  Seeded
+    like the target, its weights are the target's embedding and first
+    ``layers`` layers (``init_params`` draws them in that order)."""
+    return dataclasses.replace(cfg, name=f"{cfg.name}-draft", num_layers=layers,
+                               n_superblocks=layers)
+
+
+def spec_prompts(cfg, device, *, batch=16, prompt_len=128, seed=0):
+    """Phase 7's prompt shape: ``batch`` seeded prompts of ``prompt_len``."""
+    g = torch.Generator().manual_seed(seed + 900)
+    return torch.randint(1, cfg.vocab_size, (batch, prompt_len), generator=g).to(device)
+
+
+def spec_predicted(cfg, dcfg, k_trace, *, admissions=1):
+    """Launches of speculative decoding: per admission, flash_mha in every
+    attention layer of the target's and the draft's prefill; per cycle,
+    flash_mha in every target layer (the verify over the gathered pool) and
+    paged_flash_decode in every draft layer of each of the k + 1 draft
+    steps; grouped_ffn in every MoE layer of each of those forwards."""
+    cycles, steps = len(k_trace), sum(k + 1 for k in k_trace)
+    ta, da = attn_layers(cfg), attn_layers(dcfg)
+    out = {"flash_mha": (ta + da) * admissions + ta * cycles, "paged_flash_decode": da * steps}
+    if moe_layers(cfg):
+        out["grouped_ffn"] = ((moe_layers(cfg) + moe_layers(dcfg)) * admissions
+                              + moe_layers(cfg) * cycles + moe_layers(dcfg) * steps)
+    return out
+
+
+def generate_predicted(cfg, new):
+    """Launches of one ``generate``: flash_mha in every attention layer of
+    the prefill, flash_decode in each of the new - 1 decode steps,
+    grouped_ffn in every MoE layer of each."""
+    out = {"flash_mha": attn_layers(cfg), "flash_decode": attn_layers(cfg) * (new - 1)}
+    if moe_layers(cfg):
+        out["grouped_ffn"] = moe_layers(cfg) * new
+    return out
+
+
+def check_outputs(cfg, toks, lps, shape, tag):
+    toks, lps = torch.as_tensor(toks), torch.as_tensor(lps)
+    check(tuple(toks.shape) == shape, f"{tag}: tokens {tuple(toks.shape)} != {shape}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{tag}: token out of range")
+    check(bool(torch.isfinite(lps).all() and (lps <= 1e-4).all()), f"{tag}: bad logprob")
+
+
+def phase_spec(cfg, params, dcfg, dparams, prompts, *, new, impl, modes=("greedy", "sampled"),
+               seed=0, temperature=0.8, top_k=16):
+    """``spec_generate`` (the adaptive controller from SPEC_K) and then plain
+    ``generate`` on the same prompts, greedy and sampled (temperature 0.8,
+    top-k 16).  Returns per mode both runs' seconds, launches and outputs,
+    the spec stats and the launches' prediction."""
+    device = params["embed"]["table"].device
+    runs = {}
+    for mode in modes:
+        kw = {} if mode == "greedy" else dict(temperature=temperature, top_k=top_k)
+
+        def rng():
+            return (None if mode == "greedy"
+                    else torch.Generator(device=device).manual_seed(seed + 1))
+        r = {}
+        for name in ("spec", "plain"):
+            sync(device)
+            reset_launches()
+            t0 = time.perf_counter()
+            if name == "spec":
+                out = SPEC.spec_generate(params, cfg, dparams, dcfg, {"tokens": prompts},
+                                         num_new_tokens=new, spec_k=SPEC_K, rng=rng(),
+                                         impl=impl, controller=SPEC.SpecController(
+                                             init_k=SPEC_K), **kw)
+            else:
+                out = MDL.generate(params, cfg, {"tokens": prompts}, num_new_tokens=new,
+                                   rng=rng(), impl=impl, **kw)
+            sync(device)
+            r[f"{name}_s"] = time.perf_counter() - t0
+            r[f"{name}_launches"] = launches()
+            check_outputs(cfg, out["tokens"], out["logprobs"], (len(prompts), new),
+                          f"{cfg.name} {name} {mode}")
+            r[name] = (out["tokens"].cpu(), out["logprobs"].cpu())
+            r.setdefault("stats", out.get("stats"))
+        r["predicted"] = spec_predicted(cfg, dcfg, r["stats"]["k_trace"])
+        r["plain_predicted"] = generate_predicted(cfg, new)
+        runs[mode] = r
+    return runs
+
+
+def teacher_forced(cfg, params, prompts, toks, *, impl, bucketed=False):
+    """The logprob of each request's ``toks`` under a teacher-forced
+    ``forward`` over its prompt (left-padded with 0 to its bucket when
+    ``bucketed``, as the servers prefill it) and ``toks``, one request at a
+    time; and the largest |logit| at those positions."""
+    device = params["embed"]["table"].device
+    lps, scale = [], 0.0
+    for pr, t in zip(prompts, toks):
+        pr, t = (torch.as_tensor(x).cpu().long() for x in (pr, t))
+        if bucketed:
+            pr = torch.cat([pr.new_zeros(bucket_of(len(pr)) - len(pr)), pr])
+        seq = torch.cat([pr, t])[None].to(device)
+        with torch.no_grad():
+            h = MDL.forward(params, cfg, {"tokens": seq}, impl=impl)[:, len(pr) - 1:-1]
+            lg = MDL.logits_of(params, cfg, h).float()[0]
+        scale = max(scale, lg.abs().max().item())
+        lps.append(torch.log_softmax(lg, dim=-1).gather(-1, t.to(device)[:, None])[:, 0].cpu())
+        del h, lg
+    return lps, scale
+
+
+def logprob_errors(cfg, params, prompts, spec, plain, *, impl, bucketed=False):
+    """Speculative outputs ``spec`` = (tokens, logprobs) per request against
+    a teacher-forced forward over every request's own tokens
+    (``teacher_forced``), and against the plain outputs ``plain`` on the
+    requests whose tokens agree: the largest |difference| of each, over the
+    largest |logit| of the forward."""
+    want, scale = teacher_forced(cfg, params, prompts, spec[0], impl=impl, bucketed=bucketed)
+
+    def worst(pairs):
+        return max((float((torch.as_tensor(a) - torch.as_tensor(b)).abs().max())
+                    for a, b in pairs), default=0.0) / scale
+    agree = [(a, b) for a, b, x, y in zip(spec[1], plain[1], spec[0], plain[0])
+             if np.array_equal(np.asarray(x), np.asarray(y))]
+    return dict(teacher_forced=worst(zip(spec[1], want)), agree=worst(agree),
+                n_agree=len(agree), scale=scale)
+
+
+def spec_partings(cfg, params, prompts, spec_toks, plain_toks):
+    """Rows where greedy spec and plain outputs agree, and for the others
+    the near-tie at the first parting step (``tie_gaps``), over the top
+    |logit|."""
+    a, b = spec_toks.numpy(), plain_toks.numpy()
+    same = sum(bool((x == y).all()) for x, y in zip(a, b))
+    gaps = tie_gaps(cfg, params, [p.cpu().numpy() for p in prompts], a, b)
+    return same, {i: g / sc for i, (g, sc) in gaps.items()}
+
+
+def phase_spec_server(cfg, params, dcfg, dparams, prompts, new, *, impl, n_slots=8,
+                      block_size=16, sync_every=4):
+    """Phase 5's traffic through ``ContinuousBatchServer`` greedy, plain and
+    speculative (the adaptive controller from SPEC_K), admissions counted
+    by wrapping ``_admit``.  Returns per run the seconds, stats, launches,
+    their prediction and the outputs."""
+    device = params["embed"]["table"].device
+    kw = dict(n_slots=n_slots, kv_block_size=block_size, max_prompt=max(map(len, prompts)),
+              max_new=max(new), impl=impl, sync_every=sync_every)
+    runs = {}
+    for mode in ("plain", "spec"):
+        spec_kw = {} if mode == "plain" else dict(
+            draft_params=dparams, draft_cfg=dcfg, spec_k=SPEC_K,
+            spec_controller=SPEC.SpecController(init_k=SPEC_K))
+        server = ContinuousBatchServer(cfg, params, **kw, **spec_kw)
+        admits = [0]
+
+        def counted(*a, _admit=server._admit, **k):
+            admits[0] += 1
+            return _admit(*a, **k)
+        server._admit = counted
+        sync(device)
+        reset_launches()
+        t0 = time.perf_counter()
+        toks, lps = server.serve(prompts, max_new=new)
+        sync(device)
+        dt = time.perf_counter() - t0
+        st = server.stats()
+        for t, lp, n in zip(toks, lps, new):
+            check_outputs(cfg, t, lp, (n,), f"{cfg.name} {mode} server")
+        if mode == "plain":
+            pred = {"flash_mha": attn_layers(cfg) * admits[0],
+                    "paged_flash_decode": attn_layers(cfg) * sync_every * st["steps"]}
+        else:
+            pred = spec_predicted(cfg, dcfg, st["spec_k_trace"], admissions=admits[0])
+        runs[mode] = dict(seconds=dt, tokens_per_s=sum(new) / dt, stats=st, launches=launches(),
+                          predicted=pred, admissions=admits[0], outputs=toks, logprobs=lps)
+    return runs
+
+
+def spec_iteration_predicted(cfg, dcfg, exp, k_trace):
+    """Launches of one PPO iteration with a draft: ``train_predicted`` with
+    the rollout's ``generate`` replaced by ``spec_predicted``."""
+    out = dict(train_predicted(cfg, exp))
+    for k, v in generate_predicted(cfg, exp.gen_len).items():
+        out[k] -= v
+    for k, v in spec_predicted(cfg, dcfg, k_trace).items():
+        out[k] = out.get(k, 0) + v
+    return {k: v for k, v in out.items() if v}
+
+
+def phase_spec_engine(cfg, dcfg, exp, device, *, search_iters=300, seed=0, iters=2):
+    """An ``RLHFExperiment`` of ``cfg`` as actor and critic with ``dcfg`` as
+    its draft on ``Cluster(1, 1, chip=hw.H100)`` (models scaled as
+    ``scale_models`` scales them), ``iters`` ``run_iteration``s through
+    ``RuntimeEngine``.  Returns per iteration the pool's spec stats and
+    train stats, the accept rate the cost model recorded, the launches and
+    their prediction, the seconds and each call's, the memory allocated
+    before and after it and its peak; whether the draft's parameters are
+    bit-equal after the last."""
+    cuda = torch.device(device).type == "cuda"
+    out = dict(before_bytes=torch.cuda.memory_allocated() if cuda else 0, iters=[])
+    e = engine_experiment(cfg, exp, device, search_iters=search_iters, draft_model=dcfg)
+    draft0 = [p.detach().clone() for p in adamw.leaves(e.models["draft"].params)]
+    out["plan"] = str(e.plan)
+    for it in range(iters):
+        n = len(e.engine.records)
+        sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        held_bytes = torch.cuda.memory_allocated() if cuda else 0
+        reset_launches()
+        t0 = time.perf_counter()
+        pool = e.run_iteration(seed + it)
+        sync(device)
+        r = dict(seconds=time.perf_counter() - t0, launches=launches(), held_bytes=held_bytes,
+                 peak_bytes=torch.cuda.max_memory_allocated() if cuda else 0,
+                 spec_stats=pool.get("spec_stats"), stats={k: pool[k] for k in STAT_KEYS},
+                 accept_rate=e.cost.accept_rate("actor", default=-1.0),
+                 calls={r.name: r.end - r.start for r in e.engine.records[n:]})
+        check_outputs(cfg, pool["seq"][:, exp.prompt_len:], pool["logp"],
+                      (exp.batch, exp.gen_len), "engine spec rollout")
+        if r["spec_stats"] is not None:
+            r["predicted"] = spec_iteration_predicted(cfg, dcfg, exp,
+                                                      r["spec_stats"]["k_trace"])
+        del pool
+        r["after_bytes"] = torch.cuda.memory_allocated() if cuda else 0
+        out["iters"].append(r)
+    out["draft_equal"] = all(torch.equal(a, b) for a, b in
+                             zip(adamw.leaves(e.models["draft"].params), draft0))
+    del e, draft0
+    free(device)
+    return out
+
+
+def verify_layer_errors(cfg, params, device, *, batch=16, k=SPEC_K, block_size=16,
+                        blocks=26, window=64, seed=0):
+    """The paged verify attention (``ops.paged_verify_mha``: k + 1 queries
+    per row at ragged positions over a shuffled table) and the ragged
+    verify layer (``ragged_attn_verify_apply`` with ``window``, rows before
+    and after their ring wraps) at ``cfg``'s widths and dtype, impl="cuda"
+    against impl="reference": the largest |difference| / (1 + |reference|)
+    of each."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    dt = L.dtype_of(cfg)
+    hkv, d, kk = cfg.n_kv_heads, cfg.head_dim, k + 1
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device).to(dt)
+    n = 1 + batch * blocks
+    q = randn(batch, kk, cfg.n_heads, d)
+    pools = randn(n, block_size, hkv, d), randn(n, block_size, hkv, d)
+    tbl = (torch.randperm(n - 1, generator=g, device=device) + 1).reshape(
+        batch, blocks).to(torch.int32)
+    starts = torch.randint(0, blocks * block_size - kk, (batch,), generator=g, device=device)
+    qpos = (starts[:, None] + torch.arange(kk, device=device)[None]).to(torch.int32)
+    got, want = (OPS.paged_verify_mha(q, *pools, tbl, q_positions=qpos, impl=impl)
+                 for impl in ("cuda", "reference"))
+    out = {"paged_verify_mha": _max_err(got, want)[1]}
+    spec = dataclasses.replace(cfg.layers[0], window=window)
+    p = params["layers"][0]["mixer"]
+    x = randn(batch, kk, cfg.d_model)
+    ring = randn(batch, window, hkv, d), randn(batch, window, hkv, d)
+    starts = torch.randint(0, 3 * window, (batch,), generator=g, device=device)
+    qpos = (starts[:, None] + torch.arange(kk, device=device)[None]).to(torch.int32)
+    rope = L.rope_tables(qpos, d, cfg.rope_theta)
+    ys = [ATT.ragged_attn_verify_apply(p, cfg, spec, x, {"k": ring[0].clone(),
+                                                         "v": ring[1].clone()},
+                                       rope, qpos, impl=impl) for impl in ("cuda", "reference")]
+    out["ragged_attn_verify_apply"] = _max_err(*ys)[1]
+    return out
+
+
+def report_spec(device, total):
+    """Phase 9 on the card: a-e of the module docstring; adds the spec
+    paths' launches to ``total``."""
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2-0.5b")
+    dcfg = spec_draft(cfg)
+    params = make_params(cfg, seed=0, device=device)
+    dparams = make_params(dcfg, seed=0, device=device)
+    prompts = spec_prompts(cfg, device)
+    new = 256
+
+    # a. spec_generate at full depth, bf16, greedy then sampled
+    runs = phase_spec(cfg, params, dcfg, dparams, prompts, new=new, impl="cuda")
+    for mode, r in runs.items():
+        st = r["stats"]
+        print(f"[spec] {cfg.name} {mode} spec_generate (draft {dcfg.num_layers} layers, "
+              f"{len(prompts)} x {prompts.shape[1]} + {new}): accept_rate="
+              f"{st['accept_rate']:.4f} ({st['accepted']}/{st['proposed']}), cycles="
+              f"{st['cycles']}, tokens per verify {len(prompts) * new / st['cycles']:.3f} "
+              f"({new / st['cycles']:.3f} per row), k_trace {st['k_trace']}; "
+              f"{r['spec_s']:.3f}s against generate's {r['plain_s']:.3f}s; launches "
+              f"{r['spec_launches']} (predicted {r['predicted']})")
+        check(same_launches(r["spec_launches"], r["predicted"]),
+              f"spec {mode}: launches {r['spec_launches']} != {r['predicted']}")
+        check(same_launches(r["plain_launches"], r["plain_predicted"]),
+              f"generate {mode}: launches {r['plain_launches']} != {r['plain_predicted']}")
+        check(r["spec_launches"]["flash_mha"] > 0 and r["spec_launches"]["paged_flash_decode"] > 0,
+              "spec path launched no verify or draft kernel")
+        for k in total:
+            total[k] += r["spec_launches"][k]
+    same, gaps = spec_partings(cfg, params, prompts, runs["greedy"]["spec"][0],
+                               runs["greedy"]["plain"][0])
+    worst = max(gaps.values(), default=0.0)
+    lp = logprob_errors(cfg, params, prompts, runs["greedy"]["spec"], runs["greedy"]["plain"],
+                        impl="cuda")
+    print(f"[spec] {cfg.name} bf16 greedy: spec equals generate on {same}/{len(prompts)} "
+          f"rows; where they part, the near-tie over the top |logit|: "
+          + (", ".join(f"row {i} {g:.3e}" for i, g in gaps.items()) or "none")
+          + f" (tol {SPEC_TIE_TOL}); spec logprobs against a teacher-forced forward "
+          f"{lp['teacher_forced']:.3e}, against generate's on the rows that agree "
+          f"{lp['agree']:.3e}, of max |logit| {lp['scale']:.3f} (tol {SPEC_LOGPROB_TOL})")
+    check(worst <= SPEC_TIE_TOL, f"greedy spec parts from generate at {worst:.3e} below the "
+          f"top logit, past a near-tie ({SPEC_TIE_TOL})")
+    check(lp["teacher_forced"] <= SPEC_LOGPROB_TOL and lp["agree"] <= SPEC_LOGPROB_TOL,
+          "greedy spec logprobs disagree with a teacher-forced forward or with generate")
+    toks, lps = runs["sampled"]["spec"]
+    want, scale = teacher_forced(cfg, params, prompts, toks, impl="cuda")
+    err = max(float((a - b).abs().max()) for a, b in zip(lps, want)) / scale
+    print(f"[spec] {cfg.name} bf16 sampled: spec logprobs against a teacher-forced forward "
+          f"{err:.3e} of max |logit| {scale:.3f} (tol {SPEC_LOGPROB_TOL}, under LOGIT_TOL "
+          f"{LOGIT_TOL}); equals greedy on "
+          f"{sum(bool((a == b).all()) for a, b in zip(toks, runs['greedy']['spec'][0]))}"
+          f"/{len(prompts)} rows")
+    check(err <= SPEC_LOGPROB_TOL, "sampled spec logprobs disagree with a teacher-forced forward")
+
+    # e. the verify layers, cuda against reference, at qwen's widths
+    errs = verify_layer_errors(cfg, params, device)
+    print("[spec] verify layers cuda vs reference (bf16, B 16, k + 1 = 5): "
+          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) + f" (tol {KERNEL_TOL})")
+    check(all(e <= KERNEL_TOL for e in errs.values()), "a verify layer disagrees")
+
+    # b. the spec server on phase 5's traffic, greedy, against the plain one
+    sprompts, snew = continuous_traffic(cfg)
+    sr = phase_spec_server(cfg, params, dcfg, dparams, sprompts, snew, impl="cuda")
+    for mode, r in sr.items():
+        st = {k: v for k, v in r["stats"].items() if k != "completion_order"}
+        print(f"[spec] {cfg.name} {mode} ContinuousBatchServer: {r['tokens_per_s']:.1f} tokens/s "
+              f"in {r['seconds']:.3f}s, admissions {r['admissions']}, stats {st}; launches "
+              f"{r['launches']} (predicted {r['predicted']})")
+        check(same_launches(r["launches"], r["predicted"]),
+              f"{mode} server: launches {r['launches']} != {r['predicted']}")
+        for k in total:
+            total[k] += r["launches"][k]
+    outs_s, outs_p = sr["spec"]["outputs"], sr["plain"]["outputs"]
+    same = sum(bool((a == b).all()) for a, b in zip(outs_s, outs_p))
+    gaps = tie_gaps(cfg, params, sprompts, outs_s, outs_p)
+    gaps = {i: g / sc for i, (g, sc) in gaps.items()}
+    lp = logprob_errors(cfg, params, sprompts, (outs_s, sr["spec"]["logprobs"]),
+                        (outs_p, sr["plain"]["logprobs"]), impl="cuda", bucketed=True)
+    print(f"[spec] spec server equals the plain server on {same}/{len(sprompts)} requests; "
+          "near-ties where they part: " + (", ".join(f"request {i} {g:.3e}"
+                                                     for i, g in gaps.items()) or "none")
+          + f" (tol {SPEC_TIE_TOL}); spec server logprobs against a teacher-forced forward "
+          f"{lp['teacher_forced']:.3e}, against the plain server's on the requests that "
+          f"agree {lp['agree']:.3e}, of max |logit| {lp['scale']:.3f} (tol {SPEC_LOGPROB_TOL})")
+    check(max(gaps.values(), default=0.0) <= SPEC_TIE_TOL,
+          "spec and plain servers part past a near-tie")
+    check(lp["teacher_forced"] <= SPEC_LOGPROB_TOL and lp["agree"] <= SPEC_LOGPROB_TOL,
+          "spec server logprobs disagree with a teacher-forced forward or the plain server")
+    del params, dparams
+    free(device)
+
+    # the fp32 check: 2 layers at full width, the draft the target's first
+    small = shallow(cfg, 2, dtype="float32")
+    dsmall = spec_draft(small, 1)
+    p32, d32 = make_params(small, seed=1, device=device), make_params(dsmall, seed=1,
+                                                                      device=device)
+    r32 = phase_spec(small, p32, dsmall, d32, prompts, new=64, impl="cuda",
+                     modes=("greedy",))["greedy"]
+    same32 = sum(bool((a == b).all()) for a, b in zip(r32["spec"][0], r32["plain"][0]))
+    lp32 = float((r32["spec"][1] - r32["plain"][1]).abs().max())
+    print(f"[spec] fp32 {small.num_layers} layers, draft {dsmall.num_layers}: greedy spec "
+          f"equals generate on {same32}/{len(prompts)} rows, logprobs within {lp32:.3e} "
+          f"(tol {FP32_LOGIT_TOL}); accept_rate {r32['stats']['accept_rate']:.4f}, cycles "
+          f"{r32['stats']['cycles']}")
+    check(same32 == len(prompts), "fp32 greedy spec tokens differ from generate")
+    check(lp32 <= FP32_LOGIT_TOL, "fp32 greedy spec logprobs differ from generate")
+    check(same_launches(r32["spec_launches"], r32["predicted"]), "fp32 spec launches")
+    for k in total:
+        total[k] += r32["spec_launches"][k]
+    del p32, d32
+    free(device)
+
+    # c. granite-moe-1b-a400m as target with a 2-layer granite draft, greedy
+    gcfg = get_config("granite-moe-1b-a400m")
+    gd = spec_draft(gcfg)
+    gp, gdp = make_params(gcfg, seed=0, device=device), make_params(gd, seed=0, device=device)
+    gprompts = spec_prompts(gcfg, device)
+    gr = phase_spec(gcfg, gp, gd, gdp, gprompts, new=64, impl="cuda", modes=("greedy",))
+    r = gr["greedy"]
+    same, gaps = spec_partings(gcfg, gp, gprompts, r["spec"][0], r["plain"][0])
+    print(f"[spec] {gcfg.name} greedy spec_generate: accept_rate "
+          f"{r['stats']['accept_rate']:.4f}, cycles {r['stats']['cycles']}, k_trace "
+          f"{r['stats']['k_trace']}; {r['spec_s']:.3f}s against generate's {r['plain_s']:.3f}s; "
+          f"equals generate on {same}/{len(gprompts)} rows (near-ties where they part, "
+          "printed: " + (", ".join(f"row {i} {g:.3e}" for i, g in gaps.items()) or "none")
+          + f"); launches {r['spec_launches']} (predicted {r['predicted']})")
+    check(same_launches(r["spec_launches"], r["predicted"]), "granite spec launches")
+    check(r["spec_launches"].get("grouped_ffn", 0) > 0, "granite's verify ran no grouped_ffn")
+    for k in total:
+        total[k] += r["spec_launches"][k]
+    del gp, gdp
+    free(device)
+
+    # d. RLHFExperiment with the draft, one iteration through RuntimeEngine
+    exp = train_experiment(packed=False)
+    en = phase_spec_engine(cfg, dcfg, exp, device)
+    print(f"[spec] RLHFExperiment with a {dcfg.num_layers}-layer draft, {en['plan']}")
+    for it, r in enumerate(en["iters"]):
+        check(r["spec_stats"] is not None, "the engine iteration has no spec_stats")
+        st = r["spec_stats"]
+        print(f"[spec] run_iteration {it}: {r['seconds']:.3f}s (calls " + ", ".join(
+                  f"{n} {s:.3f}s" for n, s in r["calls"].items())
+              + f"); spec_stats accept_rate {st['accept_rate']:.4f}, cycles {st['cycles']}, "
+              f"k_trace[:8] {st['k_trace'][:8]}; the cost model's accept rate "
+              f"{r['accept_rate']:.4f}; actor {r['stats']['actor_stats']}; critic "
+              f"{r['stats']['critic_stats']}; launches {r['launches']} (predicted "
+              f"{r['predicted']})")
+        check(r["accept_rate"] >= 0.0, "the cost model recorded no accept rate")
+        check(all(math.isfinite(v) for s in r["stats"].values() for v in s.values()),
+              "non-finite train stats")
+        check(same_launches(r["launches"], r["predicted"]),
+              f"engine spec iteration: launches {r['launches']} != {r['predicted']}")
+        for k in total:
+            total[k] += r["launches"][k]
+        print(f"[spec] run_iteration {it} memory: memory_allocated {r['held_bytes']} bytes "
+              f"before, {r['after_bytes']} after (its pool dropped), max_memory_allocated "
+              f"{r['peak_bytes']} bytes during it")
+    print(f"[spec] draft unchanged after {len(en['iters'])} iterations: {en['draft_equal']}; "
+          f"memory_allocated before the experiment was built {en['before_bytes']} bytes")
+    check(en["draft_equal"], "the draft's parameters changed")
+    print(f"[spec] phase 9 {time.perf_counter() - t_phase:.1f}s")
+
+
 # ------------------------------------------------------------------ main
 
 def shallow(cfg, layers=4, *, dtype=None):
@@ -2145,6 +2678,7 @@ def main():
     report_train(get_config("qwen2-0.5b"), train_experiment(), device, total)
     report_phase7(device, total)
     report_engine(device, total)
+    report_spec(device, total)
 
     source = "src/repro_torch/kernels/csrc/"
     rows = [dict(name="flash_mha", route="cuda", source=source + "flash_attention.cu",

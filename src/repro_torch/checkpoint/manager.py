@@ -85,7 +85,12 @@ def _itemsize(dtype: str) -> int:
 def _from_host(arr: np.ndarray, dtype: str, like):
     """The restored leaf: a tensor on ``like``'s device (with its
     ``requires_grad``) when the template leaf is a tensor, else a Python
-    scalar or the array."""
+    scalar or the array.  A bf16 leaf is read as its 16-bit pattern: the
+    port writes ``uint16``, the JAX package ``np.save``s an
+    ``ml_dtypes.bfloat16`` array, which loads back as the void dtype
+    ``|V2``."""
+    if dtype == BF16 and arr.dtype.itemsize == 2:
+        arr = arr.view(np.uint16)
     if isinstance(like, torch.Tensor):
         t = torch.from_numpy(np.array(arr))
         if dtype == BF16:

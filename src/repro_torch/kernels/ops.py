@@ -79,6 +79,26 @@ def paged_decode_mha(q, k_pool, v_pool, block_table, *, cache_len, impl="cuda"):
         q, k_pool, v_pool, block_table, cache_len=cache_len)
 
 
+def paged_verify_mha(q, k_pool, v_pool, block_table, *, q_positions, impl="cuda"):
+    """Multi-query (speculative verify) attention over a paged KV cache; see
+    ``ref.paged_verify_mha_ref``.  q: (B, K, Hq, D); q_positions: (B, K).
+    The kernel tier does what the JAX package's kernel tier does: it
+    gathers the table's block rows (a plain indexing op) and runs
+    ``flash_mha`` with explicit positions, query positions against the
+    gathered slots' arange, so causal masking by position hides every
+    unwritten slot."""
+    _check(impl, q, k_pool, v_pool, block_table, q_positions)
+    if impl == "reference":
+        return ref.paged_verify_mha_ref(q, k_pool, v_pool, block_table,
+                                        q_positions=q_positions)
+    kv_positions = torch.arange(block_table.shape[1] * k_pool.shape[1],
+                                device=q.device)[None]
+    return flash_attention.flash_mha(
+        q.contiguous(), ref.gather_pool(k_pool, block_table),
+        ref.gather_pool(v_pool, block_table), causal=True,
+        q_positions=q_positions, kv_positions=kv_positions)
+
+
 def grouped_ffn(xs, group_sizes, w_gate, w_in, w_out, *, act="silu", impl="cuda"):
     """Grouped gated expert FFN over expert-sorted rows (dropless MoE); see
     ``ref.grouped_ffn_ref``.  Returns (N, D) float32 on every tier: the
@@ -216,3 +236,84 @@ def sample_logits(logits, rng=None, *, temperature: float = 1.0,
         lse = torch.logsumexp(lg, dim=-1)
     lp = lg.gather(-1, tok[:, None].long())[:, 0] - lse
     return tok.reshape(lead), lp.reshape(lead)
+
+
+def spec_verify(logits, draft_tokens, draft_logits, rng=None, *, temperature: float = 1.0,
+                top_k: int = 0, top_p: float = 1.0, impl="cuda", uniforms=None):
+    """Batched rejection sampling for speculative decoding, as the JAX
+    package's ``spec_verify``.
+
+    logits: (B, K+1, V) target logits at the verify positions (position i
+    scores draft token i for i < K; position K is the bonus distribution);
+    draft_tokens: (B, K) the draft's proposals; draft_logits: (B, K, V) the
+    draft logits they were drawn from.  Returns accept_len (B,) int32 (the
+    leading draft tokens accepted, in [0, K]), token (B,) int32 (the
+    committed correction or bonus token), token_lp (B,) f32 (its target
+    logprob) and draft_lps (B, K) f32 (the target logprob of every draft
+    token; the first accept_len are the committed prefix's).
+
+    Greedy (``rng`` and ``uniforms`` None): accept while the draft token is
+    the target's argmax, then commit the argmax.  Sampled: draft token i is
+    accepted with probability min(1, p(x_i) / q(x_i)) under the sampling
+    distributions (temperature, top-k, top-p on both); the first rejection
+    resamples from the normalised residual max(0, p - q), a clean sweep
+    samples the bonus position from p.  ``uniforms`` = (u_accept (B, K),
+    u_resid (B, 1)) in [0, 1) replaces the generator's two draws, so a test
+    can feed the JAX package's.  Logprobs are under the untempered,
+    untruncated target distribution (the PPO convention).  A set of
+    V-reductions on every tier: no JAX tier has a kernel for it either."""
+    _check(impl)
+    if top_k < 0 or not 0.0 < top_p <= 1.0:
+        raise ValueError(f"bad truncation top_k={top_k} top_p={top_p}")
+    b, k1, v = logits.shape
+    k = k1 - 1
+    if (k < 1 or tuple(draft_tokens.shape) != (b, k)
+            or tuple(draft_logits.shape) != (b, k, v)):
+        raise ValueError(f"shape mismatch: logits {tuple(logits.shape)}, draft_tokens "
+                         f"{tuple(draft_tokens.shape)}, draft_logits "
+                         f"{tuple(draft_logits.shape)}")
+    lg = logits.to(torch.float32)
+    dt = draft_tokens.long()
+    lse = torch.logsumexp(lg, dim=-1)  # (B, K+1)
+    draft_lps = lg[:, :k].gather(-1, dt[..., None])[..., 0] - lse[:, :k]
+
+    if rng is None and uniforms is None:
+        tgt = torch.argmax(lg, dim=-1)  # (B, K+1)
+        ok = dt == tgt[:, :k]
+        accept_len = torch.cumprod(ok.to(torch.int32), dim=-1).sum(dim=-1)
+        token = tgt.gather(1, accept_len[:, None])[:, 0]
+    else:
+        def scaled(x):
+            s = x if temperature == 1.0 else x / max(temperature, 1e-6)
+            if bool(top_k and top_k < v) or top_p < 1.0:
+                s = _truncate_logits(s.reshape(-1, v), top_k, top_p).reshape(s.shape)
+            return s
+
+        pt, qt = scaled(lg), scaled(draft_logits.to(torch.float32))
+        lp_p = (pt[:, :k].gather(-1, dt[..., None])[..., 0]
+                - torch.logsumexp(pt[:, :k], dim=-1))
+        lp_q = qt.gather(-1, dt[..., None])[..., 0] - torch.logsumexp(qt, dim=-1)
+        if uniforms is None:
+            u_acc = torch.rand((b, k), generator=rng, device=lg.device)
+            u_res = torch.rand((b, 1), generator=rng, device=lg.device)
+        else:
+            u_acc, u_res = (u.to(device=lg.device, dtype=torch.float32) for u in uniforms)
+        ok = torch.log(torch.clamp(u_acc, min=1e-38)) < lp_p - lp_q
+        accept_len = torch.cumprod(ok.to(torch.int32), dim=-1).sum(dim=-1)
+        rows = torch.arange(b, device=lg.device)
+        p_probs = torch.softmax(pt[rows, accept_len], dim=-1)  # (B, V)
+        q_probs = torch.softmax(qt[rows, accept_len.clamp(max=k - 1)], dim=-1)
+        q_probs = torch.where((accept_len < k)[:, None], q_probs, 0.0)
+        resid = torch.clamp(p_probs - q_probs, min=0.0)
+        # fp guard: where p == q to rounding the residual mass underflows;
+        # sample the target distribution then (the exact limit)
+        mass = resid.sum(dim=-1, keepdim=True)
+        resid = torch.where(mass > 0.0, resid, p_probs)
+        token, _ = _sample_cdf(
+            torch.where(resid > 0.0, torch.log(torch.clamp(resid, min=1e-38)), NEG_INF),
+            u_res)
+        token = token.long()
+
+    rows = torch.arange(b, device=lg.device)
+    token_lp = lg[rows, accept_len, token] - lse[rows, accept_len]
+    return accept_len.to(torch.int32), token.to(torch.int32), token_lp, draft_lps

@@ -181,12 +181,30 @@ def paged_decode_mha_ref(q, k_pool, v_pool, block_table, *, cache_len):
     cache_len is masked.  A row with cache_len 0 averages all M * bs slots.
     Returns (B, Hq, D).
     """
+    return decode_mha_ref(q, gather_pool(k_pool, block_table), gather_pool(v_pool, block_table),
+                          cache_len=cache_len)
+
+
+def gather_pool(pool, block_table):
+    """The (B, M * bs, Hkv, D) linear cache of each row's table blocks."""
     b, m = block_table.shape
-    _, bs, hkv, d = k_pool.shape
-    idx = block_table.long()
-    k_cache = k_pool[idx].reshape(b, m * bs, hkv, d)
-    v_cache = v_pool[idx].reshape(b, m * bs, hkv, d)
-    return decode_mha_ref(q, k_cache, v_cache, cache_len=cache_len)
+    _, bs, hkv, d = pool.shape
+    return pool[block_table.long()].reshape(b, m * bs, hkv, d)
+
+
+def paged_verify_mha_ref(q, k_pool, v_pool, block_table, *, q_positions):
+    """Multi-query (speculative verify) attention over a paged KV cache.
+
+    q: (B, K, Hq, D), the K = spec_k + 1 verify tokens of each row, whose
+    KV is already in the pool; ``q_positions``: (B, K) their absolute
+    positions.  Query j attends every logical position <= q_positions[b, j]
+    of the table-gathered cache (slot i of the gathered row is position
+    i).  Returns (B, K, Hq, D)."""
+    kv_positions = torch.arange(block_table.shape[1] * k_pool.shape[1],
+                                device=q.device)[None]
+    return mha_ref(q, gather_pool(k_pool, block_table), gather_pool(v_pool, block_table),
+                   causal=True, window=None, q_positions=q_positions,
+                   kv_positions=kv_positions, q_chunk=None)
 
 
 def _gelu_tanh(x):

@@ -9,10 +9,11 @@ from the same seed.
 ``ContinuousBatchServer`` decodes a fixed number of slots per step over a
 paged KV cache (``models/paged_cache.py``): a sequence holds only
 ``ceil(len / block_size)`` blocks, and queued requests are admitted between
-steps into slots and blocks that finished requests freed.
+steps into slots and blocks that finished requests freed.  Given a draft
+model it runs speculative draft-and-verify cycles (``models/spec.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
-        --requests 16 --new 64 --mode continuous
+        --requests 16 --new 64 --mode continuous [--spec --spec-k 4]
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import model as MDL
 from repro_torch.models import paged_cache as PC
+from repro_torch.models import spec as SPEC
 
 
 def bucket_of(length: int, buckets=(16, 32, 64, 128, 256, 512, 1024)) -> int:
@@ -91,7 +93,7 @@ class _Request:
 
 class ContinuousBatchServer:
     """Continuous-batching decode engine over a paged KV cache, as the JAX
-    package's class without its speculative mode.
+    package's class.
 
     Each decode dispatch runs ``sync_every`` steps over every slot (per-row
     positions, a block table into the shared KV pool, fused sampling) with
@@ -105,6 +107,17 @@ class ContinuousBatchServer:
     recomputed from its prompt later), so the oldest always makes progress.
     Inactive slots point at the scratch block 0 and ride along.
 
+    Given ``draft_params`` and ``draft_cfg`` the engine is speculative:
+    each cycle drafts ``spec_k`` tokens per slot with the small model (``k``
+    re-picked per cycle by ``spec_controller``, a ``SpecController``, when
+    given) and verifies them in one prefill-shaped target step; rejection
+    sampling keeps every returned token and logprob exactly the target's.
+    Accepted prefixes keep their blocks, a rejection truncates the row's
+    block list.  The draft owns a statically laid out block pool per slot
+    and mirrors every admitted prompt into it; preemption only ever touches
+    target blocks.  EOS and per-request ``max_new`` drop the overshooting
+    suffix of a cycle's commits.
+
     Sampling takes one ``torch.Generator`` for a whole ``serve`` call (the
     JAX class splits a key per dispatch), so sampled tokens differ from the
     JAX package's; greedy output and the schedule do not.
@@ -115,10 +128,19 @@ class ContinuousBatchServer:
                  max_prompt: int = 128, max_new: int = 128,
                  eos_id=None, temperature: float = 1.0, top_k: int = 0,
                  top_p: float = 1.0, impl: str = "cuda", sync_every: int = 4,
-                 draft_params=None, draft_cfg=None):
-        if draft_params is not None or draft_cfg is not None:
-            raise NotImplementedError("speculative decoding is not ported yet")
+                 draft_params=None, draft_cfg=None, spec_k: int = 4,
+                 spec_controller=None):
+        if (draft_params is None) != (draft_cfg is None):
+            raise ValueError("draft_params and draft_cfg go together")
+        k_cap = 0
+        if draft_cfg is not None:
+            SPEC.check_spec_pair(cfg, draft_cfg)
+            if spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            k_cap = spec_controller.k_max if spec_controller is not None else spec_k
         self.cfg, self.params = cfg, params
+        self.draft_params, self.draft_cfg = draft_params, draft_cfg
+        self.spec_k, self.spec_controller = spec_k, spec_controller
         self.n_slots, self.bs = n_slots, kv_block_size
         self.max_new = max_new
         self.eos_id = eos_id
@@ -129,14 +151,22 @@ class ContinuousBatchServer:
         self.max_len = bucket_of(max_prompt) + max_new
         self.device = params["embed"]["table"].device
         # a chunk can run a row sync_every - 1 positions past its logical
-        # end before the host trims it: budget table and pool for that
-        self.max_blocks = PC.needed_blocks(self.max_len + self.sync_every - 1, self.bs)
+        # end before the host trims it (a verify cycle k + 1): budget table
+        # and pool for that
+        self.max_blocks = PC.needed_blocks(
+            self.max_len + max(self.sync_every - 1, k_cap + 1), self.bs)
         if max_kv_blocks <= 0:  # worst case: every slot at full length
             max_kv_blocks = PC.RESERVED_BLOCKS + n_slots * self.max_blocks
         self.alloc = PC.BlockAllocator(max_kv_blocks, self.bs)
         self.caches = PC.paged_cache_init(cfg, n_slots, max_kv_blocks, self.bs,
                                           self.max_len, L.dtype_of(cfg), self.device)
         self.table = np.zeros((n_slots, self.max_blocks), np.int32)
+        if draft_cfg is not None:
+            self.d_table = SPEC._draft_table(n_slots, self.max_blocks)
+            self._d_table_dev = torch.from_numpy(self.d_table).to(self.device)
+            self.d_caches = PC.paged_cache_init(
+                draft_cfg, n_slots, n_slots * self.max_blocks + PC.RESERVED_BLOCKS, self.bs,
+                self.max_len, L.dtype_of(draft_cfg), self.device)
         self.seq_lens = np.zeros(n_slots, np.int32)
         self.cur_tok = np.zeros(n_slots, np.int32)
         self.slots: list = [None] * n_slots
@@ -148,6 +178,8 @@ class ContinuousBatchServer:
         self._results: dict = {}
         self._latencies: dict = {}  # rid -> seconds from serve() entry
         self._t_serve0 = None
+        self.spec_cycles = self.spec_accepted = self.spec_proposed = 0
+        self.spec_k_trace: list[int] = []
 
     # ----------------------------------------------------------- scheduling
     def _active(self):
@@ -188,15 +220,19 @@ class ContinuousBatchServer:
 
     def _admit(self, toks, slots_arr, table_arr, plen: int):
         """One admission dispatch: batched prefill of ``toks`` (W, plen),
-        first-token sample, ``paged_insert`` of the rows whose slot is real.
+        first-token sample, ``paged_insert`` of the rows whose slot is real;
+        a speculative engine mirrors the prompts into the draft's rows.
         Returns (tok0, lp0) on the host."""
-        last_h, dense = MDL.prefill(self.params, self.cfg,
-                                    {"tokens": torch.from_numpy(toks).to(self.device)},
-                                    plen, impl=self.impl)
-        logits0 = MDL.logits_of(self.params, self.cfg, last_h[:, None])[:, 0]
+        toks = torch.from_numpy(toks).to(self.device)
+        logits0 = SPEC._admit_run(self.params, self.cfg, toks, self.caches, slots_arr,
+                                  table_arr, plen, n_slots=self.n_slots, impl=self.impl)
         tok0, lp0 = ops.sample_logits(logits0, self._rng, **self.sample_kw)
-        PC.paged_insert(self.cfg, self.caches, dense, slots_arr, table_arr, plen,
-                        n_slots=self.n_slots)
+        if self.draft_cfg is not None:
+            keep = slots_arr < self.n_slots
+            d_rows = np.zeros_like(table_arr)  # padding rows: scratch, not written
+            d_rows[keep] = self.d_table[slots_arr[keep], :table_arr.shape[1]]
+            SPEC._admit_run(self.draft_params, self.draft_cfg, toks, self.d_caches,
+                            slots_arr, d_rows, plen, n_slots=self.n_slots, impl=self.impl)
         return tok0.cpu().numpy(), lp0.cpu().numpy()
 
     def _try_admit(self):
@@ -248,12 +284,15 @@ class ContinuousBatchServer:
                 if self._done(req):
                     self._complete(slot)
 
-    def _ensure_blocks(self):
+    def _ensure_blocks(self, span=None):
         """Grow each active row's block list to cover the whole coming
-        chunk, preempting the youngest request when the pool runs dry.
-        Rows grow oldest-first and never evict an older row: when only
-        older rows remain as victims, the growing row preempts itself."""
-        span = self.sync_every - 1
+        dispatch, ``span`` positions past the current one (default: the
+        ``sync_every`` chunk; a verify cycle passes k + 1), preempting the
+        youngest request when the pool runs dry.  Rows grow oldest-first
+        and never evict an older row: when only older rows remain as
+        victims, the growing row preempts itself."""
+        if span is None:
+            span = self.sync_every - 1
         for slot in sorted(self._active(), key=lambda s: self.slots[s].rid):
             req = self.slots[slot]
             if req is None:  # preempted by an earlier iteration
@@ -285,28 +324,75 @@ class ContinuousBatchServer:
         table = torch.from_numpy(self.table).to(dev)
         pos = torch.from_numpy(self.seq_lens).to(dev)
         tok = torch.from_numpy(self.cur_tok).to(dev)
-        toks, lps = [], []
-        for _ in range(self.sync_every):
-            tok, lp, _ = MDL.paged_decode_and_sample_step(
-                self.params, self.cfg, tok, self.caches, table, pos, self._rng,
-                **self.sample_kw)
-            pos = pos + 1
-            toks.append(tok)
-            lps.append(lp)
-        toks = torch.stack(toks).cpu().numpy()  # (sync_every, n_slots)
-        lps = torch.stack(lps).cpu().numpy()
+        _, toks, lps = SPEC._decode_run(self.params, self.cfg, self.caches, table, tok, pos,
+                                        self.sync_every, self._rng, self.sample_kw)
+        toks, lps = toks.cpu().numpy(), lps.cpu().numpy()  # (n_slots, sync_every)
         self.steps += 1
         for slot in self._active():
-            req = self.slots[slot]
-            for j in range(self.sync_every):
-                self.seq_lens[slot] += 1
-                t = int(toks[j, slot])
-                req.tokens.append(t)
-                req.logps.append(float(lps[j, slot]))
-                self.cur_tok[slot] = t
-                if self._done(req):
-                    self._complete(slot)
-                    break
+            self._commit(slot, zip(toks[slot], lps[slot]))
+
+    def _commit(self, slot: int, committed) -> bool:
+        """Append (token, logprob) pairs to a slot's request in order until
+        it is done; returns whether it completed."""
+        req = self.slots[slot]
+        for t, lp in committed:
+            self.seq_lens[slot] += 1
+            req.tokens.append(int(t))
+            req.logps.append(float(lp))
+            self.cur_tok[slot] = t
+            if self._done(req):
+                self._complete(slot)
+                return True
+        return False
+
+    def _spec_step(self):
+        """One speculative cycle for every slot: k + 1 draft steps (the last
+        the consume-only catch-up), one prefill-shaped target verify over
+        the k + 1 positions, batched rejection sampling, then the host
+        commits.  Inactive slots ride along against scratch block 0 as in
+        ``_decode_step``; their outputs are dropped.  The committed tokens
+        are exact target samples, so an EOS or ``max_new`` cut drops a
+        suffix."""
+        ctl = self.spec_controller
+        k = ctl.k if ctl is not None else self.spec_k
+        self.spec_k_trace.append(k)
+        # the verify writes positions seq_lens .. seq_lens + k, and a clean
+        # sweep's truncate_to keeps blocks covering seq_lens + k + 1
+        self._ensure_blocks(span=k + 1)
+        dev = self.device
+        pos0 = torch.from_numpy(self.seq_lens).to(dev)
+        cur = torch.from_numpy(self.cur_tok).to(dev)
+        dtoks, dlgs = SPEC._draft_run(self.draft_params, self.draft_cfg, self.d_caches,
+                                      self._d_table_dev, cur, pos0, k + 1, self._rng,
+                                      self.sample_kw)
+        dtoks, dlgs = dtoks[:, :k], dlgs[:, :k]  # drop the catch-up step
+        window = torch.cat([cur[:, None], dtoks], dim=1)
+        positions = pos0[:, None] + torch.arange(k + 1, dtype=torch.int32, device=dev)[None]
+        acc, ytok, ylp, dlps = SPEC._verify_run(
+            self.params, self.cfg, self.caches, torch.from_numpy(self.table).to(dev), window,
+            positions, dtoks, dlgs, self._rng, self.sample_kw)
+        acc, ytok, ylp = acc.cpu().numpy(), ytok.cpu().numpy(), ylp.cpu().numpy()
+        dlps, window = dlps.cpu().numpy(), window.cpu().numpy()
+        self.steps += 1
+        self.spec_cycles += 1
+        cyc_acc = cyc_prop = 0
+        for slot in self._active():
+            r = int(acc[slot])
+            cyc_acc += r
+            cyc_prop += k
+            committed = [*zip(window[slot, 1:1 + r], dlps[slot, :r]),
+                         (ytok[slot], ylp[slot])]
+            if not self._commit(slot, committed):
+                # the row lives on: drop the blocks past its committed
+                # length (seq_lens counts the prompt bucket and the tokens
+                # consumed; the last committed token is the next to consume)
+                req = self.slots[slot]
+                req.blocks = self.alloc.truncate_to(req.blocks, int(self.seq_lens[slot]) + 1)
+                self.table[slot, len(req.blocks):] = 0
+        self.spec_accepted += cyc_acc
+        self.spec_proposed += cyc_prop
+        if ctl is not None and cyc_prop:
+            ctl.update(cyc_acc / cyc_prop)
 
     # -------------------------------------------------------------- serving
     @torch.no_grad()
@@ -346,7 +432,10 @@ class ContinuousBatchServer:
         while self.queue or self._active():
             self._try_admit()
             if self._active():
-                self._decode_step()
+                if self.draft_cfg is not None:
+                    self._spec_step()
+                else:
+                    self._decode_step()
             elif self.queue:
                 raise MemoryError("queued request cannot be admitted into an empty "
                                   "server; raise max_kv_blocks")
@@ -363,6 +452,11 @@ class ContinuousBatchServer:
             def pct(q):
                 return lats[min(len(lats) - 1, int(q * len(lats)))]
             out["latency_s"] = {"p50": pct(0.50), "p99": pct(0.99), "n": len(lats)}
+        if self.draft_cfg is not None:
+            out.update(spec_cycles=self.spec_cycles, spec_accepted=self.spec_accepted,
+                       spec_proposed=self.spec_proposed,
+                       spec_accept_rate=self.spec_accepted / max(self.spec_proposed, 1),
+                       spec_k_trace=list(self.spec_k_trace))
         return out
 
     def kv_peak_bytes(self) -> int:
@@ -373,7 +467,10 @@ def build_server(cfg, params, exp, *, max_prompt: int = 128, max_new: int = 128,
                  draft_params=None):
     """The serve engine ``exp.serve_mode`` selects ("bucketed" or
     "continuous"), with the sampling and KV settings of ``exp`` (any object
-    with the JAX package's ``ExperimentConfig`` attributes)."""
+    with the JAX package's ``ExperimentConfig`` attributes).  With
+    ``exp.draft_model`` set and ``draft_params`` given, the continuous
+    engine is speculative (``exp.spec_k``, adaptive when
+    ``exp.spec_adaptive``)."""
     impl = exp.rollout_impl or exp.impl
     if exp.serve_mode == "bucketed":
         return BatchServer(cfg, params, max_new=max_new, eos_id=exp.eos_id,
@@ -381,15 +478,19 @@ def build_server(cfg, params, exp, *, max_prompt: int = 128, max_new: int = 128,
     if exp.serve_mode != "continuous":
         raise ValueError(f"serve_mode={exp.serve_mode!r} not in "
                          "('bucketed', 'continuous')")
-    if draft_params is not None and getattr(exp, "draft_model", None) is not None:
-        raise NotImplementedError("speculative decoding is not ported yet")
     if getattr(exp, "sampler", "cdf") != "cdf":
         raise NotImplementedError(f"sampler={exp.sampler!r} is not ported (cdf only)")
+    spec_kw = {}
+    if draft_params is not None and getattr(exp, "draft_model", None) is not None:
+        spec_kw = dict(draft_params=draft_params, draft_cfg=exp.draft_model,
+                       spec_k=exp.spec_k,
+                       spec_controller=(SPEC.SpecController(init_k=exp.spec_k)
+                                        if exp.spec_adaptive else None))
     return ContinuousBatchServer(
         cfg, params, kv_block_size=exp.kv_block_size,
         max_kv_blocks=exp.max_kv_blocks, max_prompt=max_prompt,
         max_new=max_new, eos_id=exp.eos_id, top_k=exp.top_k, top_p=exp.top_p,
-        impl=impl)
+        impl=impl, **spec_kw)
 
 
 def main(argv=None):
@@ -405,6 +506,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--impl", default="cuda", choices=["cuda", "reference"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--spec", action="store_true",
+                    help="speculative continuous serving, the target drafting for itself "
+                         "(accept rate ~1)")
+    ap.add_argument("--spec-k", type=int, default=4)
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_config
@@ -422,13 +527,20 @@ def main(argv=None):
             prompts, seed=args.seed + 1)
         extra = ""
     else:
+        spec_kw = {}
+        if args.spec:
+            spec_kw = dict(draft_params=params, draft_cfg=cfg, spec_k=args.spec_k,
+                           spec_controller=SPEC.SpecController(init_k=args.spec_k))
         server = ContinuousBatchServer(cfg, params, n_slots=args.slots,
                                        kv_block_size=args.block_size, max_prompt=64,
-                                       max_new=args.new, impl=args.impl)
+                                       max_new=args.new, impl=args.impl, **spec_kw)
         out, _ = server.serve(prompts, seed=args.seed + 1)
         st = server.stats()
         extra = (f", steps={st['steps']} preemptions={st['preemptions']} "
                  f"peak_blocks={st['peak_blocks']} kv_peak={server.kv_peak_bytes()}B")
+        if args.spec:
+            extra += (f", spec accept_rate={st['spec_accept_rate']:.3f} "
+                      f"cycles={st['spec_cycles']} k_trace={st['spec_k_trace']}")
     if torch.device(args.device).type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0

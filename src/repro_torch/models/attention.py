@@ -151,3 +151,70 @@ def ragged_attn_decode_apply(p, cfg: ModelConfig, spec: LayerSpec, x, cache, des
     out = ops.decode_mha(q[:, 0], cache["k"], cache["v"], cache_len=cache_len,
                          window=spec.window, impl=impl)
     return L.dense_apply(p["wo"], out.reshape(b, 1, cfg.q_dim).to(x.dtype))
+
+
+def paged_attn_verify_apply(p, cfg: ModelConfig, x, cache, block_table, dest, rope,
+                            positions, *, impl="cuda"):
+    """Multi-token (speculative verify) step through the paged block pool.
+    x: (B, K, D), the spec window (the last committed token, then the draft
+    tokens); positions: (B, K) int32, consecutive per row; dest: the
+    (block, offset) index pair of each token's write, each (B, K); rope:
+    the tables of ``positions``.  All K tokens' roped k/v go into the pool
+    first (a row's consecutive positions never share a slot), then query j
+    attends every logical position <= positions[b, j]."""
+    b, kk, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x, rope)
+    cache["k"][dest] = k
+    cache["v"][dest] = v
+    out = ops.paged_verify_mha(q, cache["k"], cache["v"], block_table,
+                               q_positions=positions, impl=impl)
+    return L.dense_apply(p["wo"], out.reshape(b, kk, cfg.q_dim).to(x.dtype))
+
+
+RING_UNWRITTEN = 2**30  # the position of a ring slot never written: causally masked
+
+
+def ragged_attn_verify_apply(p, cfg: ModelConfig, spec: LayerSpec, x, cache, rope,
+                             positions, *, impl="cuda"):
+    """``paged_attn_verify_apply`` for a sliding-window ring with per-row
+    positions.  Writing the K tokens into the ring before attending would
+    evict slots the early queries still need, so the ring is linearised:
+    each slot is tagged with the position of the token it holds
+    (``RING_UNWRITTEN`` if none), the K new tokens are appended as extra
+    keys, and one banded attention over explicit positions scores all of
+    them.  The ring is written later, by ``commit_ring``, with the accepted
+    tokens only: a rejected token's write would evict a position that the
+    next step still attends (the JAX package writes all K here, and its
+    wrapped rings then hold rejected keys)."""
+    if spec.window is None:
+        raise ValueError("ragged verify is ring-cache only; use paged_attn_verify_apply")
+    b, kk, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x, rope)
+    cap = cache["k"].shape[1]
+    if kk > cap:
+        raise ValueError(f"spec window {kk} exceeds ring capacity {cap}")
+    p0 = positions[:, :1].long()  # (B, 1) position of the first new token
+    s = torch.arange(cap, device=x.device)[None, :]
+    # the latest position t < p0 with t % cap == s; t < 0: never written
+    t = p0 - 1 - torch.remainder(p0 - 1 - s, cap)
+    kv_pos = torch.where(t >= 0, t, RING_UNWRITTEN)
+    keys = torch.cat([cache["k"].to(k.dtype), k], dim=1)
+    vals = torch.cat([cache["v"].to(v.dtype), v], dim=1)
+    kv_positions = torch.cat([kv_pos, positions.long()], dim=1).to(torch.int32)
+    out = ops.mha(q, keys, vals, causal=True, window=spec.window, q_positions=positions,
+                  kv_positions=kv_positions, impl=impl)
+    cache["verify"] = (k, v, positions.long() % cap)
+    return L.dense_apply(p["wo"], out.reshape(b, kk, cfg.q_dim).to(x.dtype))
+
+
+def commit_ring(cache, keep):
+    """Write the first ``keep[b]`` tokens of the last verify step into row
+    b's ring (``keep``: (B,) on the device; a blend with the ring's own
+    values, so no host sync)."""
+    k, v, slot = cache.pop("verify")
+    b, kk = slot.shape
+    rows = torch.arange(b, device=slot.device)[:, None]
+    take = (torch.arange(kk, device=slot.device)[None] < keep[:, None])[..., None, None]
+    for name, new in (("k", k), ("v", v)):
+        cache[name][rows, slot] = torch.where(take, new.to(cache[name].dtype),
+                                              cache[name][rows, slot])

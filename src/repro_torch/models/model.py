@@ -1,5 +1,6 @@
 """Model facade: init / forward / prefill / decode / paged decode /
-generate, and the length-bucketed generator.
+speculative draft and verify steps / generate, and the length-bucketed
+generator.
 
 Parameters: {"embed": {"table"}, "layers": [one dict per layer],
 "final_norm": {"scale"}} (+ "lm_head" when embeddings are not tied, or
@@ -178,6 +179,39 @@ def paged_decode_and_sample_step(params, cfg: ModelConfig, token, caches,
     tok, lp = ops.sample_logits(logits, rng, temperature=temperature,
                                 top_k=top_k, top_p=top_p, impl=impl)
     return tok, lp, caches
+
+
+@torch.no_grad()
+def paged_draft_step(params, cfg: ModelConfig, token, caches, block_table, positions,
+                     rng=None, *, temperature: float = 1.0, top_k: int = 0,
+                     top_p: float = 1.0, impl="cuda"):
+    """The draft model's step: ``paged_decode_and_sample_step`` that also
+    returns the full (B, V) fp32 logits, the proposal distribution the
+    verify's residual resampling needs.  Returns (next_token (B,),
+    logits (B, V), caches)."""
+    logits, caches = paged_decode_step(params, cfg, token, caches, block_table,
+                                       positions, impl=impl)
+    tok, _ = ops.sample_logits(logits, rng, temperature=temperature,
+                               top_k=top_k, top_p=top_p, impl=impl)
+    return tok, logits.to(torch.float32), caches
+
+
+@torch.no_grad()
+def paged_verify_step(params, cfg: ModelConfig, tokens, caches, block_table, positions,
+                      *, impl="cuda"):
+    """Score a speculative window in one prefill-shaped step over paged
+    caches.  tokens: (B, K), the last committed token then the draft's
+    proposals; positions: (B, K) their positions.  Every token's KV is
+    written into the pools (a window layer's ring takes the accepted ones
+    at ``transformer.stack_commit_verify``), and position i's logits are
+    the target's next-token distribution after tokens[:, :i+1], as i + 1
+    single-token steps would give.  Returns (logits (B, K, V) fp32,
+    caches)."""
+    x = _embed(params, cfg, tokens)
+    h = T.stack_paged_verify(params["layers"], cfg, x, caches, block_table, positions,
+                             impl=impl)
+    h = L.rmsnorm_apply(params["final_norm"], h, cfg.norm_eps)
+    return logits_of(params, cfg, h).to(torch.float32), caches
 
 
 @torch.no_grad()

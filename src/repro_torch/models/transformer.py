@@ -8,6 +8,8 @@ Four execution paths share the parameters:
   * ``stack_decode``       - single-token step through the caches
   * ``stack_paged_decode`` - single-token step with per-row positions through
                              paged caches (continuous batching)
+  * ``stack_paged_verify`` - K-token speculative verify step with per-token
+                             positions through paged caches (attention only)
 
 Every mixer is ported: attention, RG-LRU (``models/rglru.py``) and Mamba-2
 SSD (``models/ssm.py``), with a gated-MLP FFN, a dropless MoE FFN
@@ -140,6 +142,24 @@ def block_paged_decode(p, cfg, spec, x, cache, block_table, dest, rope, cache_le
     return _ffn(p, cfg, x + y, impl)[0]
 
 
+def block_paged_verify(p, cfg, spec, x, cache, block_table, dest, rope, positions, *,
+                       impl="cuda"):
+    """K-token speculative verify block step: x (B, K, D) at positions
+    (B, K).  Attention only: a recurrent mixer would need its state rolled
+    back on a rejected draft (the spec entry points refuse it up front).
+    Updates ``cache`` in place."""
+    if spec.kind != ATTN:
+        raise ValueError(f"the verify step is attention-only; got mixer kind {spec.kind}")
+    h = L.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+    if spec.window is None:
+        y = A.paged_attn_verify_apply(p["mixer"], cfg, h, cache, block_table, dest, rope,
+                                      positions, impl=impl)
+    else:
+        y = A.ragged_attn_verify_apply(p["mixer"], cfg, spec, h, cache, rope, positions,
+                                       impl=impl)
+    return _ffn(p, cfg, x + y, impl)[0]
+
+
 def stack_init(gen, cfg: ModelConfig, device):
     check_supported(cfg)
     return [block_init(gen, cfg, spec, device) for spec in cfg.layers]
@@ -248,3 +268,35 @@ def stack_paged_decode(layers_params, cfg: ModelConfig, x, caches, block_table,
         x = block_paged_decode(p, cfg, spec, x, cache, block_table, dests[key], rope,
                                cache_len, impl=impl)
     return x
+
+
+def stack_paged_verify(layers_params, cfg: ModelConfig, x, caches, block_table, positions,
+                       *, impl="cuda"):
+    """x: (B, K, D), one speculative verify window per row; block_table:
+    (B, M) int32; positions: (B, K) int32 per-token positions.  Updates
+    ``caches`` in place and returns x.  The RoPE tables and the pools'
+    (block, offset) write indices are built once here, not per layer."""
+    rope = _rope(cfg, positions)
+    dests = {}
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    for p, spec, cache in zip(layers_params, cfg.layers, caches):
+        dest = None
+        if spec.kind == ATTN and spec.window is None:
+            bs = cache["k"].shape[1]
+            if bs not in dests:
+                pos = positions.long()
+                dests[bs] = (block_table[rows, pos // bs].long(), pos % bs)
+            dest = dests[bs]
+        x = block_paged_verify(p, cfg, spec, x, cache, block_table, dest, rope, positions,
+                               impl=impl)
+    return x
+
+
+def stack_commit_verify(cfg: ModelConfig, caches, keep):
+    """After a verify step's acceptance: write the first ``keep[b]`` window
+    tokens of row b into each window layer's ring (``attention.commit_ring``).
+    The pools need nothing: a rejected position there is masked until the
+    next step overwrites it."""
+    for spec, cache in zip(cfg.layers, caches):
+        if spec.kind == ATTN and spec.window is not None:
+            A.commit_ring(cache, keep)

@@ -26,7 +26,11 @@ dataflow order itself:
 Padded training (``packed_training=False``) trains every model the port
 serves; packed training takes attention-only models, dense or MoE (a
 recurrent mixer would scan across the packed sequences, as in the JAX
-package).  Not ported: speculative rollout (``draft_model``).
+package).  With ``draft_model`` set the rollout is speculative
+(``models/spec.py``): ``actor_gen`` drafts with the frozen draft and
+verifies (``build_executors(..., draft=models["draft"])``), a seventh call,
+``draft_gen``, orders the two models in the plan, and the measured accept
+rate goes back into the cost model.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from repro_torch.core.search import heuristic_plan, mcmc_search
 from repro_torch.data import packing
 from repro_torch.kernels import ops as OPS
 from repro_torch.models import model as MDL
+from repro_torch.models import spec as SPEC
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.rlhf import ppo as PPO
@@ -88,15 +93,22 @@ class ExperimentConfig:
     replan_iters: int = 60
     speculative_redispatch: bool = False
     packed_training: bool = False
+    # speculative rollout: a frozen draft proposes spec_k tokens per cycle
+    # (re-picked per cycle when spec_adaptive), on a block pool of
+    # kv_block_size-token blocks; attention-only, one vocabulary, no eos_id
     draft_model: Optional[ModelConfig] = None
+    spec_k: int = 4
+    spec_adaptive: bool = True
+    kv_block_size: int = 16
 
 
 def build_models(actor_cfg: ModelConfig, critic_cfg: ModelConfig, exp: ExperimentConfig, *,
                  device="cuda") -> dict:
     """The four PPO models with seeded random weights: actor and reference
     from one seed (as the JAX package draws both from one key), critic and
-    reward value models from two others.  The trained models' parameters
-    require grad and get AdamW state."""
+    reward value models from two others; a draft model, when ``exp`` has
+    one, from a fourth (frozen: no grad, no optimizer state).  The trained
+    models' parameters require grad and get AdamW state."""
     models = {
         "actor": ModelState(MDL.init_params(actor_cfg, seed=exp.seed, device=device)),
         "ref": ModelState(MDL.init_params(actor_cfg, seed=exp.seed, device=device)),
@@ -105,6 +117,9 @@ def build_models(actor_cfg: ModelConfig, critic_cfg: ModelConfig, exp: Experimen
         "reward": ModelState(MDL.init_params(critic_cfg, seed=exp.seed + 3, device=device,
                                              head="value")),
     }
+    if exp.draft_model is not None:
+        models["draft"] = ModelState(MDL.init_params(exp.draft_model, seed=exp.seed + 17,
+                                                     device=device))
     for name in ("actor", "critic"):
         ms = models[name]
         for p in adamw.leaves(ms.params):
@@ -187,17 +202,29 @@ def critic_train_batch(exp: ExperimentConfig, inputs) -> dict:
 
 
 def build_executors(actor_cfg: ModelConfig, critic_cfg: ModelConfig,
-                    exp: ExperimentConfig) -> dict:
+                    exp: ExperimentConfig, *, draft: Optional[ModelState] = None,
+                    cost: Optional[CostModel] = None,
+                    controller: Optional[SPEC.SpecController] = None) -> dict:
     """The executors of the six PPO function calls, each
     f(model_state, inputs) -> outputs, as the JAX package's
     ``_build_executors`` makes them.  Inference runs under
     ``torch.no_grad()`` without remat; a train call updates the model state
-    in place and returns its stats as floats."""
+    in place and returns its stats as floats.
+
+    With ``exp.draft_model``, ``actor_gen`` rolls out through
+    ``spec_generate`` with ``draft`` (the draft's model state, required),
+    re-picking k per cycle with ``controller`` (None: a fixed
+    ``exp.spec_k``), and records each rollout's accept rate in ``cost``
+    when given; a seventh executor, ``draft_gen``, only publishes the
+    dependency token the plan orders the two calls by."""
     if exp.packed_training:
         for cfg in (actor_cfg, critic_cfg):
             T.check_packed(cfg)
     if exp.draft_model is not None:
-        raise NotImplementedError("speculative rollout (draft_model) is not ported")
+        SPEC.check_spec_pair(actor_cfg, exp.draft_model)
+        if draft is None:
+            raise ValueError("a draft_model experiment's executors need the draft's "
+                             "model state (draft=)")
     if not exp.fused_sampling:
         raise NotImplementedError("the port's generate is the fused decode-and-sample "
                                   "loop only")
@@ -227,6 +254,29 @@ def build_executors(actor_cfg: ModelConfig, critic_cfg: ModelConfig,
         seq = torch.cat([prompts, out["tokens"].to(prompts.dtype)], dim=1)
         mask = out.get("gen_mask", torch.ones_like(out["logprobs"]))
         return {"seq": seq, "logp": out["logprobs"], "gen_mask": mask}
+
+    def draft_gen(ms, inputs):
+        # the plan places the draft and costs its steps; at run time its
+        # proposals are interleaved with the verify steps in actor_gen, so
+        # this call only publishes the dependency token
+        prompts = inputs["prompts"]["tokens"]
+        return {"draft_seq": torch.zeros(prompts.shape[0], dtype=torch.int32,
+                                         device=prompts.device)}
+
+    def actor_gen_spec(ms, inputs):
+        prompts = inputs["prompts"]["tokens"]
+        if state["gen"] is None:
+            state["gen"] = torch.Generator(device=prompts.device).manual_seed(exp.seed + 1)
+        out = SPEC.spec_generate(ms.params, actor_cfg, draft.params, exp.draft_model,
+                                 inputs["prompts"], num_new_tokens=exp.gen_len,
+                                 spec_k=exp.spec_k, rng=state["gen"], top_k=exp.top_k,
+                                 top_p=exp.top_p, impl=rollout_impl,
+                                 block_size=exp.kv_block_size, controller=controller)
+        if cost is not None:  # the measured accept rate closes the estimator's loop
+            cost.record_accept_rate("actor", out["stats"]["accept_rate"])
+        seq = torch.cat([prompts, out["tokens"].to(prompts.dtype)], dim=1)
+        return {"seq": seq, "logp": out["logprobs"],
+                "gen_mask": torch.ones_like(out["logprobs"]), "spec_stats": out["stats"]}
 
     @torch.no_grad()
     def reward_inf(ms, inputs):
@@ -258,6 +308,8 @@ def build_executors(actor_cfg: ModelConfig, critic_cfg: ModelConfig,
     executors = {"actor_gen": actor_gen, "reward_inf": reward_inf, "ref_inf": ref_inf,
                  "critic_inf": critic_inf, "actor_train": actor_train,
                  "critic_train": critic_train}
+    if exp.draft_model is not None:
+        executors.update(actor_gen=actor_gen_spec, draft_gen=draft_gen)
     return {name: _on_model_device(fn) for name, fn in executors.items()}
 
 
@@ -298,11 +350,14 @@ class RLHFExperiment:
                 if msg:
                     raise ValueError(msg)
         if exp.draft_model is not None:
-            raise NotImplementedError("speculative rollout (draft_model) is not ported")
+            SPEC.check_spec_pair(actor_cfg, exp.draft_model)  # fail at construction
+            if exp.eos_id is not None:
+                raise ValueError("eos_id early exit is not supported on the speculative "
+                                 "rollout path; unset draft_model or eos_id")
         self.graph = DFG.build_ppo(
             actor_cfg, critic_cfg, batch=exp.batch, prompt_len=exp.prompt_len,
             gen_len=exp.gen_len, n_minibatches=exp.ppo.n_minibatches,
-            packed=exp.packed_training)
+            packed=exp.packed_training, draft=exp.draft_model)
         self.cost = CostModel(cluster)
         self.profile_store = None
         if exp.profile_path:
@@ -325,7 +380,22 @@ class RLHFExperiment:
         self._trainable = tuple(sorted({c.model_name for c in self.graph.calls
                                         if c.call_type == DFG.TRAIN}))
         self.models = build_models(actor_cfg, critic_cfg, exp, device=self.device)
-        self.executors = build_executors(actor_cfg, critic_cfg, exp)
+        self.spec_controller = None
+        if exp.draft_model is not None and exp.spec_adaptive:
+            # drive k from the estimator that placed both models, when the
+            # plan says where they sit
+            a_asg = self.plan.assignments.get("actor_gen")
+            d_asg = self.plan.assignments.get("draft_gen")
+            cycle_cost = None
+            if a_asg is not None and d_asg is not None:
+                cycle_cost = self.cost.spec_cycle_time_fn(
+                    actor_cfg, exp.draft_model, exp.batch, exp.prompt_len + exp.gen_len // 2,
+                    a_asg, d_asg)
+            self.spec_controller = SPEC.SpecController(init_k=exp.spec_k,
+                                                       cycle_cost=cycle_cost)
+        self.executors = build_executors(actor_cfg, critic_cfg, exp,
+                                         draft=self.models.get("draft"), cost=self.cost,
+                                         controller=self.spec_controller)
         candidates = []
         if exp.recalibrate_every > 0:
             try:  # the symmetric baseline is the natural fallback candidate

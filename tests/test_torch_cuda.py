@@ -1058,3 +1058,66 @@ def test_small_train_step_on_the_card_equals_the_reference(arch, packed):
     norm = adamw.global_norm(gr).item()
     assert norm > 0
     assert adamw.global_norm([a - b for a, b in zip(gc, gr)]).item() <= 1e-4 * norm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kk", [2, 5, 9])
+def test_paged_verify_runs_flash_mha_at_explicit_positions(kk, dtype):
+    """The speculative verify's attention: Sq = k + 1 queries per row at
+    explicit positions over the table-gathered pool (a shuffled table, one
+    row whose window ends on the last slot), through ``ops.paged_verify_mha``
+    on the kernel tier against ``ref.paged_verify_mha_ref``; it launches
+    flash_mha once."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(kk)
+    b, hq, hkv, d, bs, m = 4, 14, 2, 64, 16, 6
+    n = 1 + b * m
+    q = _randn(gen, (b, kk, hq, d), dtype, dev)
+    k_pool, v_pool = (_randn(gen, (n, bs, hkv, d), dtype, dev) for _ in range(2))
+    tbl = (torch.randperm(n - 1, generator=gen, device=dev) + 1).reshape(b, m).to(torch.int32)
+    starts = torch.tensor([0, 17, 40, m * bs - kk], device=dev)
+    qpos = (starts[:, None] + torch.arange(kk, device=dev)[None]).to(torch.int32)
+    before = flash_attention.flash_mha.launches
+    got = ops.paged_verify_mha(q, k_pool, v_pool, tbl, q_positions=qpos, impl="cuda")
+    assert flash_attention.flash_mha.launches == before + 1
+    _close(got, ref.paged_verify_mha_ref(q, k_pool, v_pool, tbl, q_positions=qpos), dtype)
+
+
+@pytest.mark.cuda
+def test_spec_cycle_on_the_card_equals_the_reference():
+    """A few speculative cycles on a 2-layer reduced qwen2-0.5b in fp32 (the
+    draft: the target plus seeded noise), greedy, on both tiers: the same
+    tokens and spec stats, logprobs within 1e-4; the kernel tier launched
+    flash_mha in every verify and paged_flash_decode in every draft step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MDL
+    from repro_torch.models import spec as SPEC
+    dev = _card()
+    cfg = get_config("qwen2-0.5b").reduced()
+    params = MDL.init_params(cfg, seed=3, device=dev)
+    draft = MDL.init_params(cfg, seed=3, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    with torch.no_grad():
+        for p in (params, draft):
+            p["embed"]["table"].mul_(0.05)
+        for layer in draft["layers"]:
+            w = layer["mixer"]["wq"]["w"]
+            w.add_(0.02 * torch.randn(w.shape, generator=gen, device=dev))
+    prompts = torch.randint(1, cfg.vocab_size, (3, 9), generator=gen, device=dev)
+    out = {}
+    for impl in ("cuda", "reference"):
+        mha0 = flash_attention.flash_mha.launches
+        dec0 = paged_decode_attention.paged_flash_decode.launches
+        out[impl] = SPEC.spec_generate(params, cfg, draft, cfg, {"tokens": prompts},
+                                       num_new_tokens=12, spec_k=3, impl=impl, block_size=8)
+        launched = (flash_attention.flash_mha.launches - mha0,
+                    paged_decode_attention.paged_flash_decode.launches - dec0)
+        if impl == "cuda":
+            st = out[impl]["stats"]
+            assert launched == (2 * (2 + st["cycles"]), 2 * 4 * st["cycles"])
+        else:
+            assert launched == (0, 0)
+    assert torch.equal(out["cuda"]["tokens"], out["reference"]["tokens"])
+    assert out["cuda"]["stats"] == out["reference"]["stats"]
+    assert (out["cuda"]["logprobs"] - out["reference"]["logprobs"]).abs().max().item() <= 1e-4

@@ -368,11 +368,12 @@ def test_build_server_modes_and_unported_options(pair):
     assert isinstance(tserve.build_server(tcfg, tparams, exp), tserve.BatchServer)
     with pytest.raises(ValueError, match="serve_mode"):
         tserve.build_server(tcfg, tparams, ExperimentConfig(serve_mode="nope"))
-    with pytest.raises(NotImplementedError, match="speculative"):
-        tserve.ContinuousBatchServer(tcfg, tparams, draft_params=tparams, draft_cfg=tcfg)
-    with pytest.raises(NotImplementedError, match="speculative"):
-        tserve.build_server(tcfg, tparams, ExperimentConfig(draft_model=tcfg),
-                            draft_params=tparams)
+    # speculative decoding is ported: a draft gives the spec engine
+    srv = tserve.ContinuousBatchServer(tcfg, tparams, draft_params=tparams, draft_cfg=tcfg)
+    assert srv.draft_cfg is tcfg and srv.spec_controller is None
+    srv = tserve.build_server(tcfg, tparams, ExperimentConfig(draft_model=tcfg),
+                              draft_params=tparams)
+    assert srv.draft_cfg is tcfg and srv.spec_controller is not None
     with pytest.raises(NotImplementedError, match="cdf"):
         tserve.build_server(tcfg, tparams, ExperimentConfig(sampler="gumbel"))
     with pytest.raises(ValueError, match="impl='cuda' needs CUDA tensors"):

@@ -247,3 +247,36 @@ def test_jax_fp32_checkpoint_restores_bit_identical(tmp_path):
         {"actor": jax.tree.map(jnp.asarray, tree)})
     for a, b in zip(jax.tree.leaves(back["actor"]), jax.tree.leaves(tree)):
         assert np.array_equal(np.asarray(a), b)
+
+
+def test_jax_bf16_checkpoint_restores_bit_identical(tmp_path):
+    """A bf16 checkpoint the JAX manager writes (``np.save`` of an
+    ``ml_dtypes.bfloat16`` array, which loads back as dtype ``|V2``)
+    restores bit for bit in the port, into bf16 tensors, beside an fp32
+    leaf of the same tree.  The JAX manager's own bf16 restore is not
+    the yardstick: it raises on ``|V2``."""
+    rng = np.random.default_rng(4)
+    tree = {"embed": {"table": rng.standard_normal((6, 4)).astype(np.float32)},
+            "layers": [{"w": rng.standard_normal((4, 4)).astype(np.float32)} for _ in range(2)]}
+    jtree = {"embed": {"table": jnp.asarray(tree["embed"]["table"], jnp.bfloat16)},
+             "layers": [{"w": jnp.asarray(tree["layers"][0]["w"], jnp.bfloat16)},
+                        {"w": jnp.asarray(tree["layers"][1]["w"])}]}
+    JCheckpointManager(tmp_path).save(2, {"actor": jtree})
+    manifest = json.loads((tmp_path / "step_000000002" / "manifest.json").read_text())
+    assert manifest["models"]["actor"]["embed/table"]["dtype"] == "bfloat16"
+    assert np.load(tmp_path / "step_000000002" /
+                   manifest["models"]["actor"]["embed/table"]["file"]).dtype.kind == "V"
+    template = {"actor": jax.tree.map(
+        lambda a: torch.zeros(a.shape, dtype=torch.bfloat16 if a.dtype == jnp.bfloat16
+                              else torch.float32), jtree)}
+    assert TCheckpointManager(tmp_path).valid_step(2)
+    step, got, _ = TCheckpointManager(tmp_path).restore(template)
+    assert step == 2
+    for a, b in zip(tadamw.leaves(got["actor"]), jax.tree.leaves(jtree)):
+        want = np.asarray(b)
+        if want.dtype == np.float32:
+            assert a.dtype == torch.float32 and np.array_equal(a.numpy(), want)
+        else:
+            assert a.dtype == torch.bfloat16
+            assert np.array_equal(a.view(torch.int16).numpy().view(np.uint16),
+                                  want.view(np.uint16))

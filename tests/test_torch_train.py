@@ -389,15 +389,17 @@ def test_executors_teacher_forced_iteration_matches_jax():
 
 
 def test_executors_refuse_what_is_not_ported():
-    """The JAX package's default experiment (padded training) builds; the
-    speculative rollout, the unfused sampler and packed training of a
-    recurrent model still raise."""
+    """The JAX package's default experiment (padded training) builds, and
+    with a draft model its seven speculative executors; the unfused sampler
+    and packed training of a recurrent model still raise."""
     tcfg = get_config("qwen2-0.5b").reduced()
     ex = TEXP.build_executors(tcfg, tcfg, TEXP.ExperimentConfig())
     assert set(ex) == {"actor_gen", "reward_inf", "ref_inf", "critic_inf", "actor_train",
                        "critic_train"}
-    with pytest.raises(NotImplementedError, match="draft"):
-        TEXP.build_executors(tcfg, tcfg, TEXP.ExperimentConfig(draft_model=tcfg))
+    draft = TEXP.ModelState(TM.init_params(tcfg, seed=0, device="cpu"))
+    ex = TEXP.build_executors(tcfg, tcfg, TEXP.ExperimentConfig(draft_model=tcfg), draft=draft)
+    assert set(ex) == {"actor_gen", "draft_gen", "reward_inf", "ref_inf", "critic_inf",
+                       "actor_train", "critic_train"}
     with pytest.raises(NotImplementedError, match="fused"):
         TEXP.build_executors(tcfg, tcfg, TEXP.ExperimentConfig(fused_sampling=False))
     rcfg = get_config("mamba2-1.3b").reduced()
