@@ -11,7 +11,8 @@ Phases, in order; any failure exits non-zero before the last line:
      flash_mha_varlen also windowed, on equal segments against flash_mha,
      under a perturbation of another sequence, and its gradient; a decode
      kernel (no backward) refusing an input that requires grad;
-     flash_mha and flash_decode also at recurrentgemma-9b's D = 256,
+     flash_mha and flash_decode also at recurrentgemma-9b's D = 256 and
+     llama-7b's D = 128,
      ssd_scan at mamba2-1.3b's widths, rglru_scan at recurrentgemma-9b's in
      fp32; paged_flash_decode also bit for bit against flash_decode on the
      gathered cache in bf16 and fp32; flash_mha also at the speculative
@@ -104,10 +105,30 @@ Phases, in order; any failure exits non-zero before the last line:
      ``RLHFExperiment`` with the 2-layer draft through ``RuntimeEngine``
      (spec_stats, the cost model's accept rate, the draft's parameters bit
      for bit after, finite losses, launches, peak memory).
+ 10. physical parameter reallocation and the paper's llama-7b: (a)
+     llama-7b at full width (32 layers, d_model 4096, 32/8 heads of 128,
+     d_ff 14336, vocabulary 128,256, untied; 8.03B parameters, 16.06 GB in
+     bf16, drawn on the card): phase 3's cuda vs reference logits and paged
+     decode, one greedy ``BatchServer.serve`` of phase 4's 8 requests, 64
+     new tokens each, launches held to the prediction; (b) its tree laid
+     out on 4 logical devices (``parallel/layout.py``; on one card all four
+     map to it, each block its own buffer) and moved by
+     ``parallel/realloc_exec.py``: a clone and then donating moves from the
+     generation layout (tp 4) to the training layout (fsdp 2 x tp 2), back,
+     onto devices {0, 1} and across to {2, 3}; every leaf bit-equal after
+     ``gather()``, the replicated norms aliased by identity, each move's
+     split equal to the JAX executor's on the same spec trees
+     (``LLAMA_MOVE_COUNTS``), the donating move's peak memory below the
+     clone's, seconds beside the copy bound and the cost model's schedule
+     time; (c) ``RuntimeEngine`` with ``sharding_for`` and
+     ``opt_sharding_for``: ``test_realloc_fastpath.py``'s prefetch-hit toy
+     on llama-7b's tree and ``benchmarks/pipeline_bench.py``'s toy with
+     llama-7b as the actor and qwen2-0.5b's value model and AdamW state as
+     the critic, at depth 1 and 2, held to the same toys run logically.
 Each model's parameters are freed before the next is built.
 Then one JSON line of kernel numbers, and last {"ok": true, "device": ...}.
 
-Phases 3 to 9 are functions of (config, params or experiment, impl) so the
+Phases 3 to 10 are functions of (config, params or experiment, impl) so the
 CPU tests rehearse them at the reduced size with impl="reference".
 """
 
@@ -134,8 +155,12 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ATTN, LRU, SSM  # noqa: E402
 from repro_torch.core import profiler as PROF  # noqa: E402
 from repro_torch.core import simulator as SIM  # noqa: E402
+from repro_torch.core import dfg as DFG  # noqa: E402
+from repro_torch.core import realloc as REALLOC  # noqa: E402
+from repro_torch.core import runtime as RT  # noqa: E402
 from repro_torch.core.estimator import CostModel  # noqa: E402
-from repro_torch.core.plan import Cluster  # noqa: E402
+from repro_torch.core.plan import (Assignment, Cluster, DeviceMesh, ExecutionPlan,  # noqa: E402
+                                   ParallelStrategy)
 from repro_torch.kernels import (build, decode_attention, flash_attention,  # noqa: E402
                                  grouped_expert, paged_decode_attention, ref, varlen_attention)
 from repro_torch.kernels import ops as OPS  # noqa: E402
@@ -157,6 +182,10 @@ from repro_torch.models import paged_cache as PC  # noqa: E402
 from repro_torch.models import spec as SPEC  # noqa: E402
 from repro_torch.data import packing  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.parallel import realloc_exec as RX  # noqa: E402
+from repro_torch.parallel import sharding as SHD  # noqa: E402
+from repro_torch.parallel.layout import (Layout, Mesh, ShardedTensor, place_tree,  # noqa: E402
+                                         tree_leaves, tree_map)
 from repro_torch.rlhf import experiment as EXP  # noqa: E402
 from repro_torch.rlhf import ppo as PPO  # noqa: E402
 
@@ -276,14 +305,6 @@ def reset_launches():
 
 def launches():
     return {k.__name__: k.launches for k in KERNELS}
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def make_params(cfg, *, seed, device):
@@ -465,6 +486,7 @@ def phase_kernels(device):
         bound_ms=bms, bound_by=by,
         library_ms=graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)))
     out["flash_mha"]["d256"] = mha_d256_case(randn, device)
+    out["flash_mha"]["d128"] = mha_d128_case(randn, device)
     out["flash_mha"]["verify"] = verify_kernel_case(randn, device, hq, hkv, d)
 
     # flash_decode: 8 rows over a 1088-slot linear cache with ragged
@@ -501,15 +523,18 @@ def phase_kernels(device):
         bound_ms=bms, bound_by=by, splits=decode_splits(b, hkv, c),
         library_ms=graph_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)))
     out["flash_decode"]["d256"] = decode_d256_case(randn, device)
+    out["flash_decode"]["d128"] = decode_d128_case(randn, device)
     out["paged_flash_decode"] = paged_kernel_case(randn, device, hq, hkv, d)
     out["grouped_ffn"] = grouped_kernel_case(device)
     out["ssd_scan"] = ssd_kernel_case(device)
     out["rglru_scan"] = rglru_kernel_case(device)
     out["flash_mha_varlen"] = varlen_kernel_case(device)
     for name, info in (("flash_mha D64 bf16 tile body", flash_attention.kernel_info(64)),
+                       ("flash_mha D128 bf16 tile body", flash_attention.kernel_info(128)),
                        ("flash_mha D256 bf16 tile body", flash_attention.kernel_info(256)),
                        ("flash_mha_varlen D64 bf16 tile body", varlen_attention.kernel_info(64)),
                        ("flash_decode D64 bf16 split body", decode_attention.kernel_info(64)),
+                       ("flash_decode D128 bf16 split body", decode_attention.kernel_info(128)),
                        ("flash_decode D256 bf16 split body", decode_attention.kernel_info(256)),
                        ("grouped_ffn bf16 launch A (H)", grouped_expert.kernel_info(0)),
                        ("grouped_ffn bf16 launch B (out)", grouped_expert.kernel_info(1)),
@@ -521,6 +546,7 @@ def phase_kernels(device):
               f"{info['spill_bytes']} spill bytes, {info['smem_bytes']} bytes of shared "
               f"memory, {info['blocks_per_sm']} blocks per SM")
     for name, shape in (("qwen2-0.5b BatchServer (B 8, Hkv 2, C 1088)", (8, 2, 1088)),
+                        ("llama-7b BatchServer (B 8, Hkv 8, C 1088)", (8, 8, 1088)),
                         ("qwen2-0.5b PPO rollout (B 16, Hkv 2, C 384)", (16, 2, 384)),
                         ("recurrentgemma-9b (B 8, Hkv 1, ring 576)", (8, 1, 576))):
         print(f"[kernels] flash_decode splits at {name}: {decode_splits(*shape)} blocks per "
@@ -1281,13 +1307,16 @@ def predicted_launches(cfg, prompts, new):
             **scan_launches(cfg, n_buckets)}
 
 
-def phase_serve(cfg, params, prompts, *, impl, new=64, seed=0):
-    """Serve ``prompts`` greedy, then sampled.  Returns per run the wall
-    time, tokens/s, the kernels' launch counts and the outputs."""
+def phase_serve(cfg, params, prompts, *, impl, new=64, seed=0, modes=("greedy", "sampled")):
+    """Serve ``prompts`` greedy, then sampled (those of ``modes``).  Returns
+    per run the wall time, tokens/s, the kernels' launch counts and the
+    outputs."""
     device = params["embed"]["table"].device
     server = BatchServer(cfg, params, max_new=new, impl=impl)
     runs = {}
     for mode, s in (("greedy", None), ("sampled", seed + 1)):
+        if mode not in modes:
+            continue
         sync(device)
         reset_launches()
         t0 = time.perf_counter()
@@ -2512,6 +2541,466 @@ def report_spec(device, total):
     print(f"[spec] phase 9 {time.perf_counter() - t_phase:.1f}s")
 
 
+# ------------------------------------------------------------------ phase 10
+
+LLAMA = "llama-7b"
+ALL4 = (0, 1, 2, 3)
+# 10b: llama-7b's tree on 4 logical devices, moved in this order; each
+# move's source is the previous move's destination (the clone leaves it):
+# (name, source (dp, tp, logical ids), destination (dp, tp, ids), clone)
+REALLOC_MOVES = (
+    ("clone gen->train", (1, 4, ALL4), (2, 2, ALL4), True),
+    ("gen->train", (1, 4, ALL4), (2, 2, ALL4), False),
+    ("train->gen", (2, 2, ALL4), (1, 4, ALL4), False),
+    ("gen->tp2 {0,1}", (1, 4, ALL4), (1, 2, (0, 1)), False),
+    ("cross {0,1}->{2,3}", (1, 2, (0, 1)), (1, 2, (2, 3)), False),
+)
+# 10c's prefetch toy moves the actor from d4 (gen) to d2t2 (train)
+PREFETCH_MOVE = ("d4->d2t2", (4, 1, ALL4), (2, 2, ALL4))
+# (n_moved, n_aliased, moved_bytes, total_bytes) of each move on llama-7b's
+# bf16 tree (291 leaves, 16,060,522,496 bytes; the 65 norms are replicated
+# in every layout and alias where the device list stays): the JAX
+# executor's split of the same spec trees, held by
+# tests/test_torch_realloc_exec.py.
+_SAME_DEVICES = (226, 65, 16_059_990_016, 16_060_522_496)
+_OTHER_DEVICES = (291, 0, 16_060_522_496, 16_060_522_496)
+LLAMA_MOVE_COUNTS = {"clone gen->train": _SAME_DEVICES, "gen->train": _SAME_DEVICES,
+                     "train->gen": _SAME_DEVICES, "gen->tp2 {0,1}": _OTHER_DEVICES,
+                     "cross {0,1}->{2,3}": _OTHER_DEVICES, "d4->d2t2": _SAME_DEVICES}
+
+
+def strategy_layouts(params, dp, tp, ids, device):
+    """``params``' layout tree for a (dp, tp) strategy over the logical
+    devices ``ids``: a (data, model) mesh, ``ShardingRules``' specs (FSDP
+    over data, TP over model) sanitized for it."""
+    mesh = Mesh(np.reshape(ids, (dp, tp)), ("data", "model"), device=device)
+    specs = SHD.sanitize_specs(SHD.param_specs(params, SHD.ShardingRules()), params, mesh)
+    return tree_map(lambda s: Layout(mesh, s), specs)
+
+
+def strategy_assignment(dp, tp, ids):
+    """The planner's ``Assignment`` of a strategy over consecutive ids."""
+    return Assignment(DeviceMesh(0, 1, ids[0], len(ids)), ParallelStrategy(dp, tp, 1, 1))
+
+
+def mha_d128_case(randn, device):
+    """flash_mha at llama-7b's prefill shape: B 4, S 512, 32 query heads on
+    8 KV heads, D 128, causal."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, s, hq, hkv, d = 4, 512, 32, 8, 128
+    q, k, v = randn(b, s, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
+    err = held("flash_mha d128 causal (llama-7b)", flash_mha(q, k, v, causal=True),
+               ref.mha_ref(q, k, v, causal=True))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    pairs = b * hq * s * (s + 1) // 2
+    bms, by = bound_ms(4 * d * pairs, 2 * (2 * q.numel() + 2 * k.numel()))
+
+    def kernel():
+        return flash_mha(q, k, v, causal=True)
+    return dict(max_abs_err=err, library="scaled_dot_product_attention",
+                ms=graph_ms(kernel), cold_ms=graph_cold_ms(kernel), eager_ms=time_ms(kernel),
+                plain_ms=time_ms(lambda: ref.mha_ref(q, k, v, causal=True)),
+                bound_ms=bms, bound_by=by,
+                library_ms=graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)))
+
+
+def decode_d128_case(randn, device):
+    """flash_decode at llama-7b's decode shape: 8 rows of 32 query heads on
+    8 KV heads, D 128, over phase 2's 1088-slot linear cache and ragged
+    lengths."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, c, hq, hkv, d = 8, 1088, 32, 8, 128
+    q, kc, vc = randn(b, hq, d), randn(b, c, hkv, d), randn(b, c, hkv, d)
+    lens = torch.tensor([1, 17, 64, 65, 400, 777, 1000, 1088], dtype=torch.int32,
+                        device=device)
+    err = held("flash_decode d128 linear (llama-7b)", flash_decode(q, kc, vc, cache_len=lens),
+               ref.decode_mha_ref(q, kc, vc, cache_len=lens))
+    n_keys = int(lens.sum())
+    bms, by = bound_ms(4 * d * hq * n_keys, 2 * (2 * q.numel() + 2 * n_keys * hkv * d))
+    ks, vs = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    mask = (torch.arange(c, device=device)[None] < lens[:, None])[:, None, None]
+
+    def kernel():
+        return flash_decode(q, kc, vc, cache_len=lens)
+    return dict(max_abs_err=err, library="scaled_dot_product_attention",
+                ms=graph_ms(kernel), cold_ms=graph_cold_ms(kernel), eager_ms=time_ms(kernel),
+                plain_ms=time_ms(lambda: ref.decode_mha_ref(q, kc, vc, cache_len=lens)),
+                bound_ms=bms, bound_by=by, splits=decode_splits(b, hkv, c),
+                library_ms=graph_ms(lambda: sdpa(q[:, :, None], ks, vs, attn_mask=mask,
+                                                 enable_gqa=True)))
+
+
+def report_llama(device, total):
+    """10a: llama-7b at full width on the card (seeded random bf16 weights
+    drawn on the card, embedding scaled by EMBED_SCALE): phase 3's cuda vs
+    reference logits and paged decode, then one greedy ``BatchServer.serve``
+    of phase 4's 8 requests, 64 new tokens each, its launches held to the
+    prediction and added to ``total``.  Returns the parameters."""
+    cfg = get_config(LLAMA)
+    t0 = time.perf_counter()
+    params = make_params(cfg, seed=0, device=device)
+    sync(device)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"[llama] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}: {n_params} parameters (param_count() {cfg.param_count()} also "
+          f"counts a third norm per layer) drawn on the card in "
+          f"{time.perf_counter() - t0:.1f}s; memory_allocated={torch.cuda.memory_allocated()}")
+    report_slice(cfg, params)
+    prompts = serve_prompts(cfg)
+    want = predicted_launches(cfg, prompts, 64)
+    r = phase_serve(cfg, params, prompts, impl="cuda", new=64, modes=("greedy",))["greedy"]
+    print(f"[llama] serve greedy: {len(prompts)} requests (prompt lengths "
+          f"{sorted(len(p) for p in prompts)}), {r['tokens_per_s']:.1f} tokens/s in "
+          f"{r['seconds']:.3f}s; launches {r['launches']} (predicted {want})")
+    check(same_launches(r["launches"], want), f"llama serve: launches {r['launches']} != {want}")
+    for k in total:
+        total[k] += r["launches"][k]
+    return params
+
+
+def phase_realloc(params, device, moves=REALLOC_MOVES):
+    """10b: ``params`` placed on the first move's source layout, then the
+    moves in order.  Per move: the task's split, whether ``done()`` was
+    already true before ``wait()``, the seconds, the memory the move added
+    at its peak over what it started with (summed over the cards), the
+    leaves gathered bit-equal to ``params``, the replicated norms aliased
+    by identity, and for the clone the source still valid."""
+    cards = range(torch.cuda.device_count()) if torch.device(device).type == "cuda" else ()
+    norms = [path for path, _ in flat_paths(params) if path[-1] == "scale"]
+    lay = {}
+
+    def layouts(s):
+        if s not in lay:
+            lay[s] = strategy_layouts(params, *s, device)
+        return lay[s]
+    current = place_tree(params, layouts(moves[0][1]))
+    out = []
+    for name, s, d, clone in moves:
+        for c in cards:
+            torch.cuda.synchronize(c)
+            torch.cuda.reset_peak_memory_stats(c)
+        start = sum(torch.cuda.memory_allocated(c) for c in cards)
+        t0 = time.perf_counter()
+        task = RX.prefetch_reshard(current, layouts(d), donate=not clone)
+        polled = task.done()
+        res = task.wait()
+        seconds = time.perf_counter() - t0
+        peak = sum(torch.cuda.max_memory_allocated(c) for c in cards) - start
+        same = all(torch.equal(x.gather(p.device), p) for x, p in zip(tree_leaves(res),
+                                                                     tree_leaves(params)))
+        src_leaves, dst_leaves = dict(flat_paths(current)), dict(flat_paths(res))
+        norms_aliased = all(dst_leaves[p] is src_leaves[p] for p in norms)
+        r = dict(name=name, n_moved=task.n_moved, n_aliased=task.n_aliased,
+                 moved_bytes=task.moved_bytes, total_bytes=task.total_bytes,
+                 elapsed_s=task.elapsed_s, seconds=seconds, done_before_wait=polled,
+                 peak_added=peak, bit_equal=same, norms_aliased=norms_aliased,
+                 src=s, dst=d, clone=clone)
+        if clone:
+            r["source_valid"] = all(torch.equal(x.gather(p.device), p) for x, p in
+                                    zip(tree_leaves(current), tree_leaves(params)))
+            del res
+        else:
+            current = res
+        out.append(r)
+    return out
+
+
+def flat_paths(tree, path=()):
+    """(path, leaf) of every leaf, dict keys sorted."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from flat_paths(tree[k], path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from flat_paths(v, path + (i,))
+    elif tree is not None:
+        yield path, tree
+
+
+def report_realloc(cfg, params, device):
+    """10b on the card: print and check ``phase_realloc``'s moves of
+    llama-7b's tree; the seconds beside the copy bound and the cost
+    model's schedule time for the move on one 4-card H100 node, folded by
+    ``record_realloc``."""
+    cluster = Cluster(1, 4, chip=hw.H100, intra_node_bw=450e9, inter_node_bw=50e9)
+    cost = CostModel(cluster)
+    peaks = {}
+    for r in phase_realloc(params, device):
+        want = LLAMA_MOVE_COUNTS[r["name"]]
+        got = (r["n_moved"], r["n_aliased"], r["moved_bytes"], r["total_bytes"])
+        sched = REALLOC.remap_schedule(cfg, strategy_assignment(*r["src"]),
+                                       strategy_assignment(*r["dst"]), cluster)
+        cost.record_realloc(sched.time, r["elapsed_s"], r["moved_bytes"])
+        bound_s = 2 * r["moved_bytes"] / PEAK_BYTES
+        print(f"[realloc] {r['name']}: moved {r['n_moved']} leaves, aliased "
+              f"{r['n_aliased']}, {r['moved_bytes']} of {r['total_bytes']} bytes (the JAX "
+              f"executor's split: {want}); elapsed_s={r['elapsed_s']:.4f} "
+              f"({r['moved_bytes'] / r['elapsed_s'] / 1e9:.1f} GB/s moved; copy bound "
+              f"{bound_s:.4f}s = 2 x moved bytes / {PEAK_BYTES / 1e12} TB/s); done() before "
+              f"wait(): {r['done_before_wait']}; remap_schedule time on a 4-card H100 node "
+              f"{sched.time:.4f}s ({sched.total_bytes:.0f} bytes); peak added "
+              f"{r['peak_added']} bytes; bit-equal {r['bit_equal']}; norms aliased "
+              f"{r['norms_aliased']}" + (f"; source valid {r['source_valid']}"
+                                         if r["clone"] else ""))
+        check(got == want, f"{r['name']}: split {got} != {want}")
+        check(r["bit_equal"], f"{r['name']}: a gathered leaf differs from the source")
+        check(r["clone"] or r["n_aliased"] == 0 or r["norms_aliased"],
+              f"{r['name']}: a replicated norm was copied")
+        check(not r["clone"] or r["source_valid"], f"{r['name']}: the clone's source changed")
+        peaks[r["name"]] = r["peak_added"]
+    cost.refit()
+    print(f"[realloc] peak memory added: donating gen->train {peaks['gen->train']} bytes, "
+          f"cloning it {peaks['clone gen->train']} bytes; the cost model's realloc scale "
+          f"refit from the moves (measured / schedule, median): {cost.realloc_scale:.3f}")
+    check(peaks["gen->train"] < peaks["clone gen->train"],
+          "donation did not lower the move's peak memory below the clone's")
+
+
+# 10c's engine toys -------------------------------------------------------
+
+def layout_prefetch_toy(actor, device, *, physical=True):
+    """``test_realloc_fastpath.py``'s prefetch-hit toy with ``actor`` as the
+    actor's tree: gen and other on 4 devices data-parallel (d4, FSDP over
+    data), train on d2t2 of the same devices; other sleeps 0.3 s, under
+    which the actor's move is prefetched.  ``ex_train`` checks that every
+    leaf it receives is a ``ShardedTensor`` on (a layout equivalent to) the
+    train layout and
+    computes the largest value over the blocks.  With ``physical=False``
+    the same toy runs with ``sharding_for=None`` on plain tensors."""
+    cluster = Cluster(n_nodes=1, devs_per_node=4)
+    w = DFG.Workload(batch=4, prompt_len=8, gen_len=8)
+    calls = [DFG.FunctionCall("gen", "actor", DFG.GENERATE, None, w, inputs=("prompts",),
+                              outputs=("seq",)),
+             DFG.FunctionCall("other", "aux", DFG.INFERENCE, None, w, inputs=("seq",),
+                              outputs=("x",)),
+             DFG.FunctionCall("train", "actor", DFG.INFERENCE, None, w, inputs=("x",),
+                              outputs=("y",))]
+    dfg = DFG.DataflowGraph(calls, "toy")
+    (_, gen, trn) = PREFETCH_MOVE
+    plan = ExecutionPlan({"gen": strategy_assignment(*gen), "other": strategy_assignment(*gen),
+                          "train": strategy_assignment(*trn)}, cluster)
+    gen_l = strategy_layouts(actor, *gen, device)
+    trn_l = strategy_layouts(actor, *trn, device)
+    seen = []
+
+    def sharding_for(model_name, asg):
+        if model_name != "actor":
+            return None
+        return trn_l if asg.strategy.tp == 2 else gen_l
+
+    def ex_train(ms, inputs):
+        if physical:
+            seen.append(all(isinstance(x, ShardedTensor) and x.layout.is_equivalent_to(lay, x.ndim)
+                            for x, lay in zip(tree_leaves(ms.params), tree_leaves(trn_l))))
+            return {"y": max(float(b.max()) for x in tree_leaves(ms.params)
+                             for _, _, b in x.shards)}
+        return {"y": max(float(x.max()) for x in tree_leaves(ms.params))}
+
+    params = place_tree(actor, gen_l) if physical else actor
+    models = {"actor": RT.ModelState(params, assignment=plan.assignments["gen"]),
+              "aux": RT.ModelState({})}
+    executors = {"gen": lambda ms, i: {"seq": 1},
+                 "other": lambda ms, i: (time.sleep(0.3), {"x": 2})[1],
+                 "train": ex_train}
+    eng = RT.RuntimeEngine(dfg, plan, executors, models,
+                           sharding_for=sharding_for if physical else None)
+    t0 = time.perf_counter()
+    out = eng.run_iteration({"prompts": 0})
+    seconds = time.perf_counter() - t0
+    expected = moved_bytes_between(actor, gen_l, trn_l)
+    return dict(y=out["y"], seconds=seconds, layouts_seen=seen,
+                prefetch_hits=eng.stats()["prefetch_hits"],
+                records={r.name: r.realloc_bytes for r in eng.records},
+                realloc_s={r.name: r.realloc_s for r in eng.records},
+                expected_bytes=expected if physical else 0)
+
+
+def moved_bytes_between(tree, src, dst):
+    """The global bytes of ``tree``'s leaves whose two layouts differ: the
+    bytes a reshard between them moves."""
+    return sum(x.numel() * x.element_size() for x, a, b in
+               zip(tree_leaves(tree), tree_leaves(src), tree_leaves(dst))
+               if not a.is_equivalent_to(b, x.ndim))
+
+
+def layout_pipeline_toy(actor, critic_cfg, device, *, depth, physical=True, steps=2):
+    """``benchmarks/pipeline_bench.py``'s toy with real trees: the actor
+    (``actor``) on devices 0-1, generating d2 and training t2, where its
+    first half of layers (with the embedding) changes layout and the rest
+    stays on the gen layout; reward and critic on devices 2-3; the critic
+    is ``critic_cfg``'s value model with its AdamW state (fp32 master, m,
+    v) on ``opt_sharding_for``, placed at start on the t2 layout of devices
+    2-3 so that its first train call moves it onto d2.  The executors
+    compute on the blocks: actor_train moves the final norm, critic_train
+    takes an AdamW-shaped elementwise step of every leaf.  Returns the
+    pools, the records' moved bytes, the expected ones and the final
+    values (gathered)."""
+    cluster = Cluster(n_nodes=1, devs_per_node=4)
+    w = DFG.Workload(batch=4, prompt_len=8, gen_len=8)
+    calls = [DFG.FunctionCall("gen", "actor", DFG.GENERATE, None, w, ("prompts",), ("seq",),
+                              trainable=True),
+             DFG.FunctionCall("rew", "reward", DFG.INFERENCE, None, w, ("seq",), ("r",)),
+             DFG.FunctionCall("atrain", "actor", DFG.TRAIN, None, w, ("r",), ("a_out",),
+                              trainable=True),
+             DFG.FunctionCall("ctrain", "critic", DFG.TRAIN, None, w, ("r",), ("c_out",),
+                              trainable=True)]
+    dfg = DFG.DataflowGraph(calls, "toy")
+    a_gen, a_trn, b_asg = (2, 1, (0, 1)), (1, 2, (0, 1)), (2, 1, (2, 3))
+    plan = ExecutionPlan({"gen": strategy_assignment(*a_gen), "rew": strategy_assignment(*b_asg),
+                          "atrain": strategy_assignment(*a_trn),
+                          "ctrain": strategy_assignment(*b_asg)}, cluster)
+    half = len(actor["layers"]) // 2
+
+    def actor_layouts(s):
+        moving, staying = strategy_layouts(actor, *s, device), strategy_layouts(actor, *a_gen,
+                                                                                 device)
+        out = dict(staying, layers=moving["layers"][:half] + staying["layers"][half:])
+        out["embed"] = moving["embed"]
+        return out
+    gen_l, trn_l = actor_layouts(a_gen), actor_layouts(a_trn)
+    critic = MDL.init_params(critic_cfg, seed=1, device=device, head="value")
+    opt = adamw.init(adamw.AdamWConfig(), critic)
+    c_l = strategy_layouts(critic, *b_asg, device)
+    c_start = strategy_layouts(critic, 1, 2, (2, 3), device)
+    expected_opt = 3 * moved_bytes_between(opt["m"], c_start, c_l)  # m, v, master: fp32
+
+    def opt_layouts(lay):
+        return {"step": None, "m": lay, "v": lay, "master": lay}
+
+    def sharding_for(model_name, asg):
+        if model_name == "actor":
+            return trn_l if asg == plan.assignments["atrain"] else gen_l
+        return c_l if model_name == "critic" else None
+
+    def opt_sharding_for(model_name, asg):
+        return opt_layouts(c_l) if model_name == "critic" else None
+
+    if physical:
+        a_params = place_tree(actor, gen_l)
+        critic, opt = place_tree(critic, c_l), place_tree(opt, opt_layouts(c_start))
+    else:
+        a_params = dict(actor, final_norm={"scale": actor["final_norm"]["scale"].clone()})
+    models = {"actor": RT.ModelState(a_params, assignment=plan.assignments["gen"]),
+              "reward": RT.ModelState({}),
+              "critic": RT.ModelState(critic, opt, assignment=plan.assignments["ctrain"])}
+
+    def each(x, fn, *others):
+        """``fn`` on a tensor, or block by block on a ShardedTensor (the
+        others on the same layout)."""
+        if isinstance(x, ShardedTensor):
+            blocks = {d: fn(b, *(o.blocks[d] for o in others)) for d, b in x.blocks.items()}
+            return ShardedTensor(x.shape, next(iter(blocks.values())).dtype, x.layout, blocks)
+        return fn(x, *others)
+
+    def mk(name, outs, update=None):
+        def ex(ms, inputs):
+            if update is not None:
+                update(ms, inputs)
+            return {k: (name, tuple(sorted((kk, vv) for kk, vv in inputs.items()
+                                           if isinstance(vv, (int, tuple, str)))))
+                    for k in outs}
+        return ex
+
+    def atrain(ms, inputs):
+        if physical:
+            check(all(x.layout.is_equivalent_to(lay, x.ndim)
+                      for x, lay in zip(tree_leaves(ms.params), tree_leaves(trn_l))),
+                  "actor_train received a leaf off its train layout")
+        scale = ms.params["final_norm"]["scale"]
+        ms.params = dict(ms.params, final_norm={"scale": each(scale, lambda s: s * 0.5 + 0.25)})
+
+    def ctrain(ms, inputs):
+        if physical:
+            check(all(x.layout.is_equivalent_to(lay, x.ndim)
+                      for x, lay in zip(tree_leaves(ms.opt_state["m"]), tree_leaves(c_l))),
+                  "critic_train received a moment off its train layout")
+        g = 1e-3 * (1 + len(inputs))
+        m = tree_map(lambda x: each(x, lambda b: b * 0.9 + 0.1 * g), ms.opt_state["m"])
+        v = tree_map(lambda x: each(x, lambda b: b * 0.95 + 0.05 * g * g), ms.opt_state["v"])
+        master = tree_map(lambda x, mm, vv: each(x, lambda b, bm, bv: b - 1e-4 * bm / (
+            bv.sqrt() + 1e-8), mm, vv), ms.opt_state["master"], m, v)
+        ms.params = tree_map(lambda p, x: each(x, lambda b: b.to(p.dtype)), ms.params, master)
+        ms.opt_state = {"step": ms.opt_state["step"] + 1, "m": m, "v": v, "master": master}
+
+    executors = {"gen": mk("gen", ("seq",)), "rew": mk("rew", ("r",)),
+                 "atrain": mk("atrain", ("a_out",), atrain),
+                 "ctrain": mk("ctrain", ("c_out",), ctrain)}
+    eng = RT.RuntimeEngine(dfg, plan, executors, models,
+                           sharding_for=sharding_for if physical else None,
+                           opt_sharding_for=opt_sharding_for if physical else None,
+                           pipeline_depth=depth)
+    t0 = time.perf_counter()
+    pools = eng.run(lambda t: {"prompts": t}, steps=steps)
+    seconds = time.perf_counter() - t0
+
+    def whole(tree):  # every tensor leaf gathered onto ``device``
+        return [x.gather(device) if isinstance(x, ShardedTensor) else x.detach().to(device)
+                for x in tree_leaves(tree) if isinstance(x, (torch.Tensor, ShardedTensor))]
+    st = eng.stats()
+    return dict(pools=pools, seconds=seconds, prefetch_hits=st["prefetch_hits"],
+                records=sorted((r.name, r.iteration, r.realloc_bytes) for r in eng.records),
+                expected_bytes=moved_bytes_between(actor, gen_l, trn_l),
+                opt_bytes=st["opt_state_resharded_bytes"],
+                expected_opt_bytes=expected_opt,
+                actor_norm=whole(models["actor"].params["final_norm"]),
+                critic=whole(models["critic"].params),
+                critic_opt=whole(models["critic"].opt_state))
+
+
+def report_layout_engine(actor, device, critic_cfg=None, counts=LLAMA_MOVE_COUNTS):
+    """10c on the card: ``RuntimeEngine`` with ``sharding_for`` and
+    ``opt_sharding_for``: the prefetch toy on llama-7b's tree (physical
+    against logical), then the pipeline toy with llama-7b as the actor and
+    qwen2-0.5b's value model (``critic_cfg``) with its AdamW state as the
+    critic, at depth 1 and 2 and logically; pools, values and moved bytes
+    held (the prefetch toy's also to ``counts``, the JAX executor's split
+    of llama-7b's tree)."""
+    t_phase = time.perf_counter()
+    phys = layout_prefetch_toy(actor, device)
+    free(device)
+    logi = layout_prefetch_toy(actor, device, physical=False)
+    want = counts[PREFETCH_MOVE[0]][2] if counts else phys["expected_bytes"]
+    print(f"[layouts] prefetch toy ({PREFETCH_MOVE[0]} on llama-7b): y={phys['y']} (logical "
+          f"{logi['y']}), prefetch_hits={phys['prefetch_hits']}, realloc bytes per call "
+          f"{phys['records']} (layout count {phys['expected_bytes']}, the JAX executor's "
+          f"{want}), realloc_s {phys['realloc_s']}, {phys['seconds']:.3f}s (logical "
+          f"{logi['seconds']:.3f}s)")
+    check(phys["layouts_seen"] == [True], "ex_train received leaves off the train layout")
+    check(phys["prefetch_hits"] >= 1, "the actor's move was not prefetched")
+    check(phys["y"] == logi["y"], "the physical toy computed another value than the logical")
+    check(phys["records"]["train"] == phys["expected_bytes"] == want,
+          f"moved {phys['records']['train']} bytes, the layouts count {want}")
+    ccfg = critic_cfg or get_config("qwen2-0.5b")
+    runs = {}
+    for key, kw in (("depth1", dict(depth=1)), ("depth2", dict(depth=2)),
+                    ("logical", dict(depth=1, physical=False))):
+        runs[key] = layout_pipeline_toy(actor, ccfg, device, **kw)
+        free(device)
+    d1, d2, lg = runs["depth1"], runs["depth2"], runs["logical"]
+    for key, r in runs.items():
+        print(f"[layouts] pipeline toy {key}: run(steps=2) {r['seconds']:.3f}s, "
+              f"prefetch_hits={r['prefetch_hits']}, realloc bytes per record {r['records']}, "
+              f"opt state moved {r['opt_bytes']} bytes")
+    check(d1["pools"] == d2["pools"] == lg["pools"], "the toy's pools differ between runs")
+    for name in ("actor_norm", "critic", "critic_opt"):
+        for r, other in ((d1, lg), (d2, d1)):
+            check(len(r[name]) == len(other[name]) and all(
+                torch.equal(a, b) for a, b in zip(r[name], other[name])),
+                f"pipeline toy: {name} differs between runs")
+    for r in (d1, d2):
+        actor_moves = [b for n, t, b in r["records"] if n == "atrain" or (n == "gen" and t)]
+        check(all(b == r["expected_bytes"] for b in actor_moves),
+              f"actor moves {actor_moves} != the layout count {r['expected_bytes']}")
+        check(r["opt_bytes"] == r["expected_opt_bytes"] > 0,
+              f"opt state moved {r['opt_bytes']} != {r['expected_opt_bytes']}")
+    print(f"[layouts] pools equal at depth 1, depth 2 and logical; final actor norm, critic "
+          f"and its AdamW state bit-equal to the logical run; actor moves "
+          f"{d1['expected_bytes']} bytes per reshard (half of its layers), the critic's "
+          f"AdamW state {d1['expected_opt_bytes']} once; phase 10c "
+          f"{time.perf_counter() - t_phase:.1f}s")
+
+
 # ------------------------------------------------------------------ main
 
 def shallow(cfg, layers=4, *, dtype=None):
@@ -2665,7 +3154,7 @@ def main():
         cfg = get_config(name)
         t0 = time.perf_counter()
         params = make_params(cfg, seed=0, device=device)
-        n_params = sum(t.numel() for p in params["layers"] for t in _leaves(p))
+        n_params = sum(t.numel() for t in tree_leaves(params["layers"]))
         print(f"[model] {name}: {cfg.num_layers} layers, {n_params} layer parameters "
               f"(+ {params['embed']['table'].numel()} embedding), built in "
               f"{time.perf_counter() - t0:.1f}s; memory_allocated="
@@ -2679,6 +3168,14 @@ def main():
     report_phase7(device, total)
     report_engine(device, total)
     report_spec(device, total)
+
+    t0 = time.perf_counter()
+    params = report_llama(device, total)
+    report_realloc(get_config(LLAMA), params, device)
+    report_layout_engine(params, device)
+    del params
+    free(device)
+    print(f"[time] phase 10 {time.perf_counter() - t0:.1f}s")
 
     source = "src/repro_torch/kernels/csrc/"
     rows = [dict(name="flash_mha", route="cuda", source=source + "flash_attention.cu",

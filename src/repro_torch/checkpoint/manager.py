@@ -19,9 +19,11 @@ Where it differs from the JAX file: trees are nested dicts and lists of
 torch tensors and Python scalars (the port's parameter and AdamW trees);
 a bf16 leaf is stored as its 16-bit pattern (``uint16``) with
 ``"bfloat16"`` as its manifest dtype, since numpy has no bf16 without
-``ml_dtypes``; a restored tensor lands on its template leaf's device with
-the template's ``requires_grad``.  Restoring onto another sharding
-(``shardings``) needs physical resharding across cards and raises.
+``ml_dtypes``; a ``parallel/layout.ShardedTensor`` leaf is gathered and
+stored whole; a restored tensor lands on its template leaf's device with
+the template's ``requires_grad`` (a sharded template leaf: on its layout),
+or, with ``shardings``, on the layout given for it, as
+``jax.device_put(arr, sharding)`` places it.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.layout import ShardedTensor
 
 BF16 = "bfloat16"
 
@@ -70,6 +74,8 @@ def _rebuild(tree, loaded: dict, prefix: str = ""):
 def _to_host(leaf) -> np.ndarray:
     """A leaf as the numpy array that is written: a bf16 tensor as its
     16-bit pattern."""
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.gather("cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -82,15 +88,21 @@ def _itemsize(dtype: str) -> int:
     return 2 if dtype == BF16 else np.dtype(dtype).itemsize
 
 
-def _from_host(arr: np.ndarray, dtype: str, like):
-    """The restored leaf: a tensor on ``like``'s device (with its
-    ``requires_grad``) when the template leaf is a tensor, else a Python
-    scalar or the array.  A bf16 leaf is read as its 16-bit pattern: the
-    port writes ``uint16``, the JAX package ``np.save``s an
+def _from_host(arr: np.ndarray, dtype: str, like, layout=None):
+    """The restored leaf: placed on ``layout`` when one is given (or the
+    template leaf is sharded: on its layout), a tensor on ``like``'s device
+    (with its ``requires_grad``) when the template leaf is a tensor, else a
+    Python scalar or the array.  A bf16 leaf is read as its 16-bit pattern:
+    the port writes ``uint16``, the JAX package ``np.save``s an
     ``ml_dtypes.bfloat16`` array, which loads back as the void dtype
     ``|V2``."""
     if dtype == BF16 and arr.dtype.itemsize == 2:
         arr = arr.view(np.uint16)
+    if layout is None and isinstance(like, ShardedTensor):
+        layout = like.layout
+    if layout is not None:
+        t = torch.from_numpy(np.array(arr))
+        return ShardedTensor.place(t.view(torch.bfloat16) if dtype == BF16 else t, layout)
     if isinstance(like, torch.Tensor):
         t = torch.from_numpy(np.array(arr))
         if dtype == BF16:
@@ -125,7 +137,8 @@ class CheckpointManager:
             flat = _flatten(tree)
             keys = {}
             for key, leaf in flat.items():
-                bf16 = isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16
+                bf16 = (isinstance(leaf, (torch.Tensor, ShardedTensor))
+                        and leaf.dtype == torch.bfloat16)
                 arr = _to_host(leaf)
                 fn = f"{name}__{re.sub('[^A-Za-z0-9_.]', '_', key)}.npy"
                 np.save(tmp / fn, arr)
@@ -145,9 +158,11 @@ class CheckpointManager:
         """Snapshot to host memory now; write to disk in the background,
         overlapping checkpoint I/O with the next training step."""
         self.wait()
-        host = {name: _rebuild(tree, {k: v.detach().to("cpu", copy=True)
-                                      if isinstance(v, torch.Tensor) else v
-                                      for k, v in _flatten(tree).items()})
+        def snapshot(v):
+            if isinstance(v, ShardedTensor):
+                return v.gather("cpu")
+            return v.detach().to("cpu", copy=True) if isinstance(v, torch.Tensor) else v
+        host = {name: _rebuild(tree, {k: snapshot(v) for k, v in _flatten(tree).items()})
                 for name, tree in trees.items()}
         t = threading.Thread(target=self._write, args=(step, host, extra),
                              daemon=True)
@@ -215,8 +230,9 @@ class CheckpointManager:
                 shardings: Optional[dict[str, Any]] = None
                 ) -> tuple[int, dict[str, Any], dict]:
         """Restore named trees.  ``template`` provides tree structure and
-        each leaf's device; ``shardings`` (placing each leaf on another
-        mesh) is not ported and raises.
+        each leaf's device; ``shardings`` (optional, {name: layout tree of
+        the same structure}) places each leaf on its ``Layout``: restoring
+        into another mesh or plan reshards on the way in.
 
         With ``step=None``, candidate steps are tried newest-first and a
         partial/corrupt checkpoint (torn write the validation missed) is
@@ -242,17 +258,14 @@ class CheckpointManager:
     def _restore_step(self, template: dict[str, Any], step: int,
                       shardings: Optional[dict[str, Any]] = None
                       ) -> tuple[int, dict[str, Any], dict]:
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto other shardings needs physical resharding "
-                "across cards, not ported yet (ROADMAP Queue 1 item 5)")
         d = self.root / f"step_{step:09d}"
         manifest = json.loads((d / "manifest.json").read_text())
         out = {}
         for name, tree in template.items():
             keys = manifest["models"][name]
+            layouts = _flatten(shardings[name]) if shardings is not None else {}
             loaded = {key: _from_host(np.load(d / keys[key]["file"]),
-                                      keys[key]["dtype"], leaf)
+                                      keys[key]["dtype"], leaf, layouts.get(key))
                       for key, leaf in _flatten(tree).items()}
             out[name] = _rebuild(tree, loaded)
         return step, out, manifest.get("extra", {})

@@ -1,24 +1,23 @@
 """Runtime engine (paper §6): a master worker that resolves dataflow
 dependencies and dispatches model function calls to model workers, with
 parameter reallocation between calls.  The port's copy of the JAX
-package's ``core/runtime.py``; it differs in four places, each for torch:
+package's ``core/runtime.py``; it differs in three places, each for torch:
 
   * the "workers" are logical: each owns the parameter/optimizer state of
     the models resident on its device mesh and runs the executors of its
     calls in the event loop's default thread pool.  An executor sets what
     torch keeps per thread itself (grad mode; the device from its tensors);
   * CUDA is asynchronous, so a call's end is stamped only after its
-    model's device has finished the call's work (``_settle``): a
+    model's devices have finished the call's work (``_settle``): a
     ``CallRecord`` measures the call, not its dispatch, and
     ``recalibrate`` folds device times into the cost model;
-  * parameter trees are walked with ``optim.adamw.leaves`` (the order of
-    ``jax.tree.leaves``);
-  * reallocation is logical only.  The engine moves assignments, and the
-    cost model bills the moves, but no parameter is resharded:
-    ``sharding_for`` / ``opt_sharding_for`` must be None (physical
-    resharding across cards, the JAX package's ``parallel/realloc_exec``,
-    is ROADMAP Queue 1 item 5's next part).  The reshard branches below
-    stay as the JAX engine has them and reach ``_reshard``, which raises.
+  * trees are walked in the order of ``jax.tree.leaves``
+    (``parallel/layout.tree_leaves``).
+
+Physical reallocation runs through ``parallel/realloc_exec`` as in the JAX
+engine: ``sharding_for`` / ``opt_sharding_for`` return trees of
+``parallel/layout.Layout``, the moved leaves become ``ShardedTensor``s with
+one block per logical device, and executors receive them.
 
 The master is an asyncio loop with per-device locks enforcing Algorithm-1
 exclusivity (calls on overlapping meshes serialize; disjoint meshes
@@ -125,36 +124,26 @@ from repro_torch.core.dfg import (DataflowGraph, FunctionCall, GENERATE, INFEREN
                             unroll_iterations)
 from repro_torch.core.estimator import CostModel
 from repro_torch.core.plan import Assignment, ExecutionPlan, ParallelStrategy
-from repro_torch.optim.adamw import leaves
-
-PHYSICAL_RESHARD = ("physical resharding across cards (parallel/realloc_exec) is not "
-                    "ported yet: ROADMAP Queue 1 item 5, the next part")
-
-
-def _reshard(tree, dst, *, clone: bool = False):
-    """Dispatch a reshard of ``tree`` onto the layout ``dst`` (donating, or
-    a copy with ``clone``) and return its task (``tree``, ``wait()``,
-    ``moved_bytes``, ``elapsed_s``), as the JAX package's
-    ``realloc_exec.prefetch_reshard`` / ``clone_reshard``.  Not ported: see
-    ``PHYSICAL_RESHARD``."""
-    raise NotImplementedError(PHYSICAL_RESHARD)
-
-
-def _leaves(tree) -> list:
-    """The leaves of a parameter or optimizer tree (none for None), in the
-    order of ``jax.tree.leaves``."""
-    return [] if tree is None else [x for x in leaves(tree) if x is not None]
+from repro_torch.parallel import realloc_exec
+from repro_torch.parallel.layout import ShardedTensor, tree_leaves
 
 
 def _settle(state) -> None:
-    """Wait until the device that holds ``state``'s parameters has finished
-    the work queued on it (a no-op for host tensors and paramless
-    models)."""
-    for x in _leaves(state.params):
-        if isinstance(x, torch.Tensor):
-            if x.is_cuda:
-                torch.cuda.synchronize(x.device)
-            return
+    """Wait until the cards that hold ``state``'s parameters have finished
+    the work queued on them (a no-op for host tensors and paramless
+    models): the first tensor leaf's card, or every card of the first
+    sharded leaf's blocks."""
+    for x in tree_leaves(state.params):
+        if isinstance(x, ShardedTensor):
+            devs = {b.device for b in x.blocks.values()}
+        elif isinstance(x, torch.Tensor):
+            devs = {x.device}
+        else:
+            continue
+        for d in devs:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        return
 
 
 class _Aborted(Exception):
@@ -228,8 +217,9 @@ class RuntimeEngine:
                  max_recoveries: int = 8):
         """``executors[name](model_state, inputs: dict) -> dict`` runs one
         call; TRAIN executors mutate model_state.params/opt_state in place.
-        ``sharding_for(model_name, assignment)`` -> dst sharding tree (or
-        None to skip physical resharding, e.g. single-device tests).
+        ``sharding_for(model_name, assignment)`` -> dst layout tree
+        (``parallel/layout.Layout`` leaves; or None to skip physical
+        resharding, e.g. single-device tests).
         ``opt_sharding_for(model_name, assignment)`` is the optimizer-state
         analogue: when given, a model's opt state is resharded onto its
         TRAIN call's assignment (and triaged/recovered alongside the
@@ -269,8 +259,6 @@ class RuntimeEngine:
         """
         if pipeline_depth < 1:
             raise ValueError("pipeline_depth must be >= 1")
-        if sharding_for is not None or opt_sharding_for is not None:
-            raise NotImplementedError(PHYSICAL_RESHARD)
         self.dfg = dfg
         self.plan = plan
         self.executors = executors
@@ -475,7 +463,7 @@ class RuntimeEngine:
             params = st.params
 
             def dispatch():
-                task = _reshard(params, dst)
+                task = realloc_exec.prefetch_reshard(params, dst)
                 # commit in-thread, atomically with the donation: even if
                 # the awaiting chain is cancelled mid-await, st.params
                 # never dangles on donated buffers
@@ -559,7 +547,7 @@ class RuntimeEngine:
                     params = st.params
 
                     def dispatch():
-                        task = _reshard(params, dst)
+                        task = realloc_exec.prefetch_reshard(params, dst)
                         st.params = task.tree
                         return task
 
@@ -597,7 +585,7 @@ class RuntimeEngine:
                     opt = st.opt_state
 
                     def dispatch():
-                        task = _reshard(opt, dst)
+                        task = realloc_exec.prefetch_reshard(opt, dst)
                         st.opt_state = task.tree
                         return task
 
@@ -714,14 +702,14 @@ class RuntimeEngine:
                 target = self._assignment_for(calls[0].name)
                 if (st.assignment is not None
                         and st.assignment.mesh.devices(m) & doomed
-                        and _leaves(st.params)):
+                        and tree_leaves(st.params)):
                     dst = (self.sharding_for(model_name, target)
                            if self.sharding_for is not None else None)
                     if dst is not None:
                         params = st.params
 
                         def dispatch():
-                            task = _reshard(params, dst)
+                            task = realloc_exec.prefetch_reshard(params, dst)
                             st.params = task.tree
                             return task
 
@@ -740,7 +728,7 @@ class RuntimeEngine:
                         opt = st.opt_state
 
                         def dispatch_opt():
-                            task = _reshard(opt, dst)
+                            task = realloc_exec.prefetch_reshard(opt, dst)
                             st.opt_state = task.tree
                             return task
 
@@ -819,7 +807,7 @@ class RuntimeEngine:
                 dst = self.sharding_for(call.model_name, spec_asg)
                 if dst is not None:
                     params = await loop.run_in_executor(
-                        None, lambda: _reshard(st.params, dst, clone=True).tree)
+                        None, realloc_exec.clone_reshard, st.params, dst)
             dup_ms = dataclasses.replace(st, params=params,
                                          assignment=spec_asg,
                                          prefetch=None)
@@ -1434,7 +1422,7 @@ class RuntimeEngine:
         m = self.plan.cluster.devs_per_node
         lost = []
         for name, st in self.models.items():
-            if not _leaves(st.params):
+            if not tree_leaves(st.params):
                 continue  # paramless model: nothing to recover
             self._drain_prefetch_sync(name)  # belt-and-braces; see finally
             asg = st.assignment
@@ -1444,7 +1432,7 @@ class RuntimeEngine:
             # live params but lost moments would silently corrupt training
             oasg = st.opt_assignment
             opt_lost = (oasg is not None
-                        and bool(_leaves(st.opt_state))
+                        and bool(tree_leaves(st.opt_state))
                         and (oasg.mesh.devices(m) & dead)
                         and not fault.has_live_replica(oasg, dead, m))
             if params_lost or opt_lost:
@@ -1498,12 +1486,12 @@ class RuntimeEngine:
         moved = 0
         for model_name, calls in self._model_call_chains().items():
             st = self.models.get(model_name)
-            if st is None or not calls or not _leaves(st.params):
+            if st is None or not calls or not tree_leaves(st.params):
                 continue
             target = self._assignment_for(calls[0].name)
             dst = self.sharding_for(model_name, target)
             if dst is not None:
-                task = _reshard(st.params, dst)
+                task = realloc_exec.prefetch_reshard(st.params, dst)
                 st.params = task.tree
                 task.wait()
                 moved += task.moved_bytes
@@ -1511,13 +1499,13 @@ class RuntimeEngine:
             # recover the opt state live too: it lands on the model's
             # TRAIN assignment, the layout its next train step expects
             if (self.opt_sharding_for is not None
-                    and _leaves(st.opt_state)):
+                    and tree_leaves(st.opt_state)):
                 train = [c for c in calls if c.call_type == TRAIN]
                 opt_target = (self._assignment_for(train[0].name)
                               if train else target)
                 odst = self.opt_sharding_for(model_name, opt_target)
                 if odst is not None:
-                    task = _reshard(st.opt_state, odst)
+                    task = realloc_exec.prefetch_reshard(st.opt_state, odst)
                     st.opt_state = task.tree
                     task.wait()
                     moved += task.moved_bytes

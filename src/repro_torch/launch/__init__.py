@@ -1,1 +1,1 @@
-"""Serving entry points."""
+"""Entry points: serving, the training launcher and meshes."""

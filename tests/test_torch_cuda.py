@@ -62,6 +62,7 @@ MHA_GRID = [
     (2, 96, 14, 2, 64, True, None),   # qwen2-0.5b heads: G = 7
     (1, 136, 21, 7, 16, True, 40),    # G = 3, window
     (1, 512, 14, 2, 16, True, 128),   # q-chunked reference path
+    (4, 512, 32, 8, 128, True, None),  # llama-7b's prefill: G = 4, D 128
 ]
 
 # decode grid of tests/test_kernels.py, plus G = 7 rows
@@ -73,6 +74,7 @@ DECODE_GRID = [
     (4, 1088, 14, 2, 64, None, [1, 63, 64, 1088]),  # qwen2-0.5b heads
     (2, 96, 14, 2, 16, 96, [250, 7]),                # G = 7, ring
     (2, 40, 4, 2, 16, None, [0, 3]),                 # a row with no valid key
+    (8, 1088, 32, 8, 128, None, [1, 17, 64, 65, 400, 777, 1000, 1088]),  # llama-7b
 ]
 
 
@@ -1121,3 +1123,37 @@ def test_spec_cycle_on_the_card_equals_the_reference():
     assert torch.equal(out["cuda"]["tokens"], out["reference"]["tokens"])
     assert out["cuda"]["stats"] == out["reference"]["stats"]
     assert (out["cuda"]["logprobs"] - out["reference"]["logprobs"]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_reshard_on_the_card_donates_clones_and_polls():
+    """``parallel/realloc_exec`` on one card, four logical devices: the
+    clone keeps its source valid; the donating move releases the source
+    blocks (the memory allocated drops by the source's blocks and grows by
+    the destination's), leaves values bit-equal, and ``done()`` may be
+    polled before ``wait()``; a move onto other logical ids copies too."""
+    from repro_torch.parallel import realloc_exec as RX
+    from repro_torch.parallel.layout import Layout, Mesh, P, ShardedTensor
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = _randn(gen, (1024, 2048), "bfloat16", dev)
+    mesh = Mesh([[0, 1], [2, 3]], ("data", "model"))
+    assert all(b.device.type == "cuda" for b in ShardedTensor.place(
+        x, Layout(mesh, P())).blocks.values())
+    t = ShardedTensor.place(x, Layout(mesh, P("data", None)))
+    clone = RX.clone_reshard({"w": t}, {"w": Layout(mesh, P(None, "model"))})["w"]
+    assert not t.donated and torch.equal(t.gather(), x) and torch.equal(clone.gather(), x)
+    del clone
+    torch.cuda.synchronize()
+    src_bytes = t.local_bytes()
+    mem0 = torch.cuda.memory_allocated()
+    task = RX.prefetch_reshard({"w": t}, {"w": Layout(mesh, P("model", "data"))})
+    assert isinstance(task.done(), bool)  # polled before wait
+    out = task.wait()["w"]
+    assert task.done() and task.elapsed_s >= 0 and task.n_moved == 1
+    assert t.donated and out.local_bytes() == x.numel() * 2 and src_bytes == 2 * x.numel() * 2
+    assert torch.cuda.memory_allocated() - mem0 == out.local_bytes() - src_bytes
+    assert torch.equal(out.gather(), x)
+    other = Mesh([[4, 5], [6, 7]], ("data", "model"))
+    far = RX.reshard({"w": out}, {"w": Layout(other, P("model", "data"))})["w"]
+    assert far.layout.device_set == {4, 5, 6, 7} and torch.equal(far.gather(), x)

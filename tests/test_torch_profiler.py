@@ -6,8 +6,9 @@ the bench folds and the ``ProfileStore`` file on the same measurements
 JAX package's on bridged weights (``test_torch_train.py``'s tolerances:
 losses 1e-5 relative, parameters after an AdamW update at eps 1e-6 within
 ``PARAM_TOL``); checkpoints that round-trip bit for bit, bf16 leaves
-included, and an fp32 checkpoint written by the JAX manager that restores
-bit for bit in the port.
+included, also restored onto layouts and saved from them, and an fp32
+checkpoint written by the JAX manager that restores bit for bit in the
+port.
 """
 
 import json
@@ -33,6 +34,7 @@ from repro_torch.core import profiler as TPROF
 from repro_torch.core.plan import Cluster as TCluster
 from repro_torch.models import model as TM
 from repro_torch.optim import adamw as tadamw
+from repro_torch.parallel.layout import Layout, Mesh, P, ShardedTensor
 from repro_torch.parallel.steps import make_train_step as tmake_train_step
 from test_torch_train import PARAM_TOL, _np, _t, assert_trees_close, jax_params
 
@@ -224,8 +226,23 @@ def test_checkpoint_round_trip_is_bit_identical(tmp_path, async_save):
         else:
             assert a == b and type(a) is type(b)
     assert got["actor"]["w"].requires_grad and not got["actor_opt"]["m"]["w"].requires_grad
-    with pytest.raises(NotImplementedError, match="resharding"):
-        mgr.restore(template, shardings={"actor": None})
+    # restored onto layouts (as ``jax.device_put(arr, sharding)``): every
+    # leaf a ShardedTensor on its layout, bit-equal after gather(); saved
+    # again (the manager gathers it) it restores bit for bit
+    mesh = Mesh([[0, 1], [2, 3]], ("data", "model"), device="cpu")
+    lay = {"w": Layout(mesh, P("data", None)),
+           "layers": [{"b": Layout(mesh, P())}, {"b": Layout(mesh, P(None))}],
+           "idx": Layout(mesh, P("model"))}
+    step, placed, _ = mgr.restore({"actor": template["actor"]}, shardings={"actor": lay})
+    assert step == 3
+    for leaf, want, layout in zip(tadamw.leaves(placed["actor"]), tadamw.leaves(params),
+                                  tadamw.leaves(lay)):
+        assert isinstance(leaf, ShardedTensor) and leaf.layout == layout
+        assert leaf.dtype == want.dtype and torch.equal(leaf.gather(), want.detach())
+    mgr.save(4, {"actor": placed["actor"]})
+    _, again, _ = mgr.restore({"actor": params}, step=4)
+    for a, b in zip(tadamw.leaves(again["actor"]), tadamw.leaves(params)):
+        assert torch.equal(a, b.detach())
 
 
 def test_jax_fp32_checkpoint_restores_bit_identical(tmp_path):
