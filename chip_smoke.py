@@ -125,10 +125,28 @@ Phases, in order; any failure exits non-zero before the last line:
      on llama-7b's tree and ``benchmarks/pipeline_bench.py``'s toy with
      llama-7b as the actor and qwen2-0.5b's value model and AdamW state as
      the critic, at depth 1 and 2, held to the same toys run logically.
+ 11. compute on sharded layouts, on 4 logical devices of the card (each
+     rank's block its own buffer, collectives real copies and sums between
+     them, their bytes counted): (b) llama-7b at phase 10's generation
+     layout (TP 4): a sharded prefill of 4 x 256 tokens and 8 sharded
+     decode steps against the single-device ones (logits at LOGIT_TOL,
+     greedy agreement and the gathered caches printed, flash_mha and
+     flash_decode launches held to 4 ranks x 32 layers per call); (a)
+     full qwen2-0.5b, one sharded train step on (data 2, model 2) with
+     FSDP and TP on phase 6's traffic against the single-device step
+     (loss, grad_norm and first moment at TRAIN_TOL, each leaf at
+     TRAIN_LEAF_TOL; in fp32 on 2 layers at FP32_GRAD_TOL; every replica
+     bit-equal; launches held); (c) granite-moe-1b-a400m's forward with
+     its experts over 2 ranks against the single-device forward (LOGIT_TOL,
+     route agreement printed, the ranks' replicated routers alike); (d)
+     qwen's 24 layers in 4 GPipe stages on 8 microbatches, bit-equal to
+     the unpipelined stack; (e) ``compressed_psum`` of 4 ranks' qwen
+     gradient trees over 3 steps, each step's error held to its
+     quantization bound; each part's seconds, peak memory and bytes.
 Each model's parameters are freed before the next is built.
 Then one JSON line of kernel numbers, and last {"ok": true, "device": ...}.
 
-Phases 3 to 10 are functions of (config, params or experiment, impl) so the
+Phases 3 to 11 are functions of (config, params or experiment, impl) so the
 CPU tests rehearse them at the reduced size with impl="reference".
 """
 
@@ -182,8 +200,14 @@ from repro_torch.models import paged_cache as PC  # noqa: E402
 from repro_torch.models import spec as SPEC  # noqa: E402
 from repro_torch.data import packing  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.optim import grad as GRAD  # noqa: E402
+from repro_torch.parallel import collectives as COLL  # noqa: E402
+from repro_torch.parallel import ctx as CTX  # noqa: E402
+from repro_torch.parallel import pipeline as PIPE  # noqa: E402
 from repro_torch.parallel import realloc_exec as RX  # noqa: E402
 from repro_torch.parallel import sharding as SHD  # noqa: E402
+from repro_torch.parallel import steps as PSTEPS  # noqa: E402
 from repro_torch.parallel.layout import (Layout, Mesh, ShardedTensor, place_tree,  # noqa: E402
                                          tree_leaves, tree_map)
 from repro_torch.rlhf import experiment as EXP  # noqa: E402
@@ -3001,6 +3025,486 @@ def report_layout_engine(actor, device, critic_cfg=None, counts=LLAMA_MOVE_COUNT
           f"{time.perf_counter() - t_phase:.1f}s")
 
 
+# ------------------------------------------------------------------ phase 11
+# Compute on sharded layouts, on logical devices of the card: every rank's
+# block its own buffer, collectives real copies and sums between them
+# (``parallel/collectives.py``); ``COLL.STATS`` counts the bytes they move.
+TRAIN_LAYOUT = (2, 2)   # (a): (data, model), FSDP 2 x TP 2, ShardingRules()
+GEN_LAYOUT = (1, 4)     # (b): phase 10's generation layout, TP 4
+EP_LAYOUT = (1, 2)      # (c): experts over 2 ranks
+PIPE_STAGES = 4         # (d)
+PIPE_MICRO = 8
+
+
+def shard_params(params, dp, tp, device):
+    """(mesh, ``params`` placed on a (dp, tp) (data, model) mesh of logical
+    devices 0 .. dp * tp - 1 by ``ShardingRules()``, sanitized)."""
+    lay = strategy_layouts(params, dp, tp, tuple(range(dp * tp)), device)
+    return tree_leaves(lay)[0].mesh, place_tree(params, lay)
+
+
+def same(a, b) -> bool:
+    """``a`` and ``b`` bit-equal, wherever each lies (logical devices may
+    sit on different cards)."""
+    return torch.equal(a, b.to(a.device))
+
+
+def replicas_equal(tree) -> bool:
+    """Every block of every ``ShardedTensor`` leaf bit-equal to the first
+    block that holds the same region."""
+    for st in tree_leaves(tree):
+        first = {}
+        for _, reg, blk in st.shards:
+            if not same(first.setdefault(reg, blk), blk):
+                return False
+    return True
+
+
+def lm_batch(cfg, device, *, batch=16, prompt=128, new=256, seed=0):
+    """An LM-loss batch of phase 6's traffic: random tokens, labels the next
+    token, the mask 0 over the prompt and 1 over the first ``cut`` of the
+    ``new`` generated tokens (a seeded cut per row, so the replicas' mask
+    counts differ)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(1, cfg.vocab_size, (batch, prompt + new))
+    labels = np.roll(toks, -1, axis=1)
+    cut = rng.integers(new // 16, new + 1, batch)
+    mask = np.zeros((batch, prompt + new), np.float32)
+    for i, c in enumerate(cut):
+        mask[i, prompt:prompt + c] = 1.0
+    return {"tokens": torch.from_numpy(toks).to(device),
+            "labels": torch.from_numpy(labels).to(device),
+            "mask": torch.from_numpy(mask).to(device)}
+
+
+def clone_tree(tree):
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def _cards(device):
+    return range(torch.cuda.device_count()) if torch.device(device).type == "cuda" else ()
+
+
+def peak_reset(device):
+    for c in _cards(device):
+        torch.cuda.synchronize(c)
+        torch.cuda.reset_peak_memory_stats(c)
+
+
+def peak(device) -> int:
+    """The peak memory allocated since ``peak_reset``, summed over the
+    cards (0 on the host)."""
+    out = 0
+    for c in _cards(device):
+        torch.cuda.synchronize(c)
+        out += torch.cuda.max_memory_allocated(c)
+    return out
+
+
+def moment_agreement(got, want):
+    """Two AdamW first moments after one step (m = (1 - b1) x the clipped
+    gradient): |m - m_ref| / |m_ref| (Frobenius) over the tree and the
+    worst leaf, its name; ``got`` may hold ``ShardedTensor`` leaves."""
+    names = leaf_names(want)
+    d2 = r2 = 0.0
+    worst = (0.0, "")
+    for name, g, w in zip(names, adamw.leaves(got), adamw.leaves(want)):
+        g = g.gather(w.device) if isinstance(g, ShardedTensor) else g
+        a, b = square_norms(g, w)
+        d2, r2 = d2 + a, r2 + b
+        worst = max(worst, (math.sqrt(a / max(b, 1e-60)), name))
+    return math.sqrt(d2 / max(r2, 1e-60)), worst
+
+
+def phase_tp_train(cfg, params, batch, layout, *, impl, opt_cfg=adamw.AdamWConfig()):
+    """11a: one single-device ``make_train_step`` and one sharded one on a
+    ``layout`` (dp, tp) mesh (``ShardingRules()``: FSDP over data, TP over
+    model), from the same parameters and batch.  Returns both runs' loss
+    and grad_norm, ``moment_agreement`` of their first moments, whether
+    every replica of the sharded parameters and state is bit-equal, the
+    sharded parameters finite and moved, seconds, peak memory, the bytes
+    the collectives moved and each run's launches."""
+    device = params["embed"]["table"].device
+    single = clone_tree(params)
+    for t in adamw.leaves(single):
+        t.requires_grad_(True)
+    state = adamw.init(opt_cfg, single)
+    reset_launches()
+    peak_reset(device)
+    t0 = time.perf_counter()
+    _, state, m1 = PSTEPS.make_train_step(cfg, opt_cfg, impl=impl)(single, state, batch)
+    sync(device)
+    ref = dict(seconds=time.perf_counter() - t0, peak=peak(device), launches=launches(),
+               loss=float(m1["loss"]), grad_norm=float(m1["grad_norm"]))
+    m_ref = state["m"]
+    del single, state
+    free(device)
+    mesh, sharded = shard_params(params, *layout, device)
+    before = clone_tree(tree_map(lambda st: st.blocks[mesh.device_ids[0]], sharded))
+    sstate = adamw.init(opt_cfg, sharded)
+    COLL.reset_stats()
+    reset_launches()
+    peak_reset(device)
+    t0 = time.perf_counter()
+    sharded, sstate, m2 = PSTEPS.make_train_step(cfg, opt_cfg, impl=impl, mesh=mesh)(
+        sharded, sstate, batch)
+    sync(device)
+    out = dict(seconds=time.perf_counter() - t0, peak=peak(device), launches=launches(),
+               bytes=COLL.STATS["bytes"], copies=COLL.STATS["copies"],
+               loss=float(m2["loss"]), grad_norm=float(m2["grad_norm"]), ref=ref)
+    out["global_err"], (out["worst_leaf_err"], out["worst_leaf"]) = moment_agreement(
+        sstate["m"], m_ref)
+    out["loss_err"] = abs(out["loss"] - ref["loss"]) / abs(ref["loss"])
+    out["grad_norm_err"] = abs(out["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    out["replicas_equal"] = replicas_equal(sharded) and replicas_equal(sstate["m"])
+    after = tree_map(lambda st: st.blocks[mesh.device_ids[0]], sharded)
+    out["finite"] = all(bool(torch.isfinite(t).all()) for t in tree_leaves(after))
+    out["moved"] = any(not torch.equal(a, b) for a, b in zip(tree_leaves(after),
+                                                             tree_leaves(before)))
+    return out
+
+
+def tp_train_predicted(cfg, layout):
+    """flash_mha launches of one train step: every rank's forward of every
+    layer, again in the backward's recompute (remat)."""
+    n = layout[0] * layout[1] * attn_layers(cfg) * 2
+    return {k: (n if k == "flash_mha" else 0) for k in launches()}
+
+
+def report_tp_train(device, total, *, layers=2):
+    """11a on the card: full-width qwen2-0.5b, phase 6's traffic, bf16 at
+    full depth against TRAIN_TOL / TRAIN_LEAF_TOL and an fp32 copy of
+    ``layers`` layers against FP32_GRAD_TOL; every replica bit-equal."""
+    cfg = get_config("qwen2-0.5b")
+    batch = lm_batch(cfg, device)
+    for c, seed, tol, leaf_tol in ((cfg, 0, TRAIN_TOL, TRAIN_LEAF_TOL),
+                                   (shallow(cfg, layers, dtype="float32"), 1, FP32_GRAD_TOL,
+                                    FP32_GRAD_TOL)):
+        params = make_params(c, seed=seed, device=device)
+        r = phase_tp_train(c, params, batch, TRAIN_LAYOUT, impl="cuda")
+        ref, want = r["ref"], tp_train_predicted(c, TRAIN_LAYOUT)
+        print(f"[shard] train {c.name} {c.num_layers} layers {c.dtype} on "
+              f"(data, model)={TRAIN_LAYOUT}: loss {r['loss']:.6e} vs {ref['loss']:.6e} (err "
+              f"{r['loss_err']:.3e}), grad_norm {r['grad_norm']:.6e} vs {ref['grad_norm']:.6e} "
+              f"(err {r['grad_norm_err']:.3e}), first moment err {r['global_err']:.3e}, worst "
+              f"leaf {r['worst_leaf']} {r['worst_leaf_err']:.3e} (tol {tol}, per leaf "
+              f"{leaf_tol}); replicas bit-equal {r['replicas_equal']}; {r['seconds']:.3f}s "
+              f"(single device {ref['seconds']:.3f}s), peak {r['peak']} bytes (single device "
+              f"{ref['peak']}), collectives moved {r['bytes']} bytes in {r['copies']} copies "
+              f"per step; launches {r['launches']} (predicted {want}; single device "
+              f"{ref['launches']})")
+        check(max(r["loss_err"], r["grad_norm_err"], r["global_err"]) <= tol
+              and r["worst_leaf_err"] <= leaf_tol,
+              f"sharded train step of {c.name} disagrees with the single-device step")
+        check(r["replicas_equal"], f"{c.name}: replicas differ after the sharded step")
+        check(r["finite"] and r["moved"], f"{c.name}: sharded parameters not finite or unmoved")
+        check(same_launches(r["launches"], want),
+              f"sharded train launches {r['launches']} != {want}")
+        for k in total:
+            total[k] += r["launches"][k]
+        del params
+        free(device)
+
+
+def phase_tp_serve(cfg, params, layout, *, impl, batch=4, prompt_len=256, steps=8, seed=0):
+    """11b: a sharded ``make_prefill_step`` and ``steps`` sharded
+    ``make_decode_step``s on a ``layout`` mesh against the single-device
+    steps, both fed the single-device run's greedy tokens.  Returns the
+    scaled logit errors, the greedy agreement, the gathered caches' largest
+    difference, seconds, bytes and launches per call."""
+    device = params["embed"]["table"].device
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (batch, prompt_len))).to(device)
+    prompt = {"tokens": toks}
+    reset_launches()
+    lg, caches = PSTEPS.make_prefill_step(cfg, impl=impl, extra_len=steps)(params, prompt)
+    want, feed = [lg], []
+    decode = PSTEPS.make_decode_step(cfg, impl=impl)
+    for i in range(steps):
+        feed.append(want[-1].argmax(-1))
+        lg, caches = decode(params, feed[-1], caches, prompt_len + i)
+        want.append(lg)
+    ref_launches = launches()
+    mesh, sharded = shard_params(params, *layout, device)
+    COLL.reset_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    lg, scaches = PSTEPS.make_prefill_step(cfg, impl=impl, extra_len=steps, mesh=mesh)(
+        sharded, prompt)
+    sync(device)
+    out = dict(prefill_s=time.perf_counter() - t0, prefill_bytes=COLL.STATS["bytes"],
+               prefill_launches=launches(), ref_launches=ref_launches)
+    got = [lg.gather(device)]
+    sdecode = PSTEPS.make_decode_step(cfg, impl=impl, mesh=mesh)
+    COLL.reset_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        lg, scaches = sdecode(sharded, feed[i], scaches, prompt_len + i)
+        got.append(lg.gather(device))
+    sync(device)
+    out.update(decode_s=(time.perf_counter() - t0) / steps,
+               decode_bytes=COLL.STATS["bytes"] // steps, decode_launches=launches())
+    got, want = torch.stack(got, dim=1), torch.stack(want, dim=1)
+    check(bool(torch.isfinite(got).all()), "non-finite sharded logits")
+    scale = want.abs().amax().item()
+    err = (got - want).abs()
+    out.update(prefill_err=err[:, 0].max().item() / scale,
+               decode_err=err[:, 1:].max().item() / scale, logit_scale=scale,
+               argmax_agreement=(got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+               cache_diff=max((c[k].gather(device) - s).abs().max().item()
+                              for c, sc in zip(scaches, caches) for k, s in sc.items()),
+               n_ranks=mesh.size)
+    return out
+
+
+def report_tp_serve(params, device, total, *, steps=8):
+    """11b on the card: llama-7b on phase 10's generation layout (TP 4)."""
+    cfg = get_config(LLAMA)
+    peak_reset(device)
+    r = phase_tp_serve(cfg, params, GEN_LAYOUT, impl="cuda", steps=steps)
+    n = r["n_ranks"] * attn_layers(cfg)
+    print(f"[shard] serve {cfg.name} on (data, model)={GEN_LAYOUT}, 4 x 256 tokens then "
+          f"{steps} decode steps: prefill_err={r['prefill_err']:.3e} decode_err="
+          f"{r['decode_err']:.3e} (of max |logit| {r['logit_scale']:.3f}; tol {LOGIT_TOL}), "
+          f"greedy agreement {r['argmax_agreement']:.3f} (printed), gathered caches differ by "
+          f"{r['cache_diff']:.3e} at most (printed); prefill {r['prefill_s']:.3f}s, "
+          f"{r['prefill_bytes']} bytes moved; decode {r['decode_s']:.4f}s and "
+          f"{r['decode_bytes']} bytes per step; peak {peak(device)} bytes; launches "
+          f"prefill {r['prefill_launches']}, decode {r['decode_launches']} (predicted {n} "
+          "per call)")
+    check(r["prefill_err"] <= LOGIT_TOL and r["decode_err"] <= LOGIT_TOL,
+          "sharded llama logits disagree with the single-device run")
+    check(r["prefill_launches"]["flash_mha"] == n and
+          r["decode_launches"]["flash_decode"] == n * steps,
+          f"sharded serve launches {r['prefill_launches']} / {r['decode_launches']}")
+    for k in total:
+        total[k] += r["prefill_launches"][k] + r["decode_launches"][k]
+
+
+def phase_ep(cfg, params, layout, *, impl, batch=4, prompt_len=256, seed=0):
+    """11c: the sharded forward with the experts split over the model axis
+    against the single-device forward on the same tokens: logits (scaled
+    error), the route agreement of the single run with the first model
+    rank's (``route_diff``), whether every model rank routed alike."""
+    if layout[0] != 1:
+        raise ValueError("phase_ep compares routes of one batch replica: need data size 1")
+    device = params["embed"]["table"].device
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (batch, prompt_len))).to(device)
+    with torch.no_grad(), recorded_routes() as ref_routes:
+        reset_launches()
+        want = MDL.logits_of(params, cfg, MDL.forward(params, cfg, {"tokens": toks}, impl=impl))
+        ref_launches = launches()
+    mesh, sharded = shard_params(params, *layout, device)
+    rules = SHD.ShardingRules()
+    COLL.reset_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad(), recorded_routes() as routes, \
+            CTX.use(mesh, rules.batch_axes, rules.tp_axis) as c:
+        parts = PSTEPS.split_batch({"tokens": toks}, mesh, rules)
+        hs = MDL.forward_sharded(sharded, cfg, {r: v["tokens"] for r, v in parts.items()},
+                                 ctx=c, impl=impl)
+        top = c.local({k: v for k, v in sharded.items() if k != "layers"})
+        lg = {r: MDL.logits_of(top[r], cfg, h) for r, h in hs.items()}
+    sync(device)
+    out = dict(seconds=time.perf_counter() - t0, bytes=COLL.STATS["bytes"],
+               launches=launches(), ref_launches=ref_launches,
+               vocab_split=MDL.vocab_split(sharded, cfg, c))
+    got = lg[mesh.device_ids[0]]
+    if out["vocab_split"]:
+        got = torch.cat([lg[r].to(device) for r in mesh.device_ids[:layout[1]]], dim=-1)
+    check(bool(torch.isfinite(got).all()), "non-finite EP logits")
+    scale = want.abs().amax().item()
+    tp = layout[1]
+    out.update(err=(got - want).abs().max().item() / scale, logit_scale=scale,
+               routes=route_diff(routes[::tp], ref_routes),
+               ranks_route_alike=all(same(routes[i - i % tp][0], routes[i][0])
+                                     for i in range(len(routes))))
+    return out
+
+
+def report_ep(device, total):
+    """11c on the card: full-width granite-moe-1b-a400m, 32 experts over 2
+    ranks."""
+    cfg = get_config("granite-moe-1b-a400m")
+    params = make_params(cfg, seed=0, device=device)
+    peak_reset(device)
+    r = phase_ep(cfg, params, EP_LAYOUT, impl="cuda")
+    n = EP_LAYOUT[0] * EP_LAYOUT[1] * moe_layers(cfg)
+    rt = r["routes"]
+    print(f"[shard] EP forward {cfg.name} on (data, model)={EP_LAYOUT} (16 of 32 experts per "
+          f"rank; vocabulary split: {r['vocab_split']}), 4 x 256 tokens: logits err "
+          f"{r['err']:.3e} of max |logit| {r['logit_scale']:.3f} (tol {LOGIT_TOL}); routes "
+          f"agree with the single device on {rt['agreement']:.6f} of (token, layer) pairs, "
+          f"{rt['flips']} part (largest probability gap {rt['worst_gap']:.3e}; printed); "
+          f"ranks route alike {r['ranks_route_alike']}; {r['seconds']:.3f}s, "
+          f"{r['bytes']} bytes moved, peak {peak(device)} bytes; launches {r['launches']} "
+          f"(grouped_ffn predicted {n}; single device {r['ref_launches']})")
+    check(r["err"] <= LOGIT_TOL, "EP logits disagree with the single-device forward")
+    check(r["ranks_route_alike"], "the model ranks' replicated routers routed differently")
+    check(r["launches"]["grouped_ffn"] == n, f"EP grouped_ffn launches {r['launches']}")
+    for k in total:
+        total[k] += r["launches"][k]
+    del params
+    free(device)
+
+
+def phase_pipeline(cfg, params, *, impl, stages=PIPE_STAGES, mbs=PIPE_MICRO, batch=16,
+                   seq=256, seed=0):
+    """11d: ``pipeline_apply`` over ``stages`` stages of ``cfg``'s layers
+    (``transformer.stack_apply`` as the layer function) on ``mbs``
+    microbatches of embedded tokens, against the unpipelined stack run on
+    each microbatch.  Returns whether the two are bit-equal, seconds,
+    bytes, launches."""
+    device = params["embed"]["table"].device
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (batch, seq))).to(device)
+    mesh = Mesh(np.arange(stages), ("stage",), device=device)
+    stacked = PIPE.stack_stages(params["layers"], stages)
+
+    def layer_fn(p, x):
+        return T.stack_apply(PIPE.unstack_layers(p), cfg, x, impl=impl)
+    with torch.no_grad():
+        x = PIPE.microbatch(MDL._embed(params, cfg, toks), mbs)
+        reset_launches()
+        want = torch.stack([T.stack_apply(params["layers"], cfg, xm, impl=impl) for xm in x])
+        ref_launches = launches()
+        COLL.reset_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = PIPE.pipeline_apply(layer_fn, stacked, x, mesh=mesh)
+        sync(device)
+    return dict(seconds=time.perf_counter() - t0, bytes=COLL.STATS["bytes"],
+                launches=launches(), ref_launches=ref_launches, ticks=mbs + stages - 1,
+                bit_equal=all(same(want, b) for b in out.blocks.values()))
+
+
+def report_pipeline(device, total):
+    """11d on the card: full-width qwen2-0.5b's 24 layers in 4 stages."""
+    cfg = get_config("qwen2-0.5b")
+    params = make_params(cfg, seed=0, device=device)
+    peak_reset(device)
+    r = phase_pipeline(cfg, params, impl="cuda")
+    print(f"[shard] pipeline {cfg.name}: {PIPE_STAGES} stages of "
+          f"{cfg.num_layers // PIPE_STAGES} layers, {PIPE_MICRO} microbatches of 2 x 256 "
+          f"tokens, {r['ticks']} ticks (utilization {PIPE_MICRO / r['ticks']:.3f}); bit-equal "
+          f"to the unpipelined stack {r['bit_equal']}; {r['seconds']:.3f}s, {r['bytes']} "
+          f"bytes moved, peak {peak(device)} bytes; launches {r['launches']} (unpipelined "
+          f"{r['ref_launches']})")
+    check(r["bit_equal"], "the pipeline's outputs differ from the unpipelined stack's")
+    check(same_launches(r["launches"], r["ref_launches"]),
+          "the pipeline launched other kernels than the unpipelined stack")
+    for k in total:
+        total[k] += r["launches"][k]
+    del params
+    free(device)
+
+
+def psum_bound(xs, prev_err, k):
+    """The largest error one ``compressed_psum`` call can make against the
+    exact mean of ``xs`` ({rank: fp32 gradient}) after the residuals
+    ``prev_err`` were added: each rank's chunk rounds by half its scale, at
+    most M / 254 with M = max |x + residual| over the ranks; the reduced
+    chunk (at most k M (1 + 1/254)) rounds by half of its scale; the
+    residuals that went in come out of the mean as they are.  fp32
+    rounding of the sums adds 2^-20 of k M."""
+    m = max((x + (e if e is not None else 0)).abs().max().item()
+            for x, e in zip(xs, prev_err))
+    res = sum(e.abs().max().item() for e in prev_err if e is not None)
+    return res / k + m / 254 + m * (1 + 1 / 254) / 254 + k * m * 2.0 ** -20
+
+
+def phase_compressed(grads, device, *, steps=3):
+    """11e: ``compressed_psum`` over len(grads) logical devices of the
+    ``data`` axis, leaf by leaf of the ranks' gradient trees (fp32), for
+    ``steps`` calls with error feedback.  Per step: the largest error
+    against the exact mean over the largest |mean| and over the leaf's
+    ``psum_bound``, the copies bit-equal across ranks, seconds, bytes."""
+    k = len(grads)
+    mesh = Mesh(np.arange(k), ("data",), device=device)
+    flat = [adamw.leaves(g) for g in grads]
+    errs = [[None] * k for _ in flat[0]]
+    out = []
+    for _ in range(steps):
+        COLL.reset_stats()
+        t0 = time.perf_counter()
+        worst_rel = worst_bound = 0.0
+        alike = True
+        for i in range(len(flat[0])):
+            xs = [flat[r][i].float().to(mesh.torch_device(r)) for r in range(k)]
+            bound = psum_bound(xs, errs[i], k)
+            mean, new = GRAD.compressed_psum(
+                {r: xs[r] for r in range(k)}, mesh, "data",
+                None if errs[i][0] is None else {r: errs[i][r] for r in range(k)})
+            exact = sum(x.to(xs[0].device) for x in xs) / k
+            e = (mean[0] - exact).abs().max().item()
+            worst_rel = max(worst_rel, e / max(exact.abs().max().item(), 1e-30))
+            worst_bound = max(worst_bound, e / bound)
+            alike = alike and all(same(mean[0], mean[r]) for r in range(k))
+            errs[i] = [new[r] for r in range(k)]
+        sync(device)
+        out.append(dict(rel_err=worst_rel, of_bound=worst_bound, alike=alike,
+                        seconds=time.perf_counter() - t0, bytes=COLL.STATS["bytes"]))
+    return out
+
+
+def rank_grads(cfg, params, n, *, impl, batch=2, seq=256, seed=0):
+    """``n`` ranks' gradient trees: the LM loss's gradient of ``params`` on
+    ``n`` different seeded batches."""
+    for t in adamw.leaves(params):
+        t.requires_grad_(True)
+    out = []
+    for r in range(n):
+        b = lm_batch(cfg, params["embed"]["table"].device, batch=batch, prompt=seq // 2,
+                     new=seq // 2, seed=seed + r)
+        with torch.enable_grad():
+            loss, _ = MDL.lm_loss(params, cfg, b, impl=impl, remat=False)
+            out.append(torch.autograd.grad(loss, adamw.leaves(params)))
+    return out
+
+
+def report_compressed(device, total):
+    """11e on the card: qwen2-0.5b's gradient tree on 4 logical devices."""
+    cfg = get_config("qwen2-0.5b")
+    params = make_params(cfg, seed=0, device=device)
+    reset_launches()
+    grads = rank_grads(cfg, params, 4, impl="cuda")
+    for k in total:
+        total[k] += launches()[k]
+    del params
+    peak_reset(device)
+    runs = phase_compressed(grads, device)
+    n = sum(t.numel() for t in grads[0])
+    for i, r in enumerate(runs):
+        print(f"[shard] compressed_psum step {i}: qwen2-0.5b's {n}-element gradient tree on 4 "
+              f"logical devices, largest error {r['rel_err']:.3e} of the largest |exact "
+              f"mean|, {r['of_bound']:.3f} of the quantization bound; copies alike "
+              f"{r['alike']}; {r['seconds']:.3f}s, {r['bytes']} bytes moved (int8 payloads "
+              f"and fp32 scales; an fp32 ring all-reduce moves {2 * 3 * 4 * n} bytes)")
+        check(r["of_bound"] <= 1.0, f"compressed_psum step {i} past its quantization bound")
+        check(r["alike"], f"compressed_psum step {i}: ranks got different means")
+    print(f"[shard] compressed_psum peak {peak(device)} bytes")
+    del grads
+    free(device)
+
+
+def report_sharded(llama_params, device, total):
+    """Phase 11 on the card: (b) on ``llama_params``, whose dict it then
+    empties to free them, then (a), (c), (d), (e); each part's seconds."""
+    t0 = time.perf_counter()
+    report_tp_serve(llama_params, device, total)
+    llama_params.clear()
+    free(device)
+    print(f"[time] phase 11b {time.perf_counter() - t0:.1f}s")
+    for name, part in (("a", report_tp_train), ("c", report_ep), ("d", report_pipeline),
+                       ("e", report_compressed)):
+        t0 = time.perf_counter()
+        part(device, total)
+        print(f"[time] phase 11{name} {time.perf_counter() - t0:.1f}s")
+
+
 # ------------------------------------------------------------------ main
 
 def shallow(cfg, layers=4, *, dtype=None):
@@ -3173,9 +3677,12 @@ def main():
     params = report_llama(device, total)
     report_realloc(get_config(LLAMA), params, device)
     report_layout_engine(params, device)
+    print(f"[time] phase 10 {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    report_sharded(params, device, total)
     del params
     free(device)
-    print(f"[time] phase 10 {time.perf_counter() - t0:.1f}s")
+    print(f"[time] phase 11 {time.perf_counter() - t0:.1f}s")
 
     source = "src/repro_torch/kernels/csrc/"
     rows = [dict(name="flash_mha", route="cuda", source=source + "flash_attention.cu",

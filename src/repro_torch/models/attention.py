@@ -53,13 +53,20 @@ def _project_qkv(p, cfg: ModelConfig, x, rope):
     return L.rope_apply(q, rope), L.rope_apply(k, rope), v
 
 
+def _out_proj(p, out, partial):
+    """The output projection; with ``partial`` a tensor-parallel rank's fp32
+    share of it (``layers.partial_apply``), for the caller's all-reduce."""
+    return L.partial_apply(p["wo"], out) if partial else L.dense_apply(p["wo"], out)
+
+
 def attn_apply_with_kv(p, cfg: ModelConfig, spec: LayerSpec, x, rope, *,
-                       impl="cuda"):
+                       impl="cuda", partial=False):
     """Causal full-sequence attention (training forward / prefill).  Returns
-    the output and the roped k/v (for prefill caching)."""
+    the output and the roped k/v (for prefill caching).  Under tensor
+    parallelism ``cfg`` has the rank's local heads and ``partial`` is set."""
     q, k, v = _project_qkv(p, cfg, x, rope)
     out = ops.mha(q, k, v, causal=True, window=spec.window, impl=impl)
-    y = L.dense_apply(p["wo"], out.reshape(*x.shape[:2], cfg.q_dim))
+    y = _out_proj(p, out.reshape(*x.shape[:2], cfg.q_dim), partial)
     return y, {"k": k, "v": v}
 
 
@@ -102,10 +109,11 @@ def prefill_into_cache(cache, spec: LayerSpec, k, v, seq_len: int):
 
 
 def attn_decode_apply(p, cfg: ModelConfig, spec: LayerSpec, x, cache, t: int,
-                      rope, cache_len, *, impl="cuda"):
+                      rope, cache_len, *, impl="cuda", partial=False):
     """One-token decode.  x: (B, 1, D); t: the token's position; rope: the
     tables of position t; cache_len: (B,) int32, all t + 1.  Writes the
-    token's k/v into the cache in place and returns the output."""
+    token's k/v into the cache in place and returns the output (``partial``
+    as ``attn_apply_with_kv``)."""
     b = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x, rope)
     cap = cache["k"].shape[1]
@@ -116,7 +124,7 @@ def attn_decode_apply(p, cfg: ModelConfig, spec: LayerSpec, x, cache, t: int,
     cache["v"][:, slot] = v[:, 0]
     out = ops.decode_mha(q[:, 0], cache["k"], cache["v"], cache_len=cache_len,
                          window=spec.window, impl=impl)
-    return L.dense_apply(p["wo"], out.reshape(b, 1, cfg.q_dim).to(x.dtype))
+    return _out_proj(p, out.reshape(b, 1, cfg.q_dim).to(x.dtype), partial)
 
 
 def paged_attn_decode_apply(p, cfg: ModelConfig, x, cache, block_table, dest,

@@ -116,10 +116,23 @@ def mlp_init(gen, cfg: ModelConfig, device):
     }
 
 
-def mlp_apply(p, cfg: ModelConfig, x):
+def partial_apply(p, x):
+    """A row-parallel rank's share of ``x @ w``: its rows of w against its
+    columns of x, in fp32 (bf16 inputs are exact in fp32).  Summed over the
+    tensor axis and cast once, it is the single-device product up to fp32
+    summation order; rounding each share first would add a bf16 rounding
+    per rank.  A bias would be added once, after the sum."""
+    if "b" in p:
+        raise ValueError("a row-parallel projection takes no bias")
+    return x.to(torch.float32) @ p["w"].to(torch.float32)
+
+
+def mlp_apply(p, cfg: ModelConfig, x, *, partial=False):
+    """The gated MLP; with ``partial`` a tensor-parallel rank's fp32 share
+    of the output projection (``partial_apply``)."""
     g = ACTS[cfg.act](dense_apply(p["w_gate"], x))
     h = g * dense_apply(p["w_in"], x)
-    return dense_apply(p["w_out"], h)
+    return partial_apply(p["w_out"], h) if partial else dense_apply(p["w_out"], h)
 
 
 # ----------------------------------------------------------------- Embedding
@@ -139,3 +152,26 @@ def unembed_apply(p_head, p_embed, x, tie: bool):
     if tie:
         return torch.einsum("bsd,vd->bsv", x, p_embed["table"]).to(torch.float32)
     return (x @ p_head["w"]).to(torch.float32)
+
+
+# ----------------------------------------------------------------- vocab-parallel
+# A rank whose embedding table (``P(t, f)``) or LM head (``P(f, t)``) holds
+# the vocabulary entries lo .. lo + V_r - 1 (``model.lm_loss_sharded``).
+
+def embed_apply_vocab_shard(p, tokens, lo: int):
+    """The lookup of ``tokens`` in a table holding vocabulary rows lo ..
+    lo + V_r - 1; ids outside that range give zero rows, so a sum over the
+    tensor axis gives the whole lookup exactly."""
+    tab = p["table"]
+    ids = tokens - lo
+    hit = (ids >= 0) & (ids < tab.shape[0])
+    return torch.where(hit[..., None], tab[ids.clamp(0, tab.shape[0] - 1)], 0)
+
+
+def gather_vocab_shard(logits, labels, lo: int):
+    """``logits[..., labels - lo]`` where the label falls in this rank's
+    vocabulary range lo .. lo + V_r - 1, zero elsewhere."""
+    ids = labels.long() - lo
+    hit = (ids >= 0) & (ids < logits.shape[-1])
+    got = torch.gather(logits, -1, ids.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+    return torch.where(hit, got, 0.0)

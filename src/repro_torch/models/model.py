@@ -7,6 +7,8 @@ Parameters: {"embed": {"table"}, "layers": [one dict per layer],
 "value_head" for a value model).  A batch is {"tokens": (B, S) int
 tensor}, or a packed cohort {"tokens", "cu_seqlens", "positions"}.  Every
 entry point runs where the parameters lie and defaults to ``impl="cuda"``.
+The ``*_sharded`` entry points at the end run over a mesh of logical
+devices (``parallel/steps.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.parallel.layout import axes_of
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", head: str = "lm"):
@@ -320,3 +323,124 @@ class BucketedGenerator:
         return {k: (v[:, :num_new_tokens]
                     if k in ("tokens", "logprobs", "gen_mask") else v)
                 for k, v in out.items()}
+
+
+# ----------------------------------------------------------------- sharded
+# The forward, loss, prefill and decode of ``parallel/steps.py``'s sharded
+# steps: explicit SPMD over the mesh of ``ctx`` (``parallel/ctx.py``), every
+# per-rank value a dict {logical id: tensor}, ``params`` a tree of
+# ``ShardedTensor`` leaves laid out by ``parallel/sharding.py``.
+
+def _tp_splits(st, dim: int, ctx) -> bool:
+    """Whether the tensor axis of ``ctx`` shards dim ``dim`` of the
+    ``ShardedTensor`` st (``sanitize_specs`` drops it from a vocabulary it
+    does not divide: granite's 49,155 at an even degree)."""
+    spec = st.layout.spec
+    return (bool(ctx.tp_axis) and ctx.tp_size > 1 and dim < len(spec)
+            and ctx.tp_axis in axes_of(spec[dim]))
+
+
+def vocab_split(params, cfg: ModelConfig, ctx) -> bool:
+    """Whether the logits are vocabulary-parallel."""
+    if cfg.tie_embeddings:
+        return _tp_splits(params["embed"]["table"], 0, ctx)
+    return _tp_splits(params["lm_head"]["w"], 1, ctx)
+
+
+def _embed_sharded(params, top, cfg: ModelConfig, tokens, ctx):
+    """{rank: (B_r, S, D)} embeddings of {rank: (B_r, S) tokens}; ``top`` is
+    ``ctx.local`` of the non-layer params.  A vocabulary-parallel table
+    looks up its own rows (zeros elsewhere), summed over the tensor axis."""
+    if not _tp_splits(params["embed"]["table"], 0, ctx):
+        return {r: L.embed_apply(top[r]["embed"], t).to(L.dtype_of(cfg))
+                for r, t in tokens.items()}
+    xs = {r: L.embed_apply_vocab_shard(top[r]["embed"], t,
+                                       ctx.tp_index(r) * top[r]["embed"]["table"].shape[0])
+          for r, t in tokens.items()}
+    return {r: x.to(L.dtype_of(cfg)) for r, x in ctx.tp_reduce(xs).items()}
+
+
+def _final_hidden(params, cfg: ModelConfig, tokens, ctx, *, impl, remat=False,
+                  return_aux=False):
+    top = ctx.local({k: v for k, v in params.items() if k != "layers"})
+    xs = _embed_sharded(params, top, cfg, tokens, ctx)
+    out = T.stack_apply_sharded(params["layers"], cfg, xs, ctx=ctx, impl=impl, remat=remat,
+                                return_aux=return_aux)
+    hs, aux = out if return_aux else (out, None)
+    hs = {r: L.rmsnorm_apply(top[r]["final_norm"], h, cfg.norm_eps) for r, h in hs.items()}
+    return top, hs, aux
+
+
+def forward_sharded(params, cfg: ModelConfig, tokens, *, ctx, impl="cuda", remat=False,
+                    return_aux=False):
+    """``forward`` over a mesh: tokens {rank: (B_r, S)} (each rank its batch
+    replica's rows).  Returns {rank: final-normed hidden (B_r, S, D)}, or
+    with ``return_aux`` also {rank: MoE load-balance loss}."""
+    _, hs, aux = _final_hidden(params, cfg, tokens, ctx, impl=impl, remat=remat,
+                               return_aux=return_aux)
+    return (hs, aux) if return_aux else hs
+
+
+def lm_loss_sharded(params, cfg: ModelConfig, batch, *, ctx, impl="cuda", remat=True,
+                    aux_weight=0.01):
+    """``lm_loss`` over a mesh: batch {rank: {"tokens", "labels", "mask"}}.
+
+    The logits stay vocabulary-parallel: each rank's logsumexp takes the
+    max over the tensor axis (an all-reduce max) and the sum of its
+    exponentials (an all-reduce sum), and the gold logit comes from the
+    rank that holds the label, summed over the tensor axis; no rank
+    gathers the (B, S, V) logits.  The loss is the mean over the global
+    mask: the masked sum and the token count are each all-reduced over the
+    batch axes before the one division (replicas' means would weigh their
+    masks wrongly).  Returns (loss, {"lm_loss", "aux_loss"}), 0-d tensors on
+    the mesh's first device; the loss is computed once, from the first
+    rank's copies."""
+    top, hs, aux = _final_hidden(params, cfg, {r: b["tokens"] for r, b in batch.items()}, ctx,
+                                 impl=impl, remat=remat, return_aux=True)
+    logits = {r: logits_of(top[r], cfg, h) for r, h in hs.items()}  # the rank's vocabulary
+    if vocab_split(params, cfg, ctx):
+        m = ctx.tp_reduce({r: l.detach().amax(dim=-1) for r, l in logits.items()}, op="max")
+        s = ctx.tp_reduce({r: torch.exp(l - m[r][..., None]).sum(dim=-1)
+                           for r, l in logits.items()})
+        gold = ctx.tp_reduce({r: L.gather_vocab_shard(l, batch[r]["labels"],
+                                                       ctx.tp_index(r) * l.shape[-1])
+                              for r, l in logits.items()})
+        nll = {r: m[r] + torch.log(s[r]) - gold[r] for r in logits}
+    else:
+        nll = {r: torch.logsumexp(l, dim=-1)
+               - torch.gather(l, -1, batch[r]["labels"][..., None].long())[..., 0]
+               for r, l in logits.items()}
+    num = ctx.batch_reduce({r: (v * batch[r]["mask"]).sum() for r, v in nll.items()})
+    cnt = ctx.batch_reduce({r: batch[r]["mask"].sum() for r in nll})
+    root = ctx.ranks[0]
+    loss = num[root] / torch.clamp(cnt[root], min=1.0)
+    return loss + aux_weight * aux[root], {"lm_loss": loss, "aux_loss": aux[root]}
+
+
+@torch.no_grad()
+def prefill_sharded(params, cfg: ModelConfig, tokens, max_len, *, ctx, impl="cuda"):
+    """``prefill`` over a mesh: tokens {rank: (B_r, S)}.  Returns ({rank:
+    next-token logits (B_r, V_r) fp32}, {rank: the rank's layer caches}):
+    each rank's caches hold its batch rows and its own KV heads, so the
+    decode kernel runs on whole heads."""
+    top = ctx.local({k: v for k, v in params.items() if k != "layers"})
+    xs = _embed_sharded(params, top, cfg, tokens, ctx)
+    lcfg = T.tp_cfg(cfg, ctx.tp_size)
+    caches = {r: T.cache_init(lcfg, x.shape[0], max_len, L.dtype_of(cfg), x.device)
+              for r, x in xs.items()}
+    hs = T.stack_prefill_sharded(params["layers"], cfg, xs, caches, ctx=ctx, impl=impl)
+    hs = {r: L.rmsnorm_apply(top[r]["final_norm"], h, cfg.norm_eps)[:, -1:]
+          for r, h in hs.items()}
+    return {r: logits_of(top[r], cfg, h)[:, 0] for r, h in hs.items()}, caches
+
+
+@torch.no_grad()
+def decode_step_sharded(params, cfg: ModelConfig, token, caches, t: int, *, ctx, impl="cuda"):
+    """``decode_step`` over a mesh: token {rank: (B_r,)} at position t,
+    caches from ``prefill_sharded`` (updated in place).  Returns {rank:
+    logits (B_r, V_r) fp32}."""
+    top = ctx.local({k: v for k, v in params.items() if k != "layers"})
+    xs = _embed_sharded(params, top, cfg, {r: x[:, None] for r, x in token.items()}, ctx)
+    hs = T.stack_decode_sharded(params["layers"], cfg, xs, caches, t, ctx=ctx, impl=impl)
+    hs = {r: L.rmsnorm_apply(top[r]["final_norm"], h, cfg.norm_eps) for r, h in hs.items()}
+    return {r: logits_of(top[r], cfg, h)[:, 0] for r, h in hs.items()}

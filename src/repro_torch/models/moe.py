@@ -14,10 +14,11 @@ and the combine un-permutes the expert outputs and sums over k in a fixed
 order in fp32 (no float atomics), then casts once.
 
 The training forward (``want_aux=True``) also returns the Switch
-load-balance loss; serving skips it.  The expert FFN is differentiable on
-both tiers (``grouped_ffn``'s plain backward).  The legacy ``"capacity"``
-dispatch and Arctic's dense-residual FFN are not ported: no ported config
-uses them.
+load-balance loss; serving skips it.  ``moe_apply_sharded`` is the
+expert-parallel layer over a mesh (experts split over the tensor axis).
+The expert FFN is differentiable on both tiers (``grouped_ffn``'s plain
+backward).  The legacy ``"capacity"`` dispatch and Arctic's dense-residual
+FFN are not ported: no ported config uses them.
 """
 
 from __future__ import annotations
@@ -46,15 +47,23 @@ def _router(p, cfg: ModelConfig, xf):
     return torch.topk(torch.softmax(logits, dim=-1), cfg.top_k, dim=-1)
 
 
-def _aux_loss(p, xf, top_i, e: int):
-    """Switch-style load-balance loss, E * sum_e f_e * p_e: f_e the share of
-    the (token, k) assignments routed to expert e, p_e its mean router
-    probability.  Recomputes the router's softmax (one (T, D) x (D, E)
-    product) rather than widening ``_router``'s result."""
+def _aux_terms(p, xf, top_i, e: int):
+    """The load-balance loss's inputs: the router's probabilities (T, E)
+    and the (token, k) assignments per expert (E,), both fp32.  Recomputes
+    the router's softmax (one (T, D) x (D, E) product) rather than widening
+    ``_router``'s result."""
     probs = torch.softmax(L.dense_apply(p["router"], xf.to(torch.float32)), dim=-1)
     counts = torch.zeros((e,), dtype=torch.float32, device=xf.device).scatter_add_(
         0, top_i.reshape(-1), torch.ones((top_i.numel(),), dtype=torch.float32,
                                          device=xf.device))
+    return probs, counts
+
+
+def _aux_loss(p, xf, top_i, e: int):
+    """Switch-style load-balance loss, E * sum_e f_e * p_e: f_e the share of
+    the (token, k) assignments routed to expert e, p_e its mean router
+    probability."""
+    probs, counts = _aux_terms(p, xf, top_i, e)
     return e * torch.sum(probs.mean(dim=0) * counts / top_i.numel())
 
 
@@ -72,23 +81,41 @@ def _sort_by_expert(top_i, k: int):
     return order, torch.div(order, k, rounding_mode="floor")
 
 
-def _dispatch_dropless(p, cfg: ModelConfig, xf, top_w, top_i, impl):
+def _expert_rows(p, cfg: ModelConfig, xf, top_w, top_i, lo: int, n: int, impl):
+    """The (T, K, D) fp32 router-weighted expert outputs of the (token, k)
+    assignments to experts lo .. lo + n - 1, whose weights ``p`` holds;
+    other assignments give zero rows.  The local assignments are stably
+    sorted by expert ahead of the others, which lie past the group sizes'
+    total, where ``grouped_ffn`` leaves its rows zero (nothing is read back
+    to the host to cut them off).  With lo 0 and n the expert count this is
+    the whole dispatch."""
     t, d = xf.shape
     k = cfg.top_k
     top_w = top_w / top_w.sum(dim=-1, keepdim=True).clamp(min=1e-9)
-    order, st = _sort_by_expert(top_i, k)
-    ys = ops.grouped_ffn(xf[st], _group_sizes(top_i, cfg.n_experts), p["w_gate"],
-                         p["w_in"], p["w_out"], act=cfg.act, impl=impl)  # (T*K, D) f32
+    flat = top_i.reshape(-1)
+    mine = (flat >= lo) & (flat < lo + n)
+    key = torch.where(mine, flat - lo, n)
+    order, st = _sort_by_expert(key, k)
+    ys = ops.grouped_ffn(xf[st], _group_sizes(key, n + 1)[:n], p["w_gate"], p["w_in"],
+                         p["w_out"], act=cfg.act, impl=impl)  # (T*K, D) f32
     inv = torch.empty_like(order).scatter_(
         0, order, torch.arange(order.numel(), device=order.device))
-    y = ys[inv].view(t, k, d) * top_w.to(torch.float32)[:, :, None]
-    # sum over k as a fixed pairwise tree: the same order for every token
-    # in every cohort
+    return ys[inv].view(t, k, d) * top_w.to(torch.float32)[:, :, None]
+
+
+def _sum_k(y):
+    """Sum (T, K, D) over k as a fixed pairwise tree: the same order for
+    every token in every cohort."""
     while y.shape[1] > 1:
         half = y.shape[1] // 2
         head = y[:, :half] + y[:, half:2 * half]
         y = torch.cat([head, y[:, 2 * half:]], dim=1) if y.shape[1] % 2 else head
-    return y[:, 0].to(xf.dtype)
+    return y[:, 0]
+
+
+def _dispatch_dropless(p, cfg: ModelConfig, xf, top_w, top_i, impl):
+    rows = _expert_rows(p, cfg, xf, top_w, top_i, 0, cfg.n_experts, impl)
+    return _sum_k(rows).to(xf.dtype)
 
 
 def moe_apply(p, cfg: ModelConfig, x, *, impl="cuda", want_aux=False):
@@ -101,3 +128,36 @@ def moe_apply(p, cfg: ModelConfig, x, *, impl="cuda", want_aux=False):
     if want_aux:
         return y, _aux_loss(p, xf, top_i, cfg.n_experts)
     return y
+
+
+def moe_apply_sharded(ps, cfg: ModelConfig, xs, *, ctx, impl="cuda", want_aux=False):
+    """Expert parallelism over the tensor axis of ``ctx``: ps is {rank: the
+    layer's local FFN params} (experts tp_index * E/tp onwards, the router
+    whole), xs {rank: (B_r, S, D)}.  Every rank routes its tokens with the
+    replicated router and runs ``grouped_ffn`` on the assignments to its
+    own experts; the (T, K, D) fp32 rows are summed over the tensor axis
+    (each row comes from one rank, zeros from the others, so the sum is
+    exact), then summed over k and cast once, as on one device.  With
+    ``want_aux`` also {rank: the load-balance loss} from expert counts and
+    router probability sums all-reduced over the batch axes: the global
+    means' product, not a mean of the replicas'."""
+    e = cfg.n_experts
+    n = e // ctx.tp_size
+    rows, terms = {}, {}
+    for r, x in xs.items():
+        xf = x.reshape(-1, x.shape[-1])
+        top_w, top_i = _router(ps[r], cfg, xf)
+        rows[r] = _expert_rows(ps[r], cfg, xf, top_w, top_i, ctx.tp_index(r) * n, n, impl)
+        if want_aux:
+            probs, counts = _aux_terms(ps[r], xf, top_i, e)
+            ntok = torch.full((1,), float(xf.shape[0]), device=xf.device)
+            terms[r] = torch.cat([probs.sum(dim=0), counts, ntok])
+    rows = ctx.tp_reduce(rows)
+    ys = {r: _sum_k(rows[r]).to(x.dtype).reshape(x.shape) for r, x in xs.items()}
+    if not want_aux:
+        return ys, None
+    aux = {}
+    for r, v in ctx.batch_reduce(terms).items():
+        ntok = v[-1]
+        aux[r] = e * torch.sum((v[:e] / ntok) * v[e:2 * e] / (ntok * cfg.top_k))
+    return ys, aux

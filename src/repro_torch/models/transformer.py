@@ -11,6 +11,10 @@ Four execution paths share the parameters:
   * ``stack_paged_verify`` - K-token speculative verify step with per-token
                              positions through paged caches (attention only)
 
+``stack_apply_sharded``, ``stack_prefill_sharded`` and
+``stack_decode_sharded`` run the first three over a mesh of logical
+devices (tensor, data and expert parallelism; see the end of the file).
+
 Every mixer is ported: attention, RG-LRU (``models/rglru.py``) and Mamba-2
 SSD (``models/ssm.py``), with a gated-MLP FFN, a dropless MoE FFN
 (``models/moe.py``) or none.  A recurrent layer's cache is its per-row
@@ -21,6 +25,8 @@ raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.utils.checkpoint
@@ -300,3 +306,141 @@ def stack_commit_verify(cfg: ModelConfig, caches, keep):
     for spec, cache in zip(cfg.layers, caches):
         if spec.kind == ATTN and spec.window is not None:
             A.commit_ring(cache, keep)
+
+
+# ------------------------------------------------------------------ sharded
+# Explicit SPMD over a mesh of logical devices (``parallel/steps.py``): a
+# per-rank value is a dict {logical id: tensor}, every rank's local block
+# runs the single-device code above with ``tp_cfg``'s local head and FFN
+# counts, and the collectives sit where GSPMD puts them in the JAX package:
+# column-parallel wq/wk/wv/w_gate/w_in, row-parallel wo/w_out followed by
+# an all-reduce over the tensor axis (each rank's share of the product in
+# fp32, summed, cast once), MoE experts split over the same axis
+# (``moe.moe_apply_sharded``).
+# Attention mixers only; ``ctx`` is a ``parallel/ctx.ShardingCtx``.
+
+def check_sharded(cfg: ModelConfig, tp: int):
+    """Raise for a config the sharded stack does not run at tensor-parallel
+    degree ``tp``: a recurrent mixer (its tensor-parallel split is not
+    ported), or a tensor axis that does not divide the KV heads, the FFN
+    width or the experts (JAX's GSPMD would split a head in the middle; the
+    port keeps heads and experts whole)."""
+    check_supported(cfg)
+    kinds = {s.kind for s in cfg.layers}
+    if kinds != {ATTN}:
+        raise NotImplementedError(f"{cfg.name}: sharded compute is attention-only; got mixer "
+                                  f"kinds {sorted(kinds)}")
+    if cfg.n_kv_heads % tp or cfg.n_heads % tp:
+        raise ValueError(f"{cfg.name}: a tensor axis of {tp} does not divide "
+                         f"{cfg.n_heads} query / {cfg.n_kv_heads} KV heads")
+    if cfg.ffn_kind == "gated" and cfg.d_ff % tp:
+        raise ValueError(f"{cfg.name}: a tensor axis of {tp} does not divide d_ff {cfg.d_ff}")
+    if cfg.ffn_kind == "moe" and cfg.n_experts % tp:
+        raise ValueError(f"{cfg.name}: a tensor axis of {tp} does not divide "
+                         f"{cfg.n_experts} experts")
+
+
+def tp_cfg(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """The config of one rank's local block: its query and KV heads and FFN
+    width (``check_sharded`` holds the divisions exact)."""
+    if tp == 1:
+        return cfg
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
+                               d_ff=cfg.d_ff // tp)
+
+
+def _ropes(cfg: ModelConfig, positions: dict) -> dict:
+    """{rank: RoPE tables}, built once per torch device."""
+    by_dev = {}
+    for pos in positions.values():
+        if pos.device not in by_dev:
+            by_dev[pos.device] = _rope(cfg, pos)
+    return {r: by_dev[pos.device] for r, pos in positions.items()}
+
+
+def _ffn_sharded(ps, cfg, lcfg, xs, *, ctx, impl, want_aux):
+    if "ffn" not in next(iter(ps.values())):
+        return xs, None
+    hs = {r: L.rmsnorm_apply(ps[r]["ln2"], x, cfg.norm_eps) for r, x in xs.items()}
+    if cfg.ffn_kind != "moe":
+        ys = ctx.tp_reduce({r: L.mlp_apply(ps[r]["ffn"], lcfg, h, partial=True)
+                            for r, h in hs.items()})
+        return {r: xs[r] + ys[r].to(xs[r].dtype) for r in xs}, None
+    ys, aux = M.moe_apply_sharded({r: p["ffn"] for r, p in ps.items()}, cfg, hs, ctx=ctx,
+                                  impl=impl, want_aux=want_aux)
+    return {r: xs[r] + ys[r] for r in xs}, aux
+
+
+def block_sharded(ps, cfg, xs, mixer, *, ctx, impl="cuda", want_aux=False):
+    """One block on every rank.  ps: {rank: the layer's local params
+    (``ctx.local``)}; xs: {rank: (B_r, S, D)}; ``mixer(rank, p_mixer, h)``
+    gives the rank's fp32 share of the mixer output (its heads through its
+    rows of wo, ``layers.partial_apply``); the shares are all-reduced over
+    the tensor axis and cast once.  Returns (xs, aux): {rank: MoE
+    load-balance loss} with ``want_aux``, else None."""
+    lcfg = tp_cfg(cfg, ctx.tp_size)
+    ys = {r: mixer(r, ps[r]["mixer"], L.rmsnorm_apply(ps[r]["ln1"], x, cfg.norm_eps))
+          for r, x in xs.items()}
+    ys = ctx.tp_reduce(ys)
+    xs = {r: xs[r] + ys[r].to(xs[r].dtype) for r in xs}
+    return _ffn_sharded(ps, cfg, lcfg, xs, ctx=ctx, impl=impl, want_aux=want_aux)
+
+
+def stack_apply_sharded(layers_params, cfg: ModelConfig, xs, *, ctx, impl="cuda",
+                        remat=False, return_aux=False):
+    """``stack_apply`` over a mesh: ``layers_params`` holds ``ShardedTensor``
+    leaves, xs is {rank: (B_r, S, D)} at positions arange(S).  Each layer
+    gathers its FSDP-sharded weights (``ctx.local``) inside the layer, so
+    ``remat`` regathers them in the backward as it recomputes.  Returns xs,
+    or with ``return_aux`` (xs, {rank: the MoE losses summed})."""
+    ranks = list(xs)
+    lcfg = tp_cfg(cfg, ctx.tp_size)
+    ropes = _ropes(cfg, {r: torch.arange(x.shape[1], device=x.device) for r, x in xs.items()})
+    aux_total = {r: torch.zeros((), dtype=torch.float32, device=x.device) for r, x in xs.items()}
+    for p, spec in zip(layers_params, cfg.layers):
+        def layer(*flat, p=p, spec=spec):
+            def mixer(r, pm, h):
+                return A.attn_apply_with_kv(pm, lcfg, spec, h, ropes[r], impl=impl,
+                                            partial=True)[0]
+            out, aux = block_sharded(ctx.local(p), cfg, dict(zip(ranks, flat)), mixer, ctx=ctx,
+                                     impl=impl, want_aux=return_aux)
+            return tuple(out[r] for r in ranks) + (tuple(aux[r] for r in ranks) if aux else ())
+        flat = [xs[r] for r in ranks]
+        res = (torch.utils.checkpoint.checkpoint(layer, *flat, use_reentrant=False) if remat
+               else layer(*flat))
+        xs = dict(zip(ranks, res[:len(ranks)]))
+        for r, a in zip(ranks, res[len(ranks):]):
+            aux_total[r] = aux_total[r] + a
+    return (xs, aux_total) if return_aux else xs
+
+
+def stack_prefill_sharded(layers_params, cfg: ModelConfig, xs, caches, *, ctx, impl="cuda"):
+    """``stack_prefill`` over a mesh: caches is {rank: the rank's layer
+    caches} from ``cache_init`` at ``tp_cfg``'s KV heads, filled in place.
+    Returns xs."""
+    lcfg = tp_cfg(cfg, ctx.tp_size)
+    ropes = _ropes(cfg, {r: torch.arange(x.shape[1], device=x.device) for r, x in xs.items()})
+    seq_len = next(iter(xs.values())).shape[1]
+    for i, (p, spec) in enumerate(zip(layers_params, cfg.layers)):
+        def mixer(r, pm, h):
+            y, kv = A.attn_apply_with_kv(pm, lcfg, spec, h, ropes[r], impl=impl, partial=True)
+            A.prefill_into_cache(caches[r][i], spec, kv["k"], kv["v"], seq_len)
+            return y
+        xs, _ = block_sharded(ctx.local(p), cfg, xs, mixer, ctx=ctx, impl=impl)
+    return xs
+
+
+def stack_decode_sharded(layers_params, cfg: ModelConfig, xs, caches, t, *, ctx, impl="cuda"):
+    """``stack_decode`` over a mesh: xs {rank: (B_r, 1, D)}, the token at
+    position t; caches as ``stack_prefill_sharded``'s, updated in place.
+    Returns xs."""
+    lcfg = tp_cfg(cfg, ctx.tp_size)
+    ropes = _ropes(cfg, {r: torch.full((1, 1), t, device=x.device) for r, x in xs.items()})
+    lens = {r: torch.full((x.shape[0],), t + 1, dtype=torch.int32, device=x.device)
+            for r, x in xs.items()}
+    for i, (p, spec) in enumerate(zip(layers_params, cfg.layers)):
+        def mixer(r, pm, h):
+            return A.attn_decode_apply(pm, lcfg, spec, h, caches[r][i], t, ropes[r], lens[r],
+                                       impl=impl, partial=True)
+        xs, _ = block_sharded(ctx.local(p), cfg, xs, mixer, ctx=ctx, impl=impl)
+    return xs

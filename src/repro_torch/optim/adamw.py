@@ -7,6 +7,12 @@ package's pure function, ``update`` writes the new parameters and state in
 place, under ``torch.no_grad()``, so a step holds no second copy of either;
 the values are the JAX package's.  Parameter trees are nested dicts and
 lists of tensors, walked in a fixed order by :func:`leaves`.
+
+A tree of ``ShardedTensor`` leaves (``parallel/steps.py``'s sharded step)
+updates block by block: the state mirrors each parameter's layout, every
+replica of a block computes the same update from the same values (so
+replicas stay bit-equal), and ``global_norm`` counts each region of a leaf
+once, not once per replica.
 """
 
 from __future__ import annotations
@@ -14,6 +20,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from repro_torch.parallel.layout import ShardedTensor
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -41,10 +49,14 @@ def leaves(tree) -> list:
 
 
 def _map(fn, tree):
+    """``fn`` over the tensors of ``tree``; a ``ShardedTensor`` leaf maps
+    block by block, keeping its layout."""
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_map(fn, v) for v in tree]
+    if isinstance(tree, ShardedTensor):
+        return tree.map_blocks(fn)
     return fn(tree)
 
 
@@ -60,10 +72,34 @@ def init(cfg: AdamWConfig, params):
                 "master": _map(lambda p: p.detach().to(md, copy=True), params)}
 
 
+def _regions(g) -> list:
+    """The tensors that tile a leaf once: the leaf, or one block per
+    region of a ``ShardedTensor``."""
+    if isinstance(g, ShardedTensor):
+        return [blk for _, _, blk in g.unique_shards()]
+    return [g]
+
+
 def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in leaves(grads)))
+    """sqrt of the sum of squares of every leaf, in fp32 (a sharded leaf's
+    replicas counted once), on the first leaf's device."""
+    terms = [torch.sum(torch.square(t.to(torch.float32)))
+             for g in leaves(grads) for t in _regions(g)]
+    dev = terms[0].device
+    return torch.sqrt(sum(t.to(dev) for t in terms))
+
+
+def _blocks(leaf) -> list:
+    """One leaf's (param, m, v, grad, master) as aligned tensors: the leaf
+    itself, or per logical device of a ``ShardedTensor`` its blocks (every
+    member of the tuple on the same layout)."""
+    if not isinstance(leaf[0], ShardedTensor):
+        return [leaf]
+    lay = leaf[0].layout
+    if any(x.layout != lay for x in leaf):
+        raise ValueError(f"AdamW on sharded leaves needs the state and gradient on the "
+                         f"parameter's layout {lay!r}")
+    return [tuple(x.blocks[d] for x in leaf) for d in lay.mesh.device_ids]
 
 
 @torch.no_grad()
@@ -80,8 +116,8 @@ def update(cfg: AdamWConfig, params, state, grads, lr_scale=None):
     lr = cfg.lr * (lr_scale if lr_scale is not None else 1.0)
     for leaf in zip(leaves(params), leaves(state["m"]), leaves(state["v"]), gl,
                     leaves(state["master"]), strict=True):
-        for p, m, v, g, master in _pieces(leaf):
-            g = g.to(torch.float32) * scale
+        for p, m, v, g, master in (x for b in _blocks(leaf) for x in _pieces(b)):
+            g = g.to(torch.float32) * scale.to(g.device)
             m32 = m.to(torch.float32) * cfg.b1 + g * (1 - cfg.b1)
             v32 = v.to(torch.float32) * cfg.b2 + torch.square(g) * (1 - cfg.b2)
             master32 = master.to(torch.float32)

@@ -1,0 +1,187 @@
+"""Collectives over named axes of a ``Mesh`` of logical devices: the port's
+counterpart of XLA's ``psum`` / ``pmax`` / ``all_gather`` /
+``psum_scatter`` / ``all_to_all`` / ``ppermute``.
+
+The port runs explicit SPMD in one process: every rank (logical device id)
+holds its own value, and a per-rank value is a dict ``{logical id:
+tensor}``.  A collective takes such a dict and returns one.  The members
+of a group are the ranks that differ only in their coordinates along the
+named axes (several axes: their product, first name major, as a ``P``
+entry orders them), visited in that order.
+
+Every collective is built from plain differentiable tensor ops (``cat``,
+``+``, slicing) and ``move``, a counted copy between ranks, so autograd
+carries gradients across ranks and cards with no process group: the
+backward of ``all_gather`` is a reduce-scatter, that of ``all_reduce`` an
+all-reduce.  An all-reduce sums once, in rank order on the group's first
+member, and hands every other member a copy of that one result, so
+replicas stay bit-equal.  A member's own value is never copied; a group of
+one returns its value unchanged.
+
+``STATS`` counts the bytes and copies that ``move`` made (forward and
+backward), the traffic a real interconnect would carry.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+STATS = {"bytes": 0, "copies": 0}
+
+
+def reset_stats():
+    STATS.update(bytes=0, copies=0)
+
+
+class _Move(torch.autograd.Function):
+    """A copy of ``x`` onto ``device`` (a fresh buffer even on the same
+    card); its backward copies the gradient back.  Both directions count
+    in ``STATS``."""
+
+    @staticmethod
+    def forward(ctx, x, device):
+        ctx.src = x.device
+        STATS["bytes"] += x.numel() * x.element_size()
+        STATS["copies"] += 1
+        return x.to(device, copy=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        STATS["bytes"] += g.numel() * g.element_size()
+        STATS["copies"] += 1
+        return g.to(ctx.src, copy=True), None
+
+
+def move(x: torch.Tensor, device) -> torch.Tensor:
+    """``x`` copied to ``device`` as one rank sends it to another."""
+    return _Move.apply(x, torch.device(device))
+
+
+def _axes(axis) -> tuple:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def groups(mesh, axis) -> list[list[int]]:
+    """The groups of ``axis`` (a name or a tuple of names): lists of
+    logical ids, each ordered by the ids' index along the axes."""
+    axes = _axes(axis)
+    pos = [mesh.axis_names.index(a) for a in axes]
+    rest = [i for i in range(len(mesh.axis_names)) if i not in pos]
+    k = math.prod(mesh.shape[a] for a in axes)
+    arr = np.transpose(mesh.devices, rest + pos).reshape(-1, k)
+    return [[int(i) for i in row] for row in arr]
+
+
+def axis_index(mesh, axis, rank: int) -> int:
+    """``rank``'s index within its group of ``axis``."""
+    for g in groups(mesh, axis):
+        if rank in g:
+            return g.index(rank)
+    raise ValueError(f"logical device {rank} is not in mesh {mesh!r}")
+
+
+def axis_size(mesh, axis) -> int:
+    return math.prod(mesh.shape[a] for a in _axes(axis))
+
+
+def all_reduce(xs: dict, mesh, axis, *, op: str = "sum") -> dict:
+    """Sum (or max, ``op="max"``) over the group, in rank order, on the
+    group's first member; every other member gets a copy."""
+    if op not in ("sum", "max"):
+        raise ValueError(f"all_reduce: op={op!r}; need 'sum' or 'max'")
+    out = {}
+    for g in groups(mesh, axis):
+        root = xs[g[0]]
+        if len(g) == 1:
+            out[g[0]] = root
+            continue
+        total = root
+        for r in g[1:]:
+            y = move(xs[r], root.device)
+            total = total + y if op == "sum" else torch.maximum(total, y)
+        out[g[0]] = total
+        for r in g[1:]:
+            out[r] = move(total, xs[r].device)
+    return out
+
+
+def all_gather(xs: dict, mesh, axis, dim: int = 0) -> dict:
+    """Every member gets the group's values concatenated along ``dim`` in
+    rank order."""
+    out = {}
+    for g in groups(mesh, axis):
+        for m in g:
+            dev = xs[m].device
+            parts = [xs[r] if r == m else move(xs[r], dev) for r in g]
+            out[m] = parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+    return out
+
+
+def reduce_scatter(xs: dict, mesh, axis, dim: int = 0) -> dict:
+    """Member i gets the sum over the group, in rank order, of every
+    member's i-th chunk along ``dim`` (which the group size must divide)."""
+    out = {}
+    for g in groups(mesh, axis):
+        k = len(g)
+        for i, m in enumerate(g):
+            dev = xs[m].device
+            total = None
+            for r in g:
+                if xs[r].shape[dim] % k:
+                    raise ValueError(f"reduce_scatter: dim {dim} of {tuple(xs[r].shape)} "
+                                     f"does not split into {k}")
+                c = xs[r].chunk(k, dim)[i]
+                c = c if r == m else move(c, dev)
+                total = c if total is None else total + c
+            out[m] = total
+    return out
+
+
+def all_to_all(xs: dict, mesh, axis, split_dim: int = 0, concat_dim: int = 0) -> dict:
+    """Member i gets, concatenated along ``concat_dim`` in rank order, the
+    i-th chunk along ``split_dim`` of every member's value."""
+    out = {}
+    for g in groups(mesh, axis):
+        k = len(g)
+        for i, m in enumerate(g):
+            dev = xs[m].device
+            parts = []
+            for r in g:
+                if xs[r].shape[split_dim] % k:
+                    raise ValueError(f"all_to_all: dim {split_dim} of {tuple(xs[r].shape)} "
+                                     f"does not split into {k}")
+                c = xs[r].chunk(k, split_dim)[i]
+                parts.append(c if r == m else move(c, dev))
+            out[m] = torch.cat(parts, concat_dim)
+    return out
+
+
+def ppermute(xs: dict, mesh, axis, perm) -> dict:
+    """``perm``: (source index, destination index) pairs along the axis.
+    A destination gets its source's value; a member that is no destination
+    gets zeros, as XLA's ``ppermute``.  Ranks missing from ``xs`` (idle
+    pipeline stages) send nothing, and their destinations get no entry."""
+    out = {}
+    for g in groups(mesh, axis):
+        for src, dst in perm:
+            if g[src] in xs:
+                x = xs[g[src]]
+                out[g[dst]] = x if src == dst else move(x, mesh.torch_device(g[dst]))
+        for r in g:
+            if r not in out and r in xs:
+                out[r] = torch.zeros_like(xs[r])
+    return out
+
+
+def broadcast(xs: dict, mesh, axis, src: int) -> dict:
+    """Every member of each group gets a copy of the value held by the
+    member at index ``src``."""
+    out = {}
+    for g in groups(mesh, axis):
+        x = xs[g[src]]
+        for r in g:
+            out[r] = x if r == g[src] else move(x, mesh.torch_device(r))
+    return out

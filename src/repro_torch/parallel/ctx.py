@@ -1,0 +1,142 @@
+"""The sharding context, after the JAX package's ``parallel/ctx.py``.
+
+In JAX the context tells GSPMD how key intermediates are laid out
+(``constrain`` is ``with_sharding_constraint``).  The port has no
+partitioner: a sharded entry point runs every rank's local computation
+itself (``parallel/steps.py``), so ``constrain`` is the identity on a local
+block.  What the context adds here is the mesh and each rank's coordinates:
+the sharded model code reads them to find a rank's local heads, experts
+and vocabulary range (``tp_index``), and gathers a rank's FSDP-sharded
+weights through it (``local``).
+
+Outside a context (single-device runs) nothing changes.  The sharded
+entry points hold their context explicitly as well, since a recomputed
+layer (remat) runs in the backward, after the ``with`` block has closed.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Optional
+
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.layout import P, ShardedTensor, axes_of, tree_map
+
+_TLS = threading.local()
+
+BATCH = "@batch"   # placeholder resolved to the context's batch axes
+TP = "@tp"         # placeholder resolved to the context's tensor axis
+
+
+class ShardingCtx:
+    def __init__(self, mesh, batch_axes, tp_axis: Optional[str] = "model"):
+        self.mesh = mesh
+        self.batch_axes = tuple(a for a in (batch_axes or ()) if a)
+        self.tp_axis = tp_axis
+
+    def resolve(self, dims) -> P:
+        parts = []
+        for d in dims:
+            if d == BATCH:
+                ba = self.batch_axes
+                parts.append(ba if len(ba) > 1 else (ba[0] if ba else None))
+            elif d == TP:
+                parts.append(self.tp_axis)
+            else:
+                parts.append(d)
+        return P(*parts)
+
+    # ------------------------------------------------------------- ranks
+    @property
+    def ranks(self) -> tuple:
+        """Every logical device of the mesh, in mesh order."""
+        return self.mesh.device_ids
+
+    def _size(self, axes) -> int:
+        return C.axis_size(self.mesh, axes) if axes else 1
+
+    @property
+    def tp_size(self) -> int:
+        return self._size((self.tp_axis,) if self.tp_axis else ())
+
+    def tp_index(self, rank: int) -> int:
+        return C.axis_index(self.mesh, self.tp_axis, rank) if self.tp_axis else 0
+
+    @property
+    def batch_size(self) -> int:
+        """Data-parallel replicas (the product of the batch axes)."""
+        return self._size(self.batch_axes)
+
+    def batch_index(self, rank: int) -> int:
+        return C.axis_index(self.mesh, self.batch_axes, rank) if self.batch_axes else 0
+
+    # ------------------------------------------------------- collectives
+    def tp_reduce(self, xs: dict, op: str = "sum") -> dict:
+        """All-reduce over the tensor axis (the row-parallel output)."""
+        if not self.tp_axis:
+            return xs
+        return C.all_reduce(xs, self.mesh, self.tp_axis, op=op)
+
+    def batch_reduce(self, xs: dict) -> dict:
+        """All-reduce (sum) over the batch axes (data-parallel replicas)."""
+        if not self.batch_axes:
+            return xs
+        return C.all_reduce(xs, self.mesh, self.batch_axes)
+
+    def local(self, tree) -> dict:
+        """{rank: the rank's compute view of ``tree``}: every
+        ``ShardedTensor`` leaf's block all-gathered over each mesh axis but
+        the tensor axis that shards it (the FSDP gather; autograd's
+        backward of it is the reduce-scatter), so a block is left sharded
+        on the tensor axis only.  Other leaves go to every rank as they
+        are."""
+        gathered = tree_map(lambda st: _Ranks(fsdp_gather(st, self.tp_axis))
+                            if isinstance(st, ShardedTensor) else st, tree)
+        return {r: tree_map(lambda g, r=r: g.blocks[r] if isinstance(g, _Ranks) else g,
+                            gathered)
+                for r in self.ranks}
+
+
+class _Ranks:
+    """A per-rank dict held as one tree leaf."""
+
+    def __init__(self, blocks: dict):
+        self.blocks = blocks
+
+
+def fsdp_gather(st: ShardedTensor, tp_axis) -> dict:
+    """{rank: block} of ``st`` gathered over every axis of its spec other
+    than ``tp_axis``."""
+    blocks = dict(st.blocks)
+    mesh = st.layout.mesh
+    for dim, part in enumerate(st.layout.spec):
+        axes = tuple(a for a in axes_of(part) if a != tp_axis)
+        if not axes:
+            continue
+        if len(axes) != len(axes_of(part)):
+            raise ValueError(f"dim {dim} of {st!r} is sharded over the tensor axis "
+                             f"{tp_axis!r} together with {axes}; not supported")
+        blocks = C.all_gather(blocks, mesh, axes, dim)
+    return blocks
+
+
+def current() -> Optional[ShardingCtx]:
+    return getattr(_TLS, "ctx", None)
+
+
+@contextlib.contextmanager
+def use(mesh, batch_axes, tp_axis: Optional[str] = "model"):
+    prev = current()
+    _TLS.ctx = ShardingCtx(mesh, batch_axes, tp_axis)
+    try:
+        yield _TLS.ctx
+    finally:
+        _TLS.ctx = prev
+
+
+def constrain(x, *dims, divisible: bool = True):
+    """The identity: ``x`` is a rank's local block, already laid out.  (JAX's
+    ``with_sharding_constraint``; the port's sharded code places every
+    block itself.)"""
+    return x

@@ -1,27 +1,284 @@
-"""The single-device train step of the JAX package's ``parallel/steps.py``
-(its sharded steps, prefill and decode wait for physical resharding across
-cards, ROADMAP Queue 1 item 5).  The profiler measures this step."""
+"""Train, prefill and decode steps, single-device and sharded: the port of
+the JAX package's ``parallel/steps.py``.  The profiler measures the
+single-device train step.
+
+JAX lowers these steps under ``jit`` with ``in_shardings`` and lets GSPMD
+partition them.  The port has no partitioner, so with a ``mesh`` a step
+runs explicit SPMD by hand, Megatron-style, in one process: every rank
+(logical device of the mesh) computes on its own blocks
+(``ShardedTensor.blocks``), ranks run one after another on the host, and
+the collectives (``parallel/collectives.py``) sit where GSPMD puts them.
+The layouts are ``parallel/sharding.py``'s: FSDP over the data axis (a
+weight's block is all-gathered before use, its gradient reduce-scattered
+by autograd), tensor parallelism over the model axis (column-parallel
+q/k/v and gate/in projections, row-parallel o/out projections followed by
+an all-reduce, a vocabulary-parallel embedding and head, MoE experts split
+over the same axis), the batch over the batch axes.  Gradients of a leaf
+replicated over an axis (a norm; a dim ``sanitize_specs`` left unsharded)
+are all-reduced over it, so every replica holds the same bits after the
+step.  Attention-only stacks; a tensor axis must divide the KV heads, the
+FFN width and the experts (``transformer.check_sharded``).
+"""
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
 from repro_torch.models import model as MDL
+from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.optim.grad import accumulate_grads
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import ctx as CTX
+from repro_torch.parallel import sharding as SH
+from repro_torch.parallel.layout import (Layout, P, ShardedTensor, axes_of, tree_leaves,
+                                         tree_map)
+
+
+def check_mesh(cfg: ModelConfig, mesh, rules: SH.ShardingRules):
+    """Raise unless ``rules``' axes are axes of ``mesh`` and its tensor axis
+    splits ``cfg`` into whole heads, FFN columns and experts."""
+    for a in (rules.tp_axis, rules.fsdp_axis, *rules.batch_axes):
+        if a and a not in mesh.shape:
+            raise ValueError(f"rules name axis {a!r}, not in mesh {mesh.axis_names}")
+    T.check_sharded(cfg, mesh.shape[rules.tp_axis] if rules.tp_axis else 1)
+
+
+def _check_tree(tree, mesh, what):
+    for st in tree_leaves(tree):
+        if not isinstance(st, ShardedTensor) or st.layout.mesh != mesh:
+            raise ValueError(f"{what}: every leaf must be a ShardedTensor on {mesh!r}; got "
+                             f"{st!r}")
+
+
+def split_batch(batch, mesh, rules: SH.ShardingRules) -> dict:
+    """{rank: {key: the rank's rows}}: every tensor of ``batch`` laid out
+    by ``batch_specs``, its leading dim split over the batch axes."""
+    k = C.axis_size(mesh, rules.batch_axes) if rules.batch_axes else 1
+    for name, v in batch.items():
+        if v.shape[0] % k:
+            raise ValueError(f"batch[{name!r}] has {v.shape[0]} rows; {k} replicas need a "
+                             "multiple")
+    specs = SH.batch_specs(batch, rules)
+    placed = {name: ShardedTensor.place(v, Layout(mesh, specs[name])).blocks
+              for name, v in batch.items()}
+    return {r: {name: placed[name][r] for name in batch} for r in mesh.device_ids}
+
+
+def _replicated_axes(st: ShardedTensor) -> tuple:
+    """The mesh axes (of size > 1) that no dim of ``st`` is sharded over."""
+    used = {a for part in st.layout.spec for a in axes_of(part)}
+    mesh = st.layout.mesh
+    return tuple(a for a in mesh.axis_names if a not in used and mesh.shape[a] > 1)
+
+
+def sharded_grads(loss_fn, params, batch, n_micro: int, mesh, rules):
+    """The sharded counterpart of ``optim.grad.accumulate_grads``.
+    ``loss_fn(params, {rank: rows}) -> (loss, aux)``.  Microbatch j is the
+    j-th slice of the global batch's rows, split over the replicas, so the
+    step equals the single-device one row for row.  Every block of every
+    leaf requires grad; the fp32 gradient blocks are averaged over the
+    microbatches, then summed over each leaf's replicated axes.  Returns
+    (mean loss, a tree of fp32 ``ShardedTensor`` gradients on the params'
+    layouts, the last microbatch's aux)."""
+    sts = tree_leaves(params)
+    blocks = [st.blocks[d] for st in sts for d in mesh.device_ids]
+    for b in blocks:
+        b.requires_grad_(True)
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n_micro:
+        raise ValueError(f"batch of {rows} rows does not split into {n_micro} microbatches")
+    acc, loss_sum, aux = None, 0.0, {}
+    for j in range(n_micro):
+        mb = {k: v.reshape(n_micro, rows // n_micro, *v.shape[1:])[j] for k, v in batch.items()}
+        with torch.enable_grad():
+            loss, aux = loss_fn(params, split_batch(mb, mesh, rules))
+            grads = torch.autograd.grad(loss, blocks, allow_unused=True)
+        grads = [torch.zeros(b.shape, dtype=torch.float32, device=b.device) if g is None
+                 else g.to(torch.float32) for b, g in zip(blocks, grads)]
+        acc = grads if acc is None else [a + g for a, g in zip(acc, grads)]
+        loss_sum = loss_sum + loss.detach()
+        aux = {k: v.detach() for k, v in aux.items()}
+    acc = iter([a / n_micro for a in acc]) if n_micro > 1 else iter(acc)
+    out = {}
+    with torch.no_grad():
+        for st in sts:
+            g = {d: next(acc) for d in mesh.device_ids}
+            rep = _replicated_axes(st)
+            if rep:
+                g = C.all_reduce(g, mesh, rep)
+            out[id(st)] = ShardedTensor(st.shape, torch.float32, st.layout, g)
+    return loss_sum / n_micro, tree_map(lambda st: out[id(st)], params), aux
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *, impl="cuda", remat=True,
-                    n_micro: int = 1):
+                    n_micro: int = 1, mesh=None, rules: SH.ShardingRules | None = None):
     """(params, opt_state, batch) -> (params, opt_state, metrics): the LM
     loss's gradient over ``n_micro`` microbatches, then one AdamW update
-    (in place).  The parameters must require grad."""
+    (in place).
 
-    def loss_fn(params, batch):
-        return MDL.lm_loss(params, cfg, batch, impl=impl, remat=remat)
+    Without ``mesh`` the parameters are tensors that must require grad.
+    With a ``mesh`` (and ``rules``, default ``ShardingRules()``: FSDP over
+    data, TP over model) they are a tree of ``ShardedTensor``s laid out by
+    ``param_shardings`` (sanitized), the optimizer state ``adamw.init`` of
+    them (laid out as ``opt_state_specs`` mirrors), and the batch a dict of
+    global (B, S) tensors; the loss is ``model.lm_loss_sharded``."""
+    if mesh is None:
+        def loss_fn(params, batch):
+            return MDL.lm_loss(params, cfg, batch, impl=impl, remat=remat)
+
+        def step(params, opt_state, batch):
+            loss, grads, aux = accumulate_grads(loss_fn, params, batch, n_micro)
+            params, opt_state, stats = adamw.update(opt_cfg, params, opt_state, grads)
+            return params, opt_state, {"loss": loss, **aux, **stats}
+        return step
+
+    rules = rules or SH.ShardingRules()
+    check_mesh(cfg, mesh, rules)
 
     def step(params, opt_state, batch):
-        loss, grads, aux = accumulate_grads(loss_fn, params, batch, n_micro)
-        params, opt_state, stats = adamw.update(opt_cfg, params, opt_state, grads)
+        _check_tree(params, mesh, "params")
+        with CTX.use(mesh, rules.batch_axes, rules.tp_axis) as c:
+            def loss_fn(params, parts):
+                return MDL.lm_loss_sharded(params, cfg, parts, ctx=c, impl=impl, remat=remat)
+            loss, grads, aux = sharded_grads(loss_fn, params, batch, n_micro, mesh, rules)
+            params, opt_state, stats = adamw.update(opt_cfg, params, opt_state, grads)
         return params, opt_state, {"loss": loss, **aux, **stats}
 
     return step
+
+
+def _logits_layout(params, cfg, mesh, rules, c):
+    part = rules.tp_axis if MDL.vocab_split(params, cfg, c) else None
+    return Layout(mesh, P(_batch_part(rules), part))
+
+
+def _batch_part(rules):
+    ax = rules.batch_axes
+    return ax if len(ax) > 1 else (ax[0] if ax else None)
+
+
+def _as_sharded(per_rank: dict, layout: Layout, shape) -> ShardedTensor:
+    """{rank: block} as the global ``shape`` on ``layout``."""
+    return ShardedTensor(shape, next(iter(per_rank.values())).dtype, layout, per_rank)
+
+
+def _wrap_caches(caches: dict, cfg, mesh, rules):
+    """{rank: layer caches} as a list of {"k", "v": ShardedTensor} per layer,
+    each rank's block its batch rows and its own KV heads."""
+    lay = Layout(mesh, P(_batch_part(rules), None, rules.tp_axis, None))
+    k = C.axis_size(mesh, rules.batch_axes) if rules.batch_axes else 1
+    out = []
+    for i in range(cfg.num_layers):
+        layer = {}
+        for name in ("k", "v"):
+            blk = caches[mesh.device_ids[0]][i][name]
+            shape = (blk.shape[0] * k, blk.shape[1], cfg.n_kv_heads, blk.shape[3])
+            layer[name] = _as_sharded({r: caches[r][i][name] for r in caches}, lay, shape)
+        out.append(layer)
+    return out
+
+
+def make_prefill_step(cfg: ModelConfig, *, impl="cuda", extra_len: int = 0, mesh=None,
+                      rules: SH.ShardingRules | None = None):
+    """(params, batch) -> (next_token_logits, caches).
+
+    With a ``mesh``: ``params`` a ``ShardedTensor`` tree and ``batch``
+    {"tokens": (B, S)} global; the logits come back as a (B, V)
+    ``ShardedTensor`` laid out over (batch axes, tensor axis) (the
+    vocabulary replicated where the axis does not divide it), the caches as
+    a list per layer of {"k", "v"} (B, S_max, Hkv, Dh) ``ShardedTensor``s
+    laid out ``P(batch, None, model, None)``: each rank holds its batch
+    rows and its own KV heads, so ``flash_decode`` runs on whole heads.
+    (The JAX package's ``cache_partition_specs`` shards the last dim, Dh,
+    over the model axis instead; the gathered cache is the single-device
+    one either way.)"""
+    if mesh is None:
+        def step(params, batch):
+            max_len = batch["tokens"].shape[1] + max(extra_len, 1)
+            last_h, caches = MDL.prefill(params, cfg, batch, max_len, impl=impl)
+            return MDL.logits_of(params, cfg, last_h[:, None])[:, 0], caches
+        return step
+
+    rules = rules or SH.ShardingRules()
+    check_mesh(cfg, mesh, rules)
+
+    def step(params, batch):
+        _check_tree(params, mesh, "params")
+        b, s = batch["tokens"].shape
+        with CTX.use(mesh, rules.batch_axes, rules.tp_axis) as c:
+            tokens = {r: v["tokens"] for r, v in split_batch(batch, mesh, rules).items()}
+            logits, caches = MDL.prefill_sharded(params, cfg, tokens, s + max(extra_len, 1),
+                                                 ctx=c, impl=impl)
+            logits = _as_sharded(logits, _logits_layout(params, cfg, mesh, rules, c),
+                                 (b, cfg.vocab_size))
+        return logits, _wrap_caches(caches, cfg, mesh, rules)
+
+    return step
+
+
+def make_decode_step(cfg: ModelConfig, *, impl="cuda", mesh=None,
+                     rules: SH.ShardingRules | None = None):
+    """(params, token (B,), caches, t) -> (logits, caches): one new token
+    against a cache (the caches are updated in place).  With a ``mesh`` the
+    caches and logits are ``make_prefill_step``'s sharded ones."""
+    if mesh is None:
+        def step(params, token, caches, t):
+            return MDL.decode_step(params, cfg, token, caches, t, impl=impl)
+        return step
+
+    rules = rules or SH.ShardingRules()
+    check_mesh(cfg, mesh, rules)
+
+    def step(params, token, caches, t):
+        _check_tree(params, mesh, "params")
+        with CTX.use(mesh, rules.batch_axes, rules.tp_axis) as c:
+            tokens = {r: v["token"] for r, v in split_batch({"token": token}, mesh,
+                                                            rules).items()}
+            local = {r: [{k: st.blocks[r] for k, st in layer.items()} for layer in caches]
+                     for r in mesh.device_ids}
+            logits = MDL.decode_step_sharded(params, cfg, tokens, local, t, ctx=c, impl=impl)
+            logits = _as_sharded(logits, _logits_layout(params, cfg, mesh, rules, c),
+                                 (token.shape[0], cfg.vocab_size))
+        return logits, caches
+
+    return step
+
+
+# ----------------------------------------------------------- dry-run wiring
+
+def shardings_for_cell(cfg: ModelConfig, mesh, *, multi_pod: bool):
+    rules = SH.ShardingRules(
+        tp_axis="model", fsdp_axis="data", dp_axes=("data",),
+        pod_axis="pod" if multi_pod else None)
+    return rules
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
+    """The decode caches' shapes and dtypes, as ``meta`` tensors: one
+    {"k", "v"} (B, S_max or the window, Hkv, Dh) per layer (the JAX
+    package's with each group's stack dim dropped)."""
+    T.check_supported(cfg)
+    return T.cache_init(cfg, batch, max_len, L.dtype_of(cfg), torch.device("meta"))
+
+
+def cache_partition_specs(cache_shapes, rules: SH.ShardingRules):
+    """The JAX package's cache specs with the stack dim dropped: batch over
+    (pod+)data, the last dim (head or state) over the tensor axis where 16
+    divides it.  The port's sharded decode does not use them: it holds
+    each rank's cache by KV head (``make_prefill_step``)."""
+    b = _batch_part(rules)
+
+    def spec(x):
+        if x.ndim >= 3:  # (B, S, H, D) kv or (B, H, P, N) ssm
+            parts = [b] + [None] * (x.ndim - 2) + [rules.tp_axis]
+            if x.shape[-1] % 16 != 0:
+                parts[-1] = None
+            return P(*parts)
+        if x.ndim >= 1:
+            return P(b, *([None] * (x.ndim - 1)))
+        return P()
+
+    return tree_map(spec, cache_shapes)

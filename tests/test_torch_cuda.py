@@ -1157,3 +1157,84 @@ def test_reshard_on_the_card_donates_clones_and_polls():
     other = Mesh([[4, 5], [6, 7]], ("data", "model"))
     far = RX.reshard({"w": out}, {"w": Layout(other, P("model", "data"))})["w"]
     assert far.layout.device_set == {4, 5, 6, 7} and torch.equal(far.gather(), x)
+
+
+def _sharded(params, shape):
+    """``params`` placed on a (data, model) mesh of logical devices of the
+    card by ``ShardingRules()``, sanitized."""
+    import numpy as np
+
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.layout import Layout, Mesh, place_tree, tree_map
+    mesh = Mesh(np.arange(shape[0] * shape[1]).reshape(shape), ("data", "model"))
+    specs = SH.sanitize_specs(SH.param_specs(params, SH.ShardingRules()), params, mesh)
+    return mesh, place_tree(params, tree_map(lambda s: Layout(mesh, s), specs))
+
+
+@pytest.mark.cuda
+def test_sharded_train_step_on_logical_devices_of_the_card():
+    """Reduced qwen2-0.5b in fp32 on a (2, 2) mesh of the card: the sharded
+    step (flash_mha per rank, forward and remat) against the single-device
+    step on the card: loss, grad norm and first moment within 1e-5,
+    replicas bit-equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MDL
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import steps
+    from repro_torch.parallel.layout import tree_leaves, tree_map
+    dev = _card()
+    cfg = get_config("qwen2-0.5b").reduced()
+    params = MDL.init_params(cfg, seed=0, device=dev)
+    batch = MDL.synth_batch(1, cfg, 64, 4, device=dev)
+    batch["mask"][0, 20:] = 0.0
+    opt = adamw.AdamWConfig(lr=1e-6)
+    single = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+    _, s1, m1 = steps.make_train_step(cfg, opt)(single, adamw.init(opt, single), batch)
+    mesh, sp = _sharded(params, (2, 2))
+    flash_attention.flash_mha.launches = 0
+    sp, s2, m2 = steps.make_train_step(cfg, opt, mesh=mesh)(sp, adamw.init(opt, sp), batch)
+    assert flash_attention.flash_mha.launches == 4 * cfg.num_layers * 2
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m2[k]) - float(m1[k])) <= 1e-5 * abs(float(m1[k])), k
+    for a, b in zip(adamw.leaves(s1["m"]), tree_leaves(s2["m"])):
+        assert float((b.gather() - a).abs().max()) <= 1e-5 * float(a.abs().max()) + 1e-30
+    for st in tree_leaves(sp):
+        first = {}
+        assert all(torch.equal(first.setdefault(reg, blk), blk) for _, reg, blk in st.shards)
+
+
+@pytest.mark.cuda
+def test_ep_forward_and_sharded_decode_on_logical_devices_of_the_card():
+    """Reduced granite in fp32: the expert-parallel forward on (1, 2)
+    (grouped_ffn per rank on its 2 experts) and a sharded prefill and
+    decode step on (2, 2) (flash_mha / flash_decode per rank) against the
+    single-device runs on the card, within 1e-5 of the largest value."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MDL
+    from repro_torch.parallel import ctx as CTX
+    from repro_torch.parallel import steps
+    dev = _card()
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    params = MDL.init_params(cfg, seed=0, device=dev)
+    with torch.no_grad():
+        params["embed"]["table"].mul_(0.05)
+    toks = MDL.synth_batch(2, cfg, 32, 4, "prefill", device=dev)["tokens"]
+    with torch.no_grad():
+        want = MDL.forward(params, cfg, {"tokens": toks})
+    mesh, sp = _sharded(params, (1, 2))
+    grouped_expert.grouped_ffn.launches = 0
+    with torch.no_grad(), CTX.use(mesh, ("data",), "model") as c:
+        hs = MDL.forward_sharded(sp, cfg, {r: toks for r in mesh.device_ids}, ctx=c)
+    assert grouped_expert.grouped_ffn.launches == 2 * cfg.num_layers
+    for h in hs.values():
+        assert float((h - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    mesh, sp = _sharded(params, (2, 2))
+    lg1, c1 = steps.make_prefill_step(cfg, extra_len=2)(params, {"tokens": toks})
+    lg2, c2 = steps.make_prefill_step(cfg, extra_len=2, mesh=mesh)(sp, {"tokens": toks})
+    decode_attention.flash_decode.launches = 0
+    tok = lg1.argmax(-1)
+    d1, _ = steps.make_decode_step(cfg)(params, tok, c1, 32)
+    d2, _ = steps.make_decode_step(cfg, mesh=mesh)(sp, tok, c2, 32)
+    assert decode_attention.flash_decode.launches == (1 + 4) * cfg.num_layers
+    for a, b in ((lg1, lg2), (d1, d2)):
+        assert float((b.gather() - a).abs().max()) <= 1e-5 * float(a.abs().max())
