@@ -14,23 +14,26 @@ Phases, in order; any failure exits non-zero before the last line:
      flash_mha and flash_decode also at recurrentgemma-9b's D = 256 and
      llama-7b's D = 128,
      ssd_scan at mamba2-1.3b's widths, rglru_scan at recurrentgemma-9b's in
-     fp32; paged_flash_decode also bit for bit against flash_decode on the
-     gathered cache in bf16 and fp32; flash_mha also at the speculative
-     verify's shape, alone and behind the table gather) and time kernel (inputs warm in L2 as
+     fp32 (4 x 512, 1 x 256, a ragged shape) and bf16; paged_flash_decode
+     also bit for bit against flash_decode on the gathered cache in bf16
+     and fp32; flash_mha also at the speculative verify's shape, alone and
+     behind the table gather) and time kernel (inputs warm in L2 as
      ``ms``, L2 flushed before each call as ``cold_ms``), plain version,
      bound and one PyTorch library call where one computes the same
-     function (every kernel but rglru_scan, kernel and library call, from
-     CUDA-graph replays: the wrappers' host work outlasts most kernels, so
-     a loop of eager calls, kept as ``eager_ms``, reads the host; ssd_scan
-     also at a 1-row admission); print the registers, spill bytes, shared
+     function (every kernel and library call from CUDA-graph replays: the
+     wrappers' host work outlasts most kernels, so a loop of eager calls,
+     kept as ``eager_ms``, reads the host; ssd_scan and rglru_scan also at
+     a 1-row admission, rglru_scan in bf16 too and beside ``copy_ms``, one
+     torch.mul of its bytes); print the registers, spill bytes, shared
      memory and blocks per SM of the tensor-core bodies (the prefill
      attention tile body csrc/attn_tile.cuh, the split-KV body
      csrc/decode_split.cuh of flash_decode and paged_flash_decode,
      grouped_ffn's two wgmma launches, ssd_scan's bf16 body at each P
-     split), the decode kernels' splits and ssd_scan's P splits at the main
-     path's shapes; grouped_ffn's rows are also held bit-exact between an
-     8192-row and a 64-row cohort, and timed over N beside
-     torch._grouped_mm;
+     split) and of rglru_scan's chunk body at its chunks, the decode
+     kernels' splits, ssd_scan's P splits and rglru_scan's chunk, grid and
+     windows at the main path's shapes; grouped_ffn's rows are also held
+     bit-exact between an 8192-row and a 64-row cohort, and timed over N
+     beside torch._grouped_mm;
   3. full-width qwen2-0.5b and granite-moe-1b-a400m (24 layers each), then
      mamba2-1.3b (48 SSD layers) and recurrentgemma-9b (26 RG-LRU and 12
      local-attention layers), all at full depth, bf16, seeded random
@@ -182,6 +185,7 @@ from repro_torch.core.plan import (Assignment, Cluster, DeviceMesh, ExecutionPla
 from repro_torch.kernels import (build, decode_attention, flash_attention,  # noqa: E402
                                  grouped_expert, paged_decode_attention, ref, varlen_attention)
 from repro_torch.kernels import ops as OPS  # noqa: E402
+from repro_torch.kernels import rglru_scan as rglru_scan_mod  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_scan_mod  # noqa: E402
 from repro_torch.kernels.decode_attention import flash_decode  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_mha  # noqa: E402
@@ -246,7 +250,9 @@ FP32_SCAN_TOL = 1e-4
 SSD_BF16_TOL = 2.0 ** -8 + FP32_SCAN_TOL
 # rglru_scan vs its plain version in fp32 (the model's gates are fp32):
 # both carry fp32 and differ only in the scan's association order
-# (FP32_TOL).
+# (FP32_TOL).  In bf16 the kernel also rounds h once: bf16's unit roundoff
+# 2^-8 of |h| more.
+RGLRU_BF16_TOL = 2.0 ** -8 + FP32_TOL
 # Where greedy continuous and bucketed outputs of a model with recurrent
 # mixers part, the larger of both tokens' distances below the top logit,
 # over the top |logit|: between the H100's largest sound reading (1.5e-2)
@@ -384,23 +390,6 @@ def time_ms(fn, iters=ITERS):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def time_cold_ms(fn, iters=ITERS):
-    """Mean time of one call with L2 flushed before it (the flush lies
-    outside the timed interval), for comparison with the HBM-rate bound."""
-    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    fn()
-    events = []
-    for _ in range(iters):
-        flush.zero_()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
 def _replay_ms(calls, iters):
@@ -565,7 +554,14 @@ def phase_kernels(device):
                        ("paged_flash_decode D64 bf16 split body",
                         paged_decode_attention.kernel_info(64)),
                        *((f"ssd_scan bf16 tensor-core body, p_splits {ps}",
-                          ssd_scan_mod.kernel_info(ps)) for ps in ssd_scan_mod.P_SPLITS)):
+                          ssd_scan_mod.kernel_info(ps)) for ps in ssd_scan_mod.P_SPLITS),
+                       *((f"rglru_scan {t} chunk body at chunk {c} (one stage)",
+                          rglru_scan_mod.kernel_info(dt, c))
+                         for t, dt, c in (("fp32", torch.float32, out["rglru_scan"]["chunk"]),
+                                          ("fp32", torch.float32,
+                                           out["rglru_scan"]["b1_s256"]["chunk"]),
+                                          ("bf16", torch.bfloat16,
+                                           out["rglru_scan"]["bf16"]["chunk"])))):
         print(f"[kernels] {name}: {info['registers']} registers, "
               f"{info['spill_bytes']} spill bytes, {info['smem_bytes']} bytes of shared "
               f"memory, {info['blocks_per_sm']} blocks per SM")
@@ -591,6 +587,8 @@ def phase_kernels(device):
                      else "")
             eager += f" splits={t['splits']}" if "splits" in t else ""
             eager += f" p_splits={t['p_splits']}" if "p_splits" in t else ""
+            eager += (f" chunk={t['chunk']} grid={t['grid']} windows={t['windows']} "
+                      f"copy_ms={t['copy_ms']:.4f} (torch.mul, graph)" if "chunk" in t else "")
             print(f"[kernels] {name}{shape}: ms={t['ms']:.4f} (warm L2) cold_ms="
                   f"{t['cold_ms']:.4f} (L2 flushed){eager} plain_ms={t['plain_ms']:.4f} "
                   f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) library_ms={lib}")
@@ -780,32 +778,57 @@ def ssd_kernel_case(device):
 
 
 def rglru_kernel_case(device):
-    """rglru_scan at recurrentgemma-9b's width (W 4096) on an admission of 4
-    rows of 512 tokens, fp32 (the model's gates are fp32), with decays drawn
-    as the layer draws them; then a ragged 3 x 77 x 1000.  Bound: a, bx
-    read and h written once, plus the final state."""
+    """rglru_scan at recurrentgemma-9b's width (W 4096), fp32 (the model's
+    gates are fp32) with decays drawn as the layer draws them: an admission
+    of 4 rows of 512 tokens, a 1-row admission of 256, a ragged 3 x 77 x
+    1000, and 4 x 512 in bf16, each held against the plain version in fp32
+    on the same values (FP32_TOL; in bf16 h rounds once, RGLRU_BF16_TOL).
+    Timed at 4 x 512 and, as ``b1_s256`` and ``bf16``, at the other two
+    admissions, kernel from CUDA-graph replays (the eager loop kept as
+    ``eager_ms``), beside ``copy_ms``: one torch.mul of the two inputs into
+    a third, the scan's bytes as an attainable-bandwidth yardstick (not the
+    same function, so not ``library_ms``).  Bound: a, bx read and h written
+    once, plus the final state."""
     g = torch.Generator(device=device).manual_seed(4)
 
-    def inputs(b, s, w):
+    def inputs(b, s, w, dtype=torch.float32):
         a = torch.exp(-8.0 * torch.rand((b, s, w), generator=g, device=device)
                       * math.log1p(math.e ** 2))  # log a = -8 r softplus(lam), lam <= 2
-        return a, torch.randn((b, s, w), generator=g, device=device)
+        return a.to(dtype), torch.randn((b, s, w), generator=g, device=device).to(dtype)
 
     errs = []
-    for name, shape in (("fp32-B4-S512", (4, 512, 4096)), ("fp32-B3-S77-W1000", (3, 77, 1000))):
-        a, bx = inputs(*shape)
+    for name, shape, dtype in (("fp32-B4-S512", (4, 512, 4096), torch.float32),
+                               ("fp32-B1-S256", (1, 256, 4096), torch.float32),
+                               ("fp32-B3-S77-W1000", (3, 77, 1000), torch.float32),
+                               ("bf16-B4-S512", (4, 512, 4096), torch.bfloat16)):
+        a, bx = inputs(*shape, dtype)
         h, final = rglru_scan(a, bx)
-        want_h, want_final = ref.rglru_scan_ref(a, bx)
-        errs.append(held(f"rglru_scan {name} h", h, want_h, FP32_TOL))
+        want_h, want_final = ref.rglru_scan_ref(a.float(), bx.float())
+        tol = RGLRU_BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+        errs.append(held(f"rglru_scan {name} h", h, want_h, tol))
         held(f"rglru_scan {name} final", final, want_final, FP32_TOL)
-    b, s, w = 4, 512, 4096
-    a, bx = inputs(b, s, w)
-    bms, by = bound_ms(2 * b * s * w, 4 * 3 * b * s * w + 4 * b * w)
-    return dict(max_abs_err=max(errs), library=None, library_ms=None,
-                ms=time_ms(lambda: rglru_scan(a, bx)),
-                cold_ms=time_cold_ms(lambda: rglru_scan(a, bx)),
-                plain_ms=time_ms(lambda: ref.rglru_scan_ref(a, bx)),
-                bound_ms=bms, bound_by=by)
+
+    def timed(b, s, dtype=torch.float32):
+        w = 4096
+        a, bx = inputs(b, s, w, dtype)
+        prod = torch.empty_like(bx)
+        size = a.element_size()
+        bms, by = bound_ms(2 * b * s * w, 3 * size * b * s * w + 4 * b * w)
+        chunk = rglru_scan_mod.rglru_chunks(b, s, w, build.sm_count(0))
+        cluster, windows = rglru_scan_mod.rglru_grid(s, chunk)
+
+        def kernel():
+            return rglru_scan(a, bx)
+        return dict(library=None, library_ms=None, ms=graph_ms(kernel),
+                    cold_ms=graph_cold_ms(kernel), eager_ms=time_ms(kernel),
+                    plain_ms=time_ms(lambda: ref.rglru_scan_ref(a, bx)),
+                    copy_ms=graph_ms(lambda: torch.mul(a, bx, out=prod)),
+                    bound_ms=bms, bound_by=by, chunk=chunk,
+                    grid=[-(-w // rglru_scan_mod.TILE), cluster, b], windows=windows)
+    out = dict(max_abs_err=max(errs), **timed(4, 512))
+    out["b1_s256"] = timed(1, 256)
+    out["bf16"] = timed(4, 512, torch.bfloat16)
+    return out
 
 
 def varlen_lengths(rng, n=8, longest=512, bucket=64):

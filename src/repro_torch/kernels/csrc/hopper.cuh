@@ -3,7 +3,7 @@
 // the wgmma fences and products, mma.sync and ldmatrix, and the kernel
 // info every tensor-core body reports.  attn_tile.cuh (the prefill
 // attention tile body), grouped_expert.cu, decode_split.cuh and
-// ssd_scan.cu include it.
+// ssd_scan.cu include it; rglru_scan.cu takes its cp.async and kernel info.
 #pragma once
 
 #include <stdint.h>

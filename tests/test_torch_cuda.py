@@ -652,9 +652,14 @@ def test_fp32_paged_decode_keeps_the_fma_body():
 
 # ------------------------------------------------------------- RG-LRU scan
 
-# S = 5 is shorter than the kernel's 8-step load group; W = 7 leaves most of
-# a block's threads without a channel
-RGLRU_GRID = [(2, 5, 7), (1, 17, 32), (3, 33, 96), (2, 100, 200), (4, 512, 4096)]
+# W = 7 leaves most of a block's threads without a channel and takes the
+# plain-load path (W not a multiple of a 16-byte vector); S = 1 is one step
+# of one chunk; S = 65 is one step past the two 32-step chunks rglru_chunks
+# picks there, S = 257 one step past four 64-step chunks; W 1000 is not a
+# multiple of the 128-channel tile; S 4096 at B 1 walks 16 windows of a
+# cluster
+RGLRU_GRID = [(2, 5, 7), (1, 17, 32), (3, 33, 96), (2, 100, 200), (4, 512, 4096),
+              (1, 1, 4096), (2, 65, 4096), (1, 257, 4096), (3, 77, 1000), (1, 4096, 4096)]
 
 
 @pytest.mark.cuda
@@ -673,6 +678,39 @@ def test_rglru_scan_kernel_matches_plain(b, s, w, dtype):
     rounding = BF16_ROUND if dtype == "bfloat16" else 0.0
     assert _scaled_err(h, want_h) <= TOL["float32"] + rounding
     _close(final, want_final, "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 8, 16, 64])
+@pytest.mark.parametrize("windows", [1, 3])
+def test_rglru_scan_kernel_at_each_chunk(chunk, windows):
+    """An explicit chunk length, with S one step past a whole chunk (the
+    last chunk holds one step) in the first or the third window of a
+    cluster, held like the default; chunk 1 makes blocks of one step."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(28)
+    s = (windows - 1) * rglru_scan.CLUSTER * chunk + chunk + 1
+    a = torch.rand((2, s, 1000), generator=gen, device=dev)
+    bx = _randn(gen, (2, s, 1000), "float32", dev)
+    h, final = rglru_scan.rglru_scan(a, bx, chunk=chunk)
+    want_h, want_final = ref.rglru_scan_ref(a, bx)
+    _close(h, want_h, "float32")
+    _close(final, want_final, "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,w", [(4, 512, 4096), (1, 4096, 4096), (2, 65, 1000)])
+def test_rglru_scan_two_launches_are_bit_equal(b, s, w, dtype):
+    """The chunk carries compose in one fixed order, so the bits do not
+    depend on how the blocks were scheduled."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(29)
+    a = torch.rand((b, s, w), generator=gen, device=dev).to(DTYPES[dtype])
+    bx = _randn(gen, (b, s, w), dtype, dev)
+    h1, f1 = rglru_scan.rglru_scan(a, bx)
+    h2, f2 = rglru_scan.rglru_scan(a, bx)
+    assert torch.equal(h1, h2) and torch.equal(f1, f2)
 
 
 # ------------------------------------------ attention at recurrentgemma's D

@@ -24,8 +24,17 @@ so that what the CUDA kernels compute is checked before any card runs them.
   entering a product as two bf16 terms, for each P split.  It holds 1e-4
   (scaled) against JAX's ``ssd_ref`` in fp32 on y before its bf16 rounding
   and on the state; one bf16 state or one bf16 M (the controls) does not.
-- ``decode_attention.decode_splits`` and ``ssd_scan.ssd_splits``, the
-  host's choices of split count, on the main path's shapes.
+- ``rglru_scan``'s chunked scan (``csrc/rglru_scan.cu``): chunks of S
+  walked in fp32 FMAs from a zero carry for their aggregates, the carries
+  composed in chunk order across a cluster's window and from one window to
+  the next, each chunk walked again from its carry.  It holds 1e-5 (scaled)
+  against JAX's ``rglru_scan_ref`` and ``rglru_pallas`` (interpret) at
+  several chunk lengths, a ragged last chunk, S = 1, S shorter than a chunk
+  and several windows; a chunk that skips its predecessors' carries (the
+  control) does not.
+- ``decode_attention.decode_splits``, ``ssd_scan.ssd_splits`` and
+  ``rglru_scan.rglru_chunks``, the host's choices of split count and chunk
+  length, on the main path's shapes.
 
 Inputs come from numpy with a seed and go to both packages.
 """
@@ -38,7 +47,8 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
-from repro_torch.kernels import decode_attention, ssd_scan
+from repro.kernels.rglru_scan import rglru_pallas
+from repro_torch.kernels import decode_attention, rglru_scan, ssd_scan
 
 LOG2E = 1.4426950408889634
 NEG_INF = -2.0 ** 30  # kMaskedLogit: a row with no valid key averages every key
@@ -404,3 +414,111 @@ SSD_SPLITS = [((1, 64, 132), 2), ((2, 64, 132), 1), ((4, 64, 132), 1), ((8, 64, 
 def test_ssd_splits_on_the_main_path_shapes(shape, want):
     got = ssd_scan.ssd_splits(*shape)
     assert got == want and got in ssd_scan.P_SPLITS
+
+
+# ------------------------------------------------------------- RG-LRU scan
+
+def _fma(x, y, z):
+    """fp32 fmaf(x, y, z): the product of two fp32 values is exact in
+    float64, so one float64 sum rounded once to fp32 (it can part from fmaf
+    in the last bit through the double rounding, far below the limit)."""
+    return (x.double() * y.double() + z.double()).float()
+
+
+def rglru_chunked(a, bx, *, chunk, cluster=rglru_scan.CLUSTER, handoff="chain"):
+    """The kernel's arithmetic on fp32 a, bx (B, S, W): S in chunks of
+    ``chunk`` steps, up to ``cluster`` chunks to a cluster, the clusters'
+    windows walked in order.  Each chunk's aggregate from a zero carry (A =
+    the product of its a in fp32, H = its fmaf chain), the carries composed
+    in chunk order from the window's carry, carry_c = fmaf(A_{c-1},
+    carry_{c-1}, H_{c-1}), each chunk walked again from its carry, and the
+    next window started from the chain over all of this one's chunks.
+    ``handoff="window"`` (the control) starts every chunk from its window's
+    carry instead.  Returns (h, the final state)."""
+    bsz, s, w = a.shape
+    n = -(-s // chunk)
+    g = min(cluster, n)
+    h, final = torch.empty(bsz, s, w), None
+    window = torch.zeros(bsz, w)
+    for k in range(-(-n // g)):
+        chain = window
+        spans = [range(min((k * g + r) * chunk, s), min((k * g + r + 1) * chunk, s))
+                 for r in range(g)]
+        for steps in spans:
+            big_a, big_h = torch.ones(bsz, w), torch.zeros(bsz, w)
+            for t in steps:
+                big_a = big_a * a[:, t]
+                big_h = _fma(a[:, t], big_h, bx[:, t])
+            carry = chain if handoff == "chain" else window
+            for t in steps:
+                carry = _fma(a[:, t], carry, bx[:, t])
+                h[:, t] = carry
+            if len(steps) and steps[-1] == s - 1:
+                final = carry
+            chain = _fma(big_a, chain, big_h)
+        window = chain
+    return h, final
+
+
+def _rglru_design_inputs(seed, b, s, w):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.0, 1.0, (b, s, w)).astype(np.float32),
+            rng.standard_normal((b, s, w)).astype(np.float32))
+
+
+RGLRU_TOL = 1e-5  # chip_smoke.py's FP32_TOL
+
+# (S, chunk): chunk lengths 1-64; whole chunks; a ragged last chunk; S = 1;
+# S shorter than one chunk; S past one cluster's window (3, 2 and 17 windows)
+RGLRU_DESIGN = [(64, 8), (100, 16), (1, 64), (5, 64), (200, 32), (67, 4), (257, 16),
+                (129, 1)]
+
+
+@pytest.mark.parametrize("s,chunk", RGLRU_DESIGN)
+def test_rglru_chunked_scan_matches_jax(s, chunk):
+    """h and the final state within RGLRU_TOL of JAX's ``rglru_scan_ref``
+    and of ``rglru_pallas`` in interpret mode, on the same values."""
+    a, bx = _rglru_design_inputs(s + chunk, 2, s, 16)
+    h, final = rglru_chunked(torch.from_numpy(a), torch.from_numpy(bx), chunk=chunk)
+    ja, jbx = jnp.asarray(a), jnp.asarray(bx)
+    for jh, jfinal in (jref.rglru_scan_ref(ja, jbx),
+                       rglru_pallas(ja, jbx, chunk=32, block_w=16, interpret=True)):
+        assert _scaled(h.numpy(), np.asarray(jh)) <= RGLRU_TOL
+        assert _scaled(final.numpy(), np.asarray(jfinal)) <= RGLRU_TOL
+
+
+def test_rglru_chunk_without_its_predecessors_carries_fails_the_limit():
+    """The control: a chunk that starts from its window's carry and not from
+    the chunks before it in the window misses RGLRU_TOL by far."""
+    a, bx = _rglru_design_inputs(7, 2, 100, 16)
+    h, _ = rglru_chunked(torch.from_numpy(a), torch.from_numpy(bx), chunk=16,
+                         handoff="window")
+    want, _ = jref.rglru_scan_ref(jnp.asarray(a), jnp.asarray(bx))
+    assert _scaled(h.numpy(), np.asarray(want)) > 100 * RGLRU_TOL
+
+
+# (B, S, W, SMs) -> chunk: recurrentgemma-9b's admissions (W 4096, 1-4 rows
+# of 32-512 tokens) on the H100's 132 SMs, a 1-row admission on half a
+# card, S = 1, and a long S that needs windows (where 64-step chunks, whose
+# two stages leave one block per SM, are not taken)
+RGLRU_CHUNKS = [((1, 32, 4096, 132), 8), ((1, 128, 4096, 132), 16),
+                ((1, 256, 4096, 132), 32), ((1, 400, 4096, 132), 64),
+                ((1, 512, 4096, 132), 64), ((2, 64, 4096, 132), 16),
+                ((2, 256, 4096, 132), 32), ((2, 400, 4096, 132), 64),
+                ((3, 77, 1000, 132), 16), ((4, 128, 4096, 132), 32),
+                ((4, 512, 4096, 132), 64), ((1, 256, 4096, 66), 32), ((4, 1, 4096, 132), 8),
+                ((1, 4096, 4096, 132), 32)]
+
+
+@pytest.mark.parametrize("shape,want", RGLRU_CHUNKS)
+def test_rglru_chunks_on_the_main_path_shapes(shape, want):
+    """The chunk is one of CHUNKS cut to S, one window holds S wherever a
+    64-step chunk or less can, and the two headline admissions give about
+    2 blocks per SM or more."""
+    b, s, w, sms = shape
+    got = rglru_scan.rglru_chunks(*shape)
+    assert got == want and got in {min(c, -(-s // 8) * 8) for c in rglru_scan.CHUNKS}
+    cluster, windows = rglru_scan.rglru_grid(s, got)
+    assert windows == 1 or s > rglru_scan.CLUSTER * rglru_scan.CHUNKS[-1]
+    if (b, s, w) in ((1, 256, 4096), (4, 512, 4096)) and sms == 132:
+        assert -(-w // rglru_scan.TILE) * cluster * b >= 1.9 * sms
