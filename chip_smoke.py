@@ -12,7 +12,10 @@ Phases, in order; any failure exits non-zero before the last line:
      under a perturbation of another sequence, and its gradient; a decode
      kernel (no backward) refusing an input that requires grad;
      flash_mha and flash_decode also at recurrentgemma-9b's D = 256 and
-     llama-7b's D = 128,
+     llama-7b's D = 128, flash_mha at gemma3-1b's prefill (D 256, window
+     512 at S 1,000 and 2,048), flash_decode on its 512-slot ring,
+     paged_flash_decode at qwen3-1.7b's, gemma3-1b's and qwen2.5-14b's
+     heads (D 128 G 2, D 256 G 4, D 128 G 5),
      ssd_scan at mamba2-1.3b's widths, rglru_scan at recurrentgemma-9b's in
      fp32 (4 x 512, 1 x 256, a ragged shape) and bf16; paged_flash_decode
      also bit for bit against flash_decode on the gathered cache in bf16
@@ -69,9 +72,9 @@ Phases, in order; any failure exits non-zero before the last line:
      padded iterations of full qwen2-0.5b on phase 6's traffic (flash_mha
      under grad; the same checks, and in fp32 on 2 layers the packed step
      against the padded one on one rollout); then, on 8 prompts of 128
-     tokens and 128 new, granite-moe-1b-a400m (24 layers) one packed and
-     one padded iteration (grouped_ffn under grad), mamba2-1.3b (48 layers,
-     ssd_scan under grad) and recurrentgemma-9b (5 of 38 layers, rglru_scan
+     tokens and 128 new, granite-moe-1b-a400m (12 of 24 layers) one packed
+     and one padded iteration (grouped_ffn under grad), mamba2-1.3b (24 of
+     48 layers, ssd_scan under grad) and recurrentgemma-9b (5 of 38 layers, rglru_scan
      and flash_mha under grad) one padded iteration each; their bf16
      comparisons of the tiers printed, their fp32 2-layer ones held (where
      an MoE route parts between the runs, its near-tie held instead); each
@@ -146,10 +149,29 @@ Phases, in order; any failure exits non-zero before the last line:
      the unpipelined stack; (e) ``compressed_psum`` of 4 ranks' qwen
      gradient trees over 3 steps, each step's error held to its
      quantization bound; each part's seconds, peak memory and bytes.
+ 12. the dense decoder configs and the paper's other algorithms (§8.3), at
+     full width, bf16, seeded weights with biases and norm scales drawn:
+     (a) qwen3-1.7b (28 layers, qk-norm, tied 151,936 vocabulary) and
+     gemma3-1b (26 layers, 5 local of window 512 to 1 global, D 256, q_dim
+     1,024 of d_model 1,152, tied 262,144 vocabulary): phase 3's checks
+     (gemma3 on 600-token prompts, past its window), the same in fp32 on 4
+     layers, each attention kind's layer against a plain transcription of
+     the published layer (qk-norm before RoPE), phases 4 and 5 (gemma3's
+     prompts 16-1,000 tokens; where the engines' greedy outputs part, a
+     near-tie); (c) three DPO steps of qwen3-1.7b (8 pairs of 512, the
+     step-0 gradient cuda vs reference in bf16 and on 2 layers in fp32) and
+     of gemma3-1b (4 pairs of 1,024), the reference a frozen copy: step 0's
+     loss ln 2, dpo_acc 0, the loss falling; (d) a GRPO step of qwen3-1.7b
+     on 4 prompts x 8 sampled rows of 128 + 128 tokens, rewards from a
+     qwen2-0.5b value-head trunk, each group's advantages of mean 0 and
+     population std 1; (e) a ReMax step on 16 prompts, a sampled and a
+     greedy rollout; each step's gradient cuda vs reference; then (a)
+     qwen2.5-14b (48 layers, 14.7B parameters) last, alone on the card.
+     Launches held to the prediction throughout.
 Each model's parameters are freed before the next is built.
 Then one JSON line of kernel numbers, and last {"ok": true, "device": ...}.
 
-Phases 3 to 11 are functions of (config, params or experiment, impl) so the
+Phases 3 to 12 are functions of (config, params or experiment, impl) so the
 CPU tests rehearse them at the reduced size with impl="reference".
 """
 
@@ -214,8 +236,13 @@ from repro_torch.parallel import sharding as SHD  # noqa: E402
 from repro_torch.parallel import steps as PSTEPS  # noqa: E402
 from repro_torch.parallel.layout import (Layout, Mesh, ShardedTensor, place_tree,  # noqa: E402
                                          tree_leaves, tree_map)
+from repro_torch.data.synth import PreferenceDataset  # noqa: E402
+from repro_torch.rlhf import dpo as DPO  # noqa: E402
 from repro_torch.rlhf import experiment as EXP  # noqa: E402
+from repro_torch.rlhf import grpo as GRPO  # noqa: E402
 from repro_torch.rlhf import ppo as PPO  # noqa: E402
+from repro_torch.rlhf import remax as REMAX  # noqa: E402
+from repro_torch.rlhf import reward as RWD  # noqa: E402
 
 # Published H100 SXM peaks: dense bf16 tensor-core rate and HBM3 bandwidth.
 PEAK_FLOPS = 989e12
@@ -258,7 +285,8 @@ RGLRU_BF16_TOL = 2.0 ** -8 + FP32_TOL
 # over the top |logit|: between the H100's largest sound reading (1.5e-2)
 # and the largest with the last recurrent layer of each admitted slot fed
 # the next slot's state (4.9e-2 mamba2, 6.8e-2 recurrentgemma; > 1 with
-# every layer so fed; scripts/limit_controls.py, PERF.md).
+# every layer so fed; scripts/limit_controls.py, PERF.md).  Phase 12
+# holds its dense configs' partings to it too (``report_continuous``).
 RECURRENT_TIE_TOL = 3e-2
 # Full model, impl="cuda" vs impl="reference": max |logit difference| over
 # max |reference logit|.  Both run bf16 through every layer and differ only
@@ -310,6 +338,11 @@ ROUTE_TIE_TOL = 1e-5
 # distribution almost one-hot; scaled by 0.05 the logits' spread is ~1.5.
 EMBED_SCALE = 0.05
 ITERS = 50
+# gemma3-1b's continuous server in phase 12: its table's blocks of 16 per
+# row (a prompt bucket of 1,024, up to 56 new tokens and the sync slack)
+# and ragged lengths up to M * bs, so phase 2 holds its D 256 G 4 paged
+# decode on the split grid that table gives
+PAGED_GEMMA3 = dict(m=68, lens=(0, 1, 17, 100, 513, 777, 1000))
 # Rewritten between timed calls to evict the inputs from L2 (50 MB on H100).
 FLUSH_BYTES = 64 << 20
 
@@ -538,6 +571,16 @@ def phase_kernels(device):
     out["flash_decode"]["d256"] = decode_d256_case(randn, device)
     out["flash_decode"]["d128"] = decode_d128_case(randn, device)
     out["paged_flash_decode"] = paged_kernel_case(randn, device, hq, hkv, d)
+    # phase 12's configs at their continuous servers' tables: (name, label,
+    # Hq, Hkv, D, table); qwen3-1.7b's and qwen2.5-14b's are 36 blocks
+    for key, label, phq, phkv, pd, kw in (("d128_g2", "qwen3-1.7b", 16, 8, 128, {}),
+                                          ("d256_g4", "gemma3-1b", 4, 1, 256, PAGED_GEMMA3),
+                                          ("d128_g5", "qwen2.5-14b", 40, 8, 128, {})):
+        out["paged_flash_decode"][key] = paged_kernel_case(
+            randn, device, phq, phkv, pd, tag=f" {key} ({label})", **kw)
+    out["flash_mha"]["gemma3_s1000"] = mha_window_case(randn, device, 1000)
+    out["flash_mha"]["gemma3_s2048"] = mha_window_case(randn, device, 2048)
+    out["flash_decode"]["ring512_d256_g4"] = decode_ring512_case(randn, device)
     out["grouped_ffn"] = grouped_kernel_case(device)
     out["ssd_scan"] = ssd_kernel_case(device)
     out["rglru_scan"] = rglru_kernel_case(device)
@@ -551,8 +594,8 @@ def phase_kernels(device):
                        ("flash_decode D256 bf16 split body", decode_attention.kernel_info(256)),
                        ("grouped_ffn bf16 launch A (H)", grouped_expert.kernel_info(0)),
                        ("grouped_ffn bf16 launch B (out)", grouped_expert.kernel_info(1)),
-                       ("paged_flash_decode D64 bf16 split body",
-                        paged_decode_attention.kernel_info(64)),
+                       *((f"paged_flash_decode D{pd} bf16 split body",
+                          paged_decode_attention.kernel_info(pd)) for pd in (64, 128, 256)),
                        *((f"ssd_scan bf16 tensor-core body, p_splits {ps}",
                           ssd_scan_mod.kernel_info(ps)) for ps in ssd_scan_mod.P_SPLITS),
                        *((f"rglru_scan {t} chunk body at chunk {c} (one stage)",
@@ -568,12 +611,17 @@ def phase_kernels(device):
     for name, shape in (("qwen2-0.5b BatchServer (B 8, Hkv 2, C 1088)", (8, 2, 1088)),
                         ("llama-7b BatchServer (B 8, Hkv 8, C 1088)", (8, 8, 1088)),
                         ("qwen2-0.5b PPO rollout (B 16, Hkv 2, C 384)", (16, 2, 384)),
-                        ("recurrentgemma-9b (B 8, Hkv 1, ring 576)", (8, 1, 576))):
+                        ("recurrentgemma-9b (B 8, Hkv 1, ring 576)", (8, 1, 576)),
+                        ("gemma3-1b local layers (B 8, Hkv 1, ring 512)", (8, 1, 512))):
         print(f"[kernels] flash_decode splits at {name}: {decode_splits(*shape)} blocks per "
               "(row, KV head)")
     for name, shape in (("qwen2-0.5b continuous (B 8, Hkv 2, M 36 x bs 16)", (8, 2, 576)),
                         ("granite-moe-1b-a400m continuous (B 8, Hkv 8, M 36 x bs 16)",
-                         (8, 8, 576))):
+                         (8, 8, 576)),
+                        ("qwen3-1.7b / qwen2.5-14b continuous (B 8, Hkv 8, M 36 x bs 16)",
+                         (8, 8, 576)),
+                        ("gemma3-1b continuous (B 8, Hkv 1, M 68 x bs 16)",
+                         (8, 1, PAGED_GEMMA3["m"] * 16))):
         print(f"[kernels] paged_flash_decode splits at {name}: {decode_splits(*shape)} blocks "
               "per (row, KV head)")
     print("[kernels] ssd_scan p_splits at mamba2-1.3b's admissions (H 64): "
@@ -697,6 +745,62 @@ def decode_d256_case(randn, device):
                 ms=graph_ms(kernel), cold_ms=graph_cold_ms(kernel), eager_ms=time_ms(kernel),
                 plain_ms=time_ms(lambda: ref.decode_mha_ref(q, kc, vc, cache_len=lens,
                                                             window=2048)),
+                bound_ms=bms, bound_by=by, splits=decode_splits(b, 1, c),
+                library_ms=graph_ms(lambda: sdpa(q[:, :, None], ks, vs, attn_mask=mask,
+                                                 enable_gqa=True)))
+
+
+def mha_window_case(randn, device, s):
+    """flash_mha at gemma3-1b's prefill shape: B 2, S ``s``, 4 query heads on
+    1 KV head, D 256, its window of 512, which bites at S > 512 (S 1000
+    starts most rows' windows off a 64-key tile boundary), and causal
+    without a window (its global layers); timed windowed.  Bound and
+    library call count the window's pairs: SDPA with the window's boolean
+    mask."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, hq, hkv, d, w = 2, 4, 1, 256, 512
+    q, k, v = randn(b, s, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
+    errs = [held(f"flash_mha gemma3-1b S{s} window {win}",
+                 flash_mha(q, k, v, causal=True, window=win),
+                 ref.mha_ref(q, k, v, causal=True, window=win)) for win in (w, None)]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    pairs = b * hq * sum(min(i + 1, w) for i in range(s))
+    bms, by = bound_ms(4 * d * pairs, 2 * (2 * q.numel() + 2 * k.numel()))
+    i, j = torch.arange(s, device=device)[:, None], torch.arange(s, device=device)[None]
+    mask = (j <= i) & (i - j < w)
+
+    def kernel():
+        return flash_mha(q, k, v, causal=True, window=w)
+    return dict(max_abs_err=max(errs), library="scaled_dot_product_attention",
+                ms=graph_ms(kernel), cold_ms=graph_cold_ms(kernel), eager_ms=time_ms(kernel),
+                plain_ms=time_ms(lambda: ref.mha_ref(q, k, v, causal=True, window=w)),
+                bound_ms=bms, bound_by=by,
+                library_ms=graph_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)))
+
+
+def decode_ring512_case(randn, device):
+    """flash_decode at gemma3-1b's local-layer decode shape: 8 rows of 4
+    query heads on 1 KV head (G 4), D 256, over a ring of 512 slots, window
+    512, lengths from 1 to past the ring (wrapped)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, c, hq, d = 8, 512, 4, 256
+    q, kc, vc = randn(b, hq, d), randn(b, c, 1, d), randn(b, c, 1, d)
+    lens = torch.tensor([1, 100, 511, 512, 513, 700, 1000, 2048], dtype=torch.int32,
+                        device=device)
+    err = held("flash_decode ring512 D256 G4 (gemma3-1b)",
+               flash_decode(q, kc, vc, cache_len=lens, window=c),
+               ref.decode_mha_ref(q, kc, vc, cache_len=lens, window=c))
+    n_keys = int(lens.clamp(max=c).sum())
+    bms, by = bound_ms(4 * d * hq * n_keys, 2 * (2 * q.numel() + 2 * n_keys * d))
+    ks, vs = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    mask = (torch.arange(c, device=device)[None] < lens.clamp(max=c)[:, None])[:, None, None]
+
+    def kernel():
+        return flash_decode(q, kc, vc, cache_len=lens, window=c)
+    return dict(max_abs_err=err, library="scaled_dot_product_attention",
+                ms=graph_ms(kernel), cold_ms=graph_cold_ms(kernel), eager_ms=time_ms(kernel),
+                plain_ms=time_ms(lambda: ref.decode_mha_ref(q, kc, vc, cache_len=lens,
+                                                            window=c)),
                 bound_ms=bms, bound_by=by, splits=decode_splits(b, 1, c),
                 library_ms=graph_ms(lambda: sdpa(q[:, :, None], ks, vs, attn_mask=mask,
                                                  enable_gqa=True)))
@@ -950,23 +1054,28 @@ def guard_case(device):
           "flash_decode launched on an input that requires grad")
 
 
-def paged_kernel_case(randn, device, hq, hkv, d):
+def paged_kernel_case(randn, device, hq, hkv, d, *, m=36, lens=(0, 1, 17, 64, 100, 333, 500),
+                      tag=""):
     """paged_flash_decode at the continuous engine's decode shapes: 8 rows,
-    blocks of 16, a 36-block table into a shuffled pool of 1 + 8 * 36
-    blocks, ragged cache lengths with a row of 0 and one of M * bs; then
+    blocks of 16, an ``m``-block table into a shuffled pool of 1 + 8 * m
+    blocks, the cache lengths ``lens`` and one of M * bs; then
     the table past each live prefix pointed at a poisoned block 0, and
     blocks of 8.  Each held against the plain version (KERNEL_TOL) and, in
     bf16 and on the same values in fp32, bit for bit against flash_decode
     on the gathered cache: with M * bs == C both run the same body (bf16:
     the split-KV grid with the same splits; fp32: the FMA walk) on the same
     key values.  Kernel and library call timed from CUDA-graph replays (the
-    eager loop kept as ``eager_ms``)."""
+    eager loop kept as ``eager_ms``).  ``tag`` names the shape in the
+    printed lines."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     g = torch.Generator(device=device).manual_seed(1)
-    b, bs, m = 8, 16, 36
+    b, bs = 8, 16
+    name0 = f"paged_flash_decode{tag}"
     q = randn(b, hq, d)
-    lens = torch.tensor([0, 1, 17, 64, 100, 333, 500, m * bs], dtype=torch.int32,
-                        device=device)
+    lens = torch.tensor([*lens, m * bs], dtype=torch.int32, device=device)
+    splits = decode_splits(b, hkv, m * bs)
+    print(f"[kernels] {name0}: B {b}, Hq {hq}, Hkv {hkv}, D {d}, M {m} x bs {bs} (C {m * bs}), "
+          f"{splits} splits per (row, KV head)")
 
     def pool(bs, m):
         n = 1 + b * m
@@ -988,9 +1097,9 @@ def paged_kernel_case(randn, device, hq, hkv, d):
         want = ref.paged_decode_mha_ref(*args, cache_len=lens)
         torch.cuda.synchronize()
         abs_err, rel_err = _max_err(got, want)
-        print(f"[kernels] paged_flash_decode {name}: max_abs_err={abs_err:.3e} "
+        print(f"[kernels] {name0} {name}: max_abs_err={abs_err:.3e} "
               f"scaled_err={rel_err:.3e} (tol {KERNEL_TOL})")
-        check(rel_err <= KERNEL_TOL, f"paged_flash_decode {name}: err {rel_err} > {KERNEL_TOL}")
+        check(rel_err <= KERNEL_TOL, f"{name0} {name}: err {rel_err} > {KERNEL_TOL}")
         errs.append(abs_err)
         qq, kp, vp, tbl = args
         for dtype in (torch.bfloat16, torch.float32):
@@ -1001,9 +1110,9 @@ def paged_kernel_case(randn, device, hq, hkv, d):
             dense = flash_decode(qd, *gathered, cache_len=lens)
             torch.cuda.synchronize()
             diff = (paged.float() - dense.float()).abs().max().item()
-            print(f"[kernels] paged_flash_decode {name} {str(dtype)[6:]} vs flash_decode on "
+            print(f"[kernels] {name0} {name} {str(dtype)[6:]} vs flash_decode on "
                   f"the gathered cache: max_abs_diff={diff:.3e} (must be 0: the same bits)")
-            check(torch.equal(paged, dense), f"paged_flash_decode {name} {dtype}: not "
+            check(torch.equal(paged, dense), f"{name0} {name} {dtype}: not "
                   "flash_decode's bits on the gathered cache")
     # keys walked: a row of length 0 averages all M * bs slots
     n_keys = int(torch.where(lens > 0, lens, m * bs).sum())
@@ -1025,8 +1134,7 @@ def paged_kernel_case(randn, device, hq, hkv, d):
         ms=graph_ms(kernel), cold_ms=graph_cold_ms(kernel), eager_ms=time_ms(kernel),
         plain_ms=time_ms(lambda: ref.paged_decode_mha_ref(q, k_pool, v_pool, table,
                                                           cache_len=lens)),
-        bound_ms=bms, bound_by=by, splits=decode_splits(b, hkv, m * bs),
-        library_ms=graph_ms(library))
+        bound_ms=bms, bound_by=by, splits=splits, library_ms=graph_ms(library))
 
 
 def routed_rows(x, router_w, k):
@@ -1212,7 +1320,9 @@ def phase_paged_slice(cfg, params, *, impl, batch=4, prompt_len=256, steps=8,
     """Prompts admitted through ``paged_insert`` into a shuffled block
     table, then ``steps`` teacher-forced paged decode steps under ``impl``
     against the dense ``decode_step`` under ``impl`` on the same tokens.
-    Returns the scaled error and the argmax agreement."""
+    Returns the scaled error, the argmax agreement and whether the table's
+    M * bs slots and the dense cache's length span as many 64-key tiles
+    (then the bf16 kernels walk the same split grid)."""
     device = params["embed"]["table"].device
     rng = np.random.default_rng(seed)
     toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (batch, prompt_len))).to(device)
@@ -1238,8 +1348,10 @@ def phase_paged_slice(cfg, params, *, impl, batch=4, prompt_len=256, steps=8,
     got, want = torch.stack(paged, dim=1), torch.stack(want, dim=1)
     check(bool(torch.isfinite(got).all()), "non-finite paged logits")
     scale = want.abs().amax().item()
+    tiles = decode_attention.SPLIT_TILE
     return {"paged_err": (got - want).abs().max().item() / scale, "logit_scale": scale,
-            "argmax_agreement": (got.argmax(-1) == want.argmax(-1)).float().mean().item()}
+            "argmax_agreement": (got.argmax(-1) == want.argmax(-1)).float().mean().item(),
+            "same_grid": -(-max_len // tiles) == -(-m * block_size // tiles)}
 
 
 @contextlib.contextmanager
@@ -1608,16 +1720,17 @@ def square_norms(a, b):
 def agreement(name, g, w):
     """Model ``name``'s ``model_minibatch`` result ``g`` against a reference
     run's ``w``.  A leaf's error is |g - g_ref| / |g_ref| (Frobenius);
-    "global" the same over all leaves; the actor loss's error is over the
-    minibatch's mean |advantage| (its loss is a sum of ratio * advantage
-    terms near zero after whitening), the critic's over its reference loss.
+    "global" the same over all leaves; the loss's error is over the
+    reference's ``adv_scale`` where it has one (the actor's mean
+    |advantage|: its loss is a sum of ratio * advantage terms near zero
+    after whitening), else over its loss (the critic's).
     For an MoE model, "routes" is ``route_diff`` over the real tokens (else
     None)."""
     sq = [square_norms(a, b) for a, b in zip(g["grads"], w["grads"])]
     errs = [math.sqrt(d2 / max(r2, 1e-60)) for d2, r2 in sq]
     diff2 = sum(d2 for d2, _ in sq)
     worst = sorted(zip(errs, g["names"]), reverse=True)[:3]
-    scale = w["adv_scale"] if name == "actor" else abs(w["loss"])
+    scale = w["adv_scale"] if w.get("adv_scale") is not None else abs(w["loss"])
     routes = (route_diff(g["routes"], w["routes"], g["rows"], w["rows"])
               if g.get("routes") else None)
     return dict(loss=g["loss"], ref_loss=w["loss"],
@@ -1877,8 +1990,11 @@ def report_train(cfg, exp, device, total, *, tag="[train]", gate_bf16=True, **kw
 # 128-token chunks), 2 minibatches.  recurrentgemma-9b keeps one
 # superblock and the tail (5 of 38 layers) and bf16 m/v: four 9B models
 # do not fit on one card, and at 5 layers its 256,000-row tied embedding
-# is half of each model.
-PHASE7_MODELS = (("granite-moe-1b-a400m", None, "float32"), ("mamba2-1.3b", None, "float32"),
+# is half of each model.  granite-moe-1b-a400m keeps 12 of 24 layers and
+# mamba2-1.3b 24 of 48, so that the script stays near 10 minutes with
+# phase 12: their bf16 comparisons are printed, not gated, and the gated
+# fp32 ones run on 2 layers whatever the depth.
+PHASE7_MODELS = (("granite-moe-1b-a400m", 12, "float32"), ("mamba2-1.3b", 24, "float32"),
                  ("recurrentgemma-9b", 5, "bfloat16"))
 
 
@@ -1887,8 +2003,8 @@ def report_phase7(device, total):
     traffic; bf16 comparison gated as phase 6's, fp32 on 2 layers, packed
     against padded in fp32); granite-moe-1b-a400m one packed and one padded
     iteration on one set of models; mamba2-1.3b and recurrentgemma-9b one
-    padded iteration each.  The extra models' bf16 comparisons are printed,
-    their fp32 ones gated."""
+    padded iteration each, at ``PHASE7_MODELS``' depths.  The extra models'
+    bf16 comparisons are printed, their fp32 ones gated."""
     report_train(get_config("qwen2-0.5b"), train_experiment(packed=False), device, total,
                  tag="[train7]", layouts=True)
     for name, layers, state_dtype in PHASE7_MODELS:
@@ -3528,6 +3644,577 @@ def report_sharded(llama_params, device, total):
         print(f"[time] phase 11{name} {time.perf_counter() - t0:.1f}s")
 
 
+# ------------------------------------------------------------------ phase 12
+# The dense decoder configs (qwen3-1.7b, gemma3-1b, qwen2.5-14b) and the
+# paper's other algorithms (§8.3: DPO, GRPO, ReMax) at full width.
+
+# The configs in phase 12's order; qwen2.5-14b (29.5 GB of bf16 weights)
+# last, alone on the card.
+DENSE = ("qwen3-1.7b", "gemma3-1b", "qwen2.5-14b")
+# Longest prompt of each config's traffic: gemma3-1b's run past its window
+# of 512, so prefill windows bite and the 512-slot rings wrap in decode;
+# the others take phase 5's.
+DENSE_MAX_PROMPT = {"qwen3-1.7b": 400, "gemma3-1b": 1000, "qwen2.5-14b": 400}
+# phase 3's prompt length per config (gemma3-1b's past the window)
+DENSE_SLICE_PROMPT = {"qwen3-1.7b": 256, "gemma3-1b": 600, "qwen2.5-14b": 256}
+# DPO runs: (config, pairs, tokens per sequence, gen_start), 3 steps each
+DPO_RUNS = (("qwen3-1.7b", 8, 512, 256), ("gemma3-1b", 4, 1024, 512))
+DPO_STEPS = 3
+# AdamW for GRPO and ReMax (one step each): at lr 1e-5 most bf16 weights
+# of std d_model^-0.5 would round back after a step (one bf16 unit at 0.022
+# is 8.6e-5); 5e-5 moves them and stays a fine-tuning rate.
+ALGO_OPT = adamw.AdamWConfig(lr=5e-5)
+# DPO takes three steps on one batch: at 5e-5 its first step alone drives
+# qwen3-1.7b's margin to ~150 on the H100 (loss 0 in fp32, so it cannot
+# fall again; PERF.md); at 2e-6 only the bf16 weights within ~2^7 lr of 0
+# move each step, and the loss falls step by step.
+DPO_OPT = adamw.AdamWConfig(lr=2e-6)
+# DPO's first step with the reference equal to the policy: every logit 0,
+# so the loss is ln 2 (both forwards run the same kernels on the same
+# weights) and dpo_acc 0 (logits > 0 is false at 0).
+DPO_LOSS0_TOL = 1e-3
+# GRPO's group advantages: each group's mean 0 and population std 1 (the
+# +1e-6 in the denominator moves the std by 1e-6 / std of the rewards)
+ADV_MEAN_TOL = 1e-5
+ADV_STD_TOL = 1e-3
+# GRPO's and ReMax's rollouts: prompts x group rows of prompt_len + new
+RL_SHAPES = {"grpo": dict(prompts=4, group=8, prompt_len=128, new=128),
+             "remax": dict(prompts=16, group=1, prompt_len=128, new=128)}
+# per algorithm: its grads function, its train step, its hyperparameters
+# from the group size, and the batch's log-probs a tier's inference gives
+RL = {"grpo": (GRPO.grpo_grads, GRPO.make_grpo_train_step,
+               lambda group: GRPO.GRPOHyperparameters(group_size=group), ("logp", "ref_logp")),
+      "remax": (REMAX.remax_grads, REMAX.make_remax_train_step,
+                lambda group: REMAX.ReMaxHyperparameters(), ("ref_logp",))}
+REWARD = "qwen2-0.5b"  # the reward model's trunk: the same 151,936-token vocabulary
+
+
+def randomize_dense(params, *, seed):
+    """Biases at std 0.1 and norm scales (the qk-norm ones too) at 1 +
+    N(0, 0.1), in place: with zero biases and unit scales a bias or a
+    norm applied in the wrong place (qk-norm after RoPE commutes with the
+    rotation while every scale is 1) shows in no output."""
+    dev = params["embed"]["table"].device
+    g = torch.Generator(device=dev).manual_seed(seed + 1000)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                if k == "b" and torch.is_tensor(v):
+                    v.copy_(torch.randn(v.shape, generator=g, device=dev) * 0.1)
+                elif k == "scale" and torch.is_tensor(v):
+                    v.copy_(1 + torch.randn(v.shape, generator=g, device=dev) * 0.1)
+                else:
+                    walk(v)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                walk(v)
+    with torch.no_grad():
+        walk(params)
+    return params
+
+
+def make_dense_params(cfg, *, seed, device):
+    """``make_params`` with biases and norm scales drawn (``randomize_dense``)."""
+    return randomize_dense(make_params(cfg, seed=seed, device=device), seed=seed)
+
+
+def dense_shallow(cfg, *, dtype="float32"):
+    """``cfg`` at full width on 4 layers in ``dtype``: 4 of the dense
+    configs' one-layer superblocks, or for gemma3-1b (5 local + 1 global)
+    its last local and its global layer twice, so both kinds run."""
+    if len(cfg.superblock) == 1:
+        return shallow(cfg, 4, dtype=dtype)
+    kinds = (next(s for s in cfg.superblock if s.window is not None),
+             next(s for s in cfg.superblock if s.window is None))
+    return dataclasses.replace(cfg, dtype=dtype, superblock=kinds, n_superblocks=2, tail=(),
+                               num_layers=4)
+
+
+def plain_attention(p, cfg, spec, x):
+    """One attention layer transcribed from its published definition, in
+    fp32 and independent of ``models/attention.py``: q/k/v projections
+    (with their biases where the config has them); qk-norm, RMSNorm over
+    head_dim in fp32 with eps ``norm_eps`` times its scale, *before* RoPE;
+    half-split RoPE at ``rope_theta`` on positions 0..S-1; causal GQA
+    softmax attention at D^-0.5 over the keys within ``spec.window``; the
+    output projection."""
+    b, s, _ = x.shape
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def lin(w, t):
+        y = t @ w["w"].float()
+        return y + w["b"].float() if "b" in w else y
+
+    def rms(t, scale):
+        return t * torch.rsqrt(t.square().mean(-1, keepdim=True) + cfg.norm_eps) * scale.float()
+    x = x.float()
+    q = lin(p["wq"], x).reshape(b, s, hq, d)
+    k = lin(p["wk"], x).reshape(b, s, hkv, d)
+    v = lin(p["wv"], x).reshape(b, s, hkv, d)
+    if cfg.qk_norm:
+        q, k = rms(q, p["q_norm"]["scale"]), rms(k, p["k_norm"]["scale"])
+    pos = torch.arange(s, device=x.device, dtype=torch.float32)
+    ang = pos[:, None] * cfg.rope_theta ** (-torch.arange(0, d, 2, device=x.device,
+                                                          dtype=torch.float32) / d)
+    cos, sin = ang.cos()[None, :, None], ang.sin()[None, :, None]
+
+    def rope(t):
+        t1, t2 = t[..., :d // 2], t[..., d // 2:]
+        return torch.cat([t1 * cos - t2 * sin, t2 * cos + t1 * sin], dim=-1)
+    q, k = rope(q), rope(k)
+    k, v = (t.repeat_interleave(hq // hkv, dim=2) for t in (k, v))
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * d ** -0.5
+    i, j = torch.arange(s, device=x.device)[:, None], torch.arange(s, device=x.device)[None]
+    allowed = (j <= i) & ((i - j < spec.window) if spec.window else True)
+    probs = torch.softmax(scores.masked_fill(~allowed, float("-inf")), dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, hq * d)
+    return lin(p["wo"], out)
+
+
+def layer_check(cfg, params, *, impl, batch=2, seq=640, seed=0):
+    """The port's attention layer (``attention.attn_apply_with_kv``) against
+    ``plain_attention`` on the first layer of each kind (local and global)
+    on the same normal inputs: {layer: max |difference| over max |plain|}."""
+    device = params["embed"]["table"].device
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for i, spec in enumerate(cfg.layers):
+        kind = "local" if spec.window else "global"
+        if spec.kind != ATTN or any(k.startswith(kind) for k in out):
+            continue
+        p = params["layers"][i]["mixer"]
+        x = torch.randn((batch, seq, cfg.d_model), generator=g, device=device).to(
+            L.dtype_of(cfg))
+        rope = L.rope_tables(torch.arange(seq, device=device), cfg.head_dim, cfg.rope_theta)
+        with torch.no_grad():
+            got, _ = ATT.attn_apply_with_kv(p, cfg, spec, x, rope, impl=impl)
+            want = plain_attention(p, cfg, spec, x)
+        check(bool(torch.isfinite(got).all()), f"{cfg.name} layer {i}: non-finite output")
+        out[f"{kind} layer {i}"] = ((got.float() - want).abs().max().item()
+                                    / want.abs().max().item())
+    return out
+
+
+def report_batch_serve(cfg, params, total, *, max_prompt=400, modes=("greedy", "sampled"),
+                       tag="[serve]"):
+    """Phase 4 for one model: ``BatchServer.serve`` of 8 ragged requests,
+    64 new tokens each, in each of ``modes``, launches held to the
+    prediction and added to ``total``."""
+    prompts = serve_prompts(cfg, max_prompt=max_prompt)
+    want = predicted_launches(cfg, prompts, 64)
+    torch.cuda.reset_peak_memory_stats()
+    runs = phase_serve(cfg, params, prompts, impl="cuda", new=64, modes=modes)
+    for mode, r in runs.items():
+        print(f"{tag} {cfg.name} {mode}: {len(prompts)} requests (prompt lengths "
+              f"{sorted(len(p) for p in prompts)}), {r['tokens_per_s']:.1f} tokens/s "
+              f"in {r['seconds']:.3f}s; launches {r['launches']} (predicted {want})")
+        check(same_launches(r["launches"], want), f"{mode}: launches {r['launches']} != {want}")
+        for k in total:
+            total[k] += r["launches"][k]
+    if "sampled" in runs:
+        same_out = sum(bool((a == b).all()) for a, b in zip(runs["greedy"]["outputs"],
+                                                             runs["sampled"]["outputs"]))
+        print(f"{tag} {cfg.name} sampled equals greedy on {same_out}/{len(prompts)} requests")
+    print(f"{tag} {cfg.name} max_memory_allocated={torch.cuda.max_memory_allocated()} bytes")
+
+
+def report_dense(cfg, params, total):
+    """12a for one config: phase 3 (cuda vs reference in bf16, prompts of
+    ``DENSE_SLICE_PROMPT``, paged vs dense decode), the same in fp32 on 4
+    layers (``dense_shallow``) with each attention kind's layer against
+    ``plain_attention``, then phases 4 and 5 on its traffic
+    (``DENSE_MAX_PROMPT``)."""
+    t0 = time.perf_counter()
+    device = params["embed"]["table"].device
+    report_slice(cfg, params, prompt_len=DENSE_SLICE_PROMPT[cfg.name])
+    small = dense_shallow(cfg)
+    p32 = make_dense_params(small, seed=1, device=device)
+    sl = phase_slice(small, p32, impl="cuda", prompt_len=DENSE_SLICE_PROMPT[cfg.name])
+    lc = layer_check(small, p32, impl="cuda")
+    del p32
+    free(device)
+    print(f"[dense] {cfg.name} fp32, {small.num_layers} layers: prefill_err="
+          f"{sl['prefill_err']:.3e} decode_err={sl['decode_err']:.3e} (of max |logit| "
+          f"{sl['logit_scale']:.3f}; tol {FP32_LOGIT_TOL}); against the plain layer "
+          "(qk-norm before RoPE): " + ", ".join(f"{k} {e:.3e}" for k, e in lc.items())
+          + f" (tol {FP32_LOGIT_TOL})")
+    check(sl["prefill_err"] <= FP32_LOGIT_TOL and sl["decode_err"] <= FP32_LOGIT_TOL,
+          f"{cfg.name}: fp32 cuda logits disagree with the reference")
+    check(max(lc.values()) <= FP32_LOGIT_TOL,
+          f"{cfg.name}: the attention layer disagrees with its plain transcription")
+    report_batch_serve(cfg, params, total, max_prompt=DENSE_MAX_PROMPT[cfg.name])
+    report_continuous(cfg, params, total, ("greedy", "sampled"),
+                      traffic=continuous_traffic(cfg, max_prompt=DENSE_MAX_PROMPT[cfg.name]),
+                      near_ties=True)
+    print(f"[time] phase 12a {cfg.name} {time.perf_counter() - t0:.1f}s")
+
+
+# 12c-e: the algorithms' train steps ------------------------------------
+
+def frozen_copy(params):
+    """The reference model: a detached copy of the policy's weights."""
+    return tree_map(lambda t: t.detach().clone(), params)
+
+
+def state_of(params, before):
+    """Whether every parameter is finite, and how many leaves differ from
+    ``before`` (host copies of ``adamw.leaves``)."""
+    now = adamw.leaves(params)
+    return dict(finite=all(bool(torch.isfinite(p).all()) for p in now),
+                changed=sum(bool((p.cpu() != q).any()) for p, q in zip(now, before)),
+                leaves=len(now))
+
+
+def algo_grads(grads_fn, cfg, params, hp, batch, gen_start, *, impl, adv_scale=None):
+    """``grads_fn``'s (``dpo_grads``, ``grpo_grads``, ``remax_grads``)
+    loss, grad_norm and gradients under ``impl``, as ``agreement`` reads
+    them; ``adv_scale`` the loss's term scale (None: |loss|)."""
+    loss, st, grads = grads_fn(params, cfg, hp, batch, gen_start, impl=impl)
+    return dict(loss=loss.item(), grad_norm=adamw.global_norm(grads).item(), grads=grads,
+                names=leaf_names(params),
+                clip_frac=st["clip_frac"].item() if "clip_frac" in st else 0.0,
+                adv_scale=adv_scale, routes=None, rows=None)
+
+
+def algo_tiers(name, grads_fn, cfg, params, hp, batches, gen_start, *, adv_scale=None,
+               impl="cuda"):
+    """{name: ``agreement``} of ``impl`` against "reference", each on its
+    own batch of ``batches`` ({impl: batch}; the reference model's and the
+    behaviour's log-probs are each tier's own inference), before any
+    update."""
+    got = algo_grads(grads_fn, cfg, params, hp, batches[impl], gen_start, impl=impl,
+                     adv_scale=adv_scale)
+    want = algo_grads(grads_fn, cfg, params, hp, batches["reference"], gen_start,
+                      impl="reference", adv_scale=adv_scale)
+    return {name: agreement(name, got, want)}
+
+
+def dpo_batch(cfg, params, *, pairs, seq, gen_start, impl, seed=0):
+    """A ``PreferenceDataset`` batch with the frozen reference's summed
+    log-probs (a copy of ``params``, freed after)."""
+    device = params["embed"]["table"].device
+    batch = PreferenceDataset(cfg.vocab_size, seq, pairs, seed=seed, device=device).batch_at(0)
+    ref = frozen_copy(params)
+    with torch.no_grad():
+        for side in ("chosen", "rejected"):
+            batch[f"ref_{side}_logp"] = DPO.seq_logp_sum(ref, cfg, batch[side],
+                                                         batch[f"{side}_mask"], gen_start,
+                                                         impl=impl, remat=False)
+    del ref
+    return batch
+
+
+def dpo_predicted(cfg, steps):
+    """The reference's two forwards, then per step the chosen and rejected
+    forwards and their recomputes (remat): flash_mha in every attention
+    layer of each."""
+    return {"flash_mha": attn_layers(cfg) * (2 + 4 * steps)}
+
+
+def phase_dpo(cfg, params, *, impl, pairs, seq, gen_start, steps=DPO_STEPS, opt=DPO_OPT,
+              seed=0):
+    """``steps`` DPO train steps on one fixed ``PreferenceDataset`` batch,
+    the reference a frozen copy of the initial policy (β 0.1): per step the
+    stats and seconds; the launches from the reference's inference to the
+    last step and their prediction; the parameters' state."""
+    device = params["embed"]["table"].device
+    hp = DPO.DPOHyperparameters(beta=0.1)
+    reset_launches()
+    batch = dpo_batch(cfg, params, pairs=pairs, seq=seq, gen_start=gen_start, impl=impl,
+                      seed=seed)
+    before = [p.detach().to("cpu", copy=True) for p in adamw.leaves(params)]
+    opt_state = adamw.init(opt, params)
+    step = DPO.make_dpo_train_step(cfg, hp, opt, gen_start, impl=impl)
+    out = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, opt_state, st = step(params, opt_state, batch)
+        sync(device)
+        out.append(dict(seconds=time.perf_counter() - t0, **{k: float(v) for k, v in st.items()}))
+    counts = launches()
+    del opt_state
+    return dict(steps=out, launches=counts, predicted=dpo_predicted(cfg, steps),
+                state=state_of(params, before), batch=batch, hp=hp)
+
+
+def report_dpo(cfg, params, total, *, pairs, seq, gen_start, compare=False):
+    """12c for one model on the card: ``phase_dpo`` and its checks; with
+    ``compare``, first the cuda-vs-reference agreement of step 0's loss,
+    grad_norm and gradient in bf16 (``TRAIN_TOL`` / ``TRAIN_LEAF_TOL``)
+    and in fp32 on 2 layers (``FP32_GRAD_TOL``)."""
+    t0 = time.perf_counter()
+    device = params["embed"]["table"].device
+    tag = f"[dpo] {cfg.name} {cfg.num_layers} layers, {pairs} pairs of {seq} tokens, " \
+          f"gen_start {gen_start}"
+    if compare:
+        report_algo_tiers("[dpo]", "dpo", DPO.dpo_grads, cfg, params,
+                          lambda c, p, impl: dpo_batch(c, p, pairs=pairs, seq=seq,
+                                                       gen_start=gen_start, impl=impl),
+                          DPO.DPOHyperparameters(beta=0.1), gen_start)
+    peak_reset(device)
+    r = phase_dpo(cfg, params, impl="cuda", pairs=pairs, seq=seq, gen_start=gen_start)
+    for i, st in enumerate(r["steps"]):
+        print(f"{tag}: step {i} loss {st['loss']:.6f} dpo_acc {st['dpo_acc']:.4f} margin "
+              f"{st['margin']:+.4e} grad_norm {st['grad_norm']:.4e} in {st['seconds']:.3f}s")
+    losses = [st["loss"] for st in r["steps"]]
+    print(f"{tag}: step 0 loss - ln 2 = {losses[0] - math.log(2):+.3e} (tol {DPO_LOSS0_TOL}); "
+          f"parameters {r['state']}; launches {r['launches']} (predicted {r['predicted']}); "
+          f"peak {peak(device)} bytes; {time.perf_counter() - t0:.1f}s")
+    check(abs(losses[0] - math.log(2)) <= DPO_LOSS0_TOL, f"{tag}: step 0 loss is not ln 2")
+    check(r["steps"][0]["dpo_acc"] == 0.0, f"{tag}: step 0 dpo_acc is not 0")
+    check(all(math.isfinite(v) for st in r["steps"] for v in st.values()),
+          f"{tag}: non-finite stats")
+    check(all(b < a for a, b in zip(losses, losses[1:])), f"{tag}: the loss did not fall")
+    check(r["state"]["finite"] and r["state"]["changed"] > 0, f"{tag}: parameters "
+          f"{r['state']}")
+    check(same_launches(r["launches"], r["predicted"]), f"{tag}: launches {r['launches']}")
+    for k in total:
+        total[k] += r["launches"][k]
+
+
+def report_algo_tiers(tag, name, grads_fn, cfg, params, make_batch, hp, gen_start, *,
+                      adv_scale=None):
+    """The tiers' agreement for one algorithm on the card: on the full
+    model (bf16, gated at ``TRAIN_TOL`` / ``TRAIN_LEAF_TOL``), then on an
+    fp32 2-layer model of the same config (``FP32_GRAD_TOL``).
+    ``make_batch(cfg, params, impl)`` gives a batch whose log-probs (the
+    reference model's, the behaviour's) are ``impl``'s inference.  In bf16
+    each tier takes its own, as each tier would run the whole algorithm
+    (fed the other tier's, the bf16 spread between the tiers' forwards
+    reads as a loss error); in fp32 both take the reference tier's, so
+    the loss at step 0 differs by what the tiers' train forwards compute.
+    ``adv_scale(batch)`` gives the loss's term scale (None: |loss|).  The
+    comparison's launches are not counted."""
+    device = params["embed"]["table"].device
+    for label, c, p, tol, leaf_tol in (("bf16", cfg, params, TRAIN_TOL, TRAIN_LEAF_TOL),
+                                       ("fp32", None, None, FP32_GRAD_TOL, FP32_GRAD_TOL)):
+        if c is None:
+            c = shallow(cfg, 2, dtype="float32")
+            p = make_dense_params(c, seed=1, device=device)
+        batches = {"reference": make_batch(c, p, "reference")}
+        batches["cuda"] = make_batch(c, p, "cuda") if label == "bf16" else batches["reference"]
+        cmp = algo_tiers(name, grads_fn, c, p, hp, batches, gen_start,
+                         adv_scale=adv_scale(batches["reference"]) if adv_scale else None)
+        report_compare(tag, f"{label}, {c.num_layers} layers, step 0 cuda vs reference", cmp,
+                       tol, leaf_tol)
+        del batches, cmp
+        if label == "fp32":
+            del p
+        free(device)
+
+
+def prompt_rows(cfg, device, *, prompts, prompt_len, repeat=1, seed=0):
+    """Seeded prompts (prompts, prompt_len), each row repeated ``repeat``
+    times in a row (GRPO's groups)."""
+    rng = np.random.default_rng(seed + 200)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (prompts, prompt_len))).to(device)
+    return toks.repeat_interleave(repeat, dim=0)
+
+
+def rollout(cfg, params, prompts, *, new, impl, seed=None):
+    """``generate`` of ``new`` tokens after ``prompts``, greedy (``seed``
+    None) or sampled from a seeded ``torch.Generator``; returns prompt and
+    generated tokens as one (B, P + new) int64 tensor."""
+    device = prompts.device
+    gen = None if seed is None else torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        out = MDL.generate(params, cfg, {"tokens": prompts}, num_new_tokens=new, rng=gen,
+                           impl=impl)
+    return torch.cat([prompts, out["tokens"].to(prompts.dtype)], dim=1)
+
+
+def scores(rcfg, rparams, tokens, *, impl):
+    with torch.no_grad():
+        return RWD.score_sequences(rparams, rcfg, tokens, torch.ones_like(tokens,
+                                                                          dtype=torch.float32),
+                                   impl=impl)
+
+
+def inference_logp(cfg, params, tokens, gen_start, *, impl):
+    with torch.no_grad():
+        return PPO.sequence_logprobs(params, cfg, tokens, gen_start, impl=impl, remat=False)
+
+
+def group_stats(adv, group):
+    """Each group's |mean| and |population std - 1| of ``adv``, worst over
+    the groups, computed here (not by ``group_advantages``)."""
+    a = adv.double().reshape(-1, group)
+    mean = a.mean(-1)
+    std = (a - mean[:, None]).square().mean(-1).sqrt()
+    return mean.abs().max().item(), (std - 1).abs().max().item()
+
+
+def rl_batch(kind, cfg, params, rcfg, rparams, *, impl, prompts, group, prompt_len, new,
+             seed=0):
+    """The inputs of one GRPO or ReMax step: ``prompts`` x ``group`` rows
+    sampled by ``generate``, the reward model's scores of them and the
+    frozen reference's log-probs; for GRPO the behaviour's log-probs, for
+    ReMax the scores of a greedy ``generate`` of the same prompts (the
+    baseline)."""
+    device = params["embed"]["table"].device
+    rows = prompt_rows(cfg, device, prompts=prompts, prompt_len=prompt_len, repeat=group,
+                       seed=seed)
+    toks = rollout(cfg, params, rows, new=new, impl=impl, seed=seed + 1)
+    ref = frozen_copy(params)
+    batch = {"tokens": toks, "mask": torch.ones((toks.shape[0], new), device=device),
+             "ref_logp": inference_logp(cfg, ref, toks, prompt_len, impl=impl),
+             "rewards": scores(rcfg, rparams, toks, impl=impl)}
+    del ref
+    if kind == "grpo":
+        batch["logp"] = inference_logp(cfg, params, toks, prompt_len, impl=impl)
+    else:
+        greedy = rollout(cfg, params, rows, new=new, impl=impl)
+        batch["rewards_baseline"] = scores(rcfg, rparams, greedy, impl=impl)
+    return batch
+
+
+def rl_predicted(kind, cfg, rcfg, new):
+    """``rl_batch``'s ``generate``s (ReMax's two) and forwards (the
+    reference, the reward model's per rollout, GRPO's behaviour), then the
+    train step's forward and its recompute."""
+    n_gen = 1 if kind == "grpo" else 2
+    out = {k: n_gen * v for k, v in generate_predicted(cfg, new).items()}
+    out["flash_mha"] += (n_gen * attn_layers(rcfg)
+                         + (2 if kind == "grpo" else 1) * attn_layers(cfg) + 2 * attn_layers(cfg))
+    return out
+
+
+def phase_rl(kind, cfg, params, batch, hp, gen_start, *, impl, opt=ALGO_OPT):
+    """One GRPO or ReMax step (``RL[kind]``) on ``batch`` (``rl_batch``'s):
+    the step's stats and seconds, its launches, the parameters' state and,
+    for GRPO, the group advantages' worst |mean| and |population std - 1|
+    (``group_stats``)."""
+    device = params["embed"]["table"].device
+    make_step = RL[kind][1]
+    out = {}
+    if kind == "grpo":
+        g = hp.group_size
+        out["mean_err"], out["std_err"] = group_stats(
+            GRPO.group_advantages(batch["rewards"], g), g)
+    before = [p.detach().to("cpu", copy=True) for p in adamw.leaves(params)]
+    reset_launches()
+    t0 = time.perf_counter()
+    params, _, st = make_step(cfg, hp, opt, gen_start, impl=impl)(
+        params, adamw.init(opt, params), batch)
+    sync(device)
+    return dict(out, step_s=time.perf_counter() - t0, launches=launches(),
+                stats={k: float(v) for k, v in st.items()}, state=state_of(params, before))
+
+
+def with_logp(batch, cfg, params, gen_start, keys, impl):
+    """``batch`` with each of ``keys`` ("logp", "ref_logp") recomputed by
+    ``params`` under ``impl``: a tier's inference, and on the fp32 2-layer
+    model of the comparison its ratios start at 1 as the full model's do
+    (the reference is the policy's frozen copy: the same weights)."""
+    out = dict(batch)
+    for k in keys:
+        out[k] = inference_logp(cfg, params, batch["tokens"], gen_start, impl=impl)
+    return out
+
+
+def algo_scale(name, hp, batch):
+    """The size of the loss's per-token terms, which the tiers' loss error
+    is read against (as the PPO actor's mean |advantage|): GRPO's mean
+    |advantage| (ratio * advantage with ratio ~1), ReMax's mean
+    |(reward - baseline) * log-prob|."""
+    if name == "grpo":
+        return GRPO.group_advantages(batch["rewards"], hp.group_size).abs().mean().item()
+    adv = (batch["rewards"] - batch["rewards_baseline"])[:, None]
+    return (adv * batch["ref_logp"]).abs().mean().item()
+
+
+def report_rl_algos(device, total):
+    """12d and 12e on the card: GRPO then ReMax on full qwen3-1.7b with the
+    rewards of a qwen2-0.5b value-head trunk; between each batch and its
+    step, the tiers' gradient agreement on that batch."""
+    cfg, rcfg = get_config("qwen3-1.7b"), get_config(REWARD)
+    rparams = MDL.init_params(rcfg, seed=3, device=device, head="value")
+    rparams["embed"]["table"].mul_(EMBED_SCALE)
+    for kind, shape in RL_SHAPES.items():
+        t0 = time.perf_counter()
+        tag, gen_start = f"[{kind}]", shape["prompt_len"]
+        grads_fn, _, hp_of, keys = RL[kind]
+        hp = hp_of(shape["group"])
+        params = make_dense_params(cfg, seed=0, device=device)
+        peak_reset(device)
+        reset_launches()
+        batch = rl_batch(kind, cfg, params, rcfg, rparams, impl="cuda", **shape)
+        counts = launches()
+        report_algo_tiers(tag, kind, grads_fn, cfg, params,
+                          lambda c, p, impl: with_logp(batch, c, p, gen_start, keys, impl),
+                          hp, gen_start, adv_scale=lambda b: algo_scale(kind, hp, b))
+        r = phase_rl(kind, cfg, params, batch, hp, gen_start, impl="cuda")
+        counts = {k: v + r["launches"][k] for k, v in counts.items()}
+        predicted = rl_predicted(kind, cfg, rcfg, shape["new"])
+        rewards = batch["rewards"].float()
+        what = (f"{cfg.name} {cfg.num_layers} layers, {shape['prompts'] * shape['group']} rows "
+                f"of {gen_start} + {shape['new']} tokens")
+        print(f"{tag} {what}: rewards mean {rewards.mean().item():+.4f} std "
+              f"{rewards.std(correction=0).item():.4f}" + (
+                  f", greedy baseline mean {batch['rewards_baseline'].mean().item():+.4f}"
+                  if kind == "remax" else ""))
+        if kind == "grpo":
+            print(f"{tag} {what}: group advantages worst |mean| {r['mean_err']:.3e} (tol "
+                  f"{ADV_MEAN_TOL}), worst |population std - 1| {r['std_err']:.3e} (tol "
+                  f"{ADV_STD_TOL})")
+            check(r["mean_err"] <= ADV_MEAN_TOL and r["std_err"] <= ADV_STD_TOL,
+                  f"{tag}: group advantages not whitened")
+        print(f"{tag} {what}: step {r['stats']} in {r['step_s']:.3f}s; parameters {r['state']}; "
+              f"launches {counts} (predicted {predicted}); peak {peak(device)} "
+              f"bytes; {time.perf_counter() - t0:.1f}s")
+        check(all(math.isfinite(v) for v in r["stats"].values()), f"{tag}: non-finite stats")
+        check(r["state"]["finite"] and r["state"]["changed"] > 0,
+              f"{tag}: parameters {r['state']}")
+        check(same_launches(counts, predicted), f"{tag}: launches {counts}")
+        for k in total:
+            total[k] += counts[k]
+        del params, batch, r
+        free(device)
+    del rparams
+    free(device)
+
+
+def report_dense_model(name, device, total):
+    """12a for one config: its parameters drawn on the card, ``report_dense``,
+    then freed."""
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    params = make_dense_params(cfg, seed=0, device=device)
+    sync(device)
+    print(f"[dense] {name}: {cfg.num_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim} (q_dim {cfg.q_dim}), windows "
+          f"{sorted({s.window for s in cfg.layers}, key=str)}, vocabulary {cfg.vocab_size}, "
+          f"{sum(t.numel() for t in tree_leaves(params))} parameters drawn in "
+          f"{time.perf_counter() - t0:.1f}s; memory_allocated="
+          f"{torch.cuda.memory_allocated()} bytes")
+    report_dense(cfg, params, total)
+    del params
+    free(device)
+
+
+def report_phase12(device, total):
+    """Phase 12: (a) qwen3-1.7b and gemma3-1b served, (c) DPO on both, (d)
+    GRPO and (e) ReMax on qwen3-1.7b, then (a) qwen2.5-14b, alone on the
+    card; each model's parameters freed before the next is built.  (b), the
+    kernels at these configs' shapes, runs in phase 2."""
+    t_phase = time.perf_counter()
+    for name in DENSE[:2]:
+        report_dense_model(name, device, total)
+    t0 = time.perf_counter()
+    for name, pairs, seq, gen_start in DPO_RUNS:
+        cfg = get_config(name)
+        params = make_dense_params(cfg, seed=0, device=device)
+        report_dpo(cfg, params, total, pairs=pairs, seq=seq, gen_start=gen_start,
+                   compare=name == "qwen3-1.7b")
+        del params
+        free(device)
+    report_rl_algos(device, total)
+    print(f"[time] phase 12c-e {time.perf_counter() - t0:.1f}s")
+    report_dense_model(DENSE[2], device, total)
+    print(f"[time] phase 12 {time.perf_counter() - t_phase:.1f}s")
+
+
 # ------------------------------------------------------------------ main
 
 def shallow(cfg, layers=4, *, dtype=None):
@@ -3539,11 +4226,12 @@ def shallow(cfg, layers=4, *, dtype=None):
                                num_layers=n_sb * len(cfg.superblock) + len(cfg.tail))
 
 
-def report_slice(cfg, params):
+def report_slice(cfg, params, *, prompt_len=256):
     """Phase 3 on the card for one model: cuda vs reference logits (and the
     router's agreement for MoE; for a model with recurrent mixers also in
-    fp32 on a few layers), then paged vs dense decode."""
-    sl = route_agreement(cfg, params, impl="cuda")
+    fp32 on a few layers), then paged vs dense decode, on prompts of
+    ``prompt_len``."""
+    sl = route_agreement(cfg, params, impl="cuda", prompt_len=prompt_len)
     routes = (f" route_agreement={sl['route_agreement']:.4f}" if moe_layers(cfg) else "")
     print(f"[slice] {cfg.name} {cfg.num_layers} layers bf16: prefill_err="
           f"{sl['prefill_err']:.3e} decode_err={sl['decode_err']:.3e} "
@@ -3563,18 +4251,28 @@ def report_slice(cfg, params):
               f"argmax_agreement={sl['argmax_agreement']:.3f}")
         check(sl["prefill_err"] <= FP32_LOGIT_TOL and sl["decode_err"] <= FP32_LOGIT_TOL,
               f"{cfg.name}: fp32 cuda logits disagree with the reference")
-    pg = phase_paged_slice(cfg, params, impl="cuda")
+    pg = phase_paged_slice(cfg, params, impl="cuda", prompt_len=prompt_len)
+    # on the same split grid the paged decode is flash_decode's bits on the
+    # gathered cache (phase 2), so the logits must be the same bits; one key
+    # left out of the last paged layer reads 3.9e-3 to 7.0e-3 here
+    # (scripts/limit_controls.py), under LOGIT_TOL
+    tol = 0.0 if pg["same_grid"] else LOGIT_TOL
     print(f"[slice] {cfg.name} paged decode vs dense decode, both cuda: paged_err="
-          f"{pg['paged_err']:.3e} (of max |logit| {pg['logit_scale']:.3f}; tol {LOGIT_TOL}) "
-          f"argmax_agreement={pg['argmax_agreement']:.3f}")
-    check(pg["paged_err"] <= LOGIT_TOL, f"{cfg.name}: paged logits disagree with the dense "
-          "decode")
+          f"{pg['paged_err']:.3e} (of max |logit| {pg['logit_scale']:.3f}; tol {tol}"
+          + (", the same split grid: the same bits" if pg["same_grid"] else "")
+          + f") argmax_agreement={pg['argmax_agreement']:.3f}")
+    check(pg["paged_err"] <= tol, f"{cfg.name}: paged logits disagree with the dense decode")
 
 
-def report_continuous(cfg, params, total, modes):
-    """Phase 5 on the card for one model; adds each run's launches to
-    ``total``.  The kernels of the path are those the prediction launches."""
-    prompts, new = continuous_traffic(cfg)
+def report_continuous(cfg, params, total, modes, traffic=None, near_ties=False):
+    """Phase 5 on the card for one model, on ``traffic`` (prompts, new)
+    (None: ``continuous_traffic``'s); adds each run's launches to
+    ``total``.  The kernels of the path are those the prediction launches.
+    Greedy continuous and bucketed outputs of an attention-only model agree
+    on all requests but one; with ``near_ties`` (phase 12's configs), and
+    for a model with recurrent mixers, each request where they part is
+    held to a near-tie (``tie_gaps``, ``RECURRENT_TIE_TOL``) instead."""
+    prompts, new = traffic or continuous_traffic(cfg)
     torch.cuda.reset_peak_memory_stats()
     cruns = phase_continuous(cfg, params, prompts, new, impl="cuda", modes=modes)
     for mode, r in cruns.items():
@@ -3614,12 +4312,14 @@ def report_continuous(cfg, params, total, modes):
           f"{bk['useful_tokens_per_s']:.1f} useful tokens/s in {bk['seconds']:.3f}s, "
           f"launches {bk['launches']} (predicted {bk['predicted']}); "
           f"max_memory_allocated={torch.cuda.max_memory_allocated()} bytes")
-    if all(s.kind == ATTN for s in cfg.layers):
+    if all(s.kind == ATTN for s in cfg.layers) and not near_ties:
         check(same_bk >= len(prompts) - 1, "continuous and bucketed greedy outputs disagree")
         return
     # a recurrent state carries each bf16 rounding difference between the
     # engines' batches on to every later token, so greedy runs part at more
-    # near-ties than attention's; each request where they part must be one
+    # near-ties than qwen2-0.5b's; so do phase 12's configs (1-7 of 16
+    # requests on the H100, each a near-tie); each request where they part
+    # must be one
     gaps = tie_gaps(cfg, params, prompts, cruns["greedy"]["outputs"], bk["outputs"])
     worst = max((g / sc for g, sc in gaps.values()), default=0.0)
     print(f"[continuous] {cfg.name} where greedy continuous and bucketed part, the two "
@@ -3657,22 +4357,8 @@ def main():
     params = make_params(cfg, seed=0, device=device)
     report_slice(cfg, params)
 
-    prompts = serve_prompts(cfg)
-    want = predicted_launches(cfg, prompts, 64)
-    torch.cuda.reset_peak_memory_stats()
-    runs = phase_serve(cfg, params, prompts, impl="cuda", new=64)
     total = {k: 0 for k in launches()}
-    for mode, r in runs.items():
-        print(f"[serve] {mode}: {len(prompts)} requests (prompt lengths "
-              f"{sorted(len(p) for p in prompts)}), {r['tokens_per_s']:.1f} tokens/s "
-              f"in {r['seconds']:.3f}s; launches {r['launches']} (predicted {want})")
-        check(same_launches(r["launches"], want), f"{mode}: launches {r['launches']} != {want}")
-        for k in total:
-            total[k] += r["launches"][k]
-    same = sum(bool((a == b).all()) for a, b in zip(runs["greedy"]["outputs"],
-                                                     runs["sampled"]["outputs"]))
-    print(f"[serve] sampled equals greedy on {same}/{len(prompts)} requests; "
-          f"max_memory_allocated={torch.cuda.max_memory_allocated()} bytes")
+    report_batch_serve(cfg, params, total)
     report_continuous(cfg, params, total, ("greedy", "sampled", "preempt"))
     del params
     torch.cuda.empty_cache()
@@ -3706,6 +4392,7 @@ def main():
     del params
     free(device)
     print(f"[time] phase 11 {time.perf_counter() - t0:.1f}s")
+    report_phase12(device, total)
 
     source = "src/repro_torch/kernels/csrc/"
     rows = [dict(name="flash_mha", route="cuda", source=source + "flash_attention.cu",

@@ -3,8 +3,6 @@
 limits, each beside that of a planted fault the limit has to fail, on a
 CUDA card.
 
-    PYTHONPATH=src python scripts/limit_controls.py
-
 1. ``ssd_scan`` on ``chip_smoke.SSD_CASES`` against the plain version run in
    fp32 on the same values (the sound reading, as ``chip_smoke`` holds it),
    and the plain version with a planted loss of precision against the same:
@@ -20,8 +18,17 @@ CUDA card.
    tokens): the plain version at chunk 64 against chunk 128, the spread of
    the plain version alone (the kernel walks pieces of its own whatever
    the chunk: 128 rows in bf16, 64 in fp32).
+4. For phase 12's dense configs (qwen3-1.7b, gemma3-1b, qwen2.5-14b) on
+   their continuous traffic: the same gaps, sound and with a planted
+   paged-decode fault: each row's own new key left out of its attention
+   (``cache_len`` one short), in every global (paged) layer and then in
+   the last one only; and under each, phase 3's paged-vs-dense decode
+   error (``chip_smoke.phase_paged_slice``).
 
-Prints the card's name and power limit first.  Fails without a card.
+    PYTHONPATH=src python scripts/limit_controls.py [ssd] [recurrent] [dense]
+
+runs the named parts (all without arguments).  Prints the card's name and
+power limit first.  Fails without a card.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import chip_smoke as cs  # noqa: E402
 from repro_torch.configs.base import ATTN  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.models import attention as ATT  # noqa: E402
 from repro_torch.models import model as MDL  # noqa: E402
 from repro_torch.models import paged_cache as PC  # noqa: E402
 
@@ -143,6 +151,54 @@ def gap_readings(name):
     torch.cuda.empty_cache()
 
 
+def own_key_dropped(n_global, faulty):
+    """``attention.paged_attn_decode_apply`` that, in the global layers of
+    ``faulty`` (indices among the model's ``n_global`` global layers, which
+    each decode step calls in order), attends with ``cache_len`` one short:
+    the row's own new key, written at its position, is left out."""
+    real = ATT.paged_attn_decode_apply
+    calls = [0]
+
+    def apply(p, cfg, x, cache, block_table, dest, rope, cache_len, **kw):
+        i = calls[0] % n_global
+        calls[0] += 1
+        return real(p, cfg, x, cache, block_table, dest, rope,
+                    cache_len - 1 if i in faulty else cache_len, **kw)
+    return apply
+
+
+def dense_gap_readings(name):
+    device = torch.device("cuda")
+    cfg = cs.get_config(name)
+    params = cs.make_dense_params(cfg, seed=0, device=device)
+    prompts, new = cs.continuous_traffic(cfg, max_prompt=cs.DENSE_MAX_PROMPT[name])
+    bk = cs.bucketed_on(cfg, params, prompts, new, impl="cuda")
+    n_global = cs.attn_layers(cfg, local=False)
+    real = ATT.paged_attn_decode_apply
+    for what, faulty in (("sound", ()),
+                         ("own key left out in every global layer", range(n_global)),
+                         ("own key left out in the last global layer", (n_global - 1,))):
+        ATT.paged_attn_decode_apply = own_key_dropped(n_global, set(faulty)) if faulty else real
+        try:
+            run = cs.phase_continuous(cfg, params, prompts, new, impl="cuda",
+                                      modes=("greedy",))["greedy"]
+            pg = cs.phase_paged_slice(cfg, params, impl="cuda",
+                                      prompt_len=cs.DENSE_SLICE_PROMPT[name])
+        finally:
+            ATT.paged_attn_decode_apply = real
+        gaps = cs.tie_gaps(cfg, params, prompts, run["outputs"], bk["outputs"])
+        scaled = {i: g / sc for i, (g, sc) in gaps.items()}
+        worst = max(scaled.values(), default=0.0)
+        print(f"[dense gaps] {name} ({n_global} global layers) {what}: {len(gaps)}/"
+              f"{len(prompts)} requests part; largest {worst:.3e} (tol "
+              f"{cs.RECURRENT_TIE_TOL}); "
+              + ", ".join(f"request {i} {g:.3e}" for i, g in sorted(scaled.items())))
+        print(f"[dense paged] {name} {what}: phase 3's paged vs dense decode paged_err="
+              f"{pg['paged_err']:.3e} (tol {0.0 if pg['same_grid'] else cs.LOGIT_TOL})")
+    del params, bk
+    cs.free(device)
+
+
 def chunk_spread(cfg, params, batch=4, prompt_len=256, steps=8, seed=0):
     """Reference logits at chunk 64 against chunk 128 on ``phase_slice``'s
     tokens."""
@@ -176,10 +232,16 @@ def main():
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
+    parts = set(sys.argv[1:]) or {"ssd", "recurrent", "dense"}
     build.build()
-    ssd_readings()
-    for name in ("mamba2-1.3b", "recurrentgemma-9b"):
-        gap_readings(name)
+    if "ssd" in parts:
+        ssd_readings()
+    if "recurrent" in parts:
+        for name in ("mamba2-1.3b", "recurrentgemma-9b"):
+            gap_readings(name)
+    if "dense" in parts:
+        for name in cs.DENSE:
+            dense_gap_readings(name)
     return 0
 
 

@@ -3,13 +3,17 @@ paper's LLaMA-3 models."""
 
 from __future__ import annotations
 
-from repro_torch.configs import granite_moe_1b, llama, mamba2_13b, qwen2_05b, recurrentgemma_9b
+from repro_torch.configs import (gemma3_1b, granite_moe_1b, llama, mamba2_13b, qwen2_05b,
+                                 qwen3_17b, qwen25_14b, recurrentgemma_9b)
 from repro_torch.configs.base import (ATTN, LRU, SSM, LayerSpec, ModelConfig,  # noqa: F401
                                       dense_pattern)
 from repro_torch.configs.llama import (LLAMA_7B, LLAMA_13B, LLAMA_34B, LLAMA_70B,  # noqa: F401
                                        PAPER_SIZES, critic_of)
 
 ARCHS: dict[str, ModelConfig] = {c.name: c for c in (qwen2_05b.CONFIG,
+                                                     qwen3_17b.CONFIG,
+                                                     gemma3_1b.CONFIG,
+                                                     qwen25_14b.CONFIG,
                                                      granite_moe_1b.CONFIG,
                                                      mamba2_13b.CONFIG,
                                                      recurrentgemma_9b.CONFIG,

@@ -140,20 +140,29 @@ def _loss_grads(params, loss_fn):
     return loss.detach(), {k: v.detach() for k, v in stats.items()}, list(grads)
 
 
+def _one_update(grads_fn, opt):
+    """f(params, opt_state, batch) -> (params, opt_state, stats): one AdamW
+    update on ``grads_fn(params, batch)`` (as :func:`_loss_grads` returns),
+    parameters and optimizer state in place; stats: the loss, the grads
+    function's and the update's."""
+    def step(params, opt_state, batch):
+        loss, st, grads = grads_fn(params, batch)
+        params, opt_state, ostats = adamw.update(opt, params, opt_state, grads)
+        return params, opt_state, {"loss": loss, **st, **ostats}
+    return step
+
+
 def _minibatch_loop(grads_fn, opt):
     """f(params, opt_state, minibatches) -> (params, opt_state, stats) over
-    (nmb, ...)-stacked minibatches; ``grads_fn(params, mb)`` as
-    :func:`_loss_grads` returns.  Parameters and optimizer state are updated
-    in place."""
+    (nmb, ...)-stacked minibatches, one :func:`_one_update` each; stats are
+    means over them."""
+    update = _one_update(grads_fn, opt)
+
     def step(params, opt_state, batch):
         stats = []
         for j in range(batch["tokens"].shape[0]):
-            mb = {k: v[j] for k, v in batch.items()}
-            loss, st, grads = grads_fn(params, mb)
-            del mb
-            params, opt_state, ostats = adamw.update(opt, params, opt_state, grads)
-            del grads
-            stats.append({"loss": loss, **st, **ostats})
+            params, opt_state, st = update(params, opt_state, {k: v[j] for k, v in batch.items()})
+            stats.append(st)
         return params, opt_state, {k: torch.stack([s[k].float() for s in stats]).mean()
                                    for k in stats[0]}
     return step

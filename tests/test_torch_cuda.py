@@ -256,6 +256,55 @@ def test_paged_flash_decode_kernel_matches_plain(bs, d, dtype):
     _close(poisoned[1:], got[1:], dtype)  # rows with a valid key: no leak
 
 
+# the dense configs' paged layers at their continuous servers' tables, (Hq,
+# Hkv, D, M, cache lengths before M * bs): qwen3-1.7b (Hq 16 on 8, D 128,
+# G 2), gemma3-1b (4 on 1, D 256, G 4; prompts of up to 1,000 tokens take
+# 68 blocks of 16), qwen2.5-14b (40 on 8, D 128, G 5: a group that is not a
+# power of two)
+DENSE_PAGED = [(16, 8, 128, 36, [0, 1, 17, 64, 100, 333, 500]),
+               (4, 1, 256, 68, [0, 1, 17, 100, 513, 777, 1000]),
+               (40, 8, 128, 36, [0, 1, 17, 64, 100, 333, 500])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv,d,m,lens", DENSE_PAGED)
+def test_paged_flash_decode_is_flash_decode_on_the_gathered_cache(hq, hkv, d, m, lens, dtype):
+    """With M * bs equal to the linear cache's length both kernels run the
+    same body on the same key values (bf16: the split-KV grid at the same
+    splits; fp32: the FMA walk), so the paged kernel on a shuffled table
+    gives flash_decode's bits on the cache gathered through it."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, bs = 8, 16
+    n = 1 + b * m
+    q = _randn(gen, (b, hq, d), dtype, dev)
+    kp, vp = (_randn(gen, (n, bs, hkv, d), dtype, dev) for _ in range(2))
+    table = (torch.randperm(n - 1, generator=gen, device=dev) + 1).reshape(b, m).int()
+    lens = torch.tensor([*lens, m * bs], dtype=torch.int32, device=dev)
+    got = paged_decode_attention.paged_flash_decode(q, kp, vp, table, cache_len=lens)
+    _close(got, ref.paged_decode_mha_ref(q, kp, vp, table, cache_len=lens), dtype)
+    kg, vg = (p[table.long()].reshape(b, m * bs, hkv, d) for p in (kp, vp))
+    dense = decode_attention.flash_decode(q, kg, vg, cache_len=lens)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [1000, 1024, 2048])
+def test_flash_mha_window_bites_at_d256(s, dtype):
+    """gemma3-1b's prefill: D 256, 4 query heads on 1, window 512 with S
+    past it (S 1000: most rows' windows start off a 64-key tile boundary,
+    so the kernel's skipped tiles and the partial first tile both run)."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = _randn(gen, (2, s, 4, 256), dtype, dev)
+    k, v = (_randn(gen, (2, s, 1, 256), dtype, dev) for _ in range(2))
+    _close(flash_attention.flash_mha(q, k, v, causal=True, window=512),
+           ref.mha_ref(q, k, v, causal=True, window=512), dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["flash_mha", "flash_decode", "paged_flash_decode",
                                     "flash_mha_varlen"])
