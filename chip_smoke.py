@@ -168,10 +168,27 @@ Phases, in order; any failure exits non-zero before the last line:
      greedy rollout; each step's gradient cuda vs reference; then (a)
      qwen2.5-14b (48 layers, 14.7B parameters) last, alone on the card.
      Launches held to the prediction throughout.
+ 13. the encoder-decoder and prefix-embedding paths, bf16, seeded weights
+     with norm scales drawn: (a) seamless-m4t-medium at full width and
+     depth (12 encoder and 12 decoder layers with cross-attention, 16
+     heads of 64, 512 frames, untied 256,206 vocabulary): forward,
+     prefill and 8 teacher-forced decode steps cuda vs reference on 4 x
+     128 tokens, the logits moved by the frames, greedy ``generate`` and
+     ``BucketedGenerator`` on 8 requests of 32-200 tokens (64 new each;
+     equal tokens where the bucket pads nothing), 3 ``make_train_step``
+     steps on 4 x 256 tokens, the fp32 2-layer gradient cuda vs reference
+     at FP32_GRAD_TOL; (b) internvl2-76b at full width on 8 of its 80
+     layers (64 / 8 heads of 128, a 256-embedding prefix over 512
+     positions): the tiers, the logits moved by the prefix and unmoved by
+     the token ids under it, greedy ``generate`` of 32 tokens, one bf16
+     ``lm_loss`` with its backward whose loss keeps its bits when the
+     labels under the prefix change.  Phase 2 runs ``flash_mha`` at their
+     shapes (non-causal at Sq != Skv, Sq 1 in decode; causal D 128 G 8)
+     and ``flash_decode`` at D 64 G 1 and D 128 G 8.
 Each model's parameters are freed before the next is built.
 Then one JSON line of kernel numbers, and last {"ok": true, "device": ...}.
 
-Phases 3 to 12 are functions of (config, params or experiment, impl) so the
+Phases 3 to 13 are functions of (config, params or experiment, impl) so the
 CPU tests rehearse them at the reduced size with impl="reference".
 """
 
@@ -532,7 +549,8 @@ def phase_kernels(device):
         bound_ms=bms, bound_by=by,
         library_ms=graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)))
     out["flash_mha"]["d256"] = mha_d256_case(randn, device)
-    out["flash_mha"]["d128"] = mha_d128_case(randn, device)
+    out["flash_mha"]["d128"] = mha_case(randn, device, "d128 (llama-7b)", 4, 512, 512, 32, 8,
+                                        128, True)
     out["flash_mha"]["verify"] = verify_kernel_case(randn, device, hq, hkv, d)
 
     # flash_decode: 8 rows over a 1088-slot linear cache with ragged
@@ -569,7 +587,8 @@ def phase_kernels(device):
         bound_ms=bms, bound_by=by, splits=decode_splits(b, hkv, c),
         library_ms=graph_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)))
     out["flash_decode"]["d256"] = decode_d256_case(randn, device)
-    out["flash_decode"]["d128"] = decode_d128_case(randn, device)
+    out["flash_decode"]["d128"] = decode_case(randn, device, "d128 linear (llama-7b)", 8, 32, 8,
+                                              128, [1, 17, 64, 65, 400, 777, 1000, 1088])
     out["paged_flash_decode"] = paged_kernel_case(randn, device, hq, hkv, d)
     # phase 12's configs at their continuous servers' tables: (name, label,
     # Hq, Hkv, D, table); qwen3-1.7b's and qwen2.5-14b's are 36 blocks
@@ -581,6 +600,14 @@ def phase_kernels(device):
     out["flash_mha"]["gemma3_s1000"] = mha_window_case(randn, device, 1000)
     out["flash_mha"]["gemma3_s2048"] = mha_window_case(randn, device, 2048)
     out["flash_decode"]["ring512_d256_g4"] = decode_ring512_case(randn, device)
+    for key, *shape in MODAL_MHA:
+        out["flash_mha"][key] = mha_case(randn, device, *shape)
+    # the decoders' self-attention at phase 13's decode: seamless's 4 rows
+    # at a 128-token prompt, internvl2's 2 rows at 512 (prefix and tokens)
+    out["flash_decode"]["seamless_d64_g1"] = decode_case(
+        randn, device, "seamless-m4t-medium", 4, 16, 16, 64, [129, 131, 133, 136])
+    out["flash_decode"]["internvl2_d128_g8"] = decode_case(
+        randn, device, "internvl2-76b", 2, 64, 8, 128, [513, 520])
     out["grouped_ffn"] = grouped_kernel_case(device)
     out["ssd_scan"] = ssd_kernel_case(device)
     out["rglru_scan"] = rglru_kernel_case(device)
@@ -802,6 +829,68 @@ def decode_ring512_case(randn, device):
                 plain_ms=time_ms(lambda: ref.decode_mha_ref(q, kc, vc, cache_len=lens,
                                                             window=c)),
                 bound_ms=bms, bound_by=by, splits=decode_splits(b, 1, c),
+                library_ms=graph_ms(lambda: sdpa(q[:, :, None], ks, vs, attn_mask=mask,
+                                                 enable_gqa=True)))
+
+
+# phase 13's flash_mha shapes: (key, label, B, Sq, Skv, Hq, Hkv, D, causal)
+MODAL_MHA = (
+    ("seamless_encoder", "seamless-m4t-medium encoder", 4, 512, 512, 16, 16, 64, False),
+    ("seamless_cross_prefill", "seamless-m4t-medium cross-attention, prefill", 4, 128, 512,
+     16, 16, 64, False),
+    ("seamless_cross_decode", "seamless-m4t-medium cross-attention, decode", 4, 1, 512,
+     16, 16, 64, False),
+    ("internvl2_prefill", "internvl2-76b prefill", 2, 512, 512, 64, 8, 128, True),
+)
+
+
+def mha_case(randn, device, label, b, sq, skv, hq, hkv, d, causal):
+    """flash_mha at a model's shape (causal at Sq = Skv, or non-causal at
+    any Sq, Skv: phase 13's encoder and its cross-attention over 512
+    encoder frames, in decode one live query row of the kernel's 64-row
+    tile) against the plain version, SDPA as the library call.  The bound
+    counts the pairs the mask keeps."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = randn(b, sq, hq, d), randn(b, skv, hkv, d), randn(b, skv, hkv, d)
+    err = held(f"flash_mha {label} (B{b} Sq{sq} Skv{skv} Hq{hq} Hkv{hkv} D{d}"
+               f"{' causal' if causal else ' non-causal'})",
+               flash_mha(q, k, v, causal=causal), ref.mha_ref(q, k, v, causal=causal))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    pairs = b * hq * (sq * (sq + 1) // 2 if causal else sq * skv)
+    bms, by = bound_ms(4 * d * pairs, 2 * (2 * q.numel() + 2 * k.numel()))
+
+    def kernel():
+        return flash_mha(q, k, v, causal=causal)
+    return dict(max_abs_err=err, library="scaled_dot_product_attention",
+                ms=graph_ms(kernel), cold_ms=graph_cold_ms(kernel), eager_ms=time_ms(kernel),
+                plain_ms=time_ms(lambda: ref.mha_ref(q, k, v, causal=causal)),
+                bound_ms=bms, bound_by=by,
+                library_ms=graph_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                                 enable_gqa=True)))
+
+
+def decode_case(randn, device, label, b, hq, hkv, d, lens):
+    """flash_decode at a model's decode shape: ``b`` rows of ``hq`` query
+    heads on ``hkv`` KV heads over a linear cache of max(lens) slots, row i
+    at length lens[i]."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    c = max(lens)
+    q, kc, vc = randn(b, hq, d), randn(b, c, hkv, d), randn(b, c, hkv, d)
+    lens = torch.tensor(lens, dtype=torch.int32, device=device)
+    err = held(f"flash_decode {label} (B{b} Hq{hq} Hkv{hkv} D{d} cache {c})",
+               flash_decode(q, kc, vc, cache_len=lens),
+               ref.decode_mha_ref(q, kc, vc, cache_len=lens))
+    n_keys = int(lens.sum())
+    bms, by = bound_ms(4 * d * hq * n_keys, 2 * (2 * q.numel() + 2 * n_keys * hkv * d))
+    ks, vs = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    mask = (torch.arange(c, device=device)[None] < lens[:, None])[:, None, None]
+
+    def kernel():
+        return flash_decode(q, kc, vc, cache_len=lens)
+    return dict(max_abs_err=err, library="scaled_dot_product_attention",
+                ms=graph_ms(kernel), cold_ms=graph_cold_ms(kernel), eager_ms=time_ms(kernel),
+                plain_ms=time_ms(lambda: ref.decode_mha_ref(q, kc, vc, cache_len=lens)),
+                bound_ms=bms, bound_by=by, splits=decode_splits(b, hkv, c),
                 library_ms=graph_ms(lambda: sdpa(q[:, :, None], ks, vs, attn_mask=mask,
                                                  enable_gqa=True)))
 
@@ -2746,53 +2835,6 @@ def strategy_assignment(dp, tp, ids):
     return Assignment(DeviceMesh(0, 1, ids[0], len(ids)), ParallelStrategy(dp, tp, 1, 1))
 
 
-def mha_d128_case(randn, device):
-    """flash_mha at llama-7b's prefill shape: B 4, S 512, 32 query heads on
-    8 KV heads, D 128, causal."""
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    b, s, hq, hkv, d = 4, 512, 32, 8, 128
-    q, k, v = randn(b, s, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
-    err = held("flash_mha d128 causal (llama-7b)", flash_mha(q, k, v, causal=True),
-               ref.mha_ref(q, k, v, causal=True))
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    pairs = b * hq * s * (s + 1) // 2
-    bms, by = bound_ms(4 * d * pairs, 2 * (2 * q.numel() + 2 * k.numel()))
-
-    def kernel():
-        return flash_mha(q, k, v, causal=True)
-    return dict(max_abs_err=err, library="scaled_dot_product_attention",
-                ms=graph_ms(kernel), cold_ms=graph_cold_ms(kernel), eager_ms=time_ms(kernel),
-                plain_ms=time_ms(lambda: ref.mha_ref(q, k, v, causal=True)),
-                bound_ms=bms, bound_by=by,
-                library_ms=graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)))
-
-
-def decode_d128_case(randn, device):
-    """flash_decode at llama-7b's decode shape: 8 rows of 32 query heads on
-    8 KV heads, D 128, over phase 2's 1088-slot linear cache and ragged
-    lengths."""
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    b, c, hq, hkv, d = 8, 1088, 32, 8, 128
-    q, kc, vc = randn(b, hq, d), randn(b, c, hkv, d), randn(b, c, hkv, d)
-    lens = torch.tensor([1, 17, 64, 65, 400, 777, 1000, 1088], dtype=torch.int32,
-                        device=device)
-    err = held("flash_decode d128 linear (llama-7b)", flash_decode(q, kc, vc, cache_len=lens),
-               ref.decode_mha_ref(q, kc, vc, cache_len=lens))
-    n_keys = int(lens.sum())
-    bms, by = bound_ms(4 * d * hq * n_keys, 2 * (2 * q.numel() + 2 * n_keys * hkv * d))
-    ks, vs = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
-    mask = (torch.arange(c, device=device)[None] < lens[:, None])[:, None, None]
-
-    def kernel():
-        return flash_decode(q, kc, vc, cache_len=lens)
-    return dict(max_abs_err=err, library="scaled_dot_product_attention",
-                ms=graph_ms(kernel), cold_ms=graph_cold_ms(kernel), eager_ms=time_ms(kernel),
-                plain_ms=time_ms(lambda: ref.decode_mha_ref(q, kc, vc, cache_len=lens)),
-                bound_ms=bms, bound_by=by, splits=decode_splits(b, hkv, c),
-                library_ms=graph_ms(lambda: sdpa(q[:, :, None], ks, vs, attn_mask=mask,
-                                                 enable_gqa=True)))
-
-
 def report_llama(device, total):
     """10a: llama-7b at full width on the card (seeded random bf16 weights
     drawn on the card, embedding scaled by EMBED_SCALE): phase 3's cuda vs
@@ -2922,14 +2964,23 @@ def report_realloc(cfg, params, device):
 
 # 10c's engine toys -------------------------------------------------------
 
+# The prefetch toy's other call waits at most this long for the engine to
+# dispatch the actor's prefetch: the deadline only bounds a run in which the
+# engine never prefetches, which the toy's prefetch_hits check then reports.
+PREFETCH_WAIT_S = 60.0
+
+
 def layout_prefetch_toy(actor, device, *, physical=True):
     """``test_realloc_fastpath.py``'s prefetch-hit toy with ``actor`` as the
     actor's tree: gen and other on 4 devices data-parallel (d4, FSDP over
-    data), train on d2t2 of the same devices; other sleeps 0.3 s, under
-    which the actor's move is prefetched.  ``ex_train`` checks that every
-    leaf it receives is a ``ShardedTensor`` on (a layout equivalent to) the
-    train layout and
-    computes the largest value over the blocks.  With ``physical=False``
+    data), train on d2t2 of the same devices; other stays open until the
+    actor's move to train is dispatched (``PREFETCH_WAIT_S`` at most; 0.3 s
+    logically, where nothing is prefetched), so that train, which waits
+    for other's output, finds the move prefetched however loaded the host
+    is (a fixed sleep left it to the host's timing).  ``ex_train`` checks
+    that every leaf it receives is a ``ShardedTensor`` on (a layout
+    equivalent to) the train layout and computes the largest value over
+    the blocks.  With ``physical=False``
     the same toy runs with ``sharding_for=None`` on plain tensors."""
     cluster = Cluster(n_nodes=1, devs_per_node=4)
     w = DFG.Workload(batch=4, prompt_len=8, gen_len=8)
@@ -2963,9 +3014,16 @@ def layout_prefetch_toy(actor, device, *, physical=True):
     params = place_tree(actor, gen_l) if physical else actor
     models = {"actor": RT.ModelState(params, assignment=plan.assignments["gen"]),
               "aux": RT.ModelState({})}
-    executors = {"gen": lambda ms, i: {"seq": 1},
-                 "other": lambda ms, i: (time.sleep(0.3), {"x": 2})[1],
-                 "train": ex_train}
+
+    def ex_other(ms, inputs):
+        if not physical:
+            time.sleep(0.3)
+            return {"x": 2}
+        deadline = time.monotonic() + PREFETCH_WAIT_S
+        while models["actor"].prefetch is None and time.monotonic() < deadline:
+            time.sleep(0.01)
+        return {"x": 2}
+    executors = {"gen": lambda ms, i: {"seq": 1}, "other": ex_other, "train": ex_train}
     eng = RT.RuntimeEngine(dfg, plan, executors, models,
                            sharding_for=sharding_for if physical else None)
     t0 = time.perf_counter()
@@ -4215,6 +4273,398 @@ def report_phase12(device, total):
     print(f"[time] phase 12 {time.perf_counter() - t_phase:.1f}s")
 
 
+# ------------------------------------------------------------------ phase 13
+# The encoder-decoder ([audio]) and prefix-embedding ([vlm]) paths:
+# seamless-m4t-medium at full width and depth, internvl2-76b at full width
+# on PREFIX_LAYERS of its 80 layers (141 GB in bf16 at full depth).
+
+ENCDEC = "seamless-m4t-medium"
+PREFIX = "internvl2-76b"
+PREFIX_LAYERS = 8
+# seamless's traffic: the tiers at 4 x 128 decoder tokens over 512 frames;
+# 8 requests of 32-200 tokens, 64 new each; 3 train steps at 4 x 256
+ENCDEC_SLICE = dict(batch=4, seq=128)
+ENCDEC_GEN = dict(requests=8, min_prompt=32, max_prompt=200, new=64)
+ENCDEC_TRAIN = dict(batch=4, seq=256, steps=3)
+# internvl2's: 2 rows of 512 positions, the first 256 its patch embeddings
+PREFIX_SLICE = dict(batch=2, seq=512)
+PREFIX_NEW = 32
+
+
+def modal_key(cfg):
+    """The batch entry of a config's non-token input."""
+    return "frames" if cfg.family == "encdec" else "prefix_embeds"
+
+
+def modal_batch(cfg, device, *, batch, seq, seed=0, train=False):
+    """Random tokens (B, seq) and the config's frames or prefix embeddings
+    (B, prefix_len, D), N(0, 1) in its dtype as the JAX package's
+    ``synth_batch`` draws them; with ``train`` the labels (the next token)
+    and a mask of ones, zero over a prefix."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    toks = torch.randint(1, cfg.vocab_size, (batch, seq), generator=g, device=device)
+    emb = torch.randn((batch, cfg.prefix_len, cfg.d_model), generator=g, device=device)
+    out = {"tokens": toks, modal_key(cfg): emb.to(L.dtype_of(cfg))}
+    if train:
+        out["labels"] = torch.roll(toks, -1, dims=1)
+        out["mask"] = torch.ones((batch, seq), dtype=torch.float32, device=device)
+        if cfg.family != "encdec":
+            out["mask"][:, :cfg.prefix_len] = 0.0
+    return out
+
+
+def modal_logits(cfg, params, batch, *, impl, steps, seed=0):
+    """The forward's logits (B, S, V), and the prefill's last-position
+    logits followed by ``steps`` teacher-forced decode steps' (B, steps + 1,
+    V), under ``impl``."""
+    device = params["embed"]["table"].device
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    b, s = batch["tokens"].shape
+    feed = torch.randint(1, cfg.vocab_size, (b, steps), generator=g, device=device)
+    with torch.no_grad():
+        fwd = MDL.logits_of(params, cfg, MDL.forward(params, cfg, batch, impl=impl))
+    last, caches = MDL.prefill(params, cfg, batch, s + steps, impl=impl)
+    out = [MDL.logits_of(params, cfg, last[:, None])[:, 0]]
+    for i in range(steps):
+        lg, caches = MDL.decode_step(params, cfg, feed[:, i], caches, s + i, impl=impl)
+        out.append(lg)
+    return fwd, torch.stack(out, dim=1)
+
+
+def phase_modal_slice(cfg, params, batch, *, impl, steps=8):
+    """Phase 3 for a config with frames or prefix embeddings: the forward's
+    logits, the prefill's and ``steps`` teacher-forced decode steps' under
+    ``impl`` against "reference" on the same inputs, each error over the
+    largest |reference logit|; then the forward's logits with the frames
+    moved by 1 or the prefix embeddings scaled by 1.5 (``moved_by``: how
+    far they move, over the same scale), and for a prefix model with the
+    token ids under the prefix changed (``prefix_tokens_ignored``: bit-equal
+    logits, the splice replaces them)."""
+    fwd, seq = {}, {}
+    for name in dict.fromkeys((impl, "reference")):
+        fwd[name], seq[name] = modal_logits(cfg, params, batch, impl=name, steps=steps)
+    got, want = seq[impl], seq["reference"]
+    check(bool(torch.isfinite(got).all() and torch.isfinite(fwd[impl]).all()),
+          f"{cfg.name}: non-finite logits")
+    scale = max(want.abs().amax().item(), fwd["reference"].abs().amax().item())
+    err = (got - want).abs()
+    out = {"forward_err": (fwd[impl] - fwd["reference"]).abs().max().item() / scale,
+           "prefill_err": err[:, 0].max().item() / scale,
+           "decode_err": err[:, 1:].max().item() / scale, "logit_scale": scale,
+           "argmax_agreement": (got.argmax(-1) == want.argmax(-1)).float().mean().item()}
+    base = fwd[impl]
+    del fwd, seq
+    key = modal_key(cfg)
+    x = batch[key]
+    moved = dict(batch, **{key: x + 1.0 if cfg.family == "encdec" else x * 1.5})
+    with torch.no_grad():
+        lg = MDL.logits_of(params, cfg, MDL.forward(params, cfg, moved, impl=impl))
+        out["moved_by"] = (lg - base).abs().max().item() / scale
+        if cfg.family != "encdec":
+            toks = batch["tokens"].clone()
+            toks[:, :cfg.prefix_len] = (toks[:, :cfg.prefix_len] + 1) % cfg.vocab_size
+            lg = MDL.logits_of(params, cfg, MDL.forward(params, cfg, dict(batch, tokens=toks),
+                                                        impl=impl))
+            out["prefix_tokens_ignored"] = bool(torch.equal(lg, base))
+    return out
+
+
+def encdec_requests(cfg, device, *, requests, min_prompt, max_prompt, seed=0, **_):
+    """Ragged requests, each {"tokens": (1, n), "frames": (1, prefix_len,
+    D)}; the first is 128 tokens long, a bucket, so ``BucketedGenerator``
+    pads nothing there and must give ``generate``'s tokens."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(min_prompt, max_prompt + 1, requests)
+    lens[0] = 128
+    return [modal_batch(cfg, device, batch=1, seq=int(n), seed=seed + 10 + i)
+            for i, n in enumerate(lens)]
+
+
+def encdec_gen_predicted(cfg, new):
+    """Launches of one encoder-decoder ``generate`` of ``new`` tokens: the
+    encoder's flash_mha per layer, the prefill's self- and cross-attention
+    per decoder layer, then per decode step (new - 1) a flash_decode (self)
+    and a flash_mha (cross, Sq 1) per decoder layer."""
+    n = attn_layers(cfg)
+    return {"flash_mha": 3 * n + n * (new - 1), "flash_decode": n * (new - 1)}
+
+
+def phase_modal_generate(cfg, params, requests, *, impl, new):
+    """Greedy ``generate`` of each request, then ``BucketedGenerator`` of
+    each (its prompt left-padded to a bucket, its frames as given).
+    Returns per engine the seconds, tokens/s, launches and their prediction
+    and the tokens; and whether the requests of a bucket's length got the
+    same tokens from both."""
+    device = params["embed"]["table"].device
+    gen = MDL.BucketedGenerator(cfg, impl=impl)
+    runs = {}
+    for engine, fn in (("generate", lambda b: MDL.generate(params, cfg, b, num_new_tokens=new,
+                                                           impl=impl)),
+                       ("bucketed", lambda b: gen(params, b, num_new_tokens=new))):
+        sync(device)
+        reset_launches()
+        t0 = time.perf_counter()
+        outs = [fn(b) for b in requests]
+        sync(device)
+        dt = time.perf_counter() - t0
+        steps = MDL.bucket_len(new) if engine == "bucketed" else new
+        want = {k: v * len(requests) for k, v in encdec_gen_predicted(cfg, steps).items()}
+        for o in outs:
+            t = o["tokens"]
+            check(tuple(t.shape) == (1, new), f"{engine}: tokens {tuple(t.shape)}")
+            check(bool(((t >= 0) & (t < cfg.vocab_size)).all()), f"{engine}: token out of range")
+            check(bool(torch.isfinite(o["logprobs"]).all()), f"{engine}: non-finite logprobs")
+        runs[engine] = {"seconds": dt, "tokens_per_s": len(outs) * new / dt,
+                        "launches": launches(), "predicted": want,
+                        "tokens": [o["tokens"][0] for o in outs]}
+    runs["same_at_bucket"] = [bool(torch.equal(a, b)) for a, b, r in zip(
+        runs["generate"]["tokens"], runs["bucketed"]["tokens"], requests)
+        if MDL.bucket_len(r["tokens"].shape[1]) == r["tokens"].shape[1]]
+    return runs
+
+
+def grads_of(cfg, params, batch, *, impl):
+    """``lm_loss`` and its gradient in every leaf, on a copy of the
+    parameters that requires grad."""
+    p = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+    loss, _ = MDL.lm_loss(p, cfg, batch, impl=impl)
+    grads = torch.autograd.grad(loss, adamw.leaves(p))
+    return loss.item(), grads
+
+
+def grad_tiers(cfg, params, batch, *, impl):
+    """``grads_of`` under ``impl`` against "reference": the loss's error over
+    |loss|, the whole gradient's and the worst leaf's (Frobenius, over the
+    reference's), and that leaf's name."""
+    loss, got = grads_of(cfg, params, batch, impl=impl)
+    ref_loss, want = grads_of(cfg, params, batch, impl="reference")
+    sq = [square_norms(a, b) for a, b in zip(got, want)]
+    worst = max(zip((math.sqrt(d2 / max(r2, 1e-60)) for d2, r2 in sq), leaf_names(params)))
+    return {"loss": loss, "loss_err": abs(loss - ref_loss) / max(abs(ref_loss), 1e-12),
+            "global_err": math.sqrt(sum(d2 for d2, _ in sq) / max(sum(r2 for _, r2 in sq),
+                                                                   1e-60)),
+            "worst_leaf_err": worst[0], "worst_leaf": worst[1], "n_leaves": len(sq)}
+
+
+def modal_train_predicted(cfg, steps):
+    """One flash_mha per attention call of the train forward and again in
+    its recompute (remat) per step: the encoder's layers, and the decoder's
+    self- and cross-attention."""
+    calls = attn_layers(cfg) * (3 if cfg.family == "encdec" else 1)
+    return {"flash_mha": 2 * calls * steps}
+
+
+def phase_modal_train(cfg, params, batch, *, impl, steps, opt=None):
+    """``steps`` single-device ``make_train_step`` updates (AdamW) of a copy
+    of ``params`` on one batch.  Returns the per-step metrics, the launches
+    and their prediction, seconds, whether the parameters stayed finite,
+    how many fp32 master leaves moved (``moved``: every leaf has a
+    gradient, so all of them must) and how many of the parameters did
+    (``params_moved``: a bf16 leaf near 1, a norm scale, rounds a step of
+    lr back)."""
+    device = params["embed"]["table"].device
+    opt = opt or ALGO_OPT
+    p = clone_tree(params)
+    for t in adamw.leaves(p):
+        t.requires_grad_(True)
+    state = adamw.init(opt, p)
+    step = PSTEPS.make_train_step(cfg, opt, impl=impl)
+    sync(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(steps):
+        p, state, m = step(p, state, batch)
+        metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    sync(device)
+    out = {"seconds": time.perf_counter() - t0, "steps": metrics, "launches": launches(),
+           "predicted": modal_train_predicted(cfg, steps)}
+    leaves, before = adamw.leaves(p), adamw.leaves(params)
+    out["finite"] = all(bool(torch.isfinite(t).all()) for t in leaves)
+    out["moved"] = sum(not torch.equal(a, b.to(a.dtype))
+                       for a, b in zip(adamw.leaves(state["master"]), before))
+    out["params_moved"] = sum(not torch.equal(a, b) for a, b in zip(leaves, before))
+    out["leaves"] = len(leaves)
+    return out
+
+
+def prefix_loss_check(cfg, params, batch, *, impl):
+    """One ``lm_loss`` with its backward, then the loss again with the
+    labels and token ids under the prefix changed: the mask is zero there
+    and the splice replaces those tokens, so the loss must keep its bits.
+    Returns both losses and whether every gradient is finite."""
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, _ = MDL.lm_loss(p, cfg, batch, impl=impl)
+    loss.backward()
+    finite = all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+                 for t in adamw.leaves(p))
+    for t in adamw.leaves(p):
+        t.grad = None
+        t.requires_grad_(False)
+    n = cfg.prefix_len
+    moved = {k: v.clone() for k, v in batch.items()}
+    moved["labels"][:, :n] = (moved["labels"][:, :n] + 3) % cfg.vocab_size
+    moved["tokens"][:, :n] = (moved["tokens"][:, :n] + 5) % cfg.vocab_size
+    with torch.no_grad():
+        again, _ = MDL.lm_loss(params, cfg, moved, impl=impl)
+    return {"loss": loss.item(), "loss_moved": again.item(), "grads_finite": finite}
+
+
+def report_modal_slice(cfg, params, batch, tag):
+    """The tiers, the input sensitivity and (prefix) the ignored tokens,
+    printed and held."""
+    sl = phase_modal_slice(cfg, params, batch, impl="cuda")
+    print(f"{tag} {cfg.name} bf16: forward_err={sl['forward_err']:.3e} prefill_err="
+          f"{sl['prefill_err']:.3e} decode_err={sl['decode_err']:.3e} (of max |logit| "
+          f"{sl['logit_scale']:.3f}; tol {LOGIT_TOL}) argmax_agreement="
+          f"{sl['argmax_agreement']:.3f}; {modal_key(cfg)} moved: the logits move by "
+          f"{sl['moved_by']:.3e} (must exceed {LOGIT_TOL})"
+          + (f"; token ids under the prefix changed: logits bit-equal "
+             f"{sl['prefix_tokens_ignored']}" if "prefix_tokens_ignored" in sl else ""))
+    check(max(sl["forward_err"], sl["prefill_err"], sl["decode_err"]) <= LOGIT_TOL,
+          f"{cfg.name}: cuda logits disagree with the reference")
+    check(sl["moved_by"] > LOGIT_TOL, f"{cfg.name}: the {modal_key(cfg)} do not reach the logits")
+    check(sl.get("prefix_tokens_ignored", True),
+          f"{cfg.name}: the token ids under the prefix reach the logits")
+
+
+def report_encdec(device, total):
+    """13a: seamless-m4t-medium at full width and depth, bf16, seeded
+    weights with norm scales drawn (``make_dense_params``): the tiers and
+    the frames' reach, greedy ``generate`` and ``BucketedGenerator`` on
+    ragged requests, three train steps, and the fp32 2-layer gradient
+    against the reference tier."""
+    cfg = get_config(ENCDEC)
+    t0 = time.perf_counter()
+    params = make_dense_params(cfg, seed=0, device=device)
+    sync(device)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"[encdec] {cfg.name}: {len(params['encoder']['layers'])} encoder + "
+          f"{cfg.num_layers} decoder layers, d_model {cfg.d_model}, heads {cfg.n_heads} of "
+          f"{cfg.head_dim}, {cfg.prefix_len} frames, vocabulary {cfg.vocab_size}, {n_params} "
+          f"parameters drawn in {time.perf_counter() - t0:.1f}s; memory_allocated="
+          f"{torch.cuda.memory_allocated()} bytes")
+    report_modal_slice(cfg, params, modal_batch(cfg, device, **ENCDEC_SLICE), "[encdec]")
+    reqs = encdec_requests(cfg, device, **ENCDEC_GEN)
+    runs = phase_modal_generate(cfg, params, reqs, impl="cuda", new=ENCDEC_GEN["new"])
+    for engine in ("generate", "bucketed"):
+        r = runs[engine]
+        print(f"[encdec] {cfg.name} greedy {engine}: {len(reqs)} requests (prompt lengths "
+              f"{sorted(q['tokens'].shape[1] for q in reqs)}, {ENCDEC_GEN['new']} new each), "
+              f"{r['tokens_per_s']:.1f} tokens/s in {r['seconds']:.3f}s; launches "
+              f"{r['launches']} (predicted {r['predicted']})")
+        check(same_launches(r["launches"], r["predicted"]),
+              f"{engine}: launches {r['launches']} != {r['predicted']}")
+        for k in total:
+            total[k] += r["launches"][k]
+    print(f"[encdec] bucketed equals generate on the requests of a bucket's length: "
+          f"{runs['same_at_bucket']}")
+    check(runs["same_at_bucket"] and all(runs["same_at_bucket"]),
+          "BucketedGenerator parts from generate where it pads nothing")
+    batch = modal_batch(cfg, device, train=True, seed=2, batch=ENCDEC_TRAIN["batch"],
+                        seq=ENCDEC_TRAIN["seq"])
+    peak_reset(device)
+    tr = phase_modal_train(cfg, params, batch, impl="cuda", steps=ENCDEC_TRAIN["steps"])
+    print(f"[encdec] {cfg.name} train, {ENCDEC_TRAIN['steps']} steps at "
+          f"{ENCDEC_TRAIN['batch']} x {ENCDEC_TRAIN['seq']} tokens over {cfg.prefix_len} "
+          f"frames (AdamW lr {ALGO_OPT.lr}): " + ", ".join(
+              f"loss {m['loss']:.4f} grad_norm {m['grad_norm']:.4f}" for m in tr["steps"])
+          + f"; {tr['moved']}/{tr['leaves']} fp32 master leaves moved ({tr['params_moved']} "
+          f"bf16 parameters), finite {tr['finite']}; "
+          f"{tr['seconds']:.2f}s, peak {peak(device)} bytes; launches {tr['launches']} "
+          f"(predicted {tr['predicted']})")
+    check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in tr["steps"]),
+          "non-finite train metrics")
+    check(tr["finite"] and tr["moved"] == tr["leaves"], "the train steps left a master leaf "
+          "unmoved or a parameter non-finite")
+    check(same_launches(tr["launches"], tr["predicted"]),
+          f"train: launches {tr['launches']} != {tr['predicted']}")
+    for k in total:
+        total[k] += tr["launches"][k]
+    del params, tr
+    free(device)
+    small = shallow(cfg, 2, dtype="float32")
+    p32 = make_dense_params(small, seed=1, device=device)
+    gt = grad_tiers(small, p32, modal_batch(small, device, train=True, seed=3,
+                                            batch=ENCDEC_TRAIN["batch"],
+                                            seq=ENCDEC_TRAIN["seq"]), impl="cuda")
+    del p32
+    free(device)
+    print(f"[encdec] {cfg.name} fp32, {small.num_layers} encoder + {small.num_layers} decoder "
+          f"layers: lm_loss {gt['loss']:.5f} loss_err={gt['loss_err']:.3e} gradient "
+          f"global_err={gt['global_err']:.3e} worst leaf {gt['worst_leaf']} "
+          f"{gt['worst_leaf_err']:.3e} over {gt['n_leaves']} leaves (tol {FP32_GRAD_TOL})")
+    check(max(gt["loss_err"], gt["global_err"], gt["worst_leaf_err"]) <= FP32_GRAD_TOL,
+          f"{cfg.name}: fp32 gradients cuda vs reference past {FP32_GRAD_TOL}")
+    print(f"[time] phase 13a {time.perf_counter() - t0:.1f}s")
+
+
+def report_prefix(device, total):
+    """13b: internvl2-76b at full width on PREFIX_LAYERS layers, bf16,
+    seeded weights with norm scales drawn: the tiers, the prefix's reach
+    and the token ids under it ignored, greedy ``generate``, and one
+    ``lm_loss`` with its backward whose loss keeps its bits when the labels
+    under the prefix change."""
+    cfg = shallow(get_config(PREFIX), PREFIX_LAYERS)
+    t0 = time.perf_counter()
+    params = make_dense_params(cfg, seed=0, device=device)
+    sync(device)
+    print(f"[prefix] {cfg.name}: {cfg.num_layers} of 80 layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, a {cfg.prefix_len}-embedding "
+          f"prefix, vocabulary {cfg.vocab_size}, {sum(t.numel() for t in tree_leaves(params))} "
+          f"parameters drawn in {time.perf_counter() - t0:.1f}s; memory_allocated="
+          f"{torch.cuda.memory_allocated()} bytes")
+    batch = modal_batch(cfg, device, **PREFIX_SLICE)
+    report_modal_slice(cfg, params, batch, "[prefix]")
+    sync(device)
+    reset_launches()
+    t1 = time.perf_counter()
+    out = MDL.generate(params, cfg, batch, num_new_tokens=PREFIX_NEW, impl="cuda")
+    sync(device)
+    dt = time.perf_counter() - t1
+    counts = launches()
+    n = attn_layers(cfg)
+    want = {"flash_mha": n, "flash_decode": n * (PREFIX_NEW - 1)}
+    toks = out["tokens"]
+    print(f"[prefix] {cfg.name} greedy generate: {tuple(toks.shape)} tokens after "
+          f"{PREFIX_SLICE['seq']} positions, {toks.numel() / dt:.1f} tokens/s in {dt:.3f}s; "
+          f"launches {counts} (predicted {want})")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "token out of range")
+    check(same_launches(counts, want), f"generate: launches {counts} != {want}")
+    for k in total:
+        total[k] += counts[k]
+    del out
+    peak_reset(device)
+    reset_launches()
+    pl = prefix_loss_check(cfg, params, modal_batch(cfg, device, train=True, seed=4,
+                                                    **PREFIX_SLICE), impl="cuda")
+    counts = launches()
+    # the loss under grad, its recompute in the backward (remat), the loss again
+    want = {"flash_mha": 3 * n}
+    print(f"[prefix] {cfg.name} bf16 lm_loss {pl['loss']:.6f} with its backward (gradients "
+          f"finite {pl['grads_finite']}), {pl['loss_moved']:.6f} with the labels and tokens "
+          f"under the prefix changed; peak {peak(device)} bytes; launches {counts} "
+          f"(predicted {want})")
+    check(math.isfinite(pl["loss"]) and pl["grads_finite"], "non-finite loss or gradient")
+    check(same_launches(counts, want), f"lm_loss: launches {counts} != {want}")
+    check(pl["loss"] == pl["loss_moved"], "the labels under the prefix reach the loss")
+    for k in total:
+        total[k] += counts[k]
+    del params
+    free(device)
+    print(f"[time] phase 13b {time.perf_counter() - t0:.1f}s")
+
+
+def report_phase13(device, total):
+    """Phase 13: (a) seamless-m4t-medium, then (b) internvl2-76b, each
+    model's parameters freed before the next is built.  The kernels at
+    these configs' shapes run in phase 2."""
+    t0 = time.perf_counter()
+    report_encdec(device, total)
+    report_prefix(device, total)
+    print(f"[time] phase 13 {time.perf_counter() - t0:.1f}s")
+
+
 # ------------------------------------------------------------------ main
 
 def shallow(cfg, layers=4, *, dtype=None):
@@ -4393,6 +4843,7 @@ def main():
     free(device)
     print(f"[time] phase 11 {time.perf_counter() - t0:.1f}s")
     report_phase12(device, total)
+    report_phase13(device, total)
 
     source = "src/repro_torch/kernels/csrc/"
     rows = [dict(name="flash_mha", route="cuda", source=source + "flash_attention.cu",

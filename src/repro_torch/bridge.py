@@ -30,26 +30,37 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
-    """np_tree: the JAX ``init_params`` tree with numpy leaves (nested dicts;
-    ``groups`` a list).  Returns the port's parameter dict on ``device``."""
-    check_supported(cfg)
+def _layers(np_groups, cfg: ModelConfig, device):
+    """The JAX package's stacked groups as the port's list of layer dicts."""
     groups = [(cfg.superblock, cfg.n_superblocks)]
     if cfg.tail:
         groups.append((cfg.tail, 1))
-    if len(np_tree["groups"]) != len(groups):
-        raise ValueError(f"{cfg.name}: tree has {len(np_tree['groups'])} groups, "
+    if len(np_groups) != len(groups):
+        raise ValueError(f"{cfg.name}: tree has {len(np_groups)} groups, "
                          f"config {len(groups)}")
     layers = []
-    for (specs, n), group in zip(groups, np_tree["groups"]):
+    for (specs, n), group in zip(groups, np_groups):
         for r in range(n):
             for i in range(len(specs)):
                 layers.append(_map(lambda a: _tensor(np.asarray(a)[r], device),
                                    group[f"b{i}"]))
+    return layers
+
+
+def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
+    """np_tree: the JAX ``init_params`` tree with numpy leaves (nested dicts;
+    ``groups`` a list).  Returns the port's parameter dict on ``device``
+    (an encoder-decoder's ``encoder`` subtree too, its ``groups`` as
+    ``layers``)."""
+    check_supported(cfg)
     out = {"embed": _map(lambda a: _tensor(a, device), np_tree["embed"]),
-           "layers": layers,
+           "layers": _layers(np_tree["groups"], cfg, device),
            "final_norm": _map(lambda a: _tensor(a, device), np_tree["final_norm"])}
     for head in ("lm_head", "value_head"):
         if head in np_tree:
             out[head] = _map(lambda a: _tensor(a, device), np_tree[head])
+    if "encoder" in np_tree:
+        enc = np_tree["encoder"]
+        out["encoder"] = {"layers": _layers(enc["groups"], cfg, device),
+                          "final_norm": _map(lambda a: _tensor(a, device), enc["final_norm"])}
     return out

@@ -130,6 +130,8 @@ class ContinuousBatchServer:
                  top_p: float = 1.0, impl: str = "cuda", sync_every: int = 4,
                  draft_params=None, draft_cfg=None, spec_k: int = 4,
                  spec_controller=None):
+        if cfg.prefix_len and cfg.family != "encdec":
+            raise ValueError("ContinuousBatchServer does not support prefix (vlm) configs")
         if (draft_params is None) != (draft_cfg is None):
             raise ValueError("draft_params and draft_cfg go together")
         k_cap = 0

@@ -16,6 +16,12 @@ kernel takes its arange fast path (tile skipping); packed attention
 (``attn_apply``) runs at each sequence's own positions through the varlen
 kernel.  ``rope`` is the ``layers.rope_tables`` pair of the positions,
 built once per step by the layer stack.
+
+An encoder-decoder model's encoder runs ``attn_apply_with_kv`` with
+``causal=False``; its decoder layers add cross-attention
+(``cross_attn_apply``): queries from the decoder, keys and values from the
+encoder output, no RoPE and no mask, so the kernel runs non-causal at
+Sq != Skv (Sq the prompt in prefill, 1 in decode).
 """
 
 from __future__ import annotations
@@ -27,7 +33,10 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 
-def attn_init(gen, cfg: ModelConfig, device):
+def attn_init(gen, cfg: ModelConfig, device, cross: bool = False):
+    """A self-attention layer's weights, or with ``cross`` a decoder's
+    cross-attention (no q/k norm, as in the JAX package, even where the
+    config has qk-norm)."""
     dt = L.dtype_of(cfg)
     p = {
         "wq": L.dense_init(gen, cfg.d_model, cfg.q_dim, dt, device, cfg.qkv_bias),
@@ -35,7 +44,7 @@ def attn_init(gen, cfg: ModelConfig, device):
         "wv": L.dense_init(gen, cfg.d_model, cfg.kv_dim, dt, device, cfg.qkv_bias),
         "wo": L.dense_init(gen, cfg.q_dim, cfg.d_model, dt, device),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = L.rmsnorm_init(cfg.head_dim, dt, device)
         p["k_norm"] = L.rmsnorm_init(cfg.head_dim, dt, device)
     return p
@@ -60,12 +69,13 @@ def _out_proj(p, out, partial):
 
 
 def attn_apply_with_kv(p, cfg: ModelConfig, spec: LayerSpec, x, rope, *,
-                       impl="cuda", partial=False):
-    """Causal full-sequence attention (training forward / prefill).  Returns
-    the output and the roped k/v (for prefill caching).  Under tensor
-    parallelism ``cfg`` has the rank's local heads and ``partial`` is set."""
+                       causal=True, impl="cuda", partial=False):
+    """Full-sequence attention (training forward / prefill; an encoder's
+    with ``causal=False``).  Returns the output and the roped k/v (for
+    prefill caching).  Under tensor parallelism ``cfg`` has the rank's
+    local heads and ``partial`` is set."""
     q, k, v = _project_qkv(p, cfg, x, rope)
-    out = ops.mha(q, k, v, causal=True, window=spec.window, impl=impl)
+    out = ops.mha(q, k, v, causal=causal, window=spec.window, impl=impl)
     y = _out_proj(p, out.reshape(*x.shape[:2], cfg.q_dim), partial)
     return y, {"k": k, "v": v}
 
@@ -83,6 +93,27 @@ def attn_apply(p, cfg: ModelConfig, spec: LayerSpec, x, rope, cu_seqlens, *,
     out = ops.varlen_mha(q[0], k[0], v[0], cu_seqlens, causal=True, window=spec.window,
                          max_seqlen=max_seqlen, impl=impl)[None]
     return L.dense_apply(p["wo"], out.reshape(*x.shape[:2], cfg.q_dim))
+
+
+def encode_cross_kv(p, cfg: ModelConfig, enc_out):
+    """The cross-attention's k/v (B, Skv, Hkv, Dh) of the encoder output
+    (B, Skv, D): no RoPE."""
+    b, skv, _ = enc_out.shape
+    k = L.dense_apply(p["wk"], enc_out).reshape(b, skv, cfg.n_kv_heads, cfg.head_dim)
+    v = L.dense_apply(p["wv"], enc_out).reshape(b, skv, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": k, "v": v}
+
+
+def cross_attn_apply(p, cfg: ModelConfig, x, enc_out=None, enc_kv=None, *, impl="cuda"):
+    """Decoder cross-attention of x (B, Sq, D) over the encoder: its k/v
+    from ``enc_out`` or, in prefill and decode, the ``enc_kv`` computed
+    once per layer.  No RoPE and no mask (positions play no part)."""
+    b, sq, _ = x.shape
+    q = L.dense_apply(p["wq"], x).reshape(b, sq, cfg.n_heads, cfg.head_dim)
+    if enc_kv is None:
+        enc_kv = encode_cross_kv(p, cfg, enc_out)
+    out = ops.mha(q, enc_kv["k"], enc_kv["v"], causal=False, window=None, impl=impl)
+    return L.dense_apply(p["wo"], out.reshape(b, sq, cfg.q_dim))
 
 
 # ------------------------------------------------------------------ KV cache

@@ -4,8 +4,12 @@ generator.
 
 Parameters: {"embed": {"table"}, "layers": [one dict per layer],
 "final_norm": {"scale"}} (+ "lm_head" when embeddings are not tied, or
-"value_head" for a value model).  A batch is {"tokens": (B, S) int
-tensor}, or a packed cohort {"tokens", "cu_seqlens", "positions"}.  Every
+"value_head" for a value model; + "encoder": {"layers", "final_norm"} for
+an encoder-decoder).  A batch is {"tokens": (B, S) int tensor}, or a
+packed cohort {"tokens", "cu_seqlens", "positions"}.  An encoder-decoder
+([audio]) batch adds "frames" (B, prefix_len, D), the encoder's input; a
+prefix ([vlm]) batch adds "prefix_embeds" (B, prefix_len, D), spliced over
+token positions [0:prefix_len] (the tokens there are ignored).  Every
 entry point runs where the parameters lie and defaults to ``impl="cuda"``.
 The ``*_sharded`` entry points at the end run over a mesh of logical
 devices (``parallel/steps.py``).
@@ -31,9 +35,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", head: str = "
     if head not in ("lm", "value"):
         raise ValueError(f"head={head!r}; need 'lm' or 'value'")
     gen = torch.Generator(device=device).manual_seed(seed)
+    encdec = cfg.family == "encdec"
     p = {
         "embed": L.embed_init(gen, cfg, device),
-        "layers": T.stack_init(gen, cfg, device),
+        "layers": T.stack_init(gen, cfg, device, cross=encdec),
         "final_norm": L.rmsnorm_init(cfg.d_model, L.dtype_of(cfg), device),
     }
     if head == "value":
@@ -41,6 +46,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", head: str = "
     elif not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
                                     L.dtype_of(cfg), device)
+    if encdec:
+        # the JAX package builds the encoder from the decoder's layer
+        # pattern, so its depth is num_layers (enc_layers feeds the count)
+        p["encoder"] = {"layers": T.stack_init(gen, cfg, device),
+                        "final_norm": L.rmsnorm_init(cfg.d_model, L.dtype_of(cfg), device)}
     return p
 
 
@@ -48,12 +58,44 @@ def _embed(params, cfg: ModelConfig, tokens):
     return L.embed_apply(params["embed"], tokens).to(L.dtype_of(cfg))
 
 
+def _input(batch, name: str, cfg: ModelConfig):
+    if name not in batch:
+        raise ValueError(f"{cfg.name}: the batch needs {name!r} (B, {cfg.prefix_len}, "
+                         f"{cfg.d_model}) beside its tokens")
+    return batch[name].to(L.dtype_of(cfg))
+
+
+def _encode(params, cfg: ModelConfig, batch, *, impl, remat=False):
+    """The encoder output (B, prefix_len, D) of ``batch["frames"]``:
+    bidirectional self-attention at positions arange, then the encoder's
+    final norm; None for a decoder-only model."""
+    if cfg.family != "encdec":
+        return None
+    h = T.stack_apply(params["encoder"]["layers"], cfg, _input(batch, "frames", cfg),
+                      causal=False, impl=impl, remat=remat)
+    return L.rmsnorm_apply(params["encoder"]["final_norm"], h, cfg.norm_eps)
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch):
+    """The token embeddings, with a prefix model's ``prefix_embeds`` over
+    positions [0:prefix_len].  Fewer tokens than ``prefix_len`` raise (the
+    JAX package's splice would return a sequence of prefix_len)."""
+    x = _embed(params, cfg, batch["tokens"])
+    if not cfg.prefix_len or cfg.family == "encdec":
+        return x
+    if x.shape[1] < cfg.prefix_len:
+        raise ValueError(f"{cfg.name}: {x.shape[1]} tokens, fewer than the prefix of "
+                         f"{cfg.prefix_len} embeddings they start with")
+    return torch.cat([_input(batch, "prefix_embeds", cfg), x[:, cfg.prefix_len:]], dim=1)
+
+
 def forward(params, cfg: ModelConfig, batch, *, impl="cuda", remat=False,
             max_seqlen=None, return_aux=False):
-    """Full-sequence causal forward.  Returns the final-normed hidden
-    states (B, S, D), or with ``return_aux`` (hidden, aux): the MoE
-    load-balance loss summed over layers (0 without MoE), the JAX
-    package's ``forward``'s second output.
+    """Full-sequence causal forward (after the encoder, for an
+    encoder-decoder).  Returns the final-normed hidden states (B, S, D), or
+    with ``return_aux`` (hidden, aux): the MoE load-balance loss summed over
+    the decoder's layers (0 without MoE), the JAX package's ``forward``'s
+    second output.
 
     Packed mode: when ``batch`` has "cu_seqlens", its "tokens" are a (T,)
     packed cohort and "positions" the (T,) within-sequence positions; the
@@ -67,8 +109,9 @@ def forward(params, cfg: ModelConfig, batch, *, impl="cuda", remat=False,
                             cu_seqlens=batch["cu_seqlens"], max_seqlen=max_seqlen,
                             remat=remat, return_aux=return_aux)
     else:
-        x = _embed(params, cfg, batch["tokens"])
-        out = T.stack_apply(params["layers"], cfg, x, impl=impl, remat=remat,
+        x = _embed_inputs(params, cfg, batch)
+        enc_out = _encode(params, cfg, batch, impl=impl, remat=remat)
+        out = T.stack_apply(params["layers"], cfg, x, impl=impl, enc_out=enc_out, remat=remat,
                             return_aux=return_aux)
     h, aux = out if return_aux else (out, None)
     h = L.rmsnorm_apply(params["final_norm"], h, cfg.norm_eps)
@@ -104,17 +147,22 @@ def lm_loss(params, cfg: ModelConfig, batch, *, impl="cuda", remat=True, aux_wei
 
 def synth_batch(rng, cfg: ModelConfig, seq_len: int, batch: int, kind="train", *,
                 device="cuda"):
-    """A synthetic batch of random tokens (and, for ``kind="train"``, random
-    labels and a unit mask), drawn from ``rng`` (a seed or a
-    ``torch.Generator``), as the JAX package's ``synth_batch`` for the
-    token-only models the port runs."""
-    if cfg.prefix_len or cfg.family == "encdec":
-        raise NotImplementedError(f"{cfg.name}: prefix embeddings are not ported")
+    """A synthetic batch of random tokens, an encoder-decoder's normal
+    ``frames`` or a prefix model's normal ``prefix_embeds`` (B, prefix_len,
+    D) in the config's dtype, and for ``kind="train"`` random labels and a
+    unit mask, zero over a prefix model's prefix: the JAX package's
+    ``synth_batch``, drawn from ``rng`` (a seed or a ``torch.Generator``)."""
     gen = rng if isinstance(rng, torch.Generator) else torch.Generator().manual_seed(int(rng))
     out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq_len), generator=gen)}
+    if cfg.prefix_len:
+        name = "frames" if cfg.family == "encdec" else "prefix_embeds"
+        out[name] = torch.randn((batch, cfg.prefix_len, cfg.d_model),
+                                generator=gen).to(L.dtype_of(cfg))
     if kind == "train":
         out["labels"] = torch.randint(0, cfg.vocab_size, (batch, seq_len), generator=gen)
         out["mask"] = torch.ones((batch, seq_len), dtype=torch.float32)
+        if cfg.prefix_len and cfg.family != "encdec":
+            out["mask"][:, :cfg.prefix_len] = 0.0
     return {k: v.to(device) for k, v in out.items()}
 
 
@@ -124,10 +172,14 @@ def synth_batch(rng, cfg: ModelConfig, seq_len: int, batch: int, kind="train", *
 
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, batch, max_len, *, impl="cuda"):
-    """Run the prompt, fill caches, return (last_hidden (B, D), caches)."""
-    x = _embed(params, cfg, batch["tokens"])
-    caches = T.cache_init(cfg, x.shape[0], max_len, L.dtype_of(cfg), x.device)
-    h = T.stack_prefill(params["layers"], cfg, x, caches, impl=impl)
+    """Run the prompt (an encoder-decoder's frames through its encoder
+    first), fill caches, return (last_hidden (B, D), caches)."""
+    x = _embed_inputs(params, cfg, batch)
+    enc_out = _encode(params, cfg, batch, impl=impl)
+    caches = T.cache_init(cfg, x.shape[0], max_len, L.dtype_of(cfg), x.device,
+                          cross=enc_out is not None,
+                          enc_len=None if enc_out is None else enc_out.shape[1])
+    h = T.stack_prefill(params["layers"], cfg, x, caches, impl=impl, enc_out=enc_out)
     h = L.rmsnorm_apply(params["final_norm"], h, cfg.norm_eps)
     return h[:, -1], caches
 
@@ -137,7 +189,8 @@ def decode_step(params, cfg: ModelConfig, token, caches, t: int, *, impl="cuda")
     """token: (B,) int; t: the position of this token.
     Returns (logits (B, V) fp32, caches)."""
     x = _embed(params, cfg, token[:, None])
-    h = T.stack_decode(params["layers"], cfg, x, caches, t, impl=impl)
+    h = T.stack_decode(params["layers"], cfg, x, caches, t, impl=impl,
+                       cross=cfg.family == "encdec")
     h = L.rmsnorm_apply(params["final_norm"], h, cfg.norm_eps)
     return logits_of(params, cfg, h)[:, 0], caches
 
@@ -222,7 +275,8 @@ def generate(params, cfg: ModelConfig, batch, *, num_new_tokens: int,
              rng=None, temperature: float = 1.0, impl="cuda",
              eos_id: int | None = None, top_k: int = 0, top_p: float = 1.0):
     """Greedy (``rng=None``) or sampled (``rng`` a ``torch.Generator``)
-    generation after a prefill: the JAX package's fused ``generate``.
+    generation after a prefill of ``batch`` (its frames or prefix
+    embeddings too): the JAX package's fused ``generate``.
 
     Token 0 is sampled from the prefill's last-position logits; decode step
     i consumes token i-1 at position prompt_len + i - 1.  The returned
@@ -296,12 +350,17 @@ class BucketedGenerator:
     attended, there is no pad mask), ``num_new_tokens`` is rounded up to
     its bucket, and outputs are trimmed back to the requested length.  The
     JAX class keys a jit cache on the bucket; the port runs eagerly, so the
-    buckets only fix the shapes each call sees."""
+    buckets only fix the shapes each call sees.  An encoder-decoder's frames
+    pass through unpadded; a prefix model is refused (left padding would
+    shift its tokens out from under the prefix splice)."""
 
     def __init__(self, cfg: ModelConfig, *, temperature: float = 1.0,
                  impl: str = "cuda", eos_id: int | None = None,
                  pad_id: int = 0, top_k: int = 0, top_p: float = 1.0,
                  buckets=GEN_BUCKETS):
+        if cfg.prefix_len and cfg.family != "encdec":
+            raise ValueError("BucketedGenerator does not support prefix (vlm) configs; pad "
+                             "prompts upstream instead")
         self.cfg, self.temperature, self.impl = cfg, temperature, impl
         self.eos_id, self.pad_id = eos_id, pad_id
         self.top_k, self.top_p = top_k, top_p

@@ -100,7 +100,10 @@ def paged_cache_init(cfg: ModelConfig, n_slots: int, n_blocks: int,
     shape ``(n_blocks, block_size, Hkv, Dh)`` for full-attention layers,
     per-slot rings ``(n_slots, min(window, max_len), Hkv, Dh)`` for window
     layers, per-slot states (``transformer.layer_cache_init`` of
-    ``n_slots`` rows) for recurrent mixers."""
+    ``n_slots`` rows) for recurrent mixers.  An encoder-decoder is refused
+    (its cross k/v has no paged layout), as in the JAX package."""
+    if cfg.family == "encdec":
+        raise ValueError("paged serving does not support encdec configs")
     caches = []
     for spec in cfg.layers:
         if spec.kind == ATTN and spec.window is None:

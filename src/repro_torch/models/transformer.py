@@ -20,8 +20,17 @@ SSD (``models/ssm.py``), with a gated-MLP FFN, a dropless MoE FFN
 (``models/moe.py``) or none.  A recurrent layer's cache is its per-row
 state.  ``stack_apply`` is also the train forward, padded for every mixer
 and packed for attention-only stacks, dense or MoE; it carries the MoE
-load-balance loss when asked.  Cross-attention and encoder/prefix inputs
-raise ``NotImplementedError``.
+load-balance loss when asked.
+
+An encoder-decoder model (``family == "encdec"``) runs a second stack of
+the same layer pattern as its encoder (``stack_apply(causal=False)``), and
+its decoder layers add cross-attention after the mixer's residual and
+before the FFN (``lnx``, ``xattn``); a decoder layer's cache is then
+{"self": the mixer's cache, "xkv": {"k", "v"}}, the cross-attention's k/v
+of the encoder output computed once in prefill.  A prefix model's patch
+embeddings are spliced in by ``model.py`` and need nothing here.  The
+packed and sharded paths refuse both (``check_packed``,
+``check_sharded``).
 """
 
 from __future__ import annotations
@@ -47,14 +56,15 @@ def check_supported(cfg: ModelConfig):
                                   "are not ported")
     if cfg.ffn_kind not in ("gated", "moe", "none"):
         raise NotImplementedError(f"{cfg.name}: ffn_kind={cfg.ffn_kind!r} is not ported")
-    if cfg.family == "encdec" or cfg.prefix_len:
-        raise NotImplementedError(f"{cfg.name}: encoder/prefix inputs are not ported")
 
 
-def block_init(gen, cfg: ModelConfig, spec: LayerSpec, device):
+def block_init(gen, cfg: ModelConfig, spec: LayerSpec, device, cross: bool = False):
     dt = L.dtype_of(cfg)
     init = {ATTN: A.attn_init, LRU: R.lru_init, SSM: S.ssm_init}[spec.kind]
     p = {"ln1": L.rmsnorm_init(cfg.d_model, dt, device), "mixer": init(gen, cfg, device)}
+    if cross:
+        p["lnx"] = L.rmsnorm_init(cfg.d_model, dt, device)
+        p["xattn"] = A.attn_init(gen, cfg, device, cross=True)
     if spec.has_ffn and cfg.ffn_kind != "none":
         p["ln2"] = L.rmsnorm_init(cfg.d_model, dt, device)
         p["ffn"] = (M.moe_init(gen, cfg, device) if cfg.ffn_kind == "moe"
@@ -85,49 +95,68 @@ def _recurrent_decode(p, cfg, spec, h, cache):
 
 def check_packed(cfg: ModelConfig):
     """Raise for a config the packed (``cu_seqlens``) forward does not run:
-    a recurrent mixer would scan across sequence boundaries (the JAX
-    package raises too, ``analysis/verify.py``).  Dense and MoE FFNs are
-    per-token and run packed."""
+    an encoder-decoder or prefix model (``AssertionError``, the JAX
+    package's ``forward`` asserts this), or a recurrent mixer, which would
+    scan across sequence boundaries (``NotImplementedError``, as the JAX
+    package's ``block_apply``).  Dense and MoE FFNs are per-token and run
+    packed."""
+    if cfg.family == "encdec" or cfg.prefix_len:
+        raise AssertionError(f"{cfg.name}: packed training supports decoder-only, "
+                             "prefix-free configs")
     kinds = {s.kind for s in cfg.layers}
     if kinds != {ATTN}:
         raise NotImplementedError(f"{cfg.name}: packed training is attention-only; got "
                                   f"mixer kinds {sorted(kinds)}")
 
 
-def block_apply(p, cfg, spec, x, rope, *, impl="cuda", cu_seqlens=None, max_seqlen=None,
-                want_state=False, want_aux=False):
+def _cross(p, cfg, x, enc_out, enc_kv, impl):
+    """The decoder's cross-attention sublayer (nothing without an encoder)."""
+    if enc_out is None and enc_kv is None:
+        return x
+    hx = L.rmsnorm_apply(p["lnx"], x, cfg.norm_eps)
+    return x + A.cross_attn_apply(p["xattn"], cfg, hx, enc_out, enc_kv, impl=impl)
+
+
+def block_apply(p, cfg, spec, x, rope, *, causal=True, impl="cuda", enc_out=None,
+                enc_kv=None, cu_seqlens=None, max_seqlen=None, want_state=False,
+                want_aux=False):
     """Full-sequence block.  Returns (x, aux, state): the MoE load-balance
     loss with ``want_aux`` (else None), and with ``want_state`` an
     attention layer's roped k/v or a recurrent layer's decode state after
-    the last token, for prefill caching (else None).  Packed mode
-    (``cu_seqlens`` given; attention only, see ``check_packed``): x is a
-    (1, T, D) packed cohort and attention goes block-diagonal over its
-    segments."""
+    the last token, for prefill caching (else None).  ``causal=False`` is
+    an encoder's self-attention; ``enc_out`` (or its cross k/v ``enc_kv``)
+    adds a decoder layer's cross-attention.  Packed mode (``cu_seqlens``
+    given; attention only, see ``check_packed``): x is a (1, T, D) packed
+    cohort and attention goes block-diagonal over its segments."""
     h = L.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     state = None
     if cu_seqlens is not None:
         y = A.attn_apply(p["mixer"], cfg, spec, h, rope, cu_seqlens, max_seqlen=max_seqlen,
                          impl=impl)
     elif spec.kind == ATTN:
-        y, kv = A.attn_apply_with_kv(p["mixer"], cfg, spec, h, rope, impl=impl)
+        y, kv = A.attn_apply_with_kv(p["mixer"], cfg, spec, h, rope, causal=causal, impl=impl)
         state = kv if want_state else None
     else:
         mixer = R.lru_apply if spec.kind == LRU else S.ssm_apply
         y = mixer(p["mixer"], cfg, h, impl=impl, return_state=want_state)
         y, state = y if want_state else (y, None)
-    x, aux = _ffn(p, cfg, x + y, impl, want_aux)
+    x = _cross(p, cfg, x + y, enc_out, enc_kv, impl)
+    x, aux = _ffn(p, cfg, x, impl, want_aux)
     return x, aux, state
 
 
-def block_decode(p, cfg, spec, x, cache, t, rope, cache_len, *, impl="cuda"):
-    """Single-token block step; updates ``cache`` in place."""
+def block_decode(p, cfg, spec, x, cache, t, rope, cache_len, *, impl="cuda", cross=False):
+    """Single-token block step; updates ``cache`` in place (with ``cross``
+    a decoder layer's {"self", "xkv"} cache)."""
+    mixer_cache = cache["self"] if cross else cache
     h = L.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     if spec.kind == ATTN:
-        y = A.attn_decode_apply(p["mixer"], cfg, spec, h, cache, t, rope, cache_len,
+        y = A.attn_decode_apply(p["mixer"], cfg, spec, h, mixer_cache, t, rope, cache_len,
                                 impl=impl)
     else:
-        y = _recurrent_decode(p, cfg, spec, h, cache)
-    return _ffn(p, cfg, x + y, impl)[0]
+        y = _recurrent_decode(p, cfg, spec, h, mixer_cache)
+    x = _cross(p, cfg, x + y, None, cache["xkv"] if cross else None, impl)
+    return _ffn(p, cfg, x, impl)[0]
 
 
 def block_paged_decode(p, cfg, spec, x, cache, block_table, dest, rope, cache_len,
@@ -166,9 +195,11 @@ def block_paged_verify(p, cfg, spec, x, cache, block_table, dest, rope, position
     return _ffn(p, cfg, x + y, impl)[0]
 
 
-def stack_init(gen, cfg: ModelConfig, device):
+def stack_init(gen, cfg: ModelConfig, device, cross: bool = False):
+    """One parameter dict per layer; ``cross`` adds the decoder layers'
+    cross-attention."""
     check_supported(cfg)
-    return [block_init(gen, cfg, spec, device) for spec in cfg.layers]
+    return [block_init(gen, cfg, spec, device, cross) for spec in cfg.layers]
 
 
 def _rope(cfg: ModelConfig, positions):
@@ -183,12 +214,14 @@ def _arange_rope(cfg: ModelConfig, x):
     return _rope(cfg, torch.arange(x.shape[1], device=x.device))
 
 
-def stack_apply(layers_params, cfg: ModelConfig, x, positions=None, *, impl="cuda",
-                cu_seqlens=None, max_seqlen=None, remat=False, return_aux=False):
+def stack_apply(layers_params, cfg: ModelConfig, x, positions=None, *, causal=True,
+                impl="cuda", enc_out=None, cu_seqlens=None, max_seqlen=None, remat=False,
+                return_aux=False):
     """Full-sequence forward at ``positions`` ((1, S); None means arange).
     Returns x, or with ``return_aux`` (x, aux): the MoE layers' load-balance
     losses summed, a 0-d fp32 tensor (0 without MoE layers), as the JAX
-    package's ``stack_apply`` carries it.
+    package's ``stack_apply`` carries it.  ``causal=False`` runs an
+    encoder; ``enc_out`` (B, S_enc, D) feeds a decoder's cross-attention.
 
     Packed mode (``cu_seqlens`` given): x is a (1, T, D) packed cohort and
     ``positions`` its within-sequence positions.  ``remat`` recomputes each
@@ -201,11 +234,12 @@ def stack_apply(layers_params, cfg: ModelConfig, x, positions=None, *, impl="cud
     rope = _arange_rope(cfg, x) if positions is None else _rope(cfg, positions)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, spec in zip(layers_params, cfg.layers):
-        def layer(x, p=p, spec=spec):
-            return block_apply(p, cfg, spec, x, rope, impl=impl, cu_seqlens=cu_seqlens,
-                               max_seqlen=max_seqlen, want_aux=return_aux)[:2]
-        x, aux = (torch.utils.checkpoint.checkpoint(layer, x, use_reentrant=False) if remat
-                  else layer(x))
+        def layer(x, enc_out, p=p, spec=spec):
+            return block_apply(p, cfg, spec, x, rope, causal=causal, impl=impl,
+                               enc_out=enc_out, cu_seqlens=cu_seqlens, max_seqlen=max_seqlen,
+                               want_aux=return_aux)[:2]
+        x, aux = (torch.utils.checkpoint.checkpoint(layer, x, enc_out, use_reentrant=False)
+                  if remat else layer(x, enc_out))
         if aux is not None:
             aux_total = aux_total + aux
     return (x, aux_total) if return_aux else x
@@ -221,18 +255,37 @@ def layer_cache_init(cfg: ModelConfig, spec: LayerSpec, batch, max_len, dtype, d
     return S.ssm_state_init(cfg, batch, dtype, device)
 
 
-def cache_init(cfg: ModelConfig, batch, max_len, dtype, device):
-    return [layer_cache_init(cfg, spec, batch, max_len, dtype, device)
-            for spec in cfg.layers]
+def cache_init(cfg: ModelConfig, batch, max_len, dtype, device, cross=False, enc_len=None):
+    """One decode cache per layer; with ``cross`` (an encoder-decoder's
+    decoder) each is {"self": the mixer's cache, "xkv": {"k", "v"}: (B,
+    enc_len, Hkv, Dh)}."""
+    def one(spec):
+        c = layer_cache_init(cfg, spec, batch, max_len, dtype, device)
+        if not cross:
+            return c
+        shape = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"self": c, "xkv": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                                   "v": torch.zeros(shape, dtype=dtype, device=device)}}
+    return [one(spec) for spec in cfg.layers]
 
 
-def stack_prefill(layers_params, cfg: ModelConfig, x, caches, *, impl="cuda"):
+def stack_prefill(layers_params, cfg: ModelConfig, x, caches, *, impl="cuda", enc_out=None):
     """Full forward that fills the decode caches (from ``cache_init``) in
-    place.  Returns x."""
+    place.  With ``enc_out`` each decoder layer computes its cross k/v once,
+    attends with it as computed and stores it in its "xkv" cache (cast to
+    the cache's dtype, as the JAX package casts it to ``cfg.dtype``).
+    Returns x."""
     rope = _arange_rope(cfg, x)
     seq_len = x.shape[1]
     for p, spec, cache in zip(layers_params, cfg.layers, caches):
-        x, _, state = block_apply(p, cfg, spec, x, rope, impl=impl, want_state=True)
+        xkv = None
+        if enc_out is not None:
+            xkv = A.encode_cross_kv(p["xattn"], cfg, enc_out)
+            for name, value in xkv.items():
+                cache["xkv"][name].copy_(value)
+            cache = cache["self"]
+        x, _, state = block_apply(p, cfg, spec, x, rope, impl=impl, enc_kv=xkv,
+                                  want_state=True)
         if spec.kind == ATTN:
             A.prefill_into_cache(cache, spec, state["k"], state["v"], seq_len)
         else:
@@ -241,14 +294,15 @@ def stack_prefill(layers_params, cfg: ModelConfig, x, caches, *, impl="cuda"):
     return x
 
 
-def stack_decode(layers_params, cfg: ModelConfig, x, caches, t, *, impl="cuda"):
+def stack_decode(layers_params, cfg: ModelConfig, x, caches, t, *, impl="cuda", cross=False):
     """x: (B, 1, D); t: the token's position.  Updates ``caches`` in place
-    and returns x.  The RoPE tables and cache lengths of the step are built
-    once here, not per layer."""
+    and returns x (``cross``: an encoder-decoder's decoder, its caches
+    ``cache_init(cross=True)``'s).  The RoPE tables and cache lengths of the
+    step are built once here, not per layer."""
     rope = _rope(cfg, torch.full((1, 1), t, device=x.device))
     cache_len = torch.full((x.shape[0],), t + 1, dtype=torch.int32, device=x.device)
     for p, spec, cache in zip(layers_params, cfg.layers, caches):
-        x = block_decode(p, cfg, spec, x, cache, t, rope, cache_len, impl=impl)
+        x = block_decode(p, cfg, spec, x, cache, t, rope, cache_len, impl=impl, cross=cross)
     return x
 
 
@@ -321,11 +375,14 @@ def stack_commit_verify(cfg: ModelConfig, caches, keep):
 
 def check_sharded(cfg: ModelConfig, tp: int):
     """Raise for a config the sharded stack does not run at tensor-parallel
-    degree ``tp``: a recurrent mixer (its tensor-parallel split is not
-    ported), or a tensor axis that does not divide the KV heads, the FFN
-    width or the experts (JAX's GSPMD would split a head in the middle; the
-    port keeps heads and experts whole)."""
+    degree ``tp``: an encoder-decoder or prefix model or a recurrent mixer
+    (their sharded paths are not ported), or a tensor axis that does not
+    divide the KV heads, the FFN width or the experts (JAX's GSPMD would
+    split a head in the middle; the port keeps heads and experts whole)."""
     check_supported(cfg)
+    if cfg.family == "encdec" or cfg.prefix_len:
+        raise NotImplementedError(f"{cfg.name}: sharded compute of encoder/prefix inputs "
+                                  "is not ported")
     kinds = {s.kind for s in cfg.layers}
     if kinds != {ATTN}:
         raise NotImplementedError(f"{cfg.name}: sharded compute is attention-only; got mixer "

@@ -258,10 +258,13 @@ def shardings_for_cell(cfg: ModelConfig, mesh, *, multi_pod: bool):
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
     """The decode caches' shapes and dtypes, as ``meta`` tensors: one
-    {"k", "v"} (B, S_max or the window, Hkv, Dh) per layer (the JAX
+    {"k", "v"} (B, S_max or the window, Hkv, Dh) per layer, an
+    encoder-decoder's {"self", "xkv"} over ``prefix_len`` frames (the JAX
     package's with each group's stack dim dropped)."""
     T.check_supported(cfg)
-    return T.cache_init(cfg, batch, max_len, L.dtype_of(cfg), torch.device("meta"))
+    cross = cfg.family == "encdec"
+    return T.cache_init(cfg, batch, max_len, L.dtype_of(cfg), torch.device("meta"),
+                        cross=cross, enc_len=cfg.prefix_len if cross else None)
 
 
 def cache_partition_specs(cache_shapes, rules: SH.ShardingRules):

@@ -63,7 +63,14 @@ MHA_GRID = [
     (1, 136, 21, 7, 16, True, 40),    # G = 3, window
     (1, 512, 14, 2, 16, True, 128),   # q-chunked reference path
     (4, 512, 32, 8, 128, True, None),  # llama-7b's prefill: G = 4, D 128
+    (2, 256, 16, 2, 128, True, None),  # internvl2-76b's grouping: G = 8, D 128
 ]
+
+# cross-attention (Sq, D, Hq, Hkv) over Skv 512 keys, non-causal: seamless's
+# decode (Sq 1: one live row of the 64-row tile), a full tile, a ragged
+# prompt; seamless's heads at D 64 (G 1), a G 8 grouping at D 128
+CROSS_GRID = [(sq, d, hq, hkv) for sq in (1, 64, 200)
+              for d, hq, hkv in ((64, 16, 16), (128, 16, 2))]
 
 # decode grid of tests/test_kernels.py, plus G = 7 rows
 DECODE_GRID = [
@@ -115,6 +122,21 @@ def test_flash_mha_kernel_matches_plain(b, s, hq, hkv, d, causal, window, dtype)
     pos = torch.arange(s, device=dev)[None]  # the no-skip position path
     _close(flash_attention.flash_mha(q, k, v, causal=causal, window=window,
                                      q_positions=pos, kv_positions=pos), want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,d,hq,hkv", CROSS_GRID)
+def test_flash_mha_cross_attention_matches_plain(sq, d, hq, hkv, dtype):
+    """Non-causal at Sq != Skv (the encoder-decoder's cross-attention over
+    512 encoder frames): every query sees every key."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    b, skv = 3, 512
+    q = _randn(gen, (b, sq, hq, d), dtype, dev)
+    k, v = (_randn(gen, (b, skv, hkv, d), dtype, dev) for _ in range(2))
+    _close(flash_attention.flash_mha(q, k, v, causal=False),
+           ref.mha_ref(q, k, v, causal=False), dtype)
 
 
 @pytest.mark.cuda
