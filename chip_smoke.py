@@ -185,10 +185,27 @@ Phases, in order; any failure exits non-zero before the last line:
      labels under the prefix change.  Phase 2 runs ``flash_mha`` at their
      shapes (non-causal at Sq != Skv, Sq 1 in decode; causal D 128 G 8)
      and ``flash_decode`` at D 64 G 1 and D 128 G 8.
+ 14. Snowflake Arctic's MoE: arctic-480b at full width on 2 of its 35
+     layers (128 experts top-2 of d_ff 4,864 beside a dense residual MLP of
+     d_ff 4,864, 56 / 8 heads of 128, untied 32,000 vocabulary; 27.2 GB a
+     layer), bf16, seeded weights with norm scales drawn: (a) layer 0's FFN
+     under both dispatches against a plain fp32 transcription, phase 3's
+     tiers with the route agreement and the paged decode bit-equal to the
+     dense one, peak memory; (b) phases 4 and 5, greedy, launches held;
+     (c) the capacity dispatch: the share of the prefill's assignments it
+     drops at 4 x 256 tokens, cuda vs reference, and equal to the
+     dropless dispatch on 4-token cohorts (within the capacity floor);
+     grouped_ffn on layer 0's weights at N 2,048 and N 16 against the
+     plain version, timed beside its bound and torch._grouped_mm; then on
+     layer 0 alone (d) one bf16 ``lm_loss`` with its backward cuda vs
+     reference, the gradients waiting on the host between the tiers, and
+     (e) the 128 experts over 4 ranks (32 each) and the dense residual
+     over its d_ff against the single-device forward.  Phase 2 runs the
+     attention kernels at its heads (D 128 G 7).
 Each model's parameters are freed before the next is built.
 Then one JSON line of kernel numbers, and last {"ok": true, "device": ...}.
 
-Phases 3 to 13 are functions of (config, params or experiment, impl) so the
+Phases 3 to 14 are functions of (config, params or experiment, impl) so the
 CPU tests rehearse them at the reduced size with impl="reference".
 """
 
@@ -341,6 +358,13 @@ CLIP_FRAC_TOL = 1e-2
 # and every leaf: both tiers round nowhere to bf16, so only summation order
 # is left (H100: 3.3e-6 worst; the boundaries one token late in the last
 # layer only: 1.5e-2 whole gradient, 4.6e-2 worst leaf).
+# For an MoE model both tiers take grouped_ffn's one backward
+# (``grouped_ffn_bwd_ref``; the reference tier's ``grouped_ffn_plain``), so
+# these checks see the expert FFN's forward only; the readings above were
+# taken while the reference tier differentiated the plain per-expert loop
+# by autograd.  tests/test_torch_cuda.py's
+# test_grouped_ffn_gradient_at_128_experts holds that backward against
+# autograd through the plain loop on the card.
 FP32_GRAD_TOL = 1e-4
 # Where a route of an MoE model parts between two fp32 runs (tiers or
 # layouts), the larger of both runs' gaps between the token's k-th and
@@ -351,6 +375,17 @@ FP32_GRAD_TOL = 1e-4
 # FP32_GRAD_TOL, so phase 7 holds the gap in place of the gradients where
 # a route parts.
 ROUTE_TIE_TOL = 1e-5
+# The same gap where two bf16 runs of arctic-480b part (tiers, dispatches,
+# layouts, engines), at each parting that no earlier one reaches
+# (``first_partings``): only the runs' bf16 rounding lies behind such a
+# parting, so it must be a near-tie.  Between the H100's largest sound
+# reading (6.973e-4, the capacity dispatch's tiers; the others 9.3e-5 to
+# 6.4e-4) and its planted faults' (the cuda run's last router column 0
+# x 1.5: 4.040e-2; layer 0's dense residual left out: 5.068e-2; the
+# continuous engine's own key left out of the paged decode in every
+# layer: 1.102e-2, in the last: 2.367e-3; every router weight x 1.05 reads
+# 1.031e-3 and passes; scripts/limit_controls.py routes, PERF.md).
+BF16_ROUTE_TIE_TOL = 1.5e-3
 # The raw init (embedding std 1.0, tied unembedding) makes every next-token
 # distribution almost one-hot; scaled by 0.05 the logits' spread is ~1.5.
 EMBED_SCALE = 0.05
@@ -608,6 +643,15 @@ def phase_kernels(device):
         randn, device, "seamless-m4t-medium", 4, 16, 16, 64, [129, 131, 133, 136])
     out["flash_decode"]["internvl2_d128_g8"] = decode_case(
         randn, device, "internvl2-76b", 2, 64, 8, 128, [513, 520])
+    # phase 14's heads: arctic-480b's 56 query on 8 KV heads of 128 (G 7)
+    # at its prefill, the BatchServer's ragged linear cache and the
+    # continuous server's 36-block table
+    out["flash_mha"]["arctic_d128_g7"] = mha_case(randn, device, "arctic-480b prefill", 4, 512,
+                                                  512, 56, 8, 128, True)
+    out["flash_decode"]["arctic_d128_g7"] = decode_case(
+        randn, device, "arctic-480b", 8, 56, 8, 128, [1, 17, 64, 65, 400, 777, 1000, 1088])
+    out["paged_flash_decode"]["arctic_d128_g7"] = paged_kernel_case(
+        randn, device, 56, 8, 128, tag=" arctic_d128_g7 (arctic-480b)")
     out["grouped_ffn"] = grouped_kernel_case(device)
     out["ssd_scan"] = ssd_kernel_case(device)
     out["rglru_scan"] = rglru_kernel_case(device)
@@ -636,7 +680,8 @@ def phase_kernels(device):
               f"{info['spill_bytes']} spill bytes, {info['smem_bytes']} bytes of shared "
               f"memory, {info['blocks_per_sm']} blocks per SM")
     for name, shape in (("qwen2-0.5b BatchServer (B 8, Hkv 2, C 1088)", (8, 2, 1088)),
-                        ("llama-7b BatchServer (B 8, Hkv 8, C 1088)", (8, 8, 1088)),
+                        ("llama-7b / arctic-480b BatchServer (B 8, Hkv 8, C 1088)",
+                         (8, 8, 1088)),
                         ("qwen2-0.5b PPO rollout (B 16, Hkv 2, C 384)", (16, 2, 384)),
                         ("recurrentgemma-9b (B 8, Hkv 1, ring 576)", (8, 1, 576)),
                         ("gemma3-1b local layers (B 8, Hkv 1, ring 512)", (8, 1, 512))):
@@ -645,7 +690,8 @@ def phase_kernels(device):
     for name, shape in (("qwen2-0.5b continuous (B 8, Hkv 2, M 36 x bs 16)", (8, 2, 576)),
                         ("granite-moe-1b-a400m continuous (B 8, Hkv 8, M 36 x bs 16)",
                          (8, 8, 576)),
-                        ("qwen3-1.7b / qwen2.5-14b continuous (B 8, Hkv 8, M 36 x bs 16)",
+                        ("qwen3-1.7b / qwen2.5-14b / arctic-480b continuous (B 8, Hkv 8, "
+                         "M 36 x bs 16)",
                          (8, 8, 576)),
                         ("gemma3-1b continuous (B 8, Hkv 1, M 68 x bs 16)",
                          (8, 1, PAGED_GEMMA3["m"] * 16))):
@@ -1336,25 +1382,32 @@ def grouped_kernel_case(device):
           f"{xs_pre.shape[0]}-row cohort vs alone, max_abs_diff={cohort_diff:.3e}")
     check(cohort_diff == 0.0, "grouped_ffn: a row's output depends on its cohort")
 
-    def timed(xs, gs):
-        hit = int((gs > 0).sum())
-        n = xs.shape[0]
-        nbytes = hit * 3 * d * f * 2 + n * d * 2 + n * d * 4 + e * 4
-        bms, by = bound_ms(6 * n * d * f, nbytes)
-        lib, lib_name = grouped_library(xs, gs, *wb)
-
-        def kernel():
-            return grouped_ffn(xs, gs, *wb)
-        return dict(ms=graph_ms(kernel), cold_ms=graph_cold_ms(kernel), eager_ms=time_ms(kernel),
-                    plain_ms=time_ms(lambda: ref.grouped_ffn_ref(xs, gs, *wb)),
-                    bound_ms=bms, bound_by=by, library_ms=graph_ms(lib), library=lib_name,
-                    n_rows=n, experts_hit=hit)
-
-    out = timed(xs_dec, gs_dec)
-    out["prefill"] = timed(xs_pre, gs_pre)
+    out = grouped_times(xs_dec, gs_dec, wb)
+    out["prefill"] = grouped_times(xs_pre, gs_pre, wb)
     out.update(max_abs_err=max(errs), cohort_max_abs_diff=cohort_diff)
     n_sweep(x_pre, router, k, wb)
     return out
+
+
+def grouped_times(xs, gs, wb, plain_iters=ITERS):
+    """grouped_ffn on (xs, gs) and the bf16 weights ``wb``: its time warm
+    and cold from CUDA-graph replays and from an eager loop, the plain
+    version's, the library call's, and the bound (the hit experts' weights
+    read once, the rows read and the fp32 output written once, 6 N D F
+    operations)."""
+    e, d, f = wb[0].shape
+    hit = int((gs > 0).sum())
+    n = xs.shape[0]
+    nbytes = hit * 3 * d * f * 2 + n * d * 2 + n * d * 4 + e * 4
+    bms, by = bound_ms(6 * n * d * f, nbytes)
+    lib, lib_name = grouped_library(xs, gs, *wb)
+
+    def kernel():
+        return grouped_ffn(xs, gs, *wb)
+    return dict(ms=graph_ms(kernel), cold_ms=graph_cold_ms(kernel), eager_ms=time_ms(kernel),
+                plain_ms=time_ms(lambda: ref.grouped_ffn_ref(xs, gs, *wb), plain_iters),
+                bound_ms=bms, bound_by=by, library_ms=graph_ms(lib), library=lib_name,
+                n_rows=n, experts_hit=hit)
 
 
 def n_sweep(x, router, k, wb):
@@ -1377,24 +1430,38 @@ def n_sweep(x, router, k, wb):
 
 def phase_slice(cfg, params, *, impl, batch=4, prompt_len=256, steps=8, seed=0):
     """Prefill last-position logits and ``steps`` teacher-forced decode
-    steps under ``impl`` and under "reference", on the same tokens.
-    Returns the scaled errors and the argmax agreement."""
+    steps under ``impl`` and under "reference", on the same tokens:
+    ``compare_routed``'s errors, argmax agreement and, for an MoE model,
+    how the routes compare."""
+    toks, feed = slice_tokens(cfg, params, batch, prompt_len, steps, seed)
+    return compare_routed(params, toks, feed, (cfg, impl), (cfg, "reference"))
+
+
+def slice_tokens(cfg, params, batch, prompt_len, steps, seed):
+    """Random prompts (B, prompt_len) and teacher-forced tokens (B, steps)."""
     device = params["embed"]["table"].device
     rng = np.random.default_rng(seed)
     toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (batch, prompt_len))).to(device)
     feed = torch.from_numpy(rng.integers(1, cfg.vocab_size, (batch, steps))).to(device)
-    logits = {}
-    for name in dict.fromkeys((impl, "reference")):
-        last, caches = MDL.prefill(params, cfg, {"tokens": toks}, prompt_len + steps,
-                                   impl=name)
-        out = [MDL.logits_of(params, cfg, last[:, None])[:, 0]]
-        for i in range(steps):
-            lg, caches = MDL.decode_step(params, cfg, feed[:, i], caches,
-                                         prompt_len + i, impl=name)
-            out.append(lg)
-        logits[name] = torch.stack(out, dim=1)  # (B, steps + 1, V)
-        del caches
-    got, want = logits[impl], logits["reference"]
+    return toks, feed
+
+
+def forced_logits(cfg, params, toks, feed, *, impl):
+    """The prefill's last-position logits of ``toks``, then one decode
+    step per column of ``feed``: (B, steps + 1, V)."""
+    prompt_len, steps = toks.shape[1], feed.shape[1]
+    last, caches = MDL.prefill(params, cfg, {"tokens": toks}, prompt_len + steps, impl=impl)
+    out = [MDL.logits_of(params, cfg, last[:, None])[:, 0]]
+    for i in range(steps):
+        lg, caches = MDL.decode_step(params, cfg, feed[:, i], caches, prompt_len + i,
+                                     impl=impl)
+        out.append(lg)
+    return torch.stack(out, dim=1)
+
+
+def logit_errors(got, want):
+    """Prefill (column 0) and decode errors over the largest |logit| of
+    ``want``, and the argmax agreement."""
     check(bool(torch.isfinite(got).all()), "non-finite logits")
     scale = want.abs().amax().item()
     err = (got - want).abs()
@@ -1469,40 +1536,122 @@ def recorded_routes():
 def route_diff(got, want, got_rows=None, want_rows=None):
     """Two runs' ``recorded_routes`` call by call, over ``got_rows`` and
     ``want_rows`` of each call (the same tokens in the same order; None:
-    all rows): the share of (token, call) pairs whose expert set agrees,
-    and the larger of both runs' probability gaps at each pair that does
-    not."""
+    all rows): per call, on the host, whether each row's expert set agrees
+    ("agree") and the larger of both runs' probability gaps there ("gap");
+    the share of (token, call) pairs that agree, the count that part and
+    the largest gap among them."""
     check(len(got) == len(want) and got, "router calls differ between the runs")
-    same, gaps = [], []
+    agree, gap = [], []
     for (ga, gg), (wa, wg) in zip(got, want):
         if got_rows is not None:
             ga, gg = (t[got_rows.to(t.device)] for t in (ga, gg))
             wa, wg = (t[want_rows.to(t.device)] for t in (wa, wg))
-        agree = (ga == wa).all(dim=-1)
-        same.append(agree)
-        gaps.append(torch.maximum(gg, wg)[~agree])
-    gaps = torch.cat(gaps)
-    return {"agreement": torch.cat(same).float().mean().item(), "flips": gaps.numel(),
-            "worst_gap": gaps.max().item() if gaps.numel() else 0.0}
+        agree.append((ga.cpu() == wa.cpu()).all(dim=-1))
+        gap.append(torch.maximum(gg.cpu(), wg.cpu()))
+    parted = torch.cat(gap)[~torch.cat(agree)]
+    return {"agree": agree, "gap": gap,
+            "agreement": torch.cat(agree).float().mean().item(), "flips": parted.numel(),
+            "worst_gap": parted.max().item() if parted.numel() else 0.0}
 
 
-def route_agreement(cfg, params, *, impl, **kw):
-    """``phase_slice`` with every router call's top-k expert set recorded:
-    adds the share of (token, layer) pairs whose set agrees between
-    ``impl`` and "reference" (a near-tie in the router may fall the other
-    way under bf16 attention rounding)."""
-    with recorded_routes() as routes:
-        sl = phase_slice(cfg, params, impl=impl, **kw)
-    if not routes:  # no MoE layer
-        sl["route_agreement"] = None
-        return sl
-    if impl == "reference":  # one run: nothing to compare
-        sl["route_agreement"] = 1.0
-        return sl
-    half = len(routes) // 2
-    check(len(routes) == 2 * half, "router calls differ between the tiers")
-    sl["route_agreement"] = route_diff(routes[:half], routes[half:])["agreement"]
-    return sl
+def token_grid(per_call, batch, prompt_len, steps=0):
+    """Per-call (rows,) tensors of one prefill (or forward) over ``batch``
+    x ``prompt_len`` tokens, then of ``steps`` decode steps over ``batch``
+    rows, one call per MoE layer each: (batch, prompt_len + steps,
+    layers)."""
+    n = len(per_call) // (1 + steps)
+    grid = torch.stack(per_call[:n], -1).view(batch, prompt_len, n)
+    if steps:
+        grid = torch.cat([grid, torch.stack(per_call[n:], -1).view(batch, steps, n)], 1)
+    return grid
+
+
+def first_partings(parted):
+    """(B, T, layers) partings of two runs' routes: those that no earlier
+    parting reaches.  Layer l's router at position t reads what the
+    layers below l made of positions up to t, so a parting there may
+    follow from one at such a place by any probability gap; any other
+    parting has only the runs' rounding behind it, so it must be a
+    near-tie."""
+    seen = parted.int().cummax(dim=1).values
+    below = torch.zeros_like(seen)
+    below[..., 1:] = seen[..., :-1].cummax(dim=-1).values
+    return parted & (below == 0)
+
+
+def parted_grid(d, batch, prompt_len, steps=0, kept=None):
+    """``route_diff`` ``d`` of one prefill (or forward) and ``steps``
+    decode steps (``token_grid``), per token: (B, T) whether the token's
+    expert set parted in some layer (or, with ``kept``, the same diff of
+    the experts the capacity dispatch kept, those), and the largest
+    probability gap at a parted expert set that no earlier parting reaches
+    (``first_partings``; 0 with none)."""
+    topk = ~token_grid(d["agree"], batch, prompt_len, steps)
+    parted = topk if kept is None else topk | ~token_grid(kept["agree"], batch, prompt_len,
+                                                          steps)
+    gaps = token_grid(d["gap"], batch, prompt_len, steps)[first_partings(parted) & topk]
+    return parted.any(dim=-1), gaps.max().item() if gaps.numel() else 0.0
+
+
+@contextlib.contextmanager
+def recorded_capacity():
+    """Record every ``capacity_route`` call while the block runs: (dropped
+    assignments, assignments, each row's kept experts (T, K) sorted, -1
+    for a dropped one), into the yielded list."""
+    calls = []
+    route = MOE.capacity_route
+
+    def recording(cfg, top_w, top_i, t):
+        out = route(cfg, top_w, top_i, t)
+        order, keep = out[0], out[3]
+        kept = torch.empty_like(keep).scatter_(0, order, keep).view(t, -1)
+        calls.append((int((~keep).sum()), keep.numel(),
+                      torch.sort(torch.where(kept, top_i, -1), dim=-1).values))
+        return out
+    MOE.capacity_route = recording
+    try:
+        yield calls
+    finally:
+        MOE.capacity_route = route
+
+
+def routed_logits(cfg, params, toks, feed, *, impl):
+    """``forced_logits`` with every router call recorded: (logits, routes,
+    capacity calls) as ``recorded_routes`` and ``recorded_capacity`` give
+    them."""
+    with recorded_routes() as routes, recorded_capacity() as caps:
+        logits = forced_logits(cfg, params, toks, feed, impl=impl)
+    return logits, routes, caps
+
+
+def compare_routed(params, toks, feed, got_run, want_run):
+    """``forced_logits`` of two (config, impl) runs on the same tokens:
+    ``logit_errors`` over every compared token (each prefill row's last,
+    every decode step's) and the first run's capacity calls.  For an MoE
+    model also "agreed_err", the error over the compared tokens that every
+    layer routed alike in both runs (their top-k expert sets and, where
+    both runs take the capacity dispatch, the experts kept), the count of
+    the others, the route agreement over every (token, layer) pair and
+    ``parted_grid``'s largest gap at a first parting ("held_gap")."""
+    (got, groutes, gcaps), (want, wroutes, wcaps) = (
+        routed_logits(c, params, toks, feed, impl=i) for c, i in (got_run, want_run))
+    out = logit_errors(got, want)
+    out.update(capacity=gcaps, route_agreement=None)
+    if not groutes:  # no MoE layer
+        return out
+    batch, prompt_len = toks.shape
+    d = route_diff(groutes, wroutes)
+    kept = None
+    if gcaps and wcaps:
+        kept = route_diff(*([(c[2], g) for c, (_, g) in zip(caps, routes)]
+                            for caps, routes in ((gcaps, groutes), (wcaps, wroutes))))
+    parted, held_gap = parted_grid(d, batch, prompt_len, feed.shape[1], kept)
+    parted = parted[:, prompt_len - 1:]
+    err = (got - want).abs().amax(dim=-1).cpu()
+    out.update(agreed_err=err.masked_fill(parted, 0.0).max().item() / out["logit_scale"],
+               parted=int(parted.sum()), entries=parted.numel(),
+               route_agreement=d["agreement"], held_gap=held_gap)
+    return out
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1514,8 +1663,11 @@ def serve_prompts(cfg, *, requests=8, min_prompt=16, max_prompt=400, seed=0):
 
 
 def moe_layers(cfg):
-    """Layers whose FFN is a dropless MoE: one grouped_ffn per forward."""
-    return sum(s.has_ffn for s in cfg.layers) if cfg.ffn_kind == "moe" else 0
+    """Layers whose FFN is a dropless MoE: one grouped_ffn per forward (the
+    capacity dispatch launches none)."""
+    if cfg.ffn_kind != "moe" or cfg.moe_dispatch != "dropless":
+        return 0
+    return sum(s.has_ffn for s in cfg.layers)
 
 
 def attn_layers(cfg, *, local=None):
@@ -1670,6 +1822,117 @@ def tie_gaps(cfg, params, prompts, outs_a, outs_b, impl="cuda"):
     return out
 
 
+@contextlib.contextmanager
+def engine_routes(prompts, new):
+    """Every router call of the ``BatchServer`` or ``ContinuousBatchServer``
+    that serves ``prompts`` (``new`` tokens each) in the block, filed by
+    request and by position in its prompt left-padded to its bucket, as
+    both engines lay it out: yields {request: (expert sets (T, layers, K),
+    probability gaps (T, layers))}, T the bucket plus ``new``; -1 and nan
+    where no call covered a position."""
+    key = {(bucket_of(len(p)), tuple(int(t) for t in p)): i for i, p in enumerate(prompts)}
+    check(len(key) == len(prompts), "two requests share a prompt")
+    recs, slot_req, n_layers = {}, {}, [0]
+    generate, admit, decode = MDL.generate, SPEC._admit_run, SPEC._decode_run
+
+    def file(i, layer, t0, ex, gp):
+        t = bucket_of(len(prompts[i])) + new[i]
+        if i not in recs:
+            recs[i] = (np.full((t, n_layers[0], ex.shape[-1]), -1),
+                       np.full((t, n_layers[0]), np.nan))
+        m = max(0, min(len(ex), t - t0))
+        recs[i][0][t0:t0 + m, layer] = ex[:m]
+        recs[i][1][t0:t0 + m, layer] = gp[:m]
+
+    def file_prefill(toks, new_calls):  # one call per layer over (W, P) rows
+        toks = toks.cpu().numpy()
+        n_layers[0] = len(new_calls)
+        reqs = [key.get((len(r), tuple(np.trim_zeros(r, "f").tolist()))) for r in toks]
+        for layer, (ex, gp) in enumerate(new_calls):
+            ex = ex.cpu().numpy().reshape(*toks.shape, -1)
+            gp = gp.cpu().numpy().reshape(toks.shape)
+            for r, i in enumerate(reqs):
+                if i is not None:
+                    file(i, layer, 0, ex[r], gp[r])
+        return reqs
+
+    def file_decode(reqs, pos, new_calls):  # steps x layers calls over the rows
+        for c, (ex, gp) in enumerate(new_calls):
+            step, layer = divmod(c, n_layers[0])
+            ex, gp = ex.cpu().numpy(), gp.cpu().numpy()
+            for r, i in enumerate(reqs):
+                if i is not None and pos[r] + step >= bucket_of(len(prompts[i])):
+                    file(i, layer, int(pos[r]) + step, ex[r:r + 1], gp[r:r + 1])
+
+    def gen(params, cfg, batch, **kw):
+        c0 = len(calls)
+        out = generate(params, cfg, batch, **kw)
+        w, plen = batch["tokens"].shape
+        n = next((k for k, (ex, _) in enumerate(calls[c0:]) if len(ex) != w * plen),
+                 len(calls) - c0)
+        reqs = file_prefill(batch["tokens"], calls[c0:c0 + n])
+        file_decode(reqs, [plen] * w, calls[c0 + n:])
+        del calls[c0:]
+        return out
+
+    def adm(params, cfg, tokens, caches, slots, *a, **kw):
+        c0 = len(calls)
+        out = admit(params, cfg, tokens, caches, slots, *a, **kw)
+        for slot, i in zip(slots, file_prefill(tokens, calls[c0:])):
+            if i is not None:
+                slot_req[int(slot)] = i
+        del calls[c0:]
+        return out
+
+    def dec(params, cfg, caches, table, tok, pos, *a):
+        c0, p0 = len(calls), pos.cpu().numpy()
+        out = decode(params, cfg, caches, table, tok, pos, *a)
+        file_decode([slot_req.get(s) for s in range(len(p0))], p0, calls[c0:])
+        del calls[c0:]
+        return out
+
+    with recorded_routes() as calls:
+        MDL.generate, SPEC._admit_run, SPEC._decode_run = gen, adm, dec
+        try:
+            yield recs
+        finally:
+            MDL.generate, SPEC._admit_run, SPEC._decode_run = generate, admit, decode
+
+
+def engine_partings(cfg, params, prompts, new, *, impl="cuda"):
+    """Greedy ``ContinuousBatchServer`` and ``BatchServer`` runs of an MoE
+    model on the same traffic, each router call recorded
+    (``engine_routes``).  Returns ``tie_gaps``' distances over the top
+    |logit| where the outputs part, and per request, over its prompt and
+    the tokens both engines fed alike (up to where their outputs part):
+    the (token, layer) pairs whose expert set parts, and the largest
+    probability gap at one that no earlier parting reaches
+    (``first_partings``)."""
+    runs = []
+    for serve in (lambda: phase_continuous(cfg, params, prompts, new, impl=impl,
+                                           modes=("greedy",))["greedy"]["outputs"],
+                  lambda: bucketed_on(cfg, params, prompts, new, impl=impl)["outputs"]):
+        with engine_routes(prompts, new) as rec:
+            outs = serve()
+        runs.append((outs, rec))
+    (outs_a, rec_a), (outs_b, rec_b) = runs
+    ties = {i: g / sc for i, (g, sc) in tie_gaps(cfg, params, prompts, outs_a, outs_b,
+                                                 impl=impl).items()}
+    routes = {}
+    for i, (p, a, b) in enumerate(zip(prompts, outs_a, outs_b)):
+        a, b = np.asarray(a), np.asarray(b)
+        j = len(a) - 1 if np.array_equal(a, b) else int(np.argmax(a != b))
+        lo, hi = bucket_of(len(p)) - len(p), bucket_of(len(p)) + j
+        check(i in rec_a and i in rec_b, f"request {i}: no route recorded")
+        (ea, ga), (eb, gb) = (r[i] for r in (rec_a, rec_b))
+        ea, eb = ea[lo:hi], eb[lo:hi]
+        check(bool((ea >= 0).all() and (eb >= 0).all()), f"request {i}: a route went unrecorded")
+        parted = torch.from_numpy((ea != eb).any(-1))
+        gaps = np.maximum(ga, gb)[lo:hi][first_partings(parted[None])[0].numpy()]
+        routes[i] = (int(parted.sum()), float(gaps.max()) if gaps.size else 0.0)
+    return ties, routes
+
+
 def bucketed_on(cfg, params, prompts, new, *, impl):
     """The bucketed server on the same traffic: it generates max(new) tokens
     for every request; useful tokens/s counts only each request's own.
@@ -1804,6 +2067,14 @@ def square_norms(a, b):
         d2 += (x.float() - y).square().sum().item()
         r2 += y.square().sum().item()
     return d2, r2
+
+
+def all_finite(t) -> bool:
+    """Whether every element of ``t`` is finite, slice by slice along the
+    first axis: ``torch.isfinite`` of a whole Arctic expert gradient
+    (4.46e9 bf16 elements) takes 22 GB of temporaries."""
+    rows = max(1, (1 << 24) * t.shape[0] // t.numel()) if t.dim() else 1
+    return all(bool(torch.isfinite(x).all()) for x in (t.split(rows) if t.dim() else [t]))
 
 
 def agreement(name, g, w):
@@ -3482,8 +3753,10 @@ def report_tp_serve(params, device, total, *, steps=8):
 def phase_ep(cfg, params, layout, *, impl, batch=4, prompt_len=256, seed=0):
     """11c: the sharded forward with the experts split over the model axis
     against the single-device forward on the same tokens: logits (scaled
-    error), the route agreement of the single run with the first model
-    rank's (``route_diff``), whether every model rank routed alike."""
+    error; ``agree_err`` over the tokens every layer routed alike in both,
+    ``parted`` the others, ``parted_grid``'s ``held_gap``), the route
+    agreement of the single run with the first model rank's
+    (``route_diff``), whether every model rank routed alike."""
     if layout[0] != 1:
         raise ValueError("phase_ep compares routes of one batch replica: need data size 1")
     device = params["embed"]["table"].device
@@ -3515,8 +3788,12 @@ def phase_ep(cfg, params, layout, *, impl, batch=4, prompt_len=256, seed=0):
     check(bool(torch.isfinite(got).all()), "non-finite EP logits")
     scale = want.abs().amax().item()
     tp = layout[1]
-    out.update(err=(got - want).abs().max().item() / scale, logit_scale=scale,
-               routes=route_diff(routes[::tp], ref_routes),
+    d = route_diff(routes[::tp], ref_routes)
+    parted, held_gap = parted_grid(d, batch, prompt_len)
+    err = (got - want).abs().amax(dim=-1).cpu()
+    out.update(err=err.max().item() / scale, logit_scale=scale,
+               agree_err=err.masked_fill(parted, 0.0).max().item() / scale,
+               parted=int(parted.sum()), tokens=toks.numel(), routes=d, held_gap=held_gap,
                ranks_route_alike=all(same(routes[i - i % tp][0], routes[i][0])
                                      for i in range(len(routes))))
     return out
@@ -3527,25 +3804,44 @@ def report_ep(device, total):
     ranks."""
     cfg = get_config("granite-moe-1b-a400m")
     params = make_params(cfg, seed=0, device=device)
+    check_ep(cfg, params, EP_LAYOUT, device, total, "[shard]")
+    del params
+    free(device)
+
+
+def check_ep(cfg, params, layout, device, total, tag, routed=False):
+    """``phase_ep`` on the card, printed and held (logits at LOGIT_TOL, the
+    ranks' routers alike, one grouped_ffn per rank per MoE layer); adds
+    its launches to ``total``.  With ``routed`` (arctic-480b, whose parted
+    routes move a token's logits past LOGIT_TOL: ``compare_routed``) the
+    logits are held where both forwards routed the token alike, and each
+    first parting to a near-tie (``route_tie_tol``)."""
     peak_reset(device)
-    r = phase_ep(cfg, params, EP_LAYOUT, impl="cuda")
-    n = EP_LAYOUT[0] * EP_LAYOUT[1] * moe_layers(cfg)
+    r = phase_ep(cfg, params, layout, impl="cuda")
+    n = layout[0] * layout[1] * moe_layers(cfg)
     rt = r["routes"]
-    print(f"[shard] EP forward {cfg.name} on (data, model)={EP_LAYOUT} (16 of 32 experts per "
-          f"rank; vocabulary split: {r['vocab_split']}), 4 x 256 tokens: logits err "
-          f"{r['err']:.3e} of max |logit| {r['logit_scale']:.3f} (tol {LOGIT_TOL}); routes "
+    dense = (f", dense residual d_ff {cfg.d_ff // layout[1]} of {cfg.d_ff}"
+             if cfg.dense_residual_ffn else "")
+    tie = f", tol {route_tie_tol(cfg)}" if routed else "; printed"
+    print(f"{tag} EP forward {cfg.name} {cfg.num_layers} layers on (data, model)={layout} "
+          f"({cfg.n_experts // layout[1]} of {cfg.n_experts} experts per rank{dense}; "
+          f"vocabulary split: {r['vocab_split']}), 4 x 256 tokens: logits err "
+          f"{r['err']:.3e}, {r['agree_err']:.3e} over the {r['tokens'] - r['parted']} of "
+          f"{r['tokens']} tokens routed alike (tol {LOGIT_TOL} on the "
+          f"{'latter' if routed else 'former'}) of max |logit| {r['logit_scale']:.3f}; routes "
           f"agree with the single device on {rt['agreement']:.6f} of (token, layer) pairs, "
-          f"{rt['flips']} part (largest probability gap {rt['worst_gap']:.3e}; printed); "
+          f"{rt['flips']} part (largest probability gap {rt['worst_gap']:.3e}, at a parting "
+          f"no earlier one reaches {r['held_gap']:.3e}{tie}); "
           f"ranks route alike {r['ranks_route_alike']}; {r['seconds']:.3f}s, "
           f"{r['bytes']} bytes moved, peak {peak(device)} bytes; launches {r['launches']} "
           f"(grouped_ffn predicted {n}; single device {r['ref_launches']})")
-    check(r["err"] <= LOGIT_TOL, "EP logits disagree with the single-device forward")
+    check(r["agree_err" if routed else "err"] <= LOGIT_TOL,
+          "EP logits disagree with the single-device forward")
+    check(not routed or r["held_gap"] <= route_tie_tol(cfg), "EP routes part past a near-tie")
     check(r["ranks_route_alike"], "the model ranks' replicated routers routed differently")
     check(r["launches"]["grouped_ffn"] == n, f"EP grouped_ffn launches {r['launches']}")
     for k in total:
         total[k] += r["launches"][k]
-    del params
-    free(device)
 
 
 def phase_pipeline(cfg, params, *, impl, stages=PIPE_STAGES, mbs=PIPE_MICRO, batch=16,
@@ -4665,6 +4961,299 @@ def report_phase13(device, total):
     print(f"[time] phase 13 {time.perf_counter() - t0:.1f}s")
 
 
+# ------------------------------------------------------------------ phase 14
+# Snowflake Arctic: in every layer 128 experts top-2 of (7,168 x 4,864)
+# beside a dense residual MLP of d_ff 4,864, 56 query / 8 KV heads of 128,
+# an untied 32,000 vocabulary.  One layer is 27.2 GB in bf16 (26.78 GB of
+# it experts), so the card holds 2 of its 35 layers (55.4 GB with the
+# embedding and head; 3 would take 82.6 GB); the gradient (its bf16
+# gradients as large again), the expert split (a sharded copy) and the
+# fp32 tiers (54 GB) run on 1.
+#
+# With 128 experts the router's k-th and (k+1)-th probabilities lie close,
+# so bf16 rounding (the tiers round attention differently) parts ~2% of
+# the (token, layer) routes, and with top-2 a parted route swaps half of
+# its token's expert output: the H100 read 2.6e-1 of max |logit| over all
+# compared logits, route agreement 0.98.  Two runs are held where every
+# layer routed the compared token alike, and each parting that no earlier
+# one reaches (``first_partings``) to a near-tie: ROUTE_TIE_TOL in fp32,
+# BF16_ROUTE_TIE_TOL in bf16.
+
+ARCTIC = "arctic-480b"
+ARCTIC_LAYERS = 2
+ARCTIC_EP = (1, 4)  # (e): 32 experts and 1,216 of the dense residual's 4,864 per rank
+ARCTIC_TRAIN = dict(batch=4, prompt=128, new=128)
+
+
+def plain_arctic_ffn(p, cfg, x):
+    """Arctic's FFN transcribed from its published definition, in fp32 and
+    independent of ``models/moe.py``: a softmax router, each token through
+    its top-k experts' SwiGLU weighted by their probabilities renormalised
+    to sum to 1, plus the dense residual SwiGLU MLP.  x: (..., D); returns
+    (T, D)."""
+    silu = torch.nn.functional.silu
+    x = x.float().reshape(-1, x.shape[-1])
+    probs = torch.softmax(x @ p["router"]["w"].float(), dim=-1)
+    w, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    w = w / w.sum(dim=-1, keepdim=True)
+    out = torch.zeros_like(x)
+    for t in range(x.shape[0]):
+        for j in range(cfg.top_k):
+            e = int(idx[t, j])
+            h = silu(x[t] @ p["w_gate"][e].float()) * (x[t] @ p["w_in"][e].float())
+            out[t] += w[t, j] * (h @ p["w_out"][e].float())
+    d = p["dense"]
+    h = silu(x @ d["w_gate"]["w"].float()) * (x @ d["w_in"]["w"].float())
+    return out + h @ d["w_out"]["w"].float()
+
+
+def arctic_layer_check(cfg, params, *, impl, tokens=8, seed=0):
+    """Layer 0's FFN (``moe.moe_apply``) under each dispatch against
+    ``plain_arctic_ffn`` on ``tokens`` normal inputs (8: within the
+    capacity floor, so the capacity dispatch keeps every assignment):
+    {dispatch: max |difference| over max |plain|}."""
+    device = params["embed"]["table"].device
+    g = torch.Generator(device=device).manual_seed(seed)
+    p = params["layers"][0]["ffn"]
+    x = torch.randn((1, tokens, cfg.d_model), generator=g, device=device).to(L.dtype_of(cfg))
+    out = {}
+    with torch.no_grad():
+        want = plain_arctic_ffn(p, cfg, x)
+        for dispatch in ("dropless", "capacity"):
+            got = MOE.moe_apply(p, dataclasses.replace(cfg, moe_dispatch=dispatch), x,
+                                impl=impl)
+            check(bool(torch.isfinite(got).all()), f"{cfg.name} {dispatch}: non-finite FFN")
+            out[dispatch] = ((got.float().reshape(want.shape) - want).abs().max().item()
+                             / want.abs().max().item())
+    return out
+
+
+def phase_capacity(cfg, params, *, impl, batch=4, prompt_len=256, steps=8, seed=0):
+    """The capacity dispatch (``cfg`` with ``moe_dispatch="capacity"``):
+    ``compare_routed`` of ``impl`` against "reference" on ``batch`` x
+    ``prompt_len`` prompts and ``steps`` decode steps, with the share of
+    assignments the ``impl`` run's prefill drops and its launches; then on
+    the same rows at prompt length 1, every cohort ``batch`` tokens (within
+    the capacity floor: nothing drops), against the dropless dispatch
+    under ``impl`` (``small``, with the assignments dropped there)."""
+    ccfg = dataclasses.replace(cfg, moe_dispatch="capacity")
+    toks, feed = slice_tokens(cfg, params, batch, prompt_len, steps, seed)
+    reset_launches()
+    out = compare_routed(params, toks, feed, (ccfg, impl), (ccfg, "reference"))
+    out["launches"] = launches()
+    prefill = out["capacity"][:sum(s.has_ffn for s in cfg.layers)]
+    out.update(dropped=sum(c[0] for c in prefill), assignments=sum(c[1] for c in prefill))
+    out["drop_share"] = out["dropped"] / out["assignments"]
+    small = compare_routed(params, toks[:, :1], feed, (ccfg, impl), (cfg, impl))
+    small["dropped"] = sum(c[0] for c in small["capacity"])
+    out["small"] = small
+    return out
+
+
+def parted_tokens(cfg, params, tokens, *, impl):
+    """The forwards of ``impl`` and the reference on ``tokens`` (B, S), each
+    router call recorded: ``parted_grid``'s (B, S) tokens whose expert set
+    parts in some MoE layer and largest gap at a first parting."""
+    runs = []
+    with torch.no_grad():
+        for name in (impl, "reference"):
+            with recorded_routes() as routes:
+                MDL.forward(params, cfg, {"tokens": tokens}, impl=name)
+            runs.append(routes)
+    return parted_grid(route_diff(*runs), *tokens.shape)
+
+
+def grad_tiers_in_place(cfg, params, batch, *, impl):
+    """``grad_tiers`` without a copy of the parameters, which take
+    requires_grad in place for the two backward passes (a copy of one
+    Arctic layer is 27 GB more); the first pass's bf16 gradients wait on
+    the host while the second runs.  Returns grad_tiers' numbers, both aux
+    losses, whether every gradient is finite and the first pass's
+    launches."""
+    leaves = adamw.leaves(params)
+    device = leaves[0].device
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        reset_launches()
+        loss, stats = MDL.lm_loss(params, cfg, batch, impl=impl)
+        loss.backward()
+        counts = launches()
+        finite = all(all_finite(t.grad) for t in leaves)
+        got = []
+        for t in leaves:
+            got.append(t.grad.to("cpu"))
+            t.grad = None
+        ref_loss, ref_stats = MDL.lm_loss(params, cfg, batch, impl="reference")
+        ref_loss.backward()
+        sq = [square_norms(g.to(device), t.grad) for g, t in zip(got, leaves)]
+    finally:
+        for t in leaves:
+            t.grad = None
+            t.requires_grad_(False)
+    worst = max(zip((math.sqrt(d2 / max(r2, 1e-60)) for d2, r2 in sq), leaf_names(params)))
+    return {"loss": loss.item(),
+            "loss_err": abs(loss.item() - ref_loss.item()) / max(abs(ref_loss.item()), 1e-12),
+            "aux_loss": stats["aux_loss"].item(), "ref_aux_loss": ref_stats["aux_loss"].item(),
+            "global_err": math.sqrt(sum(d2 for d2, _ in sq) / max(sum(r2 for _, r2 in sq),
+                                                                   1e-60)),
+            "worst_leaf_err": worst[0], "worst_leaf": worst[1], "n_leaves": len(sq),
+            "finite": finite, "launches": counts}
+
+
+def arctic_grouped_case(cfg, ffn, device):
+    """grouped_ffn on layer 0's own expert weights (no second 27 GB copy)
+    at phase 14's prefill (4 x 256 tokens, top-2: N 2,048) and a decode
+    step of 8 rows (N 16), rows routed by layer 0's router from normal
+    inputs: held to the plain version (GROUPED_TOL) and timed
+    (``grouped_times``)."""
+    g = torch.Generator(device=device).manual_seed(14)
+    wb = (ffn["w_gate"], ffn["w_in"], ffn["w_out"])
+    e, d, f = wb[0].shape
+    out = {}
+    for key, t in (("arctic_prefill", 4 * 256), ("arctic_decode", 8)):
+        x = torch.randn((t, d), generator=g, device=device).to(torch.bfloat16)
+        xs, gs, _ = routed_rows(x, ffn["router"]["w"], cfg.top_k)
+        label = (f"grouped_ffn {key} (E {e}, D {d}, F {f}, N {xs.shape[0]}, "
+                 f"{int((gs > 0).sum())} experts hit)")
+        err = held(label, grouped_ffn(xs, gs, *wb), ref.grouped_ffn_ref(xs, gs, *wb),
+                   GROUPED_TOL)
+        out[key] = r = dict(max_abs_err=err, **grouped_times(xs, gs, wb, plain_iters=5))
+        print(f"[kernels] {label}: ms={r['ms']:.4f} (warm L2) cold_ms={r['cold_ms']:.4f} "
+              f"(L2 flushed) eager_ms={r['eager_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}; {r['bound_ms'] / r['ms']:.3f} "
+              f"of ms) library_ms={r['library_ms']:.4f} ({r['library']})")
+    return out
+
+
+def route_tie_tol(cfg):
+    """The near-tie a first route parting of ``cfg``'s runs is held to."""
+    return ROUTE_TIE_TOL if cfg.dtype == "float32" else BF16_ROUTE_TIE_TOL
+
+
+def report_routed(tag, cfg, r, what):
+    """Print and hold one ``compare_routed`` result of an MoE model: the
+    error over the compared tokens every layer routed alike (LOGIT_TOL,
+    FP32_LOGIT_TOL in fp32), each first parting a near-tie
+    (``route_tie_tol``)."""
+    tol = FP32_LOGIT_TOL if cfg.dtype == "float32" else LOGIT_TOL
+    print(f"{tag} {cfg.name} {what}: error {r['agreed_err']:.3e} over the "
+          f"{r['entries'] - r['parted']} of {r['entries']} compared tokens every layer routed "
+          f"alike (of max |logit| {r['logit_scale']:.3f}; tol {tol}); over all: prefill_err="
+          f"{r['prefill_err']:.3e} decode_err={r['decode_err']:.3e}; largest probability gap "
+          f"at a route parting no earlier one reaches {r['held_gap']:.3e} (tol "
+          f"{route_tie_tol(cfg)}); route_agreement={r['route_agreement']:.4f} "
+          f"argmax_agreement={r['argmax_agreement']:.3f}")
+    check(r["agreed_err"] <= tol, f"{cfg.name} {what}: logits disagree where the routes agree")
+    check(r["held_gap"] <= route_tie_tol(cfg), f"{cfg.name} {what}: a route parts past a near-tie")
+
+
+def report_capacity(cfg, params):
+    """14c on the card: ``phase_capacity``, printed and held."""
+    r = phase_capacity(cfg, params, impl="cuda")
+    print(f"[arctic] capacity dispatch, 4 x 256 prompt tokens (capacity "
+          f"{MOE.capacity(4 * 256, cfg)} rows per expert, "
+          f"{4 * 256 * cfg.top_k / cfg.n_experts:g} on average): {r['dropped']} of "
+          f"{r['assignments']} assignments dropped (share {r['drop_share']:.4f}) over the "
+          f"prefill's {cfg.num_layers} layers; launches {r['launches']} (no grouped_ffn)")
+    report_routed("[arctic]", cfg, r, "capacity dispatch, cuda vs reference")
+    report_routed("[arctic]", cfg, r["small"],
+                  f"capacity vs dropless on 4-token cohorts (capacity {MOE.capacity(4, cfg)}, "
+                  f"the floor; {r['small']['dropped']} dropped)")
+    check(r["drop_share"] > 0, "the capacity dispatch dropped nothing at 4 x 256 tokens")
+    check(r["launches"]["grouped_ffn"] == 0 and r["launches"]["flash_mha"] == cfg.num_layers,
+          f"capacity dispatch: launches {r['launches']}")
+    check(r["small"]["dropped"] == 0, "the capacity dispatch dropped within its floor")
+
+
+def report_arctic_grads(cfg, params, device, total):
+    """14d on the card: one bf16 ``lm_loss`` with its backward, cuda
+    against reference (loss and whole gradient at TRAIN_TOL, each leaf at
+    TRAIN_LEAF_TOL, as phase 6) on a mask that leaves out the tokens whose
+    route parts between the tiers (on 1 layer a token's route reaches only
+    its own loss term; the aux loss keeps every token), each parting a
+    near-tie (``route_tie_tol``); launches held and added to ``total``."""
+    batch = lm_batch(cfg, device, **ARCTIC_TRAIN)
+    parted, held_gap = parted_tokens(cfg, params, batch["tokens"], impl="cuda")
+    batch["mask"] = batch["mask"].masked_fill(parted.to(device), 0.0)
+    peak_reset(device)
+    t0 = time.perf_counter()
+    r = grad_tiers_in_place(cfg, params, batch, impl="cuda")
+    want = {"flash_mha": 2 * attn_layers(cfg), "grouped_ffn": 2 * moe_layers(cfg)}
+    print(f"[arctic] {cfg.name} {cfg.num_layers} layer bf16 lm_loss {r['loss']:.6f} (aux "
+          f"{r['aux_loss']:.6f}, reference {r['ref_aux_loss']:.6f}) with its backward on "
+          f"{ARCTIC_TRAIN['batch']} x {ARCTIC_TRAIN['prompt'] + ARCTIC_TRAIN['new']} tokens "
+          f"({int(parted.sum())} tokens whose route parts between the tiers masked out, "
+          f"largest probability gap {held_gap:.3e}, tol {route_tie_tol(cfg)}), "
+          f"cuda vs reference: loss_err={r['loss_err']:.3e} global_err={r['global_err']:.3e} "
+          f"(tol {TRAIN_TOL}) worst leaf {r['worst_leaf']} {r['worst_leaf_err']:.3e} (tol "
+          f"{TRAIN_LEAF_TOL}) over {r['n_leaves']} leaves; gradients finite {r['finite']}; "
+          f"{time.perf_counter() - t0:.1f}s; peak {peak(device)} bytes; launches "
+          f"{r['launches']} (predicted {want})")
+    check(r["finite"] and math.isfinite(r["loss"]), "non-finite loss or gradient")
+    check(held_gap <= route_tie_tol(cfg), "Arctic gradient: a route parts past a near-tie")
+    check(r["loss_err"] <= TRAIN_TOL and r["global_err"] <= TRAIN_TOL,
+          "Arctic gradient: cuda disagrees with the reference")
+    check(r["worst_leaf_err"] <= TRAIN_LEAF_TOL, f"Arctic gradient: leaf {r['worst_leaf']}")
+    check(same_launches(r["launches"], want), f"lm_loss: launches {r['launches']} != {want}")
+    for k in total:
+        total[k] += r["launches"][k]
+
+
+def report_arctic(device, total, kern):
+    """Phase 14: arctic-480b at full width on ARCTIC_LAYERS layers, bf16,
+    seeded weights with norm scales drawn: (a) layer 0's FFN against a
+    plain transcription, the tiers and paged decode; (b) phases 4 and 5,
+    greedy; (c) the capacity dispatch; grouped_ffn at its shapes (added to
+    ``kern``); then on layer 0 alone (d) the gradient and (e) the experts
+    over ARCTIC_EP ranks; last the tiers in fp32 on 1 layer."""
+    t0 = time.perf_counter()
+    cfg = shallow(get_config(ARCTIC), ARCTIC_LAYERS)
+    peak_reset(device)
+    params = make_dense_params(cfg, seed=0, device=device)
+    sync(device)
+    leaves = tree_leaves(params)
+    print(f"[arctic] {cfg.name}: {cfg.num_layers} of 35 layers, d_model {cfg.d_model}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k} of d_ff {cfg.expert_d_ff} and a dense "
+          f"residual of d_ff {cfg.d_ff}, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
+          f"{cfg.head_dim}, vocabulary {cfg.vocab_size}; {sum(t.numel() for t in leaves)} "
+          f"parameters, {sum(t.numel() * t.element_size() for t in leaves)} bytes of weights "
+          f"drawn in {time.perf_counter() - t0:.1f}s; memory_allocated="
+          f"{torch.cuda.memory_allocated()} bytes, max_memory_allocated={peak(device)} "
+          "bytes (the init)")
+    del leaves
+    errs = arctic_layer_check(cfg, params, impl="cuda")
+    print(f"[arctic] layer 0's FFN vs a plain fp32 transcription (softmax top-{cfg.top_k}, "
+          "renormalised, plus the dense residual), 8 tokens: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (tol {KERNEL_TOL})")
+    check(max(errs.values()) <= KERNEL_TOL, "Arctic's FFN disagrees with its definition")
+    report_routed("[slice]", cfg, phase_slice(cfg, params, impl="cuda"),
+                  f"{cfg.num_layers} layers bf16, cuda vs reference")
+    report_paged(cfg, params)
+    print(f"[arctic] max_memory_allocated={peak(device)} bytes")
+    report_batch_serve(cfg, params, total, modes=("greedy",), tag="[arctic]")
+    report_continuous(cfg, params, total, ("greedy",), near_ties=True)
+    report_capacity(cfg, params)
+    kern["grouped_ffn"].update(arctic_grouped_case(cfg, params["layers"][0]["ffn"], device))
+    del params["layers"][1:]
+    cfg = shallow(cfg, 1)
+    free(device)
+    report_arctic_grads(cfg, params, device, total)
+    check_ep(cfg, params, ARCTIC_EP, device, total, "[arctic]", routed=True)
+    del params
+    free(device)
+    small = dataclasses.replace(shallow(cfg, 1, dtype="float32"), name=f"{ARCTIC} fp32")
+    peak_reset(device)
+    p32 = make_dense_params(small, seed=1, device=device)
+    report_routed("[slice]", small, phase_slice(small, p32, impl="cuda"),
+                  "1 layer, cuda vs reference")
+    report_continuous(small, p32, total, ("greedy",))
+    print(f"[arctic] fp32 1 layer: max_memory_allocated={peak(device)} bytes")
+    del p32
+    free(device)
+    print(f"[time] phase 14 {time.perf_counter() - t0:.1f}s")
+
+
 # ------------------------------------------------------------------ main
 
 def shallow(cfg, layers=4, *, dtype=None):
@@ -4681,8 +5270,10 @@ def report_slice(cfg, params, *, prompt_len=256):
     router's agreement for MoE; for a model with recurrent mixers also in
     fp32 on a few layers), then paged vs dense decode, on prompts of
     ``prompt_len``."""
-    sl = route_agreement(cfg, params, impl="cuda", prompt_len=prompt_len)
-    routes = (f" route_agreement={sl['route_agreement']:.4f}" if moe_layers(cfg) else "")
+    sl = phase_slice(cfg, params, impl="cuda", prompt_len=prompt_len)
+    routes = (f" route_agreement={sl['route_agreement']:.4f} (largest probability gap at a "
+              f"route parting no earlier one reaches {sl['held_gap']:.3e}; printed)"
+              if sl["route_agreement"] is not None else "")
     print(f"[slice] {cfg.name} {cfg.num_layers} layers bf16: prefill_err="
           f"{sl['prefill_err']:.3e} decode_err={sl['decode_err']:.3e} "
           f"(of max |logit| {sl['logit_scale']:.3f}; tol {LOGIT_TOL}) "
@@ -4701,6 +5292,12 @@ def report_slice(cfg, params, *, prompt_len=256):
               f"argmax_agreement={sl['argmax_agreement']:.3f}")
         check(sl["prefill_err"] <= FP32_LOGIT_TOL and sl["decode_err"] <= FP32_LOGIT_TOL,
               f"{cfg.name}: fp32 cuda logits disagree with the reference")
+    report_paged(cfg, params, prompt_len=prompt_len)
+
+
+def report_paged(cfg, params, *, prompt_len=256):
+    """Phase 3's paged decode against the dense decode, both cuda, printed
+    and held."""
     pg = phase_paged_slice(cfg, params, impl="cuda", prompt_len=prompt_len)
     # on the same split grid the paged decode is flash_decode's bits on the
     # gathered cache (phase 2), so the logits must be the same bits; one key
@@ -4721,7 +5318,10 @@ def report_continuous(cfg, params, total, modes, traffic=None, near_ties=False):
     Greedy continuous and bucketed outputs of an attention-only model agree
     on all requests but one; with ``near_ties`` (phase 12's configs), and
     for a model with recurrent mixers, each request where they part is
-    held to a near-tie (``tie_gaps``, ``RECURRENT_TIE_TOL``) instead."""
+    held to a near-tie (``tie_gaps``, RECURRENT_TIE_TOL) instead; with
+    ``near_ties`` an MoE model's (arctic-480b in bf16, whose parted routes
+    move a token's logits past any logit near-tie) to a route that parted
+    before (``report_engine_routes``)."""
     prompts, new = traffic or continuous_traffic(cfg)
     torch.cuda.reset_peak_memory_stats()
     cruns = phase_continuous(cfg, params, prompts, new, impl="cuda", modes=modes)
@@ -4765,6 +5365,9 @@ def report_continuous(cfg, params, total, modes, traffic=None, near_ties=False):
     if all(s.kind == ATTN for s in cfg.layers) and not near_ties:
         check(same_bk >= len(prompts) - 1, "continuous and bucketed greedy outputs disagree")
         return
+    if moe_layers(cfg):
+        report_engine_routes(cfg, params, prompts, new)
+        return
     # a recurrent state carries each bf16 rounding difference between the
     # engines' batches on to every later token, so greedy runs part at more
     # near-ties than qwen2-0.5b's; so do phase 12's configs (1-7 of 16
@@ -4779,6 +5382,31 @@ def report_continuous(cfg, params, total, modes, traffic=None, near_ties=False):
     check(worst <= RECURRENT_TIE_TOL,
           f"{cfg.name}: continuous and bucketed greedy outputs part at {worst:.3e} below the "
           f"top logit, past a near-tie ({RECURRENT_TIE_TOL})")
+
+
+def report_engine_routes(cfg, params, prompts, new, *, impl="cuda"):
+    """Phase 5's engines for an MoE model in bf16 (``engine_partings``),
+    printed and held: a request whose outputs part past a logit near-tie
+    (RECURRENT_TIE_TOL) must have had a route part before, and each route
+    parting that no earlier one reaches must be a near-tie
+    (``route_tie_tol``)."""
+    ties, routes = engine_partings(cfg, params, prompts, new, impl=impl)
+    past = [i for i, g in ties.items() if g > RECURRENT_TIE_TOL]
+    worst = max(h for _, h in routes.values())
+    print(f"[continuous] {cfg.name} greedy continuous and bucketed runs with every route "
+          f"recorded: outputs part on {len(ties)}/{len(prompts)} requests ("
+          + (", ".join(f"request {i} {g:.3e} below the top logit over the top |logit|, "
+                       f"{routes[i][0]} (token, layer) routes parted before"
+                       for i, g in ties.items()) or "none")
+          + f"; {len(past)} past the logit near-tie {RECURRENT_TIE_TOL}, each held to a "
+          f"route parted before); routes part on {sum(n > 0 for n, _ in routes.values())}/"
+          f"{len(prompts)} requests, largest probability gap at a parting no earlier one "
+          f"reaches {worst:.3e} (tol {route_tie_tol(cfg)})")
+    check(all(routes[i][0] for i in past),
+          f"{cfg.name}: continuous and bucketed greedy outputs part past a near-tie with no "
+          "route parted before")
+    check(worst <= route_tie_tol(cfg),
+          f"{cfg.name}: the engines' routes part at {worst:.3e}, past a near-tie")
 
 
 def main():
@@ -4844,6 +5472,7 @@ def main():
     print(f"[time] phase 11 {time.perf_counter() - t0:.1f}s")
     report_phase12(device, total)
     report_phase13(device, total)
+    report_arctic(device, total, kern)
 
     source = "src/repro_torch/kernels/csrc/"
     rows = [dict(name="flash_mha", route="cuda", source=source + "flash_attention.cu",

@@ -24,8 +24,21 @@ CUDA card.
    (``cache_len`` one short), in every global (paged) layer and then in
    the last one only; and under each, phase 3's paged-vs-dense decode
    error (``chip_smoke.phase_paged_slice``).
+5. For arctic-480b as phase 14 runs it (full width, ``chip_smoke.ARCTIC_LAYERS``
+   layers, bf16), the largest router probability gap at a route parting
+   that no earlier one reaches (``chip_smoke.first_partings``), which
+   ``chip_smoke.BF16_ROUTE_TIE_TOL`` holds: the tiers
+   (``chip_smoke.phase_slice``) sound and with the cuda run given a
+   planted fault (the last layer's router column 0 scaled by 1.5; every
+   router weight scaled by 1.05; layer 0's dense residual left out); the
+   capacity dispatch's tiers and its 4-token cohorts against the dropless
+   dispatch (``chip_smoke.phase_capacity``); the engines
+   (``chip_smoke.engine_partings``) sound and with part 4's paged-decode
+   fault in every layer and in the last one; then on layer 0 alone the
+   gradient's tokens (``chip_smoke.parted_tokens``) and the expert split
+   (``chip_smoke.phase_ep``).
 
-    PYTHONPATH=src python scripts/limit_controls.py [ssd] [recurrent] [dense]
+    PYTHONPATH=src python scripts/limit_controls.py [ssd] [recurrent] [dense] [routes]
 
 runs the named parts (all without arguments).  Prints the card's name and
 power limit first.  Fails without a card.
@@ -33,6 +46,7 @@ power limit first.  Fails without a card.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import subprocess
@@ -199,6 +213,89 @@ def dense_gap_readings(name):
     cs.free(device)
 
 
+def scaled_router(params, layer, column, factor):
+    """``params`` with layer ``layer``'s router weight scaled by ``factor``
+    (only its column ``column``; None: all of it); the experts are shared."""
+    layers = list(params["layers"])
+    ffn = layers[layer]["ffn"]
+    w = ffn["router"]["w"].clone()
+    if column is None:
+        w *= factor
+    else:
+        w[:, column] *= factor
+    layers[layer] = dict(layers[layer], ffn=dict(ffn, router={**ffn["router"], "w": w}))
+    return {**params, "layers": layers}
+
+
+@contextlib.contextmanager
+def cuda_run_on(params):
+    """``chip_smoke.compare_routed``'s cuda run on ``params``."""
+    real = cs.routed_logits
+
+    def routed(c, p, *a, impl, **kw):
+        return real(c, params if impl == "cuda" else p, *a, impl=impl, **kw)
+    cs.routed_logits = routed
+    try:
+        yield
+    finally:
+        cs.routed_logits = real
+
+
+def route_readings(cfg, device):
+    params = cs.make_dense_params(cfg, seed=0, device=device)
+    tol = cs.BF16_ROUTE_TIE_TOL
+    last = cfg.num_layers - 1
+    no_dense = {**params, "layers": [dict(params["layers"][0], ffn={
+        k: v for k, v in params["layers"][0]["ffn"].items() if k != "dense"}),
+        *params["layers"][1:]]}
+    for what, faulty in (("sound", None),
+                         ("last router's column 0 x 1.5", scaled_router(params, last, 0, 1.5)),
+                         ("every router weight x 1.05", scaled_router(
+                             scaled_router(params, 0, None, 1.05), last, None, 1.05)),
+                         ("layer 0's dense residual left out", no_dense)):
+        with cuda_run_on(faulty or params):
+            r = cs.phase_slice(cfg, params, impl="cuda")
+        print(f"[routes] {cfg.name} tiers, {what}: largest gap at a first parting "
+              f"{r['held_gap']:.3e} (tol {tol}); {r['parted']} of {r['entries']} compared "
+              f"tokens parted, route agreement {r['route_agreement']:.4f}, error over the "
+              f"others {r['agreed_err']:.3e} (tol {cs.LOGIT_TOL})")
+    r = cs.phase_capacity(cfg, params, impl="cuda")
+    for key, x in (("capacity dispatch tiers", r), ("capacity vs dropless, 4-token cohorts",
+                                                     r["small"])):
+        print(f"[routes] {cfg.name} {key}, sound: largest gap at a first parting "
+              f"{x['held_gap']:.3e} (tol {tol}); {x['parted']} of {x['entries']} parted")
+    prompts, new = cs.continuous_traffic(cfg)
+    n_global = cs.attn_layers(cfg, local=False)
+    real = ATT.paged_attn_decode_apply
+    for what, faulty in (("sound", ()),
+                         ("own key left out in every layer", range(n_global)),
+                         ("own key left out in the last layer", (n_global - 1,))):
+        ATT.paged_attn_decode_apply = own_key_dropped(n_global, set(faulty)) if faulty else real
+        try:
+            ties, routes = cs.engine_partings(cfg, params, prompts, new)
+        finally:
+            ATT.paged_attn_decode_apply = real
+        past = [i for i, g in ties.items() if g > cs.RECURRENT_TIE_TOL]
+        print(f"[routes] {cfg.name} engines, {what}: outputs part on {len(ties)}/{len(prompts)} "
+              f"requests, {len(past)} past the logit near-tie, "
+              f"{sum(not routes[i][0] for i in past)} of those with no route parted before; "
+              f"largest gap at a first parting {max(h for _, h in routes.values()):.3e} "
+              f"(tol {tol}); per request (partings, gap): {routes}")
+    del params["layers"][1:], no_dense
+    cfg = cs.shallow(cfg, 1)
+    cs.free(device)
+    batch = cs.lm_batch(cfg, device, **cs.ARCTIC_TRAIN)
+    parted, gap = cs.parted_tokens(cfg, params, batch["tokens"], impl="cuda")
+    print(f"[routes] {cfg.name} 1 layer, the gradient's tokens, sound: largest gap at a first "
+          f"parting {gap:.3e} (tol {tol}); {int(parted.sum())} of {parted.numel()} parted")
+    r = cs.phase_ep(cfg, params, cs.ARCTIC_EP, impl="cuda")
+    print(f"[routes] {cfg.name} 1 layer, the expert split over {cs.ARCTIC_EP}, sound: largest "
+          f"gap at a first parting {r['held_gap']:.3e} (tol {tol}); {r['parted']} of "
+          f"{r['tokens']} parted")
+    del params
+    cs.free(device)
+
+
 def chunk_spread(cfg, params, batch=4, prompt_len=256, steps=8, seed=0):
     """Reference logits at chunk 64 against chunk 128 on ``phase_slice``'s
     tokens."""
@@ -232,7 +329,7 @@ def main():
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    parts = set(sys.argv[1:]) or {"ssd", "recurrent", "dense"}
+    parts = set(sys.argv[1:]) or {"ssd", "recurrent", "dense", "routes"}
     build.build()
     if "ssd" in parts:
         ssd_readings()
@@ -242,6 +339,9 @@ def main():
     if "dense" in parts:
         for name in cs.DENSE:
             dense_gap_readings(name)
+    if "routes" in parts:
+        route_readings(cs.shallow(cs.get_config(cs.ARCTIC), cs.ARCTIC_LAYERS),
+                       torch.device("cuda"))
     return 0
 
 

@@ -47,6 +47,10 @@ class ModelConfig:
     n_experts: int = 0
     top_k: int = 0
     expert_d_ff: int = 0
+    dense_residual_ffn: bool = False  # Arctic: a dense gated MLP beside the experts
+    # MoE dispatch (models/moe.py): "dropless" (the grouped, cohort-independent
+    # dispatch) or "capacity" (the (E, C, D) capacity-drop buffers)
+    moe_dispatch: str = "dropless"
 
     # Attention details
     qkv_bias: bool = False
@@ -76,6 +80,9 @@ class ModelConfig:
         if n != self.num_layers:
             raise ValueError(f"{self.name}: pattern covers {n} layers != "
                              f"num_layers={self.num_layers}")
+        if self.moe_dispatch not in ("dropless", "capacity"):
+            raise ValueError(f"{self.name}: moe_dispatch={self.moe_dispatch!r}; need "
+                             "'dropless' or 'capacity'")
 
     @property
     def layers(self) -> list[LayerSpec]:
@@ -107,8 +114,6 @@ class ModelConfig:
 
     # --------------------------------------------------------- param counts
     # The JAX package's counts, read by the cost model (core/estimator.py).
-    # The port's configs have no dense residual FFN beside the experts
-    # (Arctic's), so ``ffn_params`` has no term for one.
     def attn_params(self, spec: LayerSpec) -> int:
         d, q, kv = self.d_model, self.q_dim, self.kv_dim
         p = d * q + 2 * d * kv + q * d  # wq, wk, wv, wo
@@ -125,7 +130,10 @@ class ModelConfig:
         if self.ffn_kind == "moe":
             per_expert = 3 * d * self.expert_d_ff
             n = self.top_k if active_only else self.n_experts
-            return n * per_expert + d * self.n_experts  # experts + router
+            p = n * per_expert + d * self.n_experts  # experts + router
+            if self.dense_residual_ffn:
+                p += 3 * d * self.d_ff
+            return p
         return 3 * d * self.d_ff  # gated: w_in, w_gate, w_out
 
     def lru_params(self) -> int:

@@ -86,14 +86,14 @@ def _launch(xs, group_sizes, w_gate, w_in, w_out, act):
 
 class _GroupedFFN(torch.autograd.Function):
     """Forward: the kernel on CUDA tensors, the plain version on CPU
-    tensors.  Backward: ``grouped_ffn_bwd_ref`` on the saved inputs (no
-    gradient for ``group_sizes``)."""
+    tensors or with ``plain``.  Backward: ``grouped_ffn_bwd_ref`` on the
+    saved inputs (no gradient for ``group_sizes``)."""
 
     @staticmethod
-    def forward(ctx, xs, group_sizes, w_gate, w_in, w_out, act):
+    def forward(ctx, xs, group_sizes, w_gate, w_in, w_out, act, plain):
         ctx.save_for_backward(xs, group_sizes, w_gate, w_in, w_out)
         ctx.act = act
-        if xs.device.type == "cpu":
+        if plain or xs.device.type == "cpu":
             return grouped_ffn_ref(xs, group_sizes, w_gate, w_in, w_out, act=act)
         return _launch(xs, group_sizes, w_gate, w_in, w_out, act)
 
@@ -102,7 +102,7 @@ class _GroupedFFN(torch.autograd.Function):
         xs, group_sizes, w_gate, w_in, w_out = ctx.saved_tensors
         dx, dwg, dwi, dwo = grouped_ffn_bwd_ref(xs, group_sizes, w_gate, w_in, w_out,
                                                 grad_out, act=ctx.act)
-        return dx, None, dwg, dwi, dwo, None
+        return dx, None, dwg, dwi, dwo, None, None
 
 
 def grouped_ffn(xs, group_sizes, w_gate, w_in, w_out, *, act="silu"):
@@ -115,10 +115,18 @@ def grouped_ffn(xs, group_sizes, w_gate, w_in, w_out, *, act="silu"):
     launch the kernel or raise.  The kernel takes act="silu" (every MoE
     config of the repo), fp32 or bf16 (the same for xs and the weights)
     and D, F multiples of 8.  Differentiable in xs and the weights."""
-    return _GroupedFFN.apply(xs, group_sizes, w_gate, w_in, w_out, act)
+    return _GroupedFFN.apply(xs, group_sizes, w_gate, w_in, w_out, act, False)
 
 
 grouped_ffn.launches = 0
+
+
+def grouped_ffn_plain(xs, group_sizes, w_gate, w_in, w_out, *, act="silu"):
+    """The reference tier: ``grouped_ffn_ref`` on any device, with
+    ``grouped_ffn``'s backward.  Autograd through the plain version's
+    per-expert loop would save an fp32 copy of every expert weight (54 GB
+    for one Arctic layer)."""
+    return _GroupedFFN.apply(xs, group_sizes, w_gate, w_in, w_out, act, True)
 
 
 def kernel_info(launch: int) -> dict:

@@ -103,10 +103,11 @@ def grouped_ffn(xs, group_sizes, w_gate, w_in, w_out, *, act="silu", impl="cuda"
     """Grouped gated expert FFN over expert-sorted rows (dropless MoE); see
     ``ref.grouped_ffn_ref``.  Returns (N, D) float32 on every tier: the
     combine caller casts once.  Row i's result depends only on row i and
-    its expert's weights, so a token gets the same value in any cohort."""
+    its expert's weights, so a token gets the same value in any cohort.
+    Both tiers differentiate through ``ref.grouped_ffn_bwd_ref``."""
     _check(impl, xs, group_sizes, w_gate, w_in, w_out)
     if impl == "reference":
-        return ref.grouped_ffn_ref(xs, group_sizes, w_gate, w_in, w_out, act=act)
+        return grouped_expert.grouped_ffn_plain(xs, group_sizes, w_gate, w_in, w_out, act=act)
     return grouped_expert.grouped_ffn(xs, group_sizes, w_gate, w_in, w_out, act=act)
 
 

@@ -1,24 +1,33 @@
-"""Top-k MoE FFN with the dropless grouped dispatch (the JAX package's
-``models/moe.py``, ``moe_dispatch="dropless"``).
+"""Top-k MoE FFN (the JAX package's ``models/moe.py``), with the dispatch
+``cfg.moe_dispatch`` names:
 
-Each token's (token, expert) assignments are stably sorted by expert, the
-expert-sorted rows go through one grouped expert FFN (``ops.grouped_ffn``)
-over the real row count, and the results are combined with the router
-weights renormalised over the token's own top-k.  No capacity buffer and no
-drops, so a token's output does not depend on the cohort it is computed in
-(training forward, prefill or a decode step).
+* ``"dropless"``: each token's (token, expert) assignments are stably
+  sorted by expert, the expert-sorted rows go through one grouped expert
+  FFN (``ops.grouped_ffn``) over the real row count, and the results are
+  combined with the router weights renormalised over the token's own
+  top-k.  No capacity buffer and no drops, so a token's output does not
+  depend on the cohort it is computed in (training forward, prefill or a
+  decode step).  Nothing reads back to the host: ``group_sizes`` is an
+  int32 ``scatter_add_`` and the kernel derives its work units from it on
+  the device.
+* ``"capacity"``: the (E, C, D) capacity-drop buffers, C from the cohort's
+  token count (``capacity``).  The assignments past an expert's C rows
+  (drop rank over the flat batch-major cohort) all go to one discard slot
+  and fall back to the residual path; a token's combine weights are
+  renormalised over the experts it kept, so routing is cohort-dependent.
+  The expert products are batched ``einsum``s in x's dtype (the JAX
+  package computes them outside any Pallas kernel too).
 
-Nothing here reads back to the host: ``group_sizes`` is an int32
-``scatter_add_``, the kernel derives its work units from it on the device,
-and the combine un-permutes the expert outputs and sums over k in a fixed
-order in fp32 (no float atomics), then casts once.
+Both combines un-permute the (T*K, D) expert rows to (T, K, D), sum over k
+in a fixed order in fp32 (no float atomics) and cast once.  Arctic's dense
+residual MLP (``cfg.dense_residual_ffn``, the params' ``"dense"``) is added
+to either, in x's dtype.
 
 The training forward (``want_aux=True``) also returns the Switch
 load-balance loss; serving skips it.  ``moe_apply_sharded`` is the
-expert-parallel layer over a mesh (experts split over the tensor axis).
-The expert FFN is differentiable on both tiers (``grouped_ffn``'s plain
-backward).  The legacy ``"capacity"`` dispatch and Arctic's dense-residual
-FFN are not ported: no ported config uses them.
+expert-parallel layer over a mesh (experts split over the tensor axis, the
+dense residual over its d_ff), dropless only.  The expert FFN is
+differentiable on both tiers (``grouped_ffn``'s plain backward).
 """
 
 from __future__ import annotations
@@ -29,16 +38,28 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
+CAPACITY_FACTOR = 1.25
+
 
 def moe_init(gen, cfg: ModelConfig, device):
     dt = L.dtype_of(cfg)
     e, d, f = cfg.n_experts, cfg.d_model, cfg.expert_d_ff
-    return {
+    p = {
         "router": L.dense_init(gen, d, e, torch.float32, device),
         "w_gate": L.truncated_normal(gen, (e, d, f), dt, d ** -0.5, device),
         "w_in": L.truncated_normal(gen, (e, d, f), dt, d ** -0.5, device),
         "w_out": L.truncated_normal(gen, (e, f, d), dt, f ** -0.5, device),
     }
+    if cfg.dense_residual_ffn:
+        p["dense"] = L.mlp_init(gen, cfg, device)
+    return p
+
+
+def capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    """Rows per expert of the capacity dispatch for a cohort of
+    ``n_tokens`` tokens: at least 8, at most the token count."""
+    c = int(n_tokens * cfg.top_k * CAPACITY_FACTOR / cfg.n_experts)
+    return max(8, min(n_tokens, c))
 
 
 def _router(p, cfg: ModelConfig, xf):
@@ -81,6 +102,14 @@ def _sort_by_expert(top_i, k: int):
     return order, torch.div(order, k, rounding_mode="floor")
 
 
+def _unsort(rows, order, k: int):
+    """Expert-sorted (T*K, D) rows back to (T, K, D): row i of the result's
+    flat (token, k) order is ``rows[j]`` where ``order[j] == i``."""
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.numel(), device=order.device))
+    return rows[inv].view(-1, k, rows.shape[-1])
+
+
 def _expert_rows(p, cfg: ModelConfig, xf, top_w, top_i, lo: int, n: int, impl):
     """The (T, K, D) fp32 router-weighted expert outputs of the (token, k)
     assignments to experts lo .. lo + n - 1, whose weights ``p`` holds;
@@ -89,7 +118,6 @@ def _expert_rows(p, cfg: ModelConfig, xf, top_w, top_i, lo: int, n: int, impl):
     total, where ``grouped_ffn`` leaves its rows zero (nothing is read back
     to the host to cut them off).  With lo 0 and n the expert count this is
     the whole dispatch."""
-    t, d = xf.shape
     k = cfg.top_k
     top_w = top_w / top_w.sum(dim=-1, keepdim=True).clamp(min=1e-9)
     flat = top_i.reshape(-1)
@@ -98,9 +126,7 @@ def _expert_rows(p, cfg: ModelConfig, xf, top_w, top_i, lo: int, n: int, impl):
     order, st = _sort_by_expert(key, k)
     ys = ops.grouped_ffn(xf[st], _group_sizes(key, n + 1)[:n], p["w_gate"], p["w_in"],
                          p["w_out"], act=cfg.act, impl=impl)  # (T*K, D) f32
-    inv = torch.empty_like(order).scatter_(
-        0, order, torch.arange(order.numel(), device=order.device))
-    return ys[inv].view(t, k, d) * top_w.to(torch.float32)[:, :, None]
+    return _unsort(ys, order, k) * top_w.to(torch.float32)[:, :, None]
 
 
 def _sum_k(y):
@@ -118,13 +144,64 @@ def _dispatch_dropless(p, cfg: ModelConfig, xf, top_w, top_i, impl):
     return _sum_k(rows).to(xf.dtype)
 
 
+def capacity_route(cfg: ModelConfig, top_w, top_i, t: int):
+    """The capacity dispatch's routing for a T-token cohort.  Returns
+    (order, st, slot, keep, sw, c) in expert-sorted order: the sorted flat
+    (token, k) indices, their token ids, their buffer slots (``e*c`` for an
+    assignment past its expert's c rows: the discard slot), the keep mask,
+    and the combine weights renormalised over each token's kept experts
+    (fp32; a token that loses an expert shares its weight among the rest),
+    and the capacity c."""
+    e, k = cfg.n_experts, cfg.top_k
+    c = capacity(t, cfg)
+    order, st = _sort_by_expert(top_i, k)
+    se = top_i.reshape(-1)[order]
+    counts = _group_sizes(top_i, e).to(se.dtype)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(t * k, device=se.device) - starts[se]
+    keep = rank < c
+    slot = torch.where(keep, se * c + rank, e * c)
+    keep_tk = torch.empty_like(keep).scatter_(0, order, keep).view(t, k)
+    w_kept = top_w * keep_tk
+    w = w_kept / w_kept.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+    sw = w.reshape(t * k)[order].to(torch.float32)
+    return order, st, slot, keep, sw, c
+
+
+def _dispatch_capacity(p, cfg: ModelConfig, xf, top_w, top_i):
+    """Each kept assignment's row in its expert's slot of an (E*C + 1, D)
+    buffer in x's dtype; every dropped one writes the last slot, which is
+    never read (their order of writing does not matter).  The expert FFN
+    runs on all E*C slots (empty ones zero) as batched products in x's
+    dtype; a kept row's output times its weight, fp32, summed over k."""
+    t, d = xf.shape
+    e, k = cfg.n_experts, cfg.top_k
+    order, st, slot, keep, sw, c = capacity_route(cfg, top_w, top_i, t)
+    buf = xf.new_zeros((e * c + 1, d))
+    buf[slot] = xf[st]
+    xe = buf[:-1].view(e, c, d)
+    g = L.ACTS[cfg.act](torch.einsum("ecd,edf->ecf", xe, p["w_gate"]))
+    h = g * torch.einsum("ecd,edf->ecf", xe, p["w_in"])
+    ye = torch.einsum("ecf,efd->ecd", h, p["w_out"]).reshape(e * c, d)
+    contrib = ye[slot.clamp(max=e * c - 1)].to(torch.float32) * (
+        sw * keep.to(torch.float32))[:, None]
+    return _sum_k(_unsort(contrib, order, k)).to(xf.dtype)
+
+
 def moe_apply(p, cfg: ModelConfig, x, *, impl="cuda", want_aux=False):
-    """x: (B, S, D) -> (B, S, D) in x's dtype; with ``want_aux`` (the
+    """x: (B, S, D) -> (B, S, D) in x's dtype, through ``cfg.moe_dispatch``
+    plus the dense residual MLP where ``p`` has one; with ``want_aux`` (the
     training forward) also the load-balance loss, a 0-d fp32 tensor."""
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     top_w, top_i = _router(p, cfg, xf)
-    y = _dispatch_dropless(p, cfg, xf, top_w, top_i, impl).reshape(b, s, d)
+    if cfg.moe_dispatch == "capacity":
+        y = _dispatch_capacity(p, cfg, xf, top_w, top_i)
+    else:
+        y = _dispatch_dropless(p, cfg, xf, top_w, top_i, impl)
+    y = y.reshape(b, s, d)
+    if "dense" in p:
+        y = y + L.mlp_apply(p["dense"], cfg, x)
     if want_aux:
         return y, _aux_loss(p, xf, top_i, cfg.n_experts)
     return y
@@ -137,10 +214,19 @@ def moe_apply_sharded(ps, cfg: ModelConfig, xs, *, ctx, impl="cuda", want_aux=Fa
     replicated router and runs ``grouped_ffn`` on the assignments to its
     own experts; the (T, K, D) fp32 rows are summed over the tensor axis
     (each row comes from one rank, zeros from the others, so the sum is
-    exact), then summed over k and cast once, as on one device.  With
-    ``want_aux`` also {rank: the load-balance loss} from expert counts and
-    router probability sums all-reduced over the batch axes: the global
-    means' product, not a mean of the replicas'."""
+    exact), then summed over k and cast once, as on one device.  A dense
+    residual MLP (``ps[r]["dense"]``, the rank's d_ff columns of w_gate and
+    w_in and rows of w_out) adds each rank's fp32 share of its output
+    (``mlp_apply(partial=True)``), summed over the tensor axis and cast
+    once.  The capacity dispatch is not ported here: JAX's GSPMD step takes
+    capacity over the global cohort, per-rank routing would take it per
+    rank (``NotImplementedError``).  With ``want_aux`` also {rank: the
+    load-balance loss} from expert counts and router probability sums
+    all-reduced over the batch axes: the global means' product, not a mean
+    of the replicas'."""
+    if cfg.moe_dispatch != "dropless":
+        raise NotImplementedError(f"{cfg.name}: the sharded MoE runs the dropless dispatch "
+                                  f"only; got moe_dispatch={cfg.moe_dispatch!r}")
     e = cfg.n_experts
     n = e // ctx.tp_size
     rows, terms = {}, {}
@@ -154,6 +240,10 @@ def moe_apply_sharded(ps, cfg: ModelConfig, xs, *, ctx, impl="cuda", want_aux=Fa
             terms[r] = torch.cat([probs.sum(dim=0), counts, ntok])
     rows = ctx.tp_reduce(rows)
     ys = {r: _sum_k(rows[r]).to(x.dtype).reshape(x.shape) for r, x in xs.items()}
+    if "dense" in next(iter(ps.values())):
+        shares = ctx.tp_reduce({r: L.mlp_apply(ps[r]["dense"], cfg, x, partial=True)
+                                for r, x in xs.items()})
+        ys = {r: ys[r] + shares[r].to(x.dtype) for r, x in xs.items()}
     if not want_aux:
         return ys, None
     aux = {}

@@ -16,8 +16,9 @@ Four execution paths share the parameters:
 devices (tensor, data and expert parallelism; see the end of the file).
 
 Every mixer is ported: attention, RG-LRU (``models/rglru.py``) and Mamba-2
-SSD (``models/ssm.py``), with a gated-MLP FFN, a dropless MoE FFN
-(``models/moe.py``) or none.  A recurrent layer's cache is its per-row
+SSD (``models/ssm.py``), with a gated-MLP FFN, an MoE FFN
+(``models/moe.py``: the dropless or the capacity dispatch, with Arctic's
+dense residual MLP) or none.  A recurrent layer's cache is its per-row
 state.  ``stack_apply`` is also the train forward, padded for every mixer
 and packed for attention-only stacks, dense or MoE; it carries the MoE
 load-balance loss when asked.
@@ -375,10 +376,11 @@ def stack_commit_verify(cfg: ModelConfig, caches, keep):
 
 def check_sharded(cfg: ModelConfig, tp: int):
     """Raise for a config the sharded stack does not run at tensor-parallel
-    degree ``tp``: an encoder-decoder or prefix model or a recurrent mixer
-    (their sharded paths are not ported), or a tensor axis that does not
-    divide the KV heads, the FFN width or the experts (JAX's GSPMD would
-    split a head in the middle; the port keeps heads and experts whole)."""
+    degree ``tp``: an encoder-decoder or prefix model, a recurrent mixer or
+    the MoE capacity dispatch (their sharded paths are not ported), or a
+    tensor axis that does not divide the KV heads, the FFN width (a dense
+    residual MLP's too) or the experts (JAX's GSPMD would split a head in
+    the middle; the port keeps heads and experts whole)."""
     check_supported(cfg)
     if cfg.family == "encdec" or cfg.prefix_len:
         raise NotImplementedError(f"{cfg.name}: sharded compute of encoder/prefix inputs "
@@ -390,7 +392,10 @@ def check_sharded(cfg: ModelConfig, tp: int):
     if cfg.n_kv_heads % tp or cfg.n_heads % tp:
         raise ValueError(f"{cfg.name}: a tensor axis of {tp} does not divide "
                          f"{cfg.n_heads} query / {cfg.n_kv_heads} KV heads")
-    if cfg.ffn_kind == "gated" and cfg.d_ff % tp:
+    if cfg.ffn_kind == "moe" and cfg.moe_dispatch != "dropless":
+        raise NotImplementedError(f"{cfg.name}: the sharded MoE runs the dropless dispatch "
+                                  f"only; got moe_dispatch={cfg.moe_dispatch!r}")
+    if (cfg.ffn_kind == "gated" or cfg.dense_residual_ffn) and cfg.d_ff % tp:
         raise ValueError(f"{cfg.name}: a tensor axis of {tp} does not divide d_ff {cfg.d_ff}")
     if cfg.ffn_kind == "moe" and cfg.n_experts % tp:
         raise ValueError(f"{cfg.name}: a tensor axis of {tp} does not divide "
@@ -399,7 +404,8 @@ def check_sharded(cfg: ModelConfig, tp: int):
 
 def tp_cfg(cfg: ModelConfig, tp: int) -> ModelConfig:
     """The config of one rank's local block: its query and KV heads and FFN
-    width (``check_sharded`` holds the divisions exact)."""
+    width, a dense one's or the dense residual MLP's beside the experts
+    (``check_sharded`` holds the divisions exact)."""
     if tp == 1:
         return cfg
     return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,

@@ -64,6 +64,7 @@ MHA_GRID = [
     (1, 512, 14, 2, 16, True, 128),   # q-chunked reference path
     (4, 512, 32, 8, 128, True, None),  # llama-7b's prefill: G = 4, D 128
     (2, 256, 16, 2, 128, True, None),  # internvl2-76b's grouping: G = 8, D 128
+    (4, 512, 56, 8, 128, True, None),  # arctic-480b's prefill: G = 7, D 128
 ]
 
 # cross-attention (Sq, D, Hq, Hkv) over Skv 512 keys, non-causal: seamless's
@@ -82,6 +83,7 @@ DECODE_GRID = [
     (2, 96, 14, 2, 16, 96, [250, 7]),                # G = 7, ring
     (2, 40, 4, 2, 16, None, [0, 3]),                 # a row with no valid key
     (8, 1088, 32, 8, 128, None, [1, 17, 64, 65, 400, 777, 1000, 1088]),  # llama-7b
+    (8, 1088, 56, 8, 128, None, [1, 17, 64, 65, 400, 777, 1000, 1088]),  # arctic-480b: G 7
 ]
 
 
@@ -282,10 +284,11 @@ def test_paged_flash_decode_kernel_matches_plain(bs, d, dtype):
 # Hkv, D, M, cache lengths before M * bs): qwen3-1.7b (Hq 16 on 8, D 128,
 # G 2), gemma3-1b (4 on 1, D 256, G 4; prompts of up to 1,000 tokens take
 # 68 blocks of 16), qwen2.5-14b (40 on 8, D 128, G 5: a group that is not a
-# power of two)
+# power of two), arctic-480b (56 on 8, D 128, G 7)
 DENSE_PAGED = [(16, 8, 128, 36, [0, 1, 17, 64, 100, 333, 500]),
                (4, 1, 256, 68, [0, 1, 17, 100, 513, 777, 1000]),
-               (40, 8, 128, 36, [0, 1, 17, 64, 100, 333, 500])]
+               (40, 8, 128, 36, [0, 1, 17, 64, 100, 333, 500]),
+               (56, 8, 128, 36, [0, 1, 17, 64, 100, 333, 500])]
 
 
 @pytest.mark.cuda
@@ -427,6 +430,46 @@ GROUPED_EDGES = [
     (16, [4, 4, 4, 4]),
     (100, [15, 0, 50, 30]),
 ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [16, 2048])
+def test_grouped_ffn_at_128_experts(n, dtype):
+    """arctic-480b's expert count at reduced widths: a decode cohort (16
+    rows, most experts empty: every block walks 128 group sizes to find its
+    unit) and a prefill one (2,048 rows, groups straddling 64-row tiles)."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(8)
+    xs, gs, ws = _grouped_inputs(gen, n, 256, 192, 128, dtype, dev)
+    assert int(gs.sum()) == n and (n > 128 or int((gs == 0).sum()) >= 112)
+    _close(grouped_expert.grouped_ffn(xs, gs, *ws), ref.grouped_ffn_ref(xs, gs, *ws), dtype,
+           GROUPED_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [16, 2048])
+def test_grouped_ffn_gradient_at_128_experts(n, dtype):
+    """grouped_ffn's backward (``grouped_ffn_bwd_ref``, which both tiers
+    run) against autograd through the plain per-expert loop
+    ``grouped_ffn_ref`` in fp32 on the same values and cotangent, at
+    arctic-480b's expert count.  The backward computes in fp32 and writes
+    each gradient once in the inputs' dtype: one rounding, 2^-8 in bf16,
+    beside the fp32 sums' order."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    xs, gs, ws = _grouped_inputs(gen, n, 256, 192, 128, dtype, dev)
+    cot = _randn(gen, (n, 256), "float32", dev)
+    grads = []
+    for f, cast in ((grouped_expert.grouped_ffn, None), (ref.grouped_ffn_ref, torch.float32)):
+        leaves = [t.to(cast or t.dtype).clone().requires_grad_(True) for t in (xs, *ws)]
+        f(leaves[0], gs, *leaves[1:]).backward(cot)
+        grads.append([t.grad for t in leaves])
+    tol = TOL["float32"] + (BF16_ROUND if dtype == "bfloat16" else 0.0)
+    for got, want in zip(*grads):
+        assert got.dtype == DTYPES[dtype]
+        _close(got, want, dtype, {dtype: tol})
 
 
 @pytest.mark.cuda

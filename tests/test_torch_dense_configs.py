@@ -50,9 +50,6 @@ LOGIT_RTOL = 1e-5
 JDECODE = jax.jit(JM.decode_step, static_argnums=(1,))
 JPAGED = jax.jit(lambda p, cfg, tok, c, tbl, pos: JM.paged_decode_and_sample_step(
     p, cfg, tok, c, tbl, pos, None), static_argnums=(1,))
-# fields the JAX package has and the port leaves out until their models
-# come (Arctic's dense residual FFN, the capacity dispatch)
-JAX_ONLY = {"dense_residual_ffn", "moe_dispatch"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,9 +97,10 @@ def test_configs_and_counts_equal_jax(name, reduced):
     if reduced:
         jc, tc = jc.reduced(), tc.reduced()
     jd, td = dataclasses.asdict(jc), dataclasses.asdict(tc)
-    assert set(jd) - set(td) == JAX_ONLY and set(td) <= set(jd)
-    assert not jc.dense_residual_ffn and jc.moe_dispatch == "dropless"
-    assert {k: jd[k] for k in td} == td
+    assert set(jd) == set(td)
+    assert (tc.dense_residual_ffn, tc.moe_dispatch) == (jc.dense_residual_ffn, jc.moe_dispatch) \
+        == (False, "dropless")
+    assert jd == td
     assert [(s.kind, s.window, s.has_ffn) for s in tc.layers] == \
         [(s.kind, s.window, s.has_ffn) for s in jc.layers]
     assert tc.param_count() == jc.param_count()

@@ -41,7 +41,7 @@ from repro_torch.models import paged_cache as PC
 from repro_torch.models import spec as TSPEC
 from repro_torch.optim import adamw as tadamw
 from repro_torch.parallel import steps as TSTEPS
-from test_torch_dense_configs import JAX_ONLY, assert_logits_close, assert_logprobs_close
+from test_torch_dense_configs import assert_logits_close, assert_logprobs_close
 from test_torch_model import _dicts
 from test_torch_train import GRAD_TOL, _np
 
@@ -100,7 +100,7 @@ def test_configs_and_counts_equal_jax(name, reduced):
     if reduced:
         jc, tc = jc.reduced(), tc.reduced()
     jd, td = dataclasses.asdict(jc), dataclasses.asdict(tc)
-    assert set(jd) - set(td) == JAX_ONLY and {k: jd[k] for k in td} == td
+    assert set(jd) == set(td) and jd == td
     assert tc.param_count() == jc.param_count()
     assert tc.active_param_count() == jc.active_param_count()
 

@@ -53,15 +53,16 @@ def pairs():
 
 @pytest.mark.parametrize("jcfg,tcfg", pairs(), ids=lambda c: c.name)
 def test_configs_counts_and_layer_bytes_equal_jax(jcfg, tcfg):
-    """Every field of the port's config equals the JAX one (the JAX class's
-    two extra fields, ``moe_dispatch`` and ``dense_residual_ffn``, hold
-    their dense defaults); the parameter counts and per-layer bytes are
-    equal as numbers."""
+    """Every field of the port's config equals the JAX one (``moe_dispatch``
+    and ``dense_residual_ffn`` at their dense defaults in both); the
+    parameter counts and per-layer bytes are equal as numbers."""
     def plain(v):  # a layer pattern as tuples (the packages' LayerSpec classes differ)
         return tuple(map(dataclasses.astuple, v)) if isinstance(v, tuple) else v
     for f in dataclasses.fields(tcfg):
         assert plain(getattr(tcfg, f.name)) == plain(getattr(jcfg, f.name)), f.name
-    assert (jcfg.moe_dispatch, jcfg.dense_residual_ffn) == ("dropless", False)
+    assert {f.name for f in dataclasses.fields(tcfg)} == {f.name for f in dataclasses.fields(jcfg)}
+    assert (tcfg.moe_dispatch, tcfg.dense_residual_ffn) == \
+        (jcfg.moe_dispatch, jcfg.dense_residual_ffn) == ("dropless", False)
     assert tcfg.param_count() == jcfg.param_count()
     assert tcfg.active_param_count() == jcfg.active_param_count()
     assert TR.layer_bytes(tcfg) == JR.layer_bytes(jcfg)

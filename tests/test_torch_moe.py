@@ -363,9 +363,9 @@ def test_chip_smoke_granite_phases_on_cpu(chip_smoke, monkeypatch):
     grouped_ffn per layer per prefill and per decode step."""
     cfg = chip_smoke.get_config(ARCH).reduced()
     params = chip_smoke.make_params(cfg, seed=0, device="cpu")
-    sl = chip_smoke.route_agreement(cfg, params, impl="reference", batch=2, prompt_len=20,
-                                    steps=3)
-    assert sl["prefill_err"] == 0.0 and sl["route_agreement"] == 1.0
+    sl = chip_smoke.phase_slice(cfg, params, impl="reference", batch=2, prompt_len=20,
+                                steps=3)
+    assert sl["prefill_err"] == 0.0 and sl["route_agreement"] == 1.0 and sl["held_gap"] == 0.0
     pg = chip_smoke.phase_paged_slice(cfg, params, impl="reference", batch=2, prompt_len=20,
                                       steps=3, block_size=8)
     assert pg["paged_err"] < 1e-5 and pg["argmax_agreement"] == 1.0

@@ -420,8 +420,8 @@ def rehearse_chip_smoke(chip_smoke, monkeypatch, arch):
     both engines.  Returns the continuous runs' predictions."""
     cfg = chip_smoke.get_config(arch).reduced()
     params = chip_smoke.make_params(cfg, seed=0, device="cpu")
-    sl = chip_smoke.route_agreement(cfg, params, impl="reference", batch=2, prompt_len=20,
-                                    steps=3)
+    sl = chip_smoke.phase_slice(cfg, params, impl="reference", batch=2, prompt_len=20,
+                                steps=3)
     assert sl["prefill_err"] == 0.0 and sl["route_agreement"] is None
     pg = chip_smoke.phase_paged_slice(cfg, params, impl="reference", batch=2, prompt_len=20,
                                       steps=3, block_size=8)
