@@ -202,10 +202,28 @@ Phases, in order; any failure exits non-zero before the last line:
      (e) the 128 experts over 4 ranks (32 each) and the dense residual
      over its d_ff against the single-device forward.  Phase 2 runs the
      attention kernels at its heads (D 128 G 7).
+ 15. sharded compute of the recurrent mixers and of the capacity dispatch,
+     on 4 logical devices of the card, bf16 and fp32: (a) mamba2-1.3b (SSD
+     split by head: the ``in_proj`` product gathered over the model axis,
+     the norm's sum of squares all-reduced) trained one step on 8 layers
+     on (data 2, model 2) against one device (TRAIN_TOL, TRAIN_LEAF_TOL;
+     replicas bit-equal), the trained tree moved to (1, 4) by
+     ``prefetch_reshard`` and served there at full depth behind the
+     trained layers: a prefill of 4 x 256 tokens and 8 decode steps
+     against one device (LOGIT_TOL), then the same on 2 fp32 layers
+     (FP32_GRAD_TOL, FP32_LOGIT_TOL); (b) recurrentgemma-9b (RG-LRU split
+     by channel, its one KV head replicated over the model axis) the same
+     on 5 of 38 layers and 3 fp32 ones, served at the trained depth; (c)
+     arctic-480b's capacity dispatch on 1 layer on (2, 2) with FSDP off:
+     the single-device forward first, its tree placed leaf by leaf after,
+     the kept experts equal before the first route parting and every
+     parting a near-tie (BF16_ROUTE_TIE_TOL); each part's seconds beside
+     one device's, its collectives' bytes held to a prediction from the
+     shapes, peak memory, launches held.
 Each model's parameters are freed before the next is built.
 Then one JSON line of kernel numbers, and last {"ok": true, "device": ...}.
 
-Phases 3 to 14 are functions of (config, params or experiment, impl) so the
+Phases 3 to 15 are functions of (config, params or experiment, impl) so the
 CPU tests rehearse them at the reduced size with impl="reference".
 """
 
@@ -3591,7 +3609,8 @@ def phase_tp_train(cfg, params, batch, layout, *, impl, opt_cfg=adamw.AdamWConfi
     and grad_norm, ``moment_agreement`` of their first moments, whether
     every replica of the sharded parameters and state is bit-equal, the
     sharded parameters finite and moved, seconds, peak memory, the bytes
-    the collectives moved and each run's launches."""
+    the collectives moved and each run's launches; ``trained`` is the
+    sharded parameter tree after the step."""
     device = params["embed"]["table"].device
     single = clone_tree(params)
     for t in adamw.leaves(single):
@@ -3629,14 +3648,17 @@ def phase_tp_train(cfg, params, batch, layout, *, impl, opt_cfg=adamw.AdamWConfi
     out["finite"] = all(bool(torch.isfinite(t).all()) for t in tree_leaves(after))
     out["moved"] = any(not torch.equal(a, b) for a, b in zip(tree_leaves(after),
                                                              tree_leaves(before)))
+    out["trained"] = sharded
     return out
 
 
 def tp_train_predicted(cfg, layout):
-    """flash_mha launches of one train step: every rank's forward of every
-    layer, again in the backward's recompute (remat)."""
-    n = layout[0] * layout[1] * attn_layers(cfg) * 2
-    return {k: (n if k == "flash_mha" else 0) for k in launches()}
+    """Launches of one train step: every rank's forward of every layer,
+    again in the backward's recompute (remat): flash_mha per attention
+    layer, ssd_scan per SSD and rglru_scan per RG-LRU layer."""
+    n = layout[0] * layout[1] * 2
+    per = {"flash_mha": attn_layers(cfg), **scan_launches(cfg, 1)}
+    return {k: n * per.get(k, 0) for k in launches()}
 
 
 def report_tp_train(device, total, *, layers=2):
@@ -3650,6 +3672,7 @@ def report_tp_train(device, total, *, layers=2):
                                     FP32_GRAD_TOL)):
         params = make_params(c, seed=seed, device=device)
         r = phase_tp_train(c, params, batch, TRAIN_LAYOUT, impl="cuda")
+        del r["trained"]
         ref, want = r["ref"], tp_train_predicted(c, TRAIN_LAYOUT)
         print(f"[shard] train {c.name} {c.num_layers} layers {c.dtype} on "
               f"(data, model)={TRAIN_LAYOUT}: loss {r['loss']:.6e} vs {ref['loss']:.6e} (err "
@@ -3674,26 +3697,35 @@ def report_tp_train(device, total, *, layers=2):
         free(device)
 
 
-def phase_tp_serve(cfg, params, layout, *, impl, batch=4, prompt_len=256, steps=8, seed=0):
+def phase_tp_serve(cfg, params, layout, *, impl, batch=4, prompt_len=256, steps=8, seed=0,
+                   sharded=None):
     """11b: a sharded ``make_prefill_step`` and ``steps`` sharded
     ``make_decode_step``s on a ``layout`` mesh against the single-device
-    steps, both fed the single-device run's greedy tokens.  Returns the
-    scaled logit errors, the greedy agreement, the gathered caches' largest
-    difference, seconds, bytes and launches per call."""
+    steps, both fed the single-device run's greedy tokens.  ``sharded``:
+    (mesh, tree) already laid out (else ``params`` placed by
+    ``shard_params``).  Returns the scaled logit errors, the greedy
+    agreement, the gathered caches' largest difference, seconds (the single
+    device's too), bytes and launches per call."""
     device = params["embed"]["table"].device
     rng = np.random.default_rng(seed)
     toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (batch, prompt_len))).to(device)
     prompt = {"tokens": toks}
     reset_launches()
+    t0 = time.perf_counter()
     lg, caches = PSTEPS.make_prefill_step(cfg, impl=impl, extra_len=steps)(params, prompt)
+    sync(device)
+    ref_prefill_s = time.perf_counter() - t0
     want, feed = [lg], []
     decode = PSTEPS.make_decode_step(cfg, impl=impl)
+    t0 = time.perf_counter()
     for i in range(steps):
         feed.append(want[-1].argmax(-1))
         lg, caches = decode(params, feed[-1], caches, prompt_len + i)
         want.append(lg)
+    sync(device)
+    ref_decode_s = (time.perf_counter() - t0) / steps
     ref_launches = launches()
-    mesh, sharded = shard_params(params, *layout, device)
+    mesh, sharded = sharded or shard_params(params, *layout, device)
     COLL.reset_stats()
     reset_launches()
     t0 = time.perf_counter()
@@ -3701,7 +3733,8 @@ def phase_tp_serve(cfg, params, layout, *, impl, batch=4, prompt_len=256, steps=
         sharded, prompt)
     sync(device)
     out = dict(prefill_s=time.perf_counter() - t0, prefill_bytes=COLL.STATS["bytes"],
-               prefill_launches=launches(), ref_launches=ref_launches)
+               prefill_launches=launches(), ref_launches=ref_launches,
+               ref_prefill_s=ref_prefill_s, ref_decode_s=ref_decode_s)
     got = [lg.gather(device)]
     sdecode = PSTEPS.make_decode_step(cfg, impl=impl, mesh=mesh)
     COLL.reset_stats()
@@ -3720,8 +3753,9 @@ def phase_tp_serve(cfg, params, layout, *, impl, batch=4, prompt_len=256, steps=
     out.update(prefill_err=err[:, 0].max().item() / scale,
                decode_err=err[:, 1:].max().item() / scale, logit_scale=scale,
                argmax_agreement=(got.argmax(-1) == want.argmax(-1)).float().mean().item(),
-               cache_diff=max((c[k].gather(device) - s).abs().max().item()
-                              for c, sc in zip(scaches, caches) for k, s in sc.items()),
+               cache_diff=max((g[k].float() - s.float()).abs().max().item()
+                              for g, sc in zip(PSTEPS.gathered_caches(scaches, device), caches)
+                              for k, s in sc.items()),
                n_ranks=mesh.size)
     return out
 
@@ -5254,6 +5288,405 @@ def report_arctic(device, total, kern):
     print(f"[time] phase 14 {time.perf_counter() - t0:.1f}s")
 
 
+# ------------------------------------------------------------------ phase 15
+# Sharded compute of the recurrent mixers and of the capacity dispatch, on
+# logical devices of the card (phase 11's machinery): mamba2-1.3b's SSD
+# layer split by head, recurrentgemma-9b's RG-LRU block by channel and its
+# local attention's one KV head replicated over the tensor axis, each
+# trained on TRAIN_LAYOUT, its trained tree moved to GEN_LAYOUT by
+# ``prefetch_reshard`` and served there; arctic-480b's capacity dispatch
+# over the global cohort of CAP_LAYOUT's replicas.
+# (model, bf16 layers trained, fp32 layers, bf16 served at full depth)
+REC_SHARDED = (("mamba2-1.3b", 8, 2, True), ("recurrentgemma-9b", 5, 3, False))
+REC_TRAFFIC = dict(batch=8, prompt=128, new=128)  # phase 7's
+CAP_LAYOUT = (2, 2)  # (c): 64 of 128 experts per model rank, replicated over data
+CAP_TOKENS = (4, 256)
+
+
+def first_layers(cfg, n, *, dtype=None):
+    """``cfg`` at full width on its first ``n`` layers."""
+    return dataclasses.replace(cfg, superblock=tuple(cfg.layers[:n]), n_superblocks=1, tail=(),
+                               num_layers=n, dtype=dtype or cfg.dtype)
+
+
+def allreduce_bytes(nbytes, k, groups=1):
+    """Bytes ``collectives.all_reduce`` moves: per group of k, k - 1 values
+    to the root and the sum back to each of them."""
+    return groups * 2 * (k - 1) * nbytes
+
+
+def allgather_bytes(part, k, groups=1):
+    """Bytes ``collectives.all_gather`` moves: every member of a group of k
+    receives the k - 1 parts of the others."""
+    return groups * k * (k - 1) * part
+
+
+def sharded_serve_bytes(cfg, tp, rows, seq):
+    """Bytes the collectives move in one sharded prefill (``seq`` tokens) or
+    decode step (``seq`` 1) of ``rows`` rows on a (1, tp) mesh: the
+    vocabulary-parallel embedding's sum; per layer the mixer's and the
+    FFN's fp32 shares summed; an SSD layer's ``in_proj`` product, conv
+    weights and norm sums of squares; a replicated-KV attention layer's
+    wk/wv blocks."""
+    bf, f32 = L.dtype_of(cfg).itemsize, 4
+    act = rows * seq * cfg.d_model
+    out = allreduce_bytes(act * bf, tp) if cfg.vocab_size % tp == 0 else 0
+    for spec in cfg.layers:
+        out += allreduce_bytes(act * f32, tp)
+        if spec.has_ffn and cfg.ffn_kind != "none":
+            out += allreduce_bytes(act * f32, tp)
+        if spec.kind == SSM:
+            di, n = cfg.ssm_inner, cfg.ssm_state
+            cols, ch = 2 * di + 2 * n + cfg.ssm_heads, di + 2 * n
+            out += allgather_bytes(rows * seq * cols // tp * bf, tp)
+            out += allgather_bytes((cfg.ssm_conv + 1) * ch // tp * bf, tp)
+            out += allreduce_bytes(rows * seq * f32, tp)
+        elif spec.kind == ATTN and T.kv_replicated(cfg, tp):
+            rows_w = cfg.d_model + (1 if cfg.qkv_bias else 0)  # the bias as one more row
+            out += 2 * allgather_bytes(rows_w * cfg.kv_dim // tp * bf, tp)
+    return out
+
+
+def serve_predicted(cfg, tp, steps):
+    """Launches of a sharded prefill and ``steps`` decode steps on tp
+    ranks: every rank's flash_mha and scans per prefill, flash_decode per
+    attention layer per step."""
+    prefill = {"flash_mha": tp * attn_layers(cfg), **{k: tp * v for k, v in
+                                                      scan_launches(cfg, 1).items()}}
+    return prefill, {"flash_decode": tp * attn_layers(cfg) * steps}
+
+
+def phase_rec_sharded(cfg, params, batch, *, impl, rest=None, steps=8, serve_batch=4,
+                      prompt_len=256):
+    """15a/b for one model: ``phase_tp_train`` on TRAIN_LAYOUT, the trained
+    tree moved to GEN_LAYOUT by ``prefetch_reshard`` (donating), then
+    ``phase_tp_serve`` of it there against the single-device steps on the
+    gathered tree.  ``rest``: (full config, the layers after ``cfg``'s),
+    served behind the trained ones at full depth.  Returns (train, move,
+    serve) results."""
+    device = params["embed"]["table"].device
+    train = phase_tp_train(cfg, params, batch, TRAIN_LAYOUT, impl=impl)
+    trained = train.pop("trained")
+    serve_cfg, rest_layers = rest if rest else (cfg, [])
+    full = {**params, "layers": list(params["layers"]) + list(rest_layers)}
+    lay = strategy_layouts(full, *GEN_LAYOUT, tuple(range(GEN_LAYOUT[1])), device)
+    mine = {**lay, "layers": lay["layers"][:cfg.num_layers]}
+    t0 = time.perf_counter()
+    task = RX.prefetch_reshard(trained, mine)
+    moved = task.wait()
+    sync(device)
+    move = dict(seconds=time.perf_counter() - t0, n_moved=task.n_moved,
+                n_aliased=task.n_aliased, moved_bytes=task.moved_bytes,
+                total_bytes=task.total_bytes)
+    del trained, task
+    moved["layers"] = moved["layers"] + place_tree(list(rest_layers),
+                                                   lay["layers"][cfg.num_layers:])
+    dense = tree_map(lambda st: st.gather(device), moved)
+    move["finite"] = all(bool(torch.isfinite(t).all()) for t in tree_leaves(dense))
+    mesh = tree_leaves(moved)[0].layout.mesh
+    serve = phase_tp_serve(serve_cfg, dense, GEN_LAYOUT, impl=impl, batch=serve_batch,
+                           prompt_len=prompt_len, steps=steps, sharded=(mesh, moved))
+    serve["predicted_bytes"] = (sharded_serve_bytes(serve_cfg, GEN_LAYOUT[1], serve_batch,
+                                                    prompt_len),
+                                sharded_serve_bytes(serve_cfg, GEN_LAYOUT[1], serve_batch, 1))
+    serve["predicted"] = serve_predicted(serve_cfg, GEN_LAYOUT[1], steps)
+    return train, move, serve
+
+
+def report_rec_sharded(name, layers, fp32_layers, full_depth, device, total):
+    """15a/b on the card: ``name`` at full width, ``layers`` bf16 layers
+    trained (TRAIN_TOL / TRAIN_LEAF_TOL) and served (LOGIT_TOL), with
+    ``full_depth`` at full depth behind the trained layers; the same on
+    ``fp32_layers`` fp32 layers (FP32_GRAD_TOL, FP32_LOGIT_TOL) at their
+    depth."""
+    cfg = get_config(name)
+    batch = lm_batch(cfg, device, **REC_TRAFFIC)
+    for dtype, n, tol, leaf_tol, logit_tol, seed in (
+            ("bfloat16", layers, TRAIN_TOL, TRAIN_LEAF_TOL, LOGIT_TOL, 0),
+            ("float32", fp32_layers, FP32_GRAD_TOL, FP32_GRAD_TOL, FP32_LOGIT_TOL, 1)):
+        peak_reset(device)
+        t0 = time.perf_counter()
+        deep = full_depth and dtype == cfg.dtype
+        c = first_layers(cfg, n, dtype=dtype)
+        whole = make_params(cfg if deep else c, seed=seed, device=device)
+        rest = None
+        if deep:
+            rest = (cfg, whole["layers"][n:])
+            whole["layers"] = whole["layers"][:n]
+        train, move, serve = phase_rec_sharded(c, whole, batch, impl="cuda", rest=rest)
+        del whole, rest
+        ref, want = train["ref"], tp_train_predicted(c, TRAIN_LAYOUT)
+        print(f"[rec] train {name} {n} layers {dtype} on (data, model)={TRAIN_LAYOUT}, "
+              f"{REC_TRAFFIC['batch']} x {REC_TRAFFIC['prompt'] + REC_TRAFFIC['new']} tokens: "
+              f"loss {train['loss']:.6e} vs {ref['loss']:.6e} (err {train['loss_err']:.3e}), "
+              f"grad_norm err {train['grad_norm_err']:.3e}, first moment err "
+              f"{train['global_err']:.3e}, worst leaf {train['worst_leaf']} "
+              f"{train['worst_leaf_err']:.3e} (tol {tol}, per leaf {leaf_tol}); replicas "
+              f"bit-equal {train['replicas_equal']}; {train['seconds']:.3f}s (single device "
+              f"{ref['seconds']:.3f}s), peak {train['peak']} bytes (single device "
+              f"{ref['peak']}), collectives moved {train['bytes']} bytes in "
+              f"{train['copies']} copies; launches {train['launches']} (predicted {want})")
+        check(max(train["loss_err"], train["grad_norm_err"], train["global_err"]) <= tol
+              and train["worst_leaf_err"] <= leaf_tol,
+              f"sharded train step of {name} disagrees with the single-device step")
+        check(train["replicas_equal"], f"{name}: replicas differ after the sharded step")
+        check(train["finite"] and train["moved"], f"{name}: trained parameters not finite "
+              "or unmoved")
+        check(same_launches(train["launches"], want),
+              f"{name}: sharded train launches {train['launches']} != {want}")
+        depth = cfg.num_layers if deep else n
+        pre_want, dec_want = serve["predicted"]
+        pb, db = serve["predicted_bytes"]
+        print(f"[rec] reshard {name} trained tree {TRAIN_LAYOUT} -> {GEN_LAYOUT}: "
+              f"{move['n_moved']} leaves moved ({move['moved_bytes']} of "
+              f"{move['total_bytes']} bytes), {move['n_aliased']} aliased, "
+              f"{move['seconds']:.3f}s, finite {move['finite']}")
+        print(f"[rec] serve {name} {depth} layers {dtype} on (data, model)={GEN_LAYOUT}, 4 x "
+              f"256 tokens then 8 decode steps: prefill_err={serve['prefill_err']:.3e} "
+              f"decode_err={serve['decode_err']:.3e} (of max |logit| "
+              f"{serve['logit_scale']:.3f}; tol {logit_tol}), greedy agreement "
+              f"{serve['argmax_agreement']:.3f}, gathered caches differ by "
+              f"{serve['cache_diff']:.3e} at most (printed); prefill {serve['prefill_s']:.3f}s "
+              f"(single device {serve['ref_prefill_s']:.3f}s), {serve['prefill_bytes']} bytes "
+              f"moved (predicted {pb}); decode {serve['decode_s']:.4f}s per step (single "
+              f"device {serve['ref_decode_s']:.4f}s), {serve['decode_bytes']} bytes (predicted "
+              f"{db}); peak {peak(device)} bytes over the part; launches prefill "
+              f"{serve['prefill_launches']} (predicted {pre_want}), decode "
+              f"{serve['decode_launches']} (predicted {dec_want}); "
+              f"{time.perf_counter() - t0:.1f}s")
+        check(move["finite"], f"{name}: non-finite tree after the reshard")
+        check(serve["prefill_err"] <= logit_tol and serve["decode_err"] <= logit_tol,
+              f"sharded {name} logits disagree with the single-device run")
+        check(serve["prefill_bytes"] == pb and serve["decode_bytes"] == db,
+              f"{name}: sharded serve moved {serve['prefill_bytes']} / "
+              f"{serve['decode_bytes']} bytes, predicted {pb} / {db}")
+        check(same_launches(serve["prefill_launches"], pre_want)
+              and same_launches(serve["decode_launches"], dec_want),
+              f"{name}: sharded serve launches {serve['prefill_launches']} / "
+              f"{serve['decode_launches']}")
+        for k in total:
+            total[k] += (train["launches"][k] + serve["prefill_launches"][k]
+                         + serve["decode_launches"][k])
+        del train, move, serve
+        free(device)
+
+
+@contextlib.contextmanager
+def recorded_sharded_capacity():
+    """Record every ``capacity_route_sharded`` call while the block runs:
+    {rank: each row's kept experts (T_r, K) sorted, -1 for a dropped one}
+    per call, into the yielded list."""
+    calls = []
+    route = MOE.capacity_route_sharded
+
+    def recording(cfg, routes, *, ctx):
+        out = route(cfg, routes, ctx=ctx)
+        rec = {}
+        for r, (order, _, _, keep, _, _) in out.items():
+            top_i = routes[r][1]
+            kept = torch.empty_like(keep).scatter_(0, order, keep).view(top_i.shape)
+            rec[r] = torch.sort(torch.where(kept, top_i, -1), dim=-1).values
+        calls.append(rec)
+        return out
+    MOE.capacity_route_sharded = recording
+    try:
+        yield calls
+    finally:
+        MOE.capacity_route_sharded = route
+
+
+def place_freeing(tree, layouts):
+    """``place_tree`` that drops each dense leaf from ``tree`` once its
+    blocks are made, in ``tree_leaves`` order, so the dense tree and the
+    placed one never lie on the card whole at once."""
+    if isinstance(tree, dict):
+        return {k: place_freeing_item(tree, k, layouts[k]) for k in sorted(tree)}
+    return [place_freeing_item(tree, i, layouts[i]) for i in range(len(tree))]
+
+
+def place_freeing_item(container, key, lay):
+    x = container[key]
+    if isinstance(x, (dict, list)):
+        return place_freeing(x, lay)
+    container[key] = None
+    return ShardedTensor.place(x, lay)
+
+
+def cap_predicted_bytes(cfg, layout, rows, seq):
+    """Bytes the collectives move in the sharded forward of phase 15c
+    (FSDP off): the embedding's sum over the model axis, per layer the
+    attention's and the dense residual's fp32 shares and the MoE's (T_r,
+    K, D) fp32 rows summed over it, the per-expert counts gathered over the
+    data axis."""
+    dp, tp = layout
+    rows_r = rows // dp
+    act = rows_r * seq * cfg.d_model
+    bf = L.dtype_of(cfg).itemsize
+    out = allreduce_bytes(act * bf, tp, dp) if cfg.vocab_size % tp == 0 else 0
+    for spec in cfg.layers:
+        out += allreduce_bytes(act * 4, tp, dp)
+        if spec.has_ffn:
+            out += allreduce_bytes(act * cfg.top_k * 4, tp, dp)
+            out += allreduce_bytes(act * 4, tp, dp) if cfg.dense_residual_ffn else 0
+            out += allgather_bytes(cfg.n_experts * 8, dp, tp)
+    return out
+
+
+def phase_cap_sharded(cfg, params, layout, *, impl, batch=4, prompt_len=256, seed=0):
+    """15c: the forward of ``cfg`` (capacity dispatch) on one device, its
+    outputs and routes kept, then ``params`` placed leaf by leaf on a
+    ``layout`` mesh with FSDP off (``place_freeing``: the dense tree is
+    gone after) and the sharded forward.  Returns both runs' seconds and
+    routes, the assignments whose kept status the routes before them fix
+    alike and those kept alike (``kept_agreement``), the hidden states'
+    errors (all tokens; those routed and kept alike in every layer), the
+    bytes moved and predicted, the peak memory predicted for the placement
+    and measured, and launches."""
+    device = params["embed"]["table"].device
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (batch, prompt_len))).to(device)
+    peak_reset(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad(), recorded_routes() as ref_routes, recorded_capacity() as ref_caps:
+        want = MDL.forward(params, cfg, {"tokens": toks}, impl=impl)
+    sync(device)
+    out = dict(ref_seconds=time.perf_counter() - t0, ref_launches=launches(),
+               ref_peak=peak(device))
+    rules = SHD.ShardingRules(fsdp_axis=None)
+    mesh = Mesh(np.arange(layout[0] * layout[1]).reshape(layout), ("data", "model"),
+                device=device)
+    specs = SHD.sanitize_specs(SHD.param_specs(params, rules), params, mesh)
+    lay = tree_map(lambda sp: Layout(mesh, sp), specs)
+    dense = [t.numel() * t.element_size() for t in tree_leaves(params)]
+    shard = [sum(math.prod(hi - lo for lo, hi in reg) for _, reg in lt.regions(t.shape))
+             * t.element_size() for t, lt in zip(tree_leaves(params), tree_leaves(lay))]
+    start = sum(torch.cuda.memory_allocated(c) for c in _cards(device))
+    out["predicted_peak"] = start - sum(dense) + max(
+        sum(dense[i:]) + sum(shard[:i + 1]) for i in range(len(dense)))
+    out["sharded_bytes"] = sum(shard)
+    peak_reset(device)
+    sharded = place_freeing(params, lay)
+    params.clear()
+    COLL.reset_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad(), recorded_routes() as routes, recorded_sharded_capacity() as caps, \
+            CTX.use(mesh, rules.batch_axes, rules.tp_axis) as c:
+        parts = PSTEPS.split_batch({"tokens": toks}, mesh, rules)
+        hs = MDL.forward_sharded(sharded, cfg, {r: v["tokens"] for r, v in parts.items()},
+                                 ctx=c, impl=impl)
+        first = [next(r for r in mesh.device_ids if c.batch_index(r) == i)
+                 for i in range(c.batch_size)]
+    sync(device)
+    out.update(seconds=time.perf_counter() - t0, bytes=COLL.STATS["bytes"],
+               launches=launches(), peak=peak(device),
+               predicted_bytes=cap_predicted_bytes(cfg, layout, batch, prompt_len))
+    got = torch.cat([hs[r].to(device) for r in first])
+    tp = layout[1]
+    # routes: one router call per rank per layer, in mesh order; a
+    # replica's rows from its first model rank, replica 0 first
+    per_layer = [routes[i:i + len(mesh.device_ids)] for i in range(0, len(routes),
+                                                                   len(mesh.device_ids))]
+    joined = [(torch.cat([layer[r][0] for r in first]), torch.cat([layer[r][1] for r in first]))
+              for layer in per_layer]
+    out["ranks_route_alike"] = all(same(layer[r - r % tp][0], layer[r][0])
+                                   for layer in per_layer for r in mesh.device_ids)
+    d = route_diff(joined, ref_routes)
+    kept = [torch.cat([call[r].cpu() for r in first]) for call in caps]
+    compared = agree = 0
+    for (sets, _), (ref_sets, _), k, rc in zip(joined, ref_routes, kept, ref_caps):
+        c, a = kept_agreement(sets.cpu(), ref_sets.cpu(), k, rc[2].cpu(), cfg.n_experts)
+        compared, agree = compared + c, agree + a
+    out.update(routes=d, compared=compared, kept_agree=agree, tokens=toks.numel(),
+               dropped=[rc[0] for rc in ref_caps], assignments=[rc[1] for rc in ref_caps],
+               sharded_dropped=[int((k < 0).sum()) for k in kept])
+    check(bool(torch.isfinite(got).all()), "non-finite sharded hidden states")
+    alike = torch.stack(d["agree"] + [(k == rc[2].cpu()).all(-1) for k, rc in
+                                      zip(kept, ref_caps)], -1).all(-1)
+    err = (got - want).abs().amax(dim=-1).flatten().float().cpu()
+    scale = want.abs().amax().item()
+    out.update(err=err.max().item() / scale, alike=int(alike.sum()),
+               err_alike=err.masked_fill(~alike, 0.0).max().item() / scale)
+    return out
+
+
+def kept_agreement(sets, ref_sets, kept, ref_kept, n_experts):
+    """Two capacity dispatches of one cohort, per expert: an assignment's
+    slot counts the cohort's earlier assignments to its expert, so up to
+    the first token that one run routes to the expert and the other does
+    not, the runs must keep the same assignments to it.  ``sets`` /
+    ``kept``: (T, K) expert sets and kept experts (-1 dropped) of each run.
+    Returns (assignments compared, those kept alike)."""
+    def member(x):
+        m = torch.zeros((x.shape[0], n_experts + 1), dtype=torch.bool)
+        return m.scatter_(1, torch.where(x < 0, n_experts, x), True)[:, :n_experts]
+    ins, ref_in = member(sets), member(ref_sets)
+    keep, ref_keep = member(kept), member(ref_kept)
+    parted = (ins != ref_in).int().cummax(dim=0).values.bool()  # (T, E): from the first
+    both = ins & ref_in & ~parted
+    return int(both.sum()), int((both & (keep == ref_keep)).sum())
+
+
+def report_cap_sharded(device, total):
+    """15c on the card: arctic-480b's capacity dispatch on 1 layer at full
+    width, CAP_LAYOUT with FSDP off: the kept assignments equal wherever
+    the routes before them agree (``kept_agreement``), every parting a
+    near-tie (BF16_ROUTE_TIE_TOL)."""
+    cfg = dataclasses.replace(shallow(get_config(ARCTIC), 1), moe_dispatch="capacity")
+    peak_reset(device)
+    t0 = time.perf_counter()
+    params = make_dense_params(cfg, seed=0, device=device)
+    sync(device)
+    init_s, init_peak = time.perf_counter() - t0, peak(device)
+    r = phase_cap_sharded(cfg, params, CAP_LAYOUT, impl="cuda", batch=CAP_TOKENS[0],
+                          prompt_len=CAP_TOKENS[1])
+    del params
+    n = CAP_LAYOUT[0] * CAP_LAYOUT[1] * attn_layers(cfg)
+    want = {"flash_mha": n}
+    d = r["routes"]
+    print(f"[cap] {cfg.name} capacity dispatch 1 layer on (data, model)={CAP_LAYOUT}, FSDP "
+          f"off ({cfg.n_experts // CAP_LAYOUT[1]} of {cfg.n_experts} experts per rank, "
+          f"replicated over data), {CAP_TOKENS[0]} x {CAP_TOKENS[1]} tokens (capacity "
+          f"{MOE.capacity(CAP_TOKENS[0] * CAP_TOKENS[1], cfg)}): single device dropped "
+          f"{r['dropped']} of {r['assignments']} assignments, sharded {r['sharded_dropped']}; "
+          f"routes agree on {d['agreement']:.6f} of tokens, {d['flips']} part (largest "
+          f"probability gap {d['worst_gap']:.3e}, tol {BF16_ROUTE_TIE_TOL}); kept alike "
+          f"on {r['kept_agree']} of the {r['compared']} assignments each expert's earlier "
+          f"routes fix alike; ranks route alike {r['ranks_route_alike']}; hidden err "
+          f"{r['err']:.3e}, {r['err_alike']:.3e} over the {r['alike']} tokens routed and "
+          f"kept alike (printed); {r['seconds']:.3f}s (single device "
+          f"{r['ref_seconds']:.3f}s); "
+          f"{r['bytes']} bytes moved (predicted {r['predicted_bytes']}); init "
+          f"{init_s:.1f}s peak {init_peak} bytes, single forward peak {r['ref_peak']}, "
+          f"placement and sharded forward peak {r['peak']} bytes (predicted placement "
+          f"{r['predicted_peak']}; {r['sharded_bytes']} bytes of blocks); launches "
+          f"{r['launches']} (predicted {want}; single device {r['ref_launches']})")
+    check(r["kept_agree"] == r["compared"] > 0,
+          "sharded capacity dispatch keeps other experts than one device")
+    check(d["worst_gap"] <= BF16_ROUTE_TIE_TOL,
+          "sharded capacity dispatch: a route parts past a near-tie")
+    check(r["ranks_route_alike"], "the model ranks' replicated routers routed differently")
+    check(r["bytes"] == r["predicted_bytes"],
+          f"capacity dispatch moved {r['bytes']} bytes, predicted {r['predicted_bytes']}")
+    check(same_launches(r["launches"], want), f"capacity launches {r['launches']} != {want}")
+    for k in total:
+        total[k] += r["launches"][k]
+    free(device)
+
+
+def report_phase15(device, total):
+    """Phase 15 on the card: (a) mamba2-1.3b, (b) recurrentgemma-9b, (c)
+    arctic-480b's capacity dispatch; each part's seconds."""
+    for args, tag in zip(REC_SHARDED, "ab"):
+        t0 = time.perf_counter()
+        report_rec_sharded(*args, device, total)
+        print(f"[time] phase 15{tag} {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    report_cap_sharded(device, total)
+    print(f"[time] phase 15c {time.perf_counter() - t0:.1f}s")
+
+
 # ------------------------------------------------------------------ main
 
 def shallow(cfg, layers=4, *, dtype=None):
@@ -5473,6 +5906,9 @@ def main():
     report_phase12(device, total)
     report_phase13(device, total)
     report_arctic(device, total, kern)
+    t0 = time.perf_counter()
+    report_phase15(device, total)
+    print(f"[time] phase 15 {time.perf_counter() - t0:.1f}s")
 
     source = "src/repro_torch/kernels/csrc/"
     rows = [dict(name="flash_mha", route="cuda", source=source + "flash_attention.cu",

@@ -68,14 +68,24 @@ def _out_proj(p, out, partial):
     return L.partial_apply(p["wo"], out) if partial else L.dense_apply(p["wo"], out)
 
 
+def _group(k, kv_head):
+    """The KV head ``kv_head`` of k (B, S, Hkv, Dh) as a contiguous (B, S,
+    1, Dh), or k itself where ``kv_head`` is None."""
+    return k if kv_head is None else k[:, :, kv_head:kv_head + 1].contiguous()
+
+
 def attn_apply_with_kv(p, cfg: ModelConfig, spec: LayerSpec, x, rope, *,
-                       causal=True, impl="cuda", partial=False):
+                       causal=True, impl="cuda", partial=False, kv_head=None):
     """Full-sequence attention (training forward / prefill; an encoder's
     with ``causal=False``).  Returns the output and the roped k/v (for
     prefill caching).  Under tensor parallelism ``cfg`` has the rank's
-    local heads and ``partial`` is set."""
+    local heads and ``partial`` is set; with ``kv_head`` (KV projections
+    replicated over the tensor axis) ``p`` holds every KV head, the k/v
+    returned are all of them, and the rank's query heads, which fall
+    within one KV group, attend that group's head."""
     q, k, v = _project_qkv(p, cfg, x, rope)
-    out = ops.mha(q, k, v, causal=causal, window=spec.window, impl=impl)
+    out = ops.mha(q, _group(k, kv_head), _group(v, kv_head), causal=causal, window=spec.window,
+                  impl=impl)
     y = _out_proj(p, out.reshape(*x.shape[:2], cfg.q_dim), partial)
     return y, {"k": k, "v": v}
 
@@ -140,11 +150,12 @@ def prefill_into_cache(cache, spec: LayerSpec, k, v, seq_len: int):
 
 
 def attn_decode_apply(p, cfg: ModelConfig, spec: LayerSpec, x, cache, t: int,
-                      rope, cache_len, *, impl="cuda", partial=False):
+                      rope, cache_len, *, impl="cuda", partial=False, kv_head=None):
     """One-token decode.  x: (B, 1, D); t: the token's position; rope: the
     tables of position t; cache_len: (B,) int32, all t + 1.  Writes the
     token's k/v into the cache in place and returns the output (``partial``
-    as ``attn_apply_with_kv``)."""
+    and ``kv_head`` as ``attn_apply_with_kv``: the cache holds every KV
+    head)."""
     b = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x, rope)
     cap = cache["k"].shape[1]
@@ -153,8 +164,8 @@ def attn_decode_apply(p, cfg: ModelConfig, spec: LayerSpec, x, cache, t: int,
     slot = t % cap if spec.window else min(t, cap - 1)
     cache["k"][:, slot] = k[:, 0]
     cache["v"][:, slot] = v[:, 0]
-    out = ops.decode_mha(q[:, 0], cache["k"], cache["v"], cache_len=cache_len,
-                         window=spec.window, impl=impl)
+    out = ops.decode_mha(q[:, 0], _group(cache["k"], kv_head), _group(cache["v"], kv_head),
+                         cache_len=cache_len, window=spec.window, impl=impl)
     return _out_proj(p, out.reshape(b, 1, cfg.q_dim).to(x.dtype), partial)
 
 

@@ -480,12 +480,14 @@ def lm_loss_sharded(params, cfg: ModelConfig, batch, *, ctx, impl="cuda", remat=
 def prefill_sharded(params, cfg: ModelConfig, tokens, max_len, *, ctx, impl="cuda"):
     """``prefill`` over a mesh: tokens {rank: (B_r, S)}.  Returns ({rank:
     next-token logits (B_r, V_r) fp32}, {rank: the rank's layer caches}):
-    each rank's caches hold its batch rows and its own KV heads, so the
-    decode kernel runs on whole heads."""
+    each rank's caches hold its batch rows and its own KV heads (every one
+    where the tensor axis does not divide them), RG-LRU channels or SSD
+    heads (``transformer.cache_init_sharded``), so the decode kernel runs
+    on whole heads."""
     top = ctx.local({k: v for k, v in params.items() if k != "layers"})
     xs = _embed_sharded(params, top, cfg, tokens, ctx)
-    lcfg = T.tp_cfg(cfg, ctx.tp_size)
-    caches = {r: T.cache_init(lcfg, x.shape[0], max_len, L.dtype_of(cfg), x.device)
+    caches = {r: T.cache_init_sharded(cfg, ctx.tp_size, x.shape[0], max_len, L.dtype_of(cfg),
+                                      x.device)
               for r, x in xs.items()}
     hs = T.stack_prefill_sharded(params["layers"], cfg, xs, caches, ctx=ctx, impl=impl)
     hs = {r: L.rmsnorm_apply(top[r]["final_norm"], h, cfg.norm_eps)[:, -1:]

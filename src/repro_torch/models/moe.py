@@ -26,7 +26,7 @@ to either, in x's dtype.
 The training forward (``want_aux=True``) also returns the Switch
 load-balance loss; serving skips it.  ``moe_apply_sharded`` is the
 expert-parallel layer over a mesh (experts split over the tensor axis, the
-dense residual over its d_ff), dropless only.  The expert FFN is
+dense residual over its d_ff) under either dispatch.  The expert FFN is
 differentiable on both tiers (``grouped_ffn``'s plain backward).
 """
 
@@ -152,20 +152,75 @@ def capacity_route(cfg: ModelConfig, top_w, top_i, t: int):
     and the combine weights renormalised over each token's kept experts
     (fp32; a token that loses an expert shares its weight among the rest),
     and the capacity c."""
-    e, k = cfg.n_experts, cfg.top_k
     c = capacity(t, cfg)
+    return _route(cfg, top_w, top_i, c) + (c,)
+
+
+def _route(cfg: ModelConfig, top_w, top_i, c: int, offset=None):
+    """``capacity_route``'s (order, st, slot, keep, sw) for a cohort's rows
+    after ``offset`` (E,) assignments per expert earlier in the token-major
+    order (None for a whole cohort): an assignment's slot is its place
+    among its expert's assignments counted from there."""
+    e, k = cfg.n_experts, cfg.top_k
     order, st = _sort_by_expert(top_i, k)
     se = top_i.reshape(-1)[order]
     counts = _group_sizes(top_i, e).to(se.dtype)
     starts = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(t * k, device=se.device) - starts[se]
+    rank = torch.arange(se.numel(), device=se.device) - starts[se]
+    if offset is not None:
+        rank = rank + offset[se]
     keep = rank < c
     slot = torch.where(keep, se * c + rank, e * c)
-    keep_tk = torch.empty_like(keep).scatter_(0, order, keep).view(t, k)
+    keep_tk = torch.empty_like(keep).scatter_(0, order, keep).view(-1, k)
     w_kept = top_w * keep_tk
     w = w_kept / w_kept.sum(dim=-1, keepdim=True).clamp(min=1e-9)
-    sw = w.reshape(t * k)[order].to(torch.float32)
-    return order, st, slot, keep, sw, c
+    sw = w.reshape(-1)[order].to(torch.float32)
+    return order, st, slot, keep, sw
+
+
+def _count_offsets(counts: dict, ctx) -> dict:
+    """{rank: (E,) assignments per expert of the batch replicas before the
+    rank's}: the replicas' counts all-gathered over the batch axes."""
+    every = ctx.batch_gather({r: n[None] for r, n in counts.items()})
+    return {r: every[r][:ctx.batch_index(r)].sum(dim=0) for r in counts}
+
+
+def capacity_route_sharded(cfg: ModelConfig, routes: dict, *, ctx):
+    """``capacity_route`` over the global cohort of the batch replicas:
+    routes {rank: (top_w, top_i) of its rows}.  The capacity is the global
+    cohort's, and an assignment's slot is its place in the global
+    token-major sort by expert, replica 0's rows first (the JAX package's
+    GSPMD step sorts the whole cohort): each rank offsets its own count by
+    the replicas' before it.  Returns {rank: (order, st, slot, keep, sw,
+    c)} over the rank's rows, slots in the global buffer."""
+    e = cfg.n_experts
+    t = next(iter(routes.values()))[1].shape[0] * ctx.batch_size
+    c = capacity(t, cfg)
+    offsets = _count_offsets({r: _group_sizes(ti, e).long() for r, (_, ti) in routes.items()},
+                             ctx)
+    return {r: _route(cfg, tw, ti, c, offsets[r]) + (c,) for r, (tw, ti) in routes.items()}
+
+
+def _capacity_rows(p, cfg: ModelConfig, xf, route, lo: int, n: int):
+    """The (T, K, D) fp32 weighted expert outputs of the capacity dispatch
+    ``route`` (``capacity_route``'s tuple) for the kept assignments to
+    experts lo .. lo + n - 1, whose weights ``p`` holds; other assignments
+    give zero rows.  Each kept row goes to its slot of an (n*C + 1, D)
+    buffer in x's dtype (dropped and other experts' rows to the last,
+    never read), and the experts run as batched einsums over n*C rows."""
+    order, st, slot, keep, sw, c = route
+    se = torch.div(slot, c, rounding_mode="floor")
+    mine = keep & (se >= lo) & (se < lo + n)
+    local = torch.where(mine, slot - lo * c, n * c)
+    buf = xf.new_zeros((n * c + 1, xf.shape[1]))
+    buf[local] = xf[st]
+    xe = buf[:-1].view(n, c, xf.shape[1])
+    g = L.ACTS[cfg.act](torch.einsum("ecd,edf->ecf", xe, p["w_gate"]))
+    h = g * torch.einsum("ecd,edf->ecf", xe, p["w_in"])
+    ye = torch.einsum("ecf,efd->ecd", h, p["w_out"]).reshape(n * c, -1)
+    contrib = ye[local.clamp(max=n * c - 1)].to(torch.float32) * (
+        sw * mine.to(torch.float32))[:, None]
+    return _unsort(contrib, order, cfg.top_k)
 
 
 def _dispatch_capacity(p, cfg: ModelConfig, xf, top_w, top_i):
@@ -174,18 +229,8 @@ def _dispatch_capacity(p, cfg: ModelConfig, xf, top_w, top_i):
     never read (their order of writing does not matter).  The expert FFN
     runs on all E*C slots (empty ones zero) as batched products in x's
     dtype; a kept row's output times its weight, fp32, summed over k."""
-    t, d = xf.shape
-    e, k = cfg.n_experts, cfg.top_k
-    order, st, slot, keep, sw, c = capacity_route(cfg, top_w, top_i, t)
-    buf = xf.new_zeros((e * c + 1, d))
-    buf[slot] = xf[st]
-    xe = buf[:-1].view(e, c, d)
-    g = L.ACTS[cfg.act](torch.einsum("ecd,edf->ecf", xe, p["w_gate"]))
-    h = g * torch.einsum("ecd,edf->ecf", xe, p["w_in"])
-    ye = torch.einsum("ecf,efd->ecd", h, p["w_out"]).reshape(e * c, d)
-    contrib = ye[slot.clamp(max=e * c - 1)].to(torch.float32) * (
-        sw * keep.to(torch.float32))[:, None]
-    return _sum_k(_unsort(contrib, order, k)).to(xf.dtype)
+    route = capacity_route(cfg, top_w, top_i, xf.shape[0])
+    return _sum_k(_capacity_rows(p, cfg, xf, route, 0, cfg.n_experts)).to(xf.dtype)
 
 
 def moe_apply(p, cfg: ModelConfig, x, *, impl="cuda", want_aux=False):
@@ -211,31 +256,35 @@ def moe_apply_sharded(ps, cfg: ModelConfig, xs, *, ctx, impl="cuda", want_aux=Fa
     """Expert parallelism over the tensor axis of ``ctx``: ps is {rank: the
     layer's local FFN params} (experts tp_index * E/tp onwards, the router
     whole), xs {rank: (B_r, S, D)}.  Every rank routes its tokens with the
-    replicated router and runs ``grouped_ffn`` on the assignments to its
-    own experts; the (T, K, D) fp32 rows are summed over the tensor axis
-    (each row comes from one rank, zeros from the others, so the sum is
-    exact), then summed over k and cast once, as on one device.  A dense
-    residual MLP (``ps[r]["dense"]``, the rank's d_ff columns of w_gate and
-    w_in and rows of w_out) adds each rank's fp32 share of its output
-    (``mlp_apply(partial=True)``), summed over the tensor axis and cast
-    once.  The capacity dispatch is not ported here: JAX's GSPMD step takes
-    capacity over the global cohort, per-rank routing would take it per
-    rank (``NotImplementedError``).  With ``want_aux`` also {rank: the
+    replicated router and computes the (T, K, D) fp32 rows of the
+    assignments to its own experts: the dropless dispatch through
+    ``grouped_ffn``, the capacity dispatch through its einsums over the
+    global cohort's slots (``capacity_route_sharded``: the capacity and
+    each slot the single device's over the batch replicas' rows).  The
+    rows are summed over the tensor axis (each row comes from one rank,
+    zeros from the others, so the sum is exact), then summed over k and
+    cast once, as on one device.  A dense residual MLP (``ps[r]["dense"]``,
+    the rank's d_ff columns of w_gate and w_in and rows of w_out) adds each
+    rank's fp32 share of its output (``mlp_apply(partial=True)``), summed
+    over the tensor axis and cast once.  With ``want_aux`` also {rank: the
     load-balance loss} from expert counts and router probability sums
     all-reduced over the batch axes: the global means' product, not a mean
     of the replicas'."""
-    if cfg.moe_dispatch != "dropless":
-        raise NotImplementedError(f"{cfg.name}: the sharded MoE runs the dropless dispatch "
-                                  f"only; got moe_dispatch={cfg.moe_dispatch!r}")
     e = cfg.n_experts
     n = e // ctx.tp_size
-    rows, terms = {}, {}
-    for r, x in xs.items():
-        xf = x.reshape(-1, x.shape[-1])
-        top_w, top_i = _router(ps[r], cfg, xf)
-        rows[r] = _expert_rows(ps[r], cfg, xf, top_w, top_i, ctx.tp_index(r) * n, n, impl)
-        if want_aux:
-            probs, counts = _aux_terms(ps[r], xf, top_i, e)
+    xfs = {r: x.reshape(-1, x.shape[-1]) for r, x in xs.items()}
+    routes = {r: _router(ps[r], cfg, xf) for r, xf in xfs.items()}
+    if cfg.moe_dispatch == "capacity":
+        cap = capacity_route_sharded(cfg, routes, ctx=ctx)
+        rows = {r: _capacity_rows(ps[r], cfg, xf, cap[r], ctx.tp_index(r) * n, n)
+                for r, xf in xfs.items()}
+    else:
+        rows = {r: _expert_rows(ps[r], cfg, xf, *routes[r], ctx.tp_index(r) * n, n, impl)
+                for r, xf in xfs.items()}
+    terms = {}
+    if want_aux:
+        for r, xf in xfs.items():
+            probs, counts = _aux_terms(ps[r], xf, routes[r][1], e)
             ntok = torch.full((1,), float(xf.shape[0]), device=xf.device)
             terms[r] = torch.cat([probs.sum(dim=0), counts, ntok])
     rows = ctx.tp_reduce(rows)

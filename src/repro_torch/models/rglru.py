@@ -10,6 +10,11 @@ RG-LRU (diagonal gates, per channel, in fp32):
     h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * u_t)
 The full sequence runs through the scan (``ops.rglru_scan``); decode carries
 {"h": (B, W) fp32, "conv": (B, 3, W)} per row, updated in place.
+
+Every weight but ``w_out`` is per channel or splits its output channels, so
+under tensor parallelism a rank runs the same code on its own W/tp
+channels (``parallel/sharding.py`` gives each leaf that split) and returns
+its fp32 share of ``w_out`` (``partial``) for the caller's all-reduce.
 """
 
 from __future__ import annotations
@@ -55,14 +60,19 @@ def _gates(p, u):
     return a, beta * (i * u32)
 
 
-def lru_apply(p, cfg: ModelConfig, x, *, impl="cuda", return_state=False):
+def _out(p, y, partial):
+    return L.partial_apply(p["w_out"], y) if partial else L.dense_apply(p["w_out"], y)
+
+
+def lru_apply(p, cfg: ModelConfig, x, *, impl="cuda", return_state=False, partial=False):
     """x: (B, S, D) -> (B, S, D); with ``return_state`` also the decode
-    state after the last token."""
+    state after the last token; with ``partial`` (``p`` a rank's channels)
+    the rank's fp32 share of the output projection."""
     gate = ACTS["gelu"](L.dense_apply(p["w_gate"], x))
     u = L.dense_apply(p["w_in"], x)
     a, bx = _gates(p, L.causal_conv(p, u))
     h, h_last = ops.rglru_scan(a, bx, impl=impl)
-    y = L.dense_apply(p["w_out"], h.to(x.dtype) * gate)
+    y = _out(p, h.to(x.dtype) * gate, partial)
     if return_state:
         return y, {"h": h_last, "conv": L.conv_state(u, p["conv_w"].shape[0])}
     return y
@@ -73,9 +83,9 @@ def lru_state_init(cfg: ModelConfig, batch, dtype, device):
             "conv": torch.zeros((batch, 3, cfg.lru_width), dtype=dtype, device=device)}
 
 
-def lru_decode_apply(p, cfg: ModelConfig, x, state):
+def lru_decode_apply(p, cfg: ModelConfig, x, state, *, partial=False):
     """x: (B, 1, D); state from ``lru_state_init``, updated in place.
-    Returns y (B, 1, D)."""
+    Returns y (B, 1, D) (``partial`` as ``lru_apply``)."""
     gate = ACTS["gelu"](L.dense_apply(p["w_gate"], x[:, 0]))
     u = L.dense_apply(p["w_in"], x[:, 0])  # (B, W)
     window = torch.cat([state["conv"], u[:, None]], dim=1)  # (B, K, W)
@@ -83,4 +93,4 @@ def lru_decode_apply(p, cfg: ModelConfig, x, state):
     h = a * state["h"] + bx
     state["h"].copy_(h)
     state["conv"].copy_(window[:, 1:])
-    return L.dense_apply(p["w_out"], h.to(x.dtype) * gate)[:, None]
+    return _out(p, h.to(x.dtype) * gate, partial)[:, None]

@@ -13,7 +13,8 @@ Four execution paths share the parameters:
 
 ``stack_apply_sharded``, ``stack_prefill_sharded`` and
 ``stack_decode_sharded`` run the first three over a mesh of logical
-devices (tensor, data and expert parallelism; see the end of the file).
+devices (tensor, data and expert parallelism, every mixer; see the end of
+the file).
 
 Every mixer is ported: attention, RG-LRU (``models/rglru.py``) and Mamba-2
 SSD (``models/ssm.py``), with a gated-MLP FFN, an MoE FFN
@@ -290,9 +291,14 @@ def stack_prefill(layers_params, cfg: ModelConfig, x, caches, *, impl="cuda", en
         if spec.kind == ATTN:
             A.prefill_into_cache(cache, spec, state["k"], state["v"], seq_len)
         else:
-            for name, value in state.items():
-                cache[name].copy_(value)
+            _store(cache, state)
     return x
+
+
+def _store(cache, state):
+    """A recurrent layer's prefill state copied into its decode cache."""
+    for name, value in state.items():
+        cache[name].copy_(value)
 
 
 def stack_decode(layers_params, cfg: ModelConfig, x, caches, t, *, impl="cuda", cross=False):
@@ -366,35 +372,49 @@ def stack_commit_verify(cfg: ModelConfig, caches, keep):
 # ------------------------------------------------------------------ sharded
 # Explicit SPMD over a mesh of logical devices (``parallel/steps.py``): a
 # per-rank value is a dict {logical id: tensor}, every rank's local block
-# runs the single-device code above with ``tp_cfg``'s local head and FFN
-# counts, and the collectives sit where GSPMD puts them in the JAX package:
-# column-parallel wq/wk/wv/w_gate/w_in, row-parallel wo/w_out followed by
-# an all-reduce over the tensor axis (each rank's share of the product in
-# fp32, summed, cast once), MoE experts split over the same axis
-# (``moe.moe_apply_sharded``).
-# Attention mixers only; ``ctx`` is a ``parallel/ctx.ShardingCtx``.
+# runs the single-device code above with ``tp_cfg``'s local head, channel
+# and FFN counts, and the collectives sit where GSPMD puts them in the JAX
+# package: column-parallel wq/wk/wv/w_gate/w_in/in_proj, row-parallel
+# wo/w_out/out_proj followed by an all-reduce over the tensor axis (each
+# rank's share of the product in fp32, summed, cast once), MoE experts
+# split over the same axis (``moe.moe_apply_sharded``).  Where the tensor
+# axis does not divide the KV heads (recurrentgemma's one, gemma3's one),
+# wk/wv keep their column blocks, which split a head, and each rank
+# all-gathers them over the tensor axis inside the layer, computes every
+# KV head and attends its query heads against their group's; such a
+# layer's KV cache is replicated over the tensor axis.  The RG-LRU block
+# splits by channel (``rglru.py``), the SSD block by head
+# (``ssm.ssm_apply_sharded``).  ``ctx`` is a ``parallel/ctx.ShardingCtx``.
 
 def check_sharded(cfg: ModelConfig, tp: int):
     """Raise for a config the sharded stack does not run at tensor-parallel
-    degree ``tp``: an encoder-decoder or prefix model, a recurrent mixer or
-    the MoE capacity dispatch (their sharded paths are not ported), or a
-    tensor axis that does not divide the KV heads, the FFN width (a dense
-    residual MLP's too) or the experts (JAX's GSPMD would split a head in
-    the middle; the port keeps heads and experts whole)."""
+    degree ``tp``: an encoder-decoder or prefix model
+    (``NotImplementedError``: their sharded paths are not ported), or a
+    tensor axis that does not divide the query heads, or gives a rank query
+    heads of more than one KV group without whole groups, or does not
+    divide the FFN width (a dense residual MLP's too), the experts, the
+    RG-LRU width or the SSD heads (``ValueError``: the port keeps heads,
+    channels and experts whole where JAX's GSPMD would split them)."""
     check_supported(cfg)
     if cfg.family == "encdec" or cfg.prefix_len:
         raise NotImplementedError(f"{cfg.name}: sharded compute of encoder/prefix inputs "
                                   "is not ported")
     kinds = {s.kind for s in cfg.layers}
-    if kinds != {ATTN}:
-        raise NotImplementedError(f"{cfg.name}: sharded compute is attention-only; got mixer "
-                                  f"kinds {sorted(kinds)}")
-    if cfg.n_kv_heads % tp or cfg.n_heads % tp:
+    if ATTN in kinds:
+        if cfg.n_heads % tp:
+            raise ValueError(f"{cfg.name}: a tensor axis of {tp} does not divide "
+                             f"{cfg.n_heads} query heads ({cfg.n_kv_heads} KV heads)")
+        local, group = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv_heads
+        if cfg.n_kv_heads % tp and group % local:
+            raise ValueError(f"{cfg.name}: a tensor axis of {tp} gives each rank {local} "
+                             f"query heads, which straddle groups of {group} over "
+                             f"{cfg.n_kv_heads} KV heads")
+    if LRU in kinds and cfg.lru_width % tp:
+        raise ValueError(f"{cfg.name}: a tensor axis of {tp} does not divide lru_width "
+                         f"{cfg.lru_width}")
+    if SSM in kinds and cfg.ssm_heads % tp:
         raise ValueError(f"{cfg.name}: a tensor axis of {tp} does not divide "
-                         f"{cfg.n_heads} query / {cfg.n_kv_heads} KV heads")
-    if cfg.ffn_kind == "moe" and cfg.moe_dispatch != "dropless":
-        raise NotImplementedError(f"{cfg.name}: the sharded MoE runs the dropless dispatch "
-                                  f"only; got moe_dispatch={cfg.moe_dispatch!r}")
+                         f"{cfg.ssm_heads} SSD heads")
     if (cfg.ffn_kind == "gated" or cfg.dense_residual_ffn) and cfg.d_ff % tp:
         raise ValueError(f"{cfg.name}: a tensor axis of {tp} does not divide d_ff {cfg.d_ff}")
     if cfg.ffn_kind == "moe" and cfg.n_experts % tp:
@@ -402,14 +422,51 @@ def check_sharded(cfg: ModelConfig, tp: int):
                          f"{cfg.n_experts} experts")
 
 
+def kv_replicated(cfg: ModelConfig, tp: int) -> bool:
+    """Whether each rank computes every KV head (the tensor axis does not
+    divide them)."""
+    return bool(cfg.n_kv_heads) and cfg.n_kv_heads % tp != 0
+
+
 def tp_cfg(cfg: ModelConfig, tp: int) -> ModelConfig:
-    """The config of one rank's local block: its query and KV heads and FFN
+    """The config of one rank's local block: its query heads, its KV heads
+    (all of them where ``kv_replicated``), its RG-LRU channels and FFN
     width, a dense one's or the dense residual MLP's beside the experts
-    (``check_sharded`` holds the divisions exact)."""
+    (``check_sharded`` holds the divisions exact).  The SSD width derives
+    from ``d_model``, so the SSD layer takes its head count, H / tp, as an
+    argument."""
     if tp == 1:
         return cfg
-    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
-                               d_ff=cfg.d_ff // tp)
+    kv = cfg.n_kv_heads if kv_replicated(cfg, tp) else cfg.n_kv_heads // tp
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=kv,
+                               d_ff=cfg.d_ff // tp, lru_width=cfg.lru_width // tp)
+
+
+def _kv_head(cfg: ModelConfig, ctx, r: int):
+    """The KV head rank r's query heads attend where KV is replicated, else
+    None (the rank holds its own KV heads)."""
+    tp = ctx.tp_size
+    if not kv_replicated(cfg, tp):
+        return None
+    return ctx.tp_index(r) * (cfg.n_heads // tp) // (cfg.n_heads // cfg.n_kv_heads)
+
+
+def _kv_whole(pms: dict, cfg: ModelConfig, ctx) -> dict:
+    """{rank: the attention params with wk/wv (and their biases) whole}
+    where KV is replicated: their column blocks all-gathered over the
+    tensor axis (unless ``sanitize_specs`` left them whole); the gather's
+    backward, the reduce-scatter, lands each gradient on its block."""
+    if not kv_replicated(cfg, ctx.tp_size):
+        return pms
+    out = {r: dict(p) for r, p in pms.items()}
+    for name in ("wk", "wv"):
+        leaves = {}
+        for key in pms[next(iter(pms))][name]:
+            leaves[key] = ctx.tp_gather({r: p[name][key] for r, p in pms.items()}, -1,
+                                        cfg.kv_dim)
+        for r in out:
+            out[r][name] = {key: leaves[key][r] for key in leaves}
+    return out
 
 
 def _ropes(cfg: ModelConfig, positions: dict) -> dict:
@@ -434,19 +491,66 @@ def _ffn_sharded(ps, cfg, lcfg, xs, *, ctx, impl, want_aux):
     return {r: xs[r] + ys[r] for r in xs}, aux
 
 
-def block_sharded(ps, cfg, xs, mixer, *, ctx, impl="cuda", want_aux=False):
+def _mixer_sharded(pms, cfg, spec, hs, *, ctx, impl, rope=None, caches=None, t=None,
+                   lens=None, prefill=False):
+    """{rank: fp32 share of the mixer output} of {rank: normed input}: the
+    layer's mixer on every rank, ``pms`` {rank: local mixer params}.  Full
+    sequence (``rope`` {rank: tables}; with ``prefill`` it also fills
+    ``caches`` {rank: the layer's cache}), or with ``t`` one decode token
+    at position t against ``caches`` (``lens`` {rank: cache lengths})."""
+    tp = ctx.tp_size
+    lcfg = tp_cfg(cfg, tp)
+    decode = t is not None
+    if spec.kind == SSM:
+        heads = cfg.ssm_heads // tp
+        if decode:
+            return S.ssm_decode_sharded(pms, cfg, hs, caches, ctx=ctx, heads=heads)
+        out = S.ssm_apply_sharded(pms, cfg, hs, ctx=ctx, heads=heads, impl=impl,
+                                  return_state=prefill)
+        if not prefill:
+            return out
+        out, states = out
+        for r, st in states.items():
+            _store(caches[r], st)
+        return out
+    ys = {}
+    if spec.kind == LRU:
+        for r, h in hs.items():
+            if decode:
+                ys[r] = R.lru_decode_apply(pms[r], lcfg, h, caches[r], partial=True)
+                continue
+            y = R.lru_apply(pms[r], lcfg, h, impl=impl, return_state=prefill, partial=True)
+            if prefill:
+                y, st = y
+                _store(caches[r], st)
+            ys[r] = y
+        return ys
+    pms = _kv_whole(pms, cfg, ctx)
+    for r, h in hs.items():
+        kvh = _kv_head(cfg, ctx, r)
+        if decode:
+            ys[r] = A.attn_decode_apply(pms[r], lcfg, spec, h, caches[r], t, rope[r], lens[r],
+                                        impl=impl, partial=True, kv_head=kvh)
+            continue
+        ys[r], kv = A.attn_apply_with_kv(pms[r], lcfg, spec, h, rope[r], impl=impl,
+                                         partial=True, kv_head=kvh)
+        if prefill:
+            A.prefill_into_cache(caches[r], spec, kv["k"], kv["v"], h.shape[1])
+    return ys
+
+
+def block_sharded(ps, cfg, spec, xs, *, ctx, impl="cuda", want_aux=False, **mixer_kw):
     """One block on every rank.  ps: {rank: the layer's local params
-    (``ctx.local``)}; xs: {rank: (B_r, S, D)}; ``mixer(rank, p_mixer, h)``
-    gives the rank's fp32 share of the mixer output (its heads through its
-    rows of wo, ``layers.partial_apply``); the shares are all-reduced over
-    the tensor axis and cast once.  Returns (xs, aux): {rank: MoE
-    load-balance loss} with ``want_aux``, else None."""
-    lcfg = tp_cfg(cfg, ctx.tp_size)
-    ys = {r: mixer(r, ps[r]["mixer"], L.rmsnorm_apply(ps[r]["ln1"], x, cfg.norm_eps))
-          for r, x in xs.items()}
-    ys = ctx.tp_reduce(ys)
+    (``ctx.local``)}; xs: {rank: (B_r, S, D)}; ``mixer_kw`` as
+    ``_mixer_sharded``'s.  The mixer's fp32 shares are all-reduced over the
+    tensor axis and cast once.  Returns (xs, aux): {rank: MoE load-balance
+    loss} with ``want_aux``, else None."""
+    hs = {r: L.rmsnorm_apply(ps[r]["ln1"], x, cfg.norm_eps) for r, x in xs.items()}
+    ys = ctx.tp_reduce(_mixer_sharded({r: p["mixer"] for r, p in ps.items()}, cfg, spec, hs,
+                                      ctx=ctx, impl=impl, **mixer_kw))
     xs = {r: xs[r] + ys[r].to(xs[r].dtype) for r in xs}
-    return _ffn_sharded(ps, cfg, lcfg, xs, ctx=ctx, impl=impl, want_aux=want_aux)
+    return _ffn_sharded(ps, cfg, tp_cfg(cfg, ctx.tp_size), xs, ctx=ctx, impl=impl,
+                        want_aux=want_aux)
 
 
 def stack_apply_sharded(layers_params, cfg: ModelConfig, xs, *, ctx, impl="cuda",
@@ -457,16 +561,12 @@ def stack_apply_sharded(layers_params, cfg: ModelConfig, xs, *, ctx, impl="cuda"
     ``remat`` regathers them in the backward as it recomputes.  Returns xs,
     or with ``return_aux`` (xs, {rank: the MoE losses summed})."""
     ranks = list(xs)
-    lcfg = tp_cfg(cfg, ctx.tp_size)
     ropes = _ropes(cfg, {r: torch.arange(x.shape[1], device=x.device) for r, x in xs.items()})
     aux_total = {r: torch.zeros((), dtype=torch.float32, device=x.device) for r, x in xs.items()}
     for p, spec in zip(layers_params, cfg.layers):
         def layer(*flat, p=p, spec=spec):
-            def mixer(r, pm, h):
-                return A.attn_apply_with_kv(pm, lcfg, spec, h, ropes[r], impl=impl,
-                                            partial=True)[0]
-            out, aux = block_sharded(ctx.local(p), cfg, dict(zip(ranks, flat)), mixer, ctx=ctx,
-                                     impl=impl, want_aux=return_aux)
+            out, aux = block_sharded(ctx.local(p), cfg, spec, dict(zip(ranks, flat)), ctx=ctx,
+                                     impl=impl, want_aux=return_aux, rope=ropes)
             return tuple(out[r] for r in ranks) + (tuple(aux[r] for r in ranks) if aux else ())
         flat = [xs[r] for r in ranks]
         res = (torch.utils.checkpoint.checkpoint(layer, *flat, use_reentrant=False) if remat
@@ -477,19 +577,23 @@ def stack_apply_sharded(layers_params, cfg: ModelConfig, xs, *, ctx, impl="cuda"
     return (xs, aux_total) if return_aux else xs
 
 
+def cache_init_sharded(cfg: ModelConfig, tp: int, batch, max_len, dtype, device):
+    """One rank's decode caches at tensor-parallel degree ``tp``: its own KV
+    heads (every one where ``kv_replicated``), RG-LRU channels or SSD heads
+    (``ssm.ssm_state_init_sharded``)."""
+    lcfg = tp_cfg(cfg, tp)
+    return [S.ssm_state_init_sharded(cfg, batch, cfg.ssm_heads // tp, dtype, device)
+            if spec.kind == SSM else layer_cache_init(lcfg, spec, batch, max_len, dtype, device)
+            for spec in cfg.layers]
+
+
 def stack_prefill_sharded(layers_params, cfg: ModelConfig, xs, caches, *, ctx, impl="cuda"):
     """``stack_prefill`` over a mesh: caches is {rank: the rank's layer
-    caches} from ``cache_init`` at ``tp_cfg``'s KV heads, filled in place.
-    Returns xs."""
-    lcfg = tp_cfg(cfg, ctx.tp_size)
+    caches} from ``cache_init_sharded``, filled in place.  Returns xs."""
     ropes = _ropes(cfg, {r: torch.arange(x.shape[1], device=x.device) for r, x in xs.items()})
-    seq_len = next(iter(xs.values())).shape[1]
     for i, (p, spec) in enumerate(zip(layers_params, cfg.layers)):
-        def mixer(r, pm, h):
-            y, kv = A.attn_apply_with_kv(pm, lcfg, spec, h, ropes[r], impl=impl, partial=True)
-            A.prefill_into_cache(caches[r][i], spec, kv["k"], kv["v"], seq_len)
-            return y
-        xs, _ = block_sharded(ctx.local(p), cfg, xs, mixer, ctx=ctx, impl=impl)
+        xs, _ = block_sharded(ctx.local(p), cfg, spec, xs, ctx=ctx, impl=impl, rope=ropes,
+                              caches={r: c[i] for r, c in caches.items()}, prefill=True)
     return xs
 
 
@@ -497,13 +601,10 @@ def stack_decode_sharded(layers_params, cfg: ModelConfig, xs, caches, t, *, ctx,
     """``stack_decode`` over a mesh: xs {rank: (B_r, 1, D)}, the token at
     position t; caches as ``stack_prefill_sharded``'s, updated in place.
     Returns xs."""
-    lcfg = tp_cfg(cfg, ctx.tp_size)
     ropes = _ropes(cfg, {r: torch.full((1, 1), t, device=x.device) for r, x in xs.items()})
     lens = {r: torch.full((x.shape[0],), t + 1, dtype=torch.int32, device=x.device)
             for r, x in xs.items()}
     for i, (p, spec) in enumerate(zip(layers_params, cfg.layers)):
-        def mixer(r, pm, h):
-            return A.attn_decode_apply(pm, lcfg, spec, h, caches[r][i], t, ropes[r], lens[r],
-                                       impl=impl, partial=True)
-        xs, _ = block_sharded(ctx.local(p), cfg, xs, mixer, ctx=ctx, impl=impl)
+        xs, _ = block_sharded(ctx.local(p), cfg, spec, xs, ctx=ctx, impl=impl, rope=ropes,
+                              caches={r: c[i] for r, c in caches.items()}, t=t, lens=lens)
     return xs

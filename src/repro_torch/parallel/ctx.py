@@ -84,6 +84,22 @@ class ShardingCtx:
             return xs
         return C.all_reduce(xs, self.mesh, self.batch_axes)
 
+    def tp_gather(self, xs: dict, dim: int, size: Optional[int] = None) -> dict:
+        """All-gather along ``dim`` over the tensor axis (its backward is
+        the reduce-scatter); with ``size``, blocks that already hold
+        ``size`` there (a weight ``sanitize_specs`` left unsplit) come back
+        as they are."""
+        if not self.tp_axis or (size is not None
+                                and next(iter(xs.values())).shape[dim] == size):
+            return xs
+        return C.all_gather(xs, self.mesh, self.tp_axis, dim)
+
+    def batch_gather(self, xs: dict, dim: int = 0) -> dict:
+        """All-gather along ``dim`` over the batch axes, replica 0 first."""
+        if not self.batch_axes:
+            return xs
+        return C.all_gather(xs, self.mesh, self.batch_axes, dim)
+
     def local(self, tree) -> dict:
         """{rank: the rank's compute view of ``tree``}: every
         ``ShardedTensor`` leaf's block all-gathered over each mesh axis but

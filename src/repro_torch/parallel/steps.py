@@ -16,15 +16,19 @@ an all-reduce, a vocabulary-parallel embedding and head, MoE experts split
 over the same axis), the batch over the batch axes.  Gradients of a leaf
 replicated over an axis (a norm; a dim ``sanitize_specs`` left unsharded)
 are all-reduced over it, so every replica holds the same bits after the
-step.  Attention-only stacks; a tensor axis must divide the KV heads, the
-FFN width and the experts (``transformer.check_sharded``).
+step.  Every mixer runs (attention, RG-LRU, SSD; ``models/transformer.py``
+says how each splits) and either MoE dispatch; a tensor axis must divide
+the query heads, the FFN width, the experts, the RG-LRU width and the SSD
+heads, and leave each rank's query heads within whole KV groups
+(``transformer.check_sharded``).  Encoder-decoder and prefix configs are
+refused.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import model as MDL
 from repro_torch.models import transformer as T
@@ -46,11 +50,23 @@ def check_mesh(cfg: ModelConfig, mesh, rules: SH.ShardingRules):
     T.check_sharded(cfg, mesh.shape[rules.tp_axis] if rules.tp_axis else 1)
 
 
-def _check_tree(tree, mesh, what):
-    for st in tree_leaves(tree):
-        if not isinstance(st, ShardedTensor) or st.layout.mesh != mesh:
-            raise ValueError(f"{what}: every leaf must be a ShardedTensor on {mesh!r}; got "
-                             f"{st!r}")
+def _on_mesh(tree, mesh, what):
+    """``tree`` with every leaf a ``ShardedTensor`` on ``mesh``.  A leaf on
+    another mesh whose layout is equivalent to its spec's on ``mesh`` (a
+    replicated norm that a reshard aliased: it keeps its blocks and its old
+    layout, as a JAX array keeps its sharding) comes back relabelled onto
+    ``mesh``, its blocks shared; any other leaf raises."""
+    def one(st):
+        if isinstance(st, ShardedTensor):
+            if st.layout.mesh == mesh:
+                return st
+            spec = st.layout.spec
+            if all(a in mesh.shape for part in spec for a in axes_of(part)):
+                lay = Layout(mesh, spec)
+                if st.layout.is_equivalent_to(lay, len(st.shape)):
+                    return ShardedTensor(st.shape, st.dtype, lay, st.blocks)
+        raise ValueError(f"{what}: every leaf must be a ShardedTensor on {mesh!r}; got {st!r}")
+    return tree_map(one, tree)
 
 
 def split_batch(batch, mesh, rules: SH.ShardingRules) -> dict:
@@ -139,7 +155,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *, impl="cuda"
     check_mesh(cfg, mesh, rules)
 
     def step(params, opt_state, batch):
-        _check_tree(params, mesh, "params")
+        params = _on_mesh(params, mesh, "params")
         with CTX.use(mesh, rules.batch_axes, rules.tp_axis) as c:
             def loss_fn(params, parts):
                 return MDL.lm_loss_sharded(params, cfg, parts, ctx=c, impl=impl, remat=remat)
@@ -165,19 +181,47 @@ def _as_sharded(per_rank: dict, layout: Layout, shape) -> ShardedTensor:
     return ShardedTensor(shape, next(iter(per_rank.values())).dtype, layout, per_rank)
 
 
+# The dim of each cache leaf that a rank holds its share of over the tensor
+# axis: attention k/v by KV head (none where ``kv_replicated``), the RG-LRU
+# state by channel, the SSD state by head and its conv state's x channels
+# (``ssm.ssm_state_init_sharded``; its B and C channels are on every rank).
+_CACHE_TP_DIM = {"k": 2, "v": 2, "h": 1, "conv": 2, "ssm": 1, "conv_x": 2, "conv_bc": None}
+
+
 def _wrap_caches(caches: dict, cfg, mesh, rules):
-    """{rank: layer caches} as a list of {"k", "v": ShardedTensor} per layer,
-    each rank's block its batch rows and its own KV heads."""
-    lay = Layout(mesh, P(_batch_part(rules), None, rules.tp_axis, None))
+    """{rank: layer caches} as a list per layer of {name: ShardedTensor},
+    each rank's block its batch rows and its share over the tensor axis
+    (``_CACHE_TP_DIM``)."""
     k = C.axis_size(mesh, rules.batch_axes) if rules.batch_axes else 1
+    tp = mesh.shape[rules.tp_axis] if rules.tp_axis else 1
     out = []
-    for i in range(cfg.num_layers):
+    for i, spec in enumerate(cfg.layers):
         layer = {}
-        for name in ("k", "v"):
-            blk = caches[mesh.device_ids[0]][i][name]
-            shape = (blk.shape[0] * k, blk.shape[1], cfg.n_kv_heads, blk.shape[3])
-            layer[name] = _as_sharded({r: caches[r][i][name] for r in caches}, lay, shape)
+        for name, blk in caches[mesh.device_ids[0]][i].items():
+            dim = _CACHE_TP_DIM[name]
+            if spec.kind == ATTN and T.kv_replicated(cfg, tp):
+                dim = None
+            parts = [_batch_part(rules)] + [None] * (blk.dim() - 1)
+            shape = [blk.shape[0] * k, *blk.shape[1:]]
+            if dim is not None:
+                parts[dim] = rules.tp_axis
+                shape[dim] *= tp
+            layer[name] = _as_sharded({r: caches[r][i][name] for r in caches},
+                                      Layout(mesh, P(*parts)), tuple(shape))
         out.append(layer)
+    return out
+
+
+def gathered_caches(caches: list, device=None) -> list:
+    """The sharded caches of ``make_prefill_step`` gathered (onto
+    ``device``) into the single-device ones (``transformer.cache_init``'s):
+    an SSD layer's conv state joined from its x and its B and C channels."""
+    out = []
+    for layer in caches:
+        whole = {name: st.gather(device) for name, st in layer.items()}
+        if "conv_x" in whole:
+            whole["conv"] = torch.cat([whole.pop("conv_x"), whole.pop("conv_bc")], dim=-1)
+        out.append(whole)
     return out
 
 
@@ -189,12 +233,19 @@ def make_prefill_step(cfg: ModelConfig, *, impl="cuda", extra_len: int = 0, mesh
     {"tokens": (B, S)} global; the logits come back as a (B, V)
     ``ShardedTensor`` laid out over (batch axes, tensor axis) (the
     vocabulary replicated where the axis does not divide it), the caches as
-    a list per layer of {"k", "v"} (B, S_max, Hkv, Dh) ``ShardedTensor``s
-    laid out ``P(batch, None, model, None)``: each rank holds its batch
-    rows and its own KV heads, so ``flash_decode`` runs on whole heads.
-    (The JAX package's ``cache_partition_specs`` shards the last dim, Dh,
-    over the model axis instead; the gathered cache is the single-device
-    one either way.)"""
+    a list per layer of ``ShardedTensor``s, each rank holding its batch rows
+    and (``cache_partition_specs`` lists the layouts):
+      * attention {"k", "v"} (B, S_max, Hkv, Dh): its own KV heads,
+        ``P(batch, None, model, None)``, so ``flash_decode`` runs on whole
+        heads; where the tensor axis does not divide the KV heads every
+        head, ``P(batch, None, None, None)``;
+      * RG-LRU {"h": (B, W) fp32, "conv": (B, 3, W)}: its channels,
+        ``P(batch, model)`` and ``P(batch, None, model)``;
+      * SSD {"ssm": (B, H, P, N) fp32, "conv_x": (B, K-1, di), "conv_bc":
+        (B, K-1, 2N)}: its heads, ``P(batch, model, None, None)``, their x
+        channels of the conv state, ``P(batch, None, model)``, and its B
+        and C channels, ``P(batch, None, None)``.
+    ``gathered_caches`` joins them into the single-device caches."""
     if mesh is None:
         def step(params, batch):
             max_len = batch["tokens"].shape[1] + max(extra_len, 1)
@@ -206,7 +257,7 @@ def make_prefill_step(cfg: ModelConfig, *, impl="cuda", extra_len: int = 0, mesh
     check_mesh(cfg, mesh, rules)
 
     def step(params, batch):
-        _check_tree(params, mesh, "params")
+        params = _on_mesh(params, mesh, "params")
         b, s = batch["tokens"].shape
         with CTX.use(mesh, rules.batch_axes, rules.tp_axis) as c:
             tokens = {r: v["tokens"] for r, v in split_batch(batch, mesh, rules).items()}
@@ -233,7 +284,7 @@ def make_decode_step(cfg: ModelConfig, *, impl="cuda", mesh=None,
     check_mesh(cfg, mesh, rules)
 
     def step(params, token, caches, t):
-        _check_tree(params, mesh, "params")
+        params = _on_mesh(params, mesh, "params")
         with CTX.use(mesh, rules.batch_axes, rules.tp_axis) as c:
             tokens = {r: v["token"] for r, v in split_batch({"token": token}, mesh,
                                                             rules).items()}
@@ -270,8 +321,15 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
 def cache_partition_specs(cache_shapes, rules: SH.ShardingRules):
     """The JAX package's cache specs with the stack dim dropped: batch over
     (pod+)data, the last dim (head or state) over the tensor axis where 16
-    divides it.  The port's sharded decode does not use them: it holds
-    each rank's cache by KV head (``make_prefill_step``)."""
+    divides it.  The port's sharded decode does not use them: its caches
+    (``make_prefill_step``) hold attention k/v by KV head, ``P(batch, None,
+    model, None)``, or, where the tensor axis does not divide the KV heads,
+    replicated over it, ``P(batch, None, None, None)``; the RG-LRU state by
+    channel, "h" ``P(batch, model)`` and "conv" ``P(batch, None, model)``;
+    the SSD state by head, "ssm" ``P(batch, model, None, None)``, with its
+    conv state split into its x channels by head, "conv_x" ``P(batch,
+    None, model)``, and its B and C channels on every rank, "conv_bc"
+    ``P(batch, None, None)``."""
     b = _batch_part(rules)
 
     def spec(x):

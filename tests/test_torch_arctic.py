@@ -292,15 +292,11 @@ def test_expert_parallel_step_matches_single_device(shape):
 
 
 def test_sharded_refusals():
-    """The sharded capacity dispatch is not ported; a tensor axis that does
-    not divide the dense residual's d_ff is refused like a dense FFN's."""
+    """The sharded steps take the capacity dispatch (held against the JAX
+    package in ``test_torch_ep_moe.py``); a tensor axis that does not
+    divide the dense residual's d_ff is refused like a dense FFN's."""
     _, _, tcfg, tp = make_pair("capacity")
-    with pytest.raises(NotImplementedError, match="dropless"):
-        TSTEPS.make_train_step(tcfg, tadamw.AdamWConfig(), impl="reference",
-                               mesh=cpu_mesh((1, 2)))
-    with pytest.raises(NotImplementedError, match="dropless"):
-        TMOE.moe_apply_sharded({0: tp["layers"][0]["ffn"]}, tcfg, {0: torch.zeros(1, 2, 64)},
-                               ctx=None)
+    TSTEPS.make_train_step(tcfg, tadamw.AdamWConfig(), impl="reference", mesh=cpu_mesh((1, 2)))
     odd = TCONF.get_config(ARCH).reduced(n_heads=3, n_kv_heads=3, n_experts=3)
     with pytest.raises(ValueError, match="d_ff 128"):
         TT.check_sharded(odd, 3)
