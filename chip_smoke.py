@@ -220,10 +220,25 @@ Phases, in order; any failure exits non-zero before the last line:
      parting a near-tie (BF16_ROUTE_TIE_TOL); each part's seconds beside
      one device's, its collectives' bytes held to a prediction from the
      shapes, peak memory, launches held.
+ 16. sharded compute of the encoder-decoder and prefix configs, on 4
+     logical devices of the card: (a) seamless-m4t-medium (its encoder
+     non-causal per rank, each decoder layer's cross-attention split by
+     head, the "xkv" cache by KV head) trained one step at full width and
+     depth on (data 2, model 2) on 4 x 256 tokens over 512 frames against
+     one device (TRAIN_TOL, TRAIN_LEAF_TOL; replicas bit-equal), moved to
+     (1, 4) by ``prefetch_reshard`` and served there, 4 x 128 tokens and 8
+     decode steps against one device (LOGIT_TOL), then the same on 2 + 2
+     fp32 layers (FP32_GRAD_TOL, FP32_LOGIT_TOL, the gathered caches too);
+     (b) internvl2-76b on 8 of 80 layers served on (1, 4), 2 x 512
+     positions whose first 256 are patch embeddings spliced after the
+     vocabulary-parallel sum, and its loss with the backward on 2 layers
+     on (2, 2) against one device (TRAIN_TOL, TRAIN_LEAF_TOL), the loss's
+     bits kept under a changed prefix; seconds, bytes against their
+     prediction, peak memory, launches held as in phase 15.
 Each model's parameters are freed before the next is built.
 Then one JSON line of kernel numbers, and last {"ok": true, "device": ...}.
 
-Phases 3 to 15 are functions of (config, params or experiment, impl) so the
+Phases 3 to 16 are functions of (config, params or experiment, impl) so the
 CPU tests rehearse them at the reduced size with impl="reference".
 """
 
@@ -3655,9 +3670,12 @@ def phase_tp_train(cfg, params, batch, layout, *, impl, opt_cfg=adamw.AdamWConfi
 def tp_train_predicted(cfg, layout):
     """Launches of one train step: every rank's forward of every layer,
     again in the backward's recompute (remat): flash_mha per attention
-    layer, ssd_scan per SSD and rglru_scan per RG-LRU layer."""
+    layer (an encoder-decoder's per encoder layer and per decoder layer's
+    self- and cross-attention), ssd_scan per SSD and rglru_scan per RG-LRU
+    layer."""
     n = layout[0] * layout[1] * 2
-    per = {"flash_mha": attn_layers(cfg), **scan_launches(cfg, 1)}
+    per = {"flash_mha": attn_layers(cfg) * (3 if cfg.family == "encdec" else 1),
+           **scan_launches(cfg, 1)}
     return {k: n * per.get(k, 0) for k in launches()}
 
 
@@ -3703,13 +3721,19 @@ def phase_tp_serve(cfg, params, layout, *, impl, batch=4, prompt_len=256, steps=
     ``make_decode_step``s on a ``layout`` mesh against the single-device
     steps, both fed the single-device run's greedy tokens.  ``sharded``:
     (mesh, tree) already laid out (else ``params`` placed by
-    ``shard_params``).  Returns the scaled logit errors, the greedy
-    agreement, the gathered caches' largest difference, seconds (the single
-    device's too), bytes and launches per call."""
+    ``shard_params``).  An encoder-decoder's or prefix model's prompt
+    carries its frames or prefix embeddings (``modal_batch``).  Returns the
+    scaled logit errors, the greedy agreement, the gathered caches' largest
+    difference (``cache_diff``; ``cache_err`` over each leaf's largest
+    |value|), seconds (the single device's too), bytes and launches per
+    call."""
     device = params["embed"]["table"].device
-    rng = np.random.default_rng(seed)
-    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (batch, prompt_len))).to(device)
-    prompt = {"tokens": toks}
+    if cfg.prefix_len:
+        prompt = modal_batch(cfg, device, batch=batch, seq=prompt_len, seed=seed)
+    else:
+        rng = np.random.default_rng(seed)
+        prompt = {"tokens": torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                                          (batch, prompt_len))).to(device)}
     reset_launches()
     t0 = time.perf_counter()
     lg, caches = PSTEPS.make_prefill_step(cfg, impl=impl, extra_len=steps)(params, prompt)
@@ -3750,12 +3774,14 @@ def phase_tp_serve(cfg, params, layout, *, impl, batch=4, prompt_len=256, steps=
     check(bool(torch.isfinite(got).all()), "non-finite sharded logits")
     scale = want.abs().amax().item()
     err = (got - want).abs()
+    diffs = tree_leaves(tree_map(lambda a, b: (b.float() - a.float()).abs().max().item(),
+                                 caches, PSTEPS.gathered_caches(scaches, device)))
+    mags = tree_leaves(tree_map(lambda a: a.float().abs().max().item(), caches))
     out.update(prefill_err=err[:, 0].max().item() / scale,
                decode_err=err[:, 1:].max().item() / scale, logit_scale=scale,
                argmax_agreement=(got.argmax(-1) == want.argmax(-1)).float().mean().item(),
-               cache_diff=max((g[k].float() - s.float()).abs().max().item()
-                              for g, sc in zip(PSTEPS.gathered_caches(scaches, device), caches)
-                              for k, s in sc.items()),
+               cache_diff=max(diffs),
+               cache_err=max(d / max(m, 1e-30) for d, m in zip(diffs, mags)),
                n_ranks=mesh.size)
     return out
 
@@ -3808,8 +3834,7 @@ def phase_ep(cfg, params, layout, *, impl, batch=4, prompt_len=256, seed=0):
     with torch.no_grad(), recorded_routes() as routes, \
             CTX.use(mesh, rules.batch_axes, rules.tp_axis) as c:
         parts = PSTEPS.split_batch({"tokens": toks}, mesh, rules)
-        hs = MDL.forward_sharded(sharded, cfg, {r: v["tokens"] for r, v in parts.items()},
-                                 ctx=c, impl=impl)
+        hs = MDL.forward_sharded(sharded, cfg, parts, ctx=c, impl=impl)
         top = c.local({k: v for k, v in sharded.items() if k != "layers"})
         lg = {r: MDL.logits_of(top[r], cfg, h) for r, h in hs.items()}
     sync(device)
@@ -5321,18 +5346,25 @@ def allgather_bytes(part, k, groups=1):
     return groups * k * (k - 1) * part
 
 
-def sharded_serve_bytes(cfg, tp, rows, seq):
-    """Bytes the collectives move in one sharded prefill (``seq`` tokens) or
-    decode step (``seq`` 1) of ``rows`` rows on a (1, tp) mesh: the
-    vocabulary-parallel embedding's sum; per layer the mixer's and the
-    FFN's fp32 shares summed; an SSD layer's ``in_proj`` product, conv
-    weights and norm sums of squares; a replicated-KV attention layer's
-    wk/wv blocks."""
+def stack_bytes(cfg, tp, rows, seq, *, cross=None):
+    """Bytes the collectives move in one sharded pass of ``rows`` x ``seq``
+    through ``cfg``'s layer stack on a (1, tp) mesh: per layer the mixer's
+    and the FFN's fp32 shares summed; an SSD layer's ``in_proj`` product,
+    conv weights and norm sums of squares; a replicated-KV attention
+    layer's wk/wv blocks.  ``cross`` ("prefill" or "decode") adds a decoder
+    layer's cross-attention: its fp32 shares summed, and in prefill its
+    wk/wv blocks where replicated (decode reads its "xkv" cache)."""
     bf, f32 = L.dtype_of(cfg).itemsize, 4
     act = rows * seq * cfg.d_model
-    out = allreduce_bytes(act * bf, tp) if cfg.vocab_size % tp == 0 else 0
+    kv_w = 0
+    if T.kv_replicated(cfg, tp):
+        rows_w = cfg.d_model + (1 if cfg.qkv_bias else 0)  # the bias as one more row
+        kv_w = 2 * allgather_bytes(rows_w * cfg.kv_dim // tp * bf, tp)
+    out = 0
     for spec in cfg.layers:
         out += allreduce_bytes(act * f32, tp)
+        if cross:
+            out += allreduce_bytes(act * f32, tp) + (kv_w if cross == "prefill" else 0)
         if spec.has_ffn and cfg.ffn_kind != "none":
             out += allreduce_bytes(act * f32, tp)
         if spec.kind == SSM:
@@ -5341,24 +5373,43 @@ def sharded_serve_bytes(cfg, tp, rows, seq):
             out += allgather_bytes(rows * seq * cols // tp * bf, tp)
             out += allgather_bytes((cfg.ssm_conv + 1) * ch // tp * bf, tp)
             out += allreduce_bytes(rows * seq * f32, tp)
-        elif spec.kind == ATTN and T.kv_replicated(cfg, tp):
-            rows_w = cfg.d_model + (1 if cfg.qkv_bias else 0)  # the bias as one more row
-            out += 2 * allgather_bytes(rows_w * cfg.kv_dim // tp * bf, tp)
+        elif spec.kind == ATTN:
+            out += kv_w
     return out
+
+
+def sharded_serve_bytes(cfg, tp, rows, seq, *, decode=False):
+    """Bytes the collectives move in one sharded prefill (``seq`` tokens) or
+    decode step (``decode``, ``seq`` 1) of ``rows`` rows on a (1, tp) mesh:
+    the vocabulary-parallel embedding's sum, then ``stack_bytes`` of the
+    decoder; an encoder-decoder's prefill adds its encoder's over
+    ``prefix_len`` frames (two all-reduces per layer)."""
+    out = (allreduce_bytes(rows * seq * cfg.d_model * L.dtype_of(cfg).itemsize, tp)
+           if cfg.vocab_size % tp == 0 else 0)
+    if cfg.family != "encdec":
+        return out + stack_bytes(cfg, tp, rows, seq)
+    out += stack_bytes(cfg, tp, rows, seq, cross="decode" if decode else "prefill")
+    return out if decode else out + stack_bytes(cfg, tp, rows, cfg.prefix_len)
 
 
 def serve_predicted(cfg, tp, steps):
     """Launches of a sharded prefill and ``steps`` decode steps on tp
     ranks: every rank's flash_mha and scans per prefill, flash_decode per
-    attention layer per step."""
-    prefill = {"flash_mha": tp * attn_layers(cfg), **{k: tp * v for k, v in
-                                                      scan_launches(cfg, 1).items()}}
-    return prefill, {"flash_decode": tp * attn_layers(cfg) * steps}
+    attention layer per step; an encoder-decoder's prefill also runs its
+    encoder's and its cross-attention's flash_mha, and each decode step
+    its cross-attention's (Sq 1)."""
+    n = attn_layers(cfg)
+    prefill = {"flash_mha": tp * n, **{k: tp * v for k, v in scan_launches(cfg, 1).items()}}
+    decode = {"flash_decode": tp * n * steps}
+    if cfg.family == "encdec":
+        prefill["flash_mha"] *= 3
+        decode["flash_mha"] = tp * n * steps
+    return prefill, decode
 
 
 def phase_rec_sharded(cfg, params, batch, *, impl, rest=None, steps=8, serve_batch=4,
                       prompt_len=256):
-    """15a/b for one model: ``phase_tp_train`` on TRAIN_LAYOUT, the trained
+    """15a/b and 16a for one model: ``phase_tp_train`` on TRAIN_LAYOUT, the trained
     tree moved to GEN_LAYOUT by ``prefetch_reshard`` (donating), then
     ``phase_tp_serve`` of it there against the single-device steps on the
     gathered tree.  ``rest``: (full config, the layers after ``cfg``'s),
@@ -5388,7 +5439,8 @@ def phase_rec_sharded(cfg, params, batch, *, impl, rest=None, steps=8, serve_bat
                            prompt_len=prompt_len, steps=steps, sharded=(mesh, moved))
     serve["predicted_bytes"] = (sharded_serve_bytes(serve_cfg, GEN_LAYOUT[1], serve_batch,
                                                     prompt_len),
-                                sharded_serve_bytes(serve_cfg, GEN_LAYOUT[1], serve_batch, 1))
+                                sharded_serve_bytes(serve_cfg, GEN_LAYOUT[1], serve_batch, 1,
+                                                    decode=True))
     serve["predicted"] = serve_predicted(serve_cfg, GEN_LAYOUT[1], steps)
     return train, move, serve
 
@@ -5413,62 +5465,86 @@ def report_rec_sharded(name, layers, fp32_layers, full_depth, device, total):
         if deep:
             rest = (cfg, whole["layers"][n:])
             whole["layers"] = whole["layers"][:n]
-        train, move, serve = phase_rec_sharded(c, whole, batch, impl="cuda", rest=rest)
+        runs = phase_rec_sharded(c, whole, batch, impl="cuda", rest=rest)
         del whole, rest
-        ref, want = train["ref"], tp_train_predicted(c, TRAIN_LAYOUT)
-        print(f"[rec] train {name} {n} layers {dtype} on (data, model)={TRAIN_LAYOUT}, "
-              f"{REC_TRAFFIC['batch']} x {REC_TRAFFIC['prompt'] + REC_TRAFFIC['new']} tokens: "
-              f"loss {train['loss']:.6e} vs {ref['loss']:.6e} (err {train['loss_err']:.3e}), "
-              f"grad_norm err {train['grad_norm_err']:.3e}, first moment err "
-              f"{train['global_err']:.3e}, worst leaf {train['worst_leaf']} "
-              f"{train['worst_leaf_err']:.3e} (tol {tol}, per leaf {leaf_tol}); replicas "
-              f"bit-equal {train['replicas_equal']}; {train['seconds']:.3f}s (single device "
-              f"{ref['seconds']:.3f}s), peak {train['peak']} bytes (single device "
-              f"{ref['peak']}), collectives moved {train['bytes']} bytes in "
-              f"{train['copies']} copies; launches {train['launches']} (predicted {want})")
-        check(max(train["loss_err"], train["grad_norm_err"], train["global_err"]) <= tol
-              and train["worst_leaf_err"] <= leaf_tol,
-              f"sharded train step of {name} disagrees with the single-device step")
-        check(train["replicas_equal"], f"{name}: replicas differ after the sharded step")
-        check(train["finite"] and train["moved"], f"{name}: trained parameters not finite "
-              "or unmoved")
-        check(same_launches(train["launches"], want),
-              f"{name}: sharded train launches {train['launches']} != {want}")
-        depth = cfg.num_layers if deep else n
-        pre_want, dec_want = serve["predicted"]
-        pb, db = serve["predicted_bytes"]
-        print(f"[rec] reshard {name} trained tree {TRAIN_LAYOUT} -> {GEN_LAYOUT}: "
-              f"{move['n_moved']} leaves moved ({move['moved_bytes']} of "
-              f"{move['total_bytes']} bytes), {move['n_aliased']} aliased, "
-              f"{move['seconds']:.3f}s, finite {move['finite']}")
-        print(f"[rec] serve {name} {depth} layers {dtype} on (data, model)={GEN_LAYOUT}, 4 x "
-              f"256 tokens then 8 decode steps: prefill_err={serve['prefill_err']:.3e} "
-              f"decode_err={serve['decode_err']:.3e} (of max |logit| "
-              f"{serve['logit_scale']:.3f}; tol {logit_tol}), greedy agreement "
-              f"{serve['argmax_agreement']:.3f}, gathered caches differ by "
-              f"{serve['cache_diff']:.3e} at most (printed); prefill {serve['prefill_s']:.3f}s "
-              f"(single device {serve['ref_prefill_s']:.3f}s), {serve['prefill_bytes']} bytes "
-              f"moved (predicted {pb}); decode {serve['decode_s']:.4f}s per step (single "
-              f"device {serve['ref_decode_s']:.4f}s), {serve['decode_bytes']} bytes (predicted "
-              f"{db}); peak {peak(device)} bytes over the part; launches prefill "
-              f"{serve['prefill_launches']} (predicted {pre_want}), decode "
-              f"{serve['decode_launches']} (predicted {dec_want}); "
-              f"{time.perf_counter() - t0:.1f}s")
-        check(move["finite"], f"{name}: non-finite tree after the reshard")
-        check(serve["prefill_err"] <= logit_tol and serve["decode_err"] <= logit_tol,
-              f"sharded {name} logits disagree with the single-device run")
-        check(serve["prefill_bytes"] == pb and serve["decode_bytes"] == db,
-              f"{name}: sharded serve moved {serve['prefill_bytes']} / "
-              f"{serve['decode_bytes']} bytes, predicted {pb} / {db}")
-        check(same_launches(serve["prefill_launches"], pre_want)
-              and same_launches(serve["decode_launches"], dec_want),
-              f"{name}: sharded serve launches {serve['prefill_launches']} / "
-              f"{serve['decode_launches']}")
-        for k in total:
-            total[k] += (train["launches"][k] + serve["prefill_launches"][k]
-                         + serve["decode_launches"][k])
-        del train, move, serve
+        report_train_move_serve(
+            "[rec]", c, runs, (tol, leaf_tol, logit_tol), device, total, t0,
+            train_what=f"{n} layers {dtype} on (data, model)={TRAIN_LAYOUT}, "
+                       f"{REC_TRAFFIC['batch']} x "
+                       f"{REC_TRAFFIC['prompt'] + REC_TRAFFIC['new']} tokens",
+            serve_what=f"{cfg.num_layers if deep else n} layers {dtype} on (data, model)="
+                       f"{GEN_LAYOUT}, 4 x 256 tokens then 8 decode steps")
+        del runs
         free(device)
+
+
+def report_train_move_serve(tag, c, runs, tols, device, total, t0, *, train_what,
+                            serve_what):
+    """Print ``phase_rec_sharded``'s (train, move, serve) of config ``c``
+    and hold them to ``tols`` (train, train per leaf, logits), the launches
+    and the serve's bytes to their predictions; add the launches to
+    ``total``."""
+    train, move, serve = runs
+    name = c.name
+    tol, leaf_tol, logit_tol = tols
+    ref, want = train["ref"], tp_train_predicted(c, TRAIN_LAYOUT)
+    print(f"{tag} train {name} {train_what}: "
+          f"loss {train['loss']:.6e} vs {ref['loss']:.6e} (err {train['loss_err']:.3e}), "
+          f"grad_norm err {train['grad_norm_err']:.3e}, first moment err "
+          f"{train['global_err']:.3e}, worst leaf {train['worst_leaf']} "
+          f"{train['worst_leaf_err']:.3e} (tol {tol}, per leaf {leaf_tol}); replicas "
+          f"bit-equal {train['replicas_equal']}; {train['seconds']:.3f}s (single device "
+          f"{ref['seconds']:.3f}s), peak {train['peak']} bytes (single device "
+          f"{ref['peak']}), collectives moved {train['bytes']} bytes in "
+          f"{train['copies']} copies; launches {train['launches']} (predicted {want})")
+    check(max(train["loss_err"], train["grad_norm_err"], train["global_err"]) <= tol
+          and train["worst_leaf_err"] <= leaf_tol,
+          f"sharded train step of {name} disagrees with the single-device step")
+    check(train["replicas_equal"], f"{name}: replicas differ after the sharded step")
+    check(train["finite"] and train["moved"], f"{name}: trained parameters not finite "
+          "or unmoved")
+    check(same_launches(train["launches"], want),
+          f"{name}: sharded train launches {train['launches']} != {want}")
+    print(f"{tag} reshard {name} trained tree {TRAIN_LAYOUT} -> {GEN_LAYOUT}: "
+          f"{move['n_moved']} leaves moved ({move['moved_bytes']} of "
+          f"{move['total_bytes']} bytes), {move['n_aliased']} aliased, "
+          f"{move['seconds']:.3f}s, finite {move['finite']}")
+    check(move["finite"], f"{name}: non-finite tree after the reshard")
+    report_sharded_serve(tag, name, serve, logit_tol, device, total, t0, serve_what=serve_what)
+    for k in total:
+        total[k] += train["launches"][k]
+
+
+def report_sharded_serve(tag, name, serve, logit_tol, device, total, t0, *, serve_what):
+    """Print ``phase_tp_serve``'s result with its "predicted" launches and
+    "predicted_bytes", hold the logits to ``logit_tol`` and the launches and
+    bytes to their predictions; add the launches to ``total``."""
+    pre_want, dec_want = serve["predicted"]
+    pb, db = serve["predicted_bytes"]
+    print(f"{tag} serve {name} {serve_what}: prefill_err={serve['prefill_err']:.3e} "
+          f"decode_err={serve['decode_err']:.3e} (of max |logit| "
+          f"{serve['logit_scale']:.3f}; tol {logit_tol}), greedy agreement "
+          f"{serve['argmax_agreement']:.3f}, gathered caches differ by "
+          f"{serve['cache_diff']:.3e} at most ({serve['cache_err']:.3e} of a leaf's largest "
+          f"|value|); prefill {serve['prefill_s']:.3f}s (single device "
+          f"{serve['ref_prefill_s']:.3f}s), {serve['prefill_bytes']} bytes moved (predicted "
+          f"{pb}); decode {serve['decode_s']:.4f}s per step (single device "
+          f"{serve['ref_decode_s']:.4f}s), {serve['decode_bytes']} bytes (predicted {db}); "
+          f"peak {peak(device)} bytes over the part; launches prefill "
+          f"{serve['prefill_launches']} (predicted {pre_want}), decode "
+          f"{serve['decode_launches']} (predicted {dec_want}); "
+          f"{time.perf_counter() - t0:.1f}s")
+    check(serve["prefill_err"] <= logit_tol and serve["decode_err"] <= logit_tol,
+          f"sharded {name} logits disagree with the single-device run")
+    check(serve["prefill_bytes"] == pb and serve["decode_bytes"] == db,
+          f"{name}: sharded serve moved {serve['prefill_bytes']} / "
+          f"{serve['decode_bytes']} bytes, predicted {pb} / {db}")
+    check(same_launches(serve["prefill_launches"], pre_want)
+          and same_launches(serve["decode_launches"], dec_want),
+          f"{name}: sharded serve launches {serve['prefill_launches']} / "
+          f"{serve['decode_launches']}")
+    for k in total:
+        total[k] += serve["prefill_launches"][k] + serve["decode_launches"][k]
 
 
 @contextlib.contextmanager
@@ -5574,8 +5650,7 @@ def phase_cap_sharded(cfg, params, layout, *, impl, batch=4, prompt_len=256, see
     with torch.no_grad(), recorded_routes() as routes, recorded_sharded_capacity() as caps, \
             CTX.use(mesh, rules.batch_axes, rules.tp_axis) as c:
         parts = PSTEPS.split_batch({"tokens": toks}, mesh, rules)
-        hs = MDL.forward_sharded(sharded, cfg, {r: v["tokens"] for r, v in parts.items()},
-                                 ctx=c, impl=impl)
+        hs = MDL.forward_sharded(sharded, cfg, parts, ctx=c, impl=impl)
         first = [next(r for r in mesh.device_ids if c.batch_index(r) == i)
                  for i in range(c.batch_size)]
     sync(device)
@@ -5685,6 +5760,167 @@ def report_phase15(device, total):
     t0 = time.perf_counter()
     report_cap_sharded(device, total)
     print(f"[time] phase 15c {time.perf_counter() - t0:.1f}s")
+
+
+# ------------------------------------------------------------------ phase 16
+# Sharded compute of the encoder-decoder and prefix configs on logical
+# devices of the card (phase 15's machinery): seamless-m4t-medium's encoder
+# and its decoder's cross-attention split by head, trained on TRAIN_LAYOUT,
+# its trained tree moved to GEN_LAYOUT by ``prefetch_reshard`` and served
+# there (its 256,206-row vocabulary split at TP 2 and whole at TP 4, so
+# both embedding paths run); internvl2-76b served on GEN_LAYOUT on
+# PREFIX_LAYERS layers, its prefix spliced after the vocabulary-parallel
+# sum, and its loss with the backward on TRAIN_LAYOUT on PREFIX_LOSS_LAYERS.
+ENCDEC_SHARDED = dict(batch=4, seq=256)  # seamless's train traffic: phase 13's, 512 frames
+ENCDEC_SHARDED_PROMPT = 128              # its serve: 4 x 128 tokens, phase 13's slice
+ENCDEC_FP32_LAYERS = 2                   # 2 encoder + 2 decoder layers in fp32
+PREFIX_LOSS_LAYERS = 2
+
+
+def report_encdec_sharded(device, total):
+    """16a on the card: seamless-m4t-medium at full width and depth in bf16
+    (TRAIN_TOL / TRAIN_LEAF_TOL, LOGIT_TOL), then on ENCDEC_FP32_LAYERS in
+    fp32 (FP32_GRAD_TOL, FP32_LOGIT_TOL, the gathered caches, "xkv"
+    included, within FP32_LOGIT_TOL of each leaf's largest |value|):
+    trained, moved and served by ``phase_rec_sharded``."""
+    cfg = get_config(ENCDEC)
+    for c, tols, seed in ((cfg, (TRAIN_TOL, TRAIN_LEAF_TOL, LOGIT_TOL), 0),
+                          (shallow(cfg, ENCDEC_FP32_LAYERS, dtype="float32"),
+                           (FP32_GRAD_TOL, FP32_GRAD_TOL, FP32_LOGIT_TOL), 1)):
+        peak_reset(device)
+        t0 = time.perf_counter()
+        params = make_dense_params(c, seed=seed, device=device)
+        batch = modal_batch(c, device, train=True, seed=seed + 2, **ENCDEC_SHARDED)
+        runs = phase_rec_sharded(c, params, batch, impl="cuda",
+                                 prompt_len=ENCDEC_SHARDED_PROMPT)
+        del params, batch
+        depth = f"{c.num_layers} + {c.num_layers} layers {c.dtype}"
+        report_train_move_serve(
+            "[encdec-shard]", c, runs, tols, device, total, t0,
+            train_what=f"{depth} on (data, model)={TRAIN_LAYOUT}, {ENCDEC_SHARDED['batch']} x "
+                       f"{ENCDEC_SHARDED['seq']} tokens over {c.prefix_len} frames",
+            serve_what=f"{depth} on (data, model)={GEN_LAYOUT}, 4 x {ENCDEC_SHARDED_PROMPT} "
+                       f"tokens over {c.prefix_len} frames then 8 decode steps")
+        if c.dtype == "float32":
+            check(runs[2]["cache_err"] <= FP32_LOGIT_TOL,
+                  f"{c.name}: gathered fp32 caches differ from one device's by "
+                  f"{runs[2]['cache_err']:.3e}")
+        del runs
+        free(device)
+
+
+def phase_prefix_loss_sharded(cfg, params, batch, layout, *, impl):
+    """16b's loss: ``lm_loss`` and its gradient on one device
+    (``grads_of``) against ``lm_loss_sharded`` and its gradient
+    (``steps.sharded_grads``) on a ``layout`` mesh, then the sharded loss
+    again with the labels and token ids under the prefix changed (it must
+    keep its bits, as ``prefix_loss_check``).  Returns both losses, the
+    loss's, the whole gradient's and the worst leaf's errors (Frobenius,
+    over the single device's), whether the replicas' gradients are
+    bit-equal, seconds, peak memory, bytes and launches of each run."""
+    device = params["embed"]["table"].device
+    reset_launches()
+    peak_reset(device)
+    t0 = time.perf_counter()
+    ref_loss, ref_grads = grads_of(cfg, params, batch, impl=impl)
+    sync(device)
+    out = dict(ref_loss=ref_loss, ref_seconds=time.perf_counter() - t0, ref_peak=peak(device),
+               ref_launches=launches())
+    mesh, sharded = shard_params(params, *layout, device)
+    rules = SHD.ShardingRules()
+    n = cfg.prefix_len
+    moved = {k: v.clone() for k, v in batch.items()}
+    moved["labels"][:, :n] = (moved["labels"][:, :n] + 3) % cfg.vocab_size
+    moved["tokens"][:, :n] = (moved["tokens"][:, :n] + 5) % cfg.vocab_size
+    COLL.reset_stats()
+    reset_launches()
+    peak_reset(device)
+    t0 = time.perf_counter()
+    with CTX.use(mesh, rules.batch_axes, rules.tp_axis) as c:
+        loss, grads, _ = PSTEPS.sharded_grads(
+            lambda p, parts: MDL.lm_loss_sharded(p, cfg, parts, ctx=c, impl=impl),
+            sharded, batch, 1, mesh, rules)
+        sync(device)
+        out.update(seconds=time.perf_counter() - t0, bytes=COLL.STATS["bytes"],
+                   copies=COLL.STATS["copies"])
+        with torch.no_grad():
+            again, _ = MDL.lm_loss_sharded(sharded, cfg, PSTEPS.split_batch(moved, mesh, rules),
+                                           ctx=c, impl=impl)
+    out.update(peak=peak(device), launches=launches(), loss=loss.item(),
+               loss_moved=again.item(), replicas_equal=replicas_equal(grads))
+    sq = [square_norms(g.gather(device), w) for g, w in zip(tree_leaves(grads), ref_grads)]
+    worst = max(zip((math.sqrt(d2 / max(r2, 1e-60)) for d2, r2 in sq), leaf_names(params)))
+    out.update(loss_err=abs(out["loss"] - ref_loss) / max(abs(ref_loss), 1e-12),
+               global_err=math.sqrt(sum(d2 for d2, _ in sq)
+                                    / max(sum(r2 for _, r2 in sq), 1e-60)),
+               worst_leaf_err=worst[0], worst_leaf=worst[1], n_leaves=len(sq),
+               finite=all(all_finite(g.gather(device)) for g in tree_leaves(grads)))
+    return out
+
+
+def report_prefix_sharded(device, total):
+    """16b on the card: internvl2-76b at full width on PREFIX_LAYERS layers
+    in bf16, served on GEN_LAYOUT against one device (LOGIT_TOL; bytes and
+    launches to their predictions), then its loss with the backward on
+    TRAIN_LAYOUT on its first PREFIX_LOSS_LAYERS layers (TRAIN_TOL /
+    TRAIN_LEAF_TOL; the loss's bits kept under a changed prefix)."""
+    cfg = shallow(get_config(PREFIX), PREFIX_LAYERS)
+    t0 = time.perf_counter()
+    peak_reset(device)
+    params = make_dense_params(cfg, seed=0, device=device)
+    steps, rows, seq, tp = 8, PREFIX_SLICE["batch"], PREFIX_SLICE["seq"], GEN_LAYOUT[1]
+    r = phase_tp_serve(cfg, params, GEN_LAYOUT, impl="cuda", batch=rows, prompt_len=seq,
+                       steps=steps)
+    r["predicted_bytes"] = (sharded_serve_bytes(cfg, tp, rows, seq),
+                            sharded_serve_bytes(cfg, tp, rows, 1, decode=True))
+    r["predicted"] = serve_predicted(cfg, tp, steps)
+    report_sharded_serve("[prefix-shard]", cfg.name, r, LOGIT_TOL, device, total, t0,
+                         serve_what=f"{cfg.num_layers} of 80 layers on (data, model)="
+                                    f"{GEN_LAYOUT}, {rows} x {seq} positions (the first "
+                                    f"{cfg.prefix_len} patch embeddings) then {steps} decode "
+                                    "steps")
+    del r
+    small = first_layers(cfg, PREFIX_LOSS_LAYERS)
+    params["layers"] = params["layers"][:PREFIX_LOSS_LAYERS]
+    free(device)
+    batch = modal_batch(small, device, train=True, seed=4, **PREFIX_SLICE)
+    g = phase_prefix_loss_sharded(small, params, batch, TRAIN_LAYOUT, impl="cuda")
+    del params, batch
+    n = TRAIN_LAYOUT[0] * TRAIN_LAYOUT[1] * attn_layers(small)
+    # the loss under grad and its recompute in the backward (remat), the loss again
+    want, ref_want = {"flash_mha": 3 * n}, {"flash_mha": 2 * attn_layers(small)}
+    print(f"[prefix-shard] lm_loss {small.name} {small.num_layers} layers bf16 with its "
+          f"backward on (data, model)={TRAIN_LAYOUT}, {rows} x {seq} positions: loss "
+          f"{g['loss']:.6e} vs {g['ref_loss']:.6e} (err {g['loss_err']:.3e}), gradient "
+          f"global_err={g['global_err']:.3e}, worst leaf {g['worst_leaf']} "
+          f"{g['worst_leaf_err']:.3e} over {g['n_leaves']} leaves (tol {TRAIN_TOL}, per leaf "
+          f"{TRAIN_LEAF_TOL}); finite {g['finite']}, replicas bit-equal "
+          f"{g['replicas_equal']}; {g['loss_moved']:.6e} with the labels and tokens under the "
+          f"prefix changed; {g['seconds']:.3f}s (single device {g['ref_seconds']:.3f}s), peak "
+          f"{g['peak']} bytes (single device {g['ref_peak']}), collectives moved "
+          f"{g['bytes']} bytes in {g['copies']} copies; launches {g['launches']} (predicted "
+          f"{want}; single device {g['ref_launches']}, predicted {ref_want}); "
+          f"{time.perf_counter() - t0:.1f}s in 16b")
+    check(max(g["loss_err"], g["global_err"]) <= TRAIN_TOL
+          and g["worst_leaf_err"] <= TRAIN_LEAF_TOL,
+          f"sharded {small.name} loss or gradient disagrees with the single device")
+    check(g["finite"] and g["replicas_equal"], f"{small.name}: sharded gradient non-finite "
+          "or its replicas differ")
+    check(g["loss"] == g["loss_moved"], "the labels under the prefix reach the sharded loss")
+    check(same_launches(g["launches"], want) and same_launches(g["ref_launches"], ref_want),
+          f"{small.name}: loss launches {g['launches']} / {g['ref_launches']}")
+    for k in total:
+        total[k] += g["launches"][k] + g["ref_launches"][k]
+    free(device)
+
+
+def report_phase16(device, total):
+    """Phase 16 on the card: (a) seamless-m4t-medium, (b) internvl2-76b;
+    each part's seconds."""
+    for fn, tag in ((report_encdec_sharded, "a"), (report_prefix_sharded, "b")):
+        t0 = time.perf_counter()
+        fn(device, total)
+        print(f"[time] phase 16{tag} {time.perf_counter() - t0:.1f}s")
 
 
 # ------------------------------------------------------------------ main
@@ -5909,6 +6145,9 @@ def main():
     t0 = time.perf_counter()
     report_phase15(device, total)
     print(f"[time] phase 15 {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    report_phase16(device, total)
+    print(f"[time] phase 16 {time.perf_counter() - t0:.1f}s")
 
     source = "src/repro_torch/kernels/csrc/"
     rows = [dict(name="flash_mha", route="cuda", source=source + "flash_attention.cu",

@@ -107,23 +107,29 @@ def attn_apply(p, cfg: ModelConfig, spec: LayerSpec, x, rope, cu_seqlens, *,
 
 def encode_cross_kv(p, cfg: ModelConfig, enc_out):
     """The cross-attention's k/v (B, Skv, Hkv, Dh) of the encoder output
-    (B, Skv, D): no RoPE."""
+    (B, Skv, D): no RoPE.  Under tensor parallelism ``cfg`` has the rank's
+    KV heads, and ``p`` their wk/wv columns (every head's where they are
+    replicated over the tensor axis)."""
     b, skv, _ = enc_out.shape
     k = L.dense_apply(p["wk"], enc_out).reshape(b, skv, cfg.n_kv_heads, cfg.head_dim)
     v = L.dense_apply(p["wv"], enc_out).reshape(b, skv, cfg.n_kv_heads, cfg.head_dim)
     return {"k": k, "v": v}
 
 
-def cross_attn_apply(p, cfg: ModelConfig, x, enc_out=None, enc_kv=None, *, impl="cuda"):
+def cross_attn_apply(p, cfg: ModelConfig, x, enc_out=None, enc_kv=None, *, impl="cuda",
+                     partial=False, kv_head=None):
     """Decoder cross-attention of x (B, Sq, D) over the encoder: its k/v
     from ``enc_out`` or, in prefill and decode, the ``enc_kv`` computed
-    once per layer.  No RoPE and no mask (positions play no part)."""
+    once per layer.  No RoPE and no mask (positions play no part).
+    ``partial`` and ``kv_head`` as ``attn_apply_with_kv``'s: a rank's query
+    heads from its wq columns, its fp32 share of the wo product."""
     b, sq, _ = x.shape
     q = L.dense_apply(p["wq"], x).reshape(b, sq, cfg.n_heads, cfg.head_dim)
     if enc_kv is None:
         enc_kv = encode_cross_kv(p, cfg, enc_out)
-    out = ops.mha(q, enc_kv["k"], enc_kv["v"], causal=False, window=None, impl=impl)
-    return L.dense_apply(p["wo"], out.reshape(b, sq, cfg.q_dim))
+    out = ops.mha(q, _group(enc_kv["k"], kv_head), _group(enc_kv["v"], kv_head), causal=False,
+                  window=None, impl=impl)
+    return _out_proj(p, out.reshape(b, sq, cfg.q_dim), partial)
 
 
 # ------------------------------------------------------------------ KV cache

@@ -76,17 +76,22 @@ def _encode(params, cfg: ModelConfig, batch, *, impl, remat=False):
     return L.rmsnorm_apply(params["encoder"]["final_norm"], h, cfg.norm_eps)
 
 
-def _embed_inputs(params, cfg: ModelConfig, batch):
-    """The token embeddings, with a prefix model's ``prefix_embeds`` over
-    positions [0:prefix_len].  Fewer tokens than ``prefix_len`` raise (the
-    JAX package's splice would return a sequence of prefix_len)."""
-    x = _embed(params, cfg, batch["tokens"])
+def _splice_prefix(cfg: ModelConfig, x, batch):
+    """Token embeddings x with a prefix model's ``prefix_embeds`` over
+    positions [0:prefix_len] (x itself for any other model).  Fewer tokens
+    than ``prefix_len`` raise (the JAX package's splice would return a
+    sequence of prefix_len)."""
     if not cfg.prefix_len or cfg.family == "encdec":
         return x
     if x.shape[1] < cfg.prefix_len:
         raise ValueError(f"{cfg.name}: {x.shape[1]} tokens, fewer than the prefix of "
                          f"{cfg.prefix_len} embeddings they start with")
     return torch.cat([_input(batch, "prefix_embeds", cfg), x[:, cfg.prefix_len:]], dim=1)
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch):
+    """The token embeddings, with a prefix model's prefix spliced in."""
+    return _splice_prefix(cfg, _embed(params, cfg, batch["tokens"]), batch)
 
 
 def forward(params, cfg: ModelConfig, batch, *, impl="cuda", remat=False,
@@ -388,7 +393,11 @@ class BucketedGenerator:
 # The forward, loss, prefill and decode of ``parallel/steps.py``'s sharded
 # steps: explicit SPMD over the mesh of ``ctx`` (``parallel/ctx.py``), every
 # per-rank value a dict {logical id: tensor}, ``params`` a tree of
-# ``ShardedTensor`` leaves laid out by ``parallel/sharding.py``.
+# ``ShardedTensor`` leaves laid out by ``parallel/sharding.py``.  A rank's
+# batch is a dict as ``forward``'s, holding its batch replica's rows: an
+# encoder-decoder's encoder runs sharded over the rank's frames, and a
+# prefix model's embeddings are spliced in once the token embeddings are
+# whole on every rank.
 
 def _tp_splits(st, dim: int, ctx) -> bool:
     """Whether the tensor axis of ``ctx`` shards dim ``dim`` of the
@@ -419,30 +428,65 @@ def _embed_sharded(params, top, cfg: ModelConfig, tokens, ctx):
     return {r: x.to(L.dtype_of(cfg)) for r, x in ctx.tp_reduce(xs).items()}
 
 
-def _final_hidden(params, cfg: ModelConfig, tokens, ctx, *, impl, remat=False,
+def _top(params, ctx) -> dict:
+    """``ctx.local`` of the parameters outside the layer stacks (an
+    encoder's final norm, not its layers, which each layer gathers)."""
+    top = {k: v for k, v in params.items() if k not in ("layers", "encoder")}
+    if "encoder" in params:
+        top["encoder"] = {"final_norm": params["encoder"]["final_norm"]}
+    return ctx.local(top)
+
+
+def _embed_inputs_sharded(params, top, cfg: ModelConfig, batch, ctx):
+    """``_embed_inputs`` over a mesh: the tokens' embeddings, summed over
+    the tensor axis where the vocabulary is split, then the prefix spliced
+    in (before that sum it would be counted once per tensor rank)."""
+    xs = _embed_sharded(params, top, cfg, {r: b["tokens"] for r, b in batch.items()}, ctx)
+    return {r: _splice_prefix(cfg, x, batch[r]) for r, x in xs.items()}
+
+
+def _encode_sharded(params, top, cfg: ModelConfig, batch, ctx, *, impl, remat=False):
+    """``_encode`` over a mesh: {rank: the encoder output of its rows'
+    frames}, whole on every tensor rank after the encoder's last
+    all-reduce and its replicated final norm; None for a decoder-only
+    model."""
+    if cfg.family != "encdec":
+        return None
+    hs = T.stack_apply_sharded(params["encoder"]["layers"], cfg,
+                               {r: _input(b, "frames", cfg) for r, b in batch.items()},
+                               ctx=ctx, impl=impl, causal=False, remat=remat)
+    return {r: L.rmsnorm_apply(top[r]["encoder"]["final_norm"], h, cfg.norm_eps)
+            for r, h in hs.items()}
+
+
+def _final_hidden(params, cfg: ModelConfig, batch, ctx, *, impl, remat=False,
                   return_aux=False):
-    top = ctx.local({k: v for k, v in params.items() if k != "layers"})
-    xs = _embed_sharded(params, top, cfg, tokens, ctx)
-    out = T.stack_apply_sharded(params["layers"], cfg, xs, ctx=ctx, impl=impl, remat=remat,
-                                return_aux=return_aux)
+    top = _top(params, ctx)
+    xs = _embed_inputs_sharded(params, top, cfg, batch, ctx)
+    enc = _encode_sharded(params, top, cfg, batch, ctx, impl=impl, remat=remat)
+    out = T.stack_apply_sharded(params["layers"], cfg, xs, ctx=ctx, impl=impl, enc_outs=enc,
+                                remat=remat, return_aux=return_aux)
     hs, aux = out if return_aux else (out, None)
     hs = {r: L.rmsnorm_apply(top[r]["final_norm"], h, cfg.norm_eps) for r, h in hs.items()}
     return top, hs, aux
 
 
-def forward_sharded(params, cfg: ModelConfig, tokens, *, ctx, impl="cuda", remat=False,
+def forward_sharded(params, cfg: ModelConfig, batch, *, ctx, impl="cuda", remat=False,
                     return_aux=False):
-    """``forward`` over a mesh: tokens {rank: (B_r, S)} (each rank its batch
-    replica's rows).  Returns {rank: final-normed hidden (B_r, S, D)}, or
-    with ``return_aux`` also {rank: MoE load-balance loss}."""
-    _, hs, aux = _final_hidden(params, cfg, tokens, ctx, impl=impl, remat=remat,
+    """``forward`` over a mesh: batch {rank: {"tokens": (B_r, S), and an
+    encoder-decoder's "frames" or a prefix model's "prefix_embeds"}} (each
+    rank its batch replica's rows).  Returns {rank: final-normed hidden
+    (B_r, S, D)}, or with ``return_aux`` also {rank: MoE load-balance
+    loss}."""
+    _, hs, aux = _final_hidden(params, cfg, batch, ctx, impl=impl, remat=remat,
                                return_aux=return_aux)
     return (hs, aux) if return_aux else hs
 
 
 def lm_loss_sharded(params, cfg: ModelConfig, batch, *, ctx, impl="cuda", remat=True,
                     aux_weight=0.01):
-    """``lm_loss`` over a mesh: batch {rank: {"tokens", "labels", "mask"}}.
+    """``lm_loss`` over a mesh: batch {rank: {"tokens", "labels", "mask"}
+    (and the frames or prefix embeddings)}.
 
     The logits stay vocabulary-parallel: each rank's logsumexp takes the
     max over the tensor axis (an all-reduce max) and the sum of its
@@ -454,8 +498,8 @@ def lm_loss_sharded(params, cfg: ModelConfig, batch, *, ctx, impl="cuda", remat=
     masks wrongly).  Returns (loss, {"lm_loss", "aux_loss"}), 0-d tensors on
     the mesh's first device; the loss is computed once, from the first
     rank's copies."""
-    top, hs, aux = _final_hidden(params, cfg, {r: b["tokens"] for r, b in batch.items()}, ctx,
-                                 impl=impl, remat=remat, return_aux=True)
+    top, hs, aux = _final_hidden(params, cfg, batch, ctx, impl=impl, remat=remat,
+                                 return_aux=True)
     logits = {r: logits_of(top[r], cfg, h) for r, h in hs.items()}  # the rank's vocabulary
     if vocab_split(params, cfg, ctx):
         m = ctx.tp_reduce({r: l.detach().amax(dim=-1) for r, l in logits.items()}, op="max")
@@ -477,19 +521,24 @@ def lm_loss_sharded(params, cfg: ModelConfig, batch, *, ctx, impl="cuda", remat=
 
 
 @torch.no_grad()
-def prefill_sharded(params, cfg: ModelConfig, tokens, max_len, *, ctx, impl="cuda"):
-    """``prefill`` over a mesh: tokens {rank: (B_r, S)}.  Returns ({rank:
-    next-token logits (B_r, V_r) fp32}, {rank: the rank's layer caches}):
-    each rank's caches hold its batch rows and its own KV heads (every one
-    where the tensor axis does not divide them), RG-LRU channels or SSD
-    heads (``transformer.cache_init_sharded``), so the decode kernel runs
-    on whole heads."""
-    top = ctx.local({k: v for k, v in params.items() if k != "layers"})
-    xs = _embed_sharded(params, top, cfg, tokens, ctx)
+def prefill_sharded(params, cfg: ModelConfig, batch, max_len, *, ctx, impl="cuda"):
+    """``prefill`` over a mesh: batch {rank: {"tokens": (B_r, S), and the
+    frames or prefix embeddings}}.  Returns ({rank: next-token logits (B_r,
+    V_r) fp32}, {rank: the rank's layer caches}): each rank's caches hold
+    its batch rows and its own KV heads (every one where the tensor axis
+    does not divide them), RG-LRU channels or SSD heads
+    (``transformer.cache_init_sharded``), so the decode kernel runs on
+    whole heads; an encoder-decoder's also the cross k/v of the same
+    heads over its rows' encoder output ("xkv")."""
+    top = _top(params, ctx)
+    xs = _embed_inputs_sharded(params, top, cfg, batch, ctx)
+    enc = _encode_sharded(params, top, cfg, batch, ctx, impl=impl)
     caches = {r: T.cache_init_sharded(cfg, ctx.tp_size, x.shape[0], max_len, L.dtype_of(cfg),
-                                      x.device)
+                                      x.device, cross=enc is not None,
+                                      enc_len=None if enc is None else enc[r].shape[1])
               for r, x in xs.items()}
-    hs = T.stack_prefill_sharded(params["layers"], cfg, xs, caches, ctx=ctx, impl=impl)
+    hs = T.stack_prefill_sharded(params["layers"], cfg, xs, caches, ctx=ctx, impl=impl,
+                                 enc_outs=enc)
     hs = {r: L.rmsnorm_apply(top[r]["final_norm"], h, cfg.norm_eps)[:, -1:]
           for r, h in hs.items()}
     return {r: logits_of(top[r], cfg, h)[:, 0] for r, h in hs.items()}, caches
@@ -498,9 +547,10 @@ def prefill_sharded(params, cfg: ModelConfig, tokens, max_len, *, ctx, impl="cud
 @torch.no_grad()
 def decode_step_sharded(params, cfg: ModelConfig, token, caches, t: int, *, ctx, impl="cuda"):
     """``decode_step`` over a mesh: token {rank: (B_r,)} at position t,
-    caches from ``prefill_sharded`` (updated in place).  Returns {rank:
-    logits (B_r, V_r) fp32}."""
-    top = ctx.local({k: v for k, v in params.items() if k != "layers"})
+    caches from ``prefill_sharded`` (updated in place; an encoder-decoder's
+    cross-attention reads their "xkv", so no frames are needed).  Returns
+    {rank: logits (B_r, V_r) fp32}."""
+    top = _top(params, ctx)
     xs = _embed_sharded(params, top, cfg, {r: x[:, None] for r, x in token.items()}, ctx)
     hs = T.stack_decode_sharded(params["layers"], cfg, xs, caches, t, ctx=ctx, impl=impl)
     hs = {r: L.rmsnorm_apply(top[r]["final_norm"], h, cfg.norm_eps) for r, h in hs.items()}

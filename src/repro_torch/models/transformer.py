@@ -31,8 +31,7 @@ before the FFN (``lnx``, ``xattn``); a decoder layer's cache is then
 {"self": the mixer's cache, "xkv": {"k", "v"}}, the cross-attention's k/v
 of the encoder output computed once in prefill.  A prefix model's patch
 embeddings are spliced in by ``model.py`` and need nothing here.  The
-packed and sharded paths refuse both (``check_packed``,
-``check_sharded``).
+packed path refuses both (``check_packed``); the sharded path runs both.
 """
 
 from __future__ import annotations
@@ -257,18 +256,22 @@ def layer_cache_init(cfg: ModelConfig, spec: LayerSpec, batch, max_len, dtype, d
     return S.ssm_state_init(cfg, batch, dtype, device)
 
 
+def _with_xkv(cache, cfg: ModelConfig, batch, enc_len, dtype, device):
+    """A decoder layer's {"self": ``cache``, "xkv": {"k", "v"}: (B, enc_len,
+    Hkv, Dh)} (``cfg``'s KV heads)."""
+    shape = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"self": cache, "xkv": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                                   "v": torch.zeros(shape, dtype=dtype, device=device)}}
+
+
 def cache_init(cfg: ModelConfig, batch, max_len, dtype, device, cross=False, enc_len=None):
     """One decode cache per layer; with ``cross`` (an encoder-decoder's
     decoder) each is {"self": the mixer's cache, "xkv": {"k", "v"}: (B,
     enc_len, Hkv, Dh)}."""
-    def one(spec):
-        c = layer_cache_init(cfg, spec, batch, max_len, dtype, device)
-        if not cross:
-            return c
-        shape = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
-        return {"self": c, "xkv": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                                   "v": torch.zeros(shape, dtype=dtype, device=device)}}
-    return [one(spec) for spec in cfg.layers]
+    caches = [layer_cache_init(cfg, spec, batch, max_len, dtype, device) for spec in cfg.layers]
+    if not cross:
+        return caches
+    return [_with_xkv(c, cfg, batch, enc_len, dtype, device) for c in caches]
 
 
 def stack_prefill(layers_params, cfg: ModelConfig, x, caches, *, impl="cuda", enc_out=None):
@@ -384,21 +387,22 @@ def stack_commit_verify(cfg: ModelConfig, caches, keep):
 # KV head and attends its query heads against their group's; such a
 # layer's KV cache is replicated over the tensor axis.  The RG-LRU block
 # splits by channel (``rglru.py``), the SSD block by head
-# (``ssm.ssm_apply_sharded``).  ``ctx`` is a ``parallel/ctx.ShardingCtx``.
+# (``ssm.ssm_apply_sharded``).  An encoder-decoder's encoder is the same
+# stack run non-causal (``causal=False``); a decoder layer's cross-attention
+# splits by head as self-attention does (its wq/wk/wv columns, its wo rows,
+# the shares all-reduced), against every rank's copy of its batch rows'
+# encoder output, and its "xkv" cache holds the rank's KV heads.  ``ctx``
+# is a ``parallel/ctx.ShardingCtx``.
 
 def check_sharded(cfg: ModelConfig, tp: int):
-    """Raise for a config the sharded stack does not run at tensor-parallel
-    degree ``tp``: an encoder-decoder or prefix model
-    (``NotImplementedError``: their sharded paths are not ported), or a
-    tensor axis that does not divide the query heads, or gives a rank query
-    heads of more than one KV group without whole groups, or does not
+    """Raise ``ValueError`` for a config the sharded stack does not run at
+    tensor-parallel degree ``tp``: a tensor axis that does not divide the
+    query heads (an encoder's and a cross-attention's too), or gives a rank
+    query heads of more than one KV group without whole groups, or does not
     divide the FFN width (a dense residual MLP's too), the experts, the
-    RG-LRU width or the SSD heads (``ValueError``: the port keeps heads,
-    channels and experts whole where JAX's GSPMD would split them)."""
+    RG-LRU width or the SSD heads (the port keeps heads, channels and
+    experts whole where JAX's GSPMD would split them)."""
     check_supported(cfg)
-    if cfg.family == "encdec" or cfg.prefix_len:
-        raise NotImplementedError(f"{cfg.name}: sharded compute of encoder/prefix inputs "
-                                  "is not ported")
     kinds = {s.kind for s in cfg.layers}
     if ATTN in kinds:
         if cfg.n_heads % tp:
@@ -492,12 +496,13 @@ def _ffn_sharded(ps, cfg, lcfg, xs, *, ctx, impl, want_aux):
 
 
 def _mixer_sharded(pms, cfg, spec, hs, *, ctx, impl, rope=None, caches=None, t=None,
-                   lens=None, prefill=False):
+                   lens=None, prefill=False, causal=True):
     """{rank: fp32 share of the mixer output} of {rank: normed input}: the
     layer's mixer on every rank, ``pms`` {rank: local mixer params}.  Full
-    sequence (``rope`` {rank: tables}; with ``prefill`` it also fills
-    ``caches`` {rank: the layer's cache}), or with ``t`` one decode token
-    at position t against ``caches`` (``lens`` {rank: cache lengths})."""
+    sequence (``rope`` {rank: tables}; ``causal=False`` an encoder's
+    attention; with ``prefill`` it also fills ``caches`` {rank: the layer's
+    mixer cache}), or with ``t`` one decode token at position t against
+    ``caches`` (``lens`` {rank: cache lengths})."""
     tp = ctx.tp_size
     lcfg = tp_cfg(cfg, tp)
     decode = t is not None
@@ -532,43 +537,81 @@ def _mixer_sharded(pms, cfg, spec, hs, *, ctx, impl, rope=None, caches=None, t=N
             ys[r] = A.attn_decode_apply(pms[r], lcfg, spec, h, caches[r], t, rope[r], lens[r],
                                         impl=impl, partial=True, kv_head=kvh)
             continue
-        ys[r], kv = A.attn_apply_with_kv(pms[r], lcfg, spec, h, rope[r], impl=impl,
-                                         partial=True, kv_head=kvh)
+        ys[r], kv = A.attn_apply_with_kv(pms[r], lcfg, spec, h, rope[r], causal=causal,
+                                         impl=impl, partial=True, kv_head=kvh)
         if prefill:
             A.prefill_into_cache(caches[r], spec, kv["k"], kv["v"], h.shape[1])
     return ys
 
 
-def block_sharded(ps, cfg, spec, xs, *, ctx, impl="cuda", want_aux=False, **mixer_kw):
+def _cross_sharded(ps, cfg, xs, *, ctx, impl, enc_outs=None, caches=None):
+    """The decoder's cross-attention sublayer on every rank (``_cross``):
+    each rank's query heads against its KV heads (every one where the
+    tensor axis does not divide them, wk/wv gathered as ``_kv_whole``),
+    its fp32 share of the wo product all-reduced and cast once.  The k/v
+    come from ``enc_outs`` {rank: the encoder output of its rows} (with
+    ``caches`` {rank: the layer's cache}, a prefill, which stores them in
+    "xkv" in the cache's dtype), or from the "xkv" caches (decode)."""
+    lcfg = tp_cfg(cfg, ctx.tp_size)
+    pxs = {r: p["xattn"] for r, p in ps.items()}
+    if enc_outs is None:
+        kvs = {r: c["xkv"] for r, c in caches.items()}
+    else:
+        whole = _kv_whole(pxs, cfg, ctx)
+        kvs = {r: A.encode_cross_kv(whole[r], lcfg, e) for r, e in enc_outs.items()}
+        for r, c in (caches or {}).items():
+            _store(c["xkv"], kvs[r])
+    ys = ctx.tp_reduce({r: A.cross_attn_apply(pxs[r], lcfg,
+                                              L.rmsnorm_apply(ps[r]["lnx"], x, cfg.norm_eps),
+                                              enc_kv=kvs[r], impl=impl, partial=True,
+                                              kv_head=_kv_head(cfg, ctx, r))
+                        for r, x in xs.items()})
+    return {r: xs[r] + ys[r].to(xs[r].dtype) for r in xs}
+
+
+def block_sharded(ps, cfg, spec, xs, *, ctx, impl="cuda", want_aux=False, enc_outs=None,
+                  caches=None, **mixer_kw):
     """One block on every rank.  ps: {rank: the layer's local params
-    (``ctx.local``)}; xs: {rank: (B_r, S, D)}; ``mixer_kw`` as
-    ``_mixer_sharded``'s.  The mixer's fp32 shares are all-reduced over the
-    tensor axis and cast once.  Returns (xs, aux): {rank: MoE load-balance
-    loss} with ``want_aux``, else None."""
+    (``ctx.local``)}; xs: {rank: (B_r, S, D)}; caches: {rank: the layer's
+    cache} (a decoder layer's {"self", "xkv"}); ``enc_outs`` and
+    ``mixer_kw`` as ``_cross_sharded``'s and ``_mixer_sharded``'s.  The
+    mixer's fp32 shares are all-reduced over the tensor axis and cast
+    once; a decoder layer's cross-attention follows.  Returns (xs, aux):
+    {rank: MoE load-balance loss} with ``want_aux``, else None."""
+    cross = "xattn" in next(iter(ps.values()))
+    mixer_caches = {r: c["self"] for r, c in caches.items()} if cross and caches else caches
     hs = {r: L.rmsnorm_apply(ps[r]["ln1"], x, cfg.norm_eps) for r, x in xs.items()}
     ys = ctx.tp_reduce(_mixer_sharded({r: p["mixer"] for r, p in ps.items()}, cfg, spec, hs,
-                                      ctx=ctx, impl=impl, **mixer_kw))
+                                      ctx=ctx, impl=impl, caches=mixer_caches, **mixer_kw))
     xs = {r: xs[r] + ys[r].to(xs[r].dtype) for r in xs}
+    if cross:
+        xs = _cross_sharded(ps, cfg, xs, ctx=ctx, impl=impl, enc_outs=enc_outs, caches=caches)
     return _ffn_sharded(ps, cfg, tp_cfg(cfg, ctx.tp_size), xs, ctx=ctx, impl=impl,
                         want_aux=want_aux)
 
 
-def stack_apply_sharded(layers_params, cfg: ModelConfig, xs, *, ctx, impl="cuda",
-                        remat=False, return_aux=False):
+def stack_apply_sharded(layers_params, cfg: ModelConfig, xs, *, ctx, impl="cuda", causal=True,
+                        enc_outs=None, remat=False, return_aux=False):
     """``stack_apply`` over a mesh: ``layers_params`` holds ``ShardedTensor``
-    leaves, xs is {rank: (B_r, S, D)} at positions arange(S).  Each layer
-    gathers its FSDP-sharded weights (``ctx.local``) inside the layer, so
-    ``remat`` regathers them in the backward as it recomputes.  Returns xs,
-    or with ``return_aux`` (xs, {rank: the MoE losses summed})."""
+    leaves, xs is {rank: (B_r, S, D)} at positions arange(S); ``causal=False``
+    runs an encoder, ``enc_outs`` {rank: (B_r, S_enc, D)} feeds a decoder's
+    cross-attention.  Each layer gathers its FSDP-sharded weights
+    (``ctx.local``) inside the layer, so ``remat`` regathers them in the
+    backward as it recomputes.  Returns xs, or with ``return_aux`` (xs,
+    {rank: the MoE losses summed})."""
     ranks = list(xs)
+    n = len(ranks)
     ropes = _ropes(cfg, {r: torch.arange(x.shape[1], device=x.device) for r, x in xs.items()})
     aux_total = {r: torch.zeros((), dtype=torch.float32, device=x.device) for r, x in xs.items()}
+    encs = [enc_outs[r] for r in ranks] if enc_outs is not None else []
     for p, spec in zip(layers_params, cfg.layers):
         def layer(*flat, p=p, spec=spec):
-            out, aux = block_sharded(ctx.local(p), cfg, spec, dict(zip(ranks, flat)), ctx=ctx,
-                                     impl=impl, want_aux=return_aux, rope=ropes)
+            out, aux = block_sharded(ctx.local(p), cfg, spec, dict(zip(ranks, flat[:n])),
+                                     ctx=ctx, impl=impl, want_aux=return_aux, rope=ropes,
+                                     causal=causal,
+                                     enc_outs=dict(zip(ranks, flat[n:])) if encs else None)
             return tuple(out[r] for r in ranks) + (tuple(aux[r] for r in ranks) if aux else ())
-        flat = [xs[r] for r in ranks]
+        flat = [xs[r] for r in ranks] + encs
         res = (torch.utils.checkpoint.checkpoint(layer, *flat, use_reentrant=False) if remat
                else layer(*flat))
         xs = dict(zip(ranks, res[:len(ranks)]))
@@ -577,30 +620,38 @@ def stack_apply_sharded(layers_params, cfg: ModelConfig, xs, *, ctx, impl="cuda"
     return (xs, aux_total) if return_aux else xs
 
 
-def cache_init_sharded(cfg: ModelConfig, tp: int, batch, max_len, dtype, device):
+def cache_init_sharded(cfg: ModelConfig, tp: int, batch, max_len, dtype, device, cross=False,
+                       enc_len=None):
     """One rank's decode caches at tensor-parallel degree ``tp``: its own KV
     heads (every one where ``kv_replicated``), RG-LRU channels or SSD heads
-    (``ssm.ssm_state_init_sharded``)."""
+    (``ssm.ssm_state_init_sharded``); with ``cross`` each a decoder layer's
+    {"self", "xkv"}, "xkv" over the same KV heads (``cache_init``'s)."""
     lcfg = tp_cfg(cfg, tp)
-    return [S.ssm_state_init_sharded(cfg, batch, cfg.ssm_heads // tp, dtype, device)
-            if spec.kind == SSM else layer_cache_init(lcfg, spec, batch, max_len, dtype, device)
-            for spec in cfg.layers]
+    caches = [S.ssm_state_init_sharded(cfg, batch, cfg.ssm_heads // tp, dtype, device)
+              if spec.kind == SSM else layer_cache_init(lcfg, spec, batch, max_len, dtype, device)
+              for spec in cfg.layers]
+    if not cross:
+        return caches
+    return [_with_xkv(c, lcfg, batch, enc_len, dtype, device) for c in caches]
 
 
-def stack_prefill_sharded(layers_params, cfg: ModelConfig, xs, caches, *, ctx, impl="cuda"):
+def stack_prefill_sharded(layers_params, cfg: ModelConfig, xs, caches, *, ctx, impl="cuda",
+                          enc_outs=None):
     """``stack_prefill`` over a mesh: caches is {rank: the rank's layer
-    caches} from ``cache_init_sharded``, filled in place.  Returns xs."""
+    caches} from ``cache_init_sharded``, filled in place; ``enc_outs``
+    {rank: encoder output} as ``stack_apply_sharded``'s.  Returns xs."""
     ropes = _ropes(cfg, {r: torch.arange(x.shape[1], device=x.device) for r, x in xs.items()})
     for i, (p, spec) in enumerate(zip(layers_params, cfg.layers)):
         xs, _ = block_sharded(ctx.local(p), cfg, spec, xs, ctx=ctx, impl=impl, rope=ropes,
-                              caches={r: c[i] for r, c in caches.items()}, prefill=True)
+                              caches={r: c[i] for r, c in caches.items()}, prefill=True,
+                              enc_outs=enc_outs)
     return xs
 
 
 def stack_decode_sharded(layers_params, cfg: ModelConfig, xs, caches, t, *, ctx, impl="cuda"):
     """``stack_decode`` over a mesh: xs {rank: (B_r, 1, D)}, the token at
-    position t; caches as ``stack_prefill_sharded``'s, updated in place.
-    Returns xs."""
+    position t; caches as ``stack_prefill_sharded``'s, updated in place (a
+    decoder layer's cross-attention reads its "xkv").  Returns xs."""
     ropes = _ropes(cfg, {r: torch.full((1, 1), t, device=x.device) for r, x in xs.items()})
     lens = {r: torch.full((x.shape[0],), t + 1, dtype=torch.int32, device=x.device)
             for r, x in xs.items()}

@@ -17,11 +17,11 @@ over the same axis), the batch over the batch axes.  Gradients of a leaf
 replicated over an axis (a norm; a dim ``sanitize_specs`` left unsharded)
 are all-reduced over it, so every replica holds the same bits after the
 step.  Every mixer runs (attention, RG-LRU, SSD; ``models/transformer.py``
-says how each splits) and either MoE dispatch; a tensor axis must divide
-the query heads, the FFN width, the experts, the RG-LRU width and the SSD
-heads, and leave each rank's query heads within whole KV groups
-(``transformer.check_sharded``).  Encoder-decoder and prefix configs are
-refused.
+says how each splits) and either MoE dispatch, and so do an
+encoder-decoder's encoder and cross-attention and a prefix model's splice
+(``models/model.py``); a tensor axis must divide the query heads, the FFN
+width, the experts, the RG-LRU width and the SSD heads, and leave each
+rank's query heads within whole KV groups (``transformer.check_sharded``).
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ from repro_torch.parallel import collectives as C
 from repro_torch.parallel import ctx as CTX
 from repro_torch.parallel import sharding as SH
 from repro_torch.parallel.layout import (Layout, P, ShardedTensor, axes_of, tree_leaves,
-                                         tree_map)
+                                         tree_map, tree_map_with_path)
 
 
 def check_mesh(cfg: ModelConfig, mesh, rules: SH.ShardingRules):
@@ -182,33 +182,39 @@ def _as_sharded(per_rank: dict, layout: Layout, shape) -> ShardedTensor:
 
 
 # The dim of each cache leaf that a rank holds its share of over the tensor
-# axis: attention k/v by KV head (none where ``kv_replicated``), the RG-LRU
-# state by channel, the SSD state by head and its conv state's x channels
-# (``ssm.ssm_state_init_sharded``; its B and C channels are on every rank).
+# axis: attention k/v (a decoder layer's cross "xkv" too) by KV head (none
+# where ``kv_replicated``), the RG-LRU state by channel, the SSD state by
+# head and its conv state's x channels (``ssm.ssm_state_init_sharded``; its
+# B and C channels are on every rank).
 _CACHE_TP_DIM = {"k": 2, "v": 2, "h": 1, "conv": 2, "ssm": 1, "conv_x": 2, "conv_bc": None}
 
 
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
 def _wrap_caches(caches: dict, cfg, mesh, rules):
-    """{rank: layer caches} as a list per layer of {name: ShardedTensor},
-    each rank's block its batch rows and its share over the tensor axis
-    (``_CACHE_TP_DIM``)."""
+    """{rank: layer caches} as a list per layer of the same (nested) dicts
+    of ``ShardedTensor``s, each rank's block its batch rows and its share
+    over the tensor axis (``_CACHE_TP_DIM``)."""
     k = C.axis_size(mesh, rules.batch_axes) if rules.batch_axes else 1
     tp = mesh.shape[rules.tp_axis] if rules.tp_axis else 1
     out = []
     for i, spec in enumerate(cfg.layers):
-        layer = {}
-        for name, blk in caches[mesh.device_ids[0]][i].items():
-            dim = _CACHE_TP_DIM[name]
-            if spec.kind == ATTN and T.kv_replicated(cfg, tp):
-                dim = None
+        replicated = spec.kind == ATTN and T.kv_replicated(cfg, tp)
+
+        def wrap(path, blk, i=i, replicated=replicated):
+            dim = None if replicated else _CACHE_TP_DIM[path[-1]]
             parts = [_batch_part(rules)] + [None] * (blk.dim() - 1)
             shape = [blk.shape[0] * k, *blk.shape[1:]]
             if dim is not None:
                 parts[dim] = rules.tp_axis
                 shape[dim] *= tp
-            layer[name] = _as_sharded({r: caches[r][i][name] for r in caches},
-                                      Layout(mesh, P(*parts)), tuple(shape))
-        out.append(layer)
+            return _as_sharded({r: _at(caches[r][i], path) for r in caches},
+                               Layout(mesh, P(*parts)), tuple(shape))
+        out.append(tree_map_with_path(wrap, caches[mesh.device_ids[0]][i]))
     return out
 
 
@@ -218,7 +224,7 @@ def gathered_caches(caches: list, device=None) -> list:
     an SSD layer's conv state joined from its x and its B and C channels."""
     out = []
     for layer in caches:
-        whole = {name: st.gather(device) for name, st in layer.items()}
+        whole = tree_map(lambda st: st.gather(device), layer)
         if "conv_x" in whole:
             whole["conv"] = torch.cat([whole.pop("conv_x"), whole.pop("conv_bc")], dim=-1)
         out.append(whole)
@@ -230,7 +236,9 @@ def make_prefill_step(cfg: ModelConfig, *, impl="cuda", extra_len: int = 0, mesh
     """(params, batch) -> (next_token_logits, caches).
 
     With a ``mesh``: ``params`` a ``ShardedTensor`` tree and ``batch``
-    {"tokens": (B, S)} global; the logits come back as a (B, V)
+    {"tokens": (B, S)} global (with an encoder-decoder's "frames" or a
+    prefix model's "prefix_embeds", split by rows as the tokens); the
+    logits come back as a (B, V)
     ``ShardedTensor`` laid out over (batch axes, tensor axis) (the
     vocabulary replicated where the axis does not divide it), the caches as
     a list per layer of ``ShardedTensor``s, each rank holding its batch rows
@@ -244,7 +252,12 @@ def make_prefill_step(cfg: ModelConfig, *, impl="cuda", extra_len: int = 0, mesh
       * SSD {"ssm": (B, H, P, N) fp32, "conv_x": (B, K-1, di), "conv_bc":
         (B, K-1, 2N)}: its heads, ``P(batch, model, None, None)``, their x
         channels of the conv state, ``P(batch, None, model)``, and its B
-        and C channels, ``P(batch, None, None)``.
+        and C channels, ``P(batch, None, None)``;
+      * an encoder-decoder's decoder layer {"self": its attention cache as
+        above, "xkv": {"k", "v"} (B, prefix_len, Hkv, Dh)}: the cross k/v
+        of its KV heads over its rows' encoder output, computed once here,
+        laid out as "self" is (by KV head, or replicated over the tensor
+        axis).
     ``gathered_caches`` joins them into the single-device caches."""
     if mesh is None:
         def step(params, batch):
@@ -260,9 +273,8 @@ def make_prefill_step(cfg: ModelConfig, *, impl="cuda", extra_len: int = 0, mesh
         params = _on_mesh(params, mesh, "params")
         b, s = batch["tokens"].shape
         with CTX.use(mesh, rules.batch_axes, rules.tp_axis) as c:
-            tokens = {r: v["tokens"] for r, v in split_batch(batch, mesh, rules).items()}
-            logits, caches = MDL.prefill_sharded(params, cfg, tokens, s + max(extra_len, 1),
-                                                 ctx=c, impl=impl)
+            logits, caches = MDL.prefill_sharded(params, cfg, split_batch(batch, mesh, rules),
+                                                 s + max(extra_len, 1), ctx=c, impl=impl)
             logits = _as_sharded(logits, _logits_layout(params, cfg, mesh, rules, c),
                                  (b, cfg.vocab_size))
         return logits, _wrap_caches(caches, cfg, mesh, rules)
@@ -288,8 +300,7 @@ def make_decode_step(cfg: ModelConfig, *, impl="cuda", mesh=None,
         with CTX.use(mesh, rules.batch_axes, rules.tp_axis) as c:
             tokens = {r: v["token"] for r, v in split_batch({"token": token}, mesh,
                                                             rules).items()}
-            local = {r: [{k: st.blocks[r] for k, st in layer.items()} for layer in caches]
-                     for r in mesh.device_ids}
+            local = {r: tree_map(lambda st, r=r: st.blocks[r], caches) for r in mesh.device_ids}
             logits = MDL.decode_step_sharded(params, cfg, tokens, local, t, ctx=c, impl=impl)
             logits = _as_sharded(logits, _logits_layout(params, cfg, mesh, rules, c),
                                  (token.shape[0], cfg.vocab_size))
@@ -329,7 +340,8 @@ def cache_partition_specs(cache_shapes, rules: SH.ShardingRules):
     the SSD state by head, "ssm" ``P(batch, model, None, None)``, with its
     conv state split into its x channels by head, "conv_x" ``P(batch,
     None, model)``, and its B and C channels on every rank, "conv_bc"
-    ``P(batch, None, None)``."""
+    ``P(batch, None, None)``; an encoder-decoder's "xkv" k/v as its
+    attention k/v."""
     b = _batch_part(rules)
 
     def spec(x):

@@ -1376,7 +1376,7 @@ def test_ep_forward_and_sharded_decode_on_logical_devices_of_the_card():
     mesh, sp = _sharded(params, (1, 2))
     grouped_expert.grouped_ffn.launches = 0
     with torch.no_grad(), CTX.use(mesh, ("data",), "model") as c:
-        hs = MDL.forward_sharded(sp, cfg, {r: toks for r in mesh.device_ids}, ctx=c)
+        hs = MDL.forward_sharded(sp, cfg, {r: {"tokens": toks} for r in mesh.device_ids}, ctx=c)
     assert grouped_expert.grouped_ffn.launches == 2 * cfg.num_layers
     for h in hs.values():
         assert float((h - want).abs().max()) <= 1e-5 * float(want.abs().max())

@@ -387,13 +387,19 @@ def test_fewer_tokens_than_the_prefix_raise():
 
 @pytest.mark.parametrize("name", NAMES)
 def test_sharded_steps_refuse(name):
-    """The port has no sharded encoder or prefix splice: every step with a
-    mesh raises ``NotImplementedError`` (the JAX package's GSPMD steps run
-    them; the port's refusal is its own)."""
+    """Every step with a mesh builds for both configs (the JAX package's
+    GSPMD steps run them; the port's run in ``test_torch_tp_modal.py``),
+    and refuses, with a ``ValueError``, only a tensor axis that splits a
+    head: 8 model ranks over the reduced configs' 4 query heads."""
     tcfg = get_config(name).reduced()
-    mesh = TMESH.make_test_mesh(4, device="cpu")
-    for make in (lambda: TSTEPS.make_train_step(tcfg, tadamw.AdamWConfig(), mesh=mesh),
-                 lambda: TSTEPS.make_prefill_step(tcfg, mesh=mesh),
-                 lambda: TSTEPS.make_decode_step(tcfg, mesh=mesh)):
-        with pytest.raises(NotImplementedError, match="encoder/prefix"):
-            make()
+    for mesh, refused in ((TMESH.make_test_mesh(4, device="cpu"), False),
+                          (TMESH.submesh(range(8), (1, 8), ("data", "model"), device="cpu"),
+                           True)):
+        for make in (lambda: TSTEPS.make_train_step(tcfg, tadamw.AdamWConfig(), mesh=mesh),
+                     lambda: TSTEPS.make_prefill_step(tcfg, mesh=mesh),
+                     lambda: TSTEPS.make_decode_step(tcfg, mesh=mesh)):
+            if not refused:
+                assert callable(make())
+                continue
+            with pytest.raises(ValueError, match="does not divide 4 query heads"):
+                make()

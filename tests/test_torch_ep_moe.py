@@ -56,8 +56,8 @@ def ep_forward(cfg, params, tokens, mesh, *, return_aux=False):
     sp = place(params, mesh)
     with CTX.use(mesh, rules.batch_axes, rules.tp_axis) as c:
         parts = steps.split_batch({"tokens": tokens}, mesh, rules)
-        out = TM.forward_sharded(sp, cfg, {r: v["tokens"] for r, v in parts.items()}, ctx=c,
-                                 impl="reference", return_aux=return_aux)
+        out = TM.forward_sharded(sp, cfg, parts, ctx=c, impl="reference",
+                                 return_aux=return_aux)
     hs, aux = out if return_aux else (out, None)
     first = [next(r for r in mesh.device_ids if c.batch_index(r) == i)
              for i in range(c.batch_size)]

@@ -265,7 +265,8 @@ def test_a_per_rank_ssd_norm_is_caught(monkeypatch, tp):
 def test_check_sharded_accepts_the_recurrent_and_capacity_configs():
     """Full configs: mamba2-1.3b and recurrentgemma-9b at TP 2 and 4,
     gemma3-1b at TP 4, arctic-480b's capacity dispatch at TP 2; the
-    encoder-decoder and prefix configs stay refused."""
+    encoder-decoder and prefix configs run at TP 2 and 4 and are refused
+    only at a degree that splits a head."""
     for arch in ARCHS:
         for tp in (2, 4):
             TT.check_sharded(get_config(arch), tp)
@@ -275,8 +276,10 @@ def test_check_sharded_accepts_the_recurrent_and_capacity_configs():
     TT.check_sharded(get_config("gemma3-1b"), 4)
     TT.check_sharded(dataclasses.replace(get_config("arctic-480b"), moe_dispatch="capacity"), 2)
     for arch in ("seamless-m4t-medium", "internvl2-76b"):
-        with pytest.raises(NotImplementedError, match="encoder/prefix"):
-            TT.check_sharded(get_config(arch), 2)
+        for tp in (2, 4):
+            TT.check_sharded(get_config(arch), tp)
+        with pytest.raises(ValueError, match="query heads"):
+            TT.check_sharded(get_config(arch), 3)
     with pytest.raises(ValueError, match="straddle"):
         TT.check_sharded(get_config("qwen2-0.5b").reduced(n_heads=6, n_kv_heads=3), 2)
     with pytest.raises(ValueError, match="lru_width"):

@@ -304,9 +304,11 @@ def test_non_dividing_meshes_and_cuda_on_the_host_raise():
     with pytest.raises(ValueError, match="experts"):
         steps.make_train_step(reduced("granite-moe-1b-a400m", n_heads=8, n_kv_heads=8), opt,
                               impl="reference", mesh=cpu_mesh((1, 8)))
-    with pytest.raises(NotImplementedError, match="encoder/prefix"):
+    steps.make_train_step(reduced("seamless-m4t-medium"), opt, impl="reference",
+                          mesh=cpu_mesh((2, 1)))
+    with pytest.raises(ValueError, match="query heads"):
         steps.make_train_step(reduced("seamless-m4t-medium"), opt, impl="reference",
-                              mesh=cpu_mesh((2, 1)))
+                              mesh=cpu_mesh((1, 8)))
     cfg = reduced()
     params = TM.init_params(cfg, seed=0, device="cpu")
     mesh = cpu_mesh((2, 2))
