@@ -235,10 +235,29 @@ Phases, in order; any failure exits non-zero before the last line:
      on (2, 2) against one device (TRAIN_TOL, TRAIN_LEAF_TOL), the loss's
      bits kept under a changed prefix; seconds, bytes against their
      prediction, peak memory, launches held as in phase 15.
+ 17. a tensor axis that splits query heads, ZeRO-1, and the dry run held
+     to the card, on logical devices of the card: (a) qwen2-0.5b at full
+     width and depth on (1, 4) (14 query heads over 4 ranks: every rank
+     gathers wq, wk, wv, computes every head and takes its 224 columns
+     into its wo rows) served (4 x 256 tokens, 8 decode steps; LOGIT_TOL,
+     bytes and launches to their prediction) and trained one step
+     against one device (TRAIN_TOL, TRAIN_LEAF_TOL; 2 fp32 layers to
+     FP32_GRAD_TOL), gemma3-1b on (1, 8) (4 query heads over 8 ranks)
+     served past its 512-slot rings (600-token prompts); (b) qwen2-0.5b's
+     step with the AdamW state ZeRO-1 over the pod axis of (pod 2, data
+     1, model 2) bit-equal to the same step with the state on the
+     parameters' layouts, replicas bit-equal; (c) the dry run
+     (``launch/dryrun.py``) of qwen2-0.5b's train step on 2 layers on (2,
+     2) on ``meta``, then the same step on the card: the collectives
+     recorded (kind, payload, group, count) equal, the argument bytes equal
+     the placed blocks' bytes, the reckoned peak x 4 beside the card's
+     ``max_memory_allocated`` rise within DRY_PEAK_BAND; then one
+     production cell through the dry run's CLI (qwen2-0.5b decode_32k on
+     the 256-card mesh).
 Each model's parameters are freed before the next is built.
 Then one JSON line of kernel numbers, and last {"ok": true, "device": ...}.
 
-Phases 3 to 16 are functions of (config, params or experiment, impl) so the
+Phases 3 to 17 are functions of (config, params or experiment, impl) so the
 CPU tests rehearse them at the reduced size with impl="reference".
 """
 
@@ -258,7 +277,8 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch import hw  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -5351,20 +5371,24 @@ def stack_bytes(cfg, tp, rows, seq, *, cross=None):
     through ``cfg``'s layer stack on a (1, tp) mesh: per layer the mixer's
     and the FFN's fp32 shares summed; an SSD layer's ``in_proj`` product,
     conv weights and norm sums of squares; a replicated-KV attention
-    layer's wk/wv blocks.  ``cross`` ("prefill" or "decode") adds a decoder
+    layer's wk/wv blocks, and its wq blocks where the axis splits a head
+    (``heads_split``).  ``cross`` ("prefill" or "decode") adds a decoder
     layer's cross-attention: its fp32 shares summed, and in prefill its
     wk/wv blocks where replicated (decode reads its "xkv" cache)."""
     bf, f32 = L.dtype_of(cfg).itemsize, 4
     act = rows * seq * cfg.d_model
-    kv_w = 0
+    kv_w = q_w = 0
+    rows_w = cfg.d_model + (1 if cfg.qkv_bias else 0)  # the bias as one more row
     if T.kv_replicated(cfg, tp):
-        rows_w = cfg.d_model + (1 if cfg.qkv_bias else 0)  # the bias as one more row
         kv_w = 2 * allgather_bytes(rows_w * cfg.kv_dim // tp * bf, tp)
+    if T.heads_split(cfg, tp):  # wq gathered too: every rank computes every head
+        q_w = allgather_bytes(rows_w * cfg.q_dim // tp * bf, tp)
     out = 0
     for spec in cfg.layers:
         out += allreduce_bytes(act * f32, tp)
         if cross:
-            out += allreduce_bytes(act * f32, tp) + (kv_w if cross == "prefill" else 0)
+            out += (allreduce_bytes(act * f32, tp) + q_w
+                    + (kv_w if cross == "prefill" else 0))
         if spec.has_ffn and cfg.ffn_kind != "none":
             out += allreduce_bytes(act * f32, tp)
         if spec.kind == SSM:
@@ -5374,7 +5398,7 @@ def stack_bytes(cfg, tp, rows, seq, *, cross=None):
             out += allgather_bytes((cfg.ssm_conv + 1) * ch // tp * bf, tp)
             out += allreduce_bytes(rows * seq * f32, tp)
         elif spec.kind == ATTN:
-            out += kv_w
+            out += kv_w + q_w
     return out
 
 
@@ -5923,6 +5947,248 @@ def report_phase16(device, total):
         print(f"[time] phase 16{tag} {time.perf_counter() - t0:.1f}s")
 
 
+# -------------------------------------------- phase 17: split heads, ZeRO-1
+
+SPLIT = "qwen2-0.5b"          # 14 query heads over 2 KV heads
+SPLIT_LAYOUT = (1, 4)         # (a): 14 heads over 4 ranks, 224 of 896 q columns each
+GEMMA = "gemma3-1b"           # 4 query heads over 1 KV head
+GEMMA_LAYOUT = (1, 8)         # (a): 4 heads over 8 ranks, 128 of 1,024 q columns each
+GEMMA_PROMPT = 600            # past the 512-slot rings of its local layers
+ZERO1_LAYOUT = (2, 1, 2)      # (b): (pod, data, model)
+DRY_LAYERS = 2                # (c): qwen2-0.5b's train step on 2 layers, (data 2, model 2)
+# (c): the card's max_memory_allocated rise over the dry run's reckoned peak
+# per card x 4 (PERF.md states the band and its reasons)
+DRY_PEAK_BAND = (0.6, 1.4)
+DRY_CELL = ("qwen2-0.5b", "decode_32k", "pod1")
+
+
+def report_split_serve(cfg, params, layout, total, *, prompt_len=256, steps=8, tag="[split]"):
+    """17a's serve: ``phase_tp_serve`` on a ``layout`` whose tensor axis
+    splits the query heads, held to LOGIT_TOL, the bytes (wq, wk, wv
+    gathered per attention layer) and launches to their predictions."""
+    device = params["embed"]["table"].device
+    t0 = time.perf_counter()
+    peak_reset(device)
+    tp, rows = layout[1], 4
+    check(T.heads_split(cfg, tp), f"{cfg.name} at {tp}: no query head is split")
+    r = phase_tp_serve(cfg, params, layout, impl="cuda", batch=rows, prompt_len=prompt_len,
+                       steps=steps)
+    r["predicted_bytes"] = (sharded_serve_bytes(cfg, tp, rows, prompt_len),
+                            sharded_serve_bytes(cfg, tp, rows, 1, decode=True))
+    r["predicted"] = serve_predicted(cfg, tp, steps)
+    report_sharded_serve(tag, cfg.name, r, LOGIT_TOL, device, total, t0,
+                         serve_what=f"{cfg.num_layers} layers on (data, model)={layout}, "
+                                    f"{cfg.n_heads} query heads over {tp} ranks, {rows} x "
+                                    f"{prompt_len} tokens then {steps} decode steps")
+
+
+def report_split_train(device, total, *, layers=2):
+    """17a's train step: ``report_tp_train``'s checks with qwen2-0.5b's 14
+    heads split over SPLIT_LAYOUT's 4 ranks."""
+    cfg = get_config(SPLIT)
+    batch = lm_batch(cfg, device)
+    for c, seed, tol, leaf_tol in ((cfg, 0, TRAIN_TOL, TRAIN_LEAF_TOL),
+                                   (shallow(cfg, layers, dtype="float32"), 1, FP32_GRAD_TOL,
+                                    FP32_GRAD_TOL)):
+        params = make_params(c, seed=seed, device=device)
+        r = phase_tp_train(c, params, batch, SPLIT_LAYOUT, impl="cuda")
+        del r["trained"]
+        ref, want = r["ref"], tp_train_predicted(c, SPLIT_LAYOUT)
+        print(f"[split] train {c.name} {c.num_layers} layers {c.dtype} on "
+              f"(data, model)={SPLIT_LAYOUT}: loss err {r['loss_err']:.3e}, grad_norm err "
+              f"{r['grad_norm_err']:.3e}, first moment err {r['global_err']:.3e}, worst leaf "
+              f"{r['worst_leaf']} {r['worst_leaf_err']:.3e} (tol {tol}, per leaf {leaf_tol}); "
+              f"replicas bit-equal {r['replicas_equal']}; {r['seconds']:.3f}s (single device "
+              f"{ref['seconds']:.3f}s), peak {r['peak']} bytes, collectives moved "
+              f"{r['bytes']} bytes; launches {r['launches']} (predicted {want})")
+        check(max(r["loss_err"], r["grad_norm_err"], r["global_err"]) <= tol
+              and r["worst_leaf_err"] <= leaf_tol,
+              f"split-head train step of {c.name} disagrees with the single-device step")
+        check(r["replicas_equal"] and r["finite"] and r["moved"],
+              f"{c.name}: split-head replicas differ, or parameters not finite or unmoved")
+        check(same_launches(r["launches"], want), f"split-head train launches {r['launches']}")
+        for k in total:
+            total[k] += r["launches"][k]
+        del params
+        free(device)
+
+
+def phase_zero1(cfg, params, batch, *, impl, layout=ZERO1_LAYOUT, opt_cfg=adamw.AdamWConfig()):
+    """17b: one sharded train step on a (pod, data, model) mesh with the
+    AdamW state ZeRO-1 over the pod axis (``steps.opt_layouts``), and the
+    same step with ``shard_opt_over_pod=False``, from the same params and
+    batch.  Returns whether parameters and m, v, master are bit-equal
+    between the two, whether the ZeRO-1 replicas are bit-equal, how many
+    leaves' state the pod axis splits, their state bytes per rank against
+    the equal layout's, seconds and launches."""
+    device = params["embed"]["table"].device
+    n = int(np.prod(layout))
+    mesh = Mesh(np.arange(n).reshape(layout), ("pod", "data", "model"), device=device)
+    runs = []
+    for zero1 in (True, False):
+        rules = SHD.ShardingRules(pod_axis="pod", shard_opt_over_pod=zero1)
+        specs = SHD.sanitize_specs(SHD.param_specs(params, rules), params, mesh)
+        sharded = place_tree(params, tree_map(lambda s: Layout(mesh, s), specs))
+        state = adamw.init(opt_cfg, sharded, PSTEPS.opt_layouts(sharded, mesh, rules))
+        reset_launches()
+        t0 = time.perf_counter()
+        sharded, state, m = PSTEPS.make_train_step(cfg, opt_cfg, impl=impl, mesh=mesh,
+                                                   rules=rules)(sharded, state, batch)
+        sync(device)
+        runs.append(dict(params=sharded, state=state, seconds=time.perf_counter() - t0,
+                         launches=launches(), loss=float(m["loss"])))
+    z, e = runs
+    state_bytes = [sum(st.blocks[0].numel() * st.blocks[0].element_size()
+                       for k in ("m", "v", "master") for st in tree_leaves(r["state"][k]))
+                   for r in runs]
+    out = dict(seconds=z["seconds"], ref_seconds=e["seconds"], launches=z["launches"],
+               ref_launches=e["launches"], loss=z["loss"], state_bytes=state_bytes,
+               n_split=sum(st.layout != p.layout for st, p in zip(tree_leaves(z["state"]["m"]),
+                                                                  tree_leaves(z["params"]))))
+    out["bit_equal"] = all(same(a.gather(), b.gather()) for k in ("m", "v", "master")
+                           for a, b in zip(tree_leaves(z["state"][k]), tree_leaves(e["state"][k])))
+    out["bit_equal"] &= all(same(a.gather(), b.gather())
+                            for a, b in zip(tree_leaves(z["params"]), tree_leaves(e["params"])))
+    out["replicas_equal"] = replicas_equal(z["params"]) and replicas_equal(z["state"]["master"])
+    return out
+
+
+def report_zero1(device, total):
+    cfg = get_config(SPLIT)
+    params = make_params(cfg, seed=2, device=device)
+    r = phase_zero1(cfg, params, lm_batch(cfg, device, seed=3), impl="cuda")
+    print(f"[zero1] {cfg.name} on (pod, data, model)={ZERO1_LAYOUT}: the step with the AdamW "
+          f"state ZeRO-1 over the pod axis ({r['n_split']} leaves split; m, v, master "
+          f"{r['state_bytes'][0]} bytes on rank 0 against {r['state_bytes'][1]}) bit-equal to "
+          f"the equal-layout step: {r['bit_equal']}; replicas bit-equal {r['replicas_equal']}; "
+          f"loss {r['loss']:.6f}; {r['seconds']:.3f}s (equal layout {r['ref_seconds']:.3f}s); "
+          f"launches {r['launches']}")
+    check(r["bit_equal"], "the ZeRO-1 step parts from the equal-layout step")
+    check(r["replicas_equal"], "ZeRO-1 replicas differ")
+    check(r["n_split"] > 0 and r["state_bytes"][0] < r["state_bytes"][1],
+          "the pod axis split no optimizer state")
+    for k in total:
+        total[k] += r["launches"][k] + r["ref_launches"][k]
+    del params
+    free(device)
+
+
+def phase_dry_check(cfg, params, batch, *, impl, layout=TRAIN_LAYOUT):
+    """17c: the dry run's record of ``cfg``'s train step on a ``layout``
+    mesh of ``meta`` ranks (``dryrun.measure`` and ``memory_of``), then the
+    same step on ``params``' device: the collectives' records, the
+    argument bytes (rank 0's placed blocks of params, state and batch
+    rows) and, on a card, the rise of ``max_memory_allocated`` from before
+    the placement beside the reckoned peak per card x the ranks."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun as DRY
+    device = params["embed"]["table"].device
+    n = layout[0] * layout[1]
+    meta = torch.device("meta")
+    mmesh = Mesh(np.arange(n).reshape(layout), ("data", "model"), device=lambda i: meta)
+    rules, b_axes, _ = DRY._variant_setup(DRY.CellSpec(cfg.name, "check", False), mmesh)
+    b, s = batch["tokens"].shape
+    shape = ShapeSpec("check", s, b, "train")
+    t0 = time.perf_counter()
+    dry = DRY.measure(cfg, shape, mmesh, rules, b_axes)
+    mem = DRY.memory_of(cfg, shape, mmesh, rules, b_axes, dry["peak_live"])
+    out = dict(dry_s=time.perf_counter() - t0, dry_record=dry["record"], dry_flops=dry["flops"],
+               memory=mem)
+    batch = {k: (v.to(torch.int32) if k in ("tokens", "labels") else v) for k, v in batch.items()}
+    free(device)
+    base = torch.cuda.memory_allocated() if device.type == "cuda" else 0
+    peak_reset(device)
+    mesh, sharded = shard_params(params, *layout, device)
+    opt_cfg = adamw.AdamWConfig()
+    state = adamw.init(opt_cfg, sharded)
+    r0 = mesh.device_ids[0]
+    rows = PSTEPS.split_batch(batch, mesh, rules)[r0]
+    out["argument_bytes"] = sum(st.blocks[r0].numel() * st.blocks[r0].element_size()
+                                for st in tree_leaves(sharded)
+                                + [x for k in ("m", "v", "master")
+                                   for x in tree_leaves(state[k])]) + sum(
+        v.numel() * v.element_size() for v in rows.values())
+    del rows
+    COLL.reset_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    PSTEPS.make_train_step(cfg, opt_cfg, impl=impl, mesh=mesh, rules=rules)(sharded, state,
+                                                                             batch)
+    sync(device)
+    out.update(seconds=time.perf_counter() - t0, record=dict(COLL.RECORD), launches=launches(),
+               rise=(torch.cuda.max_memory_allocated() - base if device.type == "cuda" else None),
+               n_ranks=n)
+    out["reckoned"] = mem["peak_per_device"] * n
+    del sharded, state
+    free(device)
+    return out
+
+
+def report_dry(device, total):
+    """17c on the card: ``phase_dry_check`` on qwen2-0.5b's first
+    DRY_LAYERS layers, then one production cell through the dry run's
+    CLI (a subprocess, ``--force``), its OK line and seconds printed."""
+    cfg = shallow(get_config(SPLIT), DRY_LAYERS)
+    params = make_params(cfg, seed=4, device=device)
+    r = phase_dry_check(cfg, params, lm_batch(cfg, device, seed=5), impl="cuda")
+    del params
+    kinds = lambda rec: {k: (sum(n for (kd, _, _, _), n in rec.items() if kd == k),  # noqa: E731
+                             sum(b * n for (kd, b, _, _), n in rec.items() if kd == k))
+                         for k in sorted({kd for kd, _, _, _ in rec})}
+    ratio = r["rise"] / r["reckoned"]
+    mem = r["memory"]
+    print(f"[dry] {cfg.name} {cfg.num_layers} layers train step on (data, model)="
+          f"{TRAIN_LAYOUT}: on meta {r['dry_s']:.1f}s, {r['dry_flops']:.4e} flops over the "
+          f"ranks; collectives (calls, payload bytes) by kind on meta {kinds(r['dry_record'])}, "
+          f"on the card {kinds(r['record'])}, records equal {r['dry_record'] == r['record']}; "
+          f"argument bytes per card {mem['argument_bytes']} reckoned, {r['argument_bytes']} "
+          f"placed; reckoned peak per card {mem['peak_per_device']:.0f} (temp "
+          f"{mem['temp_bytes']:.0f}) x {r['n_ranks']} = {r['reckoned']:.0f} bytes against the "
+          f"card's max_memory_allocated rise {r['rise']} bytes: {ratio:.3f} (band "
+          f"{DRY_PEAK_BAND}); the card's step {r['seconds']:.3f}s, launches {r['launches']}")
+    check(r["dry_record"] == r["record"], "the dry run's collectives differ from the card's")
+    check(mem["argument_bytes"] == r["argument_bytes"],
+          "the dry run's argument bytes differ from the placed blocks'")
+    check(DRY_PEAK_BAND[0] <= ratio <= DRY_PEAK_BAND[1],
+          f"the card's memory rise is {ratio:.3f} of the dry run's reckoning")
+    for k in total:
+        total[k] += r["launches"][k]
+    free(device)
+    arch, shp, mesh = DRY_CELL
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                          "--shape", shp, "--mesh", mesh, "--force"], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=300)
+    ok = [ln for ln in res.stdout.splitlines() if ln.startswith("OK ")]
+    print(f"[dry] CLI {arch} {shp} {mesh} (256 cards, meta): "
+          + (ok[0] if ok else res.stdout[-500:] + res.stderr[-2000:])
+          + f"; {time.perf_counter() - t0:.1f}s with the process's start")
+    check(res.returncode == 0 and len(ok) == 1, "the dry run's production cell failed")
+
+
+def report_phase17(device, total):
+    """Phase 17 on the card: (a) split heads, (b) ZeRO-1, (c) the dry run;
+    each part's seconds."""
+    t0 = time.perf_counter()
+    cfg = get_config(SPLIT)
+    params = make_params(cfg, seed=0, device=device)
+    report_split_serve(cfg, params, SPLIT_LAYOUT, total)
+    del params
+    free(device)
+    report_split_train(device, total)
+    gcfg = get_config(GEMMA)
+    params = make_dense_params(gcfg, seed=0, device=device)
+    report_split_serve(gcfg, params, GEMMA_LAYOUT, total, prompt_len=GEMMA_PROMPT)
+    del params
+    free(device)
+    print(f"[time] phase 17a {time.perf_counter() - t0:.1f}s")
+    for fn, tag in ((report_zero1, "b"), (report_dry, "c")):
+        t0 = time.perf_counter()
+        fn(device, total)
+        print(f"[time] phase 17{tag} {time.perf_counter() - t0:.1f}s")
+
+
 # ------------------------------------------------------------------ main
 
 def shallow(cfg, layers=4, *, dtype=None):
@@ -6148,6 +6414,9 @@ def main():
     t0 = time.perf_counter()
     report_phase16(device, total)
     print(f"[time] phase 16 {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    report_phase17(device, total)
+    print(f"[time] phase 17 {time.perf_counter() - t0:.1f}s")
 
     source = "src/repro_torch/kernels/csrc/"
     rows = [dict(name="flash_mha", route="cuda", source=source + "flash_attention.cu",

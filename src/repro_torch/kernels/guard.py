@@ -19,6 +19,7 @@ import torch
 def refuse_grad(name: str, *tensors):
     """Raise ``NotImplementedError`` when autograd would record a launch of
     kernel ``name``: grad mode is on and an input requires grad."""
+    # lint: allow(host-sync) -- grad mode and requires_grad are host flags, no device value
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
             f"{name}: the CUDA kernel has no backward (no autograd.Function), so its "

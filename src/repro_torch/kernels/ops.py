@@ -123,6 +123,7 @@ def ssd(x, dt, a_log, b_mat, c_mat, d_vec, *, chunk, init_state=None,
                                init_state=init_state, return_state=return_state)
 
 
+# lint: allow(impl-dispatch) -- no kernel in either package: plain PyTorch on every tier
 def ssd_decode(x, dt, a_log, b_vec, c_vec, d_vec, state):
     """One SSD decode step (no kernel in the JAX package either: an
     O(H*P*N) elementwise update, plain PyTorch on every tier)."""
@@ -200,6 +201,7 @@ def _truncate_logits(scaled, top_k: int, top_p: float):
     return scaled
 
 
+# lint: allow(impl-dispatch) -- every tier runs the plain PyTorch body (no kernel)
 def sample_logits(logits, rng=None, *, temperature: float = 1.0,
                   top_k: int = 0, top_p: float = 1.0, impl="cuda",
                   uniforms=None):
@@ -239,6 +241,7 @@ def sample_logits(logits, rng=None, *, temperature: float = 1.0,
     return tok.reshape(lead), lp.reshape(lead)
 
 
+# lint: allow(impl-dispatch) -- every tier runs the plain PyTorch body (no kernel)
 def spec_verify(logits, draft_tokens, draft_logits, rng=None, *, temperature: float = 1.0,
                 top_k: int = 0, top_p: float = 1.0, impl="cuda", uniforms=None):
     """Batched rejection sampling for speculative decoding, as the JAX

@@ -230,6 +230,17 @@ def expert_ids_of(group_sizes, n: int):
     return eid.clamp(max=group_sizes.shape[0] - 1)
 
 
+def group_ends(group_sizes, n: int) -> list:
+    """The experts' row offsets (cumulative sums of ``group_sizes``) read to
+    the host.  On ``meta`` (the dry run) the sizes are data it does not
+    have: the N rows split evenly over the experts, so the loop counts N
+    rows of dropless work and reads every expert's weights once."""
+    e = group_sizes.shape[0]
+    if group_sizes.is_meta:
+        return [n * (i + 1) // e for i in range(e)]
+    return torch.cumsum(group_sizes, 0).tolist()
+
+
 def grouped_ffn_ref(xs, group_sizes, w_gate, w_in, w_out, *, act="silu"):
     """Grouped gated expert FFN over expert-sorted rows (dropless MoE).
 
@@ -239,12 +250,13 @@ def grouped_ffn_ref(xs, group_sizes, w_gate, w_in, w_out, *, act="silu"):
     ``expert_ids_of(group_sizes, N)[i]`` only.  A loop over experts, each
     taking ``act(x @ Wg[e]) * (x @ Wi[e]) @ Wo[e]`` on its contiguous rows
     in fp32 (the JAX package's per-row gather would hold N x D x F values).
-    Reads the group offsets back to the host.  Returns (N, D) float32."""
+    Reads the group offsets back to the host (``group_ends``).  Returns (N,
+    D) float32."""
     n, d = xs.shape
     f32 = torch.float32
     out = torch.zeros((n, d), dtype=f32, device=xs.device)
     lo = 0
-    for e, end in enumerate(torch.cumsum(group_sizes, 0).tolist()):
+    for e, end in enumerate(group_ends(group_sizes, n)):
         hi = min(int(end), n)
         if hi > lo:
             x = xs[lo:hi].to(f32)
@@ -271,7 +283,7 @@ def grouped_ffn_bwd_ref(xs, group_sizes, w_gate, w_in, w_out, grad_out, *, act="
     dx = torch.zeros((n, d), dtype=f32, device=xs.device)
     dws = [torch.zeros(w.shape, dtype=w.dtype, device=w.device) for w in (w_gate, w_in, w_out)]
     lo = 0
-    for e, end in enumerate(torch.cumsum(group_sizes, 0).tolist()):
+    for e, end in enumerate(group_ends(group_sizes, n)):
         hi = min(int(end), n)
         if hi > lo:
             x, g = xs[lo:hi].to(f32), grad_out[lo:hi].to(f32)

@@ -480,8 +480,9 @@ def build_server(cfg, params, exp, *, max_prompt: int = 128, max_new: int = 128,
     if exp.serve_mode != "continuous":
         raise ValueError(f"serve_mode={exp.serve_mode!r} not in "
                          "('bucketed', 'continuous')")
-    if getattr(exp, "sampler", "cdf") != "cdf":
-        raise NotImplementedError(f"sampler={exp.sampler!r} is not ported (cdf only)")
+    sampler = getattr(exp, "sampler", "cdf")
+    if sampler != "cdf":
+        raise NotImplementedError(f"sampler={sampler!r} is not ported (cdf only)")
     spec_kw = {}
     if draft_params is not None and getattr(exp, "draft_model", None) is not None:
         spec_kw = dict(draft_params=draft_params, draft_cfg=exp.draft_model,

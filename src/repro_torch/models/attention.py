@@ -62,9 +62,13 @@ def _project_qkv(p, cfg: ModelConfig, x, rope):
     return L.rope_apply(q, rope), L.rope_apply(k, rope), v
 
 
-def _out_proj(p, out, partial):
+def _out_proj(p, out, partial, cols=None):
     """The output projection; with ``partial`` a tensor-parallel rank's fp32
-    share of it (``layers.partial_apply``), for the caller's all-reduce."""
+    share of it (``layers.partial_apply``), for the caller's all-reduce;
+    with ``cols`` (a rank that computed every head) only the output's
+    columns that its ``wo`` rows take."""
+    if cols is not None:
+        out = out[..., cols]
     return L.partial_apply(p["wo"], out) if partial else L.dense_apply(p["wo"], out)
 
 
@@ -75,18 +79,20 @@ def _group(k, kv_head):
 
 
 def attn_apply_with_kv(p, cfg: ModelConfig, spec: LayerSpec, x, rope, *,
-                       causal=True, impl="cuda", partial=False, kv_head=None):
+                       causal=True, impl="cuda", partial=False, kv_head=None, cols=None):
     """Full-sequence attention (training forward / prefill; an encoder's
     with ``causal=False``).  Returns the output and the roped k/v (for
     prefill caching).  Under tensor parallelism ``cfg`` has the rank's
     local heads and ``partial`` is set; with ``kv_head`` (KV projections
     replicated over the tensor axis) ``p`` holds every KV head, the k/v
     returned are all of them, and the rank's query heads, which fall
-    within one KV group, attend that group's head."""
+    within one KV group, attend that group's head.  With ``cols`` (a
+    tensor axis that splits a head) ``cfg`` and ``p`` hold every head and
+    the rank's ``wo`` rows take those columns of the output."""
     q, k, v = _project_qkv(p, cfg, x, rope)
     out = ops.mha(q, _group(k, kv_head), _group(v, kv_head), causal=causal, window=spec.window,
                   impl=impl)
-    y = _out_proj(p, out.reshape(*x.shape[:2], cfg.q_dim), partial)
+    y = _out_proj(p, out.reshape(*x.shape[:2], cfg.q_dim), partial, cols)
     return y, {"k": k, "v": v}
 
 
@@ -117,19 +123,20 @@ def encode_cross_kv(p, cfg: ModelConfig, enc_out):
 
 
 def cross_attn_apply(p, cfg: ModelConfig, x, enc_out=None, enc_kv=None, *, impl="cuda",
-                     partial=False, kv_head=None):
+                     partial=False, kv_head=None, cols=None):
     """Decoder cross-attention of x (B, Sq, D) over the encoder: its k/v
     from ``enc_out`` or, in prefill and decode, the ``enc_kv`` computed
     once per layer.  No RoPE and no mask (positions play no part).
-    ``partial`` and ``kv_head`` as ``attn_apply_with_kv``'s: a rank's query
-    heads from its wq columns, its fp32 share of the wo product."""
+    ``partial``, ``kv_head`` and ``cols`` as ``attn_apply_with_kv``'s: a
+    rank's query heads from its wq columns (or every head, and its
+    columns of the output), its fp32 share of the wo product."""
     b, sq, _ = x.shape
     q = L.dense_apply(p["wq"], x).reshape(b, sq, cfg.n_heads, cfg.head_dim)
     if enc_kv is None:
         enc_kv = encode_cross_kv(p, cfg, enc_out)
     out = ops.mha(q, _group(enc_kv["k"], kv_head), _group(enc_kv["v"], kv_head), causal=False,
                   window=None, impl=impl)
-    return _out_proj(p, out.reshape(b, sq, cfg.q_dim), partial)
+    return _out_proj(p, out.reshape(b, sq, cfg.q_dim), partial, cols)
 
 
 # ------------------------------------------------------------------ KV cache
@@ -156,12 +163,12 @@ def prefill_into_cache(cache, spec: LayerSpec, k, v, seq_len: int):
 
 
 def attn_decode_apply(p, cfg: ModelConfig, spec: LayerSpec, x, cache, t: int,
-                      rope, cache_len, *, impl="cuda", partial=False, kv_head=None):
+                      rope, cache_len, *, impl="cuda", partial=False, kv_head=None, cols=None):
     """One-token decode.  x: (B, 1, D); t: the token's position; rope: the
     tables of position t; cache_len: (B,) int32, all t + 1.  Writes the
-    token's k/v into the cache in place and returns the output (``partial``
-    and ``kv_head`` as ``attn_apply_with_kv``: the cache holds every KV
-    head)."""
+    token's k/v into the cache in place and returns the output (``partial``,
+    ``kv_head`` and ``cols`` as ``attn_apply_with_kv``: with either the
+    cache holds every KV head)."""
     b = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x, rope)
     cap = cache["k"].shape[1]
@@ -172,7 +179,7 @@ def attn_decode_apply(p, cfg: ModelConfig, spec: LayerSpec, x, cache, t: int,
     cache["v"][:, slot] = v[:, 0]
     out = ops.decode_mha(q[:, 0], _group(cache["k"], kv_head), _group(cache["v"], kv_head),
                          cache_len=cache_len, window=spec.window, impl=impl)
-    return _out_proj(p, out.reshape(b, 1, cfg.q_dim).to(x.dtype), partial)
+    return _out_proj(p, out.reshape(b, 1, cfg.q_dim).to(x.dtype), partial, cols)
 
 
 def paged_attn_decode_apply(p, cfg: ModelConfig, x, cache, block_table, dest,

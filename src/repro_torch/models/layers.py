@@ -23,8 +23,11 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 def truncated_normal(gen: torch.Generator, shape, dtype, scale, device):
     """A standard normal truncated to [-2, 2], drawn in fp32, times
     ``scale`` in place (the bits of ``t * scale`` without a second fp32
-    copy: one Arctic expert weight is 17.9 GB in fp32), cast to ``dtype``."""
+    copy: one Arctic expert weight is 17.9 GB in fp32), cast to ``dtype``.
+    On ``meta`` (no ``gen``) it draws nothing: the shape and dtype alone."""
     t = torch.empty(shape, dtype=torch.float32, device=device)
+    if t.is_meta:
+        return t.to(dtype)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return t.mul_(scale).to(dtype)
 

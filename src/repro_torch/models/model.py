@@ -31,10 +31,12 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", head: str = "
     ``seed``, with the JAX package's initialisers (truncated normal,
     d_in^-0.5 for dense weights, 1.0 for the embedding, zero biases, unit
     norms).  ``head="value"`` (the RLHF critic and reward models) swaps
-    the LM head for the fp32 scalar ``value_head``."""
+    the LM head for the fp32 scalar ``value_head``.  On ``device="meta"``
+    it returns the shape tree and draws nothing (the dry run's params)."""
     if head not in ("lm", "value"):
         raise ValueError(f"head={head!r}; need 'lm' or 'value'")
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if torch.device(device).type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     encdec = cfg.family == "encdec"
     p = {
         "embed": L.embed_init(gen, cfg, device),

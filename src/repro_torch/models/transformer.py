@@ -385,7 +385,12 @@ def stack_commit_verify(cfg: ModelConfig, caches, keep):
 # wk/wv keep their column blocks, which split a head, and each rank
 # all-gathers them over the tensor axis inside the layer, computes every
 # KV head and attends its query heads against their group's; such a
-# layer's KV cache is replicated over the tensor axis.  The RG-LRU block
+# layer's KV cache is replicated over the tensor axis.  Where the axis
+# splits a query head as well (qwen2-0.5b's 14 heads at 4 or 16), or
+# gives a rank query heads of two KV groups, wq keeps its q_dim / tp
+# column blocks, as GSPMD splits them: each rank all-gathers wq too,
+# computes every head and takes its own q_dim / tp columns of the
+# attention output into its wo rows (``heads_split``).  The RG-LRU block
 # splits by channel (``rglru.py``), the SSD block by head
 # (``ssm.ssm_apply_sharded``).  An encoder-decoder's encoder is the same
 # stack run non-causal (``causal=False``); a decoder layer's cross-attention
@@ -396,23 +401,17 @@ def stack_commit_verify(cfg: ModelConfig, caches, keep):
 
 def check_sharded(cfg: ModelConfig, tp: int):
     """Raise ``ValueError`` for a config the sharded stack does not run at
-    tensor-parallel degree ``tp``: a tensor axis that does not divide the
-    query heads (an encoder's and a cross-attention's too), or gives a rank
-    query heads of more than one KV group without whole groups, or does not
-    divide the FFN width (a dense residual MLP's too), the experts, the
-    RG-LRU width or the SSD heads (the port keeps heads, channels and
-    experts whole where JAX's GSPMD would split them)."""
+    tensor-parallel degree ``tp``: a tensor axis that does not divide
+    ``q_dim`` (wq's columns, which it splits, in the middle of a head where
+    it does not divide the query heads: ``heads_split``), the FFN width (a
+    dense residual MLP's too), the experts, the RG-LRU width or the SSD
+    heads (the port keeps channels and experts whole where JAX's GSPMD
+    would split them)."""
     check_supported(cfg)
     kinds = {s.kind for s in cfg.layers}
-    if ATTN in kinds:
-        if cfg.n_heads % tp:
-            raise ValueError(f"{cfg.name}: a tensor axis of {tp} does not divide "
-                             f"{cfg.n_heads} query heads ({cfg.n_kv_heads} KV heads)")
-        local, group = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv_heads
-        if cfg.n_kv_heads % tp and group % local:
-            raise ValueError(f"{cfg.name}: a tensor axis of {tp} gives each rank {local} "
-                             f"query heads, which straddle groups of {group} over "
-                             f"{cfg.n_kv_heads} KV heads")
+    if ATTN in kinds and cfg.q_dim % tp:
+        raise ValueError(f"{cfg.name}: a tensor axis of {tp} does not divide q_dim "
+                         f"{cfg.q_dim} ({cfg.n_heads} query heads of {cfg.head_dim})")
     if LRU in kinds and cfg.lru_width % tp:
         raise ValueError(f"{cfg.name}: a tensor axis of {tp} does not divide lru_width "
                          f"{cfg.lru_width}")
@@ -426,48 +425,80 @@ def check_sharded(cfg: ModelConfig, tp: int):
                          f"{cfg.n_experts} experts")
 
 
+def heads_split(cfg: ModelConfig, tp: int) -> bool:
+    """Whether a tensor axis of ``tp`` splits a query head (it does not
+    divide the query heads) or gives a rank query heads of more than one
+    KV group without whole groups.  Then every rank computes every head
+    (wq, wk, wv all-gathered) and its wo rows take its own q_dim / tp
+    columns of the output."""
+    if tp == 1 or not cfg.n_heads:
+        return False
+    if cfg.n_heads % tp:
+        return True
+    local, group = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv_heads
+    return cfg.n_kv_heads % tp != 0 and group % local != 0
+
+
 def kv_replicated(cfg: ModelConfig, tp: int) -> bool:
     """Whether each rank computes every KV head (the tensor axis does not
-    divide them)."""
+    divide them; always so where ``heads_split``)."""
     return bool(cfg.n_kv_heads) and cfg.n_kv_heads % tp != 0
 
 
 def tp_cfg(cfg: ModelConfig, tp: int) -> ModelConfig:
-    """The config of one rank's local block: its query heads, its KV heads
-    (all of them where ``kv_replicated``), its RG-LRU channels and FFN
-    width, a dense one's or the dense residual MLP's beside the experts
-    (``check_sharded`` holds the divisions exact).  The SSD width derives
-    from ``d_model``, so the SSD layer takes its head count, H / tp, as an
-    argument."""
+    """The config of one rank's local block: its query heads (all of them
+    where ``heads_split``), its KV heads (all of them where
+    ``kv_replicated``), its RG-LRU channels and FFN width, a dense one's or
+    the dense residual MLP's beside the experts (``check_sharded`` holds
+    the divisions exact).  The SSD width derives from ``d_model``, so the
+    SSD layer takes its head count, H / tp, as an argument."""
     if tp == 1:
         return cfg
     kv = cfg.n_kv_heads if kv_replicated(cfg, tp) else cfg.n_kv_heads // tp
-    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=kv,
+    heads = cfg.n_heads if heads_split(cfg, tp) else cfg.n_heads // tp
+    return dataclasses.replace(cfg, n_heads=heads, n_kv_heads=kv,
                                d_ff=cfg.d_ff // tp, lru_width=cfg.lru_width // tp)
 
 
 def _kv_head(cfg: ModelConfig, ctx, r: int):
-    """The KV head rank r's query heads attend where KV is replicated, else
-    None (the rank holds its own KV heads)."""
+    """The KV head rank r's query heads attend where KV is replicated and
+    each rank keeps its own query heads, else None (the rank holds its own
+    KV heads, or computes every head)."""
     tp = ctx.tp_size
-    if not kv_replicated(cfg, tp):
+    if not kv_replicated(cfg, tp) or heads_split(cfg, tp):
         return None
     return ctx.tp_index(r) * (cfg.n_heads // tp) // (cfg.n_heads // cfg.n_kv_heads)
 
 
-def _kv_whole(pms: dict, cfg: ModelConfig, ctx) -> dict:
-    """{rank: the attention params with wk/wv (and their biases) whole}
-    where KV is replicated: their column blocks all-gathered over the
-    tensor axis (unless ``sanitize_specs`` left them whole); the gather's
-    backward, the reduce-scatter, lands each gradient on its block."""
-    if not kv_replicated(cfg, ctx.tp_size):
+def _out_cols(cfg: ModelConfig, ctx, r: int):
+    """Where ``heads_split``: the columns of the attention output that rank
+    r's wo rows take (its own q_dim / tp, as its wq block), else None."""
+    tp = ctx.tp_size
+    if not heads_split(cfg, tp):
+        return None
+    w = cfg.q_dim // tp
+    i = ctx.tp_index(r)
+    return slice(i * w, (i + 1) * w)
+
+
+def _attn_whole(pms: dict, cfg: ModelConfig, ctx, kv: bool = True) -> dict:
+    """{rank: the attention params with wk/wv (with ``kv``; where KV is
+    replicated) and wq (where ``heads_split``), and their biases, whole}:
+    their column blocks all-gathered over the tensor axis (unless
+    ``sanitize_specs`` left them whole); the gather's backward, the
+    reduce-scatter, lands each gradient on its block.  The q/k norms are
+    per head_dim and on every rank already."""
+    tp = ctx.tp_size
+    names = ((("wk", "wv") if kv and kv_replicated(cfg, tp) else ())
+             + (("wq",) if heads_split(cfg, tp) else ()))
+    if not names:
         return pms
     out = {r: dict(p) for r, p in pms.items()}
-    for name in ("wk", "wv"):
+    for name in names:
+        size = cfg.q_dim if name == "wq" else cfg.kv_dim
         leaves = {}
         for key in pms[next(iter(pms))][name]:
-            leaves[key] = ctx.tp_gather({r: p[name][key] for r, p in pms.items()}, -1,
-                                        cfg.kv_dim)
+            leaves[key] = ctx.tp_gather({r: p[name][key] for r, p in pms.items()}, -1, size)
         for r in out:
             out[r][name] = {key: leaves[key][r] for key in leaves}
     return out
@@ -530,15 +561,15 @@ def _mixer_sharded(pms, cfg, spec, hs, *, ctx, impl, rope=None, caches=None, t=N
                 _store(caches[r], st)
             ys[r] = y
         return ys
-    pms = _kv_whole(pms, cfg, ctx)
+    pms = _attn_whole(pms, cfg, ctx)
     for r, h in hs.items():
-        kvh = _kv_head(cfg, ctx, r)
+        kw = dict(impl=impl, partial=True, kv_head=_kv_head(cfg, ctx, r),
+                  cols=_out_cols(cfg, ctx, r))
         if decode:
             ys[r] = A.attn_decode_apply(pms[r], lcfg, spec, h, caches[r], t, rope[r], lens[r],
-                                        impl=impl, partial=True, kv_head=kvh)
+                                        **kw)
             continue
-        ys[r], kv = A.attn_apply_with_kv(pms[r], lcfg, spec, h, rope[r], causal=causal,
-                                         impl=impl, partial=True, kv_head=kvh)
+        ys[r], kv = A.attn_apply_with_kv(pms[r], lcfg, spec, h, rope[r], causal=causal, **kw)
         if prefill:
             A.prefill_into_cache(caches[r], spec, kv["k"], kv["v"], h.shape[1])
     return ys
@@ -547,24 +578,26 @@ def _mixer_sharded(pms, cfg, spec, hs, *, ctx, impl, rope=None, caches=None, t=N
 def _cross_sharded(ps, cfg, xs, *, ctx, impl, enc_outs=None, caches=None):
     """The decoder's cross-attention sublayer on every rank (``_cross``):
     each rank's query heads against its KV heads (every one where the
-    tensor axis does not divide them, wk/wv gathered as ``_kv_whole``),
-    its fp32 share of the wo product all-reduced and cast once.  The k/v
-    come from ``enc_outs`` {rank: the encoder output of its rows} (with
-    ``caches`` {rank: the layer's cache}, a prefill, which stores them in
-    "xkv" in the cache's dtype), or from the "xkv" caches (decode)."""
+    tensor axis does not divide them, wk/wv gathered as ``_attn_whole``;
+    every query head where it splits one, wq gathered too), its fp32 share
+    of the wo product all-reduced and cast once.  The k/v come from
+    ``enc_outs`` {rank: the encoder output of its rows} (with ``caches``
+    {rank: the layer's cache}, a prefill, which stores them in "xkv" in the
+    cache's dtype), or from the "xkv" caches (decode)."""
     lcfg = tp_cfg(cfg, ctx.tp_size)
-    pxs = {r: p["xattn"] for r, p in ps.items()}
+    pxs = _attn_whole({r: p["xattn"] for r, p in ps.items()}, cfg, ctx,
+                      kv=enc_outs is not None)
     if enc_outs is None:
         kvs = {r: c["xkv"] for r, c in caches.items()}
     else:
-        whole = _kv_whole(pxs, cfg, ctx)
-        kvs = {r: A.encode_cross_kv(whole[r], lcfg, e) for r, e in enc_outs.items()}
+        kvs = {r: A.encode_cross_kv(pxs[r], lcfg, e) for r, e in enc_outs.items()}
         for r, c in (caches or {}).items():
             _store(c["xkv"], kvs[r])
     ys = ctx.tp_reduce({r: A.cross_attn_apply(pxs[r], lcfg,
                                               L.rmsnorm_apply(ps[r]["lnx"], x, cfg.norm_eps),
                                               enc_kv=kvs[r], impl=impl, partial=True,
-                                              kv_head=_kv_head(cfg, ctx, r))
+                                              kv_head=_kv_head(cfg, ctx, r),
+                                              cols=_out_cols(cfg, ctx, r))
                         for r, x in xs.items()})
     return {r: xs[r] + ys[r].to(xs[r].dtype) for r in xs}
 
@@ -623,9 +656,10 @@ def stack_apply_sharded(layers_params, cfg: ModelConfig, xs, *, ctx, impl="cuda"
 def cache_init_sharded(cfg: ModelConfig, tp: int, batch, max_len, dtype, device, cross=False,
                        enc_len=None):
     """One rank's decode caches at tensor-parallel degree ``tp``: its own KV
-    heads (every one where ``kv_replicated``), RG-LRU channels or SSD heads
-    (``ssm.ssm_state_init_sharded``); with ``cross`` each a decoder layer's
-    {"self", "xkv"}, "xkv" over the same KV heads (``cache_init``'s)."""
+    heads (every one where ``kv_replicated``, so where ``heads_split``),
+    RG-LRU channels or SSD heads (``ssm.ssm_state_init_sharded``); with
+    ``cross`` each a decoder layer's {"self", "xkv"}, "xkv" over the same KV
+    heads (``cache_init``'s)."""
     lcfg = tp_cfg(cfg, tp)
     caches = [S.ssm_state_init_sharded(cfg, batch, cfg.ssm_heads // tp, dtype, device)
               if spec.kind == SSM else layer_cache_init(lcfg, spec, batch, max_len, dtype, device)

@@ -19,21 +19,76 @@ replicas stay bit-equal.  A member's own value is never copied; a group of
 one returns its value unchanged.
 
 ``STATS`` counts the bytes and copies that ``move`` made (forward and
-backward), the traffic a real interconnect would carry.
+backward), the traffic of this one-process emulation.  ``RECORD`` counts
+the collectives themselves, as XLA's HLO lists them: one entry per call
+(not per group), keyed by its kind (``launch/roofline.COLLECTIVES``' names),
+its full payload in bytes (an all-gather's result, a reduce-scatter's
+input, an all-reduce's or all-to-all's value), its group size and the
+number of ``NODE_CARDS``-card nodes a group spans (ids ``i //
+NODE_CARDS`` share a node).  A call made where autograd records also
+tags its output, so its backward is recorded as the dual collective (an
+all-gather's as a reduce-scatter, an all-reduce's as an all-reduce).
+Groups of one are not recorded.  The roofline prices ``RECORD``, not
+``STATS``, because this module's all-reduce gathers to one member where a
+ring would not.
 """
 
 from __future__ import annotations
 
+import collections
 import math
 
 import numpy as np
 import torch
 
 STATS = {"bytes": 0, "copies": 0}
+NODE_CARDS = 8  # cards per H100 node, joined by NVLink
+RECORD: collections.Counter = collections.Counter()  # (kind, bytes, k, nodes) -> calls
+
+_DUAL = {"all-gather": "reduce-scatter", "reduce-scatter": "all-gather",
+         "all-reduce": "all-reduce", "all-to-all": "all-to-all",
+         "collective-permute": "collective-permute"}
 
 
 def reset_stats():
     STATS.update(bytes=0, copies=0)
+    RECORD.clear()
+
+
+def _key(kind: str, nbytes: int, gs) -> tuple:
+    return (kind, int(nbytes), len(gs[0]),
+            max(len({i // NODE_CARDS for i in g}) for g in gs))
+
+
+class _Tag(torch.autograd.Function):
+    """The identity; its backward records the call's dual collective."""
+
+    @staticmethod
+    def forward(ctx, x, key):
+        ctx.key = key
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        RECORD[ctx.key] += 1
+        return g, None
+
+
+def _record(out: dict, kind: str, nbytes: int, gs, backward=True) -> dict:
+    """Count one call of ``kind`` over the groups ``gs``; tag one member's
+    output so that its backward counts the dual call."""
+    if len(gs[0]) < 2:
+        return out
+    RECORD[_key(kind, nbytes, gs)] += 1
+    first = gs[0][0]
+    if backward and first in out and out[first].requires_grad:
+        out = dict(out)
+        out[first] = _Tag.apply(out[first], _key(_DUAL[kind], nbytes, gs))
+    return out
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 class _Move(torch.autograd.Function):
@@ -93,7 +148,8 @@ def all_reduce(xs: dict, mesh, axis, *, op: str = "sum") -> dict:
     if op not in ("sum", "max"):
         raise ValueError(f"all_reduce: op={op!r}; need 'sum' or 'max'")
     out = {}
-    for g in groups(mesh, axis):
+    gs = groups(mesh, axis)
+    for g in gs:
         root = xs[g[0]]
         if len(g) == 1:
             out[g[0]] = root
@@ -105,26 +161,28 @@ def all_reduce(xs: dict, mesh, axis, *, op: str = "sum") -> dict:
         out[g[0]] = total
         for r in g[1:]:
             out[r] = move(total, xs[r].device)
-    return out
+    return _record(out, "all-reduce", _nbytes(xs[gs[0][0]]), gs, backward=op == "sum")
 
 
 def all_gather(xs: dict, mesh, axis, dim: int = 0) -> dict:
     """Every member gets the group's values concatenated along ``dim`` in
     rank order."""
     out = {}
-    for g in groups(mesh, axis):
+    gs = groups(mesh, axis)
+    for g in gs:
         for m in g:
             dev = xs[m].device
             parts = [xs[r] if r == m else move(xs[r], dev) for r in g]
             out[m] = parts[0] if len(parts) == 1 else torch.cat(parts, dim)
-    return out
+    return _record(out, "all-gather", _nbytes(out[gs[0][0]]), gs)
 
 
 def reduce_scatter(xs: dict, mesh, axis, dim: int = 0) -> dict:
     """Member i gets the sum over the group, in rank order, of every
     member's i-th chunk along ``dim`` (which the group size must divide)."""
     out = {}
-    for g in groups(mesh, axis):
+    gs = groups(mesh, axis)
+    for g in gs:
         k = len(g)
         for i, m in enumerate(g):
             dev = xs[m].device
@@ -137,14 +195,15 @@ def reduce_scatter(xs: dict, mesh, axis, dim: int = 0) -> dict:
                 c = c if r == m else move(c, dev)
                 total = c if total is None else total + c
             out[m] = total
-    return out
+    return _record(out, "reduce-scatter", _nbytes(xs[gs[0][0]]), gs)
 
 
 def all_to_all(xs: dict, mesh, axis, split_dim: int = 0, concat_dim: int = 0) -> dict:
     """Member i gets, concatenated along ``concat_dim`` in rank order, the
     i-th chunk along ``split_dim`` of every member's value."""
     out = {}
-    for g in groups(mesh, axis):
+    gs = groups(mesh, axis)
+    for g in gs:
         k = len(g)
         for i, m in enumerate(g):
             dev = xs[m].device
@@ -156,7 +215,7 @@ def all_to_all(xs: dict, mesh, axis, split_dim: int = 0, concat_dim: int = 0) ->
                 c = xs[r].chunk(k, split_dim)[i]
                 parts.append(c if r == m else move(c, dev))
             out[m] = torch.cat(parts, concat_dim)
-    return out
+    return _record(out, "all-to-all", _nbytes(xs[gs[0][0]]), gs)
 
 
 def ppermute(xs: dict, mesh, axis, perm) -> dict:
@@ -165,7 +224,8 @@ def ppermute(xs: dict, mesh, axis, perm) -> dict:
     gets zeros, as XLA's ``ppermute``.  Ranks missing from ``xs`` (idle
     pipeline stages) send nothing, and their destinations get no entry."""
     out = {}
-    for g in groups(mesh, axis):
+    gs = groups(mesh, axis)
+    for g in gs:
         for src, dst in perm:
             if g[src] in xs:
                 x = xs[g[src]]
@@ -173,15 +233,18 @@ def ppermute(xs: dict, mesh, axis, perm) -> dict:
         for r in g:
             if r not in out and r in xs:
                 out[r] = torch.zeros_like(xs[r])
-    return out
+    if not xs:
+        return out
+    return _record(out, "collective-permute", _nbytes(next(iter(xs.values()))), gs)
 
 
 def broadcast(xs: dict, mesh, axis, src: int) -> dict:
     """Every member of each group gets a copy of the value held by the
-    member at index ``src``."""
+    member at index ``src`` (recorded as a collective-permute of it)."""
     out = {}
-    for g in groups(mesh, axis):
+    gs = groups(mesh, axis)
+    for g in gs:
         x = xs[g[src]]
         for r in g:
             out[r] = x if r == g[src] else move(x, mesh.torch_device(r))
-    return out
+    return _record(out, "collective-permute", _nbytes(xs[gs[0][src]]), gs, backward=False)

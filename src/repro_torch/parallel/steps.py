@@ -19,9 +19,11 @@ are all-reduced over it, so every replica holds the same bits after the
 step.  Every mixer runs (attention, RG-LRU, SSD; ``models/transformer.py``
 says how each splits) and either MoE dispatch, and so do an
 encoder-decoder's encoder and cross-attention and a prefix model's splice
-(``models/model.py``); a tensor axis must divide the query heads, the FFN
-width, the experts, the RG-LRU width and the SSD heads, and leave each
-rank's query heads within whole KV groups (``transformer.check_sharded``).
+(``models/model.py``); a tensor axis must divide q_dim, the FFN width,
+the experts, the RG-LRU width and the SSD heads
+(``transformer.check_sharded``); where it splits a query head, every rank
+computes every head (``transformer.heads_split``).  The AdamW state may
+be ZeRO-1 over the pod axis (``opt_layouts``).
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ from repro_torch.parallel.layout import (Layout, P, ShardedTensor, axes_of, tree
 
 def check_mesh(cfg: ModelConfig, mesh, rules: SH.ShardingRules):
     """Raise unless ``rules``' axes are axes of ``mesh`` and its tensor axis
-    splits ``cfg`` into whole heads, FFN columns and experts."""
+    splits ``cfg``'s q_dim, FFN columns and experts evenly
+    (``transformer.check_sharded``)."""
     for a in (rules.tp_axis, rules.fsdp_axis, *rules.batch_axes):
         if a and a not in mesh.shape:
             raise ValueError(f"rules name axis {a!r}, not in mesh {mesh.axis_names}")
@@ -139,8 +142,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *, impl="cuda"
     With a ``mesh`` (and ``rules``, default ``ShardingRules()``: FSDP over
     data, TP over model) they are a tree of ``ShardedTensor``s laid out by
     ``param_shardings`` (sanitized), the optimizer state ``adamw.init`` of
-    them (laid out as ``opt_state_specs`` mirrors), and the batch a dict of
-    global (B, S) tensors; the loss is ``model.lm_loss_sharded``."""
+    them, on their layouts or on ``opt_layouts``' (ZeRO-1 over the pod
+    axis: each rank updates its slice, then the slices are all-gathered),
+    and the batch a dict of global (B, S) tensors; the loss is
+    ``model.lm_loss_sharded``."""
     if mesh is None:
         def loss_fn(params, batch):
             return MDL.lm_loss(params, cfg, batch, impl=impl, remat=remat)
@@ -164,6 +169,19 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *, impl="cuda"
         return params, opt_state, {"loss": loss, **aux, **stats}
 
     return step
+
+
+def opt_layouts(params, mesh, rules: SH.ShardingRules, *, pod_size=None):
+    """The ``Layout`` tree of the AdamW state (m, v, master) of the
+    ``ShardedTensor`` tree ``params``: ``opt_state_specs`` of their specs
+    and shapes, sanitized, as the JAX package lays it out.  Where
+    ``rules.pod_axis`` is set and ``shard_opt_over_pod`` (ZeRO-1), each
+    leaf's first whole dim that ``pod_size`` (default: the pod axis's
+    size) divides is split over the pod axis too."""
+    pspecs = tree_map(lambda st: st.layout.spec, params)
+    size = pod_size or (mesh.shape[rules.pod_axis] if rules.pod_axis else 2)
+    specs = SH.opt_state_specs(pspecs, rules, params, pod_size=size)["m"]
+    return tree_map(lambda s: Layout(mesh, s), SH.sanitize_specs(specs, params, mesh))
 
 
 def _logits_layout(params, cfg, mesh, rules, c):
@@ -195,7 +213,7 @@ def _at(tree, path):
     return tree
 
 
-def _wrap_caches(caches: dict, cfg, mesh, rules):
+def wrap_caches(caches: dict, cfg, mesh, rules):
     """{rank: layer caches} as a list per layer of the same (nested) dicts
     of ``ShardedTensor``s, each rank's block its batch rows and its share
     over the tensor axis (``_CACHE_TP_DIM``)."""
@@ -277,7 +295,7 @@ def make_prefill_step(cfg: ModelConfig, *, impl="cuda", extra_len: int = 0, mesh
                                                  s + max(extra_len, 1), ctx=c, impl=impl)
             logits = _as_sharded(logits, _logits_layout(params, cfg, mesh, rules, c),
                                  (b, cfg.vocab_size))
-        return logits, _wrap_caches(caches, cfg, mesh, rules)
+        return logits, wrap_caches(caches, cfg, mesh, rules)
 
     return step
 

@@ -45,19 +45,19 @@ def main(argv=None):
                                    search_iters=args.search_iters,
                                    ppo=PPOHyperparameters(n_minibatches=2))
     print("searching an execution plan (MCMC over meshes x strategies)...")
-    exp = RLHFExperiment(actor, actor, Cluster(n_nodes=1, devs_per_node=1, chip=chip), exp_cfg,
-                         device=args.device)
-    print(exp.plan)
+    experiment = RLHFExperiment(actor, actor, Cluster(n_nodes=1, devs_per_node=1, chip=chip),
+                                exp_cfg, device=args.device)
+    print(experiment.plan)
     for it in range(args.iters):
         t0 = time.perf_counter()
-        out = exp.run_iteration(it)
-        s = exp.engine.stats()
+        out = experiment.run_iteration(it)
+        s = experiment.engine.stats()
         print(f"iter {it}: {time.perf_counter() - t0:7.3f}s  "
               f"actor_loss={out['actor_stats']['loss']:+.4e}  "
               f"critic_loss={out['critic_stats']['loss']:.4f}  "
               f"reward_mean={float(out['rewards'].mean()):+.3f}  "
               f"realloc={s['realloc_s']:.3f}s")
-    return exp
+    return experiment
 
 
 if __name__ == "__main__":

@@ -78,6 +78,9 @@ class ExperimentConfig:
     eos_id: Optional[int] = None
     top_k: int = 0
     top_p: float = 1.0
+    # launch/serve.build_server's engine: "bucketed" or "continuous" (paged KV)
+    serve_mode: str = "continuous"
+    max_kv_blocks: int = 0  # total pool blocks (0 = worst-case auto-size)
     # checkpoint every N retired iterations through checkpoint/manager.py
     checkpoint_every: int = 0
     checkpoint_dir: Optional[str] = None

@@ -389,11 +389,14 @@ def test_fewer_tokens_than_the_prefix_raise():
 def test_sharded_steps_refuse(name):
     """Every step with a mesh builds for both configs (the JAX package's
     GSPMD steps run them; the port's run in ``test_torch_tp_modal.py``),
-    and refuses, with a ``ValueError``, only a tensor axis that splits a
-    head: 8 model ranks over the reduced configs' 4 query heads."""
+    8 model ranks over the reduced configs' 4 query heads too (each rank
+    computes every head), and refuses, with a ``ValueError``, only a
+    tensor axis that does not divide q_dim: 3 model ranks over 64."""
     tcfg = get_config(name).reduced()
     for mesh, refused in ((TMESH.make_test_mesh(4, device="cpu"), False),
                           (TMESH.submesh(range(8), (1, 8), ("data", "model"), device="cpu"),
+                           False),
+                          (TMESH.submesh(range(3), (1, 3), ("data", "model"), device="cpu"),
                            True)):
         for make in (lambda: TSTEPS.make_train_step(tcfg, tadamw.AdamWConfig(), mesh=mesh),
                      lambda: TSTEPS.make_prefill_step(tcfg, mesh=mesh),
@@ -401,5 +404,5 @@ def test_sharded_steps_refuse(name):
             if not refused:
                 assert callable(make())
                 continue
-            with pytest.raises(ValueError, match="does not divide 4 query heads"):
+            with pytest.raises(ValueError, match="does not divide q_dim 64 .4 query heads"):
                 make()

@@ -291,7 +291,7 @@ def test_check_sharded_accepts_the_modal_configs():
     """Full configs at TP 2 and 4: seamless's 16 KV heads and internvl2's 8
     split by head (no replication); seamless's vocabulary of 256,206 split
     at TP 2 and whole at TP 4, internvl2's 128,256 split at both; a degree
-    that splits a query head raises ``ValueError``."""
+    that does not divide q_dim raises ``ValueError``."""
     for arch in ARCHS:
         cfg = get_config(arch)
         for tp in (2, 4):

@@ -266,7 +266,8 @@ def test_check_sharded_accepts_the_recurrent_and_capacity_configs():
     """Full configs: mamba2-1.3b and recurrentgemma-9b at TP 2 and 4,
     gemma3-1b at TP 4, arctic-480b's capacity dispatch at TP 2; the
     encoder-decoder and prefix configs run at TP 2 and 4 and are refused
-    only at a degree that splits a head."""
+    only at a degree that does not divide q_dim; a rank's query heads that
+    straddle KV groups run (every rank computes every head)."""
     for arch in ARCHS:
         for tp in (2, 4):
             TT.check_sharded(get_config(arch), tp)
@@ -280,8 +281,9 @@ def test_check_sharded_accepts_the_recurrent_and_capacity_configs():
             TT.check_sharded(get_config(arch), tp)
         with pytest.raises(ValueError, match="query heads"):
             TT.check_sharded(get_config(arch), 3)
-    with pytest.raises(ValueError, match="straddle"):
-        TT.check_sharded(get_config("qwen2-0.5b").reduced(n_heads=6, n_kv_heads=3), 2)
+    straddle = get_config("qwen2-0.5b").reduced(n_heads=6, n_kv_heads=3)
+    TT.check_sharded(straddle, 2)  # 3 query heads a rank over groups of 2: every head
+    assert TT.heads_split(straddle, 2) and TT.tp_cfg(straddle, 2).n_heads == 6
     with pytest.raises(ValueError, match="lru_width"):
         TT.check_sharded(get_config("recurrentgemma-9b").reduced(lru_width=60, n_heads=8), 8)
     with pytest.raises(ValueError, match="SSD heads"):

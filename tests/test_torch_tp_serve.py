@@ -99,8 +99,9 @@ def test_decode_updates_the_blocks_in_place_and_refuses_grad():
     assert caches[0]["k"].blocks[1].data_ptr() == ptr
     assert not torch.equal(caches[0]["k"].blocks[1], before[1])
     assert not lg.blocks[0].requires_grad
-    with pytest.raises(ValueError, match="KV heads"):
-        steps.make_prefill_step(cfg, impl="reference", mesh=cpu_mesh((1, 8)))
+    steps.make_prefill_step(cfg, impl="reference", mesh=cpu_mesh((1, 8)))  # a split head
+    with pytest.raises(ValueError, match="q_dim"):
+        steps.make_prefill_step(cfg, impl="reference", mesh=cpu_mesh((1, 3)))
     with pytest.raises(ValueError, match="rows"):
         steps.make_prefill_step(cfg, impl="reference", mesh=cpu_mesh((4, 1)))(
             place(params, cpu_mesh((4, 1))), TM.synth_batch(1, cfg, 6, 2, "prefill",

@@ -299,16 +299,19 @@ def test_global_norm_counts_each_region_once():
 
 def test_non_dividing_meshes_and_cuda_on_the_host_raise():
     opt = adamw.AdamWConfig()
-    with pytest.raises(ValueError, match="KV heads"):
-        steps.make_train_step(reduced(), opt, impl="reference", mesh=cpu_mesh((1, 8)))
+    steps.make_train_step(reduced(), opt, impl="reference", mesh=cpu_mesh((1, 8)))  # split heads
+    with pytest.raises(ValueError, match="q_dim"):
+        steps.make_train_step(reduced(), opt, impl="reference", mesh=cpu_mesh((1, 3)))
     with pytest.raises(ValueError, match="experts"):
         steps.make_train_step(reduced("granite-moe-1b-a400m", n_heads=8, n_kv_heads=8), opt,
                               impl="reference", mesh=cpu_mesh((1, 8)))
     steps.make_train_step(reduced("seamless-m4t-medium"), opt, impl="reference",
                           mesh=cpu_mesh((2, 1)))
+    steps.make_train_step(reduced("seamless-m4t-medium"), opt, impl="reference",
+                          mesh=cpu_mesh((1, 8)))
     with pytest.raises(ValueError, match="query heads"):
         steps.make_train_step(reduced("seamless-m4t-medium"), opt, impl="reference",
-                              mesh=cpu_mesh((1, 8)))
+                              mesh=cpu_mesh((1, 3)))
     cfg = reduced()
     params = TM.init_params(cfg, seed=0, device="cpu")
     mesh = cpu_mesh((2, 2))
