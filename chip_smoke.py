@@ -212,7 +212,9 @@ Phases, in order; any failure exits non-zero before the last line:
      trained layers: a prefill of 4 x 256 tokens and 8 decode steps
      against one device (LOGIT_TOL), then the same on 2 fp32 layers
      (FP32_GRAD_TOL, FP32_LOGIT_TOL); (b) recurrentgemma-9b (RG-LRU split
-     by channel, its one KV head replicated over the model axis) the same
+     by channel, its one KV head on every rank for a quarter of each
+     local-attention cache's slots, the ranks' decode partials merged by
+     log-sum-exp) the same
      on 5 of 38 layers and 3 fp32 ones, served at the trained depth; (c)
      arctic-480b's capacity dispatch on 1 layer on (2, 2) with FSDP off:
      the single-device forward first, its tree placed leaf by leaf after,
@@ -254,10 +256,29 @@ Phases, in order; any failure exits non-zero before the last line:
      ``max_memory_allocated`` rise within DRY_PEAK_BAND; then one
      production cell through the dry run's CLI (qwen2-0.5b decode_32k on
      the 256-card mesh).
+ 18. decode caches split by slot (where the tensor axis does not divide
+     the KV heads, every rank holds every KV head for a ceil-sized block of
+     each cache's slots, attends it with flash_decode(return_lse=True) and
+     the ranks merge by log-sum-exp; phases 15b, 16b and 17a run the same
+     layout): (a) the lse variant against its plain version at phase 2's
+     decode shapes in bf16 (KERNEL_TOL) and fp32 (LSE_FP32_TOL), a row of
+     length 0 coming back 0 with lse -inf, its rows rounded to the input
+     dtype equal to the no-lse output bit for bit, and flash_decode and
+     paged_flash_decode without lse held to their digests from before the
+     lse variant (DECODE_DIGESTS), the variant timed beside its bound and
+     SDPA; (b) internvl2-76b at full width on 2 of 80 layers on (1, 16):
+     2 x 636 positions in a cache of 1,024 slots (64 a rank; ranks 10-15
+     hold no valid slot after the prefill) and 8 decode steps crossing into
+     rank 10's block, bf16 (LOGIT_TOL) and fp32 (SPLIT_FP32_TOL); (c)
+     gemma3-1b on (1, 8), all 26 layers, 4 x 600 tokens and 8 steps (each
+     512-slot ring 64 a rank, the global layers' 608 slots 76 a rank), and
+     one local and one global layer in fp32; bytes, launches and each
+     rank's k/v bytes to their predictions from the shapes, the cache bytes
+     on the card printed beside the replicated layout's.
 Each model's parameters are freed before the next is built.
 Then one JSON line of kernel numbers, and last {"ok": true, "device": ...}.
 
-Phases 3 to 17 are functions of (config, params or experiment, impl) so the
+Phases 3 to 18 are functions of (config, params or experiment, impl) so the
 CPU tests rehearse them at the reduced size with impl="reference".
 """
 
@@ -266,6 +287,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import os
@@ -3736,17 +3758,20 @@ def report_tp_train(device, total, *, layers=2):
 
 
 def phase_tp_serve(cfg, params, layout, *, impl, batch=4, prompt_len=256, steps=8, seed=0,
-                   sharded=None):
+                   sharded=None, extra_len=None):
     """11b: a sharded ``make_prefill_step`` and ``steps`` sharded
     ``make_decode_step``s on a ``layout`` mesh against the single-device
-    steps, both fed the single-device run's greedy tokens.  ``sharded``:
-    (mesh, tree) already laid out (else ``params`` placed by
+    steps, both fed the single-device run's greedy tokens, the caches made
+    for ``extra_len`` (default ``steps``) positions past the prompt.
+    ``sharded``: (mesh, tree) already laid out (else ``params`` placed by
     ``shard_params``).  An encoder-decoder's or prefix model's prompt
     carries its frames or prefix embeddings (``modal_batch``).  Returns the
     scaled logit errors, the greedy agreement, the gathered caches' largest
     difference (``cache_diff``; ``cache_err`` over each leaf's largest
-    |value|), seconds (the single device's too), bytes and launches per
+    |value|), each rank's bytes of self-attention k/v (``kv_bytes``, in
+    mesh order), seconds (the single device's too), bytes and launches per
     call."""
+    extra_len = steps if extra_len is None else extra_len
     device = params["embed"]["table"].device
     if cfg.prefix_len:
         prompt = modal_batch(cfg, device, batch=batch, seq=prompt_len, seed=seed)
@@ -3756,7 +3781,7 @@ def phase_tp_serve(cfg, params, layout, *, impl, batch=4, prompt_len=256, steps=
                                                           (batch, prompt_len))).to(device)}
     reset_launches()
     t0 = time.perf_counter()
-    lg, caches = PSTEPS.make_prefill_step(cfg, impl=impl, extra_len=steps)(params, prompt)
+    lg, caches = PSTEPS.make_prefill_step(cfg, impl=impl, extra_len=extra_len)(params, prompt)
     sync(device)
     ref_prefill_s = time.perf_counter() - t0
     want, feed = [lg], []
@@ -3773,7 +3798,7 @@ def phase_tp_serve(cfg, params, layout, *, impl, batch=4, prompt_len=256, steps=
     COLL.reset_stats()
     reset_launches()
     t0 = time.perf_counter()
-    lg, scaches = PSTEPS.make_prefill_step(cfg, impl=impl, extra_len=steps, mesh=mesh)(
+    lg, scaches = PSTEPS.make_prefill_step(cfg, impl=impl, extra_len=extra_len, mesh=mesh)(
         sharded, prompt)
     sync(device)
     out = dict(prefill_s=time.perf_counter() - t0, prefill_bytes=COLL.STATS["bytes"],
@@ -3802,6 +3827,10 @@ def phase_tp_serve(cfg, params, layout, *, impl, batch=4, prompt_len=256, steps=
                argmax_agreement=(got.argmax(-1) == want.argmax(-1)).float().mean().item(),
                cache_diff=max(diffs),
                cache_err=max(d / max(m, 1e-30) for d, m in zip(diffs, mags)),
+               kv_bytes=[sum(st.blocks[r].numel() * st.blocks[r].element_size()
+                             for spec, layer in zip(cfg.layers, scaches) if spec.kind == ATTN
+                             for st in tree_leaves(layer.get("self", layer)))
+                         for r in mesh.device_ids],
                n_ranks=mesh.size)
     return out
 
@@ -5337,7 +5366,7 @@ def report_arctic(device, total, kern):
 # Sharded compute of the recurrent mixers and of the capacity dispatch, on
 # logical devices of the card (phase 11's machinery): mamba2-1.3b's SSD
 # layer split by head, recurrentgemma-9b's RG-LRU block by channel and its
-# local attention's one KV head replicated over the tensor axis, each
+# local attention's one KV head on every rank for a block of the slots, each
 # trained on TRAIN_LAYOUT, its trained tree moved to GEN_LAYOUT by
 # ``prefetch_reshard`` and served there; arctic-480b's capacity dispatch
 # over the global cohort of CAP_LAYOUT's replicas.
@@ -5366,15 +5395,20 @@ def allgather_bytes(part, k, groups=1):
     return groups * k * (k - 1) * part
 
 
-def stack_bytes(cfg, tp, rows, seq, *, cross=None):
+def stack_bytes(cfg, tp, rows, seq, *, cross=None, decode=False):
     """Bytes the collectives move in one sharded pass of ``rows`` x ``seq``
     through ``cfg``'s layer stack on a (1, tp) mesh: per layer the mixer's
     and the FFN's fp32 shares summed; an SSD layer's ``in_proj`` product,
     conv weights and norm sums of squares; a replicated-KV attention
     layer's wk/wv blocks, and its wq blocks where the axis splits a head
-    (``heads_split``).  ``cross`` ("prefill" or "decode") adds a decoder
-    layer's cross-attention: its fp32 shares summed, and in prefill its
-    wk/wv blocks where replicated (decode reads its "xkv" cache)."""
+    (``heads_split``).  A ``decode`` step over caches split by slot
+    (``seq_split``) gathers wq too (every rank computes every query head)
+    and merges the ranks' partials: an all-reduce max of the (rows, Hq)
+    fp32 lse and an all-reduce sum of the (rows, Hq, Dh + 1) fp32 weighted
+    rows and weights.  ``cross`` ("prefill" or "decode") adds a decoder
+    layer's cross-attention: its fp32 shares summed, its wq blocks where
+    ``heads_split``, and in prefill its wk/wv blocks where replicated
+    (decode reads its "xkv" cache)."""
     bf, f32 = L.dtype_of(cfg).itemsize, 4
     act = rows * seq * cfg.d_model
     kv_w = q_w = 0
@@ -5383,6 +5417,11 @@ def stack_bytes(cfg, tp, rows, seq, *, cross=None):
         kv_w = 2 * allgather_bytes(rows_w * cfg.kv_dim // tp * bf, tp)
     if T.heads_split(cfg, tp):  # wq gathered too: every rank computes every head
         q_w = allgather_bytes(rows_w * cfg.q_dim // tp * bf, tp)
+    self_q_w, merge = q_w, 0
+    if decode and tp > 1 and T.seq_split(cfg, tp):
+        self_q_w = allgather_bytes(rows_w * cfg.q_dim // tp * bf, tp)
+        merge = (allreduce_bytes(rows * cfg.n_heads * f32, tp)
+                 + allreduce_bytes(rows * cfg.n_heads * (cfg.head_dim + 1) * f32, tp))
     out = 0
     for spec in cfg.layers:
         out += allreduce_bytes(act * f32, tp)
@@ -5398,7 +5437,7 @@ def stack_bytes(cfg, tp, rows, seq, *, cross=None):
             out += allgather_bytes((cfg.ssm_conv + 1) * ch // tp * bf, tp)
             out += allreduce_bytes(rows * seq * f32, tp)
         elif spec.kind == ATTN:
-            out += kv_w + q_w
+            out += kv_w + self_q_w + merge
     return out
 
 
@@ -5411,8 +5450,9 @@ def sharded_serve_bytes(cfg, tp, rows, seq, *, decode=False):
     out = (allreduce_bytes(rows * seq * cfg.d_model * L.dtype_of(cfg).itemsize, tp)
            if cfg.vocab_size % tp == 0 else 0)
     if cfg.family != "encdec":
-        return out + stack_bytes(cfg, tp, rows, seq)
-    out += stack_bytes(cfg, tp, rows, seq, cross="decode" if decode else "prefill")
+        return out + stack_bytes(cfg, tp, rows, seq, decode=decode)
+    out += stack_bytes(cfg, tp, rows, seq, cross="decode" if decode else "prefill",
+                       decode=decode)
     return out if decode else out + stack_bytes(cfg, tp, rows, cfg.prefix_len)
 
 
@@ -6189,6 +6229,305 @@ def report_phase17(device, total):
         print(f"[time] phase 17{tag} {time.perf_counter() - t0:.1f}s")
 
 
+# ------------------------------- phase 18: decode caches split by slot
+
+SEQ_MODEL = "internvl2-76b"   # (b): 8 KV heads over 16 ranks
+SEQ_LAYOUT = (1, 16)          # every KV head on each rank for 64 of the 1,024 slots
+SEQ_LAYERS = 2                # of its 80
+SEQ_ROWS = 2
+SEQ_PROMPT = 636              # the 256 patch embeddings and 380 tokens: ranks 0-9's blocks
+SEQ_SLOTS = 1024              # t = 636 .. 643 crosses from rank 9's block into rank 10's
+SEQ_STEPS = 8
+GEMMA_SEQ_LAYERS = 2          # (c)'s fp32 run: one local (ring) layer and the global one
+# the split decode in fp32 against one device: only the order of the sums
+# differs (the ranks' partials merged, the row-parallel shares summed)
+SPLIT_FP32_TOL = 1e-5
+# flash_decode(return_lse) in fp32 against its plain version (fp32 FMAs
+# against the plain einsum; ~1e-7 of the output, ~1e-6 of the lse)
+LSE_FP32_TOL = 1e-5
+# digests of flash_decode's and paged_flash_decode's outputs (no lse) on
+# ``decode_digest_inputs`` before return_lse was added, by the card's SM
+# count: scripts/decode_digests.py on the tree before it, on an NVIDIA H100
+# 80GB HBM3 (132 SMs, 700 W), where the tree after it gave the same digests
+DECODE_DIGESTS = {132: {
+    "flash_decode D64 linear (qwen2-0.5b) bf16":
+        "f18ccfa665f166a19882f548728fc9d5d86fafb10d3f07a5761f94099277b781",
+    "flash_decode D64 ring256 bf16":
+        "f312baf29d1989c69d1c70111f538ae9720ed918815bffe0419ffb71032e9aa9",
+    "flash_decode D128 linear (llama-7b) bf16":
+        "f6e1abb8371edecdfd38d17f2f320f55ec996e212114b587284ffeaeeef052af",
+    "flash_decode D256 ring576 (recurrentgemma-9b) bf16":
+        "89d6ec1c4094f4d9176856007b6c6d7954563465854f9189c33e2a8d0561b534",
+    "flash_decode D256 ring512 G4 (gemma3-1b) bf16":
+        "9aa821c89e8bc88563f83485e917bdf714628a0c3bd774d83e16c3fdcfd68520",
+    "flash_decode D128 G8 block (internvl2-76b on 16 ranks) bf16":
+        "7f96040916680ebeec7b0a3c34851b0e9d820599818d8e24adf95d78c58e3b45",
+    "paged_flash_decode shuffled bf16":
+        "bebb8fe31277311cce638e8f84dfbbd2d36936a6e24703d7ccee6c6f4af2ac54",
+    "flash_decode D64 linear (qwen2-0.5b) fp32":
+        "8e4b05866f5776147a8f223b6cfcec3f90d46c244dc3fc11a48c82ce6358b733",
+    "flash_decode D64 ring256 fp32":
+        "64625294c56fc9d1ee635a54ecb96d8b0449707abffe65314d68fd9f066c6de2",
+    "flash_decode D128 linear (llama-7b) fp32":
+        "0d475d402c2db53114aadf77fa4dbac4dd9060d0b270648a311a5ff1cab371de",
+    "flash_decode D256 ring576 (recurrentgemma-9b) fp32":
+        "4dd14c7f6c63bb9c99f74e684018263b01b13c8d7be83cdbc95857e52d7cab4c",
+    "flash_decode D256 ring512 G4 (gemma3-1b) fp32":
+        "905133abd7af39e5d66c1e8d78e5b6467334b355bd596a5d2a2dc80acd46aab8",
+    "flash_decode D128 G8 block (internvl2-76b on 16 ranks) fp32":
+        "baea578553ab01da68c524710dccc75915e134d6dced7e761641fac26f895ffb",
+    "paged_flash_decode shuffled fp32":
+        "22b095d5d5d19eb04c614a74203441768e686d016303d06ea24d9c1fcd3b6e0a",
+}}
+
+
+def np_tensor(g, shape, dtype, device):
+    """Seeded normal values made on the host (numpy), cast there, moved to
+    ``device``: the same bits on any card."""
+    x = torch.from_numpy(g.standard_normal(shape).astype(np.float32)).to(dtype)
+    return x.to(device)
+
+
+# (label, B, Hq, Hkv, D, C, lens, window): phase 2's decode shapes, each
+# with a row of length 0
+LSE_CASES = (("D64 linear (qwen2-0.5b)", 8, 14, 2, 64, 1088,
+              (0, 17, 64, 65, 400, 777, 1000, 1088), None),
+             ("D64 ring256", 8, 14, 2, 64, 256, (0, 1, 100, 255, 256, 257, 1000, 3000), 256),
+             ("D128 linear (llama-7b)", 8, 32, 8, 128, 1088,
+              (0, 17, 64, 65, 400, 777, 1000, 1088), None),
+             ("D256 ring576 (recurrentgemma-9b)", 8, 16, 1, 256, 576,
+              (0, 1, 64, 200, 333, 575, 576, 900), 2048),
+             ("D256 ring512 G4 (gemma3-1b)", 8, 4, 1, 256, 512,
+              (0, 100, 511, 512, 513, 700, 1000, 2048), 512),
+             ("D128 G8 block (internvl2-76b on 16 ranks)", 2, 64, 8, 128, 64, (0, 60), None))
+
+
+def decode_digest_inputs(device):
+    """{name: (kernel name, args, kwargs)}: flash_decode on LSE_CASES'
+    shapes and paged_flash_decode on a shuffled 36-block table, bf16 and
+    fp32, inputs from numpy (``np_tensor``)."""
+    out = {}
+    for dt, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        g = np.random.default_rng(18)
+        for label, b, hq, hkv, d, c, lens, window in LSE_CASES:
+            q, kc, vc = (np_tensor(g, s, dtype, device)
+                         for s in ((b, hq, d), (b, c, hkv, d), (b, c, hkv, d)))
+            cl = torch.tensor(lens, dtype=torch.int32, device=device)
+            out[f"flash_decode {label} {dt}"] = ("flash_decode", (q, kc, vc),
+                                                 dict(cache_len=cl, window=window))
+        b, hq, hkv, d, m, bs = 8, 14, 2, 64, 36, 16
+        n = 1 + b * m
+        table = torch.from_numpy((g.permutation(n - 1) + 1).reshape(b, m).astype(np.int32))
+        q, kp, vp = (np_tensor(g, s, dtype, device)
+                     for s in ((b, hq, d), (n, bs, hkv, d), (n, bs, hkv, d)))
+        cl = torch.tensor([0, 1, 17, 64, 100, 333, 500, m * bs], dtype=torch.int32,
+                          device=device)
+        out[f"paged_flash_decode shuffled {dt}"] = ("paged_flash_decode",
+                                                    (q, kp, vp, table.to(device)),
+                                                    dict(cache_len=cl))
+    return out
+
+
+def decode_digests(device, kernels):
+    """{name: sha256 of the output's bytes} of ``decode_digest_inputs``
+    through ``kernels`` {"flash_decode": fn, "paged_flash_decode": fn}."""
+    out = {}
+    for name, (kernel, args, kw) in decode_digest_inputs(device).items():
+        y = kernels[kernel](*args, **kw)
+        torch.cuda.synchronize()
+        out[name] = hashlib.sha256(y.view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def lse_case(device, label, b, hq, hkv, d, c, lens, window, dtype):
+    """flash_decode(return_lse=True) against its plain version on one
+    shape: (out err, lse err, the empty rows exact, the no-lse output's bits
+    kept on the rows with a key)."""
+    g = np.random.default_rng(c + d)
+    q, kc, vc = (np_tensor(g, s, dtype, device)
+                 for s in ((b, hq, d), (b, c, hkv, d), (b, c, hkv, d)))
+    cl = torch.tensor(lens, dtype=torch.int32, device=device)
+    out, lse = flash_decode(q, kc, vc, cache_len=cl, window=window, return_lse=True)
+    want, want_lse = ref.decode_mha_ref(q, kc, vc, cache_len=cl, window=window,
+                                        return_lse=True)
+    plain = flash_decode(q, kc, vc, cache_len=cl, window=window)
+    torch.cuda.synchronize()
+    empty = cl == 0
+    check(out.dtype == lse.dtype == torch.float32 and lse.shape == (b, hq),
+          f"flash_decode return_lse {label}: dtypes {out.dtype}/{lse.dtype}")
+    exact = (bool((out[empty] == 0).all()) and bool(torch.isneginf(lse[empty]).all())
+             and bool((want[empty] == 0).all()) and bool(torch.isneginf(want_lse[empty]).all()))
+    full = ~empty
+    out_err = _max_err(out[full], want[full])
+    lse_err = ((lse[full] - want_lse[full]).abs().max()
+               / want_lse[full].abs().max().clamp(min=1)).item()
+    kept = torch.equal(out[full].to(dtype), plain[full])
+    return out_err, lse_err, exact, kept
+
+
+def lse_timing(device):
+    """flash_decode(return_lse=True) at phase 2's main decode shape (bf16,
+    8 rows of 14 query heads over 2 KV heads, D 64, the 1,088-slot linear
+    cache at ragged lengths with a row of 0): kernel, plain version, bound
+    (the bytes of q, the live keys and values, the fp32 rows and lse), and
+    SDPA on the same cache (which returns no lse)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    label, b, hq, hkv, d, c, lens, window = LSE_CASES[0]
+    g = np.random.default_rng(0)
+    q, kc, vc = (np_tensor(g, s, torch.bfloat16, device)
+                 for s in ((b, hq, d), (b, c, hkv, d), (b, c, hkv, d)))
+    cl = torch.tensor(lens, dtype=torch.int32, device=device)
+    n_keys = int(cl.sum())
+    bms, by = bound_ms(4 * d * hq * n_keys,
+                       2 * q.numel() + 2 * 2 * n_keys * hkv * d + 4 * q.numel() + 4 * b * hq)
+    ks, vs = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    valid = torch.arange(c, device=device)[None] < cl[:, None]
+    mask = (valid | (cl[:, None] == 0))[:, None, None]
+
+    def kernel():
+        return flash_decode(q, kc, vc, cache_len=cl, return_lse=True)
+    out, _ = kernel()
+    want, _ = ref.decode_mha_ref(q, kc, vc, cache_len=cl, return_lse=True)
+    return dict(max_abs_err=_max_err(out, want)[0], library="scaled_dot_product_attention",
+                ms=graph_ms(kernel), cold_ms=graph_cold_ms(kernel), eager_ms=time_ms(kernel),
+                plain_ms=time_ms(lambda: ref.decode_mha_ref(q, kc, vc, cache_len=cl,
+                                                            return_lse=True)),
+                bound_ms=bms, bound_by=by, splits=decode_splits(b, hkv, c),
+                library_ms=graph_ms(lambda: sdpa(q[:, :, None], ks, vs, attn_mask=mask,
+                                                 enable_gqa=True)))
+
+
+def report_lse_kernel(device, kern):
+    """18a: flash_decode(return_lse=True) against its plain version at
+    LSE_CASES' shapes in bf16 (KERNEL_TOL) and fp32 (LSE_FP32_TOL), the
+    empty rows exactly 0 with lse -inf; the no-lse outputs of flash_decode
+    and paged_flash_decode against their digests from before return_lse
+    (``DECODE_DIGESTS``, by SM count) and, in the same run, the lse
+    variant's rows rounded to the input dtype against the no-lse ones, bit
+    for bit; the lse variant timed at phase 2's main shape into
+    kern["flash_decode"]["lse"]."""
+    for label, *shape in LSE_CASES:
+        for dtype, tol in ((torch.bfloat16, KERNEL_TOL), (torch.float32, LSE_FP32_TOL)):
+            (abs_err, rel_err), lse_err, exact, kept = lse_case(device, label, *shape, dtype)
+            dt = "bf16" if dtype == torch.bfloat16 else "fp32"
+            print(f"[lse] flash_decode return_lse {label} {dt}: out max_abs_err={abs_err:.3e} "
+                  f"scaled_err={rel_err:.3e}, lse err {lse_err:.3e} of max |lse| (tol {tol}); "
+                  f"the empty row 0 with lse -inf: {exact}; its rows in {dt} equal the no-lse "
+                  f"output bit for bit: {kept}")
+            check(rel_err <= tol and lse_err <= tol,
+                  f"flash_decode return_lse {label} {dt}: err {rel_err} / {lse_err} > {tol}")
+            check(exact, f"flash_decode return_lse {label} {dt}: an empty row is not 0 / -inf")
+            check(kept, f"flash_decode {label} {dt}: the lse variant's rows part from the "
+                        "no-lse output")
+    sms = build.sm_count(torch.cuda.current_device())
+    got = decode_digests(device, {"flash_decode": flash_decode,
+                                  "paged_flash_decode": paged_flash_decode})
+    want = DECODE_DIGESTS.get(sms)
+    if want is None:
+        print(f"[lse] no-lse digests recorded for {sorted(DECODE_DIGESTS)} SMs, this card has "
+              f"{sms}: the bits before return_lse are not checked here (the in-run checks "
+              "above hold)")
+    else:
+        same = [k for k in got if got[k] == want.get(k)]
+        print(f"[lse] flash_decode and paged_flash_decode without lse bit-identical to their "
+              f"outputs before return_lse on {len(same)}/{len(got)} cases ({sms} SMs)")
+        check(len(same) == len(got) == len(want), "the no-lse decode kernels' bits changed: "
+              + ", ".join(k for k in got if k not in same))
+    t = lse_timing(device)
+    kern["flash_decode"]["lse"] = t
+    print(f"[kernels] flash_decode lse (D64 linear, bf16): ms={t['ms']:.4f} (warm L2) cold_ms="
+          f"{t['cold_ms']:.4f} (L2 flushed) eager_ms={t['eager_ms']:.4f} splits={t['splits']} "
+          f"plain_ms={t['plain_ms']:.4f} bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) "
+          f"library_ms={t['library_ms']:.4f} (scaled_dot_product_attention, no lse)")
+
+
+def slot_blocks(cap, k):
+    """[(start, stop)] of ``cap`` slots cut into ``k`` ceil-sized blocks."""
+    size = -(-cap // k)
+    return [(min(cap, i * size), min(cap, (i + 1) * size)) for i in range(k)]
+
+
+def kv_cache_bytes(cfg, tp, rows, max_len, *, split=True):
+    """Bytes of attention k/v each of ``tp`` ranks holds for ``rows`` rows
+    at ``max_len`` positions: by KV head where the axis divides them, else
+    (``split``) every KV head for its block of each cache's slots, or every
+    slot (the replicated layout)."""
+    bf = L.dtype_of(cfg).itemsize
+    out = [0] * tp
+    for spec in cfg.layers:
+        if spec.kind != ATTN:
+            continue
+        cap = min(spec.window, max_len) if spec.window else max_len
+        slot = 2 * rows * cfg.head_dim * bf  # one slot of k and v, every KV head below
+        for i, (lo, hi) in enumerate(slot_blocks(cap, tp)):
+            if cfg.n_kv_heads % tp == 0:
+                out[i] += cap * slot * cfg.n_kv_heads // tp
+            else:
+                out[i] += (hi - lo if split else cap) * slot * cfg.n_kv_heads
+    return out
+
+
+def report_seq_serve(tag, cfg, params, layout, total, *, rows, prompt_len, steps, extra_len,
+                     tol, what):
+    """``phase_tp_serve`` with ``extra_len`` positions past the prompt,
+    held to ``tol``, its bytes and launches to their predictions and each
+    rank's k/v bytes to ``kv_cache_bytes``; prints the cache bytes on the
+    card beside the replicated layout's."""
+    device = params["embed"]["table"].device
+    t0 = time.perf_counter()
+    peak_reset(device)
+    tp = layout[1]
+    check(T.seq_split(cfg, tp), f"{cfg.name} at {tp}: its caches are not split by slot")
+    r = phase_tp_serve(cfg, params, layout, impl="cuda", batch=rows, prompt_len=prompt_len,
+                       steps=steps, extra_len=extra_len)
+    max_len = prompt_len + extra_len
+    r["predicted_bytes"] = (sharded_serve_bytes(cfg, tp, rows, prompt_len),
+                            sharded_serve_bytes(cfg, tp, rows, 1, decode=True))
+    r["predicted"] = serve_predicted(cfg, tp, steps)
+    want = kv_cache_bytes(cfg, tp, rows, max_len)
+    whole = kv_cache_bytes(cfg, tp, rows, max_len, split=False)
+    report_sharded_serve(tag, cfg.name, r, tol, device, total, t0, serve_what=what)
+    print(f"{tag} {cfg.name} k/v cache bytes per rank {r['kv_bytes']} (predicted {want}); "
+          f"{sum(r['kv_bytes'])} bytes on the card over {tp} ranks, where every rank holding "
+          f"every slot would hold {sum(whole)} ({sum(whole) / max(sum(r['kv_bytes']), 1):.2f}x)")
+    check(r["kv_bytes"] == want, f"{cfg.name}: per-rank cache bytes {r['kv_bytes']} != {want}")
+
+
+def seq_fp32(cfg, layers):
+    """``cfg`` at full width on ``layers`` in fp32: its first layers, or
+    for a model with rings and global layers one local and one global."""
+    specs = list(dict.fromkeys(cfg.layers)) if len(set(cfg.layers)) > 1 else cfg.layers[:layers]
+    return dataclasses.replace(cfg, superblock=tuple(specs[:layers]), n_superblocks=1,
+                               tail=(), num_layers=layers, dtype="float32")
+
+
+def report_phase18(device, total, kern):
+    """Phase 18 on the card: (a) flash_decode's lse variant, (b)
+    internvl2-76b and (c) gemma3-1b decoding over caches split by slot;
+    each part's seconds."""
+    t0 = time.perf_counter()
+    report_lse_kernel(device, kern)
+    print(f"[time] phase 18a {time.perf_counter() - t0:.1f}s")
+    for tag, name, layout, n, rows, prompt, extra in (
+            ("b", SEQ_MODEL, SEQ_LAYOUT, SEQ_LAYERS, SEQ_ROWS, SEQ_PROMPT,
+             SEQ_SLOTS - SEQ_PROMPT),
+            ("c", GEMMA, GEMMA_LAYOUT, GEMMA_SEQ_LAYERS, 4, GEMMA_PROMPT, SEQ_STEPS)):
+        t0 = time.perf_counter()
+        full = get_config(name)
+        for cfg, tol, seed in ((shallow(full, n) if tag == "b" else full, LOGIT_TOL, 0),
+                               (seq_fp32(full, n), SPLIT_FP32_TOL, 1)):
+            params = make_dense_params(cfg, seed=seed, device=device)
+            report_seq_serve(
+                f"[seq] 18{tag}", cfg, params, layout, total, rows=rows, prompt_len=prompt,
+                steps=SEQ_STEPS, extra_len=extra, tol=tol,
+                what=f"{cfg.num_layers} layers {cfg.dtype} on (data, model)={layout}, {rows} x "
+                     f"{prompt} positions in a cache of {prompt + extra}, then {SEQ_STEPS} "
+                     "decode steps")
+            del params
+            free(device)
+        print(f"[time] phase 18{tag} {time.perf_counter() - t0:.1f}s")
+
+
 # ------------------------------------------------------------------ main
 
 def shallow(cfg, layers=4, *, dtype=None):
@@ -6417,6 +6756,9 @@ def main():
     t0 = time.perf_counter()
     report_phase17(device, total)
     print(f"[time] phase 17 {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    report_phase18(device, total, kern)
+    print(f"[time] phase 18 {time.perf_counter() - t0:.1f}s")
 
     source = "src/repro_torch/kernels/csrc/"
     rows = [dict(name="flash_mha", route="cuda", source=source + "flash_attention.cu",

@@ -37,6 +37,7 @@ cudaError_t allow_dynamic_smem(Kernel kernel, int bytes, std::atomic<bool>* set_
 constexpr float kMaskedLogit = -1073741824.0f;
 
 constexpr float kLog2e = 1.4426950408889634f;  // log2(e): exp(x) = exp2(x kLog2e)
+constexpr float kLn2 = 0.6931471805599453f;    // ln(2): a log2-domain value times it is natural
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

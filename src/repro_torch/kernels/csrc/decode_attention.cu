@@ -29,6 +29,16 @@
 // walking decode_body.cuh's `decode_group` (fp32 FMAs; neither bf16 nor
 // TF32 products hold fp32's tolerance).
 //
+// return_lse (a rank's partial over its block of a cache split by slot,
+// which the ranks then merge by log-sum-exp): the merge launch, a template
+// instance of its own (kLse), stores the fp32 row instead of the bf16 one
+// and the row's log-sum-exp (M + log2 l) ln 2 from the m and l it already
+// holds; the fp32 body stores m + ln l.  A row with no valid key (a rank
+// whose slots are all still empty) walks nothing and comes back 0 with lse
+// -inf, weight 0 in the merge.  Without lse both launches and the fp32 body
+// run the instructions they ran before, so flash_decode and
+// paged_flash_decode keep their bits.
+//
 // What bounds it on this card: each cached key and value is read once and
 // used by G heads, ~2*G flops per byte, so device-memory bandwidth.  One
 // block per (row, KV head) filled 8 of 132 SMs at recurrentgemma-9b's
@@ -51,19 +61,20 @@ struct LinearRows {
   __device__ __forceinline__ size_t operator()(int kj) const { return base + kj; }
 };
 
-// fp32: one block per (KV head, batch row).
+// fp32: one block per (KV head, batch row); lse (B, Hq) or null.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
                     const float* __restrict__ vc, float* __restrict__ o,
                     const int* __restrict__ cache_len, int C, int Hq, int Hkv,
-                    int cap, float scale) {
+                    int cap, float scale, float* __restrict__ lse) {
   extern __shared__ float smem[];
   const int b = blockIdx.y;
   const int limit = min(cache_len[b], cap);
-  const int end = limit > 0 ? limit : C;  // no valid key: average all C slots
+  // no valid key: average all C slots, or with lse walk none
+  const int end = limit > 0 ? limit : (lse != nullptr ? 0 : C);
   repro::decode_group<float, D>(q, kc, vc, o, b, blockIdx.x, Hq, Hkv, limit, end, scale,
-                                LinearRows{static_cast<size_t>(b) * C}, smem);
+                                LinearRows{static_cast<size_t>(b) * C}, smem, lse);
 }
 
 // The rows of batch row b: b * C + kj.
@@ -74,8 +85,8 @@ struct LinearRowsOf {
 
 template <int D>
 cudaError_t launch_fp32(const void* q, const void* kc, const void* vc, void* o,
-                        const int* cache_len, int B, int C, int Hq, int Hkv, int cap,
-                        cudaStream_t stream) {
+                        const int* cache_len, float* lse, int B, int C, int Hq, int Hkv,
+                        int cap, cudaStream_t stream) {
   constexpr int smem = repro::decode_smem_floats<D>() * 4;
   static std::atomic<bool> smem_set[repro::kMaxDevices];
   const cudaError_t err = repro::allow_dynamic_smem(flash_decode_kernel<D>, smem, smem_set);
@@ -83,18 +94,22 @@ cudaError_t launch_fp32(const void* q, const void* kc, const void* vc, void* o,
   flash_decode_kernel<D><<<dim3(Hkv, B), kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(kc),
       static_cast<const float*>(vc), static_cast<float*>(o), cache_len, C, Hq, Hkv, cap,
-      1.0f / sqrtf(static_cast<float>(D)));
+      1.0f / sqrtf(static_cast<float>(D)), lse);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* kc, const void* vc, void* o,
-                   const int* cache_len, float* part, int B, int C, int Hq, int Hkv, int cap,
-                   int splits, int is_bf16, cudaStream_t stream) {
+                   const int* cache_len, float* part, float* lse, int B, int C, int Hq,
+                   int Hkv, int cap, int splits, int is_bf16, cudaStream_t stream) {
+  if (is_bf16 && lse != nullptr)
+    return repro::launch_decode_split<D, LinearRowsOf, true>(
+        q, kc, vc, o, cache_len, part, B, C, Hq, Hkv, cap, splits, LinearRowsOf{C}, stream,
+        lse);
   if (is_bf16)
     return repro::launch_decode_split<D>(q, kc, vc, o, cache_len, part, B, C, Hq, Hkv, cap,
                                          splits, LinearRowsOf{C}, stream);
-  return launch_fp32<D>(q, kc, vc, o, cache_len, B, C, Hq, Hkv, cap, stream);
+  return launch_fp32<D>(q, kc, vc, o, cache_len, lse, B, C, Hq, Hkv, cap, stream);
 }
 
 }  // namespace
@@ -102,10 +117,13 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, void* o,
 // Plain C entry point, loaded with ctypes.  cap = min(C, window), or C
 // without a window.  bf16 takes `splits` >= 1 blocks per (row, KV head) and
 // part, a (B * Hq * splits * (D + 2),) fp32 scratch; fp32 ignores both.
+// lse null: o in q's dtype.  lse a (B, Hq) fp32 buffer (return_lse): o is
+// fp32 whatever q's dtype, lse the rows' natural-log log-sum-exp, and a row
+// with no valid key gives o = 0 and lse = -inf instead of the average.
 // Returns the cudaError_t of the launches.
 extern "C" int repro_flash_decode(const void* q, const void* kc, const void* vc, void* o,
-                                  const int* cache_len, float* part, int B, int C, int Hq,
-                                  int Hkv, int D, int cap, int splits, int is_bf16,
+                                  const int* cache_len, float* part, float* lse, int B, int C,
+                                  int Hq, int Hkv, int D, int cap, int splits, int is_bf16,
                                   void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > kMaxG || C <= 0 || cap <= 0 || cap > C ||
       splits < 1 || (is_bf16 && part == nullptr))
@@ -115,7 +133,8 @@ extern "C" int repro_flash_decode(const void* q, const void* kc, const void* vc,
 #define REPRO_CASE(d)                                                                      \
   case d:                                                                                  \
     return static_cast<int>(                                                               \
-        launch<d>(q, kc, vc, o, cache_len, part, B, C, Hq, Hkv, cap, splits, is_bf16, s));
+        launch<d>(q, kc, vc, o, cache_len, part, lse, B, C, Hq, Hkv, cap, splits, is_bf16,  \
+                  s));
     REPRO_CASE(16) REPRO_CASE(32) REPRO_CASE(64) REPRO_CASE(128) REPRO_CASE(256)
 #undef REPRO_CASE
     default:

@@ -11,7 +11,9 @@
 // group stops at G, nothing is padded.  Keys kj < limit are valid; the walk
 // covers [0, end), where end == limit unless limit == 0, in which case the
 // caller passes the row's full capacity and every key is masked with the
-// finite kMaskedLogit, giving the plain version's uniform average.  Each
+// finite kMaskedLogit, giving the plain version's uniform average (with
+// `lse`, flash_decode's fp32 return_lse path, the caller passes end 0
+// instead, and the row comes back 0 with lse -inf).  Each
 // tile arrives in 16-byte loads, issued in groups of at most 128 values per
 // thread (all of them up to D = 128) before any of the group is used, and
 // each thread reads every shared K/V element once for all the heads it
@@ -41,7 +43,8 @@ template <typename T, int D, typename Rows>
 __device__ __forceinline__ void decode_group(const T* __restrict__ q, const T* __restrict__ kc,
                                              const T* __restrict__ vc, T* __restrict__ o,
                                              int b, int hk, int Hq, int Hkv, int limit, int end,
-                                             float scale, const Rows& rows, float* smem) {
+                                             float scale, const Rows& rows, float* smem,
+                                             float* __restrict__ lse = nullptr) {
   constexpr int kThreads = kDecodeThreads;
   constexpr int kBlockK = kDecodeBlockK;
   constexpr int kMaxG = kDecodeMaxG;
@@ -197,14 +200,20 @@ __device__ __forceinline__ void decode_group(const T* __restrict__ q, const T* _
   }
   __syncthreads();
 
+  // with lse (flash_decode's return_lse; the caller passes end 0 for a row
+  // with no valid key, which walks nothing): head g's natural-log
+  // log-sum-exp m + ln l, and for an empty row o = 0 and lse = -inf
+  if (lse != nullptr && tid < G)
+    lse[q_base / D + tid] = sL[tid] > 0.f ? sM[tid] + logf(sL[tid]) : -INFINITY;
 #pragma unroll
   for (int a = 0; a < kAccPerThread; ++a) {
     const int g = g_own + a * kHeadStep;
     if (g < G) {
+      const bool none = lse != nullptr && sL[g] == 0.f;
 #pragma unroll
       for (int c = 0; c < kCols; ++c)
         store_f32(o + q_base + static_cast<size_t>(g) * D + d_own + c * kColStep,
-                  acc[a][c] / sL[g]);
+                  none ? 0.f : acc[a][c] / sL[g]);
     }
   }
 }

@@ -270,8 +270,9 @@ namespace {
 
 // Split blockIdx.z of (KV head blockIdx.x, batch row blockIdx.y): whole
 // tiles of [0, end), ceil(tiles / splits) to a split; a split that starts
-// past its row's end writes an empty partial (m = -inf, l = 0).
-template <int D, class RowsOf>
+// past its row's end writes an empty partial (m = -inf, l = 0).  With
+// kLse a row with no valid key walks nothing (end 0): every split is empty.
+template <int D, class RowsOf, bool kLse = false>
 __global__ void __launch_bounds__(kSplitThreads)
 decode_split_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
                     const __nv_bfloat16* __restrict__ vc, const int* __restrict__ cache_len,
@@ -281,7 +282,8 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const int hk = blockIdx.x, b = blockIdx.y, s = blockIdx.z;
   const int G = Hq / Hkv;
   const int limit = min(cache_len[b], cap);
-  const int end = limit > 0 ? limit : C;  // no valid key: average all C slots
+  // no valid key: average all C slots, or with kLse walk none
+  const int end = limit > 0 ? limit : (kLse ? 0 : C);
   const int tiles = (end + kSplitTile - 1) / kSplitTile;
   const int per = (tiles + splits - 1) / splits;
   const int t_begin = s * per, t_end = min(tiles, t_begin + per);
@@ -301,9 +303,14 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 }
 
 // Merge the splits of head blockIdx.x of row blockIdx.y in split order.
-template <int D>
-__global__ void decode_combine_kernel(float* __restrict__ part, __nv_bfloat16* __restrict__ o,
-                                      int B, int Hq, int splits) {
+// Without kLse, o is bf16 and holds the normalised row.  With kLse
+// (flash_decode's return_lse), o is fp32 and lse gets the row's natural-log
+// log-sum-exp of the scaled logits over its valid keys, (M + log2 l) ln 2 from
+// the log2-domain max M; a row with no valid key (every split empty) gets
+// o = 0 and lse = -inf, which weighs 0 when ranks merge their partials.
+template <int D, bool kLse = false>
+__global__ void decode_combine_kernel(float* __restrict__ part, void* __restrict__ o,
+                                      float* __restrict__ lse, int B, int Hq, int splits) {
   const Partials p(part, B, Hq, splits, D);
   const size_t at = (static_cast<size_t>(blockIdx.y) * Hq + blockIdx.x) * splits;
   float big = -INFINITY;
@@ -312,39 +319,47 @@ __global__ void decode_combine_kernel(float* __restrict__ part, __nv_bfloat16* _
   for (int s = 0; s < splits; ++s)
     if (p.m[at + s] != -INFINITY)
       l = __fadd_rn(l, __fmul_rn(exp2f(p.m[at + s] - big), p.l[at + s]));
+  const bool none = kLse && big == -INFINITY;
+  if (kLse && threadIdx.x == 0)
+    lse[at / splits] = none ? -INFINITY : (big + log2f(l)) * kLn2;
   for (int c = threadIdx.x; c < D; c += blockDim.x) {
     float acc = 0.f;
     for (int s = 0; s < splits; ++s)
       if (p.m[at + s] != -INFINITY)
         acc = __fadd_rn(acc, __fmul_rn(exp2f(p.m[at + s] - big), p.acc[(at + s) * D + c]));
-    o[(at / splits) * D + c] = __float2bfloat16(acc / l);
+    if constexpr (kLse)
+      static_cast<float*>(o)[(at / splits) * D + c] = none ? 0.f : acc / l;
+    else
+      static_cast<__nv_bfloat16*>(o)[(at / splits) * D + c] = __float2bfloat16(acc / l);
   }
 }
 
-template <int D, class RowsOf>
+template <int D, class RowsOf, bool kLse = false>
 cudaError_t decode_split_prepare() {
   static std::atomic<bool> smem_set[kMaxDevices];
-  return allow_dynamic_smem(decode_split_kernel<D, RowsOf>, SplitSmem<D>::kBytes, smem_set);
+  return allow_dynamic_smem(decode_split_kernel<D, RowsOf, kLse>, SplitSmem<D>::kBytes,
+                            smem_set);
 }
 
 // Both launches on `stream`.  cap = min(C, window) (C without a window);
-// part holds B * Hq * splits * (D + 2) floats.
-template <int D, class RowsOf>
+// part holds B * Hq * splits * (D + 2) floats.  With kLse, o is an fp32
+// (B, Hq, D) output and lse a (B, Hq) fp32 one (decode_combine_kernel).
+template <int D, class RowsOf, bool kLse = false>
 cudaError_t launch_decode_split(const void* q, const void* kc, const void* vc, void* o,
                                 const int* cache_len, float* part, int B, int C, int Hq,
                                 int Hkv, int cap, int splits, RowsOf rows_of,
-                                cudaStream_t stream) {
-  cudaError_t err = decode_split_prepare<D, RowsOf>();
+                                cudaStream_t stream, float* lse = nullptr) {
+  cudaError_t err = decode_split_prepare<D, RowsOf, kLse>();
   if (err != cudaSuccess) return err;
-  decode_split_kernel<D, RowsOf>
+  decode_split_kernel<D, RowsOf, kLse>
       <<<dim3(Hkv, B, splits), kSplitThreads, SplitSmem<D>::kBytes, stream>>>(
           static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kc),
           static_cast<const __nv_bfloat16*>(vc), cache_len, part, B, C, Hq, Hkv, cap, splits,
           kLog2e / sqrtf(static_cast<float>(D)), rows_of);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<D><<<dim3(Hq, B), D < 128 ? D : 128, 0, stream>>>(
-      part, static_cast<__nv_bfloat16*>(o), B, Hq, splits);
+  decode_combine_kernel<D, kLse><<<dim3(Hq, B), D < 128 ? D : 128, 0, stream>>>(
+      part, o, lse, B, Hq, splits);
   return cudaGetLastError();
 }
 

@@ -31,7 +31,7 @@ SPLIT_BLOCKS_PER_SM = 2  # blocks in flight per SM the split grid aims at
 def _entry():
     """The kernel's C entry point, typed once when its library loads."""
     fn = build.library("decode_attention").repro_flash_decode
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -46,15 +46,18 @@ def decode_splits(b: int, hkv: int, cap: int, sms: int) -> int:
     return max(1, min(tiles, want))
 
 
-def flash_decode(q, k_cache, v_cache, *, cache_len, window: int | None = None):
+def flash_decode(q, k_cache, v_cache, *, cache_len, window: int | None = None,
+                 return_lse: bool = False):
     """q: (B, Hq, D); caches: (B, C, Hkv, D); cache_len: (B,) int32.
-    Returns (B, Hq, D).
+    Returns (B, Hq, D), or with ``return_lse`` (out, lse): out (B, Hq, D)
+    fp32 and lse (B, Hq) fp32, the rows' log-sum-exp; a row with no valid
+    key gives out 0 and lse -inf (``decode_mha_ref``).
 
     CPU tensors take the plain version ``decode_mha_ref``; CUDA tensors
     launch the kernel or raise."""
     if q.device.type == "cpu":
         return decode_mha_ref(q, k_cache, v_cache, cache_len=cache_len,
-                              window=window)
+                              window=window, return_lse=return_lse)
     refuse_grad("flash_decode", q, k_cache, v_cache)
     dev = q.device
     if not (q.is_cuda and k_cache.device == dev and v_cache.device == dev
@@ -85,7 +88,8 @@ def flash_decode(q, k_cache, v_cache, *, cache_len, window: int | None = None):
     if window is not None and window < 1:
         raise ValueError(f"flash_decode: window must be >= 1; got {window}")
     eff_cap = cap if window is None else min(cap, window)
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=torch.float32 if return_lse else q.dtype, device=dev)
+    lse = torch.empty((b, hq), dtype=torch.float32, device=dev) if return_lse else None
     bf16 = q.dtype == torch.bfloat16
     splits = decode_splits(b, hkv, eff_cap, build.sm_count(dev.index)) if bf16 else 1
     # per split and query head: the fp32 accumulator, m and l
@@ -94,12 +98,13 @@ def flash_decode(q, k_cache, v_cache, *, cache_len, window: int | None = None):
     with torch.cuda.device(dev):
         err = _entry()(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-            cache_len.data_ptr(), None if part is None else part.data_ptr(), b, cap, hq,
-            hkv, d, eff_cap, splits, int(bf16), torch.cuda.current_stream(dev).cuda_stream)
+            cache_len.data_ptr(), None if part is None else part.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, cap, hq, hkv, d, eff_cap, splits,
+            int(bf16), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"flash_decode: kernel launch failed with CUDA error {err}")
     flash_decode.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_decode.launches = 0

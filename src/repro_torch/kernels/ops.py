@@ -58,14 +58,16 @@ def varlen_mha(q, k, v, cu_seqlens, *, causal=True, window=None, max_seqlen=None
                                              window=window, max_seqlen=max_seqlen)
 
 
-def decode_mha(q, k_cache, v_cache, *, cache_len, window=None, impl="cuda"):
-    """One-token attention over a KV cache; see ``ref.decode_mha_ref``."""
+def decode_mha(q, k_cache, v_cache, *, cache_len, window=None, return_lse=False,
+               impl="cuda"):
+    """One-token attention over a KV cache; see ``ref.decode_mha_ref``
+    (``return_lse``: the fp32 rows and their log-sum-exp)."""
     _check(impl, q, k_cache, v_cache, cache_len)
     if impl == "reference":
         return ref.decode_mha_ref(q, k_cache, v_cache, cache_len=cache_len,
-                                  window=window)
-    return decode_attention.flash_decode(q, k_cache, v_cache,
-                                         cache_len=cache_len, window=window)
+                                  window=window, return_lse=return_lse)
+    return decode_attention.flash_decode(q, k_cache, v_cache, cache_len=cache_len,
+                                         window=window, return_lse=return_lse)
 
 
 def paged_decode_mha(q, k_pool, v_pool, block_table, *, cache_len, impl="cuda"):

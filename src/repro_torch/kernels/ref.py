@@ -145,7 +145,8 @@ def mha_varlen_ref(q, k, v, cu_seqlens, *, causal: bool = True,
     return torch.cat(outs, dim=0)
 
 
-def decode_mha_ref(q, k_cache, v_cache, *, cache_len, window: int | None = None):
+def decode_mha_ref(q, k_cache, v_cache, *, cache_len, window: int | None = None,
+                   return_lse: bool = False):
     """Single-token decode attention over a (ring or linear) KV cache.
 
     q: (B, Hq, D); k_cache/v_cache: (B, C, Hkv, D); ``cache_len``: (B,)
@@ -153,6 +154,12 @@ def decode_mha_ref(q, k_cache, v_cache, *, cache_len, window: int | None = None)
     (C == window) every slot is valid once cache_len >= C.  A row with
     cache_len 0 has no valid key and averages all C slots.  Returns
     (B, Hq, D).
+
+    With ``return_lse``: (out, lse), out (B, Hq, D) fp32 (P V in fp32, so
+    that a merge of such partials rounds once) and lse (B, Hq) fp32, the
+    natural-log log-sum-exp of the scaled logits over the valid keys.  A row
+    with no valid key (a rank whose block of a split cache is still empty)
+    gives out 0 and lse -inf: weight exactly 0 in ``lse_merge``.
     """
     b, c, hkv, d = k_cache.shape
     hq = q.shape[1]
@@ -164,6 +171,12 @@ def decode_mha_ref(q, k_cache, v_cache, *, cache_len, window: int | None = None)
     n = cache_len.to(q.device)[:, None]  # (B, 1)
     cap = c if window is None else min(c, window)
     valid = slots < torch.clamp(n, max=cap)
+    if return_lse:
+        logits = torch.where(valid[:, None, None, :], logits, -math.inf)
+        lse = torch.logsumexp(logits, dim=-1)  # -inf where no key is valid
+        probs = torch.exp(logits - torch.where(torch.isinf(lse), 0.0, lse)[..., None])
+        out = torch.einsum("bhgk,bkhd->bhgd", probs, v_cache.to(torch.float32))
+        return out.reshape(b, hq, d), lse.reshape(b, hq)
     logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", probs.to(v_cache.dtype), v_cache)

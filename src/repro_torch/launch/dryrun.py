@@ -37,11 +37,15 @@ transients, so ``temp_bytes`` (the peak over the rank count) holds one
 rank's transients spread over all.  The reference grouped FFN of a dropless
 MoE cell reads its group sizes on the host; on ``meta`` it splits the rows
 evenly over the experts (``kernels/ref.group_ends``), which counts the same
-N rows of work.  Decode caches keep the port's layout (by KV head over the
-model axis, or replicated where the axis does not divide the KV heads;
-recurrent states by channel or head): the JAX package shards a batch-1
-``long_500k`` cache's sequence over the data axis, which the port's decode
-does not run; the artifact names the layout and its bytes.
+N rows of work.  Decode caches keep the port's layout: attention k/v by KV
+head over the model axis, or, where the axis does not divide the KV heads,
+every KV head for a ceil-sized block of the slots over it (the same bytes
+per card as the JAX package's head_dim split, to within a slot a rank; the
+ranks' partials merge by log-sum-exp, two all-reduces a layer in the
+record); a batch-1 cache's slots also over the data axis where the JAX
+rule splits them (16 divides the slots and there are at least 4,096);
+recurrent states by channel or head.  The artifact names the layout and
+its bytes per card.
 
     python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape decode_32k --mesh pod1
 """
@@ -71,6 +75,7 @@ from repro_torch.models import model as MDL
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.parallel import collectives as C
+from repro_torch.parallel import ctx as CTX
 from repro_torch.parallel import sharding as SH
 from repro_torch.parallel import steps as ST
 from repro_torch.parallel.layout import Layout, ShardedTensor, region_shape, tree_leaves, tree_map
@@ -314,15 +319,16 @@ def input_specs(cfg: ModelConfig, seq_len: int, batch: int, kind: str) -> dict:
 
 def meta_caches(cfg: ModelConfig, mesh, rules: SH.ShardingRules, batch: int, max_len: int):
     """The sharded decode caches (``make_prefill_step``'s layout) as
-    ``meta`` blocks: each rank's batch rows, its KV heads (every one where
-    the tensor axis does not divide them) or recurrent channels."""
+    ``meta`` blocks: each rank's batch rows, its KV heads (every one for its
+    block of the slots where the tensor axis does not divide them) or
+    recurrent channels."""
     k = C.axis_size(mesh, rules.batch_axes) if rules.batch_axes else 1
-    tp = mesh.shape[rules.tp_axis] if rules.tp_axis else 1
+    ctx = CTX.ShardingCtx(mesh, rules.batch_axes, rules.tp_axis)
     cross = cfg.family == "encdec"
-    per = {r: T.cache_init_sharded(cfg, tp, batch // k, max_len, L.dtype_of(cfg), META,
+    per = {r: T.cache_init_sharded(cfg, ctx, r, batch // k, max_len, L.dtype_of(cfg), META,
                                    cross=cross, enc_len=cfg.prefix_len if cross else None)
            for r in mesh.device_ids}
-    return ST.wrap_caches(per, cfg, mesh, rules)
+    return ST.wrap_caches(per, cfg, mesh, rules, max_len)
 
 
 def _rank_bytes(tree, rank) -> int:
@@ -332,12 +338,18 @@ def _rank_bytes(tree, rank) -> int:
                for x in tree_leaves(tree) if isinstance(x, (ShardedTensor, torch.Tensor)))
 
 
-def cache_layout(cfg: ModelConfig, tp: int) -> str:
+def cache_layout(cfg: ModelConfig, tp: int, caches: list) -> str:
+    """The layout of the sharded decode ``caches`` in words."""
     kinds = {s.kind for s in cfg.layers}
     parts = []
     if ATTN in kinds:
-        parts.append("attention k/v replicated over the model axis (every KV head)"
-                     if T.kv_replicated(cfg, tp)
+        slot_axes = sorted({str(st.layout.spec[1]) for spec, c in zip(cfg.layers, caches)
+                            if spec.kind == ATTN for st in tree_leaves(c.get("self", c))
+                            if st.layout.spec[1]})
+        heads = ("every KV head" if T.kv_replicated(cfg, tp)
+                 else "KV heads by the model axis")
+        parts.append(f"attention k/v by slot over {' and '.join(slot_axes)} ({heads}; the "
+                     "ranks' partials merged by log-sum-exp)" if slot_axes
                      else "attention k/v by KV head over the model axis")
     if kinds - {ATTN}:
         parts.append("recurrent states by channel or head over the model axis")
@@ -435,7 +447,7 @@ def memory_of(cfg, shape, mesh, rules, b_axes, peak_live: float, *, zero1=None) 
            "alias_bytes": alias, "peak_per_device": arg + out + temp - alias,
            "hbm_per_device": hw.H100.hbm_bytes}
     if shape.kind == "decode":
-        mem["cache_layout"] = cache_layout(cfg, tp)
+        mem["cache_layout"] = cache_layout(cfg, tp, args[1])
         mem["cache_bytes_per_device"] = _rank_bytes(args[1], r0)
     return mem
 
@@ -512,8 +524,10 @@ def run_cell(cell: CellSpec, *, n_micro: int = 1, with_probes: bool = True, save
                                       f"{hw.H100.dcn_bw:.3g} B/s"},
     }
     if shape.name == "long_500k":
-        res["notes"]["jax_cache_layout"] = ("sequence over the data axis (batch 1); the port "
-                                            "keeps its own layout (memory.cache_layout)")
+        res["notes"]["jax_cache_layout"] = (
+            "batch 1: the JAX rule puts a cache's sequence over the data axis where 16 "
+            "divides its slots and there are at least 4,096; the port mirrors it "
+            "(memory.cache_layout), and at seq_len + 1 slots it does not fire")
     _save(res, path, save)
     return res
 

@@ -141,45 +141,99 @@ def cross_attn_apply(p, cfg: ModelConfig, x, enc_out=None, enc_kv=None, *, impl=
 
 # ------------------------------------------------------------------ KV cache
 
-def cache_init(cfg: ModelConfig, spec: LayerSpec, batch, max_len, dtype, device):
-    cap = min(spec.window, max_len) if spec.window else max_len
+def cache_cap(spec: LayerSpec, max_len: int) -> int:
+    """The slots of a layer's cache: its window (a ring), else max_len."""
+    return min(spec.window, max_len) if spec.window else max_len
+
+
+def cache_init(cfg: ModelConfig, spec: LayerSpec, batch, max_len, dtype, device, slots=None):
+    """A layer's k/v buffers; with ``slots`` (a ``parallel/ctx.Slots``)
+    only that block of its slots, as a rank of a cache split by slot holds
+    them."""
+    cap = cache_cap(spec, max_len) if slots is None else slots.stop - slots.start
     shape = (batch, cap, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def prefill_into_cache(cache, spec: LayerSpec, k, v, seq_len: int):
+def prefill_into_cache(cache, spec: LayerSpec, k, v, seq_len: int, slots=None):
     """Write a prefill's roped k/v into the cache in place (ring for
-    window layers: only the last ``cap`` tokens, at slot t % cap)."""
-    cap = cache["k"].shape[1]
+    window layers: only the last ``cap`` tokens, at slot t % cap).  With
+    ``slots`` the cache holds that block of the slots, and only the tokens
+    whose slot falls in it are written."""
+    if slots is None:
+        cap, start, stop = cache["k"].shape[1], 0, cache["k"].shape[1]
+    else:
+        cap, start, stop = slots.cap, slots.start, slots.stop
     if seq_len <= cap:
-        cache["k"][:, :seq_len] = k
-        cache["v"][:, :seq_len] = v
+        hi = min(stop, seq_len)
+        if hi > start:
+            cache["k"][:, :hi - start] = k[:, start:hi]
+            cache["v"][:, :hi - start] = v[:, start:hi]
         return cache
-    slots = torch.arange(seq_len - cap, seq_len, device=k.device) % cap
-    cache["k"][:, slots] = k[:, -cap:].to(cache["k"].dtype)
-    cache["v"][:, slots] = v[:, -cap:].to(cache["v"].dtype)
+    pos = torch.arange(seq_len - cap, seq_len, device=k.device)
+    if slots is not None:
+        pos = pos[(pos % cap >= start) & (pos % cap < stop)]
+    cache["k"][:, pos % cap - start] = k[:, pos].to(cache["k"].dtype)
+    cache["v"][:, pos % cap - start] = v[:, pos].to(cache["v"].dtype)
     return cache
 
 
-def attn_decode_apply(p, cfg: ModelConfig, spec: LayerSpec, x, cache, t: int,
-                      rope, cache_len, *, impl="cuda", partial=False, kv_head=None, cols=None):
-    """One-token decode.  x: (B, 1, D); t: the token's position; rope: the
-    tables of position t; cache_len: (B,) int32, all t + 1.  Writes the
-    token's k/v into the cache in place and returns the output (``partial``,
-    ``kv_head`` and ``cols`` as ``attn_apply_with_kv``: with either the
-    cache holds every KV head)."""
-    b = x.shape[0]
-    q, k, v = _project_qkv(p, cfg, x, rope)
-    cap = cache["k"].shape[1]
-    # ring slot for window layers; a linear write past the end clamps to
-    # the last slot, as the JAX package's dynamic_update_slice does
+def _write_token(cache, spec: LayerSpec, k, v, t: int, slots=None):
+    """Write the token at position t's k/v (B, 1, Hkv, Dh) into its slot in
+    place: the ring slot t % cap for window layers; a linear write past the
+    end clamps to the last slot, as the JAX package's dynamic_update_slice
+    does.  With ``slots`` only the rank whose block holds the slot writes."""
+    cap = cache["k"].shape[1] if slots is None else slots.cap
     slot = t % cap if spec.window else min(t, cap - 1)
+    if slots is not None:
+        slot = slots.local(slot)
+        if slot is None:
+            return
     cache["k"][:, slot] = k[:, 0]
     cache["v"][:, slot] = v[:, 0]
-    out = ops.decode_mha(q[:, 0], _group(cache["k"], kv_head), _group(cache["v"], kv_head),
-                         cache_len=cache_len, window=spec.window, impl=impl)
-    return _out_proj(p, out.reshape(b, 1, cfg.q_dim).to(x.dtype), partial, cols)
+
+
+def attn_decode_apply(p, cfg: ModelConfig, spec: LayerSpec, x, cache, t: int,
+                      rope, cache_len, *, impl="cuda", partial=False):
+    """One-token decode.  x: (B, 1, D); t: the token's position; rope: the
+    tables of position t; cache_len: (B,) int32, all t + 1.  Writes the
+    token's k/v into the cache in place and returns the output (with
+    ``partial`` a tensor-parallel rank's fp32 share of it, its own query
+    and KV heads; a cache split by slot decodes through
+    ``attn_decode_partial``)."""
+    b = x.shape[0]
+    q, k, v = _project_qkv(p, cfg, x, rope)
+    _write_token(cache, spec, k, v, t)
+    out = ops.decode_mha(q[:, 0], cache["k"], cache["v"], cache_len=cache_len,
+                         window=spec.window, impl=impl)
+    return _out_proj(p, out.reshape(b, 1, cfg.q_dim).to(x.dtype), partial)
+
+
+def attn_decode_partial(p, cfg: ModelConfig, spec: LayerSpec, x, cache, t: int, rope, slots,
+                        *, impl="cuda"):
+    """One-token decode on a rank that holds the block ``slots`` of a
+    cache split by slot: the token's k/v written where the block holds its
+    slot, then its query heads attend the block's valid slots (a ring's
+    block too, with no window: its valid slots are a prefix).  Returns
+    (out (B, Hq, Dh) fp32, lse (B, Hq) fp32) for ``lse_merge``; a block with
+    no slot at all attends nothing (out 0, lse -inf)."""
+    q, k, v = _project_qkv(p, cfg, x, rope)
+    _write_token(cache, spec, k, v, t, slots)
+    b, hq, dh = q.shape[0], q.shape[2], q.shape[3]
+    if slots.stop == slots.start:
+        return (torch.zeros((b, hq, dh), dtype=torch.float32, device=x.device),
+                torch.full((b, hq), -torch.inf, device=x.device))
+    lens = torch.full((b,), slots.length(t), dtype=torch.int32, device=x.device)
+    return ops.decode_mha(q[:, 0], cache["k"], cache["v"], cache_len=lens, return_lse=True,
+                          impl=impl)
+
+
+def decode_out(p, cfg: ModelConfig, out, dtype, *, cols=None):
+    """A rank's fp32 share of the output projection of the merged
+    attention rows ``out`` (B, Hq, Dh) fp32, cast once to ``dtype``; with
+    ``cols`` the columns its ``wo`` rows take."""
+    return _out_proj(p, out.reshape(out.shape[0], 1, cfg.q_dim).to(dtype), True, cols)
 
 
 def paged_attn_decode_apply(p, cfg: ModelConfig, x, cache, block_table, dest,

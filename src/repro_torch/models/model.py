@@ -527,33 +527,36 @@ def prefill_sharded(params, cfg: ModelConfig, batch, max_len, *, ctx, impl="cuda
     """``prefill`` over a mesh: batch {rank: {"tokens": (B_r, S), and the
     frames or prefix embeddings}}.  Returns ({rank: next-token logits (B_r,
     V_r) fp32}, {rank: the rank's layer caches}): each rank's caches hold
-    its batch rows and its own KV heads (every one where the tensor axis
-    does not divide them), RG-LRU channels or SSD heads
-    (``transformer.cache_init_sharded``), so the decode kernel runs on
-    whole heads; an encoder-decoder's also the cross k/v of the same
-    heads over its rows' encoder output ("xkv")."""
+    its batch rows and its own KV heads (where the tensor axis does not
+    divide them, every KV head for its own block of the slots), RG-LRU
+    channels or SSD heads (``transformer.cache_init_sharded``), so the
+    decode kernel runs on whole heads; an encoder-decoder's also the cross
+    k/v of the same heads over its rows' encoder output ("xkv")."""
     top = _top(params, ctx)
     xs = _embed_inputs_sharded(params, top, cfg, batch, ctx)
     enc = _encode_sharded(params, top, cfg, batch, ctx, impl=impl)
-    caches = {r: T.cache_init_sharded(cfg, ctx.tp_size, x.shape[0], max_len, L.dtype_of(cfg),
+    caches = {r: T.cache_init_sharded(cfg, ctx, r, x.shape[0], max_len, L.dtype_of(cfg),
                                       x.device, cross=enc is not None,
                                       enc_len=None if enc is None else enc[r].shape[1])
               for r, x in xs.items()}
-    hs = T.stack_prefill_sharded(params["layers"], cfg, xs, caches, ctx=ctx, impl=impl,
-                                 enc_outs=enc)
+    hs = T.stack_prefill_sharded(params["layers"], cfg, xs, caches, max_len, ctx=ctx,
+                                 impl=impl, enc_outs=enc)
     hs = {r: L.rmsnorm_apply(top[r]["final_norm"], h, cfg.norm_eps)[:, -1:]
           for r, h in hs.items()}
     return {r: logits_of(top[r], cfg, h)[:, 0] for r, h in hs.items()}, caches
 
 
 @torch.no_grad()
-def decode_step_sharded(params, cfg: ModelConfig, token, caches, t: int, *, ctx, impl="cuda"):
+def decode_step_sharded(params, cfg: ModelConfig, token, caches, t: int, max_len: int, *, ctx,
+                        impl="cuda"):
     """``decode_step`` over a mesh: token {rank: (B_r,)} at position t,
-    caches from ``prefill_sharded`` (updated in place; an encoder-decoder's
-    cross-attention reads their "xkv", so no frames are needed).  Returns
-    {rank: logits (B_r, V_r) fp32}."""
+    caches from ``prefill_sharded`` at ``max_len`` (updated in place; each
+    rank of a cache split by slot reads its own valid slots, and an
+    encoder-decoder's cross-attention reads their "xkv", so no frames are
+    needed).  Returns {rank: logits (B_r, V_r) fp32}."""
     top = _top(params, ctx)
     xs = _embed_sharded(params, top, cfg, {r: x[:, None] for r, x in token.items()}, ctx)
-    hs = T.stack_decode_sharded(params["layers"], cfg, xs, caches, t, ctx=ctx, impl=impl)
+    hs = T.stack_decode_sharded(params["layers"], cfg, xs, caches, t, max_len, ctx=ctx,
+                                impl=impl)
     hs = {r: L.rmsnorm_apply(top[r]["final_norm"], h, cfg.norm_eps) for r, h in hs.items()}
     return {r: logits_of(top[r], cfg, h)[:, 0] for r, h in hs.items()}

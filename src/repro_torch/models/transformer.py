@@ -385,7 +385,12 @@ def stack_commit_verify(cfg: ModelConfig, caches, keep):
 # wk/wv keep their column blocks, which split a head, and each rank
 # all-gathers them over the tensor axis inside the layer, computes every
 # KV head and attends its query heads against their group's; such a
-# layer's KV cache is replicated over the tensor axis.  Where the axis
+# layer's KV cache holds every KV head and splits its slots over the
+# tensor axis instead (``seq_split``: ceil-sized blocks, as the JAX
+# package's cache holds a 16th of its bytes per card), and in decode each
+# rank attends every query head over its own slots (wq gathered too), the
+# ranks' fp32 partials merge by log-sum-exp (``ctx.lse_merge``) and each
+# rank's wo rows take its own q_dim / tp columns.  Where the axis
 # splits a query head as well (qwen2-0.5b's 14 heads at 4 or 16), or
 # gives a rank query heads of two KV groups, wq keeps its q_dim / tp
 # column blocks, as GSPMD splits them: each rank all-gathers wq too,
@@ -423,6 +428,10 @@ def check_sharded(cfg: ModelConfig, tp: int):
     if cfg.ffn_kind == "moe" and cfg.n_experts % tp:
         raise ValueError(f"{cfg.name}: a tensor axis of {tp} does not divide "
                          f"{cfg.n_experts} experts")
+    rings = [s.window for s in cfg.layers if s.kind == ATTN and s.window]
+    if seq_split(cfg, tp) and rings and min(rings) < tp:
+        raise ValueError(f"{cfg.name}: a ring of {min(rings)} slots is shorter than the {tp} "
+                         "ranks that split it by slot")
 
 
 def heads_split(cfg: ModelConfig, tp: int) -> bool:
@@ -443,6 +452,24 @@ def kv_replicated(cfg: ModelConfig, tp: int) -> bool:
     """Whether each rank computes every KV head (the tensor axis does not
     divide them; always so where ``heads_split``)."""
     return bool(cfg.n_kv_heads) and cfg.n_kv_heads % tp != 0
+
+
+def seq_split(cfg: ModelConfig, tp: int) -> bool:
+    """Whether an attention layer's decode cache splits its slots over a
+    tensor axis of ``tp`` (exactly where ``kv_replicated``: every rank
+    computes every KV head, and holds them for its own block of slots)."""
+    return kv_replicated(cfg, tp)
+
+
+def attn_slots(cfg: ModelConfig, spec: LayerSpec, ctx, rank: int, rows: int, max_len: int):
+    """Rank ``rank``'s ``ctx.Slots`` block of an attention layer's decode
+    cache (``rows`` rows, ``max_len`` positions), or None where every rank
+    holds all of its slots: split over the tensor axis where ``seq_split``,
+    and over the data axis by the JAX package's batch-1 rule
+    (``ShardingCtx.seq_axes``)."""
+    cap = A.cache_cap(spec, max_len)
+    axes = ctx.seq_axes(seq_split(cfg, ctx.tp_size), rows, cap)
+    return ctx.slots(axes, cap, rank) if axes else None
 
 
 def tp_cfg(cfg: ModelConfig, tp: int) -> ModelConfig:
@@ -470,27 +497,32 @@ def _kv_head(cfg: ModelConfig, ctx, r: int):
     return ctx.tp_index(r) * (cfg.n_heads // tp) // (cfg.n_heads // cfg.n_kv_heads)
 
 
-def _out_cols(cfg: ModelConfig, ctx, r: int):
-    """Where ``heads_split``: the columns of the attention output that rank
-    r's wo rows take (its own q_dim / tp, as its wq block), else None."""
-    tp = ctx.tp_size
-    if not heads_split(cfg, tp):
-        return None
-    w = cfg.q_dim // tp
+def _own_cols(cfg: ModelConfig, ctx, r: int) -> slice:
+    """The columns of the attention output that rank r's wo rows take (its
+    own q_dim / tp, as its wq block)."""
+    w = cfg.q_dim // ctx.tp_size
     i = ctx.tp_index(r)
     return slice(i * w, (i + 1) * w)
 
 
-def _attn_whole(pms: dict, cfg: ModelConfig, ctx, kv: bool = True) -> dict:
+def _out_cols(cfg: ModelConfig, ctx, r: int):
+    """Where ``heads_split`` (every rank computes every head): rank r's
+    ``_own_cols``, else None."""
+    return _own_cols(cfg, ctx, r) if heads_split(cfg, ctx.tp_size) else None
+
+
+def _attn_whole(pms: dict, cfg: ModelConfig, ctx, kv: bool = True,
+                whole_q: bool = False) -> dict:
     """{rank: the attention params with wk/wv (with ``kv``; where KV is
-    replicated) and wq (where ``heads_split``), and their biases, whole}:
+    replicated) and wq (where ``heads_split``, or with ``whole_q``), and
+    their biases, whole}:
     their column blocks all-gathered over the tensor axis (unless
     ``sanitize_specs`` left them whole); the gather's backward, the
     reduce-scatter, lands each gradient on its block.  The q/k norms are
     per head_dim and on every rank already."""
     tp = ctx.tp_size
     names = ((("wk", "wv") if kv and kv_replicated(cfg, tp) else ())
-             + (("wq",) if heads_split(cfg, tp) else ()))
+             + (("wq",) if whole_q or heads_split(cfg, tp) else ()))
     if not names:
         return pms
     out = {r: dict(p) for r, p in pms.items()}
@@ -527,13 +559,15 @@ def _ffn_sharded(ps, cfg, lcfg, xs, *, ctx, impl, want_aux):
 
 
 def _mixer_sharded(pms, cfg, spec, hs, *, ctx, impl, rope=None, caches=None, t=None,
-                   lens=None, prefill=False, causal=True):
+                   lens=None, prefill=False, causal=True, max_len=None):
     """{rank: fp32 share of the mixer output} of {rank: normed input}: the
     layer's mixer on every rank, ``pms`` {rank: local mixer params}.  Full
     sequence (``rope`` {rank: tables}; ``causal=False`` an encoder's
     attention; with ``prefill`` it also fills ``caches`` {rank: the layer's
     mixer cache}), or with ``t`` one decode token at position t against
-    ``caches`` (``lens`` {rank: cache lengths})."""
+    ``caches`` (``lens`` {rank: cache lengths}).  ``max_len``: the caches'
+    positions, which place an attention cache's slot blocks
+    (``attn_slots``)."""
     tp = ctx.tp_size
     lcfg = tp_cfg(cfg, tp)
     decode = t is not None
@@ -561,18 +595,46 @@ def _mixer_sharded(pms, cfg, spec, hs, *, ctx, impl, rope=None, caches=None, t=N
                 _store(caches[r], st)
             ys[r] = y
         return ys
+    slots = ({r: attn_slots(cfg, spec, ctx, r, h.shape[0], max_len) for r, h in hs.items()}
+             if decode or prefill else {})
+    if decode and slots[next(iter(hs))] is not None:
+        return _attn_decode_split(pms, cfg, spec, hs, caches, t, rope, slots, ctx=ctx, impl=impl)
+    if decode:  # the rank's own KV heads, whole on its cache
+        return {r: A.attn_decode_apply(pms[r], lcfg, spec, h, caches[r], t, rope[r], lens[r],
+                                       impl=impl, partial=True)
+                for r, h in hs.items()}
     pms = _attn_whole(pms, cfg, ctx)
     for r, h in hs.items():
-        kw = dict(impl=impl, partial=True, kv_head=_kv_head(cfg, ctx, r),
-                  cols=_out_cols(cfg, ctx, r))
-        if decode:
-            ys[r] = A.attn_decode_apply(pms[r], lcfg, spec, h, caches[r], t, rope[r], lens[r],
-                                        **kw)
-            continue
-        ys[r], kv = A.attn_apply_with_kv(pms[r], lcfg, spec, h, rope[r], causal=causal, **kw)
+        ys[r], kv = A.attn_apply_with_kv(pms[r], lcfg, spec, h, rope[r], causal=causal,
+                                         impl=impl, partial=True,
+                                         kv_head=_kv_head(cfg, ctx, r),
+                                         cols=_out_cols(cfg, ctx, r))
         if prefill:
-            A.prefill_into_cache(caches[r], spec, kv["k"], kv["v"], h.shape[1])
+            A.prefill_into_cache(caches[r], spec, kv["k"], kv["v"], h.shape[1],
+                                 slots=slots[r])
     return ys
+
+
+def _attn_decode_split(pms, cfg, spec, hs, caches, t, rope, slots, *, ctx, impl):
+    """An attention layer's decode over a cache split by slot (``slots``
+    {rank: its ``ctx.Slots``}): each rank's query heads (every one where the
+    slots split over the tensor axis) attend its block, the partials merge
+    over the block's axes in fp32 and are cast once, and each rank's wo
+    rows take their columns.  Returns {rank: fp32 share of the output}."""
+    axes = slots[next(iter(hs))].axes
+    whole_q = ctx.tp_axis in axes
+    lcfg = tp_cfg(cfg, ctx.tp_size)
+    if whole_q:
+        lcfg = dataclasses.replace(lcfg, n_heads=cfg.n_heads)
+    pms = _attn_whole(pms, cfg, ctx, whole_q=whole_q)
+    outs, lses = {}, {}
+    for r, h in hs.items():
+        outs[r], lses[r] = A.attn_decode_partial(pms[r], lcfg, spec, h, caches[r], t, rope[r],
+                                                 slots[r], impl=impl)
+    merged = ctx.lse_merge(outs, lses, axes)
+    return {r: A.decode_out(pms[r], lcfg, merged[r], h.dtype,
+                            cols=_own_cols(cfg, ctx, r) if whole_q else None)
+            for r, h in hs.items()}
 
 
 def _cross_sharded(ps, cfg, xs, *, ctx, impl, enc_outs=None, caches=None):
@@ -653,43 +715,54 @@ def stack_apply_sharded(layers_params, cfg: ModelConfig, xs, *, ctx, impl="cuda"
     return (xs, aux_total) if return_aux else xs
 
 
-def cache_init_sharded(cfg: ModelConfig, tp: int, batch, max_len, dtype, device, cross=False,
-                       enc_len=None):
-    """One rank's decode caches at tensor-parallel degree ``tp``: its own KV
-    heads (every one where ``kv_replicated``, so where ``heads_split``),
-    RG-LRU channels or SSD heads (``ssm.ssm_state_init_sharded``); with
-    ``cross`` each a decoder layer's {"self", "xkv"}, "xkv" over the same KV
-    heads (``cache_init``'s)."""
+def cache_init_sharded(cfg: ModelConfig, ctx, rank: int, batch, max_len, dtype, device,
+                       cross=False, enc_len=None):
+    """Rank ``rank``'s decode caches on ``ctx``'s mesh: its own KV heads,
+    or every one where ``kv_replicated`` (so where ``heads_split``) for its
+    own block of the slots (``attn_slots``), its RG-LRU channels or SSD
+    heads (``ssm.ssm_state_init_sharded``); with ``cross`` each a decoder
+    layer's {"self", "xkv"}, "xkv" over the same KV heads and all of the
+    encoder's positions (``cache_init``'s)."""
+    tp = ctx.tp_size
     lcfg = tp_cfg(cfg, tp)
     caches = [S.ssm_state_init_sharded(cfg, batch, cfg.ssm_heads // tp, dtype, device)
-              if spec.kind == SSM else layer_cache_init(lcfg, spec, batch, max_len, dtype, device)
+              if spec.kind == SSM
+              else A.cache_init(lcfg, spec, batch, max_len, dtype, device,
+                                slots=attn_slots(cfg, spec, ctx, rank, batch, max_len))
+              if spec.kind == ATTN
+              else layer_cache_init(lcfg, spec, batch, max_len, dtype, device)
               for spec in cfg.layers]
     if not cross:
         return caches
     return [_with_xkv(c, lcfg, batch, enc_len, dtype, device) for c in caches]
 
 
-def stack_prefill_sharded(layers_params, cfg: ModelConfig, xs, caches, *, ctx, impl="cuda",
-                          enc_outs=None):
+def stack_prefill_sharded(layers_params, cfg: ModelConfig, xs, caches, max_len, *, ctx,
+                          impl="cuda", enc_outs=None):
     """``stack_prefill`` over a mesh: caches is {rank: the rank's layer
-    caches} from ``cache_init_sharded``, filled in place; ``enc_outs``
+    caches} from ``cache_init_sharded`` at ``max_len``, filled in place
+    (a cache split by slot with the tokens of its block); ``enc_outs``
     {rank: encoder output} as ``stack_apply_sharded``'s.  Returns xs."""
     ropes = _ropes(cfg, {r: torch.arange(x.shape[1], device=x.device) for r, x in xs.items()})
     for i, (p, spec) in enumerate(zip(layers_params, cfg.layers)):
         xs, _ = block_sharded(ctx.local(p), cfg, spec, xs, ctx=ctx, impl=impl, rope=ropes,
                               caches={r: c[i] for r, c in caches.items()}, prefill=True,
-                              enc_outs=enc_outs)
+                              enc_outs=enc_outs, max_len=max_len)
     return xs
 
 
-def stack_decode_sharded(layers_params, cfg: ModelConfig, xs, caches, t, *, ctx, impl="cuda"):
+def stack_decode_sharded(layers_params, cfg: ModelConfig, xs, caches, t, max_len, *, ctx,
+                         impl="cuda"):
     """``stack_decode`` over a mesh: xs {rank: (B_r, 1, D)}, the token at
-    position t; caches as ``stack_prefill_sharded``'s, updated in place (a
-    decoder layer's cross-attention reads its "xkv").  Returns xs."""
+    position t; caches as ``stack_prefill_sharded``'s at ``max_len``,
+    updated in place (a decoder layer's cross-attention reads its "xkv").
+    A cache whose slots every rank holds is read to t + 1; one split by slot
+    to each rank's own valid slots (``ctx.Slots.length``).  Returns xs."""
     ropes = _ropes(cfg, {r: torch.full((1, 1), t, device=x.device) for r, x in xs.items()})
     lens = {r: torch.full((x.shape[0],), t + 1, dtype=torch.int32, device=x.device)
             for r, x in xs.items()}
     for i, (p, spec) in enumerate(zip(layers_params, cfg.layers)):
         xs, _ = block_sharded(ctx.local(p), cfg, spec, xs, ctx=ctx, impl=impl, rope=ropes,
-                              caches={r: c[i] for r, c in caches.items()}, t=t, lens=lens)
+                              caches={r: c[i] for r, c in caches.items()}, t=t, lens=lens,
+                              max_len=max_len)
     return xs

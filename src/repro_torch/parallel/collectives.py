@@ -248,3 +248,21 @@ def broadcast(xs: dict, mesh, axis, src: int) -> dict:
         for r in g:
             out[r] = x if r == g[src] else move(x, mesh.torch_device(r))
     return _record(out, "collective-permute", _nbytes(xs[gs[0][src]]), gs, backward=False)
+
+
+def lse_merge(outs: dict, lses: dict, mesh, axis) -> dict:
+    """Attention partials merged over ``axis``: outs {rank: (..., D) fp32,
+    the rank's softmax-normalised output over its keys}, lses {rank: (...)
+    fp32, the log-sum-exp of its scaled logits, -inf where it has no key}.
+    An all-reduce max of the lse, then one all-reduce sum, in rank order, of
+    [exp(lse - max) out, exp(lse - max)], then the division: fp32 throughout,
+    so the caller casts the merged row once.  Both calls are recorded in
+    ``RECORD``.  Every row must have a key on some member (the max is then
+    finite)."""
+    top = all_reduce(lses, mesh, axis, op="max")
+    parts = {}
+    for r, out in outs.items():
+        w = torch.exp(lses[r] - top[r])[..., None]
+        parts[r] = torch.cat([out * w, w], dim=-1)
+    total = all_reduce(parts, mesh, axis)
+    return {r: x[..., :-1] / x[..., -1:] for r, x in total.items()}

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel.layout import P, ShardedTensor, axes_of, tree_map
@@ -27,6 +27,33 @@ _TLS = threading.local()
 
 BATCH = "@batch"   # placeholder resolved to the context's batch axes
 TP = "@tp"         # placeholder resolved to the context's tensor axis
+
+# The JAX dry run's batch-1 rule (``launch/dryrun.py`` ``_cache_specs_tree``):
+# a cache of one row whose slot count SEQ_DIV divides and is at least
+# SEQ_MIN splits its slots over the DATA axis.
+DATA = "data"
+SEQ_DIV, SEQ_MIN = 16, 4096
+
+
+class Slots(NamedTuple):
+    """A rank's block [start, stop) of a decode cache's ``cap`` slots, which
+    split over the mesh ``axes`` in ceil-sized blocks (``Layout.regions``'
+    cut; the last blocks shorter or empty)."""
+    start: int
+    stop: int
+    cap: int
+    axes: tuple
+
+    def length(self, t: int) -> int:
+        """Valid slots of the block when the token at position t is in:
+        the valid slots of a linear cache, and of a ring, are the prefix
+        [0, min(t + 1, cap))."""
+        return min(max(min(t + 1, self.cap) - self.start, 0), self.stop - self.start)
+
+    def local(self, slot: int) -> Optional[int]:
+        """``slot``'s index within the block, or None where another rank
+        holds it."""
+        return slot - self.start if self.start <= slot < self.stop else None
 
 
 class ShardingCtx:
@@ -71,12 +98,38 @@ class ShardingCtx:
     def batch_index(self, rank: int) -> int:
         return C.axis_index(self.mesh, self.batch_axes, rank) if self.batch_axes else 0
 
+    def seq_axes(self, by_slot: bool, rows: int, cap: int) -> tuple:
+        """The mesh axes a rank's decode cache of ``rows`` rows and ``cap``
+        slots splits its slots over: the data axis where the cache has no
+        batch axis, one row and a slot count the JAX rule splits (SEQ_DIV,
+        SEQ_MIN), then the tensor axis where ``by_slot`` (it does not
+        divide the KV heads, ``transformer.seq_split``)."""
+        axes = ()
+        if (not self.batch_axes and rows == 1 and self.mesh.shape.get(DATA, 1) > 1
+                and cap % SEQ_DIV == 0 and cap >= SEQ_MIN):
+            axes += (DATA,)
+        if by_slot and self.tp_size > 1:
+            axes += (self.tp_axis,)
+        return axes
+
+    def slots(self, axes: tuple, cap: int, rank: int) -> Slots:
+        """``rank``'s block of ``cap`` slots split over ``axes``."""
+        size = -(-cap // self._size(axes))
+        i = C.axis_index(self.mesh, axes, rank)
+        return Slots(min(cap, i * size), min(cap, (i + 1) * size), cap, axes)
+
     # ------------------------------------------------------- collectives
     def tp_reduce(self, xs: dict, op: str = "sum") -> dict:
         """All-reduce over the tensor axis (the row-parallel output)."""
         if not self.tp_axis:
             return xs
         return C.all_reduce(xs, self.mesh, self.tp_axis, op=op)
+
+    def lse_merge(self, outs: dict, lses: dict, axes: tuple) -> dict:
+        """{rank: the fp32 attention rows} of the ranks' partials over their
+        slot blocks, merged over ``axes`` by log-sum-exp
+        (``collectives.lse_merge``)."""
+        return C.lse_merge(outs, lses, self.mesh, axes)
 
     def batch_reduce(self, xs: dict) -> dict:
         """All-reduce (sum) over the batch axes (data-parallel replicas)."""

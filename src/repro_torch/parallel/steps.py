@@ -200,11 +200,14 @@ def _as_sharded(per_rank: dict, layout: Layout, shape) -> ShardedTensor:
 
 
 # The dim of each cache leaf that a rank holds its share of over the tensor
-# axis: attention k/v (a decoder layer's cross "xkv" too) by KV head (none
-# where ``kv_replicated``), the RG-LRU state by channel, the SSD state by
-# head and its conv state's x channels (``ssm.ssm_state_init_sharded``; its
-# B and C channels are on every rank).
+# axis: attention k/v (a decoder layer's cross "xkv" too) by KV head (where
+# ``kv_replicated`` none: self-attention's k/v split their slots, dim 1,
+# instead, ``transformer.attn_slots``, and "xkv" is on every rank), the
+# RG-LRU state by channel, the SSD state by head and its conv state's x
+# channels (``ssm.ssm_state_init_sharded``; its B and C channels are on
+# every rank).
 _CACHE_TP_DIM = {"k": 2, "v": 2, "h": 1, "conv": 2, "ssm": 1, "conv_x": 2, "conv_bc": None}
+_SLOT_DIM = 1
 
 
 def _at(tree, path):
@@ -213,32 +216,44 @@ def _at(tree, path):
     return tree
 
 
-def wrap_caches(caches: dict, cfg, mesh, rules):
-    """{rank: layer caches} as a list per layer of the same (nested) dicts
-    of ``ShardedTensor``s, each rank's block its batch rows and its share
-    over the tensor axis (``_CACHE_TP_DIM``)."""
+def wrap_caches(caches: dict, cfg, mesh, rules, max_len: int):
+    """{rank: layer caches at ``max_len`` positions} as a list per layer of
+    the same (nested) dicts of ``ShardedTensor``s, each rank's block its
+    batch rows and its share over the tensor axis (``_CACHE_TP_DIM``), or,
+    for self-attention k/v split by slot, its block of the slots over the
+    slot axes (``transformer.attn_slots``)."""
     k = C.axis_size(mesh, rules.batch_axes) if rules.batch_axes else 1
     tp = mesh.shape[rules.tp_axis] if rules.tp_axis else 1
+    c = CTX.ShardingCtx(mesh, rules.batch_axes, rules.tp_axis)
+    r0 = mesh.device_ids[0]
     out = []
     for i, spec in enumerate(cfg.layers):
         replicated = spec.kind == ATTN and T.kv_replicated(cfg, tp)
+        slots = None
+        if spec.kind == ATTN:
+            rows = tree_leaves(caches[r0][i])[0].shape[0]
+            slots = T.attn_slots(cfg, spec, c, r0, rows, max_len)
 
-        def wrap(path, blk, i=i, replicated=replicated):
-            dim = None if replicated else _CACHE_TP_DIM[path[-1]]
+        def wrap(path, blk, i=i, replicated=replicated, slots=slots):
             parts = [_batch_part(rules)] + [None] * (blk.dim() - 1)
             shape = [blk.shape[0] * k, *blk.shape[1:]]
+            if slots is not None and "xkv" not in path:
+                parts[_SLOT_DIM] = slots.axes[0] if len(slots.axes) == 1 else slots.axes
+                shape[_SLOT_DIM] = slots.cap
+            dim = None if replicated else _CACHE_TP_DIM[path[-1]]
             if dim is not None:
                 parts[dim] = rules.tp_axis
                 shape[dim] *= tp
             return _as_sharded({r: _at(caches[r][i], path) for r in caches},
                                Layout(mesh, P(*parts)), tuple(shape))
-        out.append(tree_map_with_path(wrap, caches[mesh.device_ids[0]][i]))
+        out.append(tree_map_with_path(wrap, caches[r0][i]))
     return out
 
 
 def gathered_caches(caches: list, device=None) -> list:
     """The sharded caches of ``make_prefill_step`` gathered (onto
     ``device``) into the single-device ones (``transformer.cache_init``'s):
+    a cache split by slot rejoined from its blocks (its layout's regions),
     an SSD layer's conv state joined from its x and its B and C channels."""
     out = []
     for layer in caches:
@@ -261,10 +276,18 @@ def make_prefill_step(cfg: ModelConfig, *, impl="cuda", extra_len: int = 0, mesh
     vocabulary replicated where the axis does not divide it), the caches as
     a list per layer of ``ShardedTensor``s, each rank holding its batch rows
     and (``cache_partition_specs`` lists the layouts):
-      * attention {"k", "v"} (B, S_max, Hkv, Dh): its own KV heads,
-        ``P(batch, None, model, None)``, so ``flash_decode`` runs on whole
-        heads; where the tensor axis does not divide the KV heads every
-        head, ``P(batch, None, None, None)``;
+      * attention {"k", "v"} (B, S_max or the window, Hkv, Dh): its own
+        KV heads, ``P(batch, None, model, None)``, so ``flash_decode``
+        runs on whole heads; where the tensor axis does not divide the KV
+        heads every head for its own ceil-sized block of the slots,
+        ``P(batch, model, None, None)`` (a ring's too: a token at position
+        p sits at slot p % W on the rank whose block holds it; each rank's
+        decode attends its block and the ranks merge by log-sum-exp); a
+        batch-1 cache without batch axes whose slot count 16 divides and
+        is at least 4,096 (the JAX dry run's rule) also splits its slots
+        over the data axis, ``P(None, (data, model), None, None)``, or
+        ``P(None, data, model, None)`` where the model axis holds KV
+        heads;
       * RG-LRU {"h": (B, W) fp32, "conv": (B, 3, W)}: its channels,
         ``P(batch, model)`` and ``P(batch, None, model)``;
       * SSD {"ssm": (B, H, P, N) fp32, "conv_x": (B, K-1, di), "conv_bc":
@@ -275,7 +298,7 @@ def make_prefill_step(cfg: ModelConfig, *, impl="cuda", extra_len: int = 0, mesh
         above, "xkv": {"k", "v"} (B, prefix_len, Hkv, Dh)}: the cross k/v
         of its KV heads over its rows' encoder output, computed once here,
         laid out as "self" is (by KV head, or replicated over the tensor
-        axis).
+        axis: "xkv" is never split by slot).
     ``gathered_caches`` joins them into the single-device caches."""
     if mesh is None:
         def step(params, batch):
@@ -295,9 +318,19 @@ def make_prefill_step(cfg: ModelConfig, *, impl="cuda", extra_len: int = 0, mesh
                                                  s + max(extra_len, 1), ctx=c, impl=impl)
             logits = _as_sharded(logits, _logits_layout(params, cfg, mesh, rules, c),
                                  (b, cfg.vocab_size))
-        return logits, wrap_caches(caches, cfg, mesh, rules)
+        return logits, wrap_caches(caches, cfg, mesh, rules, s + max(extra_len, 1))
 
     return step
+
+
+def _max_len(cfg: ModelConfig, caches: list) -> int | None:
+    """The positions the sharded caches were made for: the most slots of an
+    attention layer's cache (a linear one holds max_len; a ring min(W,
+    max_len), which places its slot blocks alike), or None without
+    attention."""
+    caps = [(c["self"] if "self" in c else c)["k"].shape[_SLOT_DIM]
+            for spec, c in zip(cfg.layers, caches) if spec.kind == ATTN]
+    return max(caps) if caps else None
 
 
 def make_decode_step(cfg: ModelConfig, *, impl="cuda", mesh=None,
@@ -319,7 +352,8 @@ def make_decode_step(cfg: ModelConfig, *, impl="cuda", mesh=None,
             tokens = {r: v["token"] for r, v in split_batch({"token": token}, mesh,
                                                             rules).items()}
             local = {r: tree_map(lambda st, r=r: st.blocks[r], caches) for r in mesh.device_ids}
-            logits = MDL.decode_step_sharded(params, cfg, tokens, local, t, ctx=c, impl=impl)
+            logits = MDL.decode_step_sharded(params, cfg, tokens, local, t,
+                                             _max_len(cfg, caches), ctx=c, impl=impl)
             logits = _as_sharded(logits, _logits_layout(params, cfg, mesh, rules, c),
                                  (token.shape[0], cfg.vocab_size))
         return logits, caches
@@ -353,13 +387,16 @@ def cache_partition_specs(cache_shapes, rules: SH.ShardingRules):
     divides it.  The port's sharded decode does not use them: its caches
     (``make_prefill_step``) hold attention k/v by KV head, ``P(batch, None,
     model, None)``, or, where the tensor axis does not divide the KV heads,
-    replicated over it, ``P(batch, None, None, None)``; the RG-LRU state by
+    every KV head for a ceil-sized block of the slots, ``P(batch, model,
+    None, None)``, the same bytes per card as JAX's head_dim split to within
+    a slot a rank, with the slots of a batch-1 cache also over the data axis
+    by the JAX dry run's rule (``ctx.ShardingCtx.seq_axes``); the RG-LRU state by
     channel, "h" ``P(batch, model)`` and "conv" ``P(batch, None, model)``;
     the SSD state by head, "ssm" ``P(batch, model, None, None)``, with its
     conv state split into its x channels by head, "conv_x" ``P(batch,
     None, model)``, and its B and C channels on every rank, "conv_bc"
-    ``P(batch, None, None)``; an encoder-decoder's "xkv" k/v as its
-    attention k/v."""
+    ``P(batch, None, None)``; an encoder-decoder's "xkv" k/v by KV head,
+    or replicated over the tensor axis where it does not divide them."""
     b = _batch_part(rules)
 
     def spec(x):

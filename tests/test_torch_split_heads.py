@@ -171,9 +171,10 @@ def test_split_head_step_matches_single_device_fp32(arch, kw, shape):
     ("internvl2-76b", TWO, (1, 4), 16)])
 def test_split_head_prefill_and_decode_match_single_device_fp32(arch, kw, shape, prompt_len):
     """Prefill then 4 decode steps: logits within 1e-5 of the largest, the
-    greedy tokens, and the gathered caches (every KV head on every rank,
-    ``P(batch, None, None, None)``); gemma's prompt of 20 and 4 steps wrap
-    its 16-slot rings."""
+    greedy tokens, and the gathered caches (every KV head on every rank for
+    its block of the slots, ``P(batch, model, None, None)``; an
+    encoder-decoder's "xkv" on every rank, ``P(batch, None, None, None)``);
+    gemma's prompt of 20 and 4 steps wrap its 16-slot rings."""
     cfg = get_config(arch).reduced(**kw)
     assert TT.heads_split(cfg, shape[1])
     params = TM.init_params(cfg, seed=0, device="cpu")
@@ -182,8 +183,9 @@ def test_split_head_prefill_and_decode_match_single_device_fp32(arch, kw, shape,
     for run in runs:
         assert_serve_step(*run)
     for layer in runs[-1][3]:
-        for part in ((layer["self"], layer["xkv"]) if "xkv" in layer else (layer,)):
-            assert {st.layout.spec for st in part.values()} == {P("data", None, None, None)}
+        for part, slot in (((layer["self"], "model"), (layer["xkv"], None)) if "xkv" in layer
+                           else ((layer, "model"),)):
+            assert {st.layout.spec for st in part.values()} == {P("data", slot, None, None)}
             assert part["k"].blocks[0].shape[2] == cfg.n_kv_heads
 
 

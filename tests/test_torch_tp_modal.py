@@ -176,8 +176,9 @@ def assert_serve_step(lg1, lg2, c1, c2):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sharded_prefill_and_decode_match_single_device(arch, shape):
     """Logits, greedy tokens and the gathered caches at every call; each
-    cache leaf's layout: KV heads over the model axis, or replicated over
-    it at TP 4 (2 KV heads), "xkv" as "self"."""
+    cache leaf's layout: KV heads over the model axis, or at TP 4 (2 KV
+    heads) every KV head, "self" for a block of its slots over the model
+    axis and "xkv" replicated over it."""
     cfg, params = model(arch)
     mesh = cpu_mesh(shape)
     runs = serve_runs(cfg, params, mesh)
@@ -185,10 +186,12 @@ def test_sharded_prefill_and_decode_match_single_device(arch, shape):
         assert_serve_step(*run)
     tp = shape[1]
     heads = P("data", None, "model", None) if tp < 4 else P("data", None, None, None)
+    slots = heads if tp < 4 else P("data", "model", None, None)
     local = 2 if tp == 4 else 2 // tp
     for layer in runs[-1][3]:
-        for part in ((layer["self"], layer["xkv"]) if arch == SEAMLESS else (layer,)):
-            assert {k: st.layout.spec for k, st in part.items()} == {"k": heads, "v": heads}
+        for part, spec in (((layer["self"], slots), (layer["xkv"], heads)) if arch == SEAMLESS
+                           else ((layer, slots),)):
+            assert {k: st.layout.spec for k, st in part.items()} == {"k": spec, "v": spec}
             assert part["k"].blocks[mesh.device_ids[-1]].shape[2] == local
     if arch == SEAMLESS:
         assert runs[-1][3][0]["xkv"]["k"].shape == (4, cfg.prefix_len, 2, cfg.head_dim)

@@ -176,9 +176,11 @@ def test_sharded_prefill_and_decode_match_single_device(arch, shape):
     tp = shape[1]
     for spec, layer in zip(cfg.layers, runs[-1][3]):
         specs = {k: st.layout.spec for k, st in layer.items()}
-        if spec.kind == ATTN:  # one KV head: replicated over the model axis at every TP
-            assert specs == {"k": P("data", None, None, None), "v": P("data", None, None, None)}
+        if spec.kind == ATTN:  # one KV head: its slots split over the model axis at every TP
+            slot = P("data", "model" if tp > 1 else None, None, None)
+            assert specs == {"k": slot, "v": slot}
             assert layer["k"].blocks[mesh.device_ids[-1]].shape[2] == 1
+            assert layer["k"].blocks[0].shape[1] == -(-layer["k"].shape[1] // tp)
         elif "h" in layer:
             assert specs == {"h": P("data", "model"), "conv": P("data", None, "model")}
             assert layer["h"].blocks[0].shape[1] == cfg.lru_width // tp
@@ -194,8 +196,8 @@ def test_sharded_prefill_and_decode_match_single_device(arch, shape):
 def test_kv_heads_replicated_at_tp4(arch, kw):
     """TP 4 over fewer KV heads: gemma3 (4 query heads, 1 KV head), qwen
     (4 / 2: a rank's one query head in one group; 8 / 2: two heads in one
-    group), train and serve against one device, the KV caches replicated
-    over the model axis."""
+    group), train and serve against one device, the KV caches holding every
+    KV head for a block of the slots over the model axis."""
     cfg = get_config(arch).reduced(**kw)
     assert cfg.n_kv_heads % 4 and TT.kv_replicated(cfg, 4)
     params = TM.init_params(cfg, seed=0, device="cpu")
@@ -204,8 +206,9 @@ def test_kv_heads_replicated_at_tp4(arch, kw):
     runs = serve_runs(cfg, params, mesh, prompt_len=12, new=3)
     for run in runs:
         assert_serve_step(*run)
-    assert all(st.layout.spec == P("data", None, None, None) and
+    assert all(st.layout.spec == P("data", "model", None, None) and
                st.blocks[3].shape[2] == cfg.n_kv_heads
+               and st.blocks[0].shape[1] == -(-st.shape[1] // 4)
                for layer in runs[-1][3] for st in layer.values())
     batch = TM.synth_batch(1, cfg, 12, 4, device="cpu")
     opt = adamw.AdamWConfig(lr=1e-6)
