@@ -275,10 +275,23 @@ Phases, in order; any failure exits non-zero before the last line:
      one local and one global layer in fp32; bytes, launches and each
      rank's k/v bytes to their predictions from the shapes, the cache bytes
      on the card printed beside the replicated layout's.
+ 19. packed training on sharded layouts: a cohort of 16 sequences of
+     64-384 tokens (``PromptDataset.packed_batch_at``, bucketed to a
+     multiple of 64 with phantoms) dealt to the batch replicas as runs of
+     whole sequences (``packing.split_packed``), one packed
+     ``make_train_step`` on the mesh against the single-device packed step
+     from the same weights: (a) qwen2-0.5b at full width and depth in bf16
+     (TRAIN_TOL, TRAIN_LEAF_TOL) and on 2 fp32 layers (FP32_GRAD_TOL) on
+     (data 2, model 2) and on (1, 4), where its 14 query heads split; (b)
+     granite-moe-1b-a400m the same on (1, 4), 8 of its 32 experts a rank
+     (dropless: grouped_ffn on each rank's experts), the routes against one
+     device's printed (an fp32 parting held to ROUTE_TIE_TOL in place of
+     the gradients); replicas bit-equal, flash_mha_varlen and grouped_ffn
+     launches to the prediction (ranks x layers x 2 with remat).
 Each model's parameters are freed before the next is built.
 Then one JSON line of kernel numbers, and last {"ok": true, "device": ...}.
 
-Phases 3 to 18 are functions of (config, params or experiment, impl) so the
+Phases 3 to 19 are functions of (config, params or experiment, impl) so the
 CPU tests rehearse them at the reduced size with impl="reference".
 """
 
@@ -345,7 +358,7 @@ from repro_torch.parallel import sharding as SHD  # noqa: E402
 from repro_torch.parallel import steps as PSTEPS  # noqa: E402
 from repro_torch.parallel.layout import (Layout, Mesh, ShardedTensor, place_tree,  # noqa: E402
                                          tree_leaves, tree_map)
-from repro_torch.data.synth import PreferenceDataset  # noqa: E402
+from repro_torch.data.synth import PreferenceDataset, PromptDataset  # noqa: E402
 from repro_torch.rlhf import dpo as DPO  # noqa: E402
 from repro_torch.rlhf import experiment as EXP  # noqa: E402
 from repro_torch.rlhf import grpo as GRPO  # noqa: E402
@@ -3668,6 +3681,14 @@ def phase_tp_train(cfg, params, batch, layout, *, impl, opt_cfg=adamw.AdamWConfi
     sharded parameters finite and moved, seconds, peak memory, the bytes
     the collectives moved and each run's launches; ``trained`` is the
     sharded parameter tree after the step."""
+    ref, m_ref = single_train(cfg, params, batch, impl=impl, opt_cfg=opt_cfg)
+    return sharded_train(cfg, params, batch, layout, ref, m_ref, impl=impl, opt_cfg=opt_cfg)
+
+
+def single_train(cfg, params, batch, *, impl, opt_cfg=adamw.AdamWConfig(), **kw):
+    """One single-device ``make_train_step`` (``kw``: its ``max_seqlen``)
+    from a copy of ``params``: ({seconds, peak, launches, loss, grad_norm},
+    the AdamW first moment)."""
     device = params["embed"]["table"].device
     single = clone_tree(params)
     for t in adamw.leaves(single):
@@ -3676,13 +3697,21 @@ def phase_tp_train(cfg, params, batch, layout, *, impl, opt_cfg=adamw.AdamWConfi
     reset_launches()
     peak_reset(device)
     t0 = time.perf_counter()
-    _, state, m1 = PSTEPS.make_train_step(cfg, opt_cfg, impl=impl)(single, state, batch)
+    _, state, m1 = PSTEPS.make_train_step(cfg, opt_cfg, impl=impl, **kw)(single, state, batch)
     sync(device)
     ref = dict(seconds=time.perf_counter() - t0, peak=peak(device), launches=launches(),
                loss=float(m1["loss"]), grad_norm=float(m1["grad_norm"]))
     m_ref = state["m"]
     del single, state
     free(device)
+    return ref, m_ref
+
+
+def sharded_train(cfg, params, batch, layout, ref, m_ref, *, impl,
+                  opt_cfg=adamw.AdamWConfig(), **kw):
+    """``phase_tp_train``'s sharded step, held to ``single_train``'s run
+    ``ref`` and its first moment ``m_ref``."""
+    device = params["embed"]["table"].device
     mesh, sharded = shard_params(params, *layout, device)
     before = clone_tree(tree_map(lambda st: st.blocks[mesh.device_ids[0]], sharded))
     sstate = adamw.init(opt_cfg, sharded)
@@ -3690,7 +3719,7 @@ def phase_tp_train(cfg, params, batch, layout, *, impl, opt_cfg=adamw.AdamWConfi
     reset_launches()
     peak_reset(device)
     t0 = time.perf_counter()
-    sharded, sstate, m2 = PSTEPS.make_train_step(cfg, opt_cfg, impl=impl, mesh=mesh)(
+    sharded, sstate, m2 = PSTEPS.make_train_step(cfg, opt_cfg, impl=impl, mesh=mesh, **kw)(
         sharded, sstate, batch)
     sync(device)
     out = dict(seconds=time.perf_counter() - t0, peak=peak(device), launches=launches(),
@@ -6528,6 +6557,155 @@ def report_phase18(device, total, kern):
         print(f"[time] phase 18{tag} {time.perf_counter() - t0:.1f}s")
 
 
+# ------------------------------- phase 19: packed training on sharded layouts
+
+PACKED = "qwen2-0.5b"               # (a): 14 query heads over 2 KV heads
+PACKED_LAYOUTS = ((2, 2), (1, 4))   # (a): FSDP 2 x TP 2; the 14 heads split over 4 ranks
+PACKED_MOE = "granite-moe-1b-a400m"
+PACKED_EP = ((1, 4),)               # (b): 8 of its 32 experts a rank
+PACKED_MOE_LAYERS = 24              # all of granite's
+PACKED_FP32_LAYERS = 2
+# The cohort: 16 sequences of 64-384 tokens (``PromptDataset.packed_batch_at``),
+# its token count bucketed to a multiple of 64 with phantoms.
+PACKED_COHORT = dict(seqs=16, min_len=64, max_len=384, bucket=64)
+
+
+def packed_lm_batch(cfg, device, *, seqs, min_len, max_len, bucket, seed=0):
+    """A packed LM cohort of ``seqs`` sequences of ``min_len``-``max_len``
+    tokens from ``data/synth.py``'s ``PromptDataset.packed_batch_at``,
+    padded with phantoms to a multiple of ``bucket``: {"tokens" (T,),
+    "positions", "cu_seqlens", "labels" (1, T) the next token, "mask" (1,
+    T) 0 on each sequence's last token and on the phantoms}."""
+    ds = PromptDataset(cfg.vocab_size, max_len, seqs, seed=seed, min_len=min_len, device=device)
+    pb = ds.packed_batch_at(0)
+    pb = packing.pad_to(pb, packing.bucket_total(pb.total_tokens, bucket))
+    tokens = pb.tokens.long()
+    cu = pb.cu_seqlens.long()
+    mask = torch.ones(tokens.shape, dtype=torch.float32, device=device)
+    mask[cu[1:] - 1] = 0.0
+    mask[int(cu[-1]):] = 0.0
+    return {"tokens": tokens, "positions": pb.positions, "cu_seqlens": pb.cu_seqlens,
+            "labels": torch.roll(tokens, -1)[None], "mask": mask[None]}
+
+
+def packed_train_predicted(cfg, layout=None):
+    """Launches of one packed train step on a (dp, tp) ``layout`` (None:
+    one device): every rank's forward of every layer and its recompute
+    (remat) run flash_mha_varlen per attention layer and grouped_ffn per
+    dropless MoE layer; the plain backwards launch nothing."""
+    n = 2 * (layout[0] * layout[1] if layout else 1)
+    return {"flash_mha_varlen": n * attn_layers(cfg), "grouped_ffn": n * moe_layers(cfg)}
+
+
+def replica_routes(calls, layout):
+    """``recorded_routes`` of a sharded step on a (dp, tp) ``layout`` as one
+    device's: each router call of tensor rank 0 of every replica (the mesh
+    order), their rows joined in replica order (the cohort's order)."""
+    n, tp = layout[0] * layout[1], layout[1]
+    out = []
+    for i in range(0, len(calls), n):
+        group = calls[i:i + n][::tp]
+        out.append(tuple(torch.cat([g[j] for g in group]) for j in range(2)))
+    return out
+
+
+def phase_packed_train(cfg, params, batch, layouts, *, impl, max_seqlen):
+    """19: the single-device packed ``make_train_step`` once, then the
+    sharded one on each (dp, tp) of ``layouts`` from the same parameters
+    and cohort (``max_seqlen`` its band).  Returns {layout:
+    ``sharded_train``'s result, with the single device's "ref" and, for an
+    MoE model, "routes": ``route_diff`` of the runs' router calls}."""
+    with recorded_routes() as ref_calls:
+        ref, m_ref = single_train(cfg, params, batch, impl=impl, max_seqlen=max_seqlen)
+    out = {}
+    for layout in layouts:
+        with recorded_routes() as calls:
+            r = sharded_train(cfg, params, batch, layout, ref, m_ref, impl=impl,
+                              max_seqlen=max_seqlen)
+        del r["trained"]
+        r["routes"] = (route_diff(replica_routes(calls, layout), ref_calls)
+                       if cfg.ffn_kind == "moe" else None)
+        out[layout] = r
+    return out
+
+
+def report_packed(tag, cfg, runs, batch, tol, leaf_tol, total):
+    """``phase_packed_train``'s runs printed and held: loss, grad_norm and
+    first moment within ``tol``, each leaf within ``leaf_tol`` (where an
+    fp32 MoE run's routes part, each parting's gap to ROUTE_TIE_TOL in
+    their place, as phase 7 holds them), replicas bit-equal, parameters
+    finite and moved, each run's launches to ``packed_train_predicted``;
+    adds the launches to ``total``."""
+    cu = batch["cu_seqlens"].tolist()
+    lens = np.diff(cu)
+    ref = next(iter(runs.values()))["ref"]
+    print(f"{tag} {cfg.name} {cfg.num_layers} layers {cfg.dtype}: {len(lens)} sequences of "
+          f"{lens.min()}-{lens.max()} tokens, {cu[-1]} tokens + "
+          f"{batch['tokens'].shape[0] - cu[-1]} phantoms; single device loss "
+          f"{ref['loss']:.6e}, grad_norm {ref['grad_norm']:.6e}, {ref['seconds']:.3f}s, peak "
+          f"{ref['peak']} bytes, launches {ref['launches']}")
+    want = packed_train_predicted(cfg)
+    check(same_launches(ref["launches"], want),
+          f"{tag} single-device packed launches {ref['launches']} != {want}")
+    for k in total:
+        total[k] += ref["launches"][k]
+    for layout, r in runs.items():
+        parts = packing.split_packed(batch, layout[0])
+        rt = r["routes"]
+        routes = ("" if rt is None else f"; routes agree on {rt['agreement']:.6f} of (token, "
+                  f"router call) pairs, {rt['flips']} part (largest probability gap "
+                  f"{rt['worst_gap']:.3e})")
+        want = packed_train_predicted(cfg, layout)
+        print(f"{tag} {cfg.name} on (data, model)={layout}: replicas of "
+              + ", ".join(f"{p['tokens'].shape[0]} tokens (max_seqlen {p['max_seqlen']})"
+                          for p in parts)
+              + f"; loss {r['loss']:.6e} (err {r['loss_err']:.3e}), grad_norm err "
+              f"{r['grad_norm_err']:.3e}, first moment err {r['global_err']:.3e}, worst leaf "
+              f"{r['worst_leaf']} {r['worst_leaf_err']:.3e} (tol {tol}, per leaf {leaf_tol})"
+              f"{routes}; replicas bit-equal {r['replicas_equal']}; {r['seconds']:.3f}s "
+              f"(single device {ref['seconds']:.3f}s), peak {r['peak']} bytes, collectives "
+              f"moved {r['bytes']} bytes; launches {r['launches']} (predicted {want})")
+        if cfg.dtype == "float32" and rt is not None and rt["flips"]:
+            check(rt["worst_gap"] <= ROUTE_TIE_TOL,
+                  f"{tag} {cfg.name} on {layout}: a route parts {rt['worst_gap']:.3e} from a tie")
+        else:
+            check(max(r["loss_err"], r["grad_norm_err"], r["global_err"]) <= tol
+                  and r["worst_leaf_err"] <= leaf_tol,
+                  f"{tag} packed train step of {cfg.name} on {layout} disagrees with one device")
+        check(r["replicas_equal"] and r["finite"] and r["moved"],
+              f"{tag} {cfg.name} on {layout}: replicas differ, or parameters not finite or "
+              "unmoved")
+        check(same_launches(r["launches"], want),
+              f"{tag} packed train launches {r['launches']} != {want}")
+        for k in total:
+            total[k] += r["launches"][k]
+
+
+def report_phase19(device, total, *, cohort=PACKED_COHORT):
+    """Phase 19 on the card: (a) qwen2-0.5b's packed train step at full
+    width and depth in bf16 (TRAIN_TOL, TRAIN_LEAF_TOL) and on 2 fp32
+    layers (FP32_GRAD_TOL) on (2, 2) and (1, 4) against one device; (b)
+    granite-moe-1b-a400m's on (1, 4), its experts over the ranks (dropless:
+    grouped_ffn on each rank's experts); each part's seconds."""
+    for part, name, layouts, layers in (("a", PACKED, PACKED_LAYOUTS, None),
+                                        ("b", PACKED_MOE, PACKED_EP, PACKED_MOE_LAYERS)):
+        t0 = time.perf_counter()
+        full = get_config(name)
+        if layers is not None:
+            full = shallow(full, layers)
+        for cfg, seed, tol, leaf_tol in ((full, 0, TRAIN_TOL, TRAIN_LEAF_TOL),
+                                         (shallow(full, PACKED_FP32_LAYERS, dtype="float32"), 1,
+                                          FP32_GRAD_TOL, FP32_GRAD_TOL)):
+            params = make_params(cfg, seed=seed, device=device)
+            batch = packed_lm_batch(cfg, device, seed=seed, **cohort)
+            runs = phase_packed_train(cfg, params, batch, layouts, impl="cuda",
+                                      max_seqlen=cohort["max_len"])
+            report_packed(f"[packed] 19{part}", cfg, runs, batch, tol, leaf_tol, total)
+            del params, runs
+            free(device)
+        print(f"[time] phase 19{part} {time.perf_counter() - t0:.1f}s")
+
+
 # ------------------------------------------------------------------ main
 
 def shallow(cfg, layers=4, *, dtype=None):
@@ -6759,6 +6937,9 @@ def main():
     t0 = time.perf_counter()
     report_phase18(device, total, kern)
     print(f"[time] phase 18 {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    report_phase19(device, total)
+    print(f"[time] phase 19 {time.perf_counter() - t0:.1f}s")
 
     source = "src/repro_torch/kernels/csrc/"
     rows = [dict(name="flash_mha", route="cuda", source=source + "flash_attention.cu",

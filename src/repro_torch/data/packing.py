@@ -128,6 +128,72 @@ def bucket_total(t: int, bucket: int = 64) -> int:
     return -(-t // bucket) * bucket
 
 
+def check_band(cu_seqlens, max_seqlen):
+    """Raise ``ValueError`` where a sequence of ``cu_seqlens`` is longer
+    than the band ``max_seqlen`` that the varlen attention's plain version
+    is given (it would silently compute another function; None: no band).
+    The phantom tail may be longer: its rows carry loss mask 0."""
+    if max_seqlen is None:
+        return
+    longest = int(np.diff(np.asarray(cu_seqlens.tolist())).max(initial=0))
+    if longest > max_seqlen:
+        raise ValueError(f"a sequence of {longest} tokens exceeds max_seqlen {max_seqlen}")
+
+
+def _balanced_cuts(cu: list, total: int, n: int) -> list:
+    """Sequence indices 0 = c_0 < c_1 < ... < c_n = B that cut B sequences
+    at offsets ``cu`` into ``n`` contiguous runs of at least one sequence
+    each, cut j at the boundary nearest j / n of the ``total`` tokens (the
+    phantom tail counted with the last run)."""
+    b = len(cu) - 1
+    cuts = [0]
+    for j in range(1, n):
+        lo, hi = cuts[-1] + 1, b - (n - j)
+        target = total * j / n
+        cuts.append(min(range(lo, hi + 1), key=lambda i: (abs(cu[i] - target), i)))
+    return cuts + [b]
+
+
+def split_packed(batch: dict, n: int, *, max_seqlen: int | None = None) -> list:
+    """Deal a packed cohort to ``n`` batch replicas as contiguous runs of
+    whole sequences, in cohort order, balanced by token count: the sharded
+    train step's split (the JAX package cuts the (T,) stream evenly and
+    lets GSPMD carry attention across the cut; a cut at sequence boundaries
+    computes the same function, since the loss is the global masked mean).
+
+    ``batch`` holds "cu_seqlens" (B+1,) and per-token leaves, each (T,)
+    ("tokens", "positions") or (1, T) ("labels", "mask"), split along
+    their token dim.  The phantom tail past ``cu_seqlens[-1]`` goes to the
+    last replica, in order.  Returns ``n`` dicts: each replica's per-token
+    leaves, its ``cu_seqlens`` rebased to 0 and "max_seqlen", the longest
+    segment of its token axis (its phantom tail one of them), so that the
+    varlen attention's banded plain version computes every row of it.
+    ``max_seqlen``, where given, must bound every sequence of the cohort
+    (``check_band``).  Fewer sequences than replicas raise
+    ``ValueError``."""
+    cu = [int(c) for c in batch["cu_seqlens"].tolist()]
+    total = int(batch["tokens"].shape[-1])
+    if len(cu) - 1 < n:
+        raise ValueError(f"{len(cu) - 1} sequences cannot fill {n} batch replicas")
+    check_band(batch["cu_seqlens"], max_seqlen)
+    lens = np.diff(cu)
+    for name, v in batch.items():
+        if name != "cu_seqlens" and (v.shape[-1] != total or v.dim() > 2
+                                     or (v.dim() == 2 and v.shape[0] != 1)):
+            raise ValueError(f"batch[{name!r}] has shape {tuple(v.shape)}; a packed leaf "
+                             f"is ({total},) or (1, {total})")
+    cuts = _balanced_cuts(cu, total, n)
+    out = []
+    for j in range(n):
+        a, b = cuts[j], cuts[j + 1]
+        lo, hi = cu[a], (cu[b] if j < n - 1 else total)
+        part = {name: v[..., lo:hi] for name, v in batch.items() if name != "cu_seqlens"}
+        part["cu_seqlens"] = batch["cu_seqlens"][a:b + 1] - cu[a]
+        part["max_seqlen"] = int(max(lens[a:b].max(), hi - cu[b]))
+        out.append(part)
+    return out
+
+
 def pack_minibatches(tokens, per_token, lens, n_minibatches: int, bucket: int = 64,
                      max_seqlen: int | None = None):
     """Split B sequences into ``n_minibatches`` contiguous groups (the

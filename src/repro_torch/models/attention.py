@@ -97,18 +97,21 @@ def attn_apply_with_kv(p, cfg: ModelConfig, spec: LayerSpec, x, rope, *,
 
 
 def attn_apply(p, cfg: ModelConfig, spec: LayerSpec, x, rope, cu_seqlens, *,
-               max_seqlen=None, impl="cuda"):
+               max_seqlen=None, impl="cuda", partial=False, kv_head=None, cols=None):
     """Causal attention over a packed cohort (the training forward of
     packed PPO).  x is the (1, T, D) cohort, ``rope`` the tables of its
     within-sequence positions (RoPE restarts per sequence), and attention
     is block-diagonal over the ``cu_seqlens`` segments through
-    ``ops.varlen_mha``, which is differentiable on both tiers."""
+    ``ops.varlen_mha``, which is differentiable on both tiers.
+    ``partial``, ``kv_head`` and ``cols`` as ``attn_apply_with_kv``'s: a
+    tensor-parallel rank's heads and its fp32 share of the wo product."""
     if x.shape[0] != 1:
         raise ValueError(f"a packed cohort must be (1, T, D); got {tuple(x.shape)}")
     q, k, v = _project_qkv(p, cfg, x, rope)
-    out = ops.varlen_mha(q[0], k[0], v[0], cu_seqlens, causal=True, window=spec.window,
-                         max_seqlen=max_seqlen, impl=impl)[None]
-    return L.dense_apply(p["wo"], out.reshape(*x.shape[:2], cfg.q_dim))
+    out = ops.varlen_mha(q[0], _group(k, kv_head)[0], _group(v, kv_head)[0], cu_seqlens,
+                         causal=True, window=spec.window, max_seqlen=max_seqlen,
+                         impl=impl)[None]
+    return _out_proj(p, out.reshape(*x.shape[:2], cfg.q_dim), partial, cols)
 
 
 def encode_cross_kv(p, cfg: ModelConfig, enc_out):

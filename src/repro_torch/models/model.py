@@ -135,14 +135,17 @@ def values_of(params, hidden):
     return L.dense_apply(params["value_head"], hidden.to(torch.float32))[..., 0]
 
 
-def lm_loss(params, cfg: ModelConfig, batch, *, impl="cuda", remat=True, aux_weight=0.01):
+def lm_loss(params, cfg: ModelConfig, batch, *, impl="cuda", remat=True, aux_weight=0.01,
+            max_seqlen=None):
     """Next-token cross-entropy of a {"tokens", "labels", "mask"} batch
     (mean over the mask) plus ``aux_weight`` times the MoE load-balance
-    loss, as the JAX package's ``lm_loss``.  Returns (loss, {"lm_loss",
-    "aux_loss"}).  The (B, S, V) logits are made whole: the JAX package
+    loss, as the JAX package's ``lm_loss``; a packed batch's labels and
+    mask are (1, T), ``max_seqlen`` its band (``forward``).  Returns (loss,
+    {"lm_loss", "aux_loss"}).  The (B, S, V) logits are made whole: the JAX package
     chunks its LM head from 4,096 tokens on, and the port's one caller, the
     profiler, stays below that."""
-    hidden, aux = forward(params, cfg, batch, impl=impl, remat=remat, return_aux=True)
+    hidden, aux = forward(params, cfg, batch, impl=impl, remat=remat, max_seqlen=max_seqlen,
+                          return_aux=True)
     logits = logits_of(params, cfg, hidden)
     mask = batch["mask"]
     logz = torch.logsumexp(logits, dim=-1)
@@ -463,11 +466,24 @@ def _encode_sharded(params, top, cfg: ModelConfig, batch, ctx, *, impl, remat=Fa
 
 def _final_hidden(params, cfg: ModelConfig, batch, ctx, *, impl, remat=False,
                   return_aux=False):
+    """(top, {rank: final-normed hidden}, aux).  A packed batch (each rank
+    its replica's {"tokens" (T_r,), "positions", "cu_seqlens",
+    "max_seqlen"}, ``parallel/steps.split_batch``) runs as each rank's
+    (1, T_r) cohort, as ``forward`` runs one."""
     top = _top(params, ctx)
-    xs = _embed_inputs_sharded(params, top, cfg, batch, ctx)
-    enc = _encode_sharded(params, top, cfg, batch, ctx, impl=impl, remat=remat)
-    out = T.stack_apply_sharded(params["layers"], cfg, xs, ctx=ctx, impl=impl, enc_outs=enc,
-                                remat=remat, return_aux=return_aux)
+    if "cu_seqlens" in next(iter(batch.values())):
+        xs = _embed_sharded(params, top, cfg, {r: b["tokens"][None] for r, b in batch.items()},
+                            ctx)
+        out = T.stack_apply_sharded(
+            params["layers"], cfg, xs, ctx=ctx, impl=impl, remat=remat, return_aux=return_aux,
+            positions={r: b["positions"][None] for r, b in batch.items()},
+            cu_seqlens={r: b["cu_seqlens"] for r, b in batch.items()},
+            max_seqlen={r: b["max_seqlen"] for r, b in batch.items()})
+    else:
+        xs = _embed_inputs_sharded(params, top, cfg, batch, ctx)
+        enc = _encode_sharded(params, top, cfg, batch, ctx, impl=impl, remat=remat)
+        out = T.stack_apply_sharded(params["layers"], cfg, xs, ctx=ctx, impl=impl,
+                                    enc_outs=enc, remat=remat, return_aux=return_aux)
     hs, aux = out if return_aux else (out, None)
     hs = {r: L.rmsnorm_apply(top[r]["final_norm"], h, cfg.norm_eps) for r, h in hs.items()}
     return top, hs, aux
@@ -477,9 +493,9 @@ def forward_sharded(params, cfg: ModelConfig, batch, *, ctx, impl="cuda", remat=
                     return_aux=False):
     """``forward`` over a mesh: batch {rank: {"tokens": (B_r, S), and an
     encoder-decoder's "frames" or a prefix model's "prefix_embeds"}} (each
-    rank its batch replica's rows).  Returns {rank: final-normed hidden
-    (B_r, S, D)}, or with ``return_aux`` also {rank: MoE load-balance
-    loss}."""
+    rank its batch replica's rows), or a packed batch as ``split_batch``
+    deals one.  Returns {rank: final-normed hidden (B_r, S, D), packed (1,
+    T_r, D)}, or with ``return_aux`` also {rank: MoE load-balance loss}."""
     _, hs, aux = _final_hidden(params, cfg, batch, ctx, impl=impl, remat=remat,
                                return_aux=return_aux)
     return (hs, aux) if return_aux else hs
@@ -488,7 +504,8 @@ def forward_sharded(params, cfg: ModelConfig, batch, *, ctx, impl="cuda", remat=
 def lm_loss_sharded(params, cfg: ModelConfig, batch, *, ctx, impl="cuda", remat=True,
                     aux_weight=0.01):
     """``lm_loss`` over a mesh: batch {rank: {"tokens", "labels", "mask"}
-    (and the frames or prefix embeddings)}.
+    (and the frames or prefix embeddings)}, or a packed batch with (1,
+    T_r) labels and mask.
 
     The logits stay vocabulary-parallel: each rank's logsumexp takes the
     max over the tensor axis (an all-reduce max) and the sum of its

@@ -191,11 +191,14 @@ def capacity_route_sharded(cfg: ModelConfig, routes: dict, *, ctx):
     cohort's, and an assignment's slot is its place in the global
     token-major sort by expert, replica 0's rows first (the JAX package's
     GSPMD step sorts the whole cohort): each rank offsets its own count by
-    the replicas' before it.  Returns {rank: (order, st, slot, keep, sw,
-    c)} over the rank's rows, slots in the global buffer."""
+    the replicas' before it.  The global cohort's tokens are the sum of the
+    replicas' row counts, which differ where a packed cohort was dealt by
+    whole sequences (``packing.split_packed``).  Returns {rank: (order, st,
+    slot, keep, sw, c)} over the rank's rows, slots in the global
+    buffer."""
     e = cfg.n_experts
-    t = next(iter(routes.values()))[1].shape[0] * ctx.batch_size
-    c = capacity(t, cfg)
+    rows = {ctx.batch_index(r): ti.shape[0] for r, (_, ti) in routes.items()}
+    c = capacity(sum(rows.values()), cfg)
     offsets = _count_offsets({r: _group_sizes(ti, e).long() for r, (_, ti) in routes.items()},
                              ctx)
     return {r: _route(cfg, tw, ti, c, offsets[r]) + (c,) for r, (tw, ti) in routes.items()}

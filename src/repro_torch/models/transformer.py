@@ -401,8 +401,10 @@ def stack_commit_verify(cfg: ModelConfig, caches, keep):
 # stack run non-causal (``causal=False``); a decoder layer's cross-attention
 # splits by head as self-attention does (its wq/wk/wv columns, its wo rows,
 # the shares all-reduced), against every rank's copy of its batch rows'
-# encoder output, and its "xkv" cache holds the rank's KV heads.  ``ctx``
-# is a ``parallel/ctx.ShardingCtx``.
+# encoder output, and its "xkv" cache holds the rank's KV heads.  A packed
+# cohort runs as each rank's (1, T_r) rows: attention goes through the
+# varlen kernel over the rank's ``cu_seqlens`` with the same head split.
+# ``ctx`` is a ``parallel/ctx.ShardingCtx``.
 
 def check_sharded(cfg: ModelConfig, tp: int):
     """Raise ``ValueError`` for a config the sharded stack does not run at
@@ -537,12 +539,22 @@ def _attn_whole(pms: dict, cfg: ModelConfig, ctx, kv: bool = True,
 
 
 def _ropes(cfg: ModelConfig, positions: dict) -> dict:
-    """{rank: RoPE tables}, built once per torch device."""
-    by_dev = {}
+    """{rank: RoPE tables} of {rank: positions}, built once per positions
+    tensor (ranks of one replica on one torch device share theirs)."""
+    by_pos = {}
     for pos in positions.values():
-        if pos.device not in by_dev:
-            by_dev[pos.device] = _rope(cfg, pos)
-    return {r: by_dev[pos.device] for r, pos in positions.items()}
+        if id(pos) not in by_pos:
+            by_pos[id(pos)] = _rope(cfg, pos)
+    return {r: by_pos[id(pos)] for r, pos in positions.items()}
+
+
+def _per_device(xs: dict, make) -> dict:
+    """{rank: ``make(device)``}, one tensor per torch device of ``xs``."""
+    by_dev = {}
+    for x in xs.values():
+        if x.device not in by_dev:
+            by_dev[x.device] = make(x.device)
+    return {r: by_dev[x.device] for r, x in xs.items()}
 
 
 def _ffn_sharded(ps, cfg, lcfg, xs, *, ctx, impl, want_aux):
@@ -559,18 +571,26 @@ def _ffn_sharded(ps, cfg, lcfg, xs, *, ctx, impl, want_aux):
 
 
 def _mixer_sharded(pms, cfg, spec, hs, *, ctx, impl, rope=None, caches=None, t=None,
-                   lens=None, prefill=False, causal=True, max_len=None):
+                   lens=None, prefill=False, causal=True, max_len=None, cu_seqlens=None,
+                   max_seqlen=None):
     """{rank: fp32 share of the mixer output} of {rank: normed input}: the
     layer's mixer on every rank, ``pms`` {rank: local mixer params}.  Full
     sequence (``rope`` {rank: tables}; ``causal=False`` an encoder's
     attention; with ``prefill`` it also fills ``caches`` {rank: the layer's
-    mixer cache}), or with ``t`` one decode token at position t against
-    ``caches`` (``lens`` {rank: cache lengths}).  ``max_len``: the caches'
-    positions, which place an attention cache's slot blocks
-    (``attn_slots``)."""
+    mixer cache}; with ``cu_seqlens`` and ``max_seqlen`` {rank: its
+    replica's} each rank's (1, T_r) packed cohort, attention only), or
+    with ``t`` one decode token at position t against ``caches`` (``lens``
+    {rank: cache lengths}).  ``max_len``: the caches' positions, which
+    place an attention cache's slot blocks (``attn_slots``)."""
     tp = ctx.tp_size
     lcfg = tp_cfg(cfg, tp)
     decode = t is not None
+    if cu_seqlens is not None:
+        pms = _attn_whole(pms, cfg, ctx)
+        return {r: A.attn_apply(pms[r], lcfg, spec, h, rope[r], cu_seqlens[r],
+                                max_seqlen=max_seqlen[r], impl=impl, partial=True,
+                                kv_head=_kv_head(cfg, ctx, r), cols=_out_cols(cfg, ctx, r))
+                for r, h in hs.items()}
     if spec.kind == SSM:
         heads = cfg.ssm_heads // tp
         if decode:
@@ -686,17 +706,29 @@ def block_sharded(ps, cfg, spec, xs, *, ctx, impl="cuda", want_aux=False, enc_ou
 
 
 def stack_apply_sharded(layers_params, cfg: ModelConfig, xs, *, ctx, impl="cuda", causal=True,
-                        enc_outs=None, remat=False, return_aux=False):
+                        enc_outs=None, remat=False, return_aux=False, positions=None,
+                        cu_seqlens=None, max_seqlen=None):
     """``stack_apply`` over a mesh: ``layers_params`` holds ``ShardedTensor``
     leaves, xs is {rank: (B_r, S, D)} at positions arange(S); ``causal=False``
     runs an encoder, ``enc_outs`` {rank: (B_r, S_enc, D)} feeds a decoder's
-    cross-attention.  Each layer gathers its FSDP-sharded weights
+    cross-attention.  Packed (``cu_seqlens``, ``positions`` and
+    ``max_seqlen`` {rank: its replica's}; attention-only stacks,
+    ``check_packed``): xs is {rank: its (1, T_r, D) cohort}, RoPE restarts
+    per sequence at its ``positions`` and attention is block-diagonal
+    over its ``cu_seqlens``.  Each layer gathers its FSDP-sharded weights
     (``ctx.local``) inside the layer, so ``remat`` regathers them in the
-    backward as it recomputes.  Returns xs, or with ``return_aux`` (xs,
-    {rank: the MoE losses summed})."""
+    backward as it recomputes, with the same ``cu_seqlens``.  Returns xs,
+    or with ``return_aux`` (xs, {rank: the MoE losses summed})."""
     ranks = list(xs)
     n = len(ranks)
-    ropes = _ropes(cfg, {r: torch.arange(x.shape[1], device=x.device) for r, x in xs.items()})
+    packed = {}
+    if cu_seqlens is not None:
+        check_packed(cfg)
+        packed = dict(cu_seqlens=cu_seqlens, max_seqlen=max_seqlen)
+    else:
+        s = next(iter(xs.values())).shape[1]
+        positions = _per_device(xs, lambda dev: torch.arange(s, device=dev))
+    ropes = _ropes(cfg, positions)
     aux_total = {r: torch.zeros((), dtype=torch.float32, device=x.device) for r, x in xs.items()}
     encs = [enc_outs[r] for r in ranks] if enc_outs is not None else []
     for p, spec in zip(layers_params, cfg.layers):
@@ -704,7 +736,8 @@ def stack_apply_sharded(layers_params, cfg: ModelConfig, xs, *, ctx, impl="cuda"
             out, aux = block_sharded(ctx.local(p), cfg, spec, dict(zip(ranks, flat[:n])),
                                      ctx=ctx, impl=impl, want_aux=return_aux, rope=ropes,
                                      causal=causal,
-                                     enc_outs=dict(zip(ranks, flat[n:])) if encs else None)
+                                     enc_outs=dict(zip(ranks, flat[n:])) if encs else None,
+                                     **packed)
             return tuple(out[r] for r in ranks) + (tuple(aux[r] for r in ranks) if aux else ())
         flat = [xs[r] for r in ranks] + encs
         res = (torch.utils.checkpoint.checkpoint(layer, *flat, use_reentrant=False) if remat
@@ -743,7 +776,8 @@ def stack_prefill_sharded(layers_params, cfg: ModelConfig, xs, caches, max_len, 
     caches} from ``cache_init_sharded`` at ``max_len``, filled in place
     (a cache split by slot with the tokens of its block); ``enc_outs``
     {rank: encoder output} as ``stack_apply_sharded``'s.  Returns xs."""
-    ropes = _ropes(cfg, {r: torch.arange(x.shape[1], device=x.device) for r, x in xs.items()})
+    s = next(iter(xs.values())).shape[1]
+    ropes = _ropes(cfg, _per_device(xs, lambda dev: torch.arange(s, device=dev)))
     for i, (p, spec) in enumerate(zip(layers_params, cfg.layers)):
         xs, _ = block_sharded(ctx.local(p), cfg, spec, xs, ctx=ctx, impl=impl, rope=ropes,
                               caches={r: c[i] for r, c in caches.items()}, prefill=True,
@@ -758,7 +792,7 @@ def stack_decode_sharded(layers_params, cfg: ModelConfig, xs, caches, t, max_len
     updated in place (a decoder layer's cross-attention reads its "xkv").
     A cache whose slots every rank holds is read to t + 1; one split by slot
     to each rank's own valid slots (``ctx.Slots.length``).  Returns xs."""
-    ropes = _ropes(cfg, {r: torch.full((1, 1), t, device=x.device) for r, x in xs.items()})
+    ropes = _ropes(cfg, _per_device(xs, lambda dev: torch.full((1, 1), t, device=dev)))
     lens = {r: torch.full((x.shape[0],), t + 1, dtype=torch.int32, device=x.device)
             for r, x in xs.items()}
     for i, (p, spec) in enumerate(zip(layers_params, cfg.layers)):

@@ -23,7 +23,10 @@ encoder-decoder's encoder and cross-attention and a prefix model's splice
 the experts, the RG-LRU width and the SSD heads
 (``transformer.check_sharded``); where it splits a query head, every rank
 computes every head (``transformer.heads_split``).  The AdamW state may
-be ZeRO-1 over the pod axis (``opt_layouts``).
+be ZeRO-1 over the pod axis (``opt_layouts``).  The train step also takes
+a packed cohort (``cu_seqlens``), dealt to the batch replicas as runs of
+whole sequences (``split_batch``): each rank's varlen attention and MoE
+run on its replica's (1, T_r) cohort.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.data import packing
 from repro_torch.models import layers as L
 from repro_torch.models import model as MDL
 from repro_torch.models import transformer as T
@@ -43,14 +47,18 @@ from repro_torch.parallel.layout import (Layout, P, ShardedTensor, axes_of, tree
                                          tree_map, tree_map_with_path)
 
 
-def check_mesh(cfg: ModelConfig, mesh, rules: SH.ShardingRules):
+def check_mesh(cfg: ModelConfig, mesh, rules: SH.ShardingRules, batch=None):
     """Raise unless ``rules``' axes are axes of ``mesh`` and its tensor axis
     splits ``cfg``'s q_dim, FFN columns and experts evenly
-    (``transformer.check_sharded``)."""
+    (``transformer.check_sharded``), and, for a packed ``batch``, unless
+    ``cfg`` trains packed (``transformer.check_packed``, as on one
+    device)."""
     for a in (rules.tp_axis, rules.fsdp_axis, *rules.batch_axes):
         if a and a not in mesh.shape:
             raise ValueError(f"rules name axis {a!r}, not in mesh {mesh.axis_names}")
     T.check_sharded(cfg, mesh.shape[rules.tp_axis] if rules.tp_axis else 1)
+    if batch is not None and "cu_seqlens" in batch:
+        T.check_packed(cfg)
 
 
 def _on_mesh(tree, mesh, what):
@@ -72,10 +80,23 @@ def _on_mesh(tree, mesh, what):
     return tree_map(one, tree)
 
 
-def split_batch(batch, mesh, rules: SH.ShardingRules) -> dict:
+def split_batch(batch, mesh, rules: SH.ShardingRules, *, max_seqlen=None) -> dict:
     """{rank: {key: the rank's rows}}: every tensor of ``batch`` laid out
-    by ``batch_specs``, its leading dim split over the batch axes."""
+    by ``batch_specs``, its leading dim split over the batch axes.  A
+    packed batch (with "cu_seqlens") goes to the batch replicas as runs of
+    whole sequences (``packing.split_packed``, which checks
+    ``max_seqlen``): each rank gets its replica's packed leaves on its
+    device, its rebased "cu_seqlens" and its "max_seqlen"."""
     k = C.axis_size(mesh, rules.batch_axes) if rules.batch_axes else 1
+    if "cu_seqlens" in batch:
+        parts = packing.split_packed(batch, k, max_seqlen=max_seqlen)
+
+        def rank_part(r):
+            part = parts[C.axis_index(mesh, rules.batch_axes, r) if rules.batch_axes else 0]
+            dev = mesh.torch_device(r)
+            return {name: v.to(dev) if isinstance(v, torch.Tensor) else v
+                    for name, v in part.items()}
+        return {r: rank_part(r) for r in mesh.device_ids}
     for name, v in batch.items():
         if v.shape[0] % k:
             raise ValueError(f"batch[{name!r}] has {v.shape[0]} rows; {k} replicas need a "
@@ -93,16 +114,22 @@ def _replicated_axes(st: ShardedTensor) -> tuple:
     return tuple(a for a in mesh.axis_names if a not in used and mesh.shape[a] > 1)
 
 
-def sharded_grads(loss_fn, params, batch, n_micro: int, mesh, rules):
+def sharded_grads(loss_fn, params, batch, n_micro: int, mesh, rules, *, max_seqlen=None):
     """The sharded counterpart of ``optim.grad.accumulate_grads``.
     ``loss_fn(params, {rank: rows}) -> (loss, aux)``.  Microbatch j is the
     j-th slice of the global batch's rows, split over the replicas, so the
-    step equals the single-device one row for row.  Every block of every
+    step equals the single-device one row for row.  A packed batch is one
+    microbatch (``split_batch`` deals its sequences; the JAX package's
+    ``accumulate_grads`` has no packed microbatching to mirror), so
+    ``n_micro > 1`` raises ``ValueError`` there.  Every block of every
     leaf requires grad; the fp32 gradient blocks are averaged over the
     microbatches, then summed over each leaf's replicated axes.  Returns
     (mean loss, a tree of fp32 ``ShardedTensor`` gradients on the params'
     layouts, the last microbatch's aux)."""
     sts = tree_leaves(params)
+    packed = "cu_seqlens" in batch
+    if packed and n_micro > 1:
+        raise ValueError(f"a packed batch is one microbatch; got n_micro={n_micro}")
     blocks = [st.blocks[d] for st in sts for d in mesh.device_ids]
     for b in blocks:
         b.requires_grad_(True)
@@ -111,9 +138,10 @@ def sharded_grads(loss_fn, params, batch, n_micro: int, mesh, rules):
         raise ValueError(f"batch of {rows} rows does not split into {n_micro} microbatches")
     acc, loss_sum, aux = None, 0.0, {}
     for j in range(n_micro):
-        mb = {k: v.reshape(n_micro, rows // n_micro, *v.shape[1:])[j] for k, v in batch.items()}
+        mb = batch if packed else {k: v.reshape(n_micro, rows // n_micro, *v.shape[1:])[j]
+                                   for k, v in batch.items()}
         with torch.enable_grad():
-            loss, aux = loss_fn(params, split_batch(mb, mesh, rules))
+            loss, aux = loss_fn(params, split_batch(mb, mesh, rules, max_seqlen=max_seqlen))
             grads = torch.autograd.grad(loss, blocks, allow_unused=True)
         grads = [torch.zeros(b.shape, dtype=torch.float32, device=b.device) if g is None
                  else g.to(torch.float32) for b, g in zip(blocks, grads)]
@@ -133,7 +161,8 @@ def sharded_grads(loss_fn, params, batch, n_micro: int, mesh, rules):
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *, impl="cuda", remat=True,
-                    n_micro: int = 1, mesh=None, rules: SH.ShardingRules | None = None):
+                    n_micro: int = 1, mesh=None, rules: SH.ShardingRules | None = None,
+                    max_seqlen: int | None = None):
     """(params, opt_state, batch) -> (params, opt_state, metrics): the LM
     loss's gradient over ``n_micro`` microbatches, then one AdamW update
     (in place).
@@ -144,13 +173,24 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *, impl="cuda"
     ``param_shardings`` (sanitized), the optimizer state ``adamw.init`` of
     them, on their layouts or on ``opt_layouts``' (ZeRO-1 over the pod
     axis: each rank updates its slice, then the slices are all-gathered),
-    and the batch a dict of global (B, S) tensors; the loss is
-    ``model.lm_loss_sharded``."""
+    and the batch a dict of global (B, S) tensors, or a packed cohort
+    {"tokens" (T,), "positions" (T,), "cu_seqlens", "labels" (1, T), "mask"
+    (1, T)} (the JAX package's packed ``lm_loss`` batch; ``n_micro`` 1),
+    whose sequences ``split_batch`` deals to the batch replicas, each
+    rank's varlen attention banded by its replica's longest segment; the
+    loss is ``model.lm_loss_sharded``.
+
+    ``max_seqlen`` is a packed cohort's band, as the packed PPO steps take
+    it: one device's varlen attention is banded by it, and a longer
+    sequence raises (``packing.check_band``)."""
     if mesh is None:
         def loss_fn(params, batch):
-            return MDL.lm_loss(params, cfg, batch, impl=impl, remat=remat)
+            return MDL.lm_loss(params, cfg, batch, impl=impl, remat=remat,
+                               max_seqlen=max_seqlen)
 
         def step(params, opt_state, batch):
+            if "cu_seqlens" in batch:
+                packing.check_band(batch["cu_seqlens"], max_seqlen)
             loss, grads, aux = accumulate_grads(loss_fn, params, batch, n_micro)
             params, opt_state, stats = adamw.update(opt_cfg, params, opt_state, grads)
             return params, opt_state, {"loss": loss, **aux, **stats}
@@ -160,11 +200,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *, impl="cuda"
     check_mesh(cfg, mesh, rules)
 
     def step(params, opt_state, batch):
+        check_mesh(cfg, mesh, rules, batch)
         params = _on_mesh(params, mesh, "params")
         with CTX.use(mesh, rules.batch_axes, rules.tp_axis) as c:
             def loss_fn(params, parts):
                 return MDL.lm_loss_sharded(params, cfg, parts, ctx=c, impl=impl, remat=remat)
-            loss, grads, aux = sharded_grads(loss_fn, params, batch, n_micro, mesh, rules)
+            loss, grads, aux = sharded_grads(loss_fn, params, batch, n_micro, mesh, rules,
+                                             max_seqlen=max_seqlen)
             params, opt_state, stats = adamw.update(opt_cfg, params, opt_state, grads)
         return params, opt_state, {"loss": loss, **aux, **stats}
 
