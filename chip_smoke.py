@@ -156,9 +156,10 @@ Phases, in order; any failure exits non-zero before the last line:
      1,024 of d_model 1,152, tied 262,144 vocabulary): phase 3's checks
      (gemma3 on 600-token prompts, past its window), the same in fp32 on 4
      layers, each attention kind's layer against a plain transcription of
-     the published layer (qk-norm before RoPE), phases 4 and 5 (gemma3's
-     prompts 16-1,000 tokens; where the engines' greedy outputs part, a
-     near-tie); (c) three DPO steps of qwen3-1.7b (8 pairs of 512, the
+     the published layer (qk-norm before RoPE), phases 4 and 5 on each
+     config's first quarter of layers (gemma3's prompts 16-1,000 tokens;
+     where the engines' greedy outputs part, a near-tie); (c) three DPO
+     steps of qwen3-1.7b (8 pairs of 512, the
      step-0 gradient cuda vs reference in bf16 and on 2 layers in fp32) and
      of gemma3-1b (4 pairs of 1,024), the reference a frozen copy: step 0's
      loss ln 2, dpo_acc 0, the loss falling; (d) a GRPO step of qwen3-1.7b
@@ -253,9 +254,10 @@ Phases, in order; any failure exits non-zero before the last line:
      2) on ``meta``, then the same step on the card: the collectives
      recorded (kind, payload, group, count) equal, the argument bytes equal
      the placed blocks' bytes, the reckoned peak x 4 beside the card's
-     ``max_memory_allocated`` rise within DRY_PEAK_BAND; then one
-     production cell through the dry run's CLI (qwen2-0.5b decode_32k on
-     the 256-card mesh).
+     ``max_memory_allocated`` rise within DRY_PEAK_BAND; the same for
+     gemma3-1b's 2 layers on (1, 4) at 2 x 4,096 tokens, where the LM head
+     runs in chunks; then one production cell through the dry run's CLI
+     (qwen2-0.5b decode_32k on the 256-card mesh).
  18. decode caches split by slot (where the tensor axis does not divide
      the KV heads, every rank holds every KV head for a ceil-sized block of
      each cache's slots, attends it with flash_decode(return_lse=True) and
@@ -288,10 +290,28 @@ Phases, in order; any failure exits non-zero before the last line:
      device's printed (an fp32 parting held to ROUTE_TIE_TOL in place of
      the gradients); replicas bit-equal, flash_mha_varlen and grouped_ffn
      launches to the prediction (ranks x layers x 2 with remat).
+ 20. the JAX train step's chunked LM head (``layers.chunked_lm_head_loss``:
+     from 4,096 positions on, the head and the cross-entropy in
+     checkpointed chunks of 512): (a) gemma3-1b at full width and depth
+     (26 layers, tied 262,144 vocabulary), bf16, one ``make_train_step``
+     of 4 x 4,096 tokens with remat against the same step with the head
+     taken whole (``forward``, ``logits_of``, ``cross_entropy``; where that
+     does not fit on the card, both at the largest batch where it does):
+     loss, grad_norm and first moment within TRAIN_TOL, each leaf within
+     TRAIN_LEAF_TOL, then on one local and one global layer in fp32
+     within FP32_GRAD_TOL; (b) each step's peak memory beside its
+     reckoning from the shapes, the chunked step's below the whole head's;
+     (c) the same step on (1, 4) on 2 layers at 2 x 4,096 against one
+     device, bf16 and fp32, the loss's collective bytes and all-reduce
+     calls (each chunk's recomputed in the backward) equal to the
+     prediction; (d) each step's seconds; (e) flash_mha at the step's
+     shapes (B 4, S 4,096, 4 query heads on 1 KV head, D 256), causal and
+     with the window of 512, against its plain version, timed beside its
+     bound and SDPA, both in the kernel line.
 Each model's parameters are freed before the next is built.
 Then one JSON line of kernel numbers, and last {"ok": true, "device": ...}.
 
-Phases 3 to 19 are functions of (config, params or experiment, impl) so the
+Phases 3 to 20 are functions of (config, params or experiment, impl) so the
 CPU tests rehearse them at the reduced size with impl="reference".
 """
 
@@ -911,17 +931,17 @@ def decode_d256_case(randn, device):
                                                  enable_gqa=True)))
 
 
-def mha_window_case(randn, device, s):
-    """flash_mha at gemma3-1b's prefill shape: B 2, S ``s``, 4 query heads on
+def mha_window_case(randn, device, s, *, b=2):
+    """flash_mha at gemma3-1b's prefill shape: B ``b``, S ``s``, 4 query heads on
     1 KV head, D 256, its window of 512, which bites at S > 512 (S 1000
     starts most rows' windows off a 64-key tile boundary), and causal
     without a window (its global layers); timed windowed.  Bound and
     library call count the window's pairs: SDPA with the window's boolean
     mask."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    b, hq, hkv, d, w = 2, 4, 1, 256, 512
+    hq, hkv, d, w = 4, 1, 256, 512
     q, k, v = randn(b, s, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
-    errs = [held(f"flash_mha gemma3-1b S{s} window {win}",
+    errs = [held(f"flash_mha gemma3-1b B{b} S{s} window {win}",
                  flash_mha(q, k, v, causal=True, window=win),
                  ref.mha_ref(q, k, v, causal=True, window=win)) for win in (w, None)]
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -3685,10 +3705,12 @@ def phase_tp_train(cfg, params, batch, layout, *, impl, opt_cfg=adamw.AdamWConfi
     return sharded_train(cfg, params, batch, layout, ref, m_ref, impl=impl, opt_cfg=opt_cfg)
 
 
-def single_train(cfg, params, batch, *, impl, opt_cfg=adamw.AdamWConfig(), **kw):
-    """One single-device ``make_train_step`` (``kw``: its ``max_seqlen``)
-    from a copy of ``params``: ({seconds, peak, launches, loss, grad_norm},
-    the AdamW first moment)."""
+def single_train(cfg, params, batch, *, impl, opt_cfg=adamw.AdamWConfig(),
+                 make_step=PSTEPS.make_train_step, **kw):
+    """One single-device ``make_train_step`` (``kw``: its ``max_seqlen``;
+    ``make_step`` another step of its signature) from a copy of
+    ``params``: ({seconds, peak, launches, loss, grad_norm}, the AdamW
+    first moment)."""
     device = params["embed"]["table"].device
     single = clone_tree(params)
     for t in adamw.leaves(single):
@@ -3697,7 +3719,7 @@ def single_train(cfg, params, batch, *, impl, opt_cfg=adamw.AdamWConfig(), **kw)
     reset_launches()
     peak_reset(device)
     t0 = time.perf_counter()
-    _, state, m1 = PSTEPS.make_train_step(cfg, opt_cfg, impl=impl, **kw)(single, state, batch)
+    _, state, m1 = make_step(cfg, opt_cfg, impl=impl, **kw)(single, state, batch)
     sync(device)
     ref = dict(seconds=time.perf_counter() - t0, peak=peak(device), launches=launches(),
                loss=float(m1["loss"]), grad_norm=float(m1["grad_norm"]))
@@ -3723,7 +3745,7 @@ def sharded_train(cfg, params, batch, layout, ref, m_ref, *, impl,
         sharded, sstate, batch)
     sync(device)
     out = dict(seconds=time.perf_counter() - t0, peak=peak(device), launches=launches(),
-               bytes=COLL.STATS["bytes"], copies=COLL.STATS["copies"],
+               bytes=COLL.STATS["bytes"], copies=COLL.STATS["copies"], record=dict(COLL.RECORD),
                loss=float(m2["loss"]), grad_norm=float(m2["grad_norm"]), ref=ref)
     out["global_err"], (out["worst_leaf_err"], out["worst_leaf"]) = moment_agreement(
         sstate["m"], m_ref)
@@ -4148,6 +4170,11 @@ DENSE = ("qwen3-1.7b", "gemma3-1b", "qwen2.5-14b")
 DENSE_MAX_PROMPT = {"qwen3-1.7b": 400, "gemma3-1b": 1000, "qwen2.5-14b": 400}
 # phase 3's prompt length per config (gemma3-1b's past the window)
 DENSE_SLICE_PROMPT = {"qwen3-1.7b": 256, "gemma3-1b": 600, "qwen2.5-14b": 256}
+# 12a's serving (phases 4 and 5) runs each config's first layers at full
+# width, a quarter of its depth (gemma3-1b's 5 local and 1 global): the
+# host's time per decode step grows with the layers, and every check of the
+# serve holds at any depth; phase 3's tiers keep the full depth.
+DENSE_SERVE_LAYERS = {"qwen3-1.7b": 7, "gemma3-1b": 6, "qwen2.5-14b": 12}
 # DPO runs: (config, pairs, tokens per sequence, gen_start), 3 steps each
 DPO_RUNS = (("qwen3-1.7b", 8, 512, 256), ("gemma3-1b", 4, 1024, 512))
 DPO_STEPS = 3
@@ -4315,7 +4342,7 @@ def report_dense(cfg, params, total):
     ``DENSE_SLICE_PROMPT``, paged vs dense decode), the same in fp32 on 4
     layers (``dense_shallow``) with each attention kind's layer against
     ``plain_attention``, then phases 4 and 5 on its traffic
-    (``DENSE_MAX_PROMPT``)."""
+    (``DENSE_MAX_PROMPT``) on its first ``DENSE_SERVE_LAYERS``."""
     t0 = time.perf_counter()
     device = params["embed"]["table"].device
     report_slice(cfg, params, prompt_len=DENSE_SLICE_PROMPT[cfg.name])
@@ -4334,8 +4361,11 @@ def report_dense(cfg, params, total):
           f"{cfg.name}: fp32 cuda logits disagree with the reference")
     check(max(lc.values()) <= FP32_LOGIT_TOL,
           f"{cfg.name}: the attention layer disagrees with its plain transcription")
-    report_batch_serve(cfg, params, total, max_prompt=DENSE_MAX_PROMPT[cfg.name])
-    report_continuous(cfg, params, total, ("greedy", "sampled"),
+    n = DENSE_SERVE_LAYERS[cfg.name]
+    serve_cfg, serve_params = first_layers(cfg, n), dict(params, layers=params["layers"][:n])
+    print(f"[dense] {cfg.name} serves on its first {n} of {cfg.num_layers} layers")
+    report_batch_serve(serve_cfg, serve_params, total, max_prompt=DENSE_MAX_PROMPT[cfg.name])
+    report_continuous(serve_cfg, serve_params, total, ("greedy", "sampled"),
                       traffic=continuous_traffic(cfg, max_prompt=DENSE_MAX_PROMPT[cfg.name]),
                       near_ties=True)
     print(f"[time] phase 12a {cfg.name} {time.perf_counter() - t0:.1f}s")
@@ -6195,34 +6225,46 @@ def phase_dry_check(cfg, params, batch, *, impl, layout=TRAIN_LAYOUT):
 
 def report_dry(device, total):
     """17c on the card: ``phase_dry_check`` on qwen2-0.5b's first
-    DRY_LAYERS layers, then one production cell through the dry run's
-    CLI (a subprocess, ``--force``), its OK line and seconds printed."""
-    cfg = shallow(get_config(SPLIT), DRY_LAYERS)
-    params = make_params(cfg, seed=4, device=device)
-    r = phase_dry_check(cfg, params, lm_batch(cfg, device, seed=5), impl="cuda")
-    del params
+    DRY_LAYERS layers on TRAIN_LAYOUT, then on gemma3-1b's 2 layers
+    (``head_shallow``) on HEAD_LAYOUT at HEAD_SHARDED_ROWS x HEAD_SEQ,
+    where the LM head runs in chunks (their all-reduces recomputed in the
+    backward on ``meta`` as on the card); then one production cell through
+    the dry run's CLI (a subprocess, ``--force``), its OK line and seconds
+    printed."""
     kinds = lambda rec: {k: (sum(n for (kd, _, _, _), n in rec.items() if kd == k),  # noqa: E731
                              sum(b * n for (kd, b, _, _), n in rec.items() if kd == k))
                          for k in sorted({kd for kd, _, _, _ in rec})}
-    ratio = r["rise"] / r["reckoned"]
-    mem = r["memory"]
-    print(f"[dry] {cfg.name} {cfg.num_layers} layers train step on (data, model)="
-          f"{TRAIN_LAYOUT}: on meta {r['dry_s']:.1f}s, {r['dry_flops']:.4e} flops over the "
-          f"ranks; collectives (calls, payload bytes) by kind on meta {kinds(r['dry_record'])}, "
-          f"on the card {kinds(r['record'])}, records equal {r['dry_record'] == r['record']}; "
-          f"argument bytes per card {mem['argument_bytes']} reckoned, {r['argument_bytes']} "
-          f"placed; reckoned peak per card {mem['peak_per_device']:.0f} (temp "
-          f"{mem['temp_bytes']:.0f}) x {r['n_ranks']} = {r['reckoned']:.0f} bytes against the "
-          f"card's max_memory_allocated rise {r['rise']} bytes: {ratio:.3f} (band "
-          f"{DRY_PEAK_BAND}); the card's step {r['seconds']:.3f}s, launches {r['launches']}")
-    check(r["dry_record"] == r["record"], "the dry run's collectives differ from the card's")
-    check(mem["argument_bytes"] == r["argument_bytes"],
-          "the dry run's argument bytes differ from the placed blocks'")
-    check(DRY_PEAK_BAND[0] <= ratio <= DRY_PEAK_BAND[1],
-          f"the card's memory rise is {ratio:.3f} of the dry run's reckoning")
-    for k in total:
-        total[k] += r["launches"][k]
-    free(device)
+    for cfg, layout, make_batch in (
+            (shallow(get_config(SPLIT), DRY_LAYERS), TRAIN_LAYOUT,
+             lambda c: lm_batch(c, device, seed=5)),
+            (head_shallow(get_config(HEAD)), HEAD_LAYOUT,
+             lambda c: head_batch(c, device, HEAD_SHARDED_ROWS, seed=5))):
+        params = make_params(cfg, seed=4, device=device)
+        batch = make_batch(cfg)
+        r = phase_dry_check(cfg, params, batch, impl="cuda", layout=layout)
+        del params
+        ratio = r["rise"] / r["reckoned"]
+        mem = r["memory"]
+        print(f"[dry] {cfg.name} {cfg.num_layers} layers train step of "
+              f"{' x '.join(map(str, batch['tokens'].shape))} tokens on (data, model)={layout}: "
+              f"on meta {r['dry_s']:.1f}s, {r['dry_flops']:.4e} flops over the ranks; "
+              f"collectives (calls, payload bytes) by kind on meta {kinds(r['dry_record'])}, on "
+              f"the card {kinds(r['record'])}, records equal {r['dry_record'] == r['record']}; "
+              f"argument bytes per card {mem['argument_bytes']} reckoned, "
+              f"{r['argument_bytes']} placed; reckoned peak per card "
+              f"{mem['peak_per_device']:.0f} (temp {mem['temp_bytes']:.0f}) x {r['n_ranks']} = "
+              f"{r['reckoned']:.0f} bytes against the card's max_memory_allocated rise "
+              f"{r['rise']} bytes: {ratio:.3f} (band {DRY_PEAK_BAND}); the card's step "
+              f"{r['seconds']:.3f}s, launches {r['launches']}")
+        check(r["dry_record"] == r["record"], "the dry run's collectives differ from the card's")
+        check(mem["argument_bytes"] == r["argument_bytes"],
+              "the dry run's argument bytes differ from the placed blocks'")
+        check(DRY_PEAK_BAND[0] <= ratio <= DRY_PEAK_BAND[1],
+              f"the card's memory rise is {ratio:.3f} of the dry run's reckoning")
+        for k in total:
+            total[k] += r["launches"][k]
+        del batch
+        free(device)
     arch, shp, mesh = DRY_CELL
     t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -6706,6 +6748,265 @@ def report_phase19(device, total, *, cohort=PACKED_COHORT):
         print(f"[time] phase 19{part} {time.perf_counter() - t0:.1f}s")
 
 
+# ------------------------------ phase 20: the chunked LM head at 4,096 tokens
+
+HEAD = "gemma3-1b"            # 262,144 tied vocabulary rows: the widest head of the configs
+HEAD_ROWS, HEAD_SEQ = 4, 4096  # (a): the sequence of the JAX dry run's train_4k cells
+HEAD_PROMPT = 512             # the mask is 0 over each row's first 512 positions
+HEAD_LAYOUT = (1, 4)          # (c): 65,536 vocabulary rows a rank
+HEAD_SHARDED_ROWS = 2         # (c): 2 x 4,096
+
+
+def head_shallow(cfg, *, dtype=None):
+    """gemma3-1b at full width on 2 layers, its first local (window 512)
+    and its first global layer, in ``dtype`` (None: its own)."""
+    kinds = (next(s for s in cfg.superblock if s.window is not None),
+             next(s for s in cfg.superblock if s.window is None))
+    return dataclasses.replace(cfg, dtype=dtype or cfg.dtype, superblock=kinds, n_superblocks=1,
+                               tail=(), num_layers=2)
+
+
+def head_batch(cfg, device, rows, *, seq=HEAD_SEQ, seed=0):
+    """``lm_batch`` of ``rows`` x ``seq`` tokens, the mask 0 over the first
+    HEAD_PROMPT positions of each row and past a seeded cut."""
+    return lm_batch(cfg, device, batch=rows, prompt=HEAD_PROMPT, new=seq - HEAD_PROMPT,
+                    seed=seed)
+
+
+def whole_head_step(cfg, opt_cfg, *, impl, remat=True):
+    """The plain version of ``make_train_step``'s single-device step: the
+    same forward, loss, AdamW update and metrics with the LM head taken
+    whole (``forward``, ``logits_of`` over every position at once,
+    ``layers.cross_entropy``), where ``lm_loss`` chunks it."""
+    def loss_fn(params, batch):
+        hidden, aux = MDL.forward(params, cfg, batch, impl=impl, remat=remat, return_aux=True)
+        loss, _ = L.cross_entropy(MDL.logits_of(params, cfg, hidden), batch["labels"],
+                                  batch["mask"])
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+        return loss + 0.01 * aux, {"lm_loss": loss, "aux_loss": aux}
+
+    def step(params, opt_state, batch):
+        loss, grads, aux = GRAD.accumulate_grads(loss_fn, params, batch, 1)
+        params, opt_state, stats = adamw.update(opt_cfg, params, opt_state, grads)
+        return params, opt_state, {"loss": loss, **aux, **stats}
+    return step
+
+
+def head_peak_predicted(cfg, params, rows, seq, chunk):
+    """The peak bytes of one ``single_train`` step reckoned from the
+    shapes: the parameters and their trained copy, the fp32 AdamW master,
+    m and v, the layer inputs remat saves, the embedding's gradient, and
+    the LM head's backward over ``chunk`` positions (0: the whole
+    sequence), its fp32 logits saved and three transients of their size
+    (logsumexp's backward)."""
+    n = sum(t.numel() for t in tree_leaves(params))
+    bf = L.dtype_of(cfg).itemsize
+    return (2 * n * bf + 12 * n + cfg.num_layers * rows * seq * cfg.d_model * bf
+            + cfg.vocab_size * cfg.d_model * bf + 4 * rows * (chunk or seq) * cfg.vocab_size * 4)
+
+
+def phase_head_train(cfg, params, batch, *, impl):
+    """20a, b, d: one single-device ``make_train_step`` of ``batch`` (its LM
+    head chunked), then the same step with the head whole
+    (``whole_head_step``) from the same parameters; where the whole head
+    does not fit (``OutOfMemoryError``), both steps again at one row fewer,
+    until it fits.  Returns "chunked" (the full batch's run), "tried"
+    ([(rows, whether the whole head fitted)]), "rows", the chunked and the
+    whole run at those rows ("got", "ref"), the loss's and grad_norm's
+    relative errors and ``moment_agreement`` of the first moments."""
+    device = params["embed"]["table"].device
+    host = lambda tree: tree_map(lambda t: t.to("cpu"), tree)  # noqa: E731
+    got, m_got = single_train(cfg, params, batch, impl=impl)
+    m_got = host(m_got)
+    out = {"chunked": got, "tried": []}
+    for rows in range(batch["tokens"].shape[0], 0, -1):
+        sub = {k: v[:rows] for k, v in batch.items()}
+        if rows < batch["tokens"].shape[0]:
+            got, m_got = single_train(cfg, params, sub, impl=impl)
+            m_got = host(m_got)
+        try:
+            ref, m_ref = single_train(cfg, params, sub, impl=impl, make_step=whole_head_step)
+        except torch.OutOfMemoryError:
+            ref = None
+        out["tried"].append((rows, ref is not None))
+        if ref is not None:
+            break
+        free(device)
+    check(ref is not None, f"{cfg.name}: the whole LM head fits at no batch")
+    m_got = tree_map(lambda t: t.to(device), m_got)
+    out.update(rows=rows, got=got, ref=ref,
+               loss_err=abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+               grad_norm_err=abs(got["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"])
+    out["global_err"], (out["worst_leaf_err"], out["worst_leaf"]) = moment_agreement(m_got, m_ref)
+    return out
+
+
+def report_head_train(cfg, params, batch, tol, leaf_tol, total, tag, *, impl="cuda"):
+    """``phase_head_train`` printed and held: the chunked step's loss,
+    grad_norm and first moment within ``tol`` of the whole head's, each
+    leaf within ``leaf_tol``, its peak memory below the whole head's at
+    the same batch (on a card); each step's seconds, peak beside
+    ``head_peak_predicted`` and launches (``tp_train_predicted``, one
+    device).  Returns ``phase_head_train``'s result."""
+    r = phase_head_train(cfg, params, batch, impl=impl)
+    rows, seq = batch["tokens"].shape
+    chunk = L.lm_head_chunk(seq)
+    want = tp_train_predicted(cfg, (1, 1))
+    c, got, ref = r["chunked"], r["got"], r["ref"]
+    print(f"{tag} {cfg.name} {cfg.num_layers} layers {cfg.dtype}, one make_train_step of {rows} "
+          f"x {seq} tokens with the LM head in checkpointed chunks of {chunk} positions: loss "
+          f"{c['loss']:.6e}, grad_norm {c['grad_norm']:.6e}, {c['seconds']:.3f}s, peak "
+          f"{c['peak']} bytes (reckoned {head_peak_predicted(cfg, params, rows, seq, chunk)}; "
+          f"the whole head {head_peak_predicted(cfg, params, rows, seq, 0)}), launches "
+          f"{c['launches']} (predicted {want})")
+    print(f"{tag} the whole head (forward, logits_of, cross_entropy) tried at rows "
+          + ", ".join(f"{b} ({'fits' if ok else 'out of memory'})" for b, ok in r["tried"])
+          + f"; at {r['rows']} x {seq}: chunked against whole loss err {r['loss_err']:.3e}, "
+          f"grad_norm err {r['grad_norm_err']:.3e}, first moment err {r['global_err']:.3e}, "
+          f"worst leaf {r['worst_leaf']} {r['worst_leaf_err']:.3e} (tol {tol}, per leaf "
+          f"{leaf_tol}); peak {got['peak']} bytes chunked against {ref['peak']} whole "
+          f"(reckoned {head_peak_predicted(cfg, params, r['rows'], seq, chunk)} and "
+          f"{head_peak_predicted(cfg, params, r['rows'], seq, 0)}); {got['seconds']:.3f}s "
+          f"against {ref['seconds']:.3f}s")
+    check(max(r["loss_err"], r["grad_norm_err"], r["global_err"]) <= tol
+          and r["worst_leaf_err"] <= leaf_tol,
+          f"{tag} the chunked LM head's step disagrees with the whole head's")
+    check(got["peak"] < ref["peak"] or got["peak"] == ref["peak"] == 0,
+          f"{tag} the chunked step's peak {got['peak']} is not below the whole head's")
+    for run in [c] + ([got] if r["rows"] < rows else []) + [ref]:
+        check(same_launches(run["launches"], want), f"{tag} train launches {run['launches']}")
+        for k in total:
+            total[k] += run["launches"][k]
+    return r
+
+
+def head_loss_predicted(rows, seq, tp):
+    """(bytes, {RECORD key: calls}) of the collectives of one sharded LM
+    loss with its backward, rows x seq on a (1, tp) mesh whose tensor axis
+    splits the vocabulary: per chunk (the whole sequence where the head is
+    not chunked) an all-reduce max, sum of exponentials and gold in the
+    forward, again in the backward's recompute where chunked, and the
+    backward of the two sums, of which only the root's value carries a
+    gradient (the loss is computed once, from it), so each moves the other
+    members' k - 1 copies to the root."""
+    chunk = L.lm_head_chunk(seq)
+    v = rows * seq * 4
+    fwd = 3 * allreduce_bytes(v, tp) * (2 if chunk else 1)
+    n = seq // chunk if chunk else 1
+    key = ("all-reduce", rows * (chunk or seq) * 4, tp, 1)
+    return fwd + 2 * (tp - 1) * v, {key: n * (8 if chunk else 5)}
+
+
+def head_loss_bytes(cfg, params, batch, layout, *, impl):
+    """(c): the bytes the collectives move in ``lm_loss_sharded``'s head
+    alone, and its ``RECORD``: the final hidden states of ``batch`` on a
+    ``layout`` mesh (not counted), then ``nll_sums_sharded`` of them and
+    the backward of the root rank's sum, as the step's loss runs them."""
+    device = params["embed"]["table"].device
+    mesh, sharded = shard_params(params, *layout, device)
+    rules = SHD.ShardingRules()
+    parts = PSTEPS.split_batch(batch, mesh, rules)
+    with CTX.use(mesh, rules.batch_axes, rules.tp_axis) as c:
+        with torch.no_grad():
+            top, hs, _ = MDL._final_hidden(sharded, cfg, parts, c, impl=impl)
+        hs = {r: h.detach().requires_grad_(True) for r, h in hs.items()}
+        COLL.reset_stats()
+        sums = MDL.nll_sums_sharded(top, cfg, hs, {r: b["labels"] for r, b in parts.items()},
+                                    {r: b["mask"] for r, b in parts.items()}, ctx=c,
+                                    split=MDL.vocab_split(sharded, cfg, c),
+                                    chunk=L.lm_head_chunk(MDL.global_seq_len(parts, c)))
+        sums[mesh.device_ids[0]].backward()
+    out = COLL.STATS["bytes"], dict(COLL.RECORD)
+    del sharded, top, hs, sums
+    free(device)
+    return out
+
+
+def report_head_sharded(cfg, params, batch, tol, leaf_tol, total, tag, *, impl="cuda"):
+    """20c for one config: ``phase_tp_train`` on HEAD_LAYOUT against one
+    device (``tol``, ``leaf_tol``), the loss's collectives
+    (``head_loss_bytes``: bytes, and the step's own record) to
+    ``head_loss_predicted``; launches held."""
+    tp, (rows, seq) = HEAD_LAYOUT[1], batch["tokens"].shape
+    r = phase_tp_train(cfg, params, batch, HEAD_LAYOUT, impl=impl)
+    del r["trained"]
+    loss_bytes, loss_record = head_loss_bytes(cfg, params, batch, HEAD_LAYOUT, impl=impl)
+    want_bytes, want_calls = head_loss_predicted(rows, seq, tp)
+    step_calls = {k: r["record"].get(k, 0) for k in want_calls}
+    ref, want = r["ref"], tp_train_predicted(cfg, HEAD_LAYOUT)
+    print(f"{tag} {cfg.name} {cfg.num_layers} layers {cfg.dtype} on (data, model)="
+          f"{HEAD_LAYOUT}, {rows} x {seq} tokens: loss err {r['loss_err']:.3e}, grad_norm err "
+          f"{r['grad_norm_err']:.3e}, first moment err {r['global_err']:.3e}, worst leaf "
+          f"{r['worst_leaf']} {r['worst_leaf_err']:.3e} (tol {tol}, per leaf {leaf_tol}); "
+          f"replicas bit-equal {r['replicas_equal']}; {r['seconds']:.3f}s (single device "
+          f"{ref['seconds']:.3f}s), peak {r['peak']} bytes (single device {ref['peak']}); the "
+          f"step's collectives moved {r['bytes']} bytes; the loss's {loss_bytes} bytes "
+          f"(predicted {want_bytes}, the chunks recomputed in the backward), its all-reduces "
+          f"{loss_record} (the step's {step_calls}; predicted {want_calls}); launches "
+          f"{r['launches']} (predicted {want})")
+    check(max(r["loss_err"], r["grad_norm_err"], r["global_err"]) <= tol
+          and r["worst_leaf_err"] <= leaf_tol,
+          f"the sharded chunked-head step of {cfg.name} disagrees with one device's")
+    check(r["replicas_equal"] and r["finite"] and r["moved"],
+          f"{cfg.name}: replicas differ, or parameters not finite or unmoved")
+    check(loss_bytes == want_bytes, f"the sharded loss moved {loss_bytes} bytes")
+    check(loss_record == want_calls and step_calls == want_calls,
+          f"the sharded loss's all-reduces {loss_record}, the step's {step_calls}")
+    check(same_launches(r["launches"], want), f"sharded head launches {r['launches']}")
+    for k in total:
+        total[k] += r["launches"][k] + ref["launches"][k]
+
+
+def head_kernel_cases(device, kern):
+    """20e: flash_mha at phase 20's attention shapes (B 4, S 4,096, 4 query
+    heads on 1 KV head, D 256), causal over the whole sequence (the global
+    layers) and with the window of 512 (the local ones), in phase 2's
+    manner, into ``kern``."""
+    g = torch.Generator(device=device).manual_seed(20)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+    kern["flash_mha"]["gemma3_train_causal"] = mha_case(
+        randn, device, "gemma3-1b train, global layers", HEAD_ROWS, HEAD_SEQ, HEAD_SEQ, 4, 1,
+        256, True)
+    kern["flash_mha"]["gemma3_train_window"] = mha_window_case(randn, device, HEAD_SEQ,
+                                                               b=HEAD_ROWS)
+    for key in ("gemma3_train_causal", "gemma3_train_window"):
+        k = kern["flash_mha"][key]
+        print(f"[head] 20e flash_mha {key}: {k['ms']:.4f} ms (cold {k['cold_ms']:.4f}, eager "
+              f"{k['eager_ms']:.4f}), bound {k['bound_ms']:.4f} ms by {k['bound_by']}, plain "
+              f"{k['plain_ms']:.4f} ms, SDPA {k['library_ms']:.4f} ms; "
+              f"{2 * attn_layers(get_config(HEAD))} launches a phase-20 step (26 layers x 2 "
+              "with remat)")
+
+
+def report_phase20(device, total, kern):
+    """Phase 20 on the card: (a, b, d) gemma3-1b at full width and depth
+    trained one step at HEAD_ROWS x HEAD_SEQ with the chunked LM head
+    against the whole head, bf16, then on 2 fp32 layers; (c) the same loss
+    on HEAD_LAYOUT on 2 layers, bf16 and fp32; (e) flash_mha at the step's
+    shapes; each part's seconds."""
+    full = get_config(HEAD)
+    for part, report, rows, runs in (
+            ("a", report_head_train, HEAD_ROWS,
+             ((full, 0, TRAIN_TOL, TRAIN_LEAF_TOL),
+              (head_shallow(full, dtype="float32"), 1, FP32_GRAD_TOL, FP32_GRAD_TOL))),
+            ("c", report_head_sharded, HEAD_SHARDED_ROWS,
+             ((head_shallow(full), 0, TRAIN_TOL, TRAIN_LEAF_TOL),
+              (head_shallow(full, dtype="float32"), 1, FP32_GRAD_TOL, FP32_GRAD_TOL)))):
+        t0 = time.perf_counter()
+        for cfg, seed, tol, leaf_tol in runs:
+            params = make_dense_params(cfg, seed=seed, device=device)
+            report(cfg, params, head_batch(cfg, device, rows, seed=seed), tol, leaf_tol, total,
+                   f"[head] 20{part}")
+            del params
+            free(device)
+        print(f"[time] phase 20{part} {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    head_kernel_cases(device, kern)
+    print(f"[time] phase 20e {time.perf_counter() - t0:.1f}s")
+
+
 # ------------------------------------------------------------------ main
 
 def shallow(cfg, layers=4, *, dtype=None):
@@ -6940,6 +7241,9 @@ def main():
     t0 = time.perf_counter()
     report_phase19(device, total)
     print(f"[time] phase 19 {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    report_phase20(device, total, kern)
+    print(f"[time] phase 20 {time.perf_counter() - t0:.1f}s")
 
     source = "src/repro_torch/kernels/csrc/"
     rows = [dict(name="flash_mha", route="cuda", source=source + "flash_attention.cu",

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import ACTS
@@ -158,6 +159,63 @@ def unembed_apply(p_head, p_embed, x, tie: bool):
     if tie:
         return torch.einsum("bsd,vd->bsv", x, p_embed["table"]).to(torch.float32)
     return (x @ p_head["w"]).to(torch.float32)
+
+
+def token_nll(logits, labels):
+    """``logsumexp(logits) - logits[label]`` per position: logits (..., V)
+    fp32, labels (...) int."""
+    return (torch.logsumexp(logits, dim=-1)
+            - torch.gather(logits, -1, labels[..., None].long())[..., 0])
+
+
+def cross_entropy(logits, labels, mask):
+    """logits: (B, S, V) fp32; labels: (B, S) int; mask: (B, S) {0, 1}.
+    Returns (mean_loss, token_count)."""
+    nll = token_nll(logits, labels) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return nll.sum() / denom, denom
+
+
+def lm_head_chunk(s: int, chunk: int = 0) -> int:
+    """The LM head's chunk length along a sequence of ``s`` positions, 0
+    where the head runs whole: ``chunk == 0`` means 512 from 4,096
+    positions on, and a chunk that ``s`` does not exceed or that does not
+    divide it runs whole (the JAX package's ``chunked_lm_head_loss`` rule)."""
+    if chunk == 0:
+        chunk = 512 if s >= 4096 else 0
+    return 0 if not chunk or s <= chunk or s % chunk else chunk
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` whose saved tensors are dropped and recomputed in the
+    backward (``torch.utils.checkpoint``, non-reentrant, the JAX package's
+    ``jax.checkpoint``).  ``fn`` draws no random numbers, so no RNG state
+    is stashed (there is none on ``meta``)."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
+
+
+def chunked_lm_head_loss(head_fn, hidden, labels, mask, chunk: int = 0):
+    """Sequence-chunked LM head and cross-entropy with per-chunk remat:
+    each chunk's masked ``logsumexp - gold`` sum is ``checkpointed``, so the
+    head's working set is (B, chunk, V) and no (B, S, V) logits are held
+    (``lm_head_chunk`` picks the chunk; where it is 0 the head runs whole,
+    ``cross_entropy``).  Exact.  ``head_fn(h_chunk) -> logits``.  Returns
+    (mean_loss, token_count)."""
+    s = hidden.shape[1]
+    chunk = lm_head_chunk(s, chunk)
+    if not chunk:
+        return cross_entropy(head_fn(hidden), labels, mask)
+
+    def chunk_nll(h_c, y_c, m_c):
+        return (token_nll(head_fn(h_c), y_c) * m_c).sum()
+
+    total = 0.0
+    for i in range(s // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + checkpointed(chunk_nll, hidden[:, sl], labels[:, sl], mask[:, sl])
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return total / denom, denom
 
 
 # ----------------------------------------------------------------- vocab-parallel

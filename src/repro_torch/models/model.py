@@ -140,17 +140,17 @@ def lm_loss(params, cfg: ModelConfig, batch, *, impl="cuda", remat=True, aux_wei
     """Next-token cross-entropy of a {"tokens", "labels", "mask"} batch
     (mean over the mask) plus ``aux_weight`` times the MoE load-balance
     loss, as the JAX package's ``lm_loss``; a packed batch's labels and
-    mask are (1, T), ``max_seqlen`` its band (``forward``).  Returns (loss,
-    {"lm_loss", "aux_loss"}).  The (B, S, V) logits are made whole: the JAX package
-    chunks its LM head from 4,096 tokens on, and the port's one caller, the
-    profiler, stays below that."""
+    mask are (1, T), ``max_seqlen`` its band (``forward``).  The LM head
+    runs through ``layers.chunked_lm_head_loss``: from 4,096 positions on
+    (along T for a packed batch) in checkpointed chunks of 512, so no (B, S,
+    V) logits are held.  Its callers are the train steps
+    (``parallel/steps.make_train_step``), the dry run's train cells
+    (``launch/dryrun.py``, through the sharded step's ``lm_loss_sharded``)
+    and the profiler.  Returns (loss, {"lm_loss", "aux_loss"})."""
     hidden, aux = forward(params, cfg, batch, impl=impl, remat=remat, max_seqlen=max_seqlen,
                           return_aux=True)
-    logits = logits_of(params, cfg, hidden)
-    mask = batch["mask"]
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, batch["labels"][..., None].long())[..., 0]
-    loss = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    loss, _ = L.chunked_lm_head_loss(lambda h: logits_of(params, cfg, h), hidden,
+                                     batch["labels"], batch["mask"])
     aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
     return loss + aux_weight * aux, {"lm_loss": loss, "aux_loss": aux}
 
@@ -501,6 +501,54 @@ def forward_sharded(params, cfg: ModelConfig, batch, *, ctx, impl="cuda", remat=
     return (hs, aux) if return_aux else hs
 
 
+def global_seq_len(batch, ctx) -> int:
+    """The sequence length of the global batch whose per-rank rows are
+    ``batch``: a padded batch's S, a packed cohort's T, the sum of its
+    batch replicas' T_r (``packing.split_packed`` deals every token)."""
+    if "cu_seqlens" not in next(iter(batch.values())):
+        return next(iter(batch.values()))["labels"].shape[1]
+    per = {ctx.batch_index(r): b["labels"].shape[1] for r, b in batch.items()}
+    return sum(per.values())
+
+
+def nll_sums_sharded(top, cfg: ModelConfig, hs, labels, masks, *, ctx, split: bool,
+                     chunk: int = 0):
+    """{rank: the masked next-token NLL summed over its rows} of the
+    final-normed hidden states hs {rank: (B_r, S_r, D)} under ``top``'s LM
+    head (each rank's vocabulary block where ``split``).  With ``chunk``
+    each rank's rows run in chunks of ``chunk`` positions along S_r (the
+    last one short where chunk does not divide S_r, none where a replica
+    has fewer), each chunk over all ranks ``layers.checkpointed``: its
+    logits and the vocabulary-parallel all-reduces are recomputed in the
+    backward."""
+    ranks = list(hs)
+    n = len(ranks)
+
+    def nll_sums(*flat):
+        h, y, m = (dict(zip(ranks, flat[i * n:(i + 1) * n])) for i in range(3))
+        logits = {r: logits_of(top[r], cfg, h[r]) for r in ranks}  # the rank's vocabulary
+        if split:
+            mx = ctx.tp_reduce({r: l.detach().amax(dim=-1) for r, l in logits.items()},
+                               op="max")
+            s = ctx.tp_reduce({r: torch.exp(l - mx[r][..., None]).sum(dim=-1)
+                               for r, l in logits.items()})
+            gold = ctx.tp_reduce({r: L.gather_vocab_shard(l, y[r], ctx.tp_index(r) * l.shape[-1])
+                                  for r, l in logits.items()})
+            nll = {r: mx[r] + torch.log(s[r]) - gold[r] for r in ranks}
+        else:
+            nll = {r: L.token_nll(l, y[r]) for r, l in logits.items()}
+        return tuple((nll[r] * m[r]).sum() for r in ranks)
+
+    flat = [hs[r] for r in ranks] + [labels[r] for r in ranks] + [masks[r] for r in ranks]
+    if not chunk:
+        return dict(zip(ranks, nll_sums(*flat)))
+    total = None
+    for i in range(-(-max(h.shape[1] for h in hs.values()) // chunk)):
+        part = L.checkpointed(nll_sums, *(x[:, i * chunk:(i + 1) * chunk] for x in flat))
+        total = part if total is None else tuple(a + b for a, b in zip(total, part))
+    return dict(zip(ranks, total))
+
+
 def lm_loss_sharded(params, cfg: ModelConfig, batch, *, ctx, impl="cuda", remat=True,
                     aux_weight=0.01):
     """``lm_loss`` over a mesh: batch {rank: {"tokens", "labels", "mask"}
@@ -511,29 +559,22 @@ def lm_loss_sharded(params, cfg: ModelConfig, batch, *, ctx, impl="cuda", remat=
     max over the tensor axis (an all-reduce max) and the sum of its
     exponentials (an all-reduce sum), and the gold logit comes from the
     rank that holds the label, summed over the tensor axis; no rank
-    gathers the (B, S, V) logits.  The loss is the mean over the global
-    mask: the masked sum and the token count are each all-reduced over the
-    batch axes before the one division (replicas' means would weigh their
-    masks wrongly).  Returns (loss, {"lm_loss", "aux_loss"}), 0-d tensors on
-    the mesh's first device; the loss is computed once, from the first
-    rank's copies."""
+    gathers the (B, S, V) logits.  The head is chunked by the JAX rule
+    (``layers.lm_head_chunk``) on the global batch's sequence length, each
+    rank chunking its own rows (``nll_sums_sharded``).  The loss is the
+    mean over the global mask: the masked sum and the token count are each
+    all-reduced over the batch axes before the one division (replicas'
+    means would weigh their masks wrongly).  Returns (loss, {"lm_loss",
+    "aux_loss"}), 0-d tensors on the mesh's first device; the loss is
+    computed once, from the first rank's copies."""
     top, hs, aux = _final_hidden(params, cfg, batch, ctx, impl=impl, remat=remat,
                                  return_aux=True)
-    logits = {r: logits_of(top[r], cfg, h) for r, h in hs.items()}  # the rank's vocabulary
-    if vocab_split(params, cfg, ctx):
-        m = ctx.tp_reduce({r: l.detach().amax(dim=-1) for r, l in logits.items()}, op="max")
-        s = ctx.tp_reduce({r: torch.exp(l - m[r][..., None]).sum(dim=-1)
-                           for r, l in logits.items()})
-        gold = ctx.tp_reduce({r: L.gather_vocab_shard(l, batch[r]["labels"],
-                                                       ctx.tp_index(r) * l.shape[-1])
-                              for r, l in logits.items()})
-        nll = {r: m[r] + torch.log(s[r]) - gold[r] for r in logits}
-    else:
-        nll = {r: torch.logsumexp(l, dim=-1)
-               - torch.gather(l, -1, batch[r]["labels"][..., None].long())[..., 0]
-               for r, l in logits.items()}
-    num = ctx.batch_reduce({r: (v * batch[r]["mask"]).sum() for r, v in nll.items()})
-    cnt = ctx.batch_reduce({r: batch[r]["mask"].sum() for r in nll})
+    sums = nll_sums_sharded(top, cfg, hs, {r: b["labels"] for r, b in batch.items()},
+                            {r: b["mask"] for r, b in batch.items()}, ctx=ctx,
+                            split=vocab_split(params, cfg, ctx),
+                            chunk=L.lm_head_chunk(global_seq_len(batch, ctx)))
+    num = ctx.batch_reduce(sums)
+    cnt = ctx.batch_reduce({r: batch[r]["mask"].sum() for r in sums})
     root = ctx.ranks[0]
     loss = num[root] / torch.clamp(cnt[root], min=1.0)
     return loss + aux_weight * aux[root], {"lm_loss": loss, "aux_loss": aux[root]}
