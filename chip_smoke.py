@@ -376,8 +376,9 @@ from repro_torch.parallel import pipeline as PIPE  # noqa: E402
 from repro_torch.parallel import realloc_exec as RX  # noqa: E402
 from repro_torch.parallel import sharding as SHD  # noqa: E402
 from repro_torch.parallel import steps as PSTEPS  # noqa: E402
-from repro_torch.parallel.layout import (Layout, Mesh, ShardedTensor, place_tree,  # noqa: E402
-                                         tree_leaves, tree_map)
+from repro_torch.parallel.layout import (Layout, Mesh, ShardedTensor, axes_of,  # noqa: E402
+                                         place_tree, tree_at, tree_leaves, tree_map,
+                                         tree_map_with_path)
 from repro_torch.data.synth import PreferenceDataset, PromptDataset  # noqa: E402
 from repro_torch.rlhf import dpo as DPO  # noqa: E402
 from repro_torch.rlhf import experiment as EXP  # noqa: E402
@@ -3730,10 +3731,11 @@ def single_train(cfg, params, batch, *, impl, opt_cfg=adamw.AdamWConfig(),
 
 
 def sharded_train(cfg, params, batch, layout, ref, m_ref, *, impl,
-                  opt_cfg=adamw.AdamWConfig(), **kw):
+                  opt_cfg=adamw.AdamWConfig(), device=None, **kw):
     """``phase_tp_train``'s sharded step, held to ``single_train``'s run
-    ``ref`` and its first moment ``m_ref``."""
-    device = params["embed"]["table"].device
+    ``ref`` and its first moment ``m_ref``, its logical devices on
+    ``device`` (default: the parameters')."""
+    device = device or params["embed"]["table"].device
     mesh, sharded = shard_params(params, *layout, device)
     before = clone_tree(tree_map(lambda st: st.blocks[mesh.device_ids[0]], sharded))
     sstate = adamw.init(opt_cfg, sharded)
@@ -5467,9 +5469,12 @@ def stack_bytes(cfg, tp, rows, seq, *, cross=None, decode=False):
     rows and weights.  ``cross`` ("prefill" or "decode") adds a decoder
     layer's cross-attention: its fp32 shares summed, its wq blocks where
     ``heads_split``, and in prefill its wk/wv blocks where replicated
-    (decode reads its "xkv" cache)."""
+    (decode reads its "xkv" cache).  A block the axis leaves whole
+    (``whole_blocks``) sums nothing over it; it gathers only the leaves the
+    axis still splits (``whole_gather_bytes``)."""
     bf, f32 = L.dtype_of(cfg).itemsize, 4
     act = rows * seq * cfg.d_model
+    whole = whole_blocks(cfg, tp)
     kv_w = q_w = 0
     rows_w = cfg.d_model + (1 if cfg.qkv_bias else 0)  # the bias as one more row
     if T.kv_replicated(cfg, tp):
@@ -5483,12 +5488,18 @@ def stack_bytes(cfg, tp, rows, seq, *, cross=None, decode=False):
                  + allreduce_bytes(rows * cfg.n_heads * (cfg.head_dim + 1) * f32, tp))
     out = 0
     for spec in cfg.layers:
-        out += allreduce_bytes(act * f32, tp)
-        if cross:
+        kind = {ATTN: "attn", LRU: "lru", SSM: "ssm"}[spec.kind]
+        if whole[kind]:  # a decoder layer's cross-attention gathers as its self-attention
+            out += whole_gather_bytes(cfg, tp, spec.kind) * (2 if cross else 1)
+        else:
+            out += allreduce_bytes(act * f32, tp)
+        if cross and not whole["attn"]:
             out += (allreduce_bytes(act * f32, tp) + q_w
                     + (kv_w if cross == "prefill" else 0))
-        if spec.has_ffn and cfg.ffn_kind != "none":
+        if spec.has_ffn and cfg.ffn_kind != "none" and not whole["ffn"]:
             out += allreduce_bytes(act * f32, tp)
+        if whole[kind]:
+            continue
         if spec.kind == SSM:
             di, n = cfg.ssm_inner, cfg.ssm_state
             cols, ch = 2 * di + 2 * n + cfg.ssm_heads, di + 2 * n
@@ -5518,12 +5529,15 @@ def sharded_serve_bytes(cfg, tp, rows, seq, *, decode=False):
 def serve_predicted(cfg, tp, steps):
     """Launches of a sharded prefill and ``steps`` decode steps on tp
     ranks: every rank's flash_mha and scans per prefill, flash_decode per
-    attention layer per step; an encoder-decoder's prefill also runs its
+    attention layer per step, grouped_ffn per dropless MoE layer per
+    prefill and per step; an encoder-decoder's prefill also runs its
     encoder's and its cross-attention's flash_mha, and each decode step
     its cross-attention's (Sq 1)."""
-    n = attn_layers(cfg)
+    n, e = attn_layers(cfg), moe_layers(cfg)
     prefill = {"flash_mha": tp * n, **{k: tp * v for k, v in scan_launches(cfg, 1).items()}}
     decode = {"flash_decode": tp * n * steps}
+    if e:
+        prefill["grouped_ffn"], decode["grouped_ffn"] = tp * e, tp * e * steps
     if cfg.family == "encdec":
         prefill["flash_mha"] *= 3
         decode["flash_mha"] = tp * n * steps
@@ -5962,7 +5976,7 @@ def phase_prefix_loss_sharded(cfg, params, batch, layout, *, impl):
     with CTX.use(mesh, rules.batch_axes, rules.tp_axis) as c:
         loss, grads, _ = PSTEPS.sharded_grads(
             lambda p, parts: MDL.lm_loss_sharded(p, cfg, parts, ctx=c, impl=impl),
-            sharded, batch, 1, mesh, rules)
+            sharded, batch, 1, mesh, rules, cfg=cfg)
         sync(device)
         out.update(seconds=time.perf_counter() - t0, bytes=COLL.STATS["bytes"],
                    copies=COLL.STATS["copies"])
@@ -7007,6 +7021,326 @@ def report_phase20(device, total, kern):
     print(f"[time] phase 20e {time.perf_counter() - t0:.1f}s")
 
 
+# ----------------- phase 21: blocks the tensor axis leaves whole, at degree 3
+# The plan search's own choice for actor_train and critic_train on six
+# 8-card H100 nodes (``mcmc_search`` with ``examples/plan_search.py``'s
+# settings) is d4t3p4m32.  At tensor degree 3 no config's q_dim, d_ff,
+# experts, lru_width or SSD heads divide, so ``sanitize_specs`` leaves
+# those blocks' weights whole, and every tensor rank runs them whole
+# (``transformer.layer_plan``), as GSPMD replicates them in the JAX
+# package; the vocabulary splits where 3 divides it.
+WHOLE = "llama-7b"                  # (a, b, d): 128,256 vocabulary rows split, 1 x 42,752
+WHOLE_LAYERS = 2
+WHOLE_LAYOUTS = ((2, 3), (1, 3))    # (a): t3 with FSDP over 2 replicas, and alone
+WHOLE_TRAIN = dict(batch=4, prompt=128, new=384)   # (a): 4 x 512 tokens
+WHOLE_SERVE = dict(batch=4, prompt_len=512, steps=8)  # (b)
+# (c): (model, layers at full width, dtype): recurrentgemma's FFN split, its
+# RG-LRU and attention whole; mamba2's 64 SSD heads whole, its vocabulary
+# split; granite's 32 experts and attention whole, its vocabulary split, in
+# fp32 so that no route parts between the runs at a bf16 rounding.
+WHOLE_REC = (("recurrentgemma-9b", 3, None), ("mamba2-1.3b", 4, None),
+             ("granite-moe-1b-a400m", 4, "float32"))
+WHOLE_REC_SERVE = dict(batch=4, prompt_len=256, steps=8)
+WHOLE_TP = 3
+WHOLE_GEN = (1, 8)                  # (d): actor_gen's layout in the same plan
+WHOLE_FP32_TOL = 1e-5               # (a)'s fp32 step: loss, grad_norm, first moment
+
+
+def whole_blocks(cfg, tp):
+    """{block: whether a tensor axis of ``tp`` leaves it whole}, from the
+    widths ``sanitize_specs`` tests: attention (and cross-attention) by
+    q_dim, the FFN by d_ff or the experts, RG-LRU by lru_width, SSD by its
+    heads and ``out_proj``'s rows."""
+    def whole(*widths):
+        return tp > 1 and any(w % tp for w in widths)
+    ffn = (cfg.n_experts,) if cfg.ffn_kind == "moe" else (cfg.d_ff,)
+    return {"attn": whole(cfg.q_dim), "ffn": whole(*ffn), "lru": whole(cfg.lru_width),
+            "ssm": whole(cfg.ssm_heads, cfg.ssm_inner)}
+
+
+def whole_gather_bytes(cfg, tp, kind):
+    """Bytes one pass of a whole ``kind`` layer moves to gather the leaves
+    the tensor axis still splits (their widths it divides): attention's
+    wk/wv where it divides kv_dim; SSD's fused ``in_proj`` columns, conv
+    channels and ``out_proj`` rows where it divides them."""
+    bf = L.dtype_of(cfg).itemsize
+    out = 0
+    if kind == ATTN and cfg.kv_dim % tp == 0:
+        rows_w = cfg.d_model + (1 if cfg.qkv_bias else 0)
+        out += 2 * allgather_bytes(rows_w * cfg.kv_dim // tp * bf, tp)
+    if kind == SSM:
+        di, n = cfg.ssm_inner, cfg.ssm_state
+        cols, ch = 2 * di + 2 * n + cfg.ssm_heads, di + 2 * n
+        if cols % tp == 0:
+            out += allgather_bytes(cfg.d_model * cols // tp * bf, tp)
+        if ch % tp == 0:
+            out += allgather_bytes((cfg.ssm_conv + 1) * ch // tp * bf, tp)
+        if di % tp == 0:
+            out += allgather_bytes(di // tp * cfg.d_model * bf, tp)
+    return out
+
+
+def whole_leaves(params, layout):
+    """[(path, leaf, the mesh axes its sanitized spec splits it over, the
+    axes its gradient is summed over)] of ``params`` on a (dp, tp)
+    ``layout`` (FSDP over data, TP over model) where the tensor axis
+    leaves every layer block whole: a layer leaf's gradient is whole on
+    every tensor rank (``transformer.full_grad_leaves``), so it is summed
+    over the data axis only; any other leaf's over each axis its spec
+    leaves replicated."""
+    mesh = Mesh(np.arange(math.prod(layout)).reshape(layout), ("data", "model"), device="cpu")
+    specs = SHD.sanitize_specs(SHD.param_specs(params, SHD.ShardingRules()), params, mesh)
+    out = []
+
+    def one(path, leaf):
+        axes = [a for part in tree_at(specs, path) for a in axes_of(part)]
+        rep = [a for a in ("data", "model") if a not in axes and mesh.shape[a] > 1
+               and not (path[0] == "layers" and a == "model")]
+        out.append((path, leaf, axes, rep))
+    tree_map_with_path(one, params)
+    return out
+
+
+def whole_train_bytes(cfg, params, layout, rows, seq):
+    """(bytes, {part: bytes}) the collectives move in one sharded train step
+    of ``rows`` x ``seq`` padded tokens on a (dp, tp) ``layout`` (FSDP over
+    data, TP over model, remat) where the tensor axis leaves every layer
+    block whole (``whole_blocks``) and no layer leaf split: "fsdp", each
+    leaf's blocks all-gathered over data (a layer's in its forward, its
+    recompute and, as the reduce-scatter, the backward; the table and head
+    in the forward and the backward); "embed", the vocabulary-parallel
+    lookup's all-reduce and its backward, which sends only the root's
+    gradient (the stack's first whole sublayer keeps it there); "stream",
+    the stack's gradient shares all-reduced where its last whole sublayer
+    meets the head, in the activations' dtype; "head",
+    ``head_loss_predicted`` per replica; "loss", the masked sum's and the
+    count's all-reduces over the replicas (the sum's backward from the
+    root); "grads", each leaf's fp32 gradient blocks all-reduced over
+    ``whole_leaves``' axes."""
+    dp, tp = layout
+    n = dp * tp
+    w = whole_blocks(cfg, tp)
+    check(all(w[k] for k, kind in (("attn", ATTN), ("lru", LRU), ("ssm", SSM))
+              if any(s.kind == kind for s in cfg.layers))
+          and (cfg.ffn_kind == "none" or w["ffn"]),
+          f"{cfg.name} at {tp}: whole_train_bytes reckons only stacks left whole")
+    parts = dict.fromkeys(("fsdp", "embed", "stream", "head", "loss", "grads"), 0)
+    bf = L.dtype_of(cfg).itemsize
+    act = rows // dp * seq * cfg.d_model * bf
+    for path, leaf, axes, rep in whole_leaves(params, layout):
+        block = leaf.numel() // math.prod(layout[("data", "model").index(a)] for a in axes)
+        if path[0] == "layers":
+            check("model" not in axes, f"{path}: a layer leaf split over the tensor axis")
+        if "data" in axes:
+            parts["fsdp"] += ((3 if path[0] == "layers" else 2)
+                              * allgather_bytes(block * leaf.element_size(), dp, tp))
+        if rep:
+            k = math.prod(layout[("data", "model").index(a)] for a in rep)
+            parts["grads"] += allreduce_bytes(block * 4, k, n // k)
+    if tp > 1:
+        parts["stream"] = allreduce_bytes(act, tp, dp)
+    if cfg.vocab_size % tp == 0:
+        parts["embed"] = allreduce_bytes(act, tp, dp) + dp * (tp - 1) * act
+        parts["head"] = dp * head_loss_predicted(rows // dp, seq, tp)[0]
+    if dp > 1:
+        parts["loss"] = 2 * allreduce_bytes(4, dp, tp) + (dp - 1) * 4
+    return sum(parts.values()), parts
+
+
+def whole_peak_predicted(params, layout, *, host_ref):
+    """The peak bytes of the sharded train step reckoned from the layouts:
+    every rank's blocks of the parameters, their fp32 gradient (twice for a
+    leaf summed over some axis: the blocks autograd returns and their
+    all-reduced copies), the AdamW m, v and fp32 master; beside them the
+    single-device parameters and their fp32 first moment (on the host with
+    ``host_ref``, else on the card) and one layer's FSDP-gathered leaves
+    on every rank."""
+    dp, tp = layout
+    per_rank = 0
+    for _, leaf, axes, rep in whole_leaves(params, layout):
+        block = leaf.numel() // math.prod(layout[("data", "model").index(a)] for a in axes)
+        per_rank += block * (leaf.element_size() + (8 if rep else 4) + 12)
+    layer = sum(t.numel() * t.element_size() for t in tree_leaves(params["layers"][0]))
+    dense = 0 if host_ref else sum(t.numel() * (t.element_size() + 4)
+                                   for t in tree_leaves(params))
+    return per_rank * dp * tp + layer * dp * tp + dense
+
+
+def phase_whole_train(cfg, params, batch, layouts, *, impl):
+    """21a: one single-device ``make_train_step``, then the sharded one on
+    each (dp, tp) of ``layouts`` from the same parameters and batch; with
+    ``host_ref`` the single device's first moment and the dense parameters
+    wait on the host while a sharded step runs (fp32 llama-7b's step holds
+    2.36e9 elements on the card with their gradients and AdamW state).
+    Returns {layout: ``sharded_train``'s result (without "trained") with
+    "predicted_bytes" and "predicted_peak"}."""
+    device = params["embed"]["table"].device
+    host_ref = cfg.dtype == "float32"
+    rows, seq = batch["tokens"].shape
+    ref, m_ref = single_train(cfg, params, batch, impl=impl)
+    if host_ref:
+        m_ref, params = (tree_map(lambda t: t.to("cpu"), tree) for tree in (m_ref, params))
+        free(device)
+    out = {}
+    for layout in layouts:
+        r = sharded_train(cfg, params, batch, layout, ref, m_ref, impl=impl, device=device)
+        del r["trained"]
+        r["predicted_bytes"] = whole_train_bytes(cfg, params, layout, rows, seq)
+        r["predicted_peak"] = whole_peak_predicted(params, layout, host_ref=host_ref)
+        out[layout] = r
+        free(device)
+    return out
+
+
+def report_whole_train(cfg, runs, tols, total, tag):
+    """21a printed and held: loss, grad_norm and first moment within
+    ``tols[0]``, each leaf within ``tols[1]``, every replica (every whole
+    block's copy on each tensor rank) bit-equal, the parameters finite and
+    moved, the collectives' bytes equal to ``whole_train_bytes`` and the
+    launches to ``tp_train_predicted``; adds the launches to ``total``."""
+    tol, leaf_tol = tols
+    ref = next(iter(runs.values()))["ref"]
+    want = tp_train_predicted(cfg, (1, 1))
+    print(f"{tag} {cfg.name} {cfg.num_layers} layers {cfg.dtype}: single device loss "
+          f"{ref['loss']:.6e}, grad_norm {ref['grad_norm']:.6e}, {ref['seconds']:.3f}s, peak "
+          f"{ref['peak']} bytes, launches {ref['launches']} (predicted {want})")
+    check(same_launches(ref["launches"], want), f"{tag} single-device launches")
+    for k in total:
+        total[k] += ref["launches"][k]
+    for layout, r in runs.items():
+        want = tp_train_predicted(cfg, layout)
+        pb, parts = r["predicted_bytes"]
+        print(f"{tag} {cfg.name} on (data, model)={layout}, every layer block whole on each "
+              f"of {layout[1]} tensor ranks: loss err {r['loss_err']:.3e}, grad_norm err "
+              f"{r['grad_norm_err']:.3e}, first moment err {r['global_err']:.3e}, worst leaf "
+              f"{r['worst_leaf']} {r['worst_leaf_err']:.3e} (tol {tol}, per leaf {leaf_tol}); "
+              f"replicas bit-equal {r['replicas_equal']}; {r['seconds']:.3f}s (single device "
+              f"{ref['seconds']:.3f}s), peak {r['peak']} bytes (reckoned "
+              f"{r['predicted_peak']}), collectives moved {r['bytes']} bytes (predicted {pb}: "
+              f"{parts}); launches {r['launches']} (predicted {want})")
+        check(max(r["loss_err"], r["grad_norm_err"], r["global_err"]) <= tol
+              and r["worst_leaf_err"] <= leaf_tol,
+              f"{tag} the whole-block train step of {cfg.name} on {layout} disagrees with one "
+              "device")
+        check(r["replicas_equal"] and r["finite"] and r["moved"],
+              f"{tag} {cfg.name} on {layout}: replicas differ, or parameters not finite or "
+              "unmoved")
+        check(r["bytes"] == pb, f"{tag} {cfg.name} on {layout}: {r['bytes']} bytes moved, "
+              f"predicted {pb}")
+        check(same_launches(r["launches"], want), f"{tag} train launches {r['launches']}")
+        for k in total:
+            total[k] += r["launches"][k]
+
+
+def report_whole_serve(cfg, params, total, tag, *, batch, prompt_len, steps, logit_tol,
+                       impl="cuda"):
+    """21b/c: ``phase_tp_serve`` on (1, WHOLE_TP) against one device, held
+    to ``logit_tol``, its bytes to ``sharded_serve_bytes`` and its launches
+    to ``serve_predicted``; the kv bytes per card beside the single
+    device's."""
+    device = params["embed"]["table"].device
+    t0 = time.perf_counter()
+    peak_reset(device)
+    layout = (1, WHOLE_TP)
+    r = phase_tp_serve(cfg, params, layout, impl=impl, batch=batch, prompt_len=prompt_len,
+                       steps=steps)
+    r["predicted_bytes"] = (sharded_serve_bytes(cfg, WHOLE_TP, batch, prompt_len),
+                            sharded_serve_bytes(cfg, WHOLE_TP, batch, 1, decode=True))
+    r["predicted"] = serve_predicted(cfg, WHOLE_TP, steps)
+    w = whole_blocks(cfg, WHOLE_TP)
+    kinds = {s.kind for s in cfg.layers}
+    blocks = {k: "whole" if w[k] else "split" for k, kind in (("attn", ATTN), ("lru", LRU),
+                                                              ("ssm", SSM)) if kind in kinds}
+    if cfg.ffn_kind != "none":
+        blocks["ffn"] = "whole" if w["ffn"] else "split"
+    blocks["vocab"] = "split" if cfg.vocab_size % WHOLE_TP == 0 else "whole"
+    report_sharded_serve(tag, cfg.name, r, logit_tol, device, total, t0,
+                         serve_what=f"{cfg.num_layers} layers {cfg.dtype} on (data, model)="
+                                    f"{layout} ({blocks}), {batch} x {prompt_len} tokens then "
+                                    f"{steps} decode steps; self-attention k/v per rank "
+                                    f"{r['kv_bytes']} bytes")
+    return r
+
+
+def phase_whole_move(params, device):
+    """21d: ``params`` placed on actor_gen's (1, 8) layout of logical
+    devices 0-7, then moved by ``prefetch_reshard`` onto actor_train's
+    (2, 3) layout of devices 0-5; every leaf moves (the device sets
+    differ).  Returns the move's split, seconds, the predicted bytes (each
+    leaf's global bytes once) and whether the moved tree gathers to
+    ``params`` bit for bit."""
+    gen = strategy_layouts(params, *WHOLE_GEN, tuple(range(math.prod(WHOLE_GEN))), device)
+    train = strategy_layouts(params, *WHOLE_LAYOUTS[0],
+                             tuple(range(math.prod(WHOLE_LAYOUTS[0]))), device)
+    src = place_tree(params, gen)
+    sync(device)
+    t0 = time.perf_counter()
+    task = RX.prefetch_reshard(src, train)
+    moved = task.wait()
+    sync(device)
+    out = dict(seconds=time.perf_counter() - t0, n_moved=task.n_moved,
+               n_aliased=task.n_aliased, moved_bytes=task.moved_bytes,
+               total_bytes=task.total_bytes, n_leaves=len(tree_leaves(params)),
+               predicted_bytes=sum(t.numel() * t.element_size() for t in tree_leaves(params)))
+    out["equal"] = all(torch.equal(st.gather(device), t)
+                       for st, t in zip(tree_leaves(moved), tree_leaves(params)))
+    out["whole_on_model"] = sum("model" not in str(st.layout.spec)
+                                for st in tree_leaves(moved["layers"]))
+    del src, moved, task
+    free(device)
+    return out
+
+
+def report_phase21(device, total):
+    """Phase 21 on the card: (a) llama-7b at full width on 2 layers trained
+    one step on (2, 3) and (1, 3), every layer block whole on each tensor
+    rank, bf16 against one device (TRAIN_TOL, TRAIN_LEAF_TOL), then in fp32
+    on (2, 3) (WHOLE_FP32_TOL, FP32_GRAD_TOL per leaf); (b) its prefill and
+    decode on (1, 3); (c) recurrentgemma-9b, mamba2-1.3b and granite at
+    TP 3 served against one device; (d) llama-7b's 2 layers moved from
+    actor_gen's (1, 8) onto (2, 3); each part's seconds."""
+    t0 = time.perf_counter()
+    full = get_config(WHOLE)
+    for dtype, layouts, tols, seed in (
+            (None, WHOLE_LAYOUTS, (TRAIN_TOL, TRAIN_LEAF_TOL), 0),
+            ("float32", WHOLE_LAYOUTS[:1], (WHOLE_FP32_TOL, FP32_GRAD_TOL), 1)):
+        cfg = first_layers(full, WHOLE_LAYERS, dtype=dtype)
+        params = make_params(cfg, seed=seed, device=device)
+        batch = lm_batch(cfg, device, seed=seed, **WHOLE_TRAIN)
+        runs = phase_whole_train(cfg, params, batch, layouts, impl="cuda")
+        del params
+        report_whole_train(cfg, runs, tols, total, "[whole] 21a")
+        free(device)
+    print(f"[time] phase 21a {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    cfg = first_layers(full, WHOLE_LAYERS)
+    params = make_params(cfg, seed=2, device=device)
+    report_whole_serve(cfg, params, total, "[whole] 21b", logit_tol=LOGIT_TOL, **WHOLE_SERVE)
+    print(f"[time] phase 21b {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    m = phase_whole_move(params, device)
+    print(f"[whole] 21d {cfg.name} {cfg.num_layers} layers from (data, model)={WHOLE_GEN} "
+          f"onto {WHOLE_LAYOUTS[0]}: {m['n_moved']} of {m['n_leaves']} leaves moved, "
+          f"{m['n_aliased']} aliased, {m['moved_bytes']} of {m['total_bytes']} bytes "
+          f"(predicted {m['predicted_bytes']}: every leaf, the device sets differ), "
+          f"{m['whole_on_model']} layer leaves whole over the model axis, {m['seconds']:.3f}s; "
+          f"gathers to the source bit for bit {m['equal']}")
+    check(m["n_moved"] == m["n_leaves"] and m["moved_bytes"] == m["predicted_bytes"]
+          and m["equal"], "the (1, 8) -> (2, 3) reshard moved other bytes or changed a bit")
+    del params
+    free(device)
+    print(f"[time] phase 21d {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    for name, layers, dtype in WHOLE_REC:
+        cfg = first_layers(get_config(name), layers, dtype=dtype)
+        params = make_params(cfg, seed=3, device=device)
+        report_whole_serve(cfg, params, total, "[whole] 21c",
+                           logit_tol=FP32_LOGIT_TOL if dtype else LOGIT_TOL, **WHOLE_REC_SERVE)
+        del params
+        free(device)
+    print(f"[time] phase 21c {time.perf_counter() - t0:.1f}s")
+
+
 # ------------------------------------------------------------------ main
 
 def shallow(cfg, layers=4, *, dtype=None):
@@ -7244,6 +7578,9 @@ def main():
     t0 = time.perf_counter()
     report_phase20(device, total, kern)
     print(f"[time] phase 20 {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    report_phase21(device, total)
+    print(f"[time] phase 21 {time.perf_counter() - t0:.1f}s")
 
     source = "src/repro_torch/kernels/csrc/"
     rows = [dict(name="flash_mha", route="cuda", source=source + "flash_attention.cu",

@@ -317,18 +317,22 @@ def input_specs(cfg: ModelConfig, seq_len: int, batch: int, kind: str) -> dict:
     return specs
 
 
-def meta_caches(cfg: ModelConfig, mesh, rules: SH.ShardingRules, batch: int, max_len: int):
+def meta_caches(cfg: ModelConfig, mesh, rules: SH.ShardingRules, batch: int, max_len: int, *,
+                layers):
     """The sharded decode caches (``make_prefill_step``'s layout) as
     ``meta`` blocks: each rank's batch rows, its KV heads (every one for its
     block of the slots where the tensor axis does not divide them) or
-    recurrent channels."""
+    recurrent channels, every one where ``layers`` (the parameters' layer
+    trees, ``meta_params``') leave a layer's mixer whole."""
     k = C.axis_size(mesh, rules.batch_axes) if rules.batch_axes else 1
     ctx = CTX.ShardingCtx(mesh, rules.batch_axes, rules.tp_axis)
     cross = cfg.family == "encdec"
+    plans = T.layer_plans(layers, cfg, ctx)
     per = {r: T.cache_init_sharded(cfg, ctx, r, batch // k, max_len, L.dtype_of(cfg), META,
-                                   cross=cross, enc_len=cfg.prefix_len if cross else None)
+                                   plans=plans, cross=cross,
+                                   enc_len=cfg.prefix_len if cross else None)
            for r in mesh.device_ids}
-    return ST.wrap_caches(per, cfg, mesh, rules, max_len)
+    return ST.wrap_caches(per, cfg, mesh, rules, max_len, layers)
 
 
 def _rank_bytes(tree, rank) -> int:
@@ -342,17 +346,24 @@ def cache_layout(cfg: ModelConfig, tp: int, caches: list) -> str:
     """The layout of the sharded decode ``caches`` in words."""
     kinds = {s.kind for s in cfg.layers}
     parts = []
+
+    def split(kind):  # whether the model axis holds a share of these layers' caches
+        return any("model" in str(st.layout.spec) for spec, c in zip(cfg.layers, caches)
+                   if (spec.kind == ATTN) == (kind == ATTN)
+                   for st in tree_leaves(c.get("self", c)))
     if ATTN in kinds:
         slot_axes = sorted({str(st.layout.spec[1]) for spec, c in zip(cfg.layers, caches)
                             if spec.kind == ATTN for st in tree_leaves(c.get("self", c))
                             if st.layout.spec[1]})
-        heads = ("every KV head" if T.kv_replicated(cfg, tp)
+        heads = ("every KV head" if T.kv_replicated(cfg, tp) or not split(ATTN)
                  else "KV heads by the model axis")
         parts.append(f"attention k/v by slot over {' and '.join(slot_axes)} ({heads}; the "
                      "ranks' partials merged by log-sum-exp)" if slot_axes
-                     else "attention k/v by KV head over the model axis")
+                     else "attention k/v by KV head over the model axis" if split(ATTN)
+                     else "attention k/v whole on every model rank")
     if kinds - {ATTN}:
-        parts.append("recurrent states by channel or head over the model axis")
+        parts.append("recurrent states by channel or head over the model axis"
+                     if split(None) else "recurrent states whole on every model rank")
     return "; ".join(parts) + "; batch rows over the batch axes"
 
 
@@ -375,7 +386,8 @@ def _setup(cfg, shape, mesh, rules, b_axes, *, zero1=None):
     bsz = shape.global_batch
     return srules, params, None, (
         torch.empty((bsz,), dtype=torch.int32, device=META),
-        meta_caches(cfg, mesh, srules, bsz, shape.seq_len + 1), shape.seq_len)
+        meta_caches(cfg, mesh, srules, bsz, shape.seq_len + 1, layers=params["layers"]),
+        shape.seq_len)
 
 
 def _call(cfg, shape, mesh, srules, params, opt, args, n_micro):
@@ -437,7 +449,8 @@ def memory_of(cfg, shape, mesh, rules, b_axes, peak_live: float, *, zero1=None) 
         alias = _rank_bytes(params, r0) + _rank_bytes(opt, r0)
         out = alias + 5 * 4  # the updated params and state, five fp32 metrics
     elif shape.kind == "prefill":
-        caches = meta_caches(cfg, mesh, srules, shape.global_batch, shape.seq_len + 1)
+        caches = meta_caches(cfg, mesh, srules, shape.global_batch, shape.seq_len + 1,
+                             layers=params["layers"])
         alias, out = 0, logits + _rank_bytes(caches, r0)
     else:
         alias = _rank_bytes(args[1], r0)

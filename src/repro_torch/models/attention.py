@@ -64,9 +64,12 @@ def _project_qkv(p, cfg: ModelConfig, x, rope):
 
 def _out_proj(p, out, partial, cols=None):
     """The output projection; with ``partial`` a tensor-parallel rank's fp32
-    share of it (``layers.partial_apply``), for the caller's all-reduce;
-    with ``cols`` (a rank that computed every head) only the output's
-    columns that its ``wo`` rows take."""
+    share of it (``layers.partial_apply``), for the caller's all-reduce, or
+    a whole layer's fp32 output on a rank that holds all of wo (the tensor
+    axis does not divide q_dim: ``transformer.layer_plan``), cast once by
+    the caller; with ``cols`` (a rank that computed every head for its
+    share of wo's rows) only the output's columns that its ``wo`` rows
+    take."""
     if cols is not None:
         out = out[..., cols]
     return L.partial_apply(p["wo"], out) if partial else L.dense_apply(p["wo"], out)

@@ -23,7 +23,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.parallel.layout import axes_of
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda", head: str = "lm"):
@@ -404,27 +403,20 @@ class BucketedGenerator:
 # prefix model's embeddings are spliced in once the token embeddings are
 # whole on every rank.
 
-def _tp_splits(st, dim: int, ctx) -> bool:
-    """Whether the tensor axis of ``ctx`` shards dim ``dim`` of the
-    ``ShardedTensor`` st (``sanitize_specs`` drops it from a vocabulary it
-    does not divide: granite's 49,155 at an even degree)."""
-    spec = st.layout.spec
-    return (bool(ctx.tp_axis) and ctx.tp_size > 1 and dim < len(spec)
-            and ctx.tp_axis in axes_of(spec[dim]))
-
-
 def vocab_split(params, cfg: ModelConfig, ctx) -> bool:
-    """Whether the logits are vocabulary-parallel."""
+    """Whether the logits are vocabulary-parallel (``sanitize_specs`` drops
+    the tensor axis from a vocabulary it does not divide: granite's 49,155
+    at an even degree)."""
     if cfg.tie_embeddings:
-        return _tp_splits(params["embed"]["table"], 0, ctx)
-    return _tp_splits(params["lm_head"]["w"], 1, ctx)
+        return ctx.tp_splits(params["embed"]["table"], 0)
+    return ctx.tp_splits(params["lm_head"]["w"], 1)
 
 
 def _embed_sharded(params, top, cfg: ModelConfig, tokens, ctx):
     """{rank: (B_r, S, D)} embeddings of {rank: (B_r, S) tokens}; ``top`` is
     ``ctx.local`` of the non-layer params.  A vocabulary-parallel table
     looks up its own rows (zeros elsewhere), summed over the tensor axis."""
-    if not _tp_splits(params["embed"]["table"], 0, ctx):
+    if not ctx.tp_splits(params["embed"]["table"], 0):
         return {r: L.embed_apply(top[r]["embed"], t).to(L.dtype_of(cfg))
                 for r, t in tokens.items()}
     xs = {r: L.embed_apply_vocab_shard(top[r]["embed"], t,
@@ -587,14 +579,16 @@ def prefill_sharded(params, cfg: ModelConfig, batch, max_len, *, ctx, impl="cuda
     V_r) fp32}, {rank: the rank's layer caches}): each rank's caches hold
     its batch rows and its own KV heads (where the tensor axis does not
     divide them, every KV head for its own block of the slots), RG-LRU
-    channels or SSD heads (``transformer.cache_init_sharded``), so the
+    channels or SSD heads, every one of them where the layer's mixer runs
+    whole (``transformer.cache_init_sharded``), so the
     decode kernel runs on whole heads; an encoder-decoder's also the cross
     k/v of the same heads over its rows' encoder output ("xkv")."""
     top = _top(params, ctx)
     xs = _embed_inputs_sharded(params, top, cfg, batch, ctx)
     enc = _encode_sharded(params, top, cfg, batch, ctx, impl=impl)
+    plans = T.layer_plans(params["layers"], cfg, ctx)
     caches = {r: T.cache_init_sharded(cfg, ctx, r, x.shape[0], max_len, L.dtype_of(cfg),
-                                      x.device, cross=enc is not None,
+                                      x.device, plans=plans, cross=enc is not None,
                                       enc_len=None if enc is None else enc[r].shape[1])
               for r, x in xs.items()}
     hs = T.stack_prefill_sharded(params["layers"], cfg, xs, caches, max_len, ctx=ctx,

@@ -255,11 +255,14 @@ def moe_apply(p, cfg: ModelConfig, x, *, impl="cuda", want_aux=False):
     return y
 
 
-def moe_apply_sharded(ps, cfg: ModelConfig, xs, *, ctx, impl="cuda", want_aux=False):
+def moe_apply_sharded(ps, cfg: ModelConfig, xs, *, ctx, impl="cuda", want_aux=False,
+                      dense_ctx=None):
     """Expert parallelism over the tensor axis of ``ctx``: ps is {rank: the
     layer's local FFN params} (experts tp_index * E/tp onwards, the router
-    whole), xs {rank: (B_r, S, D)}.  Every rank routes its tokens with the
-    replicated router and computes the (T, K, D) fp32 rows of the
+    whole; every expert on every rank under a ``ctx.whole()``, where the
+    layout leaves the expert axis whole), xs {rank: (B_r, S, D)}.  Every
+    rank routes its tokens with the replicated router and computes the
+    (T, K, D) fp32 rows of the
     assignments to its own experts: the dropless dispatch through
     ``grouped_ffn``, the capacity dispatch through its einsums over the
     global cohort's slots (``capacity_route_sharded``: the capacity and
@@ -267,9 +270,11 @@ def moe_apply_sharded(ps, cfg: ModelConfig, xs, *, ctx, impl="cuda", want_aux=Fa
     rows are summed over the tensor axis (each row comes from one rank,
     zeros from the others, so the sum is exact), then summed over k and
     cast once, as on one device.  A dense residual MLP (``ps[r]["dense"]``,
-    the rank's d_ff columns of w_gate and w_in and rows of w_out) adds each
-    rank's fp32 share of its output (``mlp_apply(partial=True)``), summed
-    over the tensor axis and cast once.  With ``want_aux`` also {rank: the
+    the rank's d_ff columns of w_gate and w_in and rows of w_out under
+    ``dense_ctx``, default ``ctx``: its own d_ff decides whether the axis
+    splits it) adds each rank's fp32 share of its output
+    (``mlp_apply(partial=True)``), summed over ``dense_ctx``'s tensor axis
+    and cast once.  With ``want_aux`` also {rank: the
     load-balance loss} from expert counts and router probability sums
     all-reduced over the batch axes: the global means' product, not a mean
     of the replicas'."""
@@ -293,8 +298,8 @@ def moe_apply_sharded(ps, cfg: ModelConfig, xs, *, ctx, impl="cuda", want_aux=Fa
     rows = ctx.tp_reduce(rows)
     ys = {r: _sum_k(rows[r]).to(x.dtype).reshape(x.shape) for r, x in xs.items()}
     if "dense" in next(iter(ps.values())):
-        shares = ctx.tp_reduce({r: L.mlp_apply(ps[r]["dense"], cfg, x, partial=True)
-                                for r, x in xs.items()})
+        shares = (dense_ctx or ctx).tp_reduce(
+            {r: L.mlp_apply(ps[r]["dense"], cfg, x, partial=True) for r, x in xs.items()})
         ys = {r: ys[r] + shares[r].to(x.dtype) for r, x in xs.items()}
     if not want_aux:
         return ys, None

@@ -15,6 +15,9 @@ Every weight but ``w_out`` is per channel or splits its output channels, so
 under tensor parallelism a rank runs the same code on its own W/tp
 channels (``parallel/sharding.py`` gives each leaf that split) and returns
 its fp32 share of ``w_out`` (``partial``) for the caller's all-reduce.
+Where the tensor axis does not divide W, ``sanitize_specs`` leaves every
+leaf whole and each rank runs all W channels (``transformer.layer_plan``),
+keeping its own fp32 output.
 """
 
 from __future__ import annotations

@@ -18,7 +18,10 @@ slice.  ``out_proj``'s rows line up with the heads, so each rank returns
 its fp32 share for the caller's all-reduce.  A rank's decode state is
 {"ssm": (B_r, H/tp, P, N), "conv_x": (B_r, K-1, di/tp), "conv_bc": (B_r,
 K-1, 2N)}: the conv state's x channels by head, its B and C channels on
-every rank.
+every rank.  Where the tensor axis does not divide the heads (or
+``out_proj``'s rows), the layer runs whole on every rank: the same code at
+all H heads under ``ctx.whole()`` (``transformer.layer_plan``), each leaf
+the layout still splits gathered first, nothing summed over the axis.
 """
 
 from __future__ import annotations
@@ -170,10 +173,11 @@ def _norm_out(ps, cfg: ModelConfig, ys, *, ctx):
 def ssm_apply_sharded(ps, cfg: ModelConfig, hs, *, ctx, heads: int, impl="cuda",
                       return_state=False):
     """``ssm_apply`` over the tensor axis of ``ctx``: ps {rank: the layer's
-    local mixer params}, hs {rank: (B_r, S, D)}, ``heads`` = H / tp.  Each
-    rank runs ``ops.ssd`` on its heads.  Returns {rank: fp32 share of the
-    output} (summed over the tensor axis by the caller), with
-    ``return_state`` also {rank: its decode state after the last token}."""
+    local mixer params}, hs {rank: (B_r, S, D)}, ``heads`` = H / tp (H
+    under a ``ctx.whole()``).  Each rank runs ``ops.ssd`` on its heads.
+    Returns {rank: fp32 share of the output} (summed over the tensor axis
+    by the caller), with ``return_state`` also {rank: its decode state
+    after the last token}."""
     di, n, _, _ = _dims(cfg)
     ys, states = {}, {}
     for r, (z, raw, dt_raw, conv, hd) in _rank_inputs(ps, cfg, hs, ctx=ctx,

@@ -47,6 +47,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
+from repro_torch.parallel.layout import tree_at, tree_leaves
 
 
 def check_supported(cfg: ModelConfig):
@@ -404,34 +405,39 @@ def stack_commit_verify(cfg: ModelConfig, caches, keep):
 # encoder output, and its "xkv" cache holds the rank's KV heads.  A packed
 # cohort runs as each rank's (1, T_r) rows: attention goes through the
 # varlen kernel over the rank's ``cu_seqlens`` with the same head split.
+# Where the tensor axis does not divide a block's defining width (wq's and
+# wo's q_dim for attention and cross-attention, d_ff for a dense FFN and
+# for Arctic's dense residual, the expert axis, lru_width, out_proj's SSD
+# rows or the SSD heads), ``sanitize_specs`` leaves the block's weights
+# whole, and the JAX package's GSPMD then replicates the block: so does the
+# port (``layer_plan``, read from the layout as the vocabulary's split is).
+# Every tensor rank runs the whole block on its own copy under
+# ``ctx.whole()`` (no tensor axis: every head, channel, expert and SSD
+# head, one block of slots where the data axis splits a batch-1 cache) and
+# keeps its own result, which is never summed over the tensor axis; a leaf
+# of such a block that the layout still splits is all-gathered inside the
+# layer.  The residual stream's gradient is a share per tensor rank below
+# a split block and the head; a run of whole sublayers takes the whole on
+# every rank (summed once where the run ends, kept on the root where it
+# begins: ``block_sharded``), so each copy's weight gradient is whole and is
+# not summed over the tensor axis (``full_grad_leaves``).  A whole block's
+# caches hold every KV head, SSD head and RG-LRU channel on every tensor
+# rank, as JAX's do.
 # ``ctx`` is a ``parallel/ctx.ShardingCtx``.
 
 def check_sharded(cfg: ModelConfig, tp: int):
-    """Raise ``ValueError`` for a config the sharded stack does not run at
-    tensor-parallel degree ``tp``: a tensor axis that does not divide
-    ``q_dim`` (wq's columns, which it splits, in the middle of a head where
-    it does not divide the query heads: ``heads_split``), the FFN width (a
-    dense residual MLP's too), the experts, the RG-LRU width or the SSD
-    heads (the port keeps channels and experts whole where JAX's GSPMD
-    would split them)."""
+    """Raise for a config the sharded stack does not run at tensor-parallel
+    degree ``tp``: a mixer or FFN the port does not run
+    (``check_supported``), or a ring shorter than the ``tp`` ranks that
+    would split its slots (``seq_split`` of an attention layer the axis
+    splits, ``ValueError``).  Every degree runs otherwise: where the axis
+    does not divide q_dim, d_ff, the experts, lru_width or the SSD heads,
+    the JAX package's ``sanitize_specs`` leaves that block's weights whole
+    and GSPMD replicates the block over the axis; the port runs it whole on
+    every tensor rank (``layer_plan``)."""
     check_supported(cfg)
-    kinds = {s.kind for s in cfg.layers}
-    if ATTN in kinds and cfg.q_dim % tp:
-        raise ValueError(f"{cfg.name}: a tensor axis of {tp} does not divide q_dim "
-                         f"{cfg.q_dim} ({cfg.n_heads} query heads of {cfg.head_dim})")
-    if LRU in kinds and cfg.lru_width % tp:
-        raise ValueError(f"{cfg.name}: a tensor axis of {tp} does not divide lru_width "
-                         f"{cfg.lru_width}")
-    if SSM in kinds and cfg.ssm_heads % tp:
-        raise ValueError(f"{cfg.name}: a tensor axis of {tp} does not divide "
-                         f"{cfg.ssm_heads} SSD heads")
-    if (cfg.ffn_kind == "gated" or cfg.dense_residual_ffn) and cfg.d_ff % tp:
-        raise ValueError(f"{cfg.name}: a tensor axis of {tp} does not divide d_ff {cfg.d_ff}")
-    if cfg.ffn_kind == "moe" and cfg.n_experts % tp:
-        raise ValueError(f"{cfg.name}: a tensor axis of {tp} does not divide "
-                         f"{cfg.n_experts} experts")
     rings = [s.window for s in cfg.layers if s.kind == ATTN and s.window]
-    if seq_split(cfg, tp) and rings and min(rings) < tp:
+    if cfg.q_dim % tp == 0 and seq_split(cfg, tp) and rings and min(rings) < tp:
         raise ValueError(f"{cfg.name}: a ring of {min(rings)} slots is shorter than the {tp} "
                          "ranks that split it by slot")
 
@@ -475,18 +481,116 @@ def attn_slots(cfg: ModelConfig, spec: LayerSpec, ctx, rank: int, rows: int, max
 
 
 def tp_cfg(cfg: ModelConfig, tp: int) -> ModelConfig:
-    """The config of one rank's local block: its query heads (all of them
-    where ``heads_split``), its KV heads (all of them where
-    ``kv_replicated``), its RG-LRU channels and FFN width, a dense one's or
-    the dense residual MLP's beside the experts (``check_sharded`` holds
-    the divisions exact).  The SSD width derives from ``d_model``, so the
-    SSD layer takes its head count, H / tp, as an argument."""
+    """The config of one rank's local block at a tensor axis of ``tp`` that
+    splits it (``layer_plan``; a whole block runs at ``tp`` 1, ``cfg``
+    itself): its query heads (all of them where ``heads_split``), its KV
+    heads (all of them where ``kv_replicated``), its RG-LRU channels and
+    FFN width, a dense one's or the dense residual MLP's beside the
+    experts.  The SSD width derives from ``d_model``, so the SSD layer
+    takes its head count, H / tp, as an argument."""
     if tp == 1:
         return cfg
     kv = cfg.n_kv_heads if kv_replicated(cfg, tp) else cfg.n_kv_heads // tp
     heads = cfg.n_heads if heads_split(cfg, tp) else cfg.n_heads // tp
     return dataclasses.replace(cfg, n_heads=heads, n_kv_heads=kv,
                                d_ff=cfg.d_ff // tp, lru_width=cfg.lru_width // tp)
+
+
+# The parts of a layer that each run under their own context, and the
+# sublayers they make up with their norms: (norm, parts).
+_PARTS = ("mixer", "xattn", "ffn", "dense")
+_SUBLAYERS = (("ln1", ("mixer",)), ("lnx", ("xattn",)), ("ln2", ("ffn", "dense")))
+
+
+def _defining(cfg: ModelConfig, kind, part: str):
+    """(path in the layer, dim) of the weight whose layout says whether the
+    tensor axis splits ``part``."""
+    if part == "mixer" and kind == LRU:
+        return ("mixer", "w_out", "w"), 0
+    if part == "mixer" and kind == SSM:
+        return ("mixer", "out_proj", "w"), 0
+    if part in ("mixer", "xattn"):
+        return (part, "wq", "w"), 1
+    if part == "dense":
+        return ("ffn", "dense", "w_out", "w"), 0
+    if cfg.ffn_kind == "moe":
+        return ("ffn", "w_gate"), 0
+    return ("ffn", "w_out", "w"), 0
+
+
+def layer_plan(cfg: ModelConfig, spec: LayerSpec, ctx, p) -> dict:
+    """{part: the context it runs under} of one layer, read from ``p``, its
+    tree of ``ShardedTensor``s: ``ctx`` where the tensor axis splits the
+    part's defining weight, a ``ctx.whole()`` where the layout leaves it
+    whole (``sanitize_specs``: the axis does not divide its width).  The
+    parts are "mixer", "xattn" (a decoder layer's cross-attention), "ffn"
+    (a dense FFN, or an MoE layer's experts and router) and "dense" (an MoE
+    layer's dense residual MLP), those the layer has.  The SSD mixer splits
+    by head, so it runs whole also where the axis splits its ``out_proj``
+    rows but not its heads.  A whole part's copies get whole gradients
+    (``whole(full_grads=True)``) unless it shares its sublayer with a split
+    part (experts whole beside a split dense residual, or the reverse)."""
+    parts = [k for k in ("mixer", "xattn", "ffn") if k in p]
+    if "ffn" in p and "dense" in p["ffn"]:
+        parts.append("dense")
+    if ctx.tp_size == 1:
+        return {part: ctx for part in parts}
+    splits = {}
+    for part in parts:
+        path, dim = _defining(cfg, spec.kind, part)
+        splits[part] = ctx.tp_splits(tree_at(p, path), dim)
+    if spec.kind == SSM:
+        splits["mixer"] = splits["mixer"] and cfg.ssm_heads % ctx.tp_size == 0
+    mixed = "dense" in splits and splits["dense"] != splits["ffn"]
+    return {part: ctx if split else ctx.whole(full_grads=not (mixed and part in ("ffn", "dense")))
+            for part, split in splits.items()}
+
+
+def layer_plans(layers_params, cfg: ModelConfig, ctx) -> list:
+    """``layer_plan`` of every layer, ``layers_params`` their trees of
+    ``ShardedTensor``s."""
+    return [layer_plan(cfg, spec, ctx, p) for p, spec in zip(layers_params, cfg.layers)]
+
+
+def _full(plan: dict, parts) -> bool:
+    """Whether the sublayer of ``parts`` runs whole with whole gradients on
+    every copy (its first part's context says so for all of them)."""
+    part = next((k for k in parts if k in plan), None)
+    return part is not None and plan[part].copies is not None
+
+
+def full_grad_leaves(params, cfg: ModelConfig, ctx) -> list:
+    """The ``ShardedTensor`` leaves of the model's ``params`` whose gradient
+    every tensor rank holds whole after the backward: those of a sublayer
+    (its norm and its parts) of the layers, an encoder's too, that runs
+    whole with whole gradients (``block_sharded``), so
+    ``steps.sharded_grads`` sums them over the batch axes only."""
+    stacks = [params["layers"]] + ([params["encoder"]["layers"]] if "encoder" in params else [])
+    out = []
+    for layers in stacks:
+        for p, plan in zip(layers, layer_plans(layers, cfg, ctx)):
+            for norm, parts in _SUBLAYERS:
+                if _full(plan, parts):
+                    out += tree_leaves(p[norm]) + [x for k in parts if k in p
+                                                   for x in tree_leaves(p[k])]
+    return out
+
+
+def _local_layer(p, plan: dict, ctx) -> dict:
+    """{rank: the layer's compute view}: each part's leaves gathered by its
+    own context's ``local`` (a whole part's over the tensor axis too), the
+    norms by ``ctx``'s."""
+    out = ctx.local({k: v for k, v in p.items() if k not in _PARTS})
+    for part, c in plan.items():  # "dense" after "ffn"
+        tree = p["ffn"]["dense"] if part == "dense" else p[part]
+        if part == "ffn":
+            tree = {k: v for k, v in tree.items() if k != "dense"}
+        for r, local in c.local(tree).items():
+            if part == "dense":
+                out[r]["ffn"]["dense"] = local
+            else:
+                out[r][part] = local
+    return out
 
 
 def _kv_head(cfg: ModelConfig, ctx, r: int):
@@ -557,16 +661,21 @@ def _per_device(xs: dict, make) -> dict:
     return {r: by_dev[x.device] for r, x in xs.items()}
 
 
-def _ffn_sharded(ps, cfg, lcfg, xs, *, ctx, impl, want_aux):
-    if "ffn" not in next(iter(ps.values())):
+def _ffn_sharded(ps, cfg, xs, *, plan, impl, want_aux):
+    """The FFN sublayer on every rank under ``plan``'s contexts (its "ffn"
+    and an MoE layer's "dense"): a split dense FFN's fp32 shares summed
+    over the tensor axis, a whole one's output kept by each rank."""
+    if "ffn" not in plan:
         return xs, None
+    c = plan["ffn"]
     hs = {r: L.rmsnorm_apply(ps[r]["ln2"], x, cfg.norm_eps) for r, x in xs.items()}
     if cfg.ffn_kind != "moe":
-        ys = ctx.tp_reduce({r: L.mlp_apply(ps[r]["ffn"], lcfg, h, partial=True)
-                            for r, h in hs.items()})
+        lcfg = tp_cfg(cfg, c.tp_size)
+        ys = c.tp_reduce({r: L.mlp_apply(ps[r]["ffn"], lcfg, h, partial=True)
+                          for r, h in hs.items()})
         return {r: xs[r] + ys[r].to(xs[r].dtype) for r in xs}, None
-    ys, aux = M.moe_apply_sharded({r: p["ffn"] for r, p in ps.items()}, cfg, hs, ctx=ctx,
-                                  impl=impl, want_aux=want_aux)
+    ys, aux = M.moe_apply_sharded({r: p["ffn"] for r, p in ps.items()}, cfg, hs, ctx=c,
+                                  dense_ctx=plan.get("dense"), impl=impl, want_aux=want_aux)
     return {r: xs[r] + ys[r] for r in xs}, aux
 
 
@@ -684,25 +793,64 @@ def _cross_sharded(ps, cfg, xs, *, ctx, impl, enc_outs=None, caches=None):
     return {r: xs[r] + ys[r].to(xs[r].dtype) for r in xs}
 
 
-def block_sharded(ps, cfg, spec, xs, *, ctx, impl="cuda", want_aux=False, enc_outs=None,
-                  caches=None, **mixer_kw):
-    """One block on every rank.  ps: {rank: the layer's local params
-    (``ctx.local``)}; xs: {rank: (B_r, S, D)}; caches: {rank: the layer's
+def _stream(xs, full: bool, was: bool, ctx) -> dict:
+    """The residual stream entering a sublayer that runs whole with whole
+    gradients (``full``) or not, from one that did (``was``).  Below such a
+    sublayer the stream's gradient is a share per tensor rank, the shares
+    summing to the whole (the split blocks' all-reduces and the
+    vocabulary-parallel head leave it so); within it the whole, on every
+    rank.  Going in keeps the gradient on the tensor axis's root
+    (``tp_grad_root``: the whole, counted once); coming out sums the shares
+    (``tp_grad_sum``: one all-reduce of the activation gradient)."""
+    if full == was:
+        return xs
+    return ctx.tp_grad_root(xs) if full else ctx.tp_grad_sum(xs)
+
+
+def _last_full(plan: dict) -> bool:
+    """Whether the layer's last sublayer runs whole with whole gradients."""
+    return next(_full(plan, parts) for _, parts in reversed(_SUBLAYERS)
+                if any(k in plan for k in parts))
+
+
+def block_sharded(p, plan, cfg, spec, xs, *, ctx, impl="cuda", want_aux=False, enc_outs=None,
+                  caches=None, full_in=False, **mixer_kw):
+    """One block on every rank.  p: the layer's tree of ``ShardedTensor``s,
+    each part gathered inside the layer under its context in ``plan``
+    (``layer_plan``); xs: {rank: (B_r, S, D)}; caches: {rank: the layer's
     cache} (a decoder layer's {"self", "xkv"}); ``enc_outs`` and
-    ``mixer_kw`` as ``_cross_sharded``'s and ``_mixer_sharded``'s.  The
-    mixer's fp32 shares are all-reduced over the tensor axis and cast
-    once; a decoder layer's cross-attention follows.  Returns (xs, aux):
+    ``mixer_kw`` as ``_cross_sharded``'s and ``_mixer_sharded``'s.  A split
+    mixer's fp32 shares are all-reduced over the tensor axis and cast once,
+    a whole one's output cast on its own rank; a decoder layer's
+    cross-attention follows.  ``full_in``: the stream comes from a sublayer
+    that ran whole with whole gradients; each sublayer routes the
+    gradient in and out of such runs (``_stream``), and the stream leaves
+    in its last sublayer's mode (``_last_full``).  Returns (xs, aux):
     {rank: MoE load-balance loss} with ``want_aux``, else None."""
-    cross = "xattn" in next(iter(ps.values()))
+    ps = _local_layer(p, plan, ctx)
+    cross = "xattn" in plan
     mixer_caches = {r: c["self"] for r, c in caches.items()} if cross and caches else caches
+    full = _full(plan, ("mixer",))
+    xs = _stream(xs, full, full_in, ctx)
     hs = {r: L.rmsnorm_apply(ps[r]["ln1"], x, cfg.norm_eps) for r, x in xs.items()}
-    ys = ctx.tp_reduce(_mixer_sharded({r: p["mixer"] for r, p in ps.items()}, cfg, spec, hs,
-                                      ctx=ctx, impl=impl, caches=mixer_caches, **mixer_kw))
+    mc = plan["mixer"]
+    ys = mc.tp_reduce(_mixer_sharded({r: q["mixer"] for r, q in ps.items()}, cfg, spec, hs,
+                                     ctx=mc, impl=impl, caches=mixer_caches, **mixer_kw))
     xs = {r: xs[r] + ys[r].to(xs[r].dtype) for r in xs}
     if cross:
-        xs = _cross_sharded(ps, cfg, xs, ctx=ctx, impl=impl, enc_outs=enc_outs, caches=caches)
-    return _ffn_sharded(ps, cfg, tp_cfg(cfg, ctx.tp_size), xs, ctx=ctx, impl=impl,
-                        want_aux=want_aux)
+        was, full = full, _full(plan, ("xattn",))
+        xs = _stream(xs, full, was, ctx)
+        if full and enc_outs is not None:  # the encoder's gradient, a share per rank
+            enc_outs = ctx.tp_grad_root(enc_outs)
+        xs = _cross_sharded(ps, cfg, xs, ctx=plan["xattn"], impl=impl, enc_outs=enc_outs,
+                            caches=caches)
+    if "ffn" in plan:
+        was, full = full, _full(plan, ("ffn",))
+        xs = _stream(xs, full, was, ctx)
+    xs, aux = _ffn_sharded(ps, cfg, xs, plan=plan, impl=impl, want_aux=want_aux)
+    if aux is not None and full:  # the loss takes the root's: every copy's router gets it
+        aux = ctx.tp_grad_sum(aux)
+    return xs, aux
 
 
 def stack_apply_sharded(layers_params, cfg: ModelConfig, xs, *, ctx, impl="cuda", causal=True,
@@ -717,8 +865,10 @@ def stack_apply_sharded(layers_params, cfg: ModelConfig, xs, *, ctx, impl="cuda"
     per sequence at its ``positions`` and attention is block-diagonal
     over its ``cu_seqlens``.  Each layer gathers its FSDP-sharded weights
     (``ctx.local``) inside the layer, so ``remat`` regathers them in the
-    backward as it recomputes, with the same ``cu_seqlens``.  Returns xs,
-    or with ``return_aux`` (xs, {rank: the MoE losses summed})."""
+    backward as it recomputes, with the same ``cu_seqlens``.  The stream
+    enters and leaves with its gradient a share per tensor rank
+    (``block_sharded``).  Returns xs, or with ``return_aux`` (xs, {rank:
+    the MoE losses summed})."""
     ranks = list(xs)
     n = len(ranks)
     packed = {}
@@ -731,13 +881,14 @@ def stack_apply_sharded(layers_params, cfg: ModelConfig, xs, *, ctx, impl="cuda"
     ropes = _ropes(cfg, positions)
     aux_total = {r: torch.zeros((), dtype=torch.float32, device=x.device) for r, x in xs.items()}
     encs = [enc_outs[r] for r in ranks] if enc_outs is not None else []
-    for p, spec in zip(layers_params, cfg.layers):
-        def layer(*flat, p=p, spec=spec):
-            out, aux = block_sharded(ctx.local(p), cfg, spec, dict(zip(ranks, flat[:n])),
+    full = False
+    for p, plan, spec in zip(layers_params, layer_plans(layers_params, cfg, ctx), cfg.layers):
+        def layer(*flat, p=p, plan=plan, spec=spec, full=full):
+            out, aux = block_sharded(p, plan, cfg, spec, dict(zip(ranks, flat[:n])),
                                      ctx=ctx, impl=impl, want_aux=return_aux, rope=ropes,
                                      causal=causal,
                                      enc_outs=dict(zip(ranks, flat[n:])) if encs else None,
-                                     **packed)
+                                     full_in=full, **packed)
             return tuple(out[r] for r in ranks) + (tuple(aux[r] for r in ranks) if aux else ())
         flat = [xs[r] for r in ranks] + encs
         res = (torch.utils.checkpoint.checkpoint(layer, *flat, use_reentrant=False) if remat
@@ -745,29 +896,39 @@ def stack_apply_sharded(layers_params, cfg: ModelConfig, xs, *, ctx, impl="cuda"
         xs = dict(zip(ranks, res[:len(ranks)]))
         for r, a in zip(ranks, res[len(ranks):]):
             aux_total[r] = aux_total[r] + a
+        full = _last_full(plan)
+    xs = _stream(xs, False, full, ctx)
     return (xs, aux_total) if return_aux else xs
 
 
-def cache_init_sharded(cfg: ModelConfig, ctx, rank: int, batch, max_len, dtype, device,
-                       cross=False, enc_len=None):
+def cache_init_sharded(cfg: ModelConfig, ctx, rank: int, batch, max_len, dtype, device, *,
+                       plans, cross=False, enc_len=None):
     """Rank ``rank``'s decode caches on ``ctx``'s mesh: its own KV heads,
     or every one where ``kv_replicated`` (so where ``heads_split``) for its
     own block of the slots (``attn_slots``), its RG-LRU channels or SSD
-    heads (``ssm.ssm_state_init_sharded``); with ``cross`` each a decoder
-    layer's {"self", "xkv"}, "xkv" over the same KV heads and all of the
-    encoder's positions (``cache_init``'s)."""
-    tp = ctx.tp_size
-    lcfg = tp_cfg(cfg, tp)
-    caches = [S.ssm_state_init_sharded(cfg, batch, cfg.ssm_heads // tp, dtype, device)
-              if spec.kind == SSM
-              else A.cache_init(lcfg, spec, batch, max_len, dtype, device,
-                                slots=attn_slots(cfg, spec, ctx, rank, batch, max_len))
-              if spec.kind == ATTN
-              else layer_cache_init(lcfg, spec, batch, max_len, dtype, device)
-              for spec in cfg.layers]
-    if not cross:
-        return caches
-    return [_with_xkv(c, lcfg, batch, enc_len, dtype, device) for c in caches]
+    heads (``ssm.ssm_state_init_sharded``); a layer whose mixer runs whole
+    (``plans``, the parameters' ``layer_plans``) holds every KV head for
+    every slot (a batch-1 cache's data-axis block), every channel or every
+    head.  With ``cross`` each is a decoder layer's {"self", "xkv"}, "xkv"
+    over its cross-attention's KV heads and all of the encoder's positions
+    (``cache_init``'s)."""
+    caches = []
+    for spec, plan in zip(cfg.layers, plans):
+        c = plan["mixer"]
+        tp = c.tp_size
+        lcfg = tp_cfg(cfg, tp)
+        if spec.kind == SSM:
+            cache = S.ssm_state_init_sharded(cfg, batch, cfg.ssm_heads // tp, dtype, device)
+        elif spec.kind == ATTN:
+            cache = A.cache_init(lcfg, spec, batch, max_len, dtype, device,
+                                 slots=attn_slots(cfg, spec, c, rank, batch, max_len))
+        else:
+            cache = layer_cache_init(lcfg, spec, batch, max_len, dtype, device)
+        if cross:
+            cache = _with_xkv(cache, tp_cfg(cfg, plan["xattn"].tp_size), batch, enc_len, dtype,
+                              device)
+        caches.append(cache)
+    return caches
 
 
 def stack_prefill_sharded(layers_params, cfg: ModelConfig, xs, caches, max_len, *, ctx,
@@ -778,8 +939,9 @@ def stack_prefill_sharded(layers_params, cfg: ModelConfig, xs, caches, max_len, 
     {rank: encoder output} as ``stack_apply_sharded``'s.  Returns xs."""
     s = next(iter(xs.values())).shape[1]
     ropes = _ropes(cfg, _per_device(xs, lambda dev: torch.arange(s, device=dev)))
-    for i, (p, spec) in enumerate(zip(layers_params, cfg.layers)):
-        xs, _ = block_sharded(ctx.local(p), cfg, spec, xs, ctx=ctx, impl=impl, rope=ropes,
+    plans = layer_plans(layers_params, cfg, ctx)
+    for i, (p, plan, spec) in enumerate(zip(layers_params, plans, cfg.layers)):
+        xs, _ = block_sharded(p, plan, cfg, spec, xs, ctx=ctx, impl=impl, rope=ropes,
                               caches={r: c[i] for r, c in caches.items()}, prefill=True,
                               enc_outs=enc_outs, max_len=max_len)
     return xs
@@ -795,8 +957,9 @@ def stack_decode_sharded(layers_params, cfg: ModelConfig, xs, caches, t, max_len
     ropes = _ropes(cfg, _per_device(xs, lambda dev: torch.full((1, 1), t, device=dev)))
     lens = {r: torch.full((x.shape[0],), t + 1, dtype=torch.int32, device=x.device)
             for r, x in xs.items()}
-    for i, (p, spec) in enumerate(zip(layers_params, cfg.layers)):
-        xs, _ = block_sharded(ctx.local(p), cfg, spec, xs, ctx=ctx, impl=impl, rope=ropes,
+    plans = layer_plans(layers_params, cfg, ctx)
+    for i, (p, plan, spec) in enumerate(zip(layers_params, plans, cfg.layers)):
+        xs, _ = block_sharded(p, plan, cfg, spec, xs, ctx=ctx, impl=impl, rope=ropes,
                               caches={r: c[i] for r, c in caches.items()}, t=t, lens=lens,
                               max_len=max_len)
     return xs

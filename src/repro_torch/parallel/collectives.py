@@ -13,7 +13,8 @@ Every collective is built from plain differentiable tensor ops (``cat``,
 ``+``, slicing) and ``move``, a counted copy between ranks, so autograd
 carries gradients across ranks and cards with no process group: the
 backward of ``all_gather`` is a reduce-scatter, that of ``all_reduce`` an
-all-reduce.  An all-reduce sums once, in rank order on the group's first
+all-reduce (``grad_all_reduce`` is the identity whose backward alone is
+an all-reduce).  An all-reduce sums once, in rank order on the group's first
 member, and hands every other member a copy of that one result, so
 replicas stay bit-equal.  A member's own value is never copied; a group of
 one returns its value unchanged.
@@ -162,6 +163,32 @@ def all_reduce(xs: dict, mesh, axis, *, op: str = "sum") -> dict:
         for r in g[1:]:
             out[r] = move(total, xs[r].device)
     return _record(out, "all-reduce", _nbytes(xs[gs[0][0]]), gs, backward=op == "sum")
+
+
+class _GradAllReduce(torch.autograd.Function):
+    """The identity on every rank's value; the backward all-reduces the
+    gradients (``all_reduce``, which records the call)."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, ranks, *xs):
+        ctx.mesh, ctx.axis, ctx.ranks = mesh, axis, ranks
+        ctx.like = [(x.shape, x.dtype, x.device) for x in xs]
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        gs = {r: torch.zeros(shape, dtype=dtype, device=dev) if g is None else g
+              for r, g, (shape, dtype, dev) in zip(ctx.ranks, gs, ctx.like)}
+        out = all_reduce(gs, ctx.mesh, ctx.axis)
+        return (None, None, None, *(out[r] for r in ctx.ranks))
+
+
+def grad_all_reduce(xs: dict, mesh, axis) -> dict:
+    """``xs`` as it is; its backward sums the gradient over the group, in
+    rank order, and hands every member the sum (an all-reduce of the
+    gradient's bytes, recorded when the backward runs)."""
+    ranks = tuple(xs)
+    return dict(zip(ranks, _GradAllReduce.apply(mesh, axis, ranks, *(xs[r] for r in ranks))))
 
 
 def all_gather(xs: dict, mesh, axis, dim: int = 0) -> dict:

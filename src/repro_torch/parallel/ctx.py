@@ -61,6 +61,7 @@ class ShardingCtx:
         self.mesh = mesh
         self.batch_axes = tuple(a for a in (batch_axes or ()) if a)
         self.tp_axis = tp_axis
+        self.copies = None  # a whole block's: the axis its copies' gradients are whole over
 
     def resolve(self, dims) -> P:
         parts = []
@@ -89,6 +90,52 @@ class ShardingCtx:
 
     def tp_index(self, rank: int) -> int:
         return C.axis_index(self.mesh, self.tp_axis, rank) if self.tp_axis else 0
+
+    def tp_splits(self, st: ShardedTensor, dim: int) -> bool:
+        """Whether the tensor axis shards dim ``dim`` of ``st``
+        (``sanitize_specs`` drops it from a dim it does not divide)."""
+        spec = st.layout.spec
+        return (bool(self.tp_axis) and self.tp_size > 1 and dim < len(spec)
+                and self.tp_axis in axes_of(spec[dim]))
+
+    def whole(self, full_grads: bool = True) -> "ShardingCtx":
+        """The context of a block whose layout the tensor axis leaves whole
+        (``sanitize_specs`` dropped the axis from the block's defining
+        weight, as the JAX package's GSPMD then replicates the block): the
+        same mesh and batch axes without a tensor axis.  Every tensor rank
+        computes the whole block on its own copy and keeps its own result,
+        so the block's output reaches each rank once and is never summed
+        over the tensor axis (``tp_reduce`` is the identity here); its
+        ``local`` gathers a leaf over every axis, the tensor axis too where
+        the layout still splits one.
+
+        ``full_grads``: the block's output gradient reaches every copy whole
+        (``transformer.block_sharded`` routes it so, ``tp_grad_sum``), so
+        each copy's weight gradient is the whole gradient and is not summed
+        over the tensor axis; ``local`` then keeps the gradient of a leaf it
+        gathers over that axis on the axis's first rank only (the gather's
+        backward sums the copies).  Without it each copy's gradient is its
+        own rank's share, summed over the axis with the other replicated
+        leaves'."""
+        c = ShardingCtx(self.mesh, self.batch_axes, None)
+        c.copies = self.tp_axis if full_grads else None
+        return c
+
+    def tp_grad_sum(self, xs: dict) -> dict:
+        """The identity; its backward all-reduces the gradient over the
+        tensor axis (each rank's share of it becomes the whole on every
+        rank)."""
+        if not self.tp_axis or not any(x.requires_grad for x in xs.values()):
+            return xs
+        return C.grad_all_reduce(xs, self.mesh, self.tp_axis)
+
+    def tp_grad_root(self, xs: dict) -> dict:
+        """The identity; its backward keeps the gradient on the tensor
+        axis's first rank and gives the others none (a gradient whole on
+        every rank becomes one share per rank, the root's the whole)."""
+        if not self.tp_axis:
+            return xs
+        return _root_grads(xs, self.mesh, self.tp_axis)
 
     @property
     def batch_size(self) -> int:
@@ -160,11 +207,22 @@ class ShardingCtx:
         backward of it is the reduce-scatter), so a block is left sharded
         on the tensor axis only.  Other leaves go to every rank as they
         are."""
-        gathered = tree_map(lambda st: _Ranks(fsdp_gather(st, self.tp_axis))
+        gathered = tree_map(lambda st: _Ranks(self._gather(st))
                             if isinstance(st, ShardedTensor) else st, tree)
         return {r: tree_map(lambda g, r=r: g.blocks[r] if isinstance(g, _Ranks) else g,
                             gathered)
                 for r in self.ranks}
+
+    def _gather(self, st: ShardedTensor) -> dict:
+        blocks = fsdp_gather(st, self.tp_axis)
+        if self.copies and any(self.copies in axes_of(part) for part in st.layout.spec):
+            blocks = _root_grads(blocks, self.mesh, self.copies)
+        return blocks
+
+
+def _root_grads(xs: dict, mesh, axis) -> dict:
+    """{rank: x}, detached but on the first rank of each group of ``axis``."""
+    return {r: x if C.axis_index(mesh, axis, r) == 0 else x.detach() for r, x in xs.items()}
 
 
 class _Ranks:

@@ -97,6 +97,14 @@ def tree_map_with_path(fn, tree, path=()):
     return fn(path, tree)
 
 
+def tree_at(tree, path):
+    """The subtree (or leaf) of ``tree`` at ``path``, as
+    ``tree_map_with_path`` gives paths."""
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
 # -------------------------------------------------------------------- mesh
 
 Placement = Union[None, str, torch.device, Callable[[int], torch.device]]

@@ -19,10 +19,12 @@ are all-reduced over it, so every replica holds the same bits after the
 step.  Every mixer runs (attention, RG-LRU, SSD; ``models/transformer.py``
 says how each splits) and either MoE dispatch, and so do an
 encoder-decoder's encoder and cross-attention and a prefix model's splice
-(``models/model.py``); a tensor axis must divide q_dim, the FFN width,
-the experts, the RG-LRU width and the SSD heads
-(``transformer.check_sharded``); where it splits a query head, every rank
-computes every head (``transformer.heads_split``).  The AdamW state may
+(``models/model.py``).  Any tensor degree runs: where the axis does not
+divide a block's q_dim, FFN width, experts, RG-LRU width or SSD heads,
+``sanitize_specs`` leaves its weights whole and every tensor rank computes
+the whole block (``transformer.layer_plan``), as GSPMD replicates it;
+where the axis splits a query head, every rank computes every head
+(``transformer.heads_split``).  The AdamW state may
 be ZeRO-1 over the pod axis (``opt_layouts``).  The train step also takes
 a packed cohort (``cu_seqlens``), dealt to the batch replicas as runs of
 whole sequences (``split_batch``): each rank's varlen attention and MoE
@@ -43,16 +45,15 @@ from repro_torch.optim.grad import accumulate_grads
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel import ctx as CTX
 from repro_torch.parallel import sharding as SH
-from repro_torch.parallel.layout import (Layout, P, ShardedTensor, axes_of, tree_leaves,
-                                         tree_map, tree_map_with_path)
+from repro_torch.parallel.layout import (Layout, P, ShardedTensor, axes_of, tree_at,
+                                         tree_leaves, tree_map, tree_map_with_path)
 
 
 def check_mesh(cfg: ModelConfig, mesh, rules: SH.ShardingRules, batch=None):
-    """Raise unless ``rules``' axes are axes of ``mesh`` and its tensor axis
-    splits ``cfg``'s q_dim, FFN columns and experts evenly
-    (``transformer.check_sharded``), and, for a packed ``batch``, unless
-    ``cfg`` trains packed (``transformer.check_packed``, as on one
-    device)."""
+    """Raise unless ``rules``' axes are axes of ``mesh`` and ``cfg`` runs
+    sharded at its tensor degree (``transformer.check_sharded``), and, for
+    a packed ``batch``, unless ``cfg`` trains packed
+    (``transformer.check_packed``, as on one device)."""
     for a in (rules.tp_axis, rules.fsdp_axis, *rules.batch_axes):
         if a and a not in mesh.shape:
             raise ValueError(f"rules name axis {a!r}, not in mesh {mesh.axis_names}")
@@ -114,7 +115,8 @@ def _replicated_axes(st: ShardedTensor) -> tuple:
     return tuple(a for a in mesh.axis_names if a not in used and mesh.shape[a] > 1)
 
 
-def sharded_grads(loss_fn, params, batch, n_micro: int, mesh, rules, *, max_seqlen=None):
+def sharded_grads(loss_fn, params, batch, n_micro: int, mesh, rules, *, cfg: ModelConfig,
+                  max_seqlen=None):
     """The sharded counterpart of ``optim.grad.accumulate_grads``.
     ``loss_fn(params, {rank: rows}) -> (loss, aux)``.  Microbatch j is the
     j-th slice of the global batch's rows, split over the replicas, so the
@@ -123,7 +125,9 @@ def sharded_grads(loss_fn, params, batch, n_micro: int, mesh, rules, *, max_seql
     ``accumulate_grads`` has no packed microbatching to mirror), so
     ``n_micro > 1`` raises ``ValueError`` there.  Every block of every
     leaf requires grad; the fp32 gradient blocks are averaged over the
-    microbatches, then summed over each leaf's replicated axes.  Returns
+    microbatches, then summed over each leaf's replicated axes, the
+    tensor axis left out for the leaves whose gradient every tensor rank
+    holds whole (``transformer.full_grad_leaves`` of ``cfg``).  Returns
     (mean loss, a tree of fp32 ``ShardedTensor`` gradients on the params'
     layouts, the last microbatch's aux)."""
     sts = tree_leaves(params)
@@ -149,11 +153,14 @@ def sharded_grads(loss_fn, params, batch, n_micro: int, mesh, rules, *, max_seql
         loss_sum = loss_sum + loss.detach()
         aux = {k: v.detach() for k, v in aux.items()}
     acc = iter([a / n_micro for a in acc]) if n_micro > 1 else iter(acc)
+    whole = {id(st) for st in T.full_grad_leaves(
+        params, cfg, CTX.ShardingCtx(mesh, rules.batch_axes, rules.tp_axis))}
     out = {}
     with torch.no_grad():
         for st in sts:
             g = {d: next(acc) for d in mesh.device_ids}
-            rep = _replicated_axes(st)
+            rep = tuple(a for a in _replicated_axes(st)
+                        if not (id(st) in whole and a == rules.tp_axis))
             if rep:
                 g = C.all_reduce(g, mesh, rep)
             out[id(st)] = ShardedTensor(st.shape, torch.float32, st.layout, g)
@@ -206,7 +213,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *, impl="cuda"
             def loss_fn(params, parts):
                 return MDL.lm_loss_sharded(params, cfg, parts, ctx=c, impl=impl, remat=remat)
             loss, grads, aux = sharded_grads(loss_fn, params, batch, n_micro, mesh, rules,
-                                             max_seqlen=max_seqlen)
+                                             cfg=cfg, max_seqlen=max_seqlen)
             params, opt_state, stats = adamw.update(opt_cfg, params, opt_state, grads)
         return params, opt_state, {"loss": loss, **aux, **stats}
 
@@ -247,46 +254,44 @@ def _as_sharded(per_rank: dict, layout: Layout, shape) -> ShardedTensor:
 # instead, ``transformer.attn_slots``, and "xkv" is on every rank), the
 # RG-LRU state by channel, the SSD state by head and its conv state's x
 # channels (``ssm.ssm_state_init_sharded``; its B and C channels are on
-# every rank).
+# every rank).  A layer whose mixer (or cross-attention, for "xkv") runs
+# whole (``transformer.layer_plan``) holds none of them by the tensor
+# axis.
 _CACHE_TP_DIM = {"k": 2, "v": 2, "h": 1, "conv": 2, "ssm": 1, "conv_x": 2, "conv_bc": None}
 _SLOT_DIM = 1
 
 
-def _at(tree, path):
-    for key in path:
-        tree = tree[key]
-    return tree
-
-
-def wrap_caches(caches: dict, cfg, mesh, rules, max_len: int):
+def wrap_caches(caches: dict, cfg, mesh, rules, max_len: int, layers):
     """{rank: layer caches at ``max_len`` positions} as a list per layer of
     the same (nested) dicts of ``ShardedTensor``s, each rank's block its
     batch rows and its share over the tensor axis (``_CACHE_TP_DIM``), or,
     for self-attention k/v split by slot, its block of the slots over the
-    slot axes (``transformer.attn_slots``)."""
+    slot axes (``transformer.attn_slots``).  ``layers``: the parameters'
+    layer trees whose ``layer_plan`` made the caches."""
     k = C.axis_size(mesh, rules.batch_axes) if rules.batch_axes else 1
-    tp = mesh.shape[rules.tp_axis] if rules.tp_axis else 1
     c = CTX.ShardingCtx(mesh, rules.batch_axes, rules.tp_axis)
     r0 = mesh.device_ids[0]
     out = []
-    for i, spec in enumerate(cfg.layers):
-        replicated = spec.kind == ATTN and T.kv_replicated(cfg, tp)
+    for i, (spec, plan) in enumerate(zip(cfg.layers, T.layer_plans(layers, cfg, c))):
+        mc = plan["mixer"]
         slots = None
         if spec.kind == ATTN:
             rows = tree_leaves(caches[r0][i])[0].shape[0]
-            slots = T.attn_slots(cfg, spec, c, r0, rows, max_len)
+            slots = T.attn_slots(cfg, spec, mc, r0, rows, max_len)
 
-        def wrap(path, blk, i=i, replicated=replicated, slots=slots):
+        def wrap(path, blk, i=i, slots=slots, plan=plan, mc=mc):
             parts = [_batch_part(rules)] + [None] * (blk.dim() - 1)
             shape = [blk.shape[0] * k, *blk.shape[1:]]
+            own = plan["xattn"] if "xkv" in path else mc
             if slots is not None and "xkv" not in path:
                 parts[_SLOT_DIM] = slots.axes[0] if len(slots.axes) == 1 else slots.axes
                 shape[_SLOT_DIM] = slots.cap
-            dim = None if replicated else _CACHE_TP_DIM[path[-1]]
+            replicated = spec.kind == ATTN and T.kv_replicated(cfg, own.tp_size)
+            dim = None if replicated or own.tp_axis is None else _CACHE_TP_DIM[path[-1]]
             if dim is not None:
-                parts[dim] = rules.tp_axis
-                shape[dim] *= tp
-            return _as_sharded({r: _at(caches[r][i], path) for r in caches},
+                parts[dim] = own.tp_axis
+                shape[dim] *= own.tp_size
+            return _as_sharded({r: tree_at(caches[r][i], path) for r in caches},
                                Layout(mesh, P(*parts)), tuple(shape))
         out.append(tree_map_with_path(wrap, caches[r0][i]))
     return out
@@ -360,7 +365,8 @@ def make_prefill_step(cfg: ModelConfig, *, impl="cuda", extra_len: int = 0, mesh
                                                  s + max(extra_len, 1), ctx=c, impl=impl)
             logits = _as_sharded(logits, _logits_layout(params, cfg, mesh, rules, c),
                                  (b, cfg.vocab_size))
-        return logits, wrap_caches(caches, cfg, mesh, rules, s + max(extra_len, 1))
+        return logits, wrap_caches(caches, cfg, mesh, rules, s + max(extra_len, 1),
+                                   params["layers"])
 
     return step
 

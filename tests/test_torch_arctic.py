@@ -294,13 +294,21 @@ def test_expert_parallel_step_matches_single_device(shape):
 def test_sharded_refusals():
     """The sharded steps take the capacity dispatch (held against the JAX
     package in ``test_torch_ep_moe.py``); a tensor axis that does not
-    divide the dense residual's d_ff is refused like a dense FFN's."""
+    divide the dense residual's d_ff is refused no more than a dense
+    FFN's: the residual runs whole on every rank beside the 3 experts split
+    one a rank, or split beside them at d_ff 96, and the (1, 3) step
+    equals the single-device step either way."""
     _, _, tcfg, tp = make_pair("capacity")
     TSTEPS.make_train_step(tcfg, tadamw.AdamWConfig(), impl="reference", mesh=cpu_mesh((1, 2)))
     odd = TCONF.get_config(ARCH).reduced(n_heads=3, n_kv_heads=3, n_experts=3)
-    with pytest.raises(ValueError, match="d_ff 128"):
-        TT.check_sharded(odd, 3)
-    TT.check_sharded(dataclasses.replace(odd, d_ff=96), 3)
+    opt = tadamw.AdamWConfig(lr=1e-6)
+    for cfg in (odd, dataclasses.replace(odd, d_ff=96)):
+        TT.check_sharded(cfg, 3)
+        params = TM.init_params(cfg, seed=2, device="cpu")
+        params["embed"]["table"].mul_(0.05)
+        batch = TM.synth_batch(1, cfg, 12, 2, device="cpu")
+        assert_close_runs(single_step(cfg, params, batch, opt),
+                          sharded_step(cfg, params, batch, opt, cpu_mesh((1, 3))))
 
 
 # --------------------------------------------- init and the gradient's buffers

@@ -43,6 +43,7 @@ from repro_torch.optim import adamw as tadamw
 from repro_torch.parallel import steps as TSTEPS
 from test_torch_dense_configs import assert_logits_close, assert_logprobs_close
 from test_torch_model import _dicts
+from test_torch_tp_step import assert_close_runs, sharded_step, single_step
 from test_torch_train import GRAD_TOL, _np
 
 SEAMLESS, INTERNVL = "seamless-m4t-medium", "internvl2-76b"
@@ -390,19 +391,19 @@ def test_sharded_steps_refuse(name):
     """Every step with a mesh builds for both configs (the JAX package's
     GSPMD steps run them; the port's run in ``test_torch_tp_modal.py``),
     8 model ranks over the reduced configs' 4 query heads too (each rank
-    computes every head), and refuses, with a ``ValueError``, only a
-    tensor axis that does not divide q_dim: 3 model ranks over 64."""
+    computes every head), and 3 model ranks over a q_dim of 64, which the
+    JAX package's ``sanitize_specs`` leaves whole: the port refuses none,
+    and its (1, 3) train step, every attention and cross-attention whole on
+    each rank, equals one device's (fp32, 1e-5)."""
     tcfg = get_config(name).reduced()
-    for mesh, refused in ((TMESH.make_test_mesh(4, device="cpu"), False),
-                          (TMESH.submesh(range(8), (1, 8), ("data", "model"), device="cpu"),
-                           False),
-                          (TMESH.submesh(range(3), (1, 3), ("data", "model"), device="cpu"),
-                           True)):
-        for make in (lambda: TSTEPS.make_train_step(tcfg, tadamw.AdamWConfig(), mesh=mesh),
-                     lambda: TSTEPS.make_prefill_step(tcfg, mesh=mesh),
-                     lambda: TSTEPS.make_decode_step(tcfg, mesh=mesh)):
-            if not refused:
-                assert callable(make())
-                continue
-            with pytest.raises(ValueError, match="does not divide q_dim 64 .4 query heads"):
-                make()
+    three = TMESH.submesh(range(3), (1, 3), ("data", "model"), device="cpu")
+    for mesh in (TMESH.make_test_mesh(4, device="cpu"),
+                 TMESH.submesh(range(8), (1, 8), ("data", "model"), device="cpu"), three):
+        assert callable(TSTEPS.make_train_step(tcfg, tadamw.AdamWConfig(), mesh=mesh))
+        assert callable(TSTEPS.make_prefill_step(tcfg, mesh=mesh))
+        assert callable(TSTEPS.make_decode_step(tcfg, mesh=mesh))
+    _, tp = make_pair(name)[2:]
+    _, batch = both(inputs(tcfg, 2, tcfg.prefix_len + 4, 3, "train"))
+    opt = tadamw.AdamWConfig(lr=1e-6)
+    assert_close_runs(single_step(tcfg, tp, batch, opt),
+                      sharded_step(tcfg, tp, batch, opt, three))

@@ -275,7 +275,8 @@ def port_kv_bytes(cfg, shape, multi_pod):
     mesh = make_production_mesh(multi_pod)
     rules, b_axes, _ = D._variant_setup(D.CellSpec(cfg.name, shape.name, multi_pod), mesh)
     srules = D._step_rules(rules, D._batch_axes_for(shape.global_batch, mesh, b_axes))
-    caches = D.meta_caches(cfg, mesh, srules, shape.global_batch, shape.seq_len + 1)
+    caches = D.meta_caches(cfg, mesh, srules, shape.global_batch, shape.seq_len + 1,
+                           layers=D.meta_params(cfg, mesh, rules)["layers"])
     r0 = mesh.device_ids[0]
     total = slot = 0
     for spec, layer in zip(cfg.layers, caches):

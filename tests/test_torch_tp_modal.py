@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
+from repro_torch.launch import dryrun as D
 from repro_torch.models import layers as L
 from repro_torch.models import model as TM
 from repro_torch.models import transformer as TT
@@ -240,7 +241,7 @@ def splice_before_sum(params, top, cfg, batch, ctx):
     """The planted fault: each rank splices the prefix into its own
     vocabulary-shard lookup, so the sum over the tensor axis counts it once
     per rank."""
-    if not TM._tp_splits(params["embed"]["table"], 0, ctx):
+    if not ctx.tp_splits(params["embed"]["table"], 0):
         return {r: TM._embed_inputs(top[r], cfg, b) for r, b in batch.items()}
     xs = {r: TM._splice_prefix(cfg, L.embed_apply_vocab_shard(
         top[r]["embed"], b["tokens"], ctx.tp_index(r) * top[r]["embed"]["table"].shape[0]), b)
@@ -294,13 +295,20 @@ def test_check_sharded_accepts_the_modal_configs():
     """Full configs at TP 2 and 4: seamless's 16 KV heads and internvl2's 8
     split by head (no replication); seamless's vocabulary of 256,206 split
     at TP 2 and whole at TP 4, internvl2's 128,256 split at both; a degree
-    that does not divide q_dim raises ``ValueError``."""
+    that does not divide q_dim runs too, its attention and cross-attention
+    whole on every rank (``layer_plan``) as the JAX package's
+    ``sanitize_specs`` leaves them."""
     for arch in ARCHS:
         cfg = get_config(arch)
         for tp in (2, 4):
             TT.check_sharded(cfg, tp)
             assert not TT.kv_replicated(cfg, tp)
-        with pytest.raises(ValueError, match="query heads"):
-            TT.check_sharded(cfg, 3)
+        TT.check_sharded(cfg, 3)
+        mesh = cpu_mesh((1, 3))
+        c = CTX.ShardingCtx(mesh, ("data",), "model")
+        layer = D.meta_params(cfg, mesh, SH.ShardingRules())["layers"][0]
+        plan = TT.layer_plan(cfg, cfg.layers[0], c, layer)
+        assert cfg.q_dim % 3 and all(plan[k].tp_axis is None for k in ("mixer", "xattn")
+                                     if k in plan)
     assert get_config(SEAMLESS).vocab_size % 2 == 0 and get_config(SEAMLESS).vocab_size % 4
     assert get_config(INTERNVL).vocab_size % 4 == 0

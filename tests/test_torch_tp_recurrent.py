@@ -26,11 +26,12 @@ import torch
 
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
-from repro_torch.configs.base import ATTN
+from repro_torch.configs.base import ATTN, LayerSpec
 from repro_torch.models import model as TM
 from repro_torch.models import ssm as TSSM
 from repro_torch.models import transformer as TT
 from repro_torch.optim import adamw
+from repro_torch.parallel import ctx as CTX
 from repro_torch.parallel import steps
 from repro_torch.parallel.layout import P, tree_leaves
 from test_torch_tp_step import (FLATTEN, assert_close_runs, cpu_mesh, place, replicas_bit_equal,
@@ -268,9 +269,11 @@ def test_a_per_rank_ssd_norm_is_caught(monkeypatch, tp):
 def test_check_sharded_accepts_the_recurrent_and_capacity_configs():
     """Full configs: mamba2-1.3b and recurrentgemma-9b at TP 2 and 4,
     gemma3-1b at TP 4, arctic-480b's capacity dispatch at TP 2; the
-    encoder-decoder and prefix configs run at TP 2 and 4 and are refused
-    only at a degree that does not divide q_dim; a rank's query heads that
-    straddle KV groups run (every rank computes every head)."""
+    encoder-decoder and prefix configs run at TP 2, 3 and 4; a rank's
+    query heads that straddle KV groups run (every rank computes every
+    head); an RG-LRU width or SSD head count the axis does not divide runs
+    whole on every rank (``layer_plan``); a ring shorter than the ranks
+    that would split its slots is refused."""
     for arch in ARCHS:
         for tp in (2, 4):
             TT.check_sharded(get_config(arch), tp)
@@ -280,14 +283,18 @@ def test_check_sharded_accepts_the_recurrent_and_capacity_configs():
     TT.check_sharded(get_config("gemma3-1b"), 4)
     TT.check_sharded(dataclasses.replace(get_config("arctic-480b"), moe_dispatch="capacity"), 2)
     for arch in ("seamless-m4t-medium", "internvl2-76b"):
-        for tp in (2, 4):
+        for tp in (2, 3, 4):
             TT.check_sharded(get_config(arch), tp)
-        with pytest.raises(ValueError, match="query heads"):
-            TT.check_sharded(get_config(arch), 3)
     straddle = get_config("qwen2-0.5b").reduced(n_heads=6, n_kv_heads=3)
     TT.check_sharded(straddle, 2)  # 3 query heads a rank over groups of 2: every head
     assert TT.heads_split(straddle, 2) and TT.tp_cfg(straddle, 2).n_heads == 6
-    with pytest.raises(ValueError, match="lru_width"):
-        TT.check_sharded(get_config("recurrentgemma-9b").reduced(lru_width=60, n_heads=8), 8)
-    with pytest.raises(ValueError, match="SSD heads"):
-        TT.check_sharded(get_config("mamba2-1.3b").reduced(), 16)
+    for cfg, tp in ((get_config("recurrentgemma-9b").reduced(lru_width=60, n_heads=8), 8),
+                    (get_config("mamba2-1.3b").reduced(), 16)):
+        TT.check_sharded(cfg, tp)
+        mesh = cpu_mesh((1, tp))
+        c = CTX.ShardingCtx(mesh, ("data",), "model")
+        layer = place(TM.init_params(cfg, seed=0, device="cpu"), mesh)["layers"][0]
+        assert TT.layer_plan(cfg, cfg.layers[0], c, layer)["mixer"].tp_axis is None
+    ring = get_config("qwen2-0.5b").reduced(n_kv_heads=1, superblock=(LayerSpec(ATTN, 2),))
+    with pytest.raises(ValueError, match="ring of 2 slots"):
+        TT.check_sharded(ring, 4)

@@ -100,8 +100,12 @@ def test_decode_updates_the_blocks_in_place_and_refuses_grad():
     assert not torch.equal(caches[0]["k"].blocks[1], before[1])
     assert not lg.blocks[0].requires_grad
     steps.make_prefill_step(cfg, impl="reference", mesh=cpu_mesh((1, 8)))  # a split head
-    with pytest.raises(ValueError, match="q_dim"):
-        steps.make_prefill_step(cfg, impl="reference", mesh=cpu_mesh((1, 3)))
+    mesh3 = cpu_mesh((1, 3))  # q_dim 64 and d_ff 128: attention and FFN whole on every rank
+    lg3, c3 = steps.make_prefill_step(cfg, impl="reference", mesh=mesh3)(place(params, mesh3),
+                                                                         prompt)
+    assert float((lg3.gather() - lg.gather()).abs().max()) <= TOL * float(lg.gather().abs().max())
+    assert c3[0]["k"].layout.spec == P("data", None, None, None)
+    assert c3[0]["k"].blocks[2].shape == c3[0]["k"].shape
     with pytest.raises(ValueError, match="rows"):
         steps.make_prefill_step(cfg, impl="reference", mesh=cpu_mesh((4, 1)))(
             place(params, cpu_mesh((4, 1))), TM.synth_batch(1, cfg, 6, 2, "prefill",

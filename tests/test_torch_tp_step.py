@@ -298,20 +298,24 @@ def test_global_norm_counts_each_region_once():
 
 
 def test_non_dividing_meshes_and_cuda_on_the_host_raise():
-    opt = adamw.AdamWConfig()
+    """A tensor axis that divides no block width runs, as the JAX package
+    runs it (``sanitize_specs`` leaves those blocks whole): qwen's q_dim of
+    64 and d_ff of 128 at 3, granite's 4 experts at 8, seamless at 3, each
+    step against one device; CUDA on the host and dense params raise."""
+    opt = adamw.AdamWConfig(lr=1e-6)
     steps.make_train_step(reduced(), opt, impl="reference", mesh=cpu_mesh((1, 8)))  # split heads
-    with pytest.raises(ValueError, match="q_dim"):
-        steps.make_train_step(reduced(), opt, impl="reference", mesh=cpu_mesh((1, 3)))
-    with pytest.raises(ValueError, match="experts"):
-        steps.make_train_step(reduced("granite-moe-1b-a400m", n_heads=8, n_kv_heads=8), opt,
-                              impl="reference", mesh=cpu_mesh((1, 8)))
     steps.make_train_step(reduced("seamless-m4t-medium"), opt, impl="reference",
                           mesh=cpu_mesh((2, 1)))
-    steps.make_train_step(reduced("seamless-m4t-medium"), opt, impl="reference",
-                          mesh=cpu_mesh((1, 8)))
-    with pytest.raises(ValueError, match="query heads"):
-        steps.make_train_step(reduced("seamless-m4t-medium"), opt, impl="reference",
-                              mesh=cpu_mesh((1, 3)))
+    for cfg, shape in ((reduced(), (1, 3)),
+                       (reduced("granite-moe-1b-a400m", n_heads=8, n_kv_heads=8), (1, 8)),
+                       (reduced("seamless-m4t-medium"), (1, 3))):
+        params = TM.init_params(cfg, seed=0, device="cpu")
+        params["embed"]["table"].mul_(0.05)
+        batch = TM.synth_batch(1, cfg, 8, 2, device="cpu")
+        if cfg.family == "encdec":
+            batch["frames"] = torch.randn(2, cfg.prefix_len, cfg.d_model)
+        assert_close_runs(single_step(cfg, params, batch, opt),
+                          sharded_step(cfg, params, batch, opt, cpu_mesh(shape)))
     cfg = reduced()
     params = TM.init_params(cfg, seed=0, device="cpu")
     mesh = cpu_mesh((2, 2))
